@@ -1,0 +1,5 @@
+"""Concurrent inference over a loaded model."""
+
+from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
+
+__all__ = ["InferenceModel"]

@@ -28,8 +28,13 @@ setup(
     long_description=readme(),
     long_description_content_type="text/markdown",
     packages=find_packages(include=["analytics_zoo_tpu",
-                                    "analytics_zoo_tpu.*"]),
-    package_data={"analytics_zoo_tpu.native": ["*.cpp"]},
+                                    "analytics_zoo_tpu.*",
+                                    "analytics_zoo_tpu_torch",
+                                    "analytics_zoo_tpu_torch.*"]),
+    package_data={"analytics_zoo_tpu.native": ["*.cpp"],
+                  # the PyTorch / CUDA port builds its kernels from source
+                  # with nvcc at first use
+                  "analytics_zoo_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -39,6 +44,8 @@ setup(
     ],
     extras_require={
         "interop": ["tensorflow", "torch", "transformers"],
+        # analytics_zoo_tpu_torch: the PyTorch / CUDA port (needs nvcc)
+        "torch": ["torch"],
         "data": ["pandas", "pyarrow"],
         "serving": ["redis"],
         "test": ["pytest", "chex"],
