@@ -1,19 +1,38 @@
-"""Serving configuration: a copy of the JAX package's ``ServingConfig``.
+"""Configuration: copies of the JAX package's ``ServingConfig``, of the
+``TrainConfig`` fields the estimator reads, and of ``compute_dtype``.
 
-Copied field for field from ``analytics_zoo_tpu/common/config.py`` (the
-port cannot import that module: every ``analytics_zoo_tpu`` import loads
-jax), so a config written for one package reads the same in the other.
-The classic serving loop of this port reads ``batch_size``, ``replicas``,
-``top_n``, ``filter``, ``input_stream``, ``consumer_group``,
-``redis_url``, ``pipeline`` and ``image_uint8``; the other fields belong
-to parts not ported yet (the pipelined engine, the HTTP frontend,
-tenancy), and ``ClusterServing`` refuses ``pipeline=True``.
+Copied from ``analytics_zoo_tpu/common/config.py`` (the port cannot import
+that module: every ``analytics_zoo_tpu`` import loads jax), so a config
+written for one package reads the same in the other.  The classic serving
+loop of this port reads ``batch_size``, ``replicas``, ``top_n``,
+``filter``, ``input_stream``, ``consumer_group``, ``redis_url``,
+``pipeline`` and ``image_uint8``; the other serving fields belong to parts
+not ported yet (the pipelined engine, the HTTP frontend, tenancy), and
+``ClusterServing`` refuses ``pipeline=True``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass
+class TrainConfig:
+    checkpoint_dir: Optional[str] = None
+    gradient_clip_norm: Optional[float] = None
+    gradient_clip_value: Optional[float] = None  # clip to [-v, v]
+    # sharded optimizer update over the data axis (not ported: one card)
+    shard_optimizer: bool = False
+    # microbatches per optimizer step (only 1 is ported)
+    grad_accum_steps: int = 1
+
+
+@dataclass
+class ZooConfig:
+    train: TrainConfig = field(default_factory=TrainConfig)
+    # the forward / backward dtype of mixed-precision training
+    compute_dtype: str = "bfloat16"
 
 
 @dataclass

@@ -1,7 +1,7 @@
 """Keras-style layer and model base on ``torch.nn.Module``.
 
 Port of the part of ``analytics_zoo_tpu/keras/engine.py`` the BERT serving
-slice uses.  The JAX package keeps weights outside its layers
+and training slices use.  The JAX package keeps weights outside its layers
 (``build(rng, shape) -> params``, pure ``call(params, state, x, ...)``);
 here a layer owns its parameters, as PyTorch modules do, and lays them
 out so that its ``state_dict`` names ARE the JAX parameter tree's paths
@@ -10,8 +10,9 @@ the key the JAX layer gives it.  ``get_weights`` / ``set_weights`` carry
 that tree as nested dicts of numpy arrays, which is what
 ``interop.load_jax_params`` reads.
 
-``compile`` / ``fit`` / ``evaluate`` and the functional ``Variable`` graph
-come with the training slice.
+Training goes through ``estimator.Estimator`` (``tfpark`` estimators);
+``compile`` / ``fit`` / ``evaluate`` on the net and the functional
+``Variable`` graph are not ported yet (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -59,7 +60,9 @@ class Layer(nn.Module):
 
 
 class KerasNet(Layer):
-    """Base of the port's models: weights in, predictions out."""
+    """Base of the port's models: an ``nn.Module`` called as
+    ``net(x, seed=None)`` (the seed drives dropout in training mode), with
+    its weights readable and writable in the JAX tree layout."""
 
     def get_weights(self) -> Tuple[dict, dict]:
         """``(params, state)`` as nested dicts of numpy arrays in the JAX

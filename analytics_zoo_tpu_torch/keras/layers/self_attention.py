@@ -8,9 +8,12 @@ GPT-style ``TransformerLayer`` and the ``BERT`` encoder.  The 2D-mesh
 
 Dense weights keep the JAX layout ``W: (d_in, d_out)`` applied as
 ``x @ W + b`` so parameter trees cross without transposes.  Layers start in
-eval mode, as the JAX layers' ``training`` flag defaults to False; the
-training forward (hidden and attention dropout) comes with the training
-slice, and a layer in training mode with dropout configured raises.
+eval mode, as the JAX layers' ``training`` flag defaults to False.  In
+training mode a forward given an int ``seed`` (the JAX ``rng``) drops
+exactly what the JAX layers drop for that seed: per-site seeds derive as
+there (``ops/dropout.derive_seed``), hidden dropout is
+``ops/dropout.hash_dropout`` and attention dropout runs inside the kernel.
+Without a seed, or in eval mode, nothing is dropped.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from analytics_zoo_tpu_torch.keras import activations, initializers
 from analytics_zoo_tpu_torch.keras.engine import Layer
 from analytics_zoo_tpu_torch.keras.layers.normalization import LayerNorm
 from analytics_zoo_tpu_torch.ops.attention import BACKENDS, flash_attention
+from analytics_zoo_tpu_torch.ops.dropout import (as_seed, derive_seed,
+                                                 hash_dropout)
 
 
 class Dense(Layer):
@@ -45,13 +50,6 @@ class Dense(Layer):
     def forward(self, x):
         # one fused GEMM + bias; W.t() is a view, not a copy
         return F.linear(x, self.W.t(), self.b)
-
-
-def _no_training(layer: Layer, rate: float) -> None:
-    if layer.training and rate > 0:
-        raise NotImplementedError(
-            f"{layer.name}: the training forward (dropout) is not ported "
-            "yet (ROADMAP: the training slice); call .eval() to predict")
 
 
 def _split_mask(x):
@@ -83,10 +81,11 @@ class MultiHeadAttention(Layer):
         self.qkv = Dense(hidden_size, 3 * hidden_size, init)
         self.out = Dense(hidden_size, hidden_size, init)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, seed: Optional[int] = None):
         if mask is None:
             x, mask = _split_mask(x)
-        _no_training(self, self.attn_dropout)
+        drop = self.attn_dropout if self.training and seed is not None \
+            else 0.0
         B, T, D = x.shape
         qkv = self.qkv(x)                                  # (B, T, 3D)
 
@@ -94,7 +93,9 @@ class MultiHeadAttention(Layer):
             return t.view(B, T, self.n_head, self.head_dim).transpose(1, 2)
         q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
         y = flash_attention(q, k, v, padding_mask=mask, causal=self.causal,
-                            backend=self.backend)
+                            dropout_rate=drop,
+                            dropout_seed=derive_seed(seed, 0x417)
+                            if drop else None, backend=self.backend)
         return self.out(y.transpose(1, 2).reshape(B, T, D))
 
 
@@ -127,12 +128,16 @@ class TransformerBlock(Layer):
         self.ln2 = LayerNorm(hidden_size, name=self.name + "_ln2")
         self.hidden_drop = hidden_drop
 
-    def forward(self, x, mask=None):
+    def _drop(self, x, seed, salt):
+        if not self.training or seed is None or self.hidden_drop <= 0:
+            return x
+        return hash_dropout(x, self.hidden_drop, seed=derive_seed(seed, salt))
+
+    def forward(self, x, mask=None, seed: Optional[int] = None):
         if mask is None:
             x, mask = _split_mask(x)
-        _no_training(self, self.hidden_drop)
-        x = self.ln1(x + self.attn(x, mask))
-        return self.ln2(x + self.ffn(x))
+        x = self.ln1(x + self._drop(self.attn(x, mask, seed=seed), seed, 1))
+        return self.ln2(x + self._drop(self.ffn(x), seed, 2))
 
 
 class TransformerLayer(Layer):
@@ -165,14 +170,17 @@ class TransformerLayer(Layer):
     def reset_parameters(self, generator=None) -> None:
         initializers.normal(self.embed, generator, scale=0.02)
 
-    def forward(self, x):
-        _no_training(self, self.embedding_drop)
+    def forward(self, x, seed: Optional[int] = None):
         h = F.embedding(x.long(), self.embed)
         pos = self.embed[self.vocab:self.vocab + x.shape[1]]
         h = h + pos[None]
+        base = as_seed(seed)
+        if self.training and base is not None and self.embedding_drop > 0:
+            h = hash_dropout(h, self.embedding_drop,
+                             seed=derive_seed(base, 0x5eed))
         outs = []
-        for blk in self.blocks:
-            h = blk(h)
+        for i, blk in enumerate(self.blocks):
+            h = blk(h, seed=derive_seed(base, i + 1))
             outs.append(h)
         return outs if self.output_all_block else h
 
@@ -211,18 +219,23 @@ class BERT(Layer):
         for p in (self.token_embed, self.position_embed, self.segment_embed):
             initializers.normal(p, generator, scale=self.initializer_range)
 
-    def forward(self, x):
+    def forward(self, x, seed: Optional[int] = None):
         tokens, segments, mask = x
-        _no_training(self, self.hidden_drop)
         T = tokens.shape[1]
         h = (F.embedding(tokens.long(), self.token_embed)
              + self.position_embed[None, :T, :]
              + F.embedding(segments.long(), self.segment_embed))
         h = self.embed_ln(h)
+        # one seed for the stack, per-block seeds by int32 mixing, as in
+        # the JAX layer; dropout after the embedding LayerNorm
+        base = as_seed(seed)
+        if self.training and base is not None and self.hidden_drop > 0:
+            h = hash_dropout(h, self.hidden_drop,
+                             seed=derive_seed(base, 0x5eed))
         # one (B, T) int32 mask for all blocks: the kernel reads it as is
         mask = (mask != 0).to(torch.int32)
-        for blk in self.blocks:
-            h = blk(h, mask)
+        for i, blk in enumerate(self.blocks):
+            h = blk(h, mask, seed=derive_seed(base, i + 1))
         pooled = torch.tanh(self.pooler(h[:, 0, :]))
         return h, pooled
 

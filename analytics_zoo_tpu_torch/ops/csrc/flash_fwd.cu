@@ -32,34 +32,17 @@
 // own strides.  P is rounded to v's dtype before P.V, as the TPU kernel does,
 // with f32 accumulation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace zoo_flash;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 8;
 constexpr int kBlockM = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBlockN = 64;                     // keys per staged tile
-constexpr float kNegInf = -1e30f;
-
-// counter hash: lowbias32 finaliser, computed in uint32 so shifts are
-// logical and multiplies wrap, exactly as the int32 JAX version behaves
-constexpr uint32_t kMixC1 = 0x7FEB352Du;
-constexpr uint32_t kMixC2 = 0x846CA68Bu;
-constexpr uint32_t kSeedC = 0x9E3779B9u;
-constexpr uint32_t kQC = 0x85EBCA77u;
-constexpr uint32_t kKC = 0xC2B2AE3Du;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= kMixC1;
-  x ^= x >> 15;
-  x *= kMixC2;
-  return x ^ (x >> 16);
-}
 
 struct Params {
   const void* q;
@@ -78,34 +61,6 @@ struct Params {
   float keep_scale;
   uint32_t seed;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -162,8 +117,7 @@ __global__ void __launch_bounds__(kThreads)
     const int last_row = min(q0 + kBlockM, p.Tq) - 1;
     k_end = min(p.Tk, max(0, last_row + causal_offset + 1));
   }
-  const uint32_t hbh =
-      p.thresh ? mix32(p.seed * kSeedC ^ static_cast<uint32_t>(bh)) : 0u;
+  const uint32_t hbh = p.thresh ? head_hash(p.seed, bh) : 0u;
 
   for (int k0 = 0; k0 < k_end; k0 += kBlockN) {
     __syncthreads();  // Q staged / the previous tile fully consumed
@@ -208,20 +162,15 @@ __global__ void __launch_bounds__(kThreads)
         const float m_new = fmaxf(m[r], mx);
         const float alpha = expf(m[r] - m_new);
         float psum = 0.f;
-        const uint32_t hq =
-            p.thresh ? hbh ^ (static_cast<uint32_t>(row) * kQC) : 0u;
 #pragma unroll
         for (int c = 0; c < kBlockN / 32; ++c) {
           const int key = lane + 32 * c;
           // masked entries contribute 0 even when the whole row is masked
           float pc = s[c] <= kNegInf / 2 ? 0.f : expf(s[c] - m_new);
           psum += pc;  // the normaliser takes the weights before dropout
-          if (p.thresh) {
-            const uint32_t bits =
-                mix32(hq ^ (static_cast<uint32_t>(k0 + key) * kKC));
-            pc = (bits >> 8) >= p.thresh ? pc * p.keep_scale : 0.f;
-          }
-          ps[warp * kBlockN + key] = to_f32(from_f32<T>(pc));
+          if (p.thresh)
+            pc = keep(hbh, row, k0 + key, p.thresh) ? pc * p.keep_scale : 0.f;
+          ps[warp * kBlockN + key] = round_to<T>(pc);
         }
         psum = warp_sum(psum);
         l[r] = alpha * l[r] + psum;

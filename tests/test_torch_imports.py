@@ -35,11 +35,14 @@ def test_no_module_of_the_port_imports_jax():
         "or m == 'analytics_zoo_tpu')\n"
         "print(json.dumps({'modules': names, 'bad': bad}))"))
     assert out["bad"] == []
-    for name in ("ops.attention", "ops._kernels", "interop",
-                 "keras.layers.self_attention", "tfpark.text_estimators",
+    for name in ("ops.attention", "ops._kernels", "ops.dropout", "interop",
+                 "keras.layers.self_attention", "keras.losses",
+                 "keras.metrics", "keras.optimizers",
+                 "tfpark.text_estimators", "tfpark.tf_dataset",
+                 "estimator.estimator", "data.cursor", "data.featureset",
                  "inference.inference_model", "serving.engine",
                  "serving.codec", "serving.broker", "serving.client",
-                 "common.config", "common.context"):
+                 "common.config", "common.context", "common.triggers"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -48,7 +51,18 @@ def test_no_module_of_the_port_imports_jax():
     " f()",
     "from analytics_zoo_tpu_torch.inference import InferenceModel as f; f()",
     "from analytics_zoo_tpu_torch.tfpark import BERTClassifier as f; f(2)",
-], ids=["resolve_device", "InferenceModel", "BERTClassifier"])
+    "from analytics_zoo_tpu_torch.tfpark import BERTClassifier as f\n"
+    "    import numpy as np\n"
+    "    from analytics_zoo_tpu_torch.tfpark import TFDataset\n"
+    "    x = [np.ones((2, 8), np.int32)] * 3\n"
+    "    ds = TFDataset.from_ndarrays((tuple(x), np.zeros(2, np.int32)),"
+    " batch_size=2)\n"
+    "    f(2, bert_config=dict(seq_len=8)).train(ds)",
+    "from analytics_zoo_tpu_torch.estimator import Estimator as f\n"
+    "    from torch import nn\n"
+    "    f(nn.Linear(2, 2))",
+], ids=["resolve_device", "InferenceModel", "BERTClassifier",
+        "BERTClassifier.train", "Estimator"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "
