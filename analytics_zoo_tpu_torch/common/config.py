@@ -1,5 +1,6 @@
-"""Configuration: copies of the JAX package's ``ServingConfig``, of the
-``TrainConfig`` fields the estimator reads, and of ``compute_dtype``.
+"""Configuration: copies of the JAX package's ``ServingConfig`` and
+``LLMServingConfig``, of the ``TrainConfig`` fields the estimator reads,
+and of ``compute_dtype``.
 
 Copied from ``analytics_zoo_tpu/common/config.py`` (the port cannot import
 that module: every ``analytics_zoo_tpu`` import loads jax), so a config
@@ -118,4 +119,71 @@ class ServingConfig:
     # (the single global admission controller, unchanged).  Stays a
     # plain tuple so the config pickles across the fleet fork boundary.
     tenants: Optional[tuple] = None
+
+
+_MODEL_PARALLEL_SLICE = ("model_parallel > 1 (decode sharded along KV heads "
+                         "over several cards) is not ported yet (ROADMAP "
+                         "Queue 1 item 5: parallel/)")
+
+
+@dataclass
+class LLMServingConfig:
+    """Generative serving: continuous batching over a paged KV cache with
+    frame-per-token streaming.  ``model_parallel > 1`` raises
+    ``NotImplementedError`` (one card in this port so far)."""
+    redis_url: str = "memory://"
+    input_stream: str = "llm_stream"
+    consumer_group: str = "llm"
+    # decode batch slots — the fixed width of the decode step;
+    # continuous batching refills these mid-batch
+    max_active: int = 8
+    # KV block pool: num_blocks fixed-size blocks of block_size tokens
+    # (plus one reserved scratch page for dead slots)
+    num_blocks: int = 256
+    block_size: int = 16
+    # prompt + generated tokens bound (also the block-table width,
+    # ceil(max_model_len / block_size))
+    max_model_len: int = 512
+    max_new_tokens_default: int = 64
+    # legacy whole-prefill rationing knob, superseded by the
+    # chunked-prefill token budget below; kept for config compat
+    prefills_per_step: int = 1
+    # chunked prefill: TOTAL prompt tokens prefilled per engine step,
+    # round-robined across pending prefills and interleaved with decode
+    # steps — one long prompt can stall the decode lanes for at most
+    # one chunk's compute, and TTFT of a short prompt behind it stays
+    # bounded (docs/llm-serving.md "Chunked prefill")
+    prefill_chunk_tokens: int = 32
+    # cross-request radix prefix cache over the KV block pool: a shared
+    # prompt prefix prefills once and is adopted by refcount bump
+    # (LRU-by-leaf eviction under pool pressure)
+    prefix_cache: bool = True
+    # shard one model's decode across this many devices along KV heads
+    # (n_kv_heads % model_parallel must be 0); only 1 is ported
+    model_parallel: int = 1
+    # credit-based admission (AdmissionController "llm"): one credit
+    # per ADMITTED sequence; acquisition is non-blocking — the decode
+    # loop must never park on credits — so overload sheds immediately
+    # (HTTP 429).  0 = auto-size 4 x max_active.
+    admission_control: bool = True
+    admission_max_inflight: int = 0
+    # implicit per-request deadline when the entry carries none
+    # (0 = unlimited); deadlines are enforced PER TOKEN — an expired
+    # sequence is retired mid-generation at the next step
+    default_deadline_ms: float = 0.0
+    # generation stops at this token id (in addition to max_new_tokens);
+    # -1 = no eos in the vocab
+    eos_id: int = -1
+    # "continuous" (default) or "static" — static admits only into an
+    # EMPTY batch (padded-batching baseline for the regression bar)
+    scheduling: str = "continuous"
+    # completed token streams retained on the broker before GC (late
+    # readers past this window see a truncated stream)
+    token_stream_retention: int = 256
+    shed_retry_after_s: float = 1.0
+    app_name: str = "llm"
+
+    def __post_init__(self):
+        if int(self.model_parallel) > 1:
+            raise NotImplementedError(_MODEL_PARALLEL_SLICE)
 

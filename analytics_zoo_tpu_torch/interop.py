@@ -13,6 +13,11 @@ with dots (see ``keras/engine.py``).  For the BERT classifier::
                                   "ln2": {gamma, beta}}},
      "head": {W, b}}
 
+Lists and tuples in a tree are walked by index, so the decoder LM's
+``{"blocks": [{"qkv": {W, b}, ...}, ...]}`` maps onto ``blocks.0.qkv.W``
+(an ``nn.ModuleList``), and ``params_tree`` rebuilds a list wherever every
+key of a level is a digit.
+
 Nothing is transposed or renamed.  Loading is strict: a key missing from
 either side, or a shape that differs, raises and names the path.
 """
@@ -26,20 +31,32 @@ import torch
 from torch import nn
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    items = (enumerate(tree) if isinstance(tree, (list, tuple))
+             else tree.items())
     flat: Dict[str, np.ndarray] = {}
-    for key, val in tree.items():
+    for key, val in items:
         path = f"{prefix}{key}"
-        if isinstance(val, Mapping):
+        if isinstance(val, (Mapping, list, tuple)):
             flat.update(_flatten(val, path + "."))
         else:
             flat[path] = val
     return flat
 
 
+def _lists(node):
+    """Nested dicts -> the same with every all-digit-keyed level a list."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[k] for k in sorted(out, key=int)]
+    return out
+
+
 def params_tree(module: nn.Module) -> dict:
-    """The module's weights as the JAX layout's nested dicts of numpy
-    arrays (copies on the host)."""
+    """The module's weights as the JAX layout's nested dicts (and lists)
+    of numpy arrays (copies on the host)."""
     tree: dict = {}
     for path, t in module.state_dict().items():
         node = tree
@@ -47,7 +64,7 @@ def params_tree(module: nn.Module) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = t.detach().cpu().numpy().copy()
-    return tree
+    return _lists(tree)
 
 
 @torch.no_grad()

@@ -29,7 +29,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
+           "paged_chunk.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -118,6 +119,10 @@ _ENTRY = {
     "flash_bwd.cu": ("zoo_flash_bwd", [_PTR] * 11
                      + [ctypes.POINTER(_I64)] + [_I32] * 6
                      + [_F32, _I32, _U32, _F32, _I32, _PTR]),
+    "paged_decode.cu": ("zoo_paged_decode", [_PTR] * 6 + [_I64] * 11
+                        + [_I32] * 8 + [_F32, _PTR]),
+    "paged_chunk.cu": ("zoo_paged_chunk", [_PTR] * 5 + [_I64] * 10
+                       + [_I32] * 9 + [_F32, _PTR]),
 }
 
 
@@ -266,6 +271,119 @@ class FlashBackward(_Wrapper):
         return dq, dk, dv
 
 
+def _check_pages(kernel: str, q, k_pages, v_pages, tables, q_dims: str):
+    """Raise ValueError for anything the paged kernels do not take; q is
+    ``(N, H, D)`` (``q_dims`` names N), the pools ``(P, bs, Hkv, D)``."""
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("the page table", tables)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{kernel} takes CUDA tensors on one device; "
+                             f"{name} is on {t.device}")
+    if q.dim() != 3:
+        raise ValueError(f"q must be ({q_dims}, H, D), got {tuple(q.shape)}")
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"k_pages / v_pages must be one (P, bs, Hkv, D) "
+                         f"shape, got {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)}")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise ValueError(f"{kernel} takes float32 or bfloat16 q and pages of "
+                         f"one dtype, got {q.dtype} / {k_pages.dtype} / "
+                         f"{v_pages.dtype}")
+    H, D = q.shape[1:]
+    Hkv = k_pages.shape[2]
+    if D not in HEAD_DIMS or k_pages.shape[3] != D:
+        raise ValueError(f"{kernel} has no instance for head dim {D} "
+                         f"(pages {k_pages.shape[3]}); supported: "
+                         f"{HEAD_DIMS}")
+    if H % Hkv:
+        raise ValueError(f"GQA needs H % Hkv == 0, got {H} % {Hkv}")
+    if tables.dtype != torch.int32:
+        raise ValueError(f"{kernel} takes int32 page tables, got "
+                         f"{tables.dtype}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("the page table", tables)):
+        if t.numel() and t.stride(-1) != 1:
+            raise ValueError(f"{name} needs unit stride in its last "
+                             f"dimension, got {t.stride()}")
+
+
+class PagedDecode(_Wrapper):
+    """Wrapper of ``zoo_paged_decode`` (``csrc/paged_decode.cu``): one
+    decode step of attention through block tables.  q ``(B, H, D)``, the
+    page pools ``(P, bs, Hkv, D)``, ``lengths (B,)`` and ``block_tables
+    (B, nb)`` int32, all CUDA tensors; returns ``(B, H, D)`` in q's
+    dtype.  Page ids must lie in ``[0, P)`` (the kernel clamps others, as
+    JAX's gather does)."""
+
+    name = "paged_decode"
+
+    def __call__(self, q, k_pages, v_pages, lengths, block_tables,
+                 sm_scale=1.0) -> torch.Tensor:
+        _check_pages(self.name, q, k_pages, v_pages, block_tables, "B")
+        B, H, D = q.shape
+        P, bs, Hkv, _ = k_pages.shape
+        if (lengths.shape != (B,) or lengths.dtype != torch.int32
+                or lengths.device != q.device):
+            raise ValueError(f"lengths must be ({B},) int32 on {q.device}, "
+                             f"got {tuple(lengths.shape)} {lengths.dtype} "
+                             f"on {lengths.device}")
+        if block_tables.dim() != 2 or block_tables.shape[0] != B:
+            raise ValueError(f"block_tables must be ({B}, nb), got "
+                             f"{tuple(block_tables.shape)}")
+        lengths = lengths.contiguous()
+        out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+        lib = _lib("paged_decode.cu")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with torch.cuda.device(q.device):
+            rc = lib.zoo_paged_decode(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+                *q.stride()[:2], *k_pages.stride()[:3],
+                *v_pages.stride()[:3], *out.stride()[:2],
+                block_tables.stride(0), B, H, Hkv, D, P, bs,
+                block_tables.shape[1], _DTYPES[q.dtype], float(sm_scale),
+                stream)
+        self._launched(lib, rc)
+        return out
+
+
+class PagedChunk(_Wrapper):
+    """Wrapper of ``zoo_paged_chunk`` (``csrc/paged_chunk.cu``): causal
+    attention of one prompt chunk through its page table.  q ``(Tc, H,
+    D)`` for positions ``start .. start + Tc - 1``, the page pools ``(P,
+    bs, Hkv, D)`` already holding the chunk's own K/V, ``page_table
+    (nb,)`` int32, all CUDA tensors, and ``start`` a host int; returns
+    ``(Tc, H, D)`` in q's dtype."""
+
+    name = "paged_chunk"
+
+    def __call__(self, q, k_pages, v_pages, page_table, start: int,
+                 sm_scale=1.0) -> torch.Tensor:
+        _check_pages(self.name, q, k_pages, v_pages, page_table, "Tc")
+        if page_table.dim() != 1:
+            raise ValueError(f"page_table must be (nb,), got "
+                             f"{tuple(page_table.shape)}")
+        start = int(start)
+        if start < 0:
+            raise ValueError(f"start must be >= 0, got {start}")
+        Tc, H, D = q.shape
+        P, bs, Hkv, _ = k_pages.shape
+        out = torch.empty((Tc, H, D), dtype=q.dtype, device=q.device)
+        lib = _lib("paged_chunk.cu")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with torch.cuda.device(q.device):
+            rc = lib.zoo_paged_chunk(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), out.data_ptr(), *q.stride()[:2],
+                *k_pages.stride()[:3], *v_pages.stride()[:3],
+                *out.stride()[:2], Tc, H, Hkv, D, P, bs,
+                page_table.shape[0], start, _DTYPES[q.dtype],
+                float(sm_scale), stream)
+        self._launched(lib, rc)
+        return out
+
+
 def _as_i32(seed: int) -> int:
     """Any integer seed -> the int32 with the same low 32 bits."""
     s = int(seed) & 0xFFFFFFFF
@@ -282,10 +400,13 @@ def _cuda_error(lib: ctypes.CDLL, rc: int) -> str:
 
 flash_fwd = FlashForward()
 flash_bwd = FlashBackward()
+paged_decode = PagedDecode()
+paged_chunk = PagedChunk()
 
 #: every kernel wrapper of the port, by name (what chip_smoke.py resets,
 #: reads and reports)
-KERNELS = {k.name: k for k in (flash_fwd, flash_bwd)}
+KERNELS = {k.name: k for k in (flash_fwd, flash_bwd, paged_decode,
+                               paged_chunk)}
 
 
 def reset_launches() -> None:

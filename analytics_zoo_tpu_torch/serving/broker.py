@@ -3,10 +3,10 @@
 Port of ``InMemoryBroker`` and ``get_broker`` from
 ``analytics_zoo_tpu/serving/broker.py``: an in-process, thread-safe
 implementation of the five stream / hash commands (XADD, XGROUP CREATE,
-XREADGROUP, XACK, HSET/HGETALL) plus the bulk result write and the
-event-driven result wait.  Field and result values may be raw ``bytes``
-(wire frames) and are carried verbatim.  The Redis, native-queue and fleet
-brokers are not ported yet.
+XREADGROUP, XACK, HSET/HGETALL) plus the bulk result write, the
+event-driven result wait and stream deletion.  Field and result values
+may be raw ``bytes`` (wire frames) and are carried verbatim.  The Redis,
+native-queue and fleet brokers are not ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +76,14 @@ class InMemoryBroker:
 
     def xack(self, stream: str, group: str, *ids: str) -> int:
         return len(ids)  # at-least-once; cursor already advanced
+
+    def delete_stream(self, stream: str) -> None:
+        """Drop one stream and its group cursors (the LLM engine GCs
+        completed token streams through this)."""
+        with self._lock:
+            self._streams.pop(stream, None)
+            for key in [k for k in self._cursors if k[0] == stream]:
+                del self._cursors[key]
 
     # ---- hash side (result plane: guarded by _rcond) ----------------------
     def hset(self, key: str, mapping: dict) -> None:

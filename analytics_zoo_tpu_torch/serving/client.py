@@ -11,11 +11,11 @@ context, model routing and tenancy stamps are not ported yet.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common.resilience import Deadline
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     ImageBytes, StringTensor, decode_output, encode_items,
@@ -46,11 +46,14 @@ _ERROR_BY_CODE = {cls.code: cls for cls in
                   (ServingError, ServingShedError, ServingDeadlineError)}
 
 
-def _deadline_fields(deadline_s: Optional[float]) -> dict:
-    """The wire stamp of a relative budget: the absolute wall-clock
-    deadline the engine checks before it runs the request."""
-    return {"deadline_ts": repr(time.time() + deadline_s)} if deadline_s \
-        else {}
+def _deadline_fields(deadline_s: Optional[float],
+                     deadline: Optional[Deadline] = None) -> dict:
+    """The wire stamp for an explicit ``Deadline`` or, failing that, a
+    relative budget: the absolute wall-clock deadline the engine checks
+    (empty when neither is given)."""
+    dl = deadline if deadline is not None else (
+        Deadline(deadline_s) if deadline_s else None)
+    return {"deadline_ts": repr(dl.wall())} if dl is not None else {}
 
 
 def _encode_wire(items) -> Union[bytes, str]:

@@ -37,6 +37,29 @@ Phases, each of which raises (exit code 1) on failure:
    and every gradient against the same step with the plain attention, the
    loss falling over 10 steps on a fixed batch in f32 and in mixed
    precision (bf16 kernels), the step time and a profiler breakdown.
+6. paged: ``paged_decode`` and ``paged_chunk`` against their plain
+   versions on the card at the shapes GPT-2-small serving gives them
+   (decode: B=32, H=Hkv=12, D=64, bs=16, 64-entry tables, lengths 0..1024;
+   chunk: 256 rows after 512 cached tokens), f32 and bf16, with GQA, dead
+   lanes, ragged lengths, tables that run past the sequence into a scratch
+   page of garbage and a padded chunk tail; then their times beside the
+   plain versions, beside ``scaled_dot_product_attention`` over the same
+   K/V laid out contiguously (a yardstick the port never calls: no single
+   PyTorch call computes paged attention) and beside the bound;
+7. llm: a decoder LM at the published widths of GPT-2 small (vocab 50257,
+   768 wide, 12 heads, 12 layers, FFN 3072, 1024 positions) with random
+   weights from a numpy seed, served through ``LLMServing`` (32 decode
+   slots, 2048 blocks of 16 tokens, 256-token prefill chunks, radix prefix
+   cache, in-memory broker) and ``GenerationClient``: one burst of 64
+   requests (prompts 16..768 tokens, half behind one shared 256-token
+   prefix, 32 new tokens each).  Checked: every request ``ok`` with 32
+   tokens, no live table left, prefix hits, 12 ``paged_decode`` launches
+   per decode call and 12 ``paged_chunk`` launches per prefill chunk, each
+   served token's logit within 1e-3 of the best under a teacher-forced
+   dense forward with plain attention, and one decode step's logits
+   against the dense forward; reported: tokens/s, TTFT, inter-token
+   latency, occupancy, the decode step at 32 live slots and profiler
+   breakdowns of a decode step and a prefill chunk.
 
 It prints one JSON line of kernel numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -72,6 +95,16 @@ BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2.0 ** -6)}
 TRAIN_LOSS_ATOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3        # of max|g| of each parameter's gradient
 BATCH = 32
+# the public gpt2 checkpoint's config.json: vocab_size, n_embd, n_head,
+# n_layer, n_positions; FFN 4 x n_embd
+GPT2_SMALL = dict(vocab=50257, hidden=768, n_head=12, n_layers=12,
+                  intermediate=3072, max_pos=1024)
+PAGED = dict(B=32, H=12, D=64, bs=16, nb=64)   # decode at 32 live slots
+CHUNK = dict(Tc=256, start=512)                # one prefill chunk
+# served tokens vs a teacher-forced dense forward (f32, 12 blocks): the
+# served token's logit within this of the best logit at its position
+TEACHER_ATOL = 1e-3
+DECODE_ATOL = 1e-3            # one decode step's logits vs the dense ones
 
 
 def log(*args):
@@ -226,7 +259,7 @@ def phase_kernels():
     return rows
 
 
-def _random_bert_tree(net, rng):
+def _random_tree(net, rng):
     """Weights from a numpy seed in the JAX tree layout (std 0.02; LayerNorm
     gains around 1)."""
     tree = {}
@@ -270,7 +303,7 @@ def phase_serve(cfg=BERT_BASE, device="cuda", n_requests=64,
 
     rng = np.random.default_rng(SEED)
     clf = BERTClassifier(num_classes=2, bert_config=cfg, device=device)
-    tree = _random_bert_tree(clf.net, rng)
+    tree = _random_tree(clf.net, rng)
     names = ("input_ids", "token_type_ids", "input_mask")
     im = InferenceModel(device=device).load_keras(
         clf.net, (tree, {}),
@@ -530,7 +563,7 @@ def phase_train(cfg=None, steps=10):
     cfg = cfg or dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
     from analytics_zoo_tpu_torch.tfpark import BERTClassifier
     rng = np.random.default_rng(SEED)
-    tree = _random_bert_tree(BERTClassifier(2, bert_config=cfg,
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg,
                                             device="cpu").net, rng)
     fixed = _train_batches(1, rng, cfg)
     many = _train_batches(8, rng, cfg)
@@ -581,10 +614,11 @@ def phase_train(cfg=None, steps=10):
         what = "mixed precision (bf16)" if mixed else "f32"
         clf = _classifier(cfg, tree, mixed_precision=mixed)
         losses, launches = _train_run(clf, fixed, steps, what)
-        if launches != {"flash_fwd": steps * n_block,
-                        "flash_bwd": steps * n_block}:
-            raise AssertionError(f"{what}: expected {steps * n_block} "
-                                 f"launches of each kernel, got {launches}")
+        want = dict.fromkeys(_kernels.KERNELS, 0)   # the paged ones: none
+        want.update(flash_fwd=steps * n_block, flash_bwd=steps * n_block)
+        if launches != want:
+            raise AssertionError(f"{what}: expected {want} launches, got "
+                                 f"{launches}")
         runs[what] = dict(losses=losses, launches=launches)
 
     # 5. step time over 8 distinct batches (one host read at the end),
@@ -608,9 +642,389 @@ def phase_train(cfg=None, steps=10):
     return runs["f32"]["launches"], dict(step_ms=step_ms, runs=runs)
 
 
+def _paged_pools(dtype, P, bs, Hkv, D, gen):
+    """K/V page pools with finite garbage (1e4) in the scratch page 0."""
+    kp = torch.randn(P, bs, Hkv, D, generator=gen)
+    vp = torch.randn(P, bs, Hkv, D, generator=gen)
+    kp[0], vp[0] = 1e4, -1e4
+    return kp.to("cuda", dtype), vp.to("cuda", dtype)
+
+
+def _decode_case(dtype, lengths, Hkv, gen, B, H, D, bs, nb):
+    """Decode inputs: every sequence on its own random pages, table
+    entries past ``ceil(len / bs)`` pointing at the scratch page."""
+    P = B * nb + 1
+    q = torch.randn(B, H, D, generator=gen).to("cuda", dtype)
+    kp, vp = _paged_pools(dtype, P, bs, Hkv, D, gen)
+    tables = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).int()
+    tables = tables.view(B, nb)
+    used = (lengths[:, None] + bs - 1) // bs
+    tables[torch.arange(nb)[None, :] >= used] = 0
+    return q, kp, vp, lengths.int().to("cuda"), tables.to("cuda")
+
+
+def _chunk_case(dtype, Hkv, start, n, gen, Tc, H, D, bs, nb):
+    """Chunk inputs: ``n`` true rows at ``start`` (rows past ``n`` are a
+    padded tail), the table's tail pointing at the scratch page."""
+    P = 3 * nb + 1
+    q = torch.randn(Tc, H, D, generator=gen).to("cuda", dtype)
+    kp, vp = _paged_pools(dtype, P, bs, Hkv, D, gen)
+    used = -(-(start + n) // bs)
+    table = torch.zeros(nb, dtype=torch.int32)
+    table[:used] = torch.randperm(P - 1, generator=gen)[:used].int() + 1
+    return q, kp, vp, table.to("cuda")
+
+
+def _check_close(name, what, out, ref, dtype):
+    atol, rtol = TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    bad = (diff > atol + rtol * ref.float().abs()).sum().item()
+    log(f"[paged] {name} {str(dtype)[6:]:8s} {what:34s} max_abs_err="
+        f"{err:.3e} tol=atol {atol:g} + rtol {rtol:g} -> "
+        f"{'ok' if not bad else f'{bad} elements out'}")
+    if bad or not torch.isfinite(out).all():
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{dtype} {what}")
+    return err
+
+
+def _bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops
+
+
+def phase_paged():
+    from analytics_zoo_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention, paged_decode_attention)
+    F = torch.nn.functional
+    B, H, D, bs, nb = (PAGED[k] for k in ("B", "H", "D", "bs", "nb"))
+    Tc, start = CHUNK["Tc"], CHUNK["start"]
+    L = nb * bs
+    gen = torch.Generator().manual_seed(SEED + 2)
+    ragged = torch.randint(0, L + 1, (B,), generator=gen)
+    ragged[:3] = torch.tensor([0, L, 1000])   # dead lane, full, not x16
+    decode_cases = {"ragged lengths 0..1024": dict(Hkv=H),
+                    "GQA Hkv=4, ragged lengths": dict(Hkv=4)}
+    chunk_cases = {f"start {start}, {Tc} rows": dict(Hkv=H, start=start,
+                                                     n=Tc),
+                   f"start {start}, padded tail n=200": dict(
+                       Hkv=H, start=start, n=200),
+                   "GQA Hkv=4, start 0": dict(Hkv=4, start=0, n=Tc)}
+    errs = {"paged_decode": {}, "paged_chunk": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, case in decode_cases.items():
+            args = _decode_case(dtype, ragged, case["Hkv"], gen, B, H, D,
+                                bs, nb)
+            out = paged_decode_attention(*args)
+            ref = paged_decode_attention(*args, backend="plain")
+            torch.cuda.synchronize()
+            err = _check_close("paged_decode", what, out, ref, dtype)
+            if not torch.all(out[0] == 0):
+                raise AssertionError("paged_decode: a dead lane is not 0")
+            errs["paged_decode"][dtype] = max(
+                errs["paged_decode"].get(dtype, 0.0), err)
+        for what, case in chunk_cases.items():
+            q, kp, vp, table = _chunk_case(dtype, case["Hkv"],
+                                           case["start"], case["n"], gen,
+                                           Tc, H, D, bs, nb)
+            out = paged_chunk_attention(q, kp, vp, table, case["start"])
+            ref = paged_chunk_attention(q, kp, vp, table, case["start"],
+                                        backend="plain")
+            torch.cuda.synchronize()
+            n = case["n"]
+            err = _check_close("paged_chunk", what, out[:n], ref[:n], dtype)
+            errs["paged_chunk"][dtype] = max(
+                errs["paged_chunk"].get(dtype, 0.0), err)
+
+    # timing: decode with all 32 sequences at 1024 tokens; the chunk at
+    # its serving shape.  The yardstick is SDPA over the same K/V copied
+    # out into contiguous (B, H, T, D) tensors.
+    rows = {"paged_decode": {}, "paged_chunk": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        full = torch.full((B,), L, dtype=torch.int32)
+        q, kp, vp, lens, tables = _decode_case(dtype, full, H, gen, B, H, D,
+                                               bs, nb)
+        ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, lens,
+                                                    tables))
+        plain_ms = cuda_ms(lambda: paged_decode_attention(
+            q, kp, vp, lens, tables, backend="plain"), iters=10)
+        k, v = (p[tables.long()].reshape(B, L, H, D).transpose(1, 2)
+                .contiguous() for p in (kp, vp))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v))
+        nbytes = 2 * B * L * H * D * es + 2 * B * H * D * es \
+            + tables.numel() * 4 + B * 4
+        bound, by, t_bytes, t_ops = _bound(nbytes, 4 * B * H * L * D, dtype)
+        rows["paged_decode"][dtype] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+            bound_by=by, max_abs_err=errs["paged_decode"][dtype])
+        log(f"[paged] paged_decode {str(dtype)[6:]:8s} B{B} H{H} D{D} "
+            f"len {L} bs {bs}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+            f" sdpa over contiguous K/V {lib_ms:.4f} ms, bound {bound:.4f}"
+            f" ms ({by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+        del k, v
+
+        q, kp, vp, table = _chunk_case(dtype, H, start, Tc, gen, Tc, H, D,
+                                       bs, nb)
+        ms = cuda_ms(lambda: paged_chunk_attention(q, kp, vp, table, start))
+        plain_ms = cuda_ms(lambda: paged_chunk_attention(
+            q, kp, vp, table, start, backend="plain"), iters=10)
+        S = start + Tc
+        k, v = (p[table.long()].reshape(nb * bs, H, D)[:S].transpose(0, 1)
+                [None].contiguous() for p in (kp, vp))
+        qq = q.transpose(0, 1)[None].contiguous()
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= start + torch.arange(Tc, device="cuda")[:, None])
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qq, k, v, attn_mask=mask))
+        keys_seen = Tc * start + Tc * (Tc + 1) // 2   # causal pairs
+        nbytes = 2 * Tc * H * D * es + 2 * S * H * D * es + nb * 4
+        bound, by, t_bytes, t_ops = _bound(nbytes, 4 * H * D * keys_seen,
+                                           dtype)
+        rows["paged_chunk"][dtype] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+            bound_by=by, max_abs_err=errs["paged_chunk"][dtype])
+        log(f"[paged] paged_chunk {str(dtype)[6:]:8s} Tc{Tc} start {start} "
+            f"H{H} D{D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"over contiguous K/V {lib_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+    return rows
+
+
+def _llm_requests(n, rng, vocab):
+    """``n`` prompts of 16..768 tokens; every second one starts with one
+    shared 256-token system prefix (cut to the prompt's length)."""
+    prefix = rng.integers(0, vocab, 256)
+    reqs = {}
+    for i in range(n):
+        toks = rng.integers(0, vocab, int(rng.integers(16, 769)))
+        if i % 2 == 0:
+            m = min(256, toks.size)
+            toks[:m] = prefix[:m]
+        reqs[f"llm-{i:03d}"] = toks.astype(np.int32)
+    return reqs
+
+
+def _prefill(model, cache, uri, toks, chunk, width):
+    """Prefill one prompt in chunks through the model's entry point;
+    returns the final chunk's logits."""
+    pos, logits = 0, None
+    while pos < len(toks):
+        n = min(chunk, len(toks) - pos)
+        slots = cache.append_tokens(uri, n)
+        t = np.zeros((chunk,), np.int32)
+        t[:n] = toks[pos:pos + n]
+        s = np.arange(chunk, dtype=np.int32) % cache.block_size
+        s[:n] = slots
+        logits, cache.k_pages, cache.v_pages = model.prefill_chunk(
+            t, pos, n, cache.page_table(uri, width), cache.k_pages,
+            cache.v_pages, s)
+        pos += n
+    return logits
+
+
+def _wait_idle(eng, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while eng.scheduler.has_work():
+        if time.monotonic() > deadline:
+            raise AssertionError("the engine did not go idle")
+        time.sleep(0.01)
+
+
+def phase_llm(n_requests=64, new_tokens=32):
+    from analytics_zoo_tpu_torch import interop
+    from analytics_zoo_tpu_torch.common.config import LLMServingConfig
+    from analytics_zoo_tpu_torch.llm import (
+        GenerationClient, LLMServing, PagedKVCache)
+    from analytics_zoo_tpu_torch.models.generation import (
+        DecoderLM, dense_logits)
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+
+    cfg = GPT2_SMALL
+    n_layers, n_head = cfg["n_layers"], cfg["n_head"]
+    rng = np.random.default_rng(SEED)
+    model = DecoderLM(**cfg, device="cuda")
+    interop.load_jax_params(model, _random_tree(model, rng))
+    scfg = LLMServingConfig(max_active=32, block_size=16, num_blocks=2048,
+                            max_model_len=1024, prefill_chunk_tokens=256,
+                            prefix_cache=True)
+    eng = LLMServing(model, scfg, broker=InMemoryBroker())
+    pages = eng.cache.k_pages
+    log(f"[llm] DecoderLM {cfg}, "
+        f"{sum(p.numel() for p in model.parameters()):,} parameters (f32); "
+        f"KV pages 2 x {tuple(pages.shape)} = "
+        f"{2 * pages.numel() * pages.element_size() / 1e9:.3f} GB")
+    reqs = _llm_requests(n_requests, rng, cfg["vocab"])
+    calls = {"decode": 0, "prefill_chunk": 0}
+
+    def counted(name):
+        inner = getattr(model, name)
+
+        def call(*args):
+            calls[name] += 1
+            return inner(*args)
+        return call
+
+    cli = GenerationClient(broker=eng.broker)
+    served = {}
+    eng.start()
+    try:
+        # warm-up (cuBLAS handles, first launches): not counted
+        cli.generate("warmup", rng.integers(0, cfg["vocab"], 40), 4,
+                     timeout=300)
+        _wait_idle(eng)
+        eng.reset_stats()
+        model.decode = counted("decode")
+        model.prefill_chunk = counted("prefill_chunk")
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        for uri, toks in reqs.items():
+            cli.submit(uri, toks, new_tokens)
+        for uri in reqs:
+            served[uri] = [t for _, t in cli.stream_tokens(uri,
+                                                           timeout=600)]
+        burst_s = time.perf_counter() - t0
+        _wait_idle(eng)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+        n_calls = dict(calls)
+        metrics = eng.metrics()
+        ttft = np.array([s for u, s in eng.ttft_samples() if u in reqs])
+        leak = eng.cache.leak_check()
+    finally:
+        eng.stop()
+        for name in ("decode", "prefill_chunk"):
+            model.__dict__.pop(name, None)
+    short = [u for u, t in served.items() if len(t) != new_tokens]
+    if short or len(served) != n_requests:
+        raise AssertionError(f"requests without {new_tokens} tokens: "
+                             f"{short}")
+    pc = metrics["prefix_cache"]
+    tok_s = n_requests * new_tokens / burst_s
+    log(f"[llm] burst of {n_requests} requests (prompts "
+        f"{min(map(len, reqs.values()))}..{max(map(len, reqs.values()))} "
+        f"tokens, {sum(map(len, reqs.values()))} in all), {new_tokens} new "
+        f"tokens each: all ok in {burst_s:.4f} s = {tok_s:.2f} generated "
+        f"tokens/s; TTFT p50 {1e3 * np.percentile(ttft, 50):.3f} ms, p99 "
+        f"{1e3 * np.percentile(ttft, 99):.3f} ms; mean inter-token latency "
+        f"{metrics['mean_itl_ms']:.3f} ms; mean batch occupancy "
+        f"{metrics['mean_batch_occupancy']:.4f}; {n_calls['decode']} decode "
+        f"calls, {n_calls['prefill_chunk']} prefill chunks, "
+        f"{metrics['preemptions']} preemptions")
+    log(f"[llm] prefix cache: {pc}; after the burst {leak}")
+    log(f"[llm] launches {launches}: paged_decode "
+        f"{launches['paged_decode'] / max(n_calls['decode'], 1):g} per "
+        f"decode call, paged_chunk "
+        f"{launches['paged_chunk'] / max(n_calls['prefill_chunk'], 1):g} "
+        f"per prefill chunk")
+    if leak["tables"] or leak["held_blocks"]:
+        raise AssertionError(f"live tables after the burst: {leak}")
+    if not pc["hits"]:
+        raise AssertionError("the radix prefix cache reported no hit")
+    if (not n_calls["decode"] or not n_calls["prefill_chunk"]
+            or launches["paged_decode"] != n_layers * n_calls["decode"]
+            or launches["paged_chunk"]
+            != n_layers * n_calls["prefill_chunk"]):
+        raise AssertionError(f"expected {n_layers} launches per call: "
+                             f"{launches} for {n_calls}")
+
+    # teacher-forced check: the dense forward with plain attention over
+    # prompt + served tokens; each served token against the best logit
+    worst, exact = 0.0, 0
+    with torch.inference_mode():
+        for uri, toks in reqs.items():
+            ctx = np.concatenate([toks, served[uri]]).astype(np.int64)
+            lg = dense_logits(model, torch.from_numpy(ctx[None]).cuda(),
+                              n_head)[0]
+            rows = lg[len(toks) - 1:len(toks) - 1 + new_tokens]
+            tok = torch.tensor(served[uri], device="cuda")
+            gap = rows.max(-1).values - rows.gather(1, tok[:, None])[:, 0]
+            worst = max(worst, gap.max().item())
+            exact += bool((rows.argmax(-1) == tok).all())
+    log(f"[llm] teacher-forced dense forward (plain attention) over each "
+        f"prompt + served tokens: worst (best logit - served token's "
+        f"logit) {worst:.3e} (tol {TEACHER_ATOL:g}); {exact}/{n_requests} "
+        f"sequences equal the dense greedy choice at every position")
+    if worst > TEACHER_ATOL:
+        raise AssertionError("served tokens disagree with the dense forward")
+    del eng
+
+    # one decode step at 32 live slots: its logits against the dense
+    # forward, its time, and profiles of it and of one prefill chunk
+    cache = PagedKVCache(n_layers, 1024, 16, n_head,
+                         cfg["hidden"] // n_head, device="cuda")
+    width = -(-scfg.max_model_len // 16)
+    lanes = list(reqs.items())[:32]
+    first, tables, slots = [], [], []
+    for uri, toks in lanes:
+        logits = _prefill(model, cache, uri, toks, 256, width)
+        first.append(int(logits.argmax()))
+        slots.append(int(cache.append_tokens(uri, 1)[0]))
+        tables.append(cache.page_table(uri, width))
+    lens = np.array([len(t) + 1 for _, t in lanes], np.int32)
+    args = (np.array(first, np.int32), lens - 1, lens, np.stack(tables))
+    logits = model.decode(*args, cache.k_pages, cache.v_pages,
+                          np.array(slots, np.int32))[0]
+    err = 0.0
+    with torch.inference_mode():
+        for i, (uri, toks) in enumerate(lanes):
+            ctx = torch.tensor(np.append(toks, first[i])[None],
+                               device="cuda", dtype=torch.long)
+            want = dense_logits(model, ctx, n_head)[0, -1]
+            err = max(err, (logits[i] - want).abs().max().item())
+    log(f"[llm] one decode step at 32 live slots (lengths "
+        f"{lens.min()}..{lens.max()}) vs the dense forward: max_abs_err "
+        f"{err:.3e} (tol {DECODE_ATOL:g})")
+    if err > DECODE_ATOL:
+        raise AssertionError("decode logits disagree with the dense forward")
+
+    def step():
+        out = model.decode(*args, cache.k_pages, cache.v_pages,
+                           np.array(slots, np.int32))[0]
+        return out.argmax(dim=-1).cpu()
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 20
+    log(f"[llm] decode step at 32 live slots (model.decode + argmax + host "
+        f"read): {step_ms:.3f} ms over 20 steps = "
+        f"{32 * 1e3 / step_ms:.2f} tokens/s")
+    decode_prof = profile_breakdown(step, "one decode step at 32 live slots",
+                                    top=10)
+    # the longest prompt's last 256 tokens again (rewrites the same slots)
+    uri, toks = max(lanes, key=lambda kv: len(kv[1]))
+    s0 = max(0, len(toks) - 256)
+    n = len(toks) - s0
+    t = np.zeros((256,), np.int32)
+    t[:n] = toks[s0:]
+    table = cache.page_table(uri, width)
+    tslots = np.arange(256, dtype=np.int32) % 16
+    tslots[:n] = [table[p // 16] * 16 + p % 16 for p in range(s0, s0 + n)]
+
+    def chunk():
+        out = model.prefill_chunk(t, s0, n, cache.page_table(uri, width),
+                                  cache.k_pages, cache.v_pages, tslots)[0]
+        return int(out.argmax())
+
+    chunk_prof = profile_breakdown(
+        chunk, f"one prefill chunk ({n} tokens after {s0} cached)", top=10)
+    return launches, dict(tokens_per_s=tok_s, burst_s=burst_s,
+                          step_ms=step_ms, decode_prof=decode_prof,
+                          chunk_prof=chunk_prof, calls=n_calls)
+
+
 def profile_breakdown(fn, what, top=8):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's busy share of the call's wall time."""
+    the device's busy share of the call's wall time; returns (wall ms,
+    device busy ms), or None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -627,12 +1041,13 @@ def profile_breakdown(fn, what, top=8):
     if total <= 0:
         log(f"[profile] {what}: the profiler recorded no device time "
             "(device breakdown not measured)")
-        return
+        return None
     log(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{total / 1e3:.3f} ms ({100 * total / wall_us:.1f}% of wall)")
     for key, t, n in sorted(dev, key=lambda r: -r[1])[:top]:
         log(f"[profile]   {100 * t / total:5.1f}%  {t / 1e3:8.3f} ms  "
             f"x{n:<4d} {key[:90]}")
+    return wall_us / 1e3, total / 1e3
 
 
 def main() -> int:
@@ -658,28 +1073,46 @@ def main() -> int:
     serve_launches = phase_serve()
     bwd_rows = phase_backward()
     train_launches, _ = phase_train()
+    paged_rows = phase_paged()
+    llm_launches, llm = phase_llm()
 
-    def entry(name, source, replaces, rows, launches, **extra):
+    def entry(name, source, replaces, rows, launches,
+              shape="B32 H12 T128 D64 float32", **extra):
         f32 = rows[torch.float32]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
                 "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
                 "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-                "shape": "B32 H12 T128 D64 float32",
-                "bf16": dict(rows[torch.bfloat16]), **extra}
+                "shape": shape, "bf16": dict(rows[torch.bfloat16]), **extra}
 
+    csrc = "analytics_zoo_tpu_torch/ops/csrc/"
+    paged_lib = "scaled_dot_product_attention over the same K/V made contiguous"
     kernels = [
-        entry("flash_fwd", "analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
+        entry("flash_fwd", csrc + "flash_fwd.cu",
               "analytics_zoo_tpu/ops/attention.py:169", rows,
               train_launches["flash_fwd"],
               launches_in="10 f32 training steps",
               serve_launches=serve_launches),
-        entry("flash_bwd", "analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu",
+        entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               train_launches["flash_bwd"],
               launches_in="10 f32 training steps",
               library="backward of scaled_dot_product_attention"),
+        entry("paged_decode", csrc + "paged_decode.cu",
+              "analytics_zoo_tpu/ops/paged_attention.py:79",
+              paged_rows["paged_decode"], llm_launches["paged_decode"],
+              shape="B32 H12 Hkv12 D64 bs16 len1024 float32",
+              launches_in=f"the 64-request burst "
+                          f"({llm['calls']['decode']} decode calls)",
+              library=paged_lib),
+        entry("paged_chunk", csrc + "paged_chunk.cu",
+              "analytics_zoo_tpu/ops/paged_attention.py:134",
+              paged_rows["paged_chunk"], llm_launches["paged_chunk"],
+              shape="Tc256 start512 H12 Hkv12 D64 bs16 float32",
+              launches_in=f"the 64-request burst "
+                          f"({llm['calls']['prefill_chunk']} prefill chunks)",
+              library=paged_lib),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

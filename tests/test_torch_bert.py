@@ -161,3 +161,31 @@ def test_layer_norm_and_gelu_match_jax():
         np.testing.assert_allclose(
             TAct.get(name)(torch.from_numpy(x)).numpy(),
             np.asarray(JAct.get(name)(jnp.asarray(x))), atol=ATOL, rtol=0)
+
+
+def test_params_tree_round_trips_dicts_and_lists():
+    """BERT trees (dicts only) come back unchanged; a tree holding a list
+    of blocks maps onto ``blocks.<i>`` keys and comes back as a list."""
+    _, params, _ = _jax_model()
+    tree = _tree(params)
+    tb = TBERT(num_classes=3, bert_config=CFG, device="cpu")
+    back = interop.params_tree(interop.load_jax_params(tb.net, tree))
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+
+    net = torch.nn.Module()
+    net.head = torch.nn.Module()
+    net.head.W = torch.nn.Parameter(torch.zeros(2, 3))
+    net.blocks = torch.nn.ModuleList(torch.nn.Module() for _ in range(11))
+    for blk in net.blocks:
+        blk.b = torch.nn.Parameter(torch.zeros(4))
+    listed = {"head": {"W": np.ones((2, 3), np.float32)},
+              "blocks": [{"b": np.full(4, i, np.float32)}
+                         for i in range(11)]}
+    back = interop.params_tree(interop.load_jax_params(net, listed))
+    assert isinstance(back["blocks"], list) and len(back["blocks"]) == 11
+    assert [float(b["b"][0]) for b in back["blocks"]] == list(range(11))
+    np.testing.assert_array_equal(back["head"]["W"], listed["head"]["W"])

@@ -8,6 +8,7 @@ absolute plus 2**-7 relative (two bf16 ulps of the output).  Backward:
 f32 1e-4 * max(1, max|ref|) (summation order through five products),
 bf16 2e-2 absolute plus 2**-6 relative (Z and dS are rounded to bf16
 before their products, at places the two versions order differently).
+The paged decode and chunk kernels take the forward's tolerances.
 """
 
 import pytest
@@ -17,6 +18,8 @@ from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.attention import (
     _hash_keep_mask, _reference_attention, _reference_attention_bwd,
     flash_attention)
+from analytics_zoo_tpu_torch.ops.paged_attention import (
+    paged_chunk_attention, paged_decode_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -172,3 +175,94 @@ def test_bwd_kernel_rows_and_keys_nobody_sees_get_zeros(dev):
     assert torch.all(dq[0] == 0)                    # the empty batch row
     dead = (pm == 0)[:, None, :, None].expand_as(dk)
     assert torch.all(dk[dead] == 0) and torch.all(dv[dead] == 0)
+
+
+def _pages(dev, dtype, P, bs, Hkv, D, g):
+    """K/V pools with finite garbage (1e4) in the scratch page 0."""
+    kp = torch.randn(P, bs, Hkv, D, generator=g)
+    vp = torch.randn(P, bs, Hkv, D, generator=g)
+    kp[0], vp[0] = 1e4, -1e4
+    return kp.to(dev, dtype), vp.to(dev, dtype)
+
+
+def _assert_paged_close(out, ref, dtype):
+    atol, rtol = _tol(dtype)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(H=8, Hkv=2, D=64, bs=16, nb=8),
+    dict(H=4, Hkv=4, D=128, bs=16, nb=5),
+    dict(H=12, Hkv=4, D=32, bs=8, nb=20),
+], ids=["gqa_d64", "mha_d128", "gqa3_d32"])
+def test_paged_decode_matches_plain(dev, dtype, case):
+    """Lengths 0 (a dead lane), below one block, not a block multiple,
+    the full table; table entries past each sequence point at the
+    scratch page, which holds garbage."""
+    H, Hkv, D, bs, nb = (case[k] for k in ("H", "Hkv", "D", "bs", "nb"))
+    B, P = 6, 4 * nb
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(B, H, D, generator=g).to(dev, dtype)
+    kp, vp = _pages(dev, dtype, P, bs, Hkv, D, g)
+    lengths = torch.tensor([0, 1, bs - 3, 2 * bs + 5, nb * bs, nb * bs - 1],
+                           dtype=torch.int32)
+    tables = torch.randint(1, P, (B, nb), generator=g, dtype=torch.int32)
+    used = (lengths[:, None] + bs - 1) // bs
+    tables[torch.arange(nb)[None, :] >= used] = 0     # -> scratch
+    lengths, tables = lengths.to(dev), tables.to(dev)
+    before = _kernels.paged_decode.launches
+    out = paged_decode_attention(q, kp, vp, lengths, tables)
+    ref = paged_decode_attention(q, kp, vp, lengths, tables,
+                                 backend="plain")
+    torch.cuda.synchronize()
+    assert _kernels.paged_decode.launches == before + 1
+    _assert_paged_close(out, ref, dtype)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(H=4, Hkv=4, D=64, Tc=64, start=0, n=64),
+    dict(H=8, Hkv=2, D=64, Tc=96, start=133, n=70),   # padded tail
+    dict(H=4, Hkv=1, D=128, Tc=40, start=17, n=40),
+], ids=["start0_d64", "gqa_start_padded_tail", "gqa4_d128"])
+def test_paged_chunk_matches_plain(dev, dtype, case):
+    """A chunk at ``start`` whose own K/V sit in the pages, padded past
+    its ``n`` true rows; the table is longer than the sequence and its
+    tail points at the scratch page, which holds garbage."""
+    H, Hkv, D, Tc, start, n = (case[k] for k in
+                               ("H", "Hkv", "D", "Tc", "start", "n"))
+    bs = 16
+    used = (start + n + bs - 1) // bs
+    nb, P = used + 3, 3 * (used + 3)
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(Tc, H, D, generator=g).to(dev, dtype)
+    kp, vp = _pages(dev, dtype, P, bs, Hkv, D, g)
+    table = torch.zeros(nb, dtype=torch.int32)
+    table[:used] = torch.randperm(P - 1, generator=g)[:used].int() + 1
+    table = table.to(dev)
+    before = _kernels.paged_chunk.launches
+    out = paged_chunk_attention(q, kp, vp, table, start)
+    ref = paged_chunk_attention(q, kp, vp, table, start, backend="plain")
+    torch.cuda.synchronize()
+    assert _kernels.paged_chunk.launches == before + 1
+    _assert_paged_close(out[:n], ref[:n], dtype)
+    assert out.shape == (Tc, H, D)
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.randn(2, 4, 48, device=dev)
+    pages = torch.randn(3, 4, 4, 48, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_decode_attention(q, pages, pages, lens, tables)
+    q = torch.randn(2, 4, 64, device=dev)
+    pages = torch.randn(3, 4, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, pages, pages, lens, tables.long())
+    with pytest.raises(ValueError, match="int32"):
+        paged_chunk_attention(q, pages, pages, tables[0].long(), 0)

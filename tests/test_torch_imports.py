@@ -42,7 +42,10 @@ def test_no_module_of_the_port_imports_jax():
                  "estimator.estimator", "data.cursor", "data.featureset",
                  "inference.inference_model", "serving.engine",
                  "serving.codec", "serving.broker", "serving.client",
-                 "common.config", "common.context", "common.triggers"):
+                 "common.config", "common.context", "common.triggers",
+                 "common.resilience", "ops.paged_attention",
+                 "models.generation", "llm.kv_cache", "llm.prefix_cache",
+                 "llm.scheduler", "llm.engine", "llm.client"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -61,8 +64,16 @@ def test_no_module_of_the_port_imports_jax():
     "from analytics_zoo_tpu_torch.estimator import Estimator as f\n"
     "    from torch import nn\n"
     "    f(nn.Linear(2, 2))",
+    "from analytics_zoo_tpu_torch.models.generation import DecoderLM as f;"
+    " f.tiny()",
+    "from analytics_zoo_tpu_torch.models.generation import DecoderLM\n"
+    "    from analytics_zoo_tpu_torch.llm import LLMServing as f\n"
+    "    f(DecoderLM.tiny(device='cpu'))",
+    "from analytics_zoo_tpu_torch.llm import PagedKVCache as f;"
+    " f(1, 4, 4, 2, 8)",
 ], ids=["resolve_device", "InferenceModel", "BERTClassifier",
-        "BERTClassifier.train", "Estimator"])
+        "BERTClassifier.train", "Estimator", "DecoderLM", "LLMServing",
+        "PagedKVCache"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "
