@@ -1,6 +1,6 @@
-"""Configuration: copies of the JAX package's ``ServingConfig`` and
-``LLMServingConfig``, of the ``TrainConfig`` fields the estimator reads,
-and of ``compute_dtype``.
+"""Configuration: copies of the JAX package's ``MeshConfig``,
+``ServingConfig`` and ``LLMServingConfig``, of the ``TrainConfig`` fields
+the estimator reads, and of ``compute_dtype``.
 
 Copied from ``analytics_zoo_tpu/common/config.py`` (the port cannot import
 that module: every ``analytics_zoo_tpu`` import loads jax), so a config
@@ -19,6 +19,18 @@ from typing import Optional
 
 
 @dataclass
+class MeshConfig:
+    """Device-mesh layout. Axis sizes of -1 mean "fill with remaining devices"."""
+
+    data: int = -1          # data-parallel axis ("dp")
+    model: int = 1          # tensor-parallel axis ("tp")
+    sequence: int = 1       # sequence/context-parallel axis ("sp")
+    expert: int = 1         # expert-parallel axis ("ep")
+    pipeline: int = 1       # pipeline axis ("pp")
+    axis_names: tuple = ("data", "model", "sequence", "expert", "pipeline")
+
+
+@dataclass
 class TrainConfig:
     checkpoint_dir: Optional[str] = None
     gradient_clip_norm: Optional[float] = None
@@ -31,6 +43,7 @@ class TrainConfig:
 
 @dataclass
 class ZooConfig:
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     # the forward / backward dtype of mixed-precision training
     compute_dtype: str = "bfloat16"

@@ -1,6 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each ``ops/csrc/<name>.cu`` exports a plain C function; it is compiled with
+Each ``ops/csrc/<name>.cu`` exports plain C functions (``flash_fwd.cu``
+two, one for each of its wrappers); it is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under the package's
 ``_build/`` directory (listed in ``.gitignore``) the first time it is
 needed, and loaded with ``ctypes``.  Libraries are named by a hash of their
@@ -112,27 +113,31 @@ def _load(source: str) -> ctypes.CDLL:
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _F32, _U32 = ctypes.c_float, ctypes.c_uint
-#: each library's entry point and its C signature
+#: each entry point: its library's source and its C signature
 _ENTRY = {
-    "flash_fwd.cu": ("zoo_flash_fwd", [_PTR] * 5 + [_I64] * 12 + [_I32] * 6
-                     + [_F32, _I32, _U32, _F32, _I32, _PTR]),
-    "flash_bwd.cu": ("zoo_flash_bwd", [_PTR] * 11
-                     + [ctypes.POINTER(_I64)] + [_I32] * 6
-                     + [_F32, _I32, _U32, _F32, _I32, _PTR]),
-    "paged_decode.cu": ("zoo_paged_decode", [_PTR] * 6 + [_I64] * 11
-                        + [_I32] * 8 + [_F32, _PTR]),
-    "paged_chunk.cu": ("zoo_paged_chunk", [_PTR] * 5 + [_I64] * 10
-                       + [_I32] * 9 + [_F32, _PTR]),
+    "zoo_flash_fwd": ("flash_fwd.cu", [_PTR] * 5 + [_I64] * 12 + [_I32] * 6
+                      + [_F32, _I32, _U32, _F32, _I32, _PTR]),
+    "zoo_flash_fwd_lse": ("flash_fwd.cu", [_PTR] * 5 + [_I64] * 12
+                          + [_I32] * 6 + [_F32, _I32, _PTR]),
+    "zoo_flash_bwd": ("flash_bwd.cu", [_PTR] * 11
+                      + [ctypes.POINTER(_I64)] + [_I32] * 6
+                      + [_F32, _I32, _U32, _F32, _I32, _PTR]),
+    "zoo_paged_decode": ("paged_decode.cu", [_PTR] * 6 + [_I64] * 11
+                         + [_I32] * 8 + [_F32, _PTR]),
+    "zoo_paged_chunk": ("paged_chunk.cu", [_PTR] * 5 + [_I64] * 10
+                        + [_I32] * 9 + [_F32, _PTR]),
 }
 
 
 def _lib(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source`` with its entry point declared."""
+    """The loaded library of ``source`` with its entry points declared."""
     lib = _load(source)
-    name, argtypes = _ENTRY[source]
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    for name, (src, argtypes) in _ENTRY.items():
+        if src != source:
+            continue
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
 
 
@@ -221,6 +226,38 @@ class FlashForward(_Wrapper):
                 float(keep_scale), _as_i32(seed), stream)
         self._launched(lib, rc)
         return out
+
+
+class FlashForwardLse(_Wrapper):
+    """Wrapper of ``zoo_flash_fwd_lse`` (``csrc/flash_fwd.cu``): attention
+    forward with no mask and no dropout over q ``(B, H, Tq, D)``, k / v
+    ``(B, H, Tk, D)`` CUDA tensors (any (batch, head, seq) strides with a
+    unit last stride), end-aligned when ``causal``.  Returns ``(o, lse)``:
+    o a contiguous ``(B, H, Tq, D)`` tensor in q's dtype, lse a contiguous
+    ``(B, H, Tq)`` f32 tensor of each row's log-sum-exp of the scaled
+    scores (``-1e30`` for a row that sees no key)."""
+
+    name = "flash_fwd_lse"
+
+    def __call__(self, q, k, v, causal=False, sm_scale=1.0):
+        _check(self.name, q, k, v, None)
+        B, H, Tq, D = q.shape
+        Tk = k.shape[2]
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+        lib = _lib("flash_fwd.cu")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with torch.cuda.device(q.device):
+            rc = lib.zoo_flash_fwd_lse(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *out.stride()[:3], B, H, Tq, Tk, D,
+                _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
+                stream)
+        self._launched(lib, rc)
+        return out, lse
 
 
 class FlashBackward(_Wrapper):
@@ -399,14 +436,15 @@ def _cuda_error(lib: ctypes.CDLL, rc: int) -> str:
 
 
 flash_fwd = FlashForward()
+flash_fwd_lse = FlashForwardLse()
 flash_bwd = FlashBackward()
 paged_decode = PagedDecode()
 paged_chunk = PagedChunk()
 
 #: every kernel wrapper of the port, by name (what chip_smoke.py resets,
 #: reads and reports)
-KERNELS = {k.name: k for k in (flash_fwd, flash_bwd, paged_decode,
-                               paged_chunk)}
+KERNELS = {k.name: k for k in (flash_fwd, flash_fwd_lse, flash_bwd,
+                               paged_decode, paged_chunk)}
 
 
 def reset_launches() -> None:

@@ -11,6 +11,13 @@ tensors, or when ``backend="plain"`` is asked for, they run
 PyTorch versions the kernels are held to.  There is no dense-attention
 crossover: the JAX package's one was measured on a TPU.
 
+``flash_forward_with_lse`` is the forward without mask or dropout that
+also returns each row's log-sum-exp, the block ring attention merges
+shards with (``parallel/ring.py``).  On CUDA tensors it launches the kernel
+``flash_fwd_lse`` (``ops/csrc/flash_fwd.cu``) or raises; on CPU tensors it
+runs ``_reference_attention_with_lse``.  Like the JAX function it has no
+gradient of its own: the ring defines the backward.
+
 Dropout of the attention probabilities uses the same counter hash over
 ``(seed, b*H + h, q_pos, k_pos)`` as the JAX package, so a seed gives the
 same keep-mask, bit for bit, in the kernel, in the plain version and in
@@ -249,3 +256,56 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
     return _FlashAttention.apply(q, k, v, padding_mask, bool(causal),
                                  float(sm_scale), float(dropout_rate), seed,
                                  kernel)
+
+
+def _reference_attention_with_lse(q, k, v, causal, sm_scale, shift=None):
+    """Plain ``(o, lse)`` attention.  ``shift`` generalizes the causal
+    offset: q row r attends to k col c iff ``r + shift >= c``; the static
+    end-aligned case is ``shift = Tk - Tq`` (the default), and ring
+    attention passes a per-block shift (an int or a 0-d tensor).  Scores,
+    P and the sums in f32; o in q's dtype, lse ``(B, H, Tq)`` f32 with
+    ``-1e30`` for a row that sees no key.  Line for line the JAX
+    package's: the ``_NEG_INF/2`` mask threshold and the ``1e-37`` clamp."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if causal:
+        Tq, Tk = s.shape[-2], s.shape[-1]
+        if shift is None:
+            shift = Tk - Tq
+        r = torch.arange(Tq, device=s.device)[:, None]
+        c = torch.arange(Tk, device=s.device)[None, :]
+        s = torch.where(r + shift >= c, s, _NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(s <= _NEG_INF / 2, 0.0, torch.exp(s - m[..., None]))
+    l = p.sum(dim=-1)
+    o = torch.matmul(p, v.float()) / l.clamp_min(1e-37)[..., None]
+    lse = torch.where(l > 0.0, m + torch.log(l.clamp_min(1e-37)), _NEG_INF)
+    return o.to(q.dtype), lse
+
+
+def flash_forward_with_lse(q, k, v, causal: bool = False,
+                           sm_scale: Optional[float] = None,
+                           backend: Optional[str] = None):
+    """Attention forward that also returns the per-row log-sum-exp:
+    ``(o, lse)`` with o ``(B, H, Tq, D)`` in q's dtype and lse ``(B, H,
+    Tq)`` f32 (``-1e30`` for a row that sees no key), causal end-aligned.
+
+    ``backend``: None launches the kernel for CUDA tensors and runs the
+    plain version for CPU tensors; ``"cuda"`` demands the kernel;
+    ``"plain"`` runs ``_reference_attention_with_lse`` on any device.  A
+    CUDA tensor never falls back: an unsupported shape or dtype, a failed
+    build or a failed launch raises.  Any Tq and Tk (the TPU kernel's
+    tiling rule, and the fallback it forced, do not apply).  No gradient.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dev = q.device.type
+    if backend == "plain" or (backend is None and dev == "cpu"):
+        return _reference_attention_with_lse(q, k, v, causal, sm_scale)
+    if dev != "cuda":
+        raise ValueError(f"the flash_fwd_lse kernel needs CUDA tensors; "
+                         f"got {q.device} (backend={backend!r})")
+    return _kernels.flash_fwd_lse(q, k, v, causal=causal,
+                                  sm_scale=sm_scale)

@@ -1,8 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a), behind a plain C interface
 // that analytics_zoo_tpu_torch/ops/_kernels.py loads with ctypes.
 //
-// Replaces: analytics_zoo_tpu/ops/attention.py::_flash_kernel, launched by
-// _flash_forward (the Pallas TPU kernel).  Same function: online softmax
+// Replaces two Pallas TPU kernels of analytics_zoo_tpu/ops/attention.py:
+// - _flash_kernel, launched by _flash_forward: entry point zoo_flash_fwd;
+// - _flash_kernel_lse, launched by flash_forward_with_lse (the block that
+//   ring attention merges shards with): entry point zoo_flash_fwd_lse, the
+//   same kernel with no mask and no dropout that also writes each row's
+//   log-sum-exp m + log(l), or -1e30 for a row that sees no key (so the
+//   ring's exp(lse_acc - lse_new) never meets -inf - -inf).
+// Same function: online softmax
 // with f32 running max / sum / accumulator over K tiles, an optional (B, Tk)
 // padding mask, the end-aligned causal mask (row i sees key j iff
 // j <= i + Tk - Tq, tiles wholly above the diagonal skipped), in-kernel
@@ -12,7 +18,8 @@
 //
 // What bounds it on an H100: at BERT's shapes (Tq = Tk = 128, D = 64) the
 // work is 4*Tq*Tk*D flops against 4*T*D elements moved per head, about 32
-// flops per byte in f32: above the f32 SIMT ridge (67 TFLOP/s over
+// flops per byte in f32 (at the ring's 4096-row blocks, about 1000): above
+// the f32 SIMT ridge (67 TFLOP/s over
 // 3.35 TB/s is 20), so the bound is arithmetic.  This first version runs the
 // products on the SIMT f32 pipes (no tensor cores), so in practice it is
 // bound by shared-memory loads feeding those FMAs.
@@ -50,6 +57,7 @@ struct Params {
   const void* v;
   const int32_t* mask;  // (B, Tk), 0 = padded key; null when no mask
   void* o;
+  float* lse;           // (B, H, Tq) contiguous; null when not asked for
   int64_t q_sb, q_sh, q_st;
   int64_t k_sb, k_sh, k_st;
   int64_t v_sb, v_sh, v_st;
@@ -200,6 +208,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
         og[row * p.o_st + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
+      // m is the max of the scaled scores, so lse is in their units
+      if (p.lse != nullptr && lane == 0)
+        p.lse[static_cast<int64_t>(bh) * p.Tq + row] =
+            l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
     }
   }
 }
@@ -246,6 +258,7 @@ extern "C" int zoo_flash_fwd(
   p.q = q; p.k = k; p.v = v;
   p.mask = static_cast<const int32_t*>(mask);
   p.o = o;
+  p.lse = nullptr;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
@@ -256,6 +269,39 @@ extern "C" int zoo_flash_fwd(
   p.thresh = thresh;
   p.keep_scale = keep_scale;
   p.seed = static_cast<uint32_t>(seed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_d<float>(D, p, s);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, s);
+  return -1;
+}
+
+// The forward of flash_forward_with_lse: no mask, no dropout, and each row's
+// log-sum-exp written to `lse`, a contiguous (B, H, Tq) f32 buffer.  Same
+// return codes, dtypes and strides as zoo_flash_fwd.
+extern "C" int zoo_flash_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    long long q_sb, long long q_sh, long long q_st,
+    long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st,
+    long long o_sb, long long o_sh, long long o_st,
+    int B, int H, int Tq, int Tk, int D, int dtype, float scale, int causal,
+    void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk < 0 || lse == nullptr) return -1;
+  Params p;
+  p.q = q; p.k = k; p.v = v;
+  p.mask = nullptr;
+  p.o = o;
+  p.lse = lse;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
+  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
+  p.scale = scale;
+  p.causal = causal;
+  p.thresh = 0;
+  p.keep_scale = 1.f;
+  p.seed = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(D, p, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, s);

@@ -60,12 +60,35 @@ Phases, each of which raises (exit code 1) on failure:
    against the dense forward; reported: tokens/s, TTFT, inter-token
    latency, occupancy, the decode step at 32 live slots and profiler
    breakdowns of a decode step and a prefill chunk.
+8. ring: ``flash_fwd_lse`` against its plain version on the card at the
+   block shapes of sequence-parallel ring attention at GPT-2-small /
+   BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
+   so 4,096-row blocks): a full block, the diagonal causal block,
+   end-aligned causal with Tq < Tk, a ragged T and D 32 / 128, f32 and
+   bf16, output and log-sum-exp; its time beside the plain version's, the
+   bound and ``scaled_dot_product_attention`` (a yardstick the port never
+   calls, which returns no log-sum-exp).  Then ``ring_attention`` over
+   ``Mesh(["cuda:0"] * 4, ("sequence",))``, forward and backward through
+   its ``autograd.Function``, f32 and bf16, causal and not: exactly 10 /
+   16 kernel launches per causal / full forward; output, lse and
+   gradients against the ring with plain blocks at T=16,384, and against
+   dense plain attention and its autograd gradients at T=4,096; forward
+   and forward+backward times and a profiler breakdown of one forward.
 
 It prints one JSON line of kernel numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --ring-cards 4     # on a host with 4 cards
+
+builds the kernels and runs only ring attention at the ring phase's shapes
+with one shard on each of the first N cards (the rotation a peer copy),
+against the same ring as N shards of ``cuda:0``: outputs and gradients
+compared, forward and forward+backward host times of both (every card
+synchronised), in turns.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -105,17 +128,23 @@ CHUNK = dict(Tc=256, start=512)                # one prefill chunk
 # served token's logit within this of the best logit at its position
 TEACHER_ATOL = 1e-3
 DECODE_ATOL = 1e-3            # one decode step's logits vs the dense ones
+# sequence-parallel ring attention at GPT-2-small / BERT-base attention
+# width: a context long enough to need the split, over four shards
+RING = dict(B=2, H=12, T=16384, D=64, sp=4)
+RING_DENSE_T = 4096           # the ring against dense attention
+LSE_RTOL = 1e-5               # lse (f32 in both versions): x max(1, |lse|)
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
+def card_line(every=False) -> str:
+    lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+        timeout=60, check=True).stdout.strip().splitlines()
+    return "\n".join(lines) if every else lines[0]
 
 
 def cuda_ms(fn, iters=50, warmup=5) -> float:
@@ -130,6 +159,22 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn, cards, iters) -> float:
+    """Host time per call of ``fn`` after one warm-up, with the first
+    ``cards`` devices synchronised (CUDA events on one device would miss
+    the others' work)."""
+    def sync():
+        for dev in range(cards):
+            torch.cuda.synchronize(dev)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def device_ms(fn, iters=20, warmup=3) -> float:
@@ -675,17 +720,25 @@ def _chunk_case(dtype, Hkv, start, n, gen, Tc, H, D, bs, nb):
     return q, kp, vp, table.to("cuda")
 
 
-def _check_close(name, what, out, ref, dtype):
+def _max_err(what, out, ref, dtype):
+    """Max abs error of ``out`` against ``ref``; raises when an element is
+    out of ``TOL[dtype]`` or ``out`` is not finite."""
     atol, rtol = TOL[dtype]
     diff = (out.float() - ref.float()).abs()
-    err = diff.max().item()
     bad = (diff > atol + rtol * ref.float().abs()).sum().item()
-    log(f"[paged] {name} {str(dtype)[6:]:8s} {what:34s} max_abs_err="
-        f"{err:.3e} tol=atol {atol:g} + rtol {rtol:g} -> "
-        f"{'ok' if not bad else f'{bad} elements out'}")
     if bad or not torch.isfinite(out).all():
-        raise AssertionError(f"{name} disagrees with its plain version: "
-                             f"{dtype} {what}")
+        raise AssertionError(f"{what}: {bad} elements out of tolerance "
+                             f"(atol {atol:g} + rtol {rtol:g}), max_abs_err "
+                             f"{diff.max().item():.3e}")
+    return diff.max().item()
+
+
+def _check_close(name, what, out, ref, dtype):
+    err = _max_err(f"{name} {dtype} {what} vs its plain version", out, ref,
+                   dtype)
+    atol, rtol = TOL[dtype]
+    log(f"[paged] {name} {str(dtype)[6:]:8s} {what:34s} max_abs_err="
+        f"{err:.3e} tol=atol {atol:g} + rtol {rtol:g} -> ok")
     return err
 
 
@@ -1021,6 +1074,267 @@ def phase_llm(n_requests=64, new_tokens=32):
                           chunk_prof=chunk_prof, calls=n_calls)
 
 
+def _check_lse(what, lse, ref):
+    """lse within LSE_RTOL * max(1, |ref|); rows that see no key exactly
+    -1e30 in both."""
+    bad = ((lse - ref).abs() > LSE_RTOL * ref.abs().clamp_min(1.0)).sum()
+    empty = ref == -1e30
+    if bad.item() or not torch.equal(lse[empty], ref[empty]) \
+            or not torch.isfinite(lse).all():
+        raise AssertionError(f"{what}: lse disagrees with its plain version "
+                             f"({bad.item()} rows out of tolerance)")
+    return (lse - ref).abs().max().item()
+
+
+def _ring_fwd_bwd(fn, q, k, v, go):
+    """(o, (dq, dk, dv)) of ``fn`` through autograd."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, go)
+
+
+def _check_grads(what, got, want, dtype):
+    atol, rtol = BWD_TOL[dtype]
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = max(1.0, b.float().abs().max().item()) \
+            if dtype == torch.float32 else 1.0
+        diff = (a.float() - b.float()).abs()
+        bad = (diff > atol * scale + rtol * b.float().abs()).sum().item()
+        if bad or not torch.isfinite(a).all():
+            raise AssertionError(f"{what} {name}: {bad} elements out of "
+                                 f"tolerance, max_abs_err "
+                                 f"{diff.max().item():.3e}")
+        worst = max(worst, diff.max().item())
+    return worst
+
+
+def phase_ring():
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.ops.attention import (
+        _reference_attention, flash_forward_with_lse)
+    from analytics_zoo_tpu_torch.parallel import Mesh, ring_attention
+    from analytics_zoo_tpu_torch.parallel import ring as ring_mod
+    F = torch.nn.functional
+    B, H, T, D, sp = (RING[k] for k in ("B", "H", "T", "D", "sp"))
+    T_loc = T // sp
+    gen = torch.Generator().manual_seed(SEED + 3)
+
+    # 1. the kernel against its plain version at the ring's block shapes
+    cases = {
+        f"full block T{T_loc} D{D}": dict(Tq=T_loc, Tk=T_loc),
+        f"diagonal causal T{T_loc} D{D}": dict(Tq=T_loc, Tk=T_loc,
+                                               causal=True),
+        f"causal Tq=1000 < Tk={T_loc}": dict(Tq=1000, Tk=T_loc,
+                                             causal=True),
+        "causal Tq=1000 > Tk=700 D32": dict(Tq=1000, Tk=700, D=32,
+                                            causal=True),
+        "ragged T=1000 D128": dict(Tq=1000, Tk=1000, D=128),
+    }
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = TOL[dtype]
+        for name, case in cases.items():
+            q, k, v = _attention_inputs(dtype, B, H, case["Tq"], case["Tk"],
+                                        case.get("D", D), gen)
+            causal = case.get("causal", False)
+            o, lse = flash_forward_with_lse(q, k, v, causal=causal)
+            ro, rlse = flash_forward_with_lse(q, k, v, causal=causal,
+                                              backend="plain")
+            torch.cuda.synchronize()
+            what = f"flash_fwd_lse {dtype} {name} vs its plain version"
+            err = _max_err(what, o, ro, dtype)
+            lse_err = _check_lse(what, lse, rlse)
+            log(f"[ring] flash_fwd_lse {str(dtype)[6:]:8s} {name:30s} "
+                f"o max_abs_err={err:.3e} (tol atol {atol:g} + rtol "
+                f"{rtol:g}), lse max_abs_err={lse_err:.3e} (tol "
+                f"{LSE_RTOL:g} x max(1, |lse|)) -> ok")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            del q, k, v, o, lse, ro, rlse
+
+    # 2. times of one full ring block (the bound counts its full
+    # T_loc x T_loc per head) and of the diagonal causal block
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        q, k, v = _attention_inputs(dtype, B, H, T_loc, T_loc, D, gen)
+        ms = cuda_ms(lambda: flash_forward_with_lse(q, k, v), iters=10,
+                     warmup=2)
+        diag_ms = cuda_ms(lambda: flash_forward_with_lse(q, k, v,
+                                                         causal=True),
+                          iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: flash_forward_with_lse(
+            q, k, v, backend="plain"), iters=5, warmup=1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                         iters=10, warmup=2)
+        nbytes = 4 * B * H * T_loc * D * es + B * H * T_loc * 4
+        bound, by, t_bytes, t_ops = _bound(nbytes,
+                                           4 * B * H * T_loc * T_loc * D,
+                                           dtype)
+        rows[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound, bound_by=by,
+                           max_abs_err=errs[dtype], diag_causal_ms=diag_ms)
+        log(f"[ring] flash_fwd_lse {str(dtype)[6:]:8s} B{B} H{H} "
+            f"T{T_loc} D{D}: kernel {ms:.4f} ms (diagonal causal block "
+            f"{diag_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f}"
+            f" ms (no lse), bound {bound:.4f} ms ({by}; bytes "
+            f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+        del q, k, v
+
+    # 3. the main path: the ring through its autograd.Function on four
+    # shards of one card, forward and backward, its launches counted from
+    # zero; then each run against the ring with plain blocks
+    mesh = Mesh(["cuda:0"] * sp, ("sequence",))
+    configs = [(dtype, causal) for dtype in (torch.float32, torch.bfloat16)
+               for causal in (False, True)]
+    per_fwd = lambda causal: sp * (sp + 1) // 2 if causal else sp * sp
+    inputs = {c: _bwd_inputs(c[0], B, H, T, T, D, gen)[:4]
+              for c in configs}
+    runs, counted = {}, {}
+    _kernels.reset_launches()
+    for dtype, causal in configs:
+        before = _kernels.flash_fwd_lse.launches
+        runs[dtype, causal] = _ring_fwd_bwd(
+            lambda *t: ring_attention(*t, mesh, causal=causal),
+            *inputs[dtype, causal])
+        counted[dtype, causal] = _kernels.flash_fwd_lse.launches - before
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in _kernels.KERNELS.items()}
+    want = dict.fromkeys(_kernels.KERNELS, 0)
+    want["flash_fwd_lse"] = sum(per_fwd(c) for _, c in configs)
+    log(f"[ring] main path: ring_attention forward + backward, f32 and bf16,"
+        f" full and causal, B{B} H{H} T{T} D{D} over {sp} shards of cuda:0:"
+        f" launches {launches}")
+    if launches != want or any(counted[c] != per_fwd(c[1])
+                               for c in configs):
+        raise AssertionError(f"expected {want} launches ({per_fwd(False)} "
+                             f"per full and {per_fwd(True)} per causal "
+                             f"forward), got {launches}, per run {counted}")
+
+    for dtype, causal in configs:
+        what = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+        q, k, v, go = inputs[dtype, causal]
+        o, grads = runs.pop((dtype, causal))
+        ref_o, ref_grads = _ring_fwd_bwd(
+            lambda *t: ring_attention(*t, mesh, causal=causal,
+                                      impl="plain"), q, k, v, go)
+        torch.cuda.synchronize()
+        err = _max_err(f"ring {what} T{T} output vs plain blocks", o,
+                       ref_o, dtype)
+        g_err = _check_grads(f"ring {what} T{T}", grads, ref_grads, dtype)
+        del o, grads, ref_o, ref_grads
+        layout = ring_mod._Layout(mesh, "sequence", None, B, T)
+        with torch.no_grad():
+            _, lse = ring_mod._forward(q, k, v, layout, D ** -0.5, causal,
+                                       "cuda")
+            _, ref_lse = ring_mod._forward(q, k, v, layout, D ** -0.5,
+                                           causal, "plain")
+        lse_err = _check_lse(f"ring {what} T{T}", lse, ref_lse)
+        del lse, ref_lse
+        log(f"[ring] ring_attention {what:13s} T{T}: {counted[dtype, causal]}"
+            f" launches per forward; vs the ring with plain blocks: o "
+            f"max_abs_err {err:.3e}, lse {lse_err:.3e}, dq/dk/dv "
+            f"{g_err:.3e} -> ok")
+
+        fwd = lambda: ring_attention(q, k, v, mesh, causal=causal)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(fwd, iters=3, warmup=1)
+        fwd_bwd_ms = cuda_ms(lambda: _ring_fwd_bwd(
+            lambda *t: ring_attention(*t, mesh, causal=causal), q, k, v,
+            go), iters=2, warmup=1)
+        log(f"[ring] ring_attention {what:13s} B{B} H{H} T{T} D{D}: "
+            f"forward {fwd_ms:.3f} ms, forward+backward {fwd_bwd_ms:.3f} ms")
+        if dtype == torch.float32 and causal:
+            with torch.no_grad():
+                profile_breakdown(fwd, f"one causal f32 ring forward, "
+                                       f"T{T} over {sp} shards", top=8)
+        del q, k, v, go
+        inputs.pop((dtype, causal))
+
+    # 4. against dense plain attention and its autograd gradients
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            what = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+            q, k, v, go, _ = _bwd_inputs(dtype, B, H, RING_DENSE_T,
+                                         RING_DENSE_T, D, gen)
+            o, grads = _ring_fwd_bwd(
+                lambda *t: ring_attention(*t, mesh, causal=causal),
+                q, k, v, go)
+            ref_o, ref_grads = _ring_fwd_bwd(
+                lambda *t: _reference_attention(*t, causal=causal),
+                q, k, v, go)
+            torch.cuda.synchronize()
+            err = _max_err(f"ring {what} T{RING_DENSE_T} vs dense", o,
+                           ref_o, dtype)
+            g_err = _check_grads(f"ring {what} T{RING_DENSE_T} vs dense",
+                                 grads, ref_grads, dtype)
+            log(f"[ring] ring_attention {what:13s} T{RING_DENSE_T} vs dense "
+                f"plain attention: o max_abs_err {err:.3e}, autograd "
+                f"dq/dk/dv max_abs_err {g_err:.3e} -> ok")
+            del q, k, v, go, o, grads, ref_o, ref_grads
+    return launches, rows
+
+
+def phase_ring_cards(n):
+    """The ring over n cards, one shard each, against the same ring as n
+    shards of cuda:0; returns {case: {mesh: (fwd ms, fwd+bwd ms)}}."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.parallel import Mesh, ring_attention
+    B, H, T, D = (RING[k] for k in ("B", "H", "T", "D"))
+    gen = torch.Generator().manual_seed(SEED + 4)
+    meshes = {"1 card": Mesh(["cuda:0"] * n, ("sequence",)),
+              f"{n} cards": Mesh([f"cuda:{i}" for i in range(n)],
+                                 ("sequence",))}
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            what = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+            q, k, v, go, _ = _bwd_inputs(dtype, B, H, T, T, D, gen)
+            runs = {}
+            for name, mesh in meshes.items():
+                before = _kernels.flash_fwd_lse.launches
+                runs[name] = _ring_fwd_bwd(
+                    lambda *t: ring_attention(*t, mesh, causal=causal),
+                    q, k, v, go)
+                n_launch = _kernels.flash_fwd_lse.launches - before
+                if n_launch != (n * (n + 1) // 2 if causal else n * n):
+                    raise AssertionError(f"ring {what} on {name}: "
+                                         f"{n_launch} launches")
+            for dev in range(n):
+                torch.cuda.synchronize(dev)
+            (o1, g1), (on, gn) = runs.values()
+            err = _max_err(f"ring {what}: {n} cards vs 1 card", on, o1,
+                           dtype)
+            g_err = _check_grads(f"ring {what}: {n} cards vs 1 card", gn,
+                                 g1, dtype)
+            del runs, o1, g1, on, gn
+
+            def timed(mesh):
+                with torch.no_grad():
+                    fwd_ms = wall_ms(lambda: ring_attention(
+                        q, k, v, mesh, causal=causal), n, iters=3)
+                both_ms = wall_ms(lambda: _ring_fwd_bwd(
+                    lambda *t: ring_attention(*t, mesh, causal=causal),
+                    q, k, v, go), n, iters=2)
+                return fwd_ms, both_ms
+            names = list(meshes)
+            order = names + names[::-1]             # 1, n, n, 1 cards
+            got = {name: [] for name in names}
+            for name in order:
+                got[name].append(timed(meshes[name]))
+            times[what] = {name: tuple(float(np.mean(c)) for c in
+                                       zip(*got[name])) for name in names}
+            log(f"[ring-cards] {what:13s} B{B} H{H} T{T} D{D}: {n} cards "
+                f"vs 1 card: o max_abs_err {err:.3e}, dq/dk/dv "
+                f"{g_err:.3e} -> ok; " + "; ".join(
+                    f"{name}: forward {' / '.join(f'{f:.3f}' for f, _ in ts)}"
+                    f" ms, forward+backward "
+                    f"{' / '.join(f'{b:.3f}' for _, b in ts)} ms"
+                    for name, ts in got.items()))
+            del q, k, v, go
+    return times
+
+
 def profile_breakdown(fn, what, top=8):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the call's wall time; returns (wall ms,
@@ -1051,6 +1365,10 @@ def profile_breakdown(fn, what, top=8):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ring-cards", type=int, default=0, metavar="N",
+                        help="run only ring attention over N cards")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
               file=sys.stderr)
@@ -1069,12 +1387,21 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     phase_build()
+    if args.ring_cards:
+        if torch.cuda.device_count() < args.ring_cards:
+            raise SystemExit(f"chip_smoke: --ring-cards {args.ring_cards} "
+                             f"needs as many cards, found "
+                             f"{torch.cuda.device_count()}")
+        times = phase_ring_cards(args.ring_cards)
+        print(json.dumps({"ring_cards": times}), flush=True)
+        return _finish(card_line(every=True))
     rows = phase_kernels()
     serve_launches = phase_serve()
     bwd_rows = phase_backward()
     train_launches, _ = phase_train()
     paged_rows = phase_paged()
     llm_launches, llm = phase_llm()
+    ring_launches, ring_rows = phase_ring()
 
     def entry(name, source, replaces, rows, launches,
               shape="B32 H12 T128 D64 float32", **extra):
@@ -1113,8 +1440,24 @@ def main() -> int:
               launches_in=f"the 64-request burst "
                           f"({llm['calls']['prefill_chunk']} prefill chunks)",
               library=paged_lib),
+        entry("flash_fwd_lse", csrc + "flash_fwd.cu",
+              "analytics_zoo_tpu/ops/attention.py:307", ring_rows,
+              ring_launches["flash_fwd_lse"],
+              shape=f"B{RING['B']} H{RING['H']} "
+                    f"T{RING['T'] // RING['sp']} D{RING['D']} float32 (one "
+                    f"full ring block)",
+              launches_in=f"4 ring_attention forwards + backwards at "
+                          f"T{RING['T']} over {RING['sp']} shards (f32 and "
+                          f"bf16, full and causal)",
+              library="scaled_dot_product_attention, which returns no "
+                      "log-sum-exp"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    return _finish(card)
+
+
+def _finish(card: str) -> int:
+    """The card line(s) and, last, the result line."""
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,8 @@ setup(
     package_data={"analytics_zoo_tpu.native": ["*.cpp"],
                   # the PyTorch / CUDA port builds its kernels from source
                   # with nvcc at first use
-                  "analytics_zoo_tpu_torch.ops": ["csrc/*.cu"]},
+                  "analytics_zoo_tpu_torch.ops": ["csrc/*.cu",
+                                                 "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

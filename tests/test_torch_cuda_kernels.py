@@ -8,7 +8,11 @@ absolute plus 2**-7 relative (two bf16 ulps of the output).  Backward:
 f32 1e-4 * max(1, max|ref|) (summation order through five products),
 bf16 2e-2 absolute plus 2**-6 relative (Z and dS are rounded to bf16
 before their products, at places the two versions order differently).
-The paged decode and chunk kernels take the forward's tolerances.
+The paged decode and chunk kernels take the forward's tolerances, and so
+does ``flash_fwd_lse`` for its output; its log-sum-exp, f32 in both
+versions, is held to 1e-5 * max(1, |lse|).  Ring attention on four shards
+of one card: the output against the ring with plain blocks to 2e-5, the
+gradients to 1e-4 * max(1, max|ref|).
 """
 
 import pytest
@@ -17,9 +21,10 @@ import torch
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.attention import (
     _hash_keep_mask, _reference_attention, _reference_attention_bwd,
-    flash_attention)
+    flash_attention, flash_forward_with_lse)
 from analytics_zoo_tpu_torch.ops.paged_attention import (
     paged_chunk_attention, paged_decode_attention)
+from analytics_zoo_tpu_torch.parallel import Mesh, ring_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +271,63 @@ def test_paged_kernels_refuse_what_they_do_not_take(dev):
         paged_decode_attention(q, pages, pages, lens, tables.long())
     with pytest.raises(ValueError, match="int32"):
         paged_chunk_attention(q, pages, pages, tables[0].long(), 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(B=2, H=12, Tq=256, Tk=256, D=64, causal=False),
+    dict(B=2, H=3, Tq=200, Tk=200, D=32, causal=True),
+    dict(B=1, H=4, Tq=100, Tk=300, D=128, causal=True),
+    dict(B=2, H=2, Tq=77, Tk=50, D=64, causal=True),
+], ids=["full", "diag_ragged_d32", "causal_tq_lt_tk_d128", "empty_rows"])
+def test_flash_fwd_lse_matches_plain(dev, dtype, case):
+    """Strided head views in; rows that see no key give o = 0 and lse
+    exactly -1e30 (finite, so the ring's merge never meets inf - inf)."""
+    B, H, Tq, Tk, D = (case[k] for k in ("B", "H", "Tq", "Tk", "D"))
+    g = torch.Generator().manual_seed(5)
+    mk = lambda T: torch.randn(B, T, H, D, generator=g).to(dev, dtype) \
+        .transpose(1, 2)
+    q, k, v = mk(Tq), mk(Tk), mk(Tk)
+    before = _kernels.flash_fwd_lse.launches
+    o, lse = flash_forward_with_lse(q, k, v, causal=case["causal"])
+    ro, rlse = flash_forward_with_lse(q, k, v, causal=case["causal"],
+                                      backend="plain")
+    torch.cuda.synchronize()
+    assert _kernels.flash_fwd_lse.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == (B, H, Tq) and lse.is_contiguous()
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=rtol)
+    assert torch.all((lse - rlse).abs() <= 1e-5 * rlse.abs().clamp_min(1.0))
+    empty = rlse == -1e30
+    assert empty.any() == (Tq > Tk)
+    assert torch.all(lse[empty] == -1e30) and torch.all(o[empty] == 0)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_ring_attention_on_four_shards_of_one_card(dev, causal):
+    """sp(sp+1)/2 kernel launches causal, sp^2 not; output and gradients
+    against the ring with plain blocks and against dense attention."""
+    mesh = Mesh([str(dev) + ":0"] * 4, ("sequence",))
+    B, H, T, D = 2, 3, 512, 64
+    g = torch.Generator().manual_seed(6)
+    q, k, v, go = (torch.randn(B, H, T, D, generator=g).to(dev)
+                   for _ in range(4))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, go)
+
+    before = _kernels.flash_fwd_lse.launches
+    o, grads = run(lambda *t: ring_attention(*t, mesh, causal=causal))
+    assert _kernels.flash_fwd_lse.launches - before == (10 if causal else 16)
+    for want_o, want_g in (
+            run(lambda *t: ring_attention(*t, mesh, causal=causal,
+                                          impl="plain")),
+            run(lambda *t: _reference_attention(*t, causal=causal))):
+        torch.testing.assert_close(o, want_o, atol=2e-5, rtol=0)
+        for name, a, b in zip("qkv", grads, want_g):
+            atol = 1e-4 * max(1.0, b.abs().max().item())
+            torch.testing.assert_close(a, b, atol=atol, rtol=0,
+                                       msg=f"d{name}")

@@ -45,7 +45,8 @@ def test_no_module_of_the_port_imports_jax():
                  "common.config", "common.context", "common.triggers",
                  "common.resilience", "ops.paged_attention",
                  "models.generation", "llm.kv_cache", "llm.prefix_cache",
-                 "llm.scheduler", "llm.engine", "llm.client"):
+                 "llm.scheduler", "llm.engine", "llm.client", "parallel",
+                 "parallel.mesh", "parallel.ring"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -71,9 +72,11 @@ def test_no_module_of_the_port_imports_jax():
     "    f(DecoderLM.tiny(device='cpu'))",
     "from analytics_zoo_tpu_torch.llm import PagedKVCache as f;"
     " f(1, 4, 4, 2, 8)",
+    "from analytics_zoo_tpu_torch.common.context import init_zoo_context"
+    " as f; f()",
 ], ids=["resolve_device", "InferenceModel", "BERTClassifier",
         "BERTClassifier.train", "Estimator", "DecoderLM", "LLMServing",
-        "PagedKVCache"])
+        "PagedKVCache", "init_zoo_context"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "
