@@ -22,6 +22,8 @@ import threading
 import time
 from typing import Dict, Optional
 
+from analytics_zoo_tpu_torch.common.unported import reject
+
 __all__ = ["AdmissionController", "Deadline", "DeadlineExceeded",
            "expired_counts", "record_expired"]
 
@@ -126,8 +128,11 @@ class AdmissionController:
             self._in_flight = max(0, self._in_flight - n)
             self._cond.notify_all()
 
-    def shed(self, n: int = 1, scope: Optional[str] = None) -> None:
-        """Account an explicit rejection of ``n`` units."""
+    def shed(self, n: int = 1, scope: Optional[str] = None,
+             trace_id: Optional[int] = None) -> None:
+        """Account an explicit rejection of ``n`` units (``trace_id``, the
+        trace event's, is not ported yet and raises)."""
+        reject("AdmissionController.shed", 6, trace_id=trace_id)
         with self._cond:
             self._shed += n
 
@@ -137,7 +142,10 @@ _expired_lock = threading.Lock()
 expired_counts: Dict[str, int] = {}
 
 
-def record_expired(n: int = 1, scope: str = "serving") -> None:
-    """Account ``n`` work units dropped for an expired deadline."""
+def record_expired(n: int = 1, scope: str = "serving",
+                   trace_id: Optional[int] = None) -> None:
+    """Account ``n`` work units dropped for an expired deadline
+    (``trace_id``, the trace event's, is not ported yet and raises)."""
+    reject("record_expired", 6, trace_id=trace_id)
     with _expired_lock:
         expired_counts[scope] = expired_counts.get(scope, 0) + n

@@ -19,6 +19,7 @@ class TriggerState:
     iteration: int = 0         # global step count
     epoch_finished: bool = False
     loss: Optional[float] = None   # the epoch's mean loss, at epoch end
+    score: Optional[float] = None  # the epoch's first validation score
 
 
 class Trigger:
@@ -37,3 +38,13 @@ class MaxIteration(Trigger):
 
     def __call__(self, s: TriggerState) -> bool:
         return s.iteration >= self.max_iteration
+
+
+class MaxScore(Trigger):
+    """Stop when the validation score exceeds ``max_score``."""
+
+    def __init__(self, max_score: float):
+        self.max_score = max_score
+
+    def __call__(self, s: TriggerState) -> bool:
+        return s.score is not None and s.score > self.max_score

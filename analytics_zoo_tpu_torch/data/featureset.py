@@ -57,11 +57,13 @@ class FeatureSet:
     """An in-memory dataset of (features, labels) trees."""
 
     def __init__(self, features: Tree, labels: Optional[Tree] = None,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, sequential_order: bool = False,
+                 seed: int = 0):
         self.features = tree_map(np.asarray, features)
         self.labels = None if labels is None else tree_map(np.asarray,
                                                             labels)
-        self.shuffle = shuffle
+        # sequential_order keeps the records' order in every epoch
+        self.shuffle = shuffle and not sequential_order
         self.seed = seed
         self._n = _tree_len(self.features)
         if self.labels is not None and _tree_len(self.labels) != self._n:

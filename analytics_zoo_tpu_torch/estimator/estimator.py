@@ -21,8 +21,11 @@ derives its per-layer seeds from that as the JAX layers do.
 Not ported (each raises ``NotImplementedError`` naming ROADMAP):
 ``steps_per_dispatch > 1`` (its counterpart on the card is a CUDA graph),
 ``grad_accum_steps > 1``, the sharded update and tensor parallelism,
-``remat``, ``grad_dtype``, checkpoints, TensorBoard, validation during
-training and ``resume``.
+``remat``, ``grad_dtype``, checkpoints, TensorBoard and ``resume``.
+Validation during training runs ``evaluate`` at the epoch ends
+``validation_trigger`` picks (default every epoch), as the JAX estimator
+does: the history gains ``val_<name>`` entries and the trigger state's
+``score`` is the first of them.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from torch.func import functional_call
 
 from analytics_zoo_tpu_torch.common.config import ZooConfig
 from analytics_zoo_tpu_torch.common.context import resolve_device
-from analytics_zoo_tpu_torch.common.triggers import Trigger, TriggerState
+from analytics_zoo_tpu_torch.common.triggers import (EveryEpoch, Trigger,
+                                                     TriggerState)
 from analytics_zoo_tpu_torch.data.featureset import tree_map
 from analytics_zoo_tpu_torch.keras import losses as losses_mod
 from analytics_zoo_tpu_torch.keras import metrics as metrics_mod
@@ -144,11 +148,9 @@ class Estimator:
         call continues the global step and the optimizer state.
         ``variables`` loads ``(params, state)`` in the JAX layout first.
         Returns ``history``: one ``{epoch, loss, seconds}`` per finished
-        epoch."""
+        epoch, with ``val_<name>`` where it was validated."""
         if self.optimizer is None or self.loss is None:
             raise RuntimeError("Estimator needs optimizer and loss to train")
-        if validation_data is not None or validation_trigger is not None:
-            raise _unported("validation during training")
         if resume:
             raise _unported("resume")
         if variables is not None:
@@ -156,10 +158,12 @@ class Estimator:
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(self._params())
         base = as_seed(seed) if seed is not None else 0
+        validation_trigger = validation_trigger or EveryEpoch()
         self.model.train()
         try:
             for epoch in range(epochs):
                 if self._run_epoch(featureset, batch_size, epoch, base,
+                                   validation_data, validation_trigger,
                                    end_trigger):
                     break
         finally:
@@ -167,7 +171,7 @@ class Estimator:
         return self.history
 
     def _run_epoch(self, featureset, batch_size, epoch, base,
-                   end_trigger) -> bool:
+                   validation_data, validation_trigger, end_trigger) -> bool:
         """Returns True when the end trigger fired."""
         losses = []
         t_epoch = time.perf_counter()
@@ -182,10 +186,16 @@ class Estimator:
         # one host read per epoch: the mean of its step losses
         mean_loss = (float(torch.stack(losses).mean()) if losses
                      else float("nan"))
-        self.history.append({"epoch": epoch + 1, "loss": mean_loss,
-                             "seconds": time.perf_counter() - t_epoch})
+        entry = {"epoch": epoch + 1, "loss": mean_loss,
+                 "seconds": time.perf_counter() - t_epoch}
         ts = TriggerState(epoch=epoch + 1, iteration=self.global_step,
                           epoch_finished=True, loss=mean_loss)
+        if validation_data is not None and validation_trigger(ts):
+            scores = self.evaluate(validation_data, batch_size)
+            self.model.train()
+            entry.update({f"val_{k}": v for k, v in scores.items()})
+            ts.score = next(iter(scores.values()), None)
+        self.history.append(entry)
         return bool(end_trigger is not None and end_trigger(ts))
 
     # ----------------------------------------------------------- eval/infer

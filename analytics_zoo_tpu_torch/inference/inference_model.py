@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
+from analytics_zoo_tpu_torch.common.unported import reject
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.inference")
 
@@ -138,11 +139,14 @@ class InferenceModel:
         reference's model-queue ``doPredict``."""
         return self.fetch(self.predict_async(x, pad_to_bucket))
 
-    def predict_async(self, x, pad_to_bucket: bool = True):
+    def predict_async(self, x, pad_to_bucket: bool = True,
+                      reserved: bool = False):
         """Launch without waiting for the device; returns a handle for
         ``fetch``.  The slot is held only across the launch, and at most
         2x ``supported_concurrent_num`` handles are outstanding (blocks
-        here beyond that)."""
+        here beyond that).  ``reserved=True`` (a multi-model engine's
+        reserved slot) is not ported yet and raises."""
+        reject("InferenceModel.predict_async", 1, reserved=reserved or None)
         if self.model is None:
             raise RuntimeError("no model loaded")
         x = _tree_map(np.asarray, x)

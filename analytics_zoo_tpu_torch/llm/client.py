@@ -19,6 +19,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from analytics_zoo_tpu_torch.common.resilience import Deadline
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.llm.engine import token_stream_name
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.client import (
@@ -37,7 +38,11 @@ class GenerationClient:
 
     def submit(self, uri: str, tokens, max_new_tokens: Optional[int] = None,
                priority: int = 0, deadline_s: Optional[float] = None,
-               deadline: Optional[Deadline] = None) -> str:
+               deadline: Optional[Deadline] = None,
+               trace_ctx: Optional[str] = None) -> str:
+        """Queue a generation request; ``trace_ctx`` is not ported yet and
+        raises ``NotImplementedError``."""
+        reject("GenerationClient.submit", 6, trace_ctx=trace_ctx)
         items = {"tokens": np.asarray(tokens, np.int32).reshape(-1)}
         if max_new_tokens is not None:
             items["max_new_tokens"] = np.asarray(max_new_tokens, np.int32)

@@ -175,15 +175,38 @@ def _check(kernel: str, q, k, v, padding_mask) -> None:
                          f"{padding_mask.device}")
 
 
+def tma_aligned(shape, strides, element_size: int, data_ptr: int) -> bool:
+    """Whether a ``(B, H, T, D)`` view can be read by TMA and 16-byte
+    ``cp.async`` as it lies: unit last stride, a 16-byte aligned base, and
+    every other stride of a dimension longer than 1 a positive multiple of
+    16 bytes (a dimension of extent 1 is never stepped over)."""
+    if strides[-1] != 1 or data_ptr % 16:
+        return False
+    return all(n == 1 or (s > 0 and s * element_size % 16 == 0)
+               for n, s in zip(shape[:-1], strides[:-1]))
+
+
 class _Wrapper:
     """A kernel's wrapper: ``launches`` counts the launches that returned
-    no error (what a run reads to show a path went through the kernel)."""
+    no error (what a run reads to show a path went through the kernel);
+    ``copies`` counts the inputs it had to copy before a launch because
+    the kernel cannot read them in place."""
 
     name = ""
 
     def __init__(self):
         self.launches = 0
+        self.copies = 0
         self._count_lock = threading.Lock()
+
+    def _readable(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` itself when ``tma_aligned``, else a packed copy of it,
+        counted in ``copies``."""
+        if tma_aligned(t.shape, t.stride(), t.element_size(), t.data_ptr()):
+            return t
+        with self._count_lock:
+            self.copies += 1
+        return t.clone(memory_format=torch.contiguous_format)
 
     def _launched(self, lib: ctypes.CDLL, rc: int) -> None:
         if rc != 0:
@@ -196,7 +219,8 @@ class _Wrapper:
 class FlashForward(_Wrapper):
     """Wrapper of ``zoo_flash_fwd`` (``csrc/flash_fwd.cu``): attention
     forward over q ``(B, H, Tq, D)``, k / v ``(B, H, Tk, D)`` CUDA tensors,
-    any (batch, head, seq) strides with a unit last stride.  Returns the
+    read in place where ``tma_aligned`` (so the head views of a fused QKV
+    projection), else copied first and counted in ``copies``.  Returns the
     output as a ``(B, H, Tq, D)`` view of a ``(B, Tq, H, D)`` buffer, so
     merging the heads back afterwards is free."""
 
@@ -208,10 +232,11 @@ class FlashForward(_Wrapper):
         _check(self.name, q, k, v, padding_mask)
         B, H, Tq, D = q.shape
         Tk = k.shape[2]
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (q, k, v))
-        mask = (None if padding_mask is None
-                else (padding_mask != 0).to(torch.int32).contiguous())
+        q, k, v = (self._readable(t) for t in (q, k, v))
+        mask = padding_mask
+        if mask is not None and (mask.dtype != torch.int32
+                                 or not mask.is_contiguous()):
+            mask = (mask != 0).to(torch.int32).contiguous()  # nonzero: valid
         out = torch.empty((B, Tq, H, D), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
         lib = _lib("flash_fwd.cu")
@@ -231,8 +256,9 @@ class FlashForward(_Wrapper):
 class FlashForwardLse(_Wrapper):
     """Wrapper of ``zoo_flash_fwd_lse`` (``csrc/flash_fwd.cu``): attention
     forward with no mask and no dropout over q ``(B, H, Tq, D)``, k / v
-    ``(B, H, Tk, D)`` CUDA tensors (any (batch, head, seq) strides with a
-    unit last stride), end-aligned when ``causal``.  Returns ``(o, lse)``:
+    ``(B, H, Tk, D)`` CUDA tensors (read in place where ``tma_aligned``,
+    else copied and counted, as ``FlashForward``), end-aligned when
+    ``causal``.  Returns ``(o, lse)``:
     o a contiguous ``(B, H, Tq, D)`` tensor in q's dtype, lse a contiguous
     ``(B, H, Tq)`` f32 tensor of each row's log-sum-exp of the scaled
     scores (``-1e30`` for a row that sees no key)."""
@@ -243,8 +269,7 @@ class FlashForwardLse(_Wrapper):
         _check(self.name, q, k, v, None)
         B, H, Tq, D = q.shape
         Tk = k.shape[2]
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (q, k, v))
+        q, k, v = (self._readable(t) for t in (q, k, v))
         out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
         lib = _lib("flash_fwd.cu")
@@ -448,5 +473,7 @@ KERNELS = {k.name: k for k in (flash_fwd, flash_fwd_lse, flash_bwd,
 
 
 def reset_launches() -> None:
+    """Every wrapper's ``launches`` and ``copies`` back to 0."""
     for kernel in KERNELS.values():
         kernel.launches = 0
+        kernel.copies = 0

@@ -213,9 +213,10 @@ def _drop_args(dropout_p: float, seed) -> dict:
 
 
 def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
-                    sm_scale: Optional[float] = None,
-                    dropout_rate: float = 0.0, dropout_seed=None,
-                    backend: Optional[str] = None):
+                    sm_scale: Optional[float] = None, block_q: int = 128,
+                    block_k: int = 128, backend: Optional[str] = None,
+                    dropout_rate: float = 0.0, dropout_rng=None,
+                    dropout_seed=None):
     """Multi-head attention.
 
     Args:
@@ -223,13 +224,17 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
       padding_mask: optional ``(B, Tk)`` 1/0 validity mask.
       causal: end-aligned causal mask (row i sees keys <= i + Tk - Tq).
       sm_scale: softmax scale; default ``1/sqrt(D)``.
-      dropout_rate: attention-probability dropout in [0, 1); applied only
-        when ``dropout_seed`` (an int) is given, as in the JAX package,
-        whose inference path passes no seed.
+      block_q, block_k: the TPU kernel's tile sizes, accepted and ignored
+        (the CUDA kernel picks its own tiles).
       backend: None runs the kernels for CUDA tensors and the plain
         versions for CPU tensors; ``"cuda"`` demands the kernels;
         ``"plain"`` runs the plain versions on any device (the kernels'
         reference).
+      dropout_rate: attention-probability dropout in [0, 1); applied only
+        when ``dropout_seed`` (an int) is given, as in the JAX package,
+        whose inference path passes no seed.
+      dropout_rng: the JAX package's PRNG key; the port takes the int
+        seed as ``dropout_seed`` and raises ``ValueError`` for a key.
 
     Differentiable in q, k and v: the backward is ``flash_bwd`` where the
     forward was ``flash_fwd``, and ``_reference_attention_bwd`` where it
@@ -240,6 +245,9 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
+    if dropout_rng is not None:
+        raise ValueError("dropout_rng (a JAX PRNG key) has no counterpart "
+                         "in the port: pass the int seed as dropout_seed")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got "
                          f"{dropout_rate}")
@@ -284,11 +292,16 @@ def _reference_attention_with_lse(q, k, v, causal, sm_scale, shift=None):
 
 def flash_forward_with_lse(q, k, v, causal: bool = False,
                            sm_scale: Optional[float] = None,
+                           block_q: int = 128, block_k: int = 128,
+                           interpret: Optional[bool] = None,
                            backend: Optional[str] = None):
     """Attention forward that also returns the per-row log-sum-exp:
     ``(o, lse)`` with o ``(B, H, Tq, D)`` in q's dtype and lse ``(B, H,
     Tq)`` f32 (``-1e30`` for a row that sees no key), causal end-aligned.
 
+    ``block_q``, ``block_k`` and ``interpret`` (the TPU kernel's tiles and
+    its Pallas interpret mode) are accepted and ignored: the CUDA kernel
+    picks its own tiles, and CPU tensors run the plain version.
     ``backend``: None launches the kernel for CUDA tensors and runs the
     plain version for CPU tensors; ``"cuda"`` demands the kernel;
     ``"plain"`` runs ``_reference_attention_with_lse`` on any device.  A

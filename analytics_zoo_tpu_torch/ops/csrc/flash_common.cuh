@@ -1,8 +1,8 @@
-// What the flash-attention forward (flash_fwd.cu) and backward
-// (flash_bwd.cu) share: the dropout counter hash, the f32 <-> input-dtype
-// conversions and the warp reductions.  The hash must be bit-identical in
-// both kernels, in ops/attention.py's plain version and in the JAX
-// package: the backward replays the forward's keep-mask from the seed.
+// What the kernels of this directory share: the dropout counter hash
+// (flash_fwd.cu and flash_bwd.cu), the f32 <-> input-dtype conversions and
+// the warp reductions.  The hash must be bit-identical in both kernels, in
+// ops/attention.py's plain version and in the JAX package: the backward
+// replays the forward's keep-mask from the seed.
 // ops/_kernels.py folds this header into each library's build hash.
 
 #pragma once

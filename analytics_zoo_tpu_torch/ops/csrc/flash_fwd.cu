@@ -5,246 +5,816 @@
 // - _flash_kernel, launched by _flash_forward: entry point zoo_flash_fwd;
 // - _flash_kernel_lse, launched by flash_forward_with_lse (the block that
 //   ring attention merges shards with): entry point zoo_flash_fwd_lse, the
-//   same kernel with no mask and no dropout that also writes each row's
+//   same kernels with no mask and no dropout that also write each row's
 //   log-sum-exp m + log(l), or -1e30 for a row that sees no key (so the
 //   ring's exp(lse_acc - lse_new) never meets -inf - -inf).
-// Same function: online softmax
-// with f32 running max / sum / accumulator over K tiles, an optional (B, Tk)
-// padding mask, the end-aligned causal mask (row i sees key j iff
-// j <= i + Tk - Tq, tiles wholly above the diagonal skipped), in-kernel
-// dropout of the probabilities from the counter hash over
-// (seed, b*H+h, q_pos, k_pos) with the normaliser summing the weights
-// BEFORE dropout, and zeros for rows that see no key.
+// Same function: online softmax with f32 running max / sum / accumulator
+// over K tiles, an optional (B, Tk) padding mask, the end-aligned causal
+// mask (row i sees key j iff j <= i + Tk - Tq, tiles wholly above the
+// diagonal skipped), in-kernel dropout of the probabilities from the
+// counter hash over (seed, b*H+h, q_pos, k_pos) with the normaliser summing
+// the weights BEFORE dropout, and zeros for rows that see no key.  P is
+// rounded to the input dtype before P.V, with f32 accumulation.
 //
-// What bounds it on an H100: at BERT's shapes (Tq = Tk = 128, D = 64) the
-// work is 4*Tq*Tk*D flops against 4*T*D elements moved per head, about 32
-// flops per byte in f32 (at the ring's 4096-row blocks, about 1000): above
-// the f32 SIMT ridge (67 TFLOP/s over
-// 3.35 TB/s is 20), so the bound is arithmetic.  This first version runs the
-// products on the SIMT f32 pipes (no tensor cores), so in practice it is
-// bound by shared-memory loads feeding those FMAs.
+// What bounds it on an H100: 4*Tq*Tk*D flops against 4*T*D elements moved
+// per head, about 64 flops per byte in bf16 at BERT's T = 128 and about
+// 2000 at the ring's 4096-row blocks, so the products bound it: bf16 at
+// the tensor cores' 989 TFLOP/s, f32 at the 3xTF32 rate (495 / 3 = 165
+// TFLOP/s), the least time for products accurate to f32.  At D = 64 the
+// exponentials come close behind: one exp2 per 4*D = 256 flops, and the
+// SM's 16 exp2 a cycle match its 4096 bf16 flops a cycle.
 //
-// What the design does about it: one block of 4 warps owns 32 query rows of
-// one (batch, head); K and V are staged tile by tile (64 keys) in shared
-// memory as f32 and read by every row of the block, so device memory sees
-// each K/V element once per block, and scores never leave registers.  Each
-// warp walks its 8 rows; for a row, lane j scores keys j and j+32 (the K
-// tile's rows are padded to D+1 floats so those reads hit distinct banks),
-// max and sum are warp shuffles, and the P.V update gives each lane D/32
-// output columns.  wgmma, TMA and tuned tile sizes are later work.
+// What the design does about it: two instances behind the same entry
+// points, dispatched on the dtype, sharing the masks, the dropout hash, the
+// online softmax and the epilogue (both products leave each thread the same
+// accumulator fragment: rows g and g + 8 of a 16-row slice, columns
+// 8j + 2c and 8j + 2c + 1, g = lane / 4, c = lane % 4).
+// - bf16: a block owns 128 query rows of one (batch, head) as two consumer
+//   warpgroups of 64 rows (64 rows and one warpgroup where Tk <= 128, so
+//   two blocks fit an SM) and one producer warp.  The producer loads Q
+//   once and streams K and V tiles (64 keys where Tk <= 128, else 128)
+//   through a two-stage ring in shared memory with TMA (4-D tensor maps
+//   over the views' own strides, 128-byte swizzle for D 64 / 128, 64-byte
+//   for D 32), completion on mbarriers, so the next tile's copy overlaps
+//   this tile's products.  S = Q.K^T is wgmma m64nNk16 from shared memory
+//   (both operands K-major); the softmax runs on the accumulator registers
+//   (quad shuffles, one FFMA and one exp2 a score with log2(e) folded into
+//   the scale; per-score masks and dropout compiled in only for the tiles
+//   and calls that need them); P is repacked in registers as bf16 A
+//   fragments and O += P.V is wgmma with V an MN-major B operand (the
+//   descriptor's transpose bit), so P never touches shared memory.  The
+//   two warpgroups take turns on Q.K^T (ping-pong on named barriers), so
+//   one's softmax runs under the other's products.  Later work: FA3's
+//   overlap of a warpgroup's softmax with its own next Q.K^T (tried
+//   once: with a second score tile in flight it spilled and ran slower),
+//   and three consumer warpgroups at D 64.
+// - f32: 3xTF32 on mma.sync m16n8k8: each operand is split in registers
+//   into hi = x with its low 13 mantissa bits cleared and lo = x - hi, and
+//   each product is taken as lo.hi + hi.lo + hi.hi, accumulated in f32
+//   (plain TF32 keeps 10 mantissa bits and misses the 2e-5 tolerance).
+//   Four warps of 16 query rows a block; K and V tiles of 64 keys staged
+//   by 16-byte cp.async into two stages, rows padded by 4 floats so every
+//   fragment load is free of bank conflicts; the P.V product reads its
+//   keys in the order S's accumulator holds them (k index c <-> key 2c,
+//   c + 4 <-> 2c + 1), so P needs no shuffle.  Not wgmma: its tf32 form
+//   takes only K-major operands, so V would need a transpose in shared
+//   memory.
 //
 // Inputs q, k, v are f32 or bf16 with unit stride in the last dimension and
-// arbitrary (batch, head, seq) strides, so the caller can pass head views of
-// a fused QKV projection without copies; the output is written through its
-// own strides.  P is rounded to v's dtype before P.V, as the TPU kernel does,
-// with f32 accumulation.
+// (batch, head, seq) strides that are multiples of 16 bytes on a 16-byte
+// aligned base (what TMA and cp.async need; the wrapper copies a view that
+// is not), so the caller can pass head views of a fused QKV projection
+// without copies; the output is written through its own strides.
+
+#include <cuda.h>  // CUtensorMap; the encoder is fetched from the driver
+#include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace zoo_flash;
+using namespace zoo_hopper;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockM = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBlockN = 64;                     // keys per staged tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kInf = INFINITY;
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int32_t* mask;  // (B, Tk), 0 = padded key; null when no mask
-  void* o;
-  float* lse;           // (B, H, Tq) contiguous; null when not asked for
-  int64_t q_sb, q_sh, q_st;
-  int64_t k_sb, k_sh, k_st;
-  int64_t v_sb, v_sh, v_st;
-  int64_t o_sb, o_sh, o_st;
-  int B, H, Tq, Tk;
-  float scale;
+// 2^x in one MUFU instruction (exp2f adds a denormal fix-up around it);
+// 2^-inf = 0, and results below 2^-126 flush to 0, which no weight minds
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// what the softmax of every tile of one (batch, head) needs
+struct TileCtx {
+  const int32_t* mrow;  // (Tk) padding mask row, 0 = padded key; or null
+  int Tk;
+  int causal_offset;    // Tk - Tq
   int causal;
-  uint32_t thresh;  // drop iff (bits >> 8) < thresh; 0 = no dropout
+  float scale2;         // sm_scale * log2(e): exp2 of raw scores
+  uint32_t head;        // head_hash(seed, b*H + h)
+  uint32_t thresh;      // drop iff (bits >> 8) < thresh; 0 = no dropout
+  float keep_scale;
+};
+
+// Whether a tile of n keys from k0 needs per-score masking for rows from
+// row_lo on: a padding mask, the ragged end of the keys, or the diagonal.
+__device__ __forceinline__ bool tile_masked(const TileCtx& x, int k0, int n,
+                                            int row_lo) {
+  return x.mrow != nullptr || k0 + n > x.Tk ||
+         (x.causal && k0 + n - 1 > row_lo + x.causal_offset);
+}
+
+// The online-softmax step of one tile of raw scores held as accumulator
+// fragments (NC chunks of 8 keys: s[4j + 2h + e] is row r0 + 8h, key
+// k0 + 8j + 2c + e).  kMask: the masks are applied per score (else the
+// tile is known to be wholly visible); kDrop: dropout.  Updates the
+// running max m (raw units, -inf while a row has seen no key) and the
+// thread's partial sum l (rows r0, r0 + 8), returns each row's rescale
+// factor in alpha and leaves in s the probabilities after dropout:
+// p = exp2(s * scale2 - m * scale2), one FFMA and one exp2 a score.  Max
+// and sum run as two interleaved chains for instruction-level parallelism.
+template <int NC, bool kMask, bool kDrop>
+__device__ __forceinline__ void online_softmax(float (&s)[NC * 4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               const TileCtx& x, int r0,
+                                               int k0, int c) {
+  if (kMask) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * c + e;
+        const bool kv =
+            key < x.Tk && (x.mrow == nullptr || x.mrow[key] != 0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool ok =
+              kv && (!x.causal || key <= r0 + 8 * h + x.causal_offset);
+          if (!ok) s[4 * j + 2 * h + e] = -kInf;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx[2] = {-kInf, -kInf};
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      mx[j & 1] = fmaxf(mx[j & 1],
+                        fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    float mxr = fmaxf(mx[0], mx[1]);
+    mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 1));
+    mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 2));
+    const float m_new = fmaxf(m[h], mxr);
+    // a row that has seen no key keeps m = -inf and gets p = 0, alpha = 0
+    const float base = m_new == -kInf ? 0.f : m_new * x.scale2;
+    alpha[h] = fast_exp2(m[h] * x.scale2 - base);
+    m[h] = m_new;
+    float psum[2] = {0.f, 0.f};
+    const int row = r0 + 8 * h;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = s[4 * j + 2 * h + e];
+        float pv = fast_exp2(fmaf(v, x.scale2, -base));
+        psum[e] += pv;  // the normaliser takes the weights before dropout
+        if (kDrop)
+          pv = keep(x.head, row, k0 + 8 * j + 2 * c + e, x.thresh)
+                   ? pv * x.keep_scale
+                   : 0.f;
+        v = pv;
+      }
+    }
+    l[h] = alpha[h] * l[h] + (psum[0] + psum[1]);
+  }
+}
+
+// online_softmax with the per-score work the tile needs
+template <int NC>
+__device__ __forceinline__ void softmax_tile(float (&s)[NC * 4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             const TileCtx& x, int r0,
+                                             int k0, int c, bool masked) {
+  if (x.thresh) {
+    if (masked)
+      online_softmax<NC, true, true>(s, m, l, alpha, x, r0, k0, c);
+    else
+      online_softmax<NC, false, true>(s, m, l, alpha, x, r0, k0, c);
+  } else {
+    if (masked)
+      online_softmax<NC, true, false>(s, m, l, alpha, x, r0, k0, c);
+    else
+      online_softmax<NC, false, false>(s, m, l, alpha, x, r0, k0, c);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&a)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= a[(i >> 1) & 1];
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Output rows r0 and r0 + 8 of the accumulator fragment o (D columns),
+// divided by the quad-reduced row sums (rows that saw no key give zeros);
+// lse in the units of the scaled scores, -1e30 for such rows, when asked.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const float (&o)[D / 2],
+                                           float (&l)[2], const float (&m)[2],
+                                           float scale2, T* og, int64_t o_st,
+                                           float* lse, int r0, int Tq,
+                                           int c) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= Tq) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(og + row * o_st + 8 * j + 2 * c, o[4 * j + 2 * h] * inv,
+             o[4 * j + 2 * h + 1] * inv);
+    if (lse != nullptr && c == 0)
+      lse[row] = l[h] > 0.f ? m[h] * scale2 * kLn2 + logf(l[h]) : kNegInf;
+  }
+}
+
+// last key (exclusive) that rows [lo, hi) may see
+__device__ __forceinline__ int key_end(int lo, int hi, int Tq, int Tk,
+                                       int causal) {
+  if (!causal) return Tk;
+  const int last_row = min(hi, Tq) - 1;
+  return min(Tk, max(0, last_row + Tk - Tq + 1));
+}
+
+__device__ __forceinline__ TileCtx make_ctx(const int32_t* mask, int b,
+                                            int bh, int Tq, int Tk,
+                                            int causal, float scale2,
+                                            uint32_t thresh, float keep_scale,
+                                            uint32_t seed) {
+  TileCtx x;
+  x.mrow = mask ? mask + static_cast<int64_t>(b) * Tk : nullptr;
+  x.Tk = Tk;
+  x.causal_offset = Tk - Tq;
+  x.causal = causal;
+  x.scale2 = scale2;
+  x.head = thresh ? head_hash(seed, bh) : 0u;
+  x.thresh = thresh;
+  x.keep_scale = keep_scale;
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma with TMA-fed K/V
+
+template <int D, int BN, int NWG>
+struct BfCfg {
+  static constexpr int kConsumers = 128 * NWG;  // NWG warpgroups of 64 rows
+  static constexpr int kThreads = kConsumers + 32;  // + a producer warp
+  static constexpr int kBlockM = 64 * NWG;
+  static constexpr int kStages = 2;  // K/V tiles in flight
+  static constexpr int kAtomCols = D < 64 ? D : 64;  // one swizzle row
+  static constexpr int kRowBytes = kAtomCols * 2;    // 64 or 128
+  static constexpr int kAtoms = D / kAtomCols;       // boxes across D
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;
+  static constexpr int kQAtomBytes = 64 * kRowBytes;  // a 64-row Q box
+  static constexpr int kQTile = kAtoms * kQAtomBytes;
+  static constexpr int kKVAtomBytes = BN * kRowBytes;  // a BN-row K/V box
+  static constexpr int kKVTile = kAtoms * kKVAtomBytes;
+  static constexpr int kBarOffset = NWG * kQTile + 2 * kStages * kKVTile;
+  // + slack to align the base to 1024 bytes, + the mbarriers
+  static constexpr size_t kSmem = 1024 + kBarOffset + 16 * kStages + 8;
+};
+
+struct BfParams {
+  CUtensorMap tq, tk, tv;  // (D, T, H, B) maps; boxes of 64 / BN rows
+  const int32_t* mask;
+  __nv_bfloat16* o;
+  float* lse;
+  int64_t o_sb, o_sh, o_st;
+  int H, Tq, Tk;
+  float scale2;
+  int causal;
+  uint32_t thresh;
   float keep_scale;
   uint32_t seed;
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBlockM * D + kBlockN * (D + 1) + kBlockN * D +
-                          kWarps * kBlockN) +
-         sizeof(int) * kBlockN;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Params p) {
-  constexpr int kCols = D / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  float* qs = smem;                           // [kBlockM][D]
-  float* ks = qs + kBlockM * D;               // [kBlockN][D + 1]
-  float* vs = ks + kBlockN * (D + 1);         // [kBlockN][D]
-  float* ps = vs + kBlockN * D;               // [kWarps][kBlockN]
-  int* kvalid = reinterpret_cast<int*>(ps + kWarps * kBlockN);  // [kBlockN]
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_n64(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_n128(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n128(d, a, db);
+}
+
+template <int D, int BN, int NWG>
+__global__ void __launch_bounds__(BfCfg<D, BN, NWG>::kThreads,
+                                  NWG == 1 ? 2 : 1)
+    flash_fwd_bf16(__grid_constant__ const BfParams p) {
+  using C = BfCfg<D, BN, NWG>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;  // [warpgroup][atom] 64-row boxes of Q
+  const uint32_t sk = sq + NWG * C::kQTile;           // [stage][atom]
+  const uint32_t sv = sk + C::kStages * C::kKVTile;    // [stage][atom]
+  const uint32_t full = base + C::kBarOffset;         // [stage]
+  const uint32_t empty = full + 8 * C::kStages;        // [stage]
+  const uint32_t bar_q = empty + 8 * C::kStages;
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = blockIdx.y * kBlockM;
+  const int q0 = blockIdx.y * C::kBlockM;
+  const int n_wg = NWG == 2 && q0 + 64 < p.Tq ? 2 : 1;  // with rows
+  const int k_end = key_end(q0, q0 + C::kBlockM, p.Tq, p.Tk, p.causal);
+  const int n_tiles = (k_end + BN - 1) / BN;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);          // the producer's arrival
+      mbar_init(empty + 8 * s, 4 * n_wg);  // each consumer warp
+    }
+    mbar_init(bar_q, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= C::kConsumers) {  // producer warp: one lane issues every copy
+    if (tid == C::kConsumers) {
+      mbar_expect_tx(bar_q, n_wg * C::kQTile);
+      for (int w = 0; w < n_wg; ++w)
+        for (int a = 0; a < C::kAtoms; ++a)
+          tma_load_4d(sq + (w * C::kAtoms + a) * C::kQAtomBytes, &p.tq,
+                      bar_q, a * C::kAtomCols, q0 + 64 * w, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % C::kStages;
+        if (it >= C::kStages)  // wait until every warp released the stage
+          mbar_wait(empty + 8 * s, (it / C::kStages - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * C::kKVTile);
+        for (int a = 0; a < C::kAtoms; ++a) {
+          const uint32_t off = s * C::kKVTile + a * C::kKVAtomBytes;
+          tma_load_4d(sk + off, &p.tk, full + 8 * s, a * C::kAtomCols,
+                      it * BN, h, b);
+          tma_load_4d(sv + off, &p.tv, full + 8 * s, a * C::kAtomCols,
+                      it * BN, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  if (wg >= n_wg) return;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int c = lane & 3;
+  const int row_lo = q0 + 64 * wg;
+  const int r0 = row_lo + 16 * warp + (lane >> 2);
+  const int wg_end = key_end(row_lo, row_lo + 64, p.Tq, p.Tk, p.causal);
+  const TileCtx x = make_ctx(p.mask, b, bh, p.Tq, p.Tk, p.causal, p.scale2,
+                             p.thresh, p.keep_scale, p.seed);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f};
+  const uint32_t q_base = sq + wg * C::kQTile;
+  constexpr int kStepsPerAtom = C::kRowBytes / 32;  // k16 steps in a row
+  // Ping-pong: with two warpgroups, their Q.K^T issues alternate (named
+  // barriers 1 and 2), so one warpgroup's softmax runs under the other's
+  // products instead of both waiting on the tensor cores, then both on
+  // the exp2 units.  Both warpgroups take a turn on every tile of the
+  // block, also on a tile one of them skips (the causal diagonal ends
+  // warpgroup 0 first), so the turns alternate strictly: an arrive on a
+  // barrier comes only after the other warpgroup's sync on its previous
+  // generation, and no barrier completes on one warpgroup's arrivals.
+  const bool pingpong = n_wg == 2;
+  if (pingpong && wg == 1 && n_tiles > 0) named_arrive(1, 256);
+  mbar_wait(bar_q, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % C::kStages;
+    mbar_wait(full + 8 * s, (it / C::kStages) & 1);
+    const int k0 = it * BN;
+    // the other warpgroup's next turn: it has one on every tile, but
+    // warpgroup 0 gives the turn after the block's last tile to no one
+    const bool hand_on = pingpong && (wg == 0 || it + 1 < n_tiles);
+    if (pingpong) named_sync(1 + wg, 256);  // my turn on the products
+    if (k0 >= wg_end) {  // a tile this warpgroup skips: pass the turn on
+      if (hand_on) named_arrive(2 - wg, 256);
+    } else {  // warpgroup-uniform
+      float sc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t atom = kk / kStepsPerAtom;
+        const uint32_t within = (kk % kStepsPerAtom) * 32;
+        wgmma_ss(sc,
+                 wgmma_desc(q_base + atom * C::kQAtomBytes + within, 16,
+                            8 * C::kRowBytes, C::kSwizzle),
+                 wgmma_desc(sk + s * C::kKVTile + atom * C::kKVAtomBytes +
+                                within,
+                            16, 8 * C::kRowBytes, C::kSwizzle),
+                 kk > 0);
+      }
+      wgmma_commit();
+      if (hand_on) named_arrive(2 - wg, 256);
+      wgmma_wait_all();
+
+      float alpha[2];
+      softmax_tile<BN / 8>(sc, m, l, alpha, x, r0, k0, c,
+                           tile_masked(x, k0, BN, row_lo));
+      rescale(o, alpha);
+      // P as bf16 A fragments: 16 keys (two 8-key chunks) per k step
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs(o, pa[kk],
+                 wgmma_desc(sv + s * C::kKVTile + kk * 16 * C::kRowBytes,
+                            C::kKVAtomBytes, 8 * C::kRowBytes, C::kSwizzle));
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // stage s is free
+  }
+
+  store_rows<__nv_bfloat16, D>(
+      o, l, m, p.scale2, p.o + b * p.o_sb + h * p.o_sh, p.o_st,
+      p.lse ? p.lse + static_cast<int64_t>(bh) * p.Tq : nullptr, r0, p.Tq,
+      c);
+}
+
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on mma.sync with cp.async-fed K/V
+
+constexpr int kF32Threads = 128;  // four warps of 16 query rows
+constexpr int kF32BlockM = 64;
+constexpr int kF32BlockN = 64;
+constexpr int kF32Stages = 2;
+
+template <int D>
+struct F32Cfg {
+  static constexpr int kPitch = D + 4;  // floats a staged row
+  static constexpr int kTile = kF32BlockN * kPitch;
+  static constexpr size_t kSmem = sizeof(float) * 2 * kF32Stages * kTile;
+};
+
+struct F32Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int32_t* mask;
+  float* o;
+  float* lse;
+  int64_t q_sb, q_sh, q_st;
+  int64_t k_sb, k_sh, k_st;
+  int64_t v_sb, v_sh, v_st;
+  int64_t o_sb, o_sh, o_st;
+  int H, Tq, Tk;
+  float scale2;
+  int causal;
+  uint32_t thresh;
+  float keep_scale;
+  uint32_t seed;
+};
+
+// c += a . b in 3xTF32: lo.hi + hi.lo first, then hi.hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_fwd_f32(const F32Params p) {
+  using C = F32Cfg<D>;
+  extern __shared__ float4 smem_f4[];
+  float* const smem = reinterpret_cast<float*>(smem_f4);  // [stage][K|V]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int q0 = blockIdx.y * kF32BlockM;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row_lo = q0 + 16 * warp;
+  const int r0 = row_lo + g;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const int32_t* mrow = p.mask ? p.mask + static_cast<int64_t>(b) * p.Tk
-                               : nullptr;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const int k_end = key_end(q0, q0 + kF32BlockM, p.Tq, p.Tk, p.causal);
+  const int n_tiles = (k_end + kF32BlockN - 1) / kF32BlockN;
+  const int warp_end = key_end(row_lo, row_lo + 16, p.Tq, p.Tk, p.causal);
 
-  for (int i = tid; i < kBlockM * D; i += kThreads) {
-    const int r = i / D, d = i - (i / D) * D;
-    const int row = q0 + r;
-    qs[i] = row < p.Tq ? to_f32(qg[row * p.q_st + d]) : 0.f;
-  }
+  // 16-byte copies of one K and one V tile into stage s; keys past Tk are
+  // zero-filled (0 . V stays 0, and their scores are masked)
+  auto load_tile = [&](int it, int s) {
+    float* ks = smem + s * 2 * C::kTile;
+    float* vs = ks + C::kTile;
+    constexpr int kChunksPerRow = D / 4;
+    for (int i = tid; i < kF32BlockN * kChunksPerRow; i += kF32Threads) {
+      const int r = i / kChunksPerRow;
+      const int col = (i - r * kChunksPerRow) * 4;
+      const int key = it * kF32BlockN + r;
+      const bool ok = key < p.Tk;
+      const int64_t kr = ok ? key : 0;
+      cp_async_16(smem_u32(ks + r * C::kPitch + col), kg + kr * p.k_st + col,
+                  ok);
+      cp_async_16(smem_u32(vs + r * C::kPitch + col), vg + kr * p.v_st + col,
+                  ok);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0, 0);
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
+  // Q's A fragments for the whole head dim, f32: rows r0 / r0 + 8, columns
+  // 8kd + c / + 4
+  float qf[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  for (int kd = 0; kd < D / 8; ++kd) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + 8 * (i & 1);
+      qf[kd][i] = row < p.Tq ? qg[row * p.q_st + 8 * kd + c + 4 * (i >> 1)]
+                             : 0.f;
+    }
   }
+  const TileCtx x = make_ctx(p.mask, b, bh, p.Tq, p.Tk, p.causal, p.scale2,
+                             p.thresh, p.keep_scale, p.seed);
 
-  const int causal_offset = p.Tk - p.Tq;
-  int k_end = p.Tk;
-  if (p.causal) {
-    // keys past the last row's diagonal are masked for every row here
-    const int last_row = min(q0 + kBlockM, p.Tq) - 1;
-    k_end = min(p.Tk, max(0, last_row + causal_offset + 1));
-  }
-  const uint32_t hbh = p.thresh ? head_hash(p.seed, bh) : 0u;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < k_end; k0 += kBlockN) {
-    __syncthreads();  // Q staged / the previous tile fully consumed
-    for (int i = tid; i < kBlockN * D; i += kThreads) {
-      const int r = i / D, d = i - (i / D) * D;
-      const int key = k0 + r;
-      float kv = 0.f, vv = 0.f;  // zero-fill the ragged edge: 0 * V stays 0
-      if (key < p.Tk) {
-        kv = to_f32(kg[key * p.k_st + d]);
-        vv = to_f32(vg[key * p.v_st + d]);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kF32Stages;
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1, (it + 1) % kF32Stages);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it has landed for every thread
+    const int k0 = it * kF32BlockN;
+    if (k0 < warp_end) {  // warp-uniform
+      const float* ks = smem + s * 2 * C::kTile;
+      const float* vs = ks + C::kTile;
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D / 8; ++kd) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(qf[kd][i], ah[i], al[i]);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* kr = ks + (8 * nt + g) * C::kPitch + 8 * kd + c;
+          mma_3xtf32(*reinterpret_cast<float(*)[4]>(sc + 4 * nt), ah, al,
+                     kr[0], kr[4]);
+        }
       }
-      ks[r * (D + 1) + d] = kv;
-      vs[r * D + d] = vv;
-    }
-    for (int i = tid; i < kBlockN; i += kThreads) {
-      const int key = k0 + i;
-      kvalid[i] = key < p.Tk && (mrow == nullptr || mrow[key] != 0);
-    }
-    __syncthreads();
 
+      float alpha[2];
+      softmax_tile<8>(sc, m, l, alpha, x, r0, k0, c,
+                      tile_masked(x, k0, kF32BlockN, row_lo));
+      rescale(o, alpha);
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int rl = warp * kRowsPerWarp + r;
-      const int row = q0 + rl;
-      if (row < p.Tq) {  // warp-uniform
-        const float* qr = qs + rl * D;
-        float s[kBlockN / 32];
-        float mx = kNegInf;
+      for (int kk = 0; kk < 8; ++kk) {
+        // A: rows g / g + 8; k index c is key 2c, c + 4 is key 2c + 1
+        const float pf[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                             sc[4 * kk + 3]};
+        uint32_t ph[4], pl[4];
 #pragma unroll
-        for (int c = 0; c < kBlockN / 32; ++c) {
-          const int key = lane + 32 * c;
-          const float* kr = ks + key * (D + 1);
-          float dot = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-          const bool ok = kvalid[key] &&
-                          (!p.causal || row + causal_offset >= k0 + key);
-          s[c] = ok ? dot * p.scale : kNegInf;
-          mx = fmaxf(mx, s[c]);
-        }
-        mx = warp_max(mx);
-        const float m_new = fmaxf(m[r], mx);
-        const float alpha = expf(m[r] - m_new);
-        float psum = 0.f;
+        for (int i = 0; i < 4; ++i) split_tf32(pf[i], ph[i], pl[i]);
+        const float* vr = vs + (8 * kk + 2 * c) * C::kPitch + g;
 #pragma unroll
-        for (int c = 0; c < kBlockN / 32; ++c) {
-          const int key = lane + 32 * c;
-          // masked entries contribute 0 even when the whole row is masked
-          float pc = s[c] <= kNegInf / 2 ? 0.f : expf(s[c] - m_new);
-          psum += pc;  // the normaliser takes the weights before dropout
-          if (p.thresh)
-            pc = keep(hbh, row, k0 + key, p.thresh) ? pc * p.keep_scale : 0.f;
-          ps[warp * kBlockN + key] = round_to<T>(pc);
-        }
-        psum = warp_sum(psum);
-        l[r] = alpha * l[r] + psum;
-        m[r] = m_new;
-        __syncwarp();
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-        const float* pw = ps + warp * kBlockN;
-#pragma unroll 8
-        for (int j = 0; j < kBlockN; ++j) {
-          const float pj = pw[j];
-          const float* vr = vs + j * D + lane;
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            acc[r][c] = fmaf(pj, vr[32 * c], acc[r][c]);
-        }
-        __syncwarp();  // ps is rewritten by this warp's next row
+        for (int nt = 0; nt < D / 8; ++nt)
+          mma_3xtf32(*reinterpret_cast<float(*)[4]>(o + 4 * nt), ph, pl,
+                     vr[8 * nt], vr[C::kPitch + 8 * nt]);
       }
     }
+    __syncthreads();  // stage s may be refilled
   }
 
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = q0 + warp * kRowsPerWarp + r;
-    if (row < p.Tq) {
-      const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);  // empty rows -> 0
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        og[row * p.o_st + lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
-      // m is the max of the scaled scores, so lse is in their units
-      if (p.lse != nullptr && lane == 0)
-        p.lse[static_cast<int64_t>(bh) * p.Tq + row] =
-            l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
-    }
-  }
+  store_rows<float, D>(
+      o, l, m, p.scale2, p.o + b * p.o_sb + h * p.o_sh, p.o_st,
+      p.lse ? p.lse + static_cast<int64_t>(bh) * p.Tq : nullptr, r0, p.Tq,
+      c);
 }
 
-template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(p.B * p.H, (p.Tq + kBlockM - 1) / kBlockM);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+// ---------------------------------------------------------------------------
+// host side
+
+// cuTensorMapEncodeTiled's signature, fetched through the runtime so the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (D, T, H, B) tensor map over a bf16 (B, H, T, D) view with element
+// strides sb, sh, st; one box = (one swizzle row of columns, `rows` rows).
+// A dimension of extent 1 gets a packed stride (it is never stepped over).
+bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
+              int64_t sb, int64_t sh, int64_t st, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int atom_cols = D < 64 ? D : 64;
+  const int t = T > 0 ? T : 1;
+  const cuuint64_t st_b = t > 1 ? st * 2 : static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t sh_b = H > 1 ? sh * 2 : st_b * t;
+  const cuuint64_t sb_b = B > 1 ? sb * 2 : sh_b * H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {st_b, sh_b, sb_b};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(atom_cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                atom_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// everything an entry point passes in
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* mask;
+  void* o;
+  float* lse;
+  int64_t s[12];  // q, k, v, o: (batch, head, seq) strides in elements
+  int B, H, Tq, Tk, D;
+  float scale;
+  int causal;
+  uint32_t thresh;
+  float keep_scale;
+  uint32_t seed;
+};
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+template <int D, int BN, int NWG>
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  BfParams p;
+  if (!make_map(&p.tq, a.q, a.B, a.H, a.Tq, D, a.s[0], a.s[1], a.s[2], 64) ||
+      !make_map(&p.tk, a.k, a.B, a.H, a.Tk, D, a.s[3], a.s[4], a.s[5], BN) ||
+      !make_map(&p.tv, a.v, a.B, a.H, a.Tk, D, a.s[6], a.s[7], a.s[8], BN))
+    return -1;
+  p.mask = a.mask;
+  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.lse = a.lse;
+  p.o_sb = a.s[9]; p.o_sh = a.s[10]; p.o_st = a.s[11];
+  p.H = a.H; p.Tq = a.Tq; p.Tk = a.Tk;
+  p.scale2 = a.scale * kLog2e;
+  p.causal = a.causal;
+  p.thresh = a.thresh;
+  p.keep_scale = a.keep_scale;
+  p.seed = a.seed;
+  using C = BfCfg<D, BN, NWG>;
+  const int err = set_smem(flash_fwd_bf16<D, BN, NWG>, C::kSmem);
+  if (err != 0) return err;
+  const dim3 grid(a.B * a.H, (a.Tq + C::kBlockM - 1) / C::kBlockM);
+  flash_fwd_bf16<D, BN, NWG><<<grid, C::kThreads, C::kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int D, const Params& p, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return -1;
+// key ranges up to BERT's 128 take 64-row blocks with 64-key tiles (two
+// blocks resident an SM and twice the blocks: short tiles are latency
+// bound), longer ones 128-row blocks with 128-key tiles (half the waits
+// and softmax steps per key, K/V read once per 128 rows)
+template <int D>
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  return a.Tk <= 128 ? launch_bf16<D, 64, 1>(a, stream)
+                     : launch_bf16<D, 128, 2>(a, stream);
+}
+
+template <int D>
+int launch_f32(const Args& a, cudaStream_t stream) {
+  F32Params p;
+  p.q = static_cast<const float*>(a.q);
+  p.k = static_cast<const float*>(a.k);
+  p.v = static_cast<const float*>(a.v);
+  p.mask = a.mask;
+  p.o = static_cast<float*>(a.o);
+  p.lse = a.lse;
+  p.q_sb = a.s[0]; p.q_sh = a.s[1]; p.q_st = a.s[2];
+  p.k_sb = a.s[3]; p.k_sh = a.s[4]; p.k_st = a.s[5];
+  p.v_sb = a.s[6]; p.v_sh = a.s[7]; p.v_st = a.s[8];
+  p.o_sb = a.s[9]; p.o_sh = a.s[10]; p.o_st = a.s[11];
+  p.H = a.H; p.Tq = a.Tq; p.Tk = a.Tk;
+  p.scale2 = a.scale * kLog2e;
+  p.causal = a.causal;
+  p.thresh = a.thresh;
+  p.keep_scale = a.keep_scale;
+  p.seed = a.seed;
+  constexpr size_t smem = F32Cfg<D>::kSmem;
+  const int err = set_smem(flash_fwd_f32<D>, smem);
+  if (err != 0) return err;
+  const dim3 grid(a.B * a.H, (a.Tq + kF32BlockM - 1) / kF32BlockM);
+  flash_fwd_f32<D><<<grid, kF32Threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run(const Args& a, int dtype, cudaStream_t stream) {
+  if (dtype == 0) {
+    switch (a.D) {
+      case 32: return launch_f32<32>(a, stream);
+      case 64: return launch_f32<64>(a, stream);
+      case 128: return launch_f32<128>(a, stream);
+    }
+  } else if (dtype == 1) {
+    switch (a.D) {
+      case 32: return launch_bf16<32>(a, stream);
+      case 64: return launch_bf16<64>(a, stream);
+      case 128: return launch_bf16<128>(a, stream);
+    }
   }
+  return -1;
 }
 
 }  // namespace
 
 // Returns 0 on a clean launch, the cudaError_t of a refused launch, or -1
-// for a head dim / dtype this kernel has no instance for.  dtype: 0 = f32,
-// 1 = bf16.  Launches on `stream` and does not synchronise.
+// for a head dim / dtype this kernel has no instance for (or views TMA
+// cannot describe).  dtype: 0 = f32, 1 = bf16.  Launches on `stream` and
+// does not synchronise.
 extern "C" int zoo_flash_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     long long q_sb, long long q_sh, long long q_st,
@@ -254,25 +824,12 @@ extern "C" int zoo_flash_fwd(
     int B, int H, int Tq, int Tk, int D, int dtype, float scale, int causal,
     unsigned int thresh, float keep_scale, int seed, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk < 0) return -1;
-  Params p;
-  p.q = q; p.k = k; p.v = v;
-  p.mask = static_cast<const int32_t*>(mask);
-  p.o = o;
-  p.lse = nullptr;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
-  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
-  p.scale = scale;
-  p.causal = causal;
-  p.thresh = thresh;
-  p.keep_scale = keep_scale;
-  p.seed = static_cast<uint32_t>(seed);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(D, p, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, s);
-  return -1;
+  const Args a = {q, k, v, static_cast<const int32_t*>(mask), o, nullptr,
+                  {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+                   o_sb, o_sh, o_st},
+                  B, H, Tq, Tk, D, scale, causal, thresh, keep_scale,
+                  static_cast<uint32_t>(seed)};
+  return run(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The forward of flash_forward_with_lse: no mask, no dropout, and each row's
@@ -287,25 +844,11 @@ extern "C" int zoo_flash_fwd_lse(
     int B, int H, int Tq, int Tk, int D, int dtype, float scale, int causal,
     void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk < 0 || lse == nullptr) return -1;
-  Params p;
-  p.q = q; p.k = k; p.v = v;
-  p.mask = nullptr;
-  p.o = o;
-  p.lse = lse;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
-  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
-  p.scale = scale;
-  p.causal = causal;
-  p.thresh = 0;
-  p.keep_scale = 1.f;
-  p.seed = 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(D, p, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, s);
-  return -1;
+  const Args a = {q, k, v, nullptr, o, lse,
+                  {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+                   o_sb, o_sh, o_st},
+                  B, H, Tq, Tk, D, scale, causal, 0u, 1.f, 0u};
+  return run(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* zoo_cuda_error_string(int err) {

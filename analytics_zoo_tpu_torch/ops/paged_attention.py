@@ -112,7 +112,8 @@ def _use_kernel(q, backend, what: str) -> bool:
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
                            sm_scale: Optional[float] = None,
-                           backend: Optional[str] = None):
+                           backend: Optional[str] = None,
+                           pages_per_compute_block: int = 4):
     """One decode step of attention through a paged KV cache.
 
     Args:
@@ -129,6 +130,8 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
       backend: None runs the kernel for CUDA tensors and the plain version
         for CPU tensors; ``"cuda"`` demands the kernel; ``"plain"`` runs
         the plain version on any device.
+      pages_per_compute_block: the TPU kernel's tile size, accepted and
+        ignored (the CUDA kernel walks the pages its own way).
 
     A CUDA tensor never falls back to the plain version: an unsupported
     shape or dtype, a failed build or a failed launch raises.

@@ -5,7 +5,8 @@ the in-memory broker.  Requests go on the stream as raw wire frames
 (``codec.encode_items_bytes``), or as base64 strings when
 ``ZOO_SERVING_WIRE=arrow`` asks for the reference wire; results come back
 from ``result:<uri>`` hashes.  The HTTP client, transport retries, trace
-context, model routing and tenancy stamps are not ported yet.
+context, model routing and tenancy stamps are not ported yet: their
+arguments raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from analytics_zoo_tpu_torch.common.resilience import Deadline
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     ImageBytes, StringTensor, decode_output, encode_items,
@@ -56,6 +58,11 @@ def _deadline_fields(deadline_s: Optional[float],
     return {"deadline_ts": repr(dl.wall())} if dl is not None else {}
 
 
+def _reject_stamps(where: str, trace_ctx, model, tenant) -> None:
+    reject(where, 6, trace_ctx=trace_ctx)
+    reject(where, 1, model=model, tenant=tenant)
+
+
 def _encode_wire(items) -> Union[bytes, str]:
     if reference_wire_forced():
         return encode_items(items)
@@ -78,9 +85,16 @@ class InputQueue:
         return self.enqueue_items(uri, data, deadline_s=deadline_s)
 
     def enqueue_items(self, uri: str, data: Dict[str, object],
-                      deadline_s: Optional[float] = None) -> str:
+                      deadline_s: Optional[float] = None,
+                      deadline: Optional[Deadline] = None,
+                      trace_ctx: Optional[str] = None,
+                      model: Optional[str] = None,
+                      tenant: Optional[str] = None) -> str:
         """``enqueue`` with the payload as an explicit dict, so any tensor
-        name is valid."""
+        name is valid; ``deadline`` stamps an explicit ``Deadline`` in
+        place of ``deadline_s``.  ``trace_ctx``, ``model`` and ``tenant``
+        are not ported yet and raise ``NotImplementedError``."""
+        _reject_stamps("InputQueue.enqueue_items", trace_ctx, model, tenant)
         items = {}
         for k, v in data.items():
             if isinstance(v, (bytes, bytearray)):
@@ -98,7 +112,7 @@ class InputQueue:
                 items[k] = np.asarray(v)
         return self.broker.xadd(self.stream, {
             "uri": uri, "data": _encode_wire(items),
-            **_deadline_fields(deadline_s)})
+            **_deadline_fields(deadline_s, deadline)})
 
     def enqueue_batch(self, uris, deadline_s: Optional[float] = None,
                       **data) -> str:
@@ -107,7 +121,15 @@ class InputQueue:
         return self.enqueue_batch_items(uris, data, deadline_s=deadline_s)
 
     def enqueue_batch_items(self, uris, data: Dict[str, object],
-                            deadline_s: Optional[float] = None) -> str:
+                            deadline_s: Optional[float] = None,
+                            deadline: Optional[Deadline] = None,
+                            trace_ctx: Optional[str] = None,
+                            model: Optional[str] = None,
+                            tenant: Optional[str] = None) -> str:
+        """``enqueue_batch`` with the payload as an explicit dict; the
+        other arguments as ``enqueue_items``."""
+        _reject_stamps("InputQueue.enqueue_batch_items", trace_ctx, model,
+                       tenant)
         uris = [str(u) for u in uris]
         n = len(uris)
         if n == 0:
@@ -125,7 +147,8 @@ class InputQueue:
             items[k] = a
         return self.broker.xadd(self.stream, {
             "uri": "\x1f".join(uris), "batch": str(n),
-            "data": _encode_wire(items), **_deadline_fields(deadline_s)})
+            "data": _encode_wire(items),
+            **_deadline_fields(deadline_s, deadline)})
 
 
 class OutputQueue:

@@ -7,13 +7,17 @@ Phases, each of which raises (exit code 1) on failure:
 
 1. build: every CUDA kernel of the port from ``analytics_zoo_tpu_torch/
    ops/csrc``, one ``nvcc`` per source, all started together;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes BERT-base serving gives it (B=32, H=12, T=128, D=64), in f32
-   and bf16, for a ragged padding mask with one fully masked row, causal
-   attention with Tq < Tk, and dropout 0.1 (the keep-mask compared bit for
-   bit); then its time beside the plain version's, beside
-   ``scaled_dot_product_attention`` (a yardstick the port never calls) and
-   beside its bound on an H100;
+2. kernels: the tensor-core instructions of the built ``flash_fwd.cu``
+   (``cuobjdump -sass``: HGMMA in its bf16 instances, HMMA in its f32
+   ones, neither 0); then the kernel against its plain PyTorch version on
+   the card, at the shapes BERT-base serving gives it (B=32, H=12, T=128,
+   D=64), in f32 and bf16, for a ragged padding mask with one fully masked
+   row, causal attention with Tq < Tk, dropout 0.1 (the keep-mask compared
+   bit for bit), the fused-QKV head views, D 32 and 128, and row / key
+   counts that are no tile multiple; then its device time (CUDA graph
+   replay) and TFLOP/s, with and without dropout, beside the plain
+   version's, beside ``scaled_dot_product_attention`` (a yardstick the
+   port never calls) and beside its bound on an H100;
 3. serve: BERT-base (hidden 768, 12 blocks, 12 heads, seq 128, vocab
    30522) with random weights from a numpy seed, through
    ``InferenceModel.load_keras`` -> ``ClusterServing`` (classic mode,
@@ -65,9 +69,10 @@ Phases, each of which raises (exit code 1) on failure:
    BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
    so 4,096-row blocks): a full block, the diagonal causal block,
    end-aligned causal with Tq < Tk, a ragged T and D 32 / 128, f32 and
-   bf16, output and log-sum-exp; its time beside the plain version's, the
-   bound and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls, which returns no log-sum-exp).  Then ``ring_attention`` over
+   bf16, output and log-sum-exp; its time and TFLOP/s on a full and on a
+   diagonal causal block beside the plain version's, the bound and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls,
+   which returns no log-sum-exp).  Then ``ring_attention`` over
    ``Mesh(["cuda:0"] * 4, ("sequence",))``, forward and backward through
    its ``autograd.Function``, f32 and bf16, causal and not: exactly 10 /
    16 kernel launches per causal / full forward; output, lse and
@@ -75,8 +80,10 @@ Phases, each of which raises (exit code 1) on failure:
    dense plain attention and its autograd gradients at T=4,096; forward
    and forward+backward times and a profiler breakdown of one forward.
 
-It prints one JSON line of kernel numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+The serve, train and ring phases also check that no kernel input was
+copied before a launch (the wrappers' ``copies``).  It prints one JSON
+line of kernel numbers, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --ring-cards 4     # on a host with 4 cards
@@ -103,9 +110,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BERT_BASE = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
                  seq_len=128, intermediate_size=3072)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and dense
-# FLOP/s by operand type (f32 without TF32 runs outside the tensor cores)
+# FLOP/s by operand type.  f32: products accurate to f32 are fastest as
+# 3xTF32 on the tensor cores, three TF32 products for one (495 / 3 = 165
+# TFLOP/s); the 67 TFLOP/s of the f32 SIMT pipes would put a 3xTF32
+# kernel above 100 % of its bound
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 165e12, torch.bfloat16: 989e12}
 # kernel vs plain: f32 accumulation order; bf16 two output ulps
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 2.0 ** -7)}
 # served probabilities, kernel vs plain attention through 12 f32 blocks
@@ -161,6 +171,56 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=20, replays=5) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so the host's
+    launch overhead (Python wrappers, one launch each) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def sass_counts(library: str) -> dict:
+    """``{kernel function: [HGMMA, HMMA]}``: the tensor-core instructions
+    of each kernel in a built library, read with the toolkit's
+    ``cuobjdump -sass``."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            op = line.split("*/", 1)[-1]
+            if "HGMMA" in op:
+                counts[fn][0] += 1
+            elif "HMMA" in op:
+                counts[fn][1] += 1
+    return counts
+
+
 def wall_ms(fn, cards, iters) -> float:
     """Host time per call of ``fn`` after one warm-up, with the first
     ``cards`` devices synchronised (CUDA events on one device would miss
@@ -177,24 +237,30 @@ def wall_ms(fn, cards, iters) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, iters=20, warmup=3) -> float:
+def device_ms(fn, iters=20, warmup=3, attempts=3) -> float:
     """Device time per call of ``fn``: the profiler's sum of the kernels
     (and memsets / copies) it ran, over ``iters`` calls; host gaps between
-    launches are not counted."""
+    launches are not counted.  A profiler session now and then records
+    no device activity at all; such a session is logged and made again,
+    at most ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total_us / iters / 1e3
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+        log(f"[profile] session {attempt} of {attempts} recorded no device "
+            "time")
+    raise AssertionError("the profiler recorded no device time")
 
 
 def phase_build():
@@ -232,25 +298,76 @@ def _extract_keep_mask(flash_attention, B, H, T, D, rate, seed):
     return keep
 
 
+def _fused_qkv_heads(dtype, B, T, H, D, gen):
+    """q, k, v as the BERT layer hands them over: (B, H, T, D) head views
+    of one (B, T, 3 * H * D) projection, read in place."""
+    qkv = torch.randn(B, T, 3 * H * D, generator=gen).to("cuda", dtype)
+    return tuple(t.view(B, T, H, D).transpose(1, 2)
+                 for t in qkv.split(H * D, dim=-1))
+
+
+def flash_sass() -> dict:
+    """HGMMA counts of the bf16 instances and HMMA counts of the f32
+    instances of the built flash_fwd.cu; fails if either is 0."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+    counts = sass_counts(_kernels.build(["flash_fwd.cu"])["flash_fwd.cu"])
+    got = {"hgmma_bf16": sum(c[0] for f, c in counts.items()
+                             if "flash_fwd_bf16" in f),
+           "hmma_f32": sum(c[1] for f, c in counts.items()
+                           if "flash_fwd_f32" in f),
+           "instances": sum("flash_fwd_" in f for f in counts)}
+    log(f"[kernel] flash_fwd.cu SASS: {got['instances']} kernel instances, "
+        f"HGMMA {got['hgmma_bf16']} in the bf16 ones, HMMA "
+        f"{got['hmma_f32']} in the f32 ones (tensor cores reached)")
+    if not got["hgmma_bf16"] or not got["hmma_f32"]:
+        raise AssertionError(f"flash_fwd.cu misses the tensor cores: {got}")
+    return got
+
+
+def no_copies(phase: str) -> None:
+    """The main path hands every kernel its views in place: the fused-QKV
+    head views and the ring's shards are aligned for TMA / cp.async."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+    copies = {k: w.copies for k, w in _kernels.KERNELS.items()}
+    log(f"[{phase}] inputs copied before a launch: {copies}")
+    if any(copies.values()):
+        raise AssertionError(f"{phase}: the main path copied inputs before "
+                             f"a launch: {copies}")
+
+
 def phase_kernels():
     from analytics_zoo_tpu_torch.ops.attention import (
         _hash_keep_mask, flash_attention)
+    F = torch.nn.functional
+    sass = flash_sass()
     B, H, T, D = 32, 12, 128, 64
     gen = torch.Generator().manual_seed(SEED)
+    # at BERT-base serving width, then the head dims and row / key counts
+    # that are no tile multiple (bf16 tiles: 64 rows, 64 or 128 keys; f32:
+    # 16-row warps, 64 keys)
     cases = {
         "ragged padding mask": dict(Tq=T, mask=True),
         "causal Tq=100 < Tk=128": dict(Tq=100, causal=True),
         "dropout 0.1 + mask": dict(Tq=T, mask=True, dropout_rate=0.1,
                                    dropout_seed=1234),
+        "fused QKV head views": dict(Tq=T, mask=True, fused=True),
+        "D32 causal Tq=77 Tk=150": dict(Tq=77, Tk=150, D=32, causal=True),
+        "D128 mask Tq=129 Tk=200": dict(Tq=129, Tk=200, D=128, mask=True),
+        "Tq=1 Tk=191 mask": dict(Tq=1, Tk=191, mask=True),
+        "Tq=63 Tk=63 dropout": dict(Tq=63, Tk=63, dropout_rate=0.1,
+                                    dropout_seed=7),
     }
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         for name, case in cases.items():
             case = dict(case)
-            Tq = case.pop("Tq")
-            q, k, v = _attention_inputs(dtype, B, H, Tq, T, D, gen)
-            mask = _ragged_mask(B, T, gen) if case.pop("mask", False) \
+            Tq, Tk, d = case.pop("Tq"), case.pop("Tk", T), case.pop("D", D)
+            if case.pop("fused", False):
+                q, k, v = _fused_qkv_heads(dtype, B, T, H, d, gen)
+            else:
+                q, k, v = _attention_inputs(dtype, B, H, Tq, Tk, d, gen)
+            mask = _ragged_mask(B, Tk, gen) if case.pop("mask", False) \
                 else None
             out = flash_attention(q, k, v, padding_mask=mask, **case)
             ref = flash_attention(q, k, v, padding_mask=mask,
@@ -276,31 +393,44 @@ def phase_kernels():
         f"({keep.numel()} positions, kept {keep.float().mean().item():.4f})")
 
     # timing at the serving shapes; an all-valid mask, so the work the
-    # bound counts is the full T x T per head
+    # bound counts is the full T x T per head.  ms, plain_ms, library_ms:
+    # back-to-back eager calls (CUDA events, host overhead included where
+    # it exceeds the kernel), as in every earlier row; *device_ms: device
+    # time per call by CUDA graph replay, the wrapper's host time left out
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _attention_inputs(dtype, B, H, T, T, D, gen)
         mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
         bool_mask = (mask != 0)[:, None, None, :]
-        ms = cuda_ms(lambda: flash_attention(q, k, v, padding_mask=mask))
-        plain_ms = cuda_ms(lambda: flash_attention(
-            q, k, v, padding_mask=mask, backend="plain"))
-        lib_ms = cuda_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q, k, v,
-                                                       attn_mask=bool_mask))
+        kernel = lambda: flash_attention(q, k, v, padding_mask=mask)
+        plain = lambda: flash_attention(q, k, v, padding_mask=mask,
+                                        backend="plain")
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=bool_mask)
+        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(sdpa)
+        dev_ms = graph_ms(kernel)
+        drop_ms = graph_ms(lambda: flash_attention(
+            q, k, v, padding_mask=mask, dropout_rate=0.1, dropout_seed=5))
+        plain_dev_ms, lib_dev_ms = graph_ms(plain), graph_ms(sdpa)
         nbytes = 4 * B * H * T * D * q.element_size() + mask.numel() * 4
         flops = 4 * B * H * T * T * D
-        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, \
-            flops / PEAK_FLOPS[dtype] * 1e3
+        bound, by, t_bytes, t_ops = _bound(nbytes, flops, dtype)
         rows[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations", max_abs_err=errs[dtype])
+                           bound_ms=bound, bound_by=by,
+                           max_abs_err=errs[dtype], device_ms=dev_ms,
+                           dropout_device_ms=drop_ms,
+                           plain_device_ms=plain_dev_ms,
+                           library_device_ms=lib_dev_ms,
+                           device_tflops=flops / dev_ms / 1e9, **sass)
         log(f"[kernel] flash_fwd {str(dtype)[6:]:8s} B{B} H{H} T{T} D{D}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({rows[dtype]['bound_by']}; bytes {t_bytes:.4f} ms, "
-            f"operations {t_ops:.4f} ms)")
+            f"eager calls: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa"
+            f" {lib_ms:.4f} ms; device time (graph replay): kernel "
+            f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s; dropout "
+            f"0.1 {drop_ms:.4f} ms), plain {plain_dev_ms:.4f} ms, sdpa "
+            f"{lib_dev_ms:.4f} ms; bound {bound:.4f} ms ({by}; bytes "
+            f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms at "
+            f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s)")
+        del q, k, v
     return rows
 
 
@@ -381,6 +511,7 @@ def phase_serve(cfg=BERT_BASE, device="cuda", n_requests=64,
         t_end = time.perf_counter()
         launches = _kernels.flash_fwd.launches
         n_forwards = forwards[0]
+        no_copies("serve")
     finally:
         serving.stop()
         hook.remove()
@@ -592,6 +723,7 @@ def _train_run(clf, ds, steps, what):
     clf.train(ds, epochs=steps, seed=SEED)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+    no_copies("train")
     losses = [h["loss"] for h in clf._train_est.history[-steps:]]
     log(f"[train] {what}: per-step loss "
         f"{' '.join(f'{v:.4f}' for v in losses)}; launches {launches}")
@@ -1167,18 +1299,26 @@ def phase_ring():
             q, k, v, backend="plain"), iters=5, warmup=1)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                          iters=10, warmup=2)
+        lib_diag_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=10, warmup=2)
         nbytes = 4 * B * H * T_loc * D * es + B * H * T_loc * 4
-        bound, by, t_bytes, t_ops = _bound(nbytes,
-                                           4 * B * H * T_loc * T_loc * D,
-                                           dtype)
+        flops = 4 * B * H * T_loc * T_loc * D
+        diag_flops = 4 * B * H * T_loc * (T_loc + 1) // 2 * D  # seen pairs
+        bound, by, t_bytes, t_ops = _bound(nbytes, flops, dtype)
         rows[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound, bound_by=by,
-                           max_abs_err=errs[dtype], diag_causal_ms=diag_ms)
+                           max_abs_err=errs[dtype], diag_causal_ms=diag_ms,
+                           diag_library_ms=lib_diag_ms,
+                           tflops=flops / ms / 1e9,
+                           diag_tflops=diag_flops / diag_ms / 1e9)
         log(f"[ring] flash_fwd_lse {str(dtype)[6:]:8s} B{B} H{H} "
-            f"T{T_loc} D{D}: kernel {ms:.4f} ms (diagonal causal block "
-            f"{diag_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f}"
-            f" ms (no lse), bound {bound:.4f} ms ({by}; bytes "
-            f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+            f"T{T_loc} D{D}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s; diagonal causal block {diag_ms:.4f} ms, "
+            f"{diag_flops / diag_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (causal "
+            f"{lib_diag_ms:.4f} ms; no lse), bound {bound:.4f} ms ({by}; "
+            f"bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms at "
+            f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s)")
         del q, k, v
 
     # 3. the main path: the ring through its autograd.Function on four
@@ -1200,6 +1340,7 @@ def phase_ring():
         counted[dtype, causal] = _kernels.flash_fwd_lse.launches - before
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in _kernels.KERNELS.items()}
+    no_copies("ring")
     want = dict.fromkeys(_kernels.KERNELS, 0)
     want["flash_fwd_lse"] = sum(per_fwd(c) for _, c in configs)
     log(f"[ring] main path: ring_attention forward + backward, f32 and bf16,"
@@ -1405,13 +1546,15 @@ def main() -> int:
 
     def entry(name, source, replaces, rows, launches,
               shape="B32 H12 T128 D64 float32", **extra):
-        f32 = rows[torch.float32]
+        f32 = dict(rows[torch.float32])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-                "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-                "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-                "shape": shape, "bf16": dict(rows[torch.bfloat16]), **extra}
+                "max_abs_err": f32.pop("max_abs_err"), "ms": f32.pop("ms"),
+                "plain_ms": f32.pop("plain_ms"),
+                "bound_ms": f32.pop("bound_ms"),
+                "bound_by": f32.pop("bound_by"),
+                "library_ms": f32.pop("library_ms"), "shape": shape, **f32,
+                "bf16": dict(rows[torch.bfloat16]), **extra}
 
     csrc = "analytics_zoo_tpu_torch/ops/csrc/"
     paged_lib = "scaled_dot_product_attention over the same K/V made contiguous"

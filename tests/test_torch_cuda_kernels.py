@@ -67,7 +67,14 @@ def _case(dev, dtype, B, H, Tq, Tk, D, mask=False, seed=0, **kw):
     dict(B=2, H=3, Tq=77, Tk=50, D=32, causal=True),
     dict(B=3, H=2, Tq=45, Tk=97, D=128, mask=True, causal=True,
          dropout_rate=0.2, dropout_seed=-7),
-], ids=["mask", "causal_tq_lt_tk", "causal_tq_gt_tk", "ragged_d128"])
+    dict(B=2, H=3, Tq=1, Tk=200, D=64, mask=True),
+    dict(B=2, H=3, Tq=63, Tk=63, D=32, causal=True),
+    dict(B=2, H=3, Tq=129, Tk=300, D=128, mask=True, dropout_rate=0.1,
+         dropout_seed=11),
+    dict(B=2, H=3, Tq=129, Tk=129, D=32, causal=True, dropout_rate=0.1,
+         dropout_seed=12),
+], ids=["mask", "causal_tq_lt_tk", "causal_tq_gt_tk", "ragged_d128",
+        "tq1", "tq63_d32", "tq129_d128", "tq129_d32"])
 def test_kernel_matches_plain(dev, dtype, case):
     before = _kernels.flash_fwd.launches
     out = _case(dev, dtype, **case)
@@ -100,6 +107,36 @@ def test_strided_head_views_and_bad_head_dim(dev):
     bad = torch.randn(1, 1, 8, 48, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(bad, bad, bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_view_is_copied_and_right(dev, dtype):
+    """A view 2 bytes off a 16-byte boundary (and one with a row stride
+    that is no multiple of 16 bytes) is copied first, counted in
+    ``copies``, and the result still matches the plain version; aligned
+    head views are read in place."""
+    B, H, T, D = 2, 3, 70, 64
+    g = torch.Generator().manual_seed(8)
+    buf = torch.randn(B * H * T * D + 1, generator=g).to(dev, dtype)
+    q = buf[1:].view(B, H, T, D)
+    k = torch.randn(B, H, T, D + 2, generator=g).to(dev, dtype)[..., :D]
+    v = torch.randn(B, H, T, D, generator=g).to(dev, dtype)
+    atol, rtol = _tol(dtype)
+    for fwd in (flash_attention, flash_forward_with_lse):
+        wrapper = (_kernels.flash_fwd if fwd is flash_attention
+                   else _kernels.flash_fwd_lse)
+        before = wrapper.copies
+        out = fwd(q, k, v)
+        ref = fwd(q, k, v, backend="plain")
+        torch.cuda.synchronize()
+        out, ref = (out, ref) if fwd is flash_attention else (out[0],
+                                                              ref[0])
+        assert wrapper.copies == before + 2           # q and k
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        before = wrapper.copies
+        fwd(v, v, v)
+        assert wrapper.copies == before
 
 
 def _bwd_case(dev, dtype, B, H, Tq, Tk, D, mask=False, seed=0, **kw):
@@ -279,7 +316,9 @@ def test_paged_kernels_refuse_what_they_do_not_take(dev):
     dict(B=2, H=3, Tq=200, Tk=200, D=32, causal=True),
     dict(B=1, H=4, Tq=100, Tk=300, D=128, causal=True),
     dict(B=2, H=2, Tq=77, Tk=50, D=64, causal=True),
-], ids=["full", "diag_ragged_d32", "causal_tq_lt_tk_d128", "empty_rows"])
+    dict(B=2, H=4, Tq=1000, Tk=700, D=64, causal=True),
+], ids=["full", "diag_ragged_d32", "causal_tq_lt_tk_d128", "empty_rows",
+        "causal_tq1000_gt_tk700"])
 def test_flash_fwd_lse_matches_plain(dev, dtype, case):
     """Strided head views in; rows that see no key give o = 0 and lse
     exactly -1e30 (finite, so the ring's merge never meets inf - inf)."""

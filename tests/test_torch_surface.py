@@ -1,0 +1,357 @@
+"""The port's public names take the JAX names' arguments.
+
+Walks every public function and class (constructor and public methods)
+of ``analytics_zoo_tpu_torch`` that has a namesake in the same module of
+``analytics_zoo_tpu``, and compares their parameter names.  A difference
+passes only where ``DIFFERENCES`` lists it, with its reason: one of the
+deliberate differences of the port (below), or an argument whose
+machinery a ROADMAP Queue 1 item has still to port.  An entry that no
+longer differs fails too, so the list stays exact.  Names the port keeps
+as stubs (``*args, **kwargs``) must raise ``NotImplementedError`` naming
+ROADMAP.  Then one test per argument repaired to the JAX surface.
+"""
+
+import importlib
+import inspect
+import pkgutil
+
+import numpy as np
+import pytest
+import torch
+
+import analytics_zoo_tpu  # noqa: F401  (the reference surface)
+import analytics_zoo_tpu_torch
+
+# deliberate differences of the port
+RNG = "a JAX PRNG key becomes an int seed or a torch.Generator"
+DEVICE = "device= is added: entry points default to the card"
+LAYOUT = "nn.Module constructors and methods follow the module layout"
+OPTAX = "optax's transformation and its state have no counterpart"
+BACKEND = "backend= picks the kernel or its plain version"
+PREDICT = "predict batches on the host, so it takes the batch size"
+
+
+def _todo(item: int) -> str:
+    return f"not ported yet: ROADMAP Queue 1 item {item}"
+
+
+#: name -> (parameters of the JAX name the port lacks, parameters the
+#: port adds, why)
+DIFFERENCES = {
+    "common.config.TrainConfig.__init__": (
+        "failure_retry_times failure_retry_window_sec keep_checkpoints "
+        "donate_state rng_impl shard_model max_steps_per_dispatch", "",
+        _todo(2)),
+    "common.config.ZooConfig.__init__": (
+        "data serving fleet coordinator_address num_processes process_id "
+        "platform log_output default_dtype", "", _todo(1)),
+    "common.context.init_zoo_context": (
+        "config_path overrides", "devices", f"{_todo(1)}; {DEVICE}"),
+    "data.featureset.FeatureSet.batches": ("ctx", "device", DEVICE),
+    "data.featureset.FeatureSet.batches_with_counts": ("ctx", "device",
+                                                       DEVICE),
+    "estimator.estimator.Estimator.__init__": (
+        "ctx app_name checkpoint_trigger", "config device",
+        f"{DEVICE}; {_todo(2)}"),
+    "estimator.estimator.Estimator.train": ("rng", "seed", RNG),
+    "inference.inference_model.InferenceModel.__init__": (
+        "place_on_load", "device", f"{_todo(1)}; {DEVICE}"),
+    "inference.inference_model.InferenceModel.load_keras": ("place", "",
+                                                            _todo(1)),
+    "keras.engine.Layer.__init__": ("input_shape", "", LAYOUT),
+    "keras.engine.Layer.init": ("rng input_shape", "generator",
+                                f"{LAYOUT}; {RNG}"),
+    "keras.engine.Layer.param_count": ("params", "", LAYOUT),
+    "keras.engine.KerasNet.__init__": ("kw", "name", LAYOUT),
+    "keras.engine.KerasNet.predict_fn": ("params state", "", LAYOUT),
+    "keras.initializers.glorot_uniform": ("rng shape dtype", "t generator",
+                                          f"{LAYOUT}; {RNG}"),
+    "keras.initializers.normal": ("rng shape dtype", "t generator",
+                                  f"{LAYOUT}; {RNG}"),
+    "keras.layers.normalization.LayerNorm.__init__": (
+        "kw", "hidden_size name", LAYOUT),
+    "keras.layers.self_attention.MultiHeadAttention.__init__": (
+        "kw", "name backend", f"{LAYOUT}; {BACKEND}"),
+    "keras.layers.self_attention.PositionwiseFFN.__init__": ("kw", "name",
+                                                             LAYOUT),
+    "keras.layers.self_attention.TransformerBlock.__init__": ("kw", "name",
+                                                              LAYOUT),
+    "keras.layers.self_attention.TransformerLayer.__init__": ("kw", "name",
+                                                              LAYOUT),
+    "keras.layers.self_attention.BERT.__init__": ("kw", "name", LAYOUT),
+    "keras.optimizers.Optimizer.__init__": ("tx", "", OPTAX),
+    "keras.optimizers.Optimizer.update": ("opt_state", "state", OPTAX),
+    "llm.engine.LLMServing.__init__": ("", "device", DEVICE),
+    "llm.kv_cache.PagedKVCache.__init__": ("", "device", DEVICE),
+    "models.generation.prefill_chunk": ("mesh", "", _todo(5)),
+    "models.generation.decode_step": ("mesh", "", _todo(5)),
+    "models.generation.DecoderLM.__init__": (
+        "params", "hidden n_layers intermediate generator device",
+        f"{LAYOUT}; {RNG}; {DEVICE}"),
+    "models.generation.DecoderLM.tiny": ("rng", "generator device",
+                                         f"{RNG}; {DEVICE}"),
+    "ops.attention.flash_forward_with_lse": ("", "backend", BACKEND),
+    "ops.paged_attention.paged_chunk_attention": ("", "backend", BACKEND),
+    "serving.engine.ClusterServing.__init__": ("tenancy", "", _todo(1)),
+    "tfpark.text_estimators.BERTBaseEstimator.__init__": ("", "device",
+                                                          DEVICE),
+    "tfpark.text_estimators.BERTBaseEstimator.train": ("rng", "seed", RNG),
+    "tfpark.text_estimators.BERTBaseEstimator.predict": ("", "batch_size",
+                                                         PREDICT),
+    "tfpark.text_estimators.BERTClassifier.__init__": (
+        "", "device generator", f"{DEVICE}; {RNG}"),
+    "tfpark.tf_dataset.TFDataset.__init__": (
+        "has_labels validation_featureset", "", _todo(2)),
+    "tfpark.tf_dataset.TFDataset.from_ndarrays": ("val_tensors", "",
+                                                  _todo(2)),
+}
+
+
+def _params(fn):
+    try:
+        return list(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return None
+
+
+def _pairs():
+    """(name, port callable, JAX callable) for every public port name
+    with a JAX namesake, in a fixed order."""
+    out = []
+    prefix = analytics_zoo_tpu_torch.__name__ + "."
+    modules = pkgutil.walk_packages(analytics_zoo_tpu_torch.__path__, prefix)
+    for info in sorted(modules, key=lambda m: m.name):
+        port = importlib.import_module(info.name)
+        try:
+            ref = importlib.import_module(
+                "analytics_zoo_tpu." + info.name[len(prefix):])
+        except ImportError:
+            continue                          # a port-only module
+        for attr, obj in sorted(vars(port).items()):
+            if attr.startswith("_") or getattr(obj, "__module__",
+                                               None) != info.name:
+                continue
+            jobj = getattr(ref, attr, None)
+            if jobj is None or not (inspect.isfunction(obj)
+                                    or inspect.isclass(obj)):
+                continue
+            short = f"{info.name[len(prefix):]}.{attr}"
+            if not inspect.isclass(obj):
+                out.append((short, obj, jobj))
+                continue
+            out.append((f"{short}.__init__", obj.__init__, jobj.__init__))
+            for meth in sorted(vars(obj)):
+                if meth.startswith("_") or inspect.getattr_static(
+                        jobj, meth, None) is None:
+                    continue
+                f, jf = getattr(obj, meth), getattr(jobj, meth)
+                if callable(f) and callable(jf):
+                    out.append((f"{short}.{meth}", f, jf))
+    return [(n, f, jf) for n, f, jf in out
+            if _params(f) is not None and _params(jf) is not None]
+
+
+PAIRS = _pairs()
+STUBS = [n for n, f, _ in PAIRS if _params(f) == ["args", "kwargs"]]
+COMPARED = [n for n, _, _ in PAIRS if n not in STUBS]
+
+
+def test_the_walk_finds_the_ported_surface():
+    # the names this file was written against are still walked
+    assert len(COMPARED) > 150
+    assert set(DIFFERENCES) <= set(COMPARED)
+    for name in ("ops.attention.flash_attention",
+                 "serving.client.InputQueue.enqueue_items",
+                 "llm.client.GenerationClient.submit"):
+        assert name in COMPARED
+
+
+@pytest.mark.parametrize("name", COMPARED)
+def test_parameters_match_the_jax_name(name):
+    fn, jfn = next((f, jf) for n, f, jf in PAIRS if n == name)
+    port, ref = _params(fn), _params(jfn)
+    missing = {p for p in ref if p not in port}
+    added = {p for p in port if p not in ref}
+    want_missing, want_added, why = DIFFERENCES.get(name, ("", "", ""))
+    assert (missing, added) == (set(want_missing.split()),
+                                set(want_added.split())), (
+        f"{name}: lacks {sorted(missing)}, adds {sorted(added)}; listed: "
+        f"{want_missing!r} / {want_added!r} ({why or 'none'})")
+
+
+@pytest.mark.parametrize("name", STUBS)
+def test_stub_raises_naming_roadmap(name):
+    fn = next(f for n, f, _ in PAIRS if n == name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fn()
+
+
+# --- the arguments repaired to the JAX surface ----------------------------
+
+class _Capture:
+    """A broker that keeps what is queued."""
+
+    def __init__(self):
+        self.entries = []
+
+    def xadd(self, stream, fields):
+        self.entries.append(fields)
+        return f"{len(self.entries)}-0"
+
+
+def _queues():
+    from analytics_zoo_tpu_torch.serving.client import InputQueue
+    broker = _Capture()
+    return broker, InputQueue(broker=broker)
+
+
+def _last_entry(broker):
+    return broker.entries[-1]
+
+
+def test_enqueue_items_takes_an_explicit_deadline():
+    from analytics_zoo_tpu_torch.common.resilience import Deadline
+    broker, q = _queues()
+    dl = Deadline(30.0)
+    q.enqueue_items("a", {"x": np.ones(3, np.float32)}, deadline=dl)
+    assert abs(float(_last_entry(broker)["deadline_ts"]) - dl.wall()) < 1e-3
+
+
+def test_enqueue_batch_items_takes_an_explicit_deadline():
+    from analytics_zoo_tpu_torch.common.resilience import Deadline
+    broker, q = _queues()
+    dl = Deadline(30.0)
+    q.enqueue_batch_items(["a", "b"], {"x": np.ones((2, 3), np.float32)},
+                          deadline=dl)
+    fields = _last_entry(broker)
+    assert abs(float(fields["deadline_ts"]) - dl.wall()) < 1e-3
+    assert fields["batch"] == "2"
+
+
+@pytest.mark.parametrize("method", ["enqueue_items", "enqueue_batch_items"])
+@pytest.mark.parametrize("arg,item", [("trace_ctx", 6), ("model", 1),
+                                      ("tenant", 1)])
+def test_enqueue_unported_stamp_names_its_item(method, arg, item):
+    broker, q = _queues()
+    call = (lambda **kw: q.enqueue_items("a", {"x": np.ones(2)}, **kw)) \
+        if method == "enqueue_items" else \
+        (lambda **kw: q.enqueue_batch_items(["a"], {"x": np.ones((1, 2))},
+                                            **kw))
+    with pytest.raises(NotImplementedError, match=f"{arg}=.*Queue 1 item "
+                                                  f"{item}"):
+        call(**{arg: "x"})
+    assert not broker.entries                    # nothing was queued
+    call()                                       # None still runs
+
+
+def test_generation_submit_trace_ctx_names_item_6():
+    from analytics_zoo_tpu_torch.llm.client import GenerationClient
+    client = GenerationClient(broker=_Capture())
+    with pytest.raises(NotImplementedError, match="trace_ctx=.*item 6"):
+        client.submit("r", [1, 2, 3], trace_ctx="00-ab-cd-01")
+    assert client.submit("r", [1, 2, 3], trace_ctx=None) == "r"
+
+
+def test_admission_shed_trace_id_names_item_6():
+    from analytics_zoo_tpu_torch.common.resilience import AdmissionController
+    ctl = AdmissionController(capacity=4)
+    with pytest.raises(NotImplementedError, match="trace_id=.*item 6"):
+        ctl.shed(1, trace_id=7)
+    ctl.shed(1)
+    assert ctl.shed_count == 1
+
+
+def test_record_expired_trace_id_names_item_6():
+    from analytics_zoo_tpu_torch.common import resilience
+    before = resilience.expired_counts.get("surface", 0)
+    with pytest.raises(NotImplementedError, match="trace_id=.*item 6"):
+        resilience.record_expired(1, scope="surface", trace_id=7)
+    resilience.record_expired(2, scope="surface")
+    assert resilience.expired_counts["surface"] == before + 2
+
+
+def test_trigger_state_has_a_score():
+    from analytics_zoo_tpu.common.triggers import TriggerState as JState
+    from analytics_zoo_tpu_torch.common.triggers import TriggerState
+    assert TriggerState().score is None
+    s = TriggerState(epoch=2, iteration=10, score=0.75)
+    assert s.score == 0.75
+    assert JState(epoch=2, iteration=10, score=0.75).score == s.score
+
+
+def test_featureset_sequential_order_keeps_record_order():
+    from analytics_zoo_tpu.data.featureset import FeatureSet as JFeatureSet
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    x = np.arange(10, dtype=np.float32)[:, None]
+    fs = FeatureSet(x, x[:, 0], shuffle=True, sequential_order=True, seed=3)
+    assert not fs.shuffle
+    got = [b[0][:, 0] for b in fs.local_batches(4, epoch=1)]
+    np.testing.assert_array_equal(np.concatenate(got), np.arange(8))
+    jfs = JFeatureSet(x, x[:, 0], shuffle=True, sequential_order=True,
+                      seed=3)
+    want = [b[0][:, 0] for b in jfs.local_batches(4, epoch=1)]
+    np.testing.assert_array_equal(np.concatenate(got), np.concatenate(want))
+    # without it the epoch is shuffled
+    shuffled = np.concatenate([b[0][:, 0] for b in FeatureSet(
+        x, x[:, 0], seed=3).local_batches(4, epoch=1)])
+    assert not np.array_equal(shuffled, np.arange(8))
+
+
+def _qkv(seed=0, B=2, H=2, T=16, D=32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, H, T, D),
+                                                 dtype=np.float32))
+            for _ in range(3)]
+
+
+def test_flash_attention_tile_hints_are_no_ops():
+    from analytics_zoo_tpu_torch.ops.attention import flash_attention
+    q, k, v = _qkv()
+    base = flash_attention(q, k, v, causal=True)
+    hinted = flash_attention(q, k, v, causal=True, block_q=64, block_k=32)
+    assert torch.equal(base, hinted)
+    # positional order is the JAX one: ..., sm_scale, block_q, block_k
+    assert torch.equal(flash_attention(q, k, v, None, True, None, 8, 8),
+                       base)
+
+
+def test_flash_forward_with_lse_tile_hints_are_no_ops():
+    from analytics_zoo_tpu_torch.ops.attention import flash_forward_with_lse
+    q, k, v = _qkv(1)
+    o, lse = flash_forward_with_lse(q, k, v, causal=True)
+    o2, lse2 = flash_forward_with_lse(q, k, v, causal=True, block_q=64,
+                                      block_k=64, interpret=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_attention_dropout_rng_names_dropout_seed():
+    from analytics_zoo_tpu_torch.ops.attention import flash_attention
+    q, k, v = _qkv()
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, k, v, dropout_rate=0.1,
+                        dropout_rng=np.array([0, 42], np.uint32))
+
+
+def test_paged_decode_pages_per_compute_block_is_a_no_op():
+    from analytics_zoo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention)
+    rng = np.random.default_rng(2)
+    B, H, D, P, bs, nb = 2, 4, 32, 6, 4, 3
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32))
+    pages = [torch.from_numpy(rng.standard_normal((P, bs, H, D),
+                                                  dtype=np.float32))
+             for _ in range(2)]
+    lengths = torch.tensor([5, 9], dtype=torch.int32)
+    tables = torch.tensor([[1, 2, 0], [3, 4, 5]], dtype=torch.int32)
+    base = paged_decode_attention(q, *pages, lengths, tables)
+    hinted = paged_decode_attention(q, *pages, lengths, tables,
+                                    pages_per_compute_block=8)
+    assert torch.equal(base, hinted)
+
+
+def test_predict_async_reserved_names_item_1():
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        InferenceModel)
+    model = InferenceModel(device="cpu")
+    with pytest.raises(NotImplementedError, match="reserved=.*item 1"):
+        model.predict_async(np.zeros((1, 2), np.float32), reserved=True)

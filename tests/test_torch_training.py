@@ -193,6 +193,32 @@ def test_loss_falls_in_f32_and_mixed_precision():
         assert clf.evaluate(ds)["accuracy"] > 0.5
 
 
+def test_validation_during_training_sets_the_score():
+    from analytics_zoo_tpu_torch.common.triggers import MaxScore
+    cfg = dict(CFG, hidden_drop=0.1, attn_drop=0.1)
+    nets = [TBERT(num_classes=2, bert_config=cfg, device="cpu").net
+            for _ in range(2)]
+    nets[1].load_state_dict(nets[0].state_dict())
+    ests = [Estimator(n, "adam", "sparse_categorical_crossentropy",
+                      metrics=["accuracy"], device="cpu") for n in nets]
+    x, y = _data(16)
+    fs = TTFDataset.from_ndarrays((tuple(x), y), batch_size=8) \
+        .get_training_data()
+    # validation at every epoch end leaves the training as it was
+    # (dropout on again in the next epoch)
+    hist = ests[0].train(fs, 8, epochs=2, validation_data=fs, seed=4)
+    plain = ests[1].train(fs, 8, epochs=2, seed=4)
+    assert [h["loss"] for h in hist] == [h["loss"] for h in plain]
+    assert all("val_accuracy" in h and "val_loss" in h for h in hist)
+    # accuracy > -1 always: the end trigger fires on the first score,
+    # which only the epoch end's validation can set
+    hist = ests[0].train(fs, 8, epochs=3, validation_data=fs, seed=4,
+                         end_trigger=MaxScore(-1.0))
+    assert len(hist) == 3 and ests[0].global_step == 6
+    want = ests[0].evaluate(fs, 8)
+    assert {k: hist[-1][f"val_{k}"] for k in want} == want
+
+
 def test_estimator_options_not_ported_raise():
     net = TBERT(num_classes=2, bert_config=CFG, device="cpu").net
     for kw in (dict(steps_per_dispatch=4), dict(grad_accum_steps=2),
@@ -207,8 +233,6 @@ def test_estimator_options_not_ported_raise():
     x, y = _data(8)
     fs = TTFDataset.from_ndarrays((tuple(x), y), batch_size=8) \
         .get_training_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.train(fs, 8, validation_data=fs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         est.train(fs, 8, resume=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
