@@ -1,6 +1,8 @@
 """Configuration: copies of the JAX package's ``MeshConfig``,
-``ServingConfig`` and ``LLMServingConfig``, of the ``TrainConfig`` fields
-the estimator reads, and of ``compute_dtype``.
+``ServingConfig``, ``LLMServingConfig``, ``TrainConfig`` and ``ZooConfig``.
+Fields whose machinery is not ported take the JAX default, and any other
+value raises ``NotImplementedError`` naming the ROADMAP item that ports it
+(``common/unported.py``).
 
 Copied from ``analytics_zoo_tpu/common/config.py`` (the port cannot import
 that module: every ``analytics_zoo_tpu`` import loads jax), so a config
@@ -14,8 +16,10 @@ not ported yet (the pipelined engine, the HTTP frontend, tenancy), and
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Optional
+
+from analytics_zoo_tpu_torch.common.unported import reject
 
 
 @dataclass
@@ -30,23 +34,64 @@ class MeshConfig:
     axis_names: tuple = ("data", "model", "sequence", "expert", "pipeline")
 
 
+#: TrainConfig fields whose machinery is Queue 1 item 2
+_TRAIN_UNPORTED = ("failure_retry_times", "failure_retry_window_sec",
+                   "keep_checkpoints", "donate_state", "rng_impl",
+                   "shard_model", "max_steps_per_dispatch")
+
+
 @dataclass
 class TrainConfig:
+    failure_retry_times: int = 5
+    failure_retry_window_sec: int = 0
     checkpoint_dir: Optional[str] = None
+    keep_checkpoints: int = 3
     gradient_clip_norm: Optional[float] = None
     gradient_clip_value: Optional[float] = None  # clip to [-v, v]
+    donate_state: bool = True
+    rng_impl: str = "rbg"
     # sharded optimizer update over the data axis (not ported: one card)
     shard_optimizer: bool = False
+    shard_model: bool = True
     # microbatches per optimizer step (only 1 is ported)
     grad_accum_steps: int = 1
+    max_steps_per_dispatch: int = 1024
+
+    def __post_init__(self):
+        defaults = {f.name: f.default for f in fields(self)
+                    if f.name in _TRAIN_UNPORTED}
+        reject("TrainConfig", 2, defaults,
+               **{name: getattr(self, name) for name in defaults})
 
 
 @dataclass
 class ZooConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    # the data and fleet sections (no port counterpart yet), the serving
+    # section and the multi-process fields: Queue 1 item 1
+    data: Optional[object] = None
+    serving: "ServingConfig" = field(
+        default_factory=lambda: ServingConfig())
+    fleet: Optional[object] = None
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    platform: Optional[str] = None
+    log_output: bool = False
+    default_dtype: str = "float32"
     # the forward / backward dtype of mixed-precision training
     compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        reject("ZooConfig", 1, dict(serving=ServingConfig(),
+                                    log_output=False,
+                                    default_dtype="float32"),
+               data=self.data, serving=self.serving, fleet=self.fleet,
+               coordinator_address=self.coordinator_address,
+               num_processes=self.num_processes, process_id=self.process_id,
+               platform=self.platform, log_output=self.log_output,
+               default_dtype=self.default_dtype)
 
 
 @dataclass

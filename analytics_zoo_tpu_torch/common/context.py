@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 
 
@@ -90,8 +91,14 @@ def _build_mesh(devices: Sequence[torch.device], mc: MeshConfig) -> Mesh:
 
 
 def init_zoo_context(conf: Optional[ZooConfig] = None,
-                     devices: Optional[Sequence] = None) -> ZooContext:
+                     config_path: Optional[str] = None, *,
+                     devices: Optional[Sequence] = None,
+                     **overrides) -> ZooContext:
     """A context whose mesh lays ``devices`` out by ``conf.mesh``.
+
+    ``config_path`` and ``**overrides`` (the JAX package's config file and
+    field overrides) are not ported yet: passing either raises
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 1.
 
     ``devices`` defaults to every visible CUDA device and raises
     ``NoCudaDeviceError`` when there is none.  A caller may name devices,
@@ -99,6 +106,8 @@ def init_zoo_context(conf: Optional[ZooConfig] = None,
     8-shard mesh on the host (as the tests do), ``["cuda:0"] * 4`` four
     shards on one card.
     """
+    reject("init_zoo_context", 1, config_path=config_path,
+           overrides=overrides or None)
     cfg = conf or ZooConfig()
     if devices is None:
         resolve_device()

@@ -3,25 +3,36 @@
 A ported name takes every argument of the JAX name it ports.  Where the
 machinery behind an argument is not ported, passing it raises
 ``NotImplementedError`` naming the ROADMAP item that ports it; leaving it
-at its default (``None``) runs as before.
+at its JAX default runs as before.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 #: ROADMAP Queue 1 items, by the number the messages cite
 QUEUE_ITEMS = {
     1: "ROADMAP Queue 1 item 1: pipelined serving, with multi-model "
-       "routing, tenancy and reservations",
+       "routing, tenancy and reservations, and the serving config",
+    2: "ROADMAP Queue 1 item 2: the rest of training, with checkpoints, "
+       "validation sets, retries and multi-step dispatch",
+    5: "ROADMAP Queue 1 item 5: the rest of parallel/, with sharded "
+       "models and model-parallel serving",
     6: "ROADMAP Queue 1 item 6: observability, with trace context and "
        "trace events",
 }
 
 
-def reject(where: str, item: int, **args) -> None:
+def reject(where: str, item: int, defaults: Optional[dict] = None,
+           **args) -> None:
     """Raise ``NotImplementedError`` for the first of ``args`` that is not
-    ``None``, naming ``where`` and Queue 1 item ``item``."""
+    at its JAX default (``defaults[name]`` where given, else ``None``),
+    naming ``where`` and Queue 1 item ``item``."""
+    defaults = defaults or {}
     for name, value in args.items():
-        if value is not None:
+        changed = (value != defaults[name] if name in defaults
+                   else value is not None)
+        if changed:
             raise NotImplementedError(
                 f"{where}({name}=...) is not ported yet "
                 f"({QUEUE_ITEMS[item]})")

@@ -39,6 +39,7 @@ from torch.func import functional_call
 
 from analytics_zoo_tpu_torch.common.config import ZooConfig
 from analytics_zoo_tpu_torch.common.context import resolve_device
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.common.triggers import (EveryEpoch, Trigger,
                                                      TriggerState)
 from analytics_zoo_tpu_torch.data.featureset import tree_map
@@ -63,7 +64,9 @@ class Estimator:
                  metrics: Optional[List] = None,
                  config: Optional[ZooConfig] = None, device=None,
                  tensorboard_dir: Optional[str] = None,
+                 app_name: Optional[str] = None,
                  checkpoint_dir: Optional[str] = None,
+                 checkpoint_trigger: Optional[Trigger] = None,
                  gradient_clip_norm: Optional[float] = None,
                  gradient_clip_value=None, remat: bool = False,
                  mixed_precision: bool = False, steps_per_dispatch: int = 1,
@@ -71,6 +74,8 @@ class Estimator:
                  shard_optimizer: Optional[bool] = None,
                  grad_accum_steps: Optional[int] = None,
                  shard_model: Optional[bool] = None):
+        reject("Estimator", 2, app_name=app_name,
+               checkpoint_trigger=checkpoint_trigger)
         config = config or ZooConfig()
         cfg = config.train
         accum = (cfg.grad_accum_steps if grad_accum_steps is None

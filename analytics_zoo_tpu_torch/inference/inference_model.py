@@ -90,7 +90,12 @@ class InferenceModel:
     """
 
     def __init__(self, supported_concurrent_num: int = 1,
+                 place_on_load: bool = True,
                  device: Optional[Union[str, torch.device]] = None):
+        # weights always go to the device on load: keeping them on the host
+        # until placed is the multi-model weight cache's
+        reject("InferenceModel", 1, dict(place_on_load=True),
+               place_on_load=place_on_load)
         self.device = resolve_device(device)
         self.concurrency = supported_concurrent_num
         self.model = None
@@ -104,14 +109,19 @@ class InferenceModel:
             2 * supported_concurrent_num)
 
     def load_keras(self, model, variables: Optional[Tuple] = None,
-                   preprocessor=None) -> "InferenceModel":
+                   preprocessor=None,
+                   place: Optional[bool] = None) -> "InferenceModel":
         """Serve ``model``, moved to this model's device in place.
         ``variables`` is ``(params, state)`` or a bare params tree in the
         JAX layout; None keeps the model's current weights.
         ``preprocessor`` maps the request (arrays already on the device,
         in the request's dict / list structure) to the model's input, e.g.
         ``lambda d: [d["input_ids"], d["token_type_ids"],
-        d["input_mask"]]`` for BERT."""
+        d["input_mask"]]`` for BERT.  ``place`` None or True (the
+        default placement): ``place=False`` raises, as the constructor's
+        ``place_on_load=False`` does."""
+        reject("InferenceModel.load_keras", 1, dict(place=True),
+               place=True if place is None else place)
         model.to(self.device)
         if variables is not None:
             model.set_weights(variables)

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.ops.paged_attention import (
     _NEG_INF, paged_chunk_attention, paged_decode_attention)
 
@@ -177,7 +178,8 @@ def prefill(params: "DecoderLM", tokens, length: int, k_pages, v_pages,
 
 
 def prefill_chunk(params: "DecoderLM", tokens, start: int, length: int,
-                  page_table, k_pages, v_pages, slots, n_head: int):
+                  page_table, k_pages, v_pages, slots, n_head: int,
+                  mesh=None):
     """Causal forward over ONE CHUNK of a prompt, attending through the
     paged cache: earlier chunks and adopted prefix blocks are read back
     through the page table.
@@ -187,7 +189,9 @@ def prefill_chunk(params: "DecoderLM", tokens, start: int, length: int,
     page_table (nb,) int32 (scratch-padded), slots (Tc,) int64 page-space
     slot per chunk position (padding -> scratch).  Returns (next-token
     logits (V,) at position ``start + length - 1``, k_pages, v_pages); the
-    logits only mean anything on the final chunk."""
+    logits only mean anything on the final chunk.  ``mesh`` (model-parallel
+    serving) is not ported yet and raises."""
+    reject("prefill_chunk", 5, mesh=mesh)
     Tc = tokens.shape[0]
     start = int(start)
     max_pos = params.pos_emb.shape[0]
@@ -210,7 +214,8 @@ def prefill_chunk(params: "DecoderLM", tokens, start: int, length: int,
 
 
 def decode_step(params: "DecoderLM", tokens, positions, lengths,
-                page_tables, k_pages, v_pages, slots, n_head: int):
+                page_tables, k_pages, v_pages, slots, n_head: int,
+                mesh=None):
     """One token per batch slot through the paged cache.
 
     tokens / positions (B,) int, lengths (B,) int32, slots (B,) int64,
@@ -218,7 +223,9 @@ def decode_step(params: "DecoderLM", tokens, positions, lengths,
     written this step; dead slots carry length 0 and scratch slots.
     ``positions`` must lie below the position table's size (``LLMServing``
     checks ``max_model_len`` against it).  Returns (logits (B, V),
-    k_pages, v_pages)."""
+    k_pages, v_pages).  ``mesh`` (model-parallel serving) is not ported
+    yet and raises."""
+    reject("decode_step", 5, mesh=mesh)
     B = tokens.shape[0]
     x = params.tok_emb[tokens] + params.pos_emb[positions]
     for li, blk in enumerate(params.blocks):

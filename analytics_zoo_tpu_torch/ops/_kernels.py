@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each ``ops/csrc/<name>.cu`` exports plain C functions (``flash_fwd.cu``
-two, one for each of its wrappers); it is compiled with
+and ``flash_bwd.cu`` two each, one for each of their wrappers); it is
+compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under the package's
 ``_build/`` directory (listed in ``.gitignore``) the first time it is
 needed, and loaded with ``ctypes``.  Libraries are named by a hash of their
@@ -115,13 +116,16 @@ _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _F32, _U32 = ctypes.c_float, ctypes.c_uint
 #: each entry point: its library's source and its C signature
 _ENTRY = {
-    "zoo_flash_fwd": ("flash_fwd.cu", [_PTR] * 5 + [_I64] * 12 + [_I32] * 6
+    "zoo_flash_fwd": ("flash_fwd.cu", [_PTR] * 6 + [_I64] * 12 + [_I32] * 6
                       + [_F32, _I32, _U32, _F32, _I32, _PTR]),
     "zoo_flash_fwd_lse": ("flash_fwd.cu", [_PTR] * 5 + [_I64] * 12
                           + [_I32] * 6 + [_F32, _I32, _PTR]),
-    "zoo_flash_bwd": ("flash_bwd.cu", [_PTR] * 11
+    "zoo_flash_bwd": ("flash_bwd.cu", [_PTR] * 12
                       + [ctypes.POINTER(_I64)] + [_I32] * 6
                       + [_F32, _I32, _U32, _F32, _I32, _PTR]),
+    "zoo_flash_bwd_lse": ("flash_bwd.cu", [_PTR] * 10
+                          + [ctypes.POINTER(_I64)] + [_I32] * 6
+                          + [_F32, _I32, _PTR]),
     "zoo_paged_decode": ("paged_decode.cu", [_PTR] * 6 + [_I64] * 11
                          + [_I32] * 8 + [_F32, _PTR]),
     "zoo_paged_chunk": ("paged_chunk.cu", [_PTR] * 5 + [_I64] * 10
@@ -216,41 +220,56 @@ class _Wrapper:
             self.launches += 1
 
 
+def _ptr(t):
+    """A tensor's address, or a null pointer for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _int_mask(padding_mask):
+    """The kernels' padding mask: contiguous int32, nonzero = valid."""
+    if padding_mask is None or (padding_mask.dtype == torch.int32
+                                and padding_mask.is_contiguous()):
+        return padding_mask
+    return (padding_mask != 0).to(torch.int32).contiguous()
+
+
 class FlashForward(_Wrapper):
     """Wrapper of ``zoo_flash_fwd`` (``csrc/flash_fwd.cu``): attention
     forward over q ``(B, H, Tq, D)``, k / v ``(B, H, Tk, D)`` CUDA tensors,
     read in place where ``tma_aligned`` (so the head views of a fused QKV
     projection), else copied first and counted in ``copies``.  Returns the
     output as a ``(B, H, Tq, D)`` view of a ``(B, Tq, H, D)`` buffer, so
-    merging the heads back afterwards is free."""
+    merging the heads back afterwards is free; with ``with_lse`` also each
+    row's log-sum-exp of the scaled scores before dropout, a contiguous
+    ``(B, H, Tq)`` f32 tensor (``-1e30`` for a row that sees no key), which
+    ``FlashBackward`` takes."""
 
     name = "flash_fwd"
 
     def __call__(self, q, k, v, padding_mask=None, causal=False,
                  sm_scale=1.0, dropout_thresh=0, keep_scale=1.0,
-                 seed=0) -> torch.Tensor:
+                 seed=0, with_lse=False):
         _check(self.name, q, k, v, padding_mask)
         B, H, Tq, D = q.shape
         Tk = k.shape[2]
         q, k, v = (self._readable(t) for t in (q, k, v))
-        mask = padding_mask
-        if mask is not None and (mask.dtype != torch.int32
-                                 or not mask.is_contiguous()):
-            mask = (mask != 0).to(torch.int32).contiguous()  # nonzero: valid
+        mask = _int_mask(padding_mask)
         out = torch.empty((B, Tq, H, D), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
+        lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+               if with_lse else None)
         lib = _lib("flash_fwd.cu")
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             rc = lib.zoo_flash_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if mask is None else mask.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                out.data_ptr(), _ptr(lse),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], B, H, Tq, Tk, D, _DTYPES[q.dtype],
                 float(sm_scale), int(bool(causal)), int(dropout_thresh),
                 float(keep_scale), _as_i32(seed), stream)
         self._launched(lib, rc)
-        return out
+        return (out, lse) if with_lse else out
 
 
 class FlashForwardLse(_Wrapper):
@@ -285,37 +304,60 @@ class FlashForwardLse(_Wrapper):
         return out, lse
 
 
+def _check_like(name, t, shape, dtype, device) -> None:
+    if t.shape != shape or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} must be {tuple(shape)} {dtype} on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+
+
+def _check_rows(name, t, shape, device) -> None:
+    """lse / delta: f32 ``(B, H, Tq)`` rows of unit stride."""
+    _check_like(name, t, shape, torch.float32, device)
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} needs unit stride along its rows, got "
+                         f"{t.stride()}")
+
+
+def _turns(q):
+    """The f32 backward's scratch of per-(batch*head, query tile)
+    counters that order the dq sums (its kernel zeroes them)."""
+    if q.dtype != torch.float32:
+        return None
+    B, H, Tq, _ = q.shape
+    return torch.empty(B * H * Tq, dtype=torch.int32, device=q.device)
+
+
 class FlashBackward(_Wrapper):
     """Wrapper of ``zoo_flash_bwd`` (``csrc/flash_bwd.cu``): the gradients
-    ``(dq, dk, dv)`` of attention given q, k, v, the forward's output o
-    and the output's gradient g, with the forward's mask, causal flag,
-    scale and dropout seed.  Same layouts and strides as
-    ``FlashForward``; each gradient is returned as a ``(B, H, T, D)`` view
-    of a ``(B, T, H, D)`` buffer, so undoing the head split is free.  One
-    call launches the kernel's two passes and counts one launch."""
+    ``(dq, dk, dv)`` of attention given q, k, v, the forward's output o, the
+    forward's row log-sum-exp lse (``FlashForward(with_lse=True)``), the
+    output's gradient g, and the forward's mask, causal flag, scale and
+    dropout seed.  q, k, v, o and g are read in place where
+    ``tma_aligned``, else copied and counted, as ``FlashForward``; each
+    gradient is returned as a ``(B, H, T, D)`` view of a ``(B, T, H, D)``
+    buffer, so undoing the head split is free.  One call launches the
+    delta pre-pass and the kernel (in f32 after zeroing the counters that
+    order its dq sums), and counts one launch."""
 
     name = "flash_bwd"
 
-    def __call__(self, q, k, v, o, g, padding_mask=None, causal=False,
+    def __call__(self, q, k, v, o, g, lse, padding_mask=None, causal=False,
                  sm_scale=1.0, dropout_thresh=0, keep_scale=1.0, seed=0):
         _check(self.name, q, k, v, padding_mask)
         for name, t in (("o", o), ("g", g)):
-            if (t.shape != q.shape or t.dtype != q.dtype
-                    or t.device != q.device):
-                raise ValueError(f"{name} must match q: {tuple(q.shape)} "
-                                 f"{q.dtype} on {q.device}, got "
-                                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
+            _check_like(name, t, q.shape, q.dtype, q.device)
         B, H, Tq, D = q.shape
         Tk = k.shape[2]
-        q, k, v, o, g = (t if t.stride(-1) == 1 else t.contiguous()
-                         for t in (q, k, v, o, g))
-        mask = (None if padding_mask is None
-                else (padding_mask != 0).to(torch.int32).contiguous())
+        _check_like("lse", lse, (B, H, Tq), torch.float32, q.device)
+        lse = lse.contiguous()
+        q, k, v, o, g = (self._readable(t) for t in (q, k, v, o, g))
+        mask = _int_mask(padding_mask)
         heads = lambda T: torch.empty((B, T, H, D), dtype=q.dtype,
                                       device=q.device).transpose(1, 2)
         dq, dk, dv = heads(Tq), heads(Tk), heads(Tk)
-        lse = torch.empty(B * H * Tq, dtype=torch.float32, device=q.device)
-        delta = torch.empty_like(lse)
+        delta = torch.empty(B * H * Tq, dtype=torch.float32, device=q.device)
+        turns = _turns(q)
         strides = (ctypes.c_longlong * 24)(*(
             s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]))
         lib = _lib("flash_bwd.cu")
@@ -323,14 +365,59 @@ class FlashBackward(_Wrapper):
         with torch.cuda.device(q.device):
             rc = lib.zoo_flash_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                g.data_ptr(), None if mask is None else mask.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), strides, B, H, Tq, Tk, D,
-                _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
-                int(dropout_thresh), float(keep_scale), _as_i32(seed),
-                stream)
+                g.data_ptr(), _ptr(mask), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), _ptr(turns), strides, B, H,
+                Tq, Tk, D, _DTYPES[q.dtype], float(sm_scale),
+                int(bool(causal)), int(dropout_thresh), float(keep_scale),
+                _as_i32(seed), stream)
         self._launched(lib, rc)
         return dq, dk, dv
+
+
+class FlashBackwardLse(_Wrapper):
+    """Wrapper of ``zoo_flash_bwd_lse`` (``csrc/flash_bwd.cu``): one block
+    of ring attention's backward, no mask and no dropout, end-aligned when
+    ``causal``.  q, g ``(B, H, Tq, D)`` and k, v ``(B, H, Tk, D)`` CUDA
+    tensors of one dtype (read in place where ``tma_aligned``, else copied
+    and counted); lse and delta the ring's f32 ``(B, H, Tq)`` row
+    statistics; dq ``(B, H, Tq, D)`` and dk, dv ``(B, H, Tk, D)`` f32
+    accumulators (unit last stride, even strides), which the block's
+    gradients are added into in place.  Returns nothing."""
+
+    name = "flash_bwd_lse"
+
+    def __call__(self, q, k, v, g, lse, delta, dq, dk, dv, causal=False,
+                 sm_scale=1.0) -> None:
+        _check(self.name, q, k, v, None)
+        _check_like("g", g, q.shape, q.dtype, q.device)
+        B, H, Tq, D = q.shape
+        Tk = k.shape[2]
+        for name, t in (("lse", lse), ("delta", delta)):
+            _check_rows(name, t, (B, H, Tq), q.device)
+        for name, t, shape in (("dq", dq, q.shape), ("dk", dk, k.shape),
+                               ("dv", dv, k.shape)):
+            _check_like(name, t, shape, torch.float32, q.device)
+            if t.stride(-1) != 1 or any(s % 2 for s in t.stride()[:3]) \
+                    or t.data_ptr() % 8:
+                raise ValueError(f"{name} is added into in place with 8-byte "
+                                 f"stores: it needs unit last stride and "
+                                 f"even strides, got {t.stride()}")
+        q, k, v, g = (self._readable(t) for t in (q, k, v, g))
+        turns = _turns(q)
+        strides = (ctypes.c_longlong * 25)(
+            *(s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]),
+            *lse.stride()[:2], *delta.stride()[:2])
+        lib = _lib("flash_bwd.cu")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with torch.cuda.device(q.device):
+            rc = lib.zoo_flash_bwd_lse(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _ptr(turns), strides, B, H, Tq,
+                Tk, D, _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
+                stream)
+        self._launched(lib, rc)
 
 
 def _check_pages(kernel: str, q, k_pages, v_pages, tables, q_dims: str):
@@ -463,13 +550,14 @@ def _cuda_error(lib: ctypes.CDLL, rc: int) -> str:
 flash_fwd = FlashForward()
 flash_fwd_lse = FlashForwardLse()
 flash_bwd = FlashBackward()
+flash_bwd_lse = FlashBackwardLse()
 paged_decode = PagedDecode()
 paged_chunk = PagedChunk()
 
 #: every kernel wrapper of the port, by name (what chip_smoke.py resets,
 #: reads and reports)
 KERNELS = {k.name: k for k in (flash_fwd, flash_fwd_lse, flash_bwd,
-                               paged_decode, paged_chunk)}
+                               flash_bwd_lse, paged_decode, paged_chunk)}
 
 
 def reset_launches() -> None:

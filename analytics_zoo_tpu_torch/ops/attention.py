@@ -5,7 +5,9 @@ the JAX signature and layout (q, k, v as ``(B, H, T, D)``, padding mask
 ``(B, Tk)`` with 1 for valid keys) and is differentiable through a
 ``torch.autograd.Function``.  On CUDA tensors its forward launches the
 kernel of ``ops/csrc/flash_fwd.cu`` and its backward the kernel of
-``ops/csrc/flash_bwd.cu`` (see ``ops/_kernels.py``), or they raise; on CPU
+``ops/csrc/flash_bwd.cu`` (see ``ops/_kernels.py``), or they raise; when a
+backward will follow, the forward kernel also writes each row's
+log-sum-exp, which the backward kernel rebuilds P from; on CPU
 tensors, or when ``backend="plain"`` is asked for, they run
 ``_reference_attention`` and ``_reference_attention_bwd``, the plain
 PyTorch versions the kernels are held to.  There is no dense-attention
@@ -133,6 +135,12 @@ def _reference_attention(q, k, v, padding_mask=None, causal=False,
     return out.to(q.dtype)
 
 
+def _row_delta(o, g) -> torch.Tensor:
+    """``delta = rowsum(g * o)`` in f32, ``(B, H, Tq)``: the plain version
+    of ``flash_bwd.cu``'s pre-pass (and the ring's per-shard delta)."""
+    return (g.to(torch.float32) * o.to(torch.float32)).sum(-1)
+
+
 def _reference_attention_bwd(q, k, v, o, g, padding_mask=None, causal=False,
                              sm_scale=None, dropout_p=0.0, seed=None):
     """Plain PyTorch attention backward: ``(dq, dk, dv)`` of
@@ -151,7 +159,7 @@ def _reference_attention_bwd(q, k, v, o, g, padding_mask=None, causal=False,
     valid = _valid(scores.shape[-2:], q.device, causal, padding_mask)
     scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
     p = torch.softmax(scores, dim=-1) * valid.any(dim=-1, keepdim=True)
-    delta = (g32 * o.to(f32)).sum(-1, keepdim=True)
+    delta = _row_delta(o, g)[..., None]
     dp = torch.matmul(g32, v32.transpose(-1, -2))
     z = p
     if dropout_p > 0.0 and seed is not None:
@@ -170,38 +178,45 @@ def _reference_attention_bwd(q, k, v, o, g, padding_mask=None, causal=False,
 
 class _FlashAttention(torch.autograd.Function):
     """Attention with the kernels (``kernel=True``) or the plain versions
-    as forward and backward.  Saves q, k, v, o and the mask; the dropout
-    seed rides as an int, so the backward replays the forward's
-    keep-mask."""
+    as forward and backward.  Saves q, k, v, o and the mask, and on the
+    kernel path, when a gradient will be asked for, the forward kernel's
+    row log-sum-exp (serving under ``inference_mode`` writes none); the
+    dropout seed rides as an int, so the backward replays the forward's
+    keep-mask.  ``grad_mode``: whether autograd was recording at the call
+    (inside ``forward`` it never is, and ``needs_input_grad`` reads the
+    inputs alone)."""
 
     @staticmethod
     def forward(ctx, q, k, v, padding_mask, causal, sm_scale, dropout_p,
-                seed, kernel):
+                seed, kernel, grad_mode):
+        lse = None
         if kernel:
-            o = _kernels.flash_fwd(q, k, v, padding_mask, causal=causal,
-                                   sm_scale=sm_scale, **_drop_args(
-                                       dropout_p, seed))
+            with_lse = grad_mode and any(ctx.needs_input_grad[:3])
+            out = _kernels.flash_fwd(q, k, v, padding_mask, causal=causal,
+                                     sm_scale=sm_scale, with_lse=with_lse,
+                                     **_drop_args(dropout_p, seed))
+            o, lse = out if with_lse else (out, None)
         else:
             o = _reference_attention(q, k, v, padding_mask, causal,
                                      sm_scale, dropout_p=dropout_p,
                                      dropout_seed=seed)
-        ctx.save_for_backward(q, k, v, o, padding_mask)
+        ctx.save_for_backward(q, k, v, o, padding_mask, lse)
         ctx.args = (causal, sm_scale, dropout_p, seed, kernel)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o, padding_mask = ctx.saved_tensors
+        q, k, v, o, padding_mask, lse = ctx.saved_tensors
         causal, sm_scale, dropout_p, seed, kernel = ctx.args
         if kernel:
             dq, dk, dv = _kernels.flash_bwd(
-                q, k, v, o, g, padding_mask, causal=causal,
+                q, k, v, o, g, lse, padding_mask, causal=causal,
                 sm_scale=sm_scale, **_drop_args(dropout_p, seed))
         else:
             dq, dk, dv = _reference_attention_bwd(
                 q, k, v, o, g, padding_mask, causal, sm_scale, dropout_p,
                 seed)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _drop_args(dropout_p: float, seed) -> dict:
@@ -263,7 +278,7 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
     seed = int(dropout_seed) if dropout_rate else None
     return _FlashAttention.apply(q, k, v, padding_mask, bool(causal),
                                  float(sm_scale), float(dropout_rate), seed,
-                                 kernel)
+                                 kernel, torch.is_grad_enabled())
 
 
 def _reference_attention_with_lse(q, k, v, causal, sm_scale, shift=None):

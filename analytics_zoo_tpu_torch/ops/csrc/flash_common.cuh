@@ -1,8 +1,10 @@
 // What the kernels of this directory share: the dropout counter hash
-// (flash_fwd.cu and flash_bwd.cu), the f32 <-> input-dtype conversions and
-// the warp reductions.  The hash must be bit-identical in both kernels, in
-// ops/attention.py's plain version and in the JAX package: the backward
-// replays the forward's keep-mask from the seed.
+// (flash_fwd.cu and flash_bwd.cu), the f32 <-> input-dtype conversions, the
+// warp reductions, and the small pieces of the two flash kernels' tiles
+// (exp2, bf16 packing, paired stores, the causal key range).  The hash
+// must be bit-identical in both kernels, in ops/attention.py's plain
+// version and in the JAX package: the backward replays the forward's
+// keep-mask from the seed.
 // ops/_kernels.py folds this header into each library's build hash.
 
 #pragma once
@@ -14,6 +16,7 @@
 namespace zoo_flash {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // counter hash: lowbias32 finaliser, computed in uint32 so shifts are
 // logical and multiplies wrap, exactly as the int32 JAX version behaves
@@ -58,13 +61,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
-// x rounded to T and read back as f32 (what a cast to the input dtype
-// before a product does)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -77,6 +73,34 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// 2^x in one MUFU instruction (exp2f adds a denormal fix-up around it);
+// 2^-inf = 0, and results below 2^-126 flush to 0, which no weight minds
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// last key (exclusive) that rows [lo, hi) may see
+__device__ __forceinline__ int key_end(int lo, int hi, int Tq, int Tk,
+                                       int causal) {
+  if (!causal) return Tk;
+  const int last_row = min(hi, Tq) - 1;
+  return min(Tk, max(0, last_row + Tk - Tq + 1));
 }
 
 }  // namespace zoo_flash

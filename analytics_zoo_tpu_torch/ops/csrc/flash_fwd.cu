@@ -2,7 +2,9 @@
 // that analytics_zoo_tpu_torch/ops/_kernels.py loads with ctypes.
 //
 // Replaces two Pallas TPU kernels of analytics_zoo_tpu/ops/attention.py:
-// - _flash_kernel, launched by _flash_forward: entry point zoo_flash_fwd;
+// - _flash_kernel, launched by _flash_forward: entry point zoo_flash_fwd,
+//   which also writes each row's log-sum-exp when the caller will run the
+//   backward (flash_bwd.cu takes it instead of recomputing it);
 // - _flash_kernel_lse, launched by flash_forward_with_lse (the block that
 //   ring attention merges shards with): entry point zoo_flash_fwd_lse, the
 //   same kernels with no mask and no dropout that also write each row's
@@ -77,17 +79,8 @@ namespace {
 using namespace zoo_flash;
 using namespace zoo_hopper;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kInf = INFINITY;
-
-// 2^x in one MUFU instruction (exp2f adds a denormal fix-up around it);
-// 2^-inf = 0, and results below 2^-126 flush to 0, which no weight minds
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // what the softmax of every tile of one (batch, head) needs
 struct TileCtx {
@@ -202,13 +195,6 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&a)[2]) {
   for (int i = 0; i < N; ++i) o[i] *= a[(i >> 1) & 1];
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // Output rows r0 and r0 + 8 of the accumulator fragment o (D columns),
 // divided by the quad-reduced row sums (rows that saw no key give zeros);
 // lse in the units of the scaled scores, -1e30 for such rows, when asked.
@@ -235,14 +221,6 @@ __device__ __forceinline__ void store_rows(const float (&o)[D / 2],
     if (lse != nullptr && c == 0)
       lse[row] = l[h] > 0.f ? m[h] * scale2 * kLn2 + logf(l[h]) : kNegInf;
   }
-}
-
-// last key (exclusive) that rows [lo, hi) may see
-__device__ __forceinline__ int key_end(int lo, int hi, int Tq, int Tk,
-                                       int causal) {
-  if (!causal) return Tk;
-  const int last_row = min(hi, Tq) - 1;
-  return min(Tk, max(0, last_row + Tk - Tq + 1));
 }
 
 __device__ __forceinline__ TileCtx make_ctx(const int32_t* mask, int b,
@@ -297,35 +275,6 @@ struct BfParams {
   float keep_scale;
   uint32_t seed;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  wgmma_ss_n64(d, da, db, scale_d);
-}
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  wgmma_ss_n128(d, da, db, scale_d);
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[16],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_n32(d, a, db);
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_n64(d, a, db);
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_n128(d, a, db);
-}
 
 template <int D, int BN, int NWG>
 __global__ void __launch_bounds__(BfCfg<D, BN, NWG>::kThreads,
@@ -509,19 +458,6 @@ struct F32Params {
   uint32_t seed;
 };
 
-// c += a . b in 3xTF32: lo.hi + hi.lo first, then hi.hi
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(const F32Params p) {
@@ -649,62 +585,6 @@ __global__ void __launch_bounds__(kF32Threads)
 // ---------------------------------------------------------------------------
 // host side
 
-// cuTensorMapEncodeTiled's signature, fetched through the runtime so the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (D, T, H, B) tensor map over a bf16 (B, H, T, D) view with element
-// strides sb, sh, st; one box = (one swizzle row of columns, `rows` rows).
-// A dimension of extent 1 gets a packed stride (it is never stepped over).
-bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
-              int64_t sb, int64_t sh, int64_t st, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const int atom_cols = D < 64 ? D : 64;
-  const int t = T > 0 ? T : 1;
-  const cuuint64_t st_b = t > 1 ? st * 2 : static_cast<cuuint64_t>(D) * 2;
-  const cuuint64_t sh_b = H > 1 ? sh * 2 : st_b * t;
-  const cuuint64_t sb_b = B > 1 ? sb * 2 : sh_b * H;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {st_b, sh_b, sb_b};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(atom_cols),
-                             static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                atom_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // everything an entry point passes in
 struct Args {
   const void* q;
@@ -721,14 +601,6 @@ struct Args {
   float keep_scale;
   uint32_t seed;
 };
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
 
 template <int D, int BN, int NWG>
 int launch_bf16(const Args& a, cudaStream_t stream) {
@@ -813,18 +685,21 @@ int run(const Args& a, int dtype, cudaStream_t stream) {
 
 // Returns 0 on a clean launch, the cudaError_t of a refused launch, or -1
 // for a head dim / dtype this kernel has no instance for (or views TMA
-// cannot describe).  dtype: 0 = f32, 1 = bf16.  Launches on `stream` and
-// does not synchronise.
+// cannot describe).  dtype: 0 = f32, 1 = bf16.  `lse`, when not null, is a
+// contiguous (B, H, Tq) f32 buffer that receives each row's log-sum-exp of
+// the scaled scores over the keys it sees, before dropout (what
+// flash_bwd.cu rebuilds P from; -1e30 for a row that sees no key).
+// Launches on `stream` and does not synchronise.
 extern "C" int zoo_flash_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    long long q_sb, long long q_sh, long long q_st,
+    float* lse, long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
     long long o_sb, long long o_sh, long long o_st,
     int B, int H, int Tq, int Tk, int D, int dtype, float scale, int causal,
     unsigned int thresh, float keep_scale, int seed, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk < 0) return -1;
-  const Args a = {q, k, v, static_cast<const int32_t*>(mask), o, nullptr,
+  const Args a = {q, k, v, static_cast<const int32_t*>(mask), o, lse,
                   {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                    o_sb, o_sh, o_st},
                   B, H, Tq, Tk, D, scale, causal, thresh, keep_scale,

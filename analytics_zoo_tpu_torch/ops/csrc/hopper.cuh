@@ -1,10 +1,14 @@
 // Hopper (sm_90a) primitives in inline PTX, for the hand-written kernels of
 // this directory: mbarriers, TMA tensor loads, wgmma with its shared-memory
-// descriptors, cp.async, and mma.sync on TF32.  Every helper is one or two
-// PTX instructions; the kernels decide the pipeline.
+// descriptors, cp.async, and mma.sync on TF32.  Every device helper is one
+// or a few PTX instructions; the kernels decide the pipeline.  Last, the
+// host side both flash kernels share: TMA tensor maps over strided bf16
+// head views, and the shared-memory opt-in.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder is fetched from the driver
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace zoo_hopper {
@@ -70,6 +74,22 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --- flags in global memory, between blocks --------------------------------
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
 
 // --- TMA ------------------------------------------------------------------
@@ -239,6 +259,32 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// the forms above by accumulator size: ss at N = 64 / 128, rs at N = 32 /
+// 64 / 128 (the head dim)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_n64(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_n128(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n128(d, a, db);
+}
+
 // --- cp.async and mma.sync (the f32 path) ----------------------------------
 
 // 16 bytes global -> shared, zero-filled when `valid` is false
@@ -277,6 +323,88 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32 (a given split, b split here): lo.hi + hi.lo
+// first, then hi.hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// --- host side ---------------------------------------------------------------
+
+// cuTensorMapEncodeTiled's signature, fetched through the runtime so the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (D, T, H, B) tensor map over a bf16 (B, H, T, D) view with element
+// strides sb, sh, st; one box = (one swizzle row of columns, `rows` rows).
+// A dimension of extent 1 gets a packed stride (it is never stepped over).
+inline bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
+                     int D, int64_t sb, int64_t sh, int64_t st, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int atom_cols = D < 64 ? D : 64;
+  const int t = T > 0 ? T : 1;
+  const cuuint64_t st_b = t > 1 ? st * 2 : static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t sh_b = H > 1 ? sh * 2 : st_b * t;
+  const cuuint64_t sb_b = B > 1 ? sb * 2 : sh_b * H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {st_b, sh_b, sb_b};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(atom_cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                atom_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
+// after this opt-in); 0 or the cudaError_t
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 }  // namespace zoo_hopper

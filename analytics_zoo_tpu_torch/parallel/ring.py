@@ -17,10 +17,17 @@ other on their devices' current streams.
 Block math: the FORWARD runs the kernel ``flash_fwd_lse``
 (``ops.attention.flash_forward_with_lse``) per visiting K/V block, merged
 across steps by log-sum-exp; under ``causal`` a block wholly in the future
-launches nothing.  The BACKWARD is a second ring pass in plain
-``torch.matmul``, as the JAX package's is in jnp: dq accumulates in place,
-dK/dV ride the rotating blocks and arrive home after a full loop, with
-scores recomputed per block in f32 from the saved (o, lse).
+launches nothing.  The BACKWARD is a second ring pass: dq accumulates in
+place, dK/dV ride the rotating blocks and arrive home after a full loop,
+and each visible block adds its gradients from the saved global lse and
+``delta = rowsum(g * o)``.  On a card a block runs the kernel
+``flash_bwd_lse`` (``ops/csrc/flash_bwd.cu``), which adds into the f32
+accumulators in place (the blocks of one shard run one after another on
+its stream, so the sums are deterministic); on the host, or under
+``impl="plain"``, it runs ``_block_grads``' plain f32 ``torch.matmul``
+body, the JAX package's jnp math and the kernel's reference.  In bf16 the
+kernel rounds P and dS to bf16 before their products, as ``flash_bwd``
+does, where the plain blocks keep f32.
 """
 
 from __future__ import annotations
@@ -30,8 +37,10 @@ from typing import List, Optional
 
 import torch
 
+from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.attention import (
-    _NEG_INF, _reference_attention_with_lse, flash_forward_with_lse)
+    _NEG_INF, _reference_attention_with_lse, _row_delta,
+    flash_forward_with_lse)
 from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 
 IMPLS = ("auto", "cuda", "plain")
@@ -90,9 +99,27 @@ def _ring_forward(q, k, v, sm_scale, causal, impl):
     return [o.to(t.dtype) for o, t in zip(o_acc, q)], lse_acc
 
 
-def _block_grads(qf, gf, lse, delta, k_blk, v_blk, shift, sm_scale, dq,
-                 dk_blk, dv_blk):
-    """Adds one block's contribution to dq, dk_blk and dv_blk in place."""
+def _block_grads(q, g, lse, delta, k_blk, v_blk, shift, sm_scale, dq,
+                 dk_blk, dv_blk, impl="auto"):
+    """Adds one visible block's contribution to the f32 accumulators dq,
+    dk_blk and dv_blk in place.  ``shift``: None for a block every row
+    sees wholly, else row r sees key c iff ``r + shift >= c``.  The
+    kernel path (``impl`` ``"cuda"``, or ``"auto"`` on a card) launches
+    ``flash_bwd_lse``, which takes a full block or the end-aligned
+    diagonal one; otherwise the plain f32 matmuls below."""
+    if impl == "cuda" or (impl == "auto" and q.device.type == "cuda"):
+        if q.device.type != "cuda":
+            raise ValueError(f"the flash_bwd_lse kernel needs CUDA tensors; "
+                             f"got {q.device} (impl={impl!r})")
+        Tq, Tk = q.shape[2], k_blk.shape[2]
+        if shift is not None and shift < Tk - 1 and shift != Tk - Tq:
+            raise ValueError(f"flash_bwd_lse takes a full or an end-aligned "
+                             f"causal block, not shift {shift}")
+        _kernels.flash_bwd_lse(q, k_blk, v_blk, g, lse, delta, dq, dk_blk,
+                               dv_blk, causal=shift is not None
+                               and shift < Tk - 1, sm_scale=sm_scale)
+        return
+    qf, gf = q.float(), g.float()
     kf, vf = k_blk.float(), v_blk.float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
     if shift is not None:
@@ -110,15 +137,13 @@ def _block_grads(qf, gf, lse, delta, k_blk, v_blk, shift, sm_scale, dq,
     dk_blk.add_(torch.matmul(ds.transpose(-1, -2), qf))
 
 
-def _ring_bwd_pass(q, k, v, o, lse, g, sm_scale, causal):
+def _ring_bwd_pass(q, k, v, o, lse, g, sm_scale, causal, impl):
     """Second ring pass over one ring's shards: dq accumulates in place;
     dk/dv ride the rotating blocks and are home after sp steps."""
     sp = len(q)
     T_loc = q[0].shape[2]
     devices = [t.device for t in q]
-    qf = [t.float() for t in q]
-    gf = [t.float() for t in g]
-    delta = [(gi * oi.float()).sum(-1) for gi, oi in zip(gf, o)]
+    delta = [_row_delta(oi, gi) for oi, gi in zip(o, g)]
     k_blk, v_blk, owner = list(k), list(v), list(range(sp))
     zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                   device=t.device)
@@ -129,9 +154,8 @@ def _ring_bwd_pass(q, k, v, o, lse, g, sm_scale, causal):
             if causal and owner[i] > i:
                 continue     # wholly in the future: contributes nothing
             shift = (i - owner[i]) * T_loc if causal else None
-            _block_grads(qf[i], gf[i], lse[i], delta[i], k_blk[i],
-                         v_blk[i], shift, sm_scale, dq[i], dk_blk[i],
-                         dv_blk[i])
+            _block_grads(q[i], g[i], lse[i], delta[i], k_blk[i], v_blk[i],
+                         shift, sm_scale, dq[i], dk_blk[i], dv_blk[i], impl)
         k_blk, v_blk = _rotate(k_blk, devices), _rotate(v_blk, devices)
         dk_blk, dv_blk = _rotate(dk_blk, devices), _rotate(dv_blk, devices)
         owner = owner[-1:] + owner[:-1]
@@ -189,21 +213,24 @@ def _forward(q, k, v, layout, sm_scale, causal, impl):
 
 class _RingAttention(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX ring: the ring forward, and the second
-    ring pass as its backward."""
+    ring pass as its backward, both per block through the kernels on a card
+    (``flash_fwd_lse``, ``flash_bwd_lse``) or the plain versions, as
+    ``impl`` says."""
 
     @staticmethod
     def forward(ctx, q, k, v, layout, sm_scale, causal, impl):
         o, lse = _forward(q, k, v, layout, sm_scale, causal, impl)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (layout, sm_scale, causal)
+        ctx.args = (layout, sm_scale, causal, impl)
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        layout, sm_scale, causal = ctx.args
-        grads = [_ring_bwd_pass(*ring, sm_scale, causal) for ring in zip(
-            *(layout.split(t) for t in (q, k, v, o, lse, g)))]
+        layout, sm_scale, causal, impl = ctx.args
+        grads = [_ring_bwd_pass(*ring, sm_scale, causal, impl)
+                 for ring in zip(*(layout.split(t)
+                                   for t in (q, k, v, o, lse, g)))]
         dq, dk, dv = (layout.join([ring[j] for ring in grads], t.device)
                       for j, t in enumerate((q, k, v)))
         return dq, dk, dv, None, None, None, None
@@ -220,12 +247,13 @@ def ring_attention(q, k, v, mesh: Mesh, axis_name: str = "sequence",
     differentiable in q, k and v (the ring backward, see the module
     docstring).
 
-    ``impl``: ``"cuda"`` launches the kernel ``flash_fwd_lse`` for each
-    visible block (the JAX package's ``"pallas"``) and raises for shards
-    not on a card; ``"plain"`` runs ``_reference_attention_with_lse`` per
-    block with the causal shift (the JAX package's ``"jnp"``); ``"auto"``
-    takes the kernel for shards on a CUDA device and the plain blocks
-    elsewhere.
+    ``impl``: ``"cuda"`` launches the kernels ``flash_fwd_lse`` and, in
+    the backward, ``flash_bwd_lse`` for each visible block (the JAX
+    package's ``"pallas"``, whose backward is jnp) and raises for shards
+    not on a card; ``"plain"`` runs ``_reference_attention_with_lse`` and
+    ``_block_grads``' plain body per block with the causal shift (the JAX
+    package's ``"jnp"``); ``"auto"`` takes the kernels for shards on a CUDA
+    device and the plain blocks elsewhere.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS} (the JAX package's "

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from analytics_zoo_tpu_torch.common.config import ServingConfig
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     ImageBytes, StringTensor, decode_items, encode_ndarray_output,
@@ -72,7 +73,8 @@ class ClusterServing:
     """The serving daemon over ONE ``InferenceModel``."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
-                 broker=None):
+                 broker=None, tenancy=None):
+        reject("ClusterServing", 1, tenancy=tenancy)
         self.config = config or ServingConfig()
         if self.config.pipeline:
             raise NotImplementedError(_PIPELINE_SLICE)

@@ -6,11 +6,13 @@ Port of ``TFDataset`` from ``analytics_zoo_tpu/tfpark/tf_dataset.py``
 are kept: ``batch_size`` is the global training batch, and
 ``batch_per_thread`` the per-device inference batch.  The port runs on one
 device, so the device count in both rules is 1.  Only the DRAM tier is
-ported; validation sets and the other factories are not.
+ported; validation sets (``validation_featureset=``, ``val_tensors=``:
+ROADMAP Queue 1 item 2) and the other factories are not.
 """
 
 from __future__ import annotations
 
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.data.featureset import FeatureSet
 
 NUM_DEVICES = 1
@@ -20,12 +22,15 @@ class TFDataset:
     """Dataset facade carrying batching semantics."""
 
     def __init__(self, featureset, batch_size: int = -1,
-                 batch_per_thread: int = -1):
+                 batch_per_thread: int = -1, has_labels: bool = True,
+                 validation_featureset=None):
         if (batch_size > 0) == (batch_per_thread > 0):
             raise ValueError(
                 "one and only one of batch_size and batch_per_thread should "
                 "be specified")
+        reject("TFDataset", 2, validation_featureset=validation_featureset)
         self.featureset = featureset
+        self.has_labels = has_labels
         self.batch_size = batch_size
         self.batch_per_thread = batch_per_thread
 
@@ -52,10 +57,12 @@ class TFDataset:
 
     @staticmethod
     def from_ndarrays(tensors, batch_size: int = -1,
-                      batch_per_thread: int = -1,
+                      batch_per_thread: int = -1, val_tensors=None,
                       memory_type: str = "DRAM") -> "TFDataset":
         """``(features,)`` or ``(features, labels)`` numpy trees.  Only the
-        host (DRAM) tier is ported: ``memory_type="DEVICE"`` raises."""
+        host (DRAM) tier is ported: ``memory_type="DEVICE"`` raises, and so
+        does ``val_tensors``."""
+        reject("TFDataset.from_ndarrays", 2, val_tensors=val_tensors)
         if memory_type.upper() in ("DEVICE", "HBM"):
             raise NotImplementedError(
                 "TFDataset memory_type='DEVICE' (batches resident on the "
@@ -63,4 +70,4 @@ class TFDataset:
         feats, labels = (tensors if isinstance(tensors, tuple)
                          and len(tensors) == 2 else (tensors, None))
         return TFDataset(FeatureSet.from_ndarrays(feats, labels), batch_size,
-                         batch_per_thread)
+                         batch_per_thread, has_labels=labels is not None)

@@ -26,13 +26,18 @@ Phases, each of which raises (exit code 1) on failure:
    plain attention on the card, and the kernel's launch count checked
    (12 per forward).
 
-4. backward: ``flash_bwd`` against the plain backward
-   ``_reference_attention_bwd`` on the card at the BERT-base training shape
-   (B=32, H=12, T=128, D=64), f32 and bf16: a ragged mask with one fully
-   masked row, causal with Tq < Tk and Tq > Tk, dropout 0.1, and a long
-   case (Tk=1024, the regime of the JAX package's blockwise backward);
-   dq, dk and dv checked, a second run bit-identical, then timed beside
-   the plain backward, the backward of ``scaled_dot_product_attention``
+4. backward: the tensor-core instructions of the built ``flash_bwd.cu``
+   (HGMMA in its bf16 instances, HMMA in its f32 ones); ``flash_bwd``,
+   given the forward kernel's lse, against the plain backward
+   ``_reference_attention_bwd`` on the card at the BERT-base training
+   shape (B=32, H=12, T=128, D=64), f32 and bf16: a ragged mask with one
+   fully masked row, causal with Tq < Tk and Tq > Tk, dropout 0.1, and a
+   long case (Tk=1024, the regime of the JAX package's blockwise
+   backward); ``flash_bwd_lse`` against the plain ring block
+   ``_block_grads`` at the ring's block shapes (full and diagonal 4,096-row
+   blocks, D 32 / 128 at T 1000), adding onto nonzero f32 accumulators;
+   dq, dk and dv checked, a second run bit-identical; both timed beside
+   their plain versions, the backward of ``scaled_dot_product_attention``
    (a yardstick the port never calls) and the bound on an H100;
 5. train: BERT-base (dropout 0.1, 2 classes) from random weights of a
    numpy seed, batch 32, through ``TFDataset.from_ndarrays`` ->
@@ -75,10 +80,12 @@ Phases, each of which raises (exit code 1) on failure:
    which returns no log-sum-exp).  Then ``ring_attention`` over
    ``Mesh(["cuda:0"] * 4, ("sequence",))``, forward and backward through
    its ``autograd.Function``, f32 and bf16, causal and not: exactly 10 /
-   16 kernel launches per causal / full forward; output, lse and
-   gradients against the ring with plain blocks at T=16,384, and against
-   dense plain attention and its autograd gradients at T=4,096; forward
-   and forward+backward times and a profiler breakdown of one forward.
+   16 ``flash_fwd_lse`` launches per causal / full forward and as many
+   ``flash_bwd_lse`` per backward; output, lse and gradients against the
+   ring with plain blocks at T=16,384, and against dense plain attention
+   and its autograd gradients at T=4,096; forward and forward+backward
+   times, a profiler breakdown of one forward, and one of a backward in
+   which no library GEMM may run.
 
 The serve, train and ring phases also check that no kernel input was
 copied before a launch (the wrappers' ``copies``).  It prints one JSON
@@ -306,21 +313,24 @@ def _fused_qkv_heads(dtype, B, T, H, D, gen):
                  for t in qkv.split(H * D, dim=-1))
 
 
-def flash_sass() -> dict:
+def flash_sass(name="flash_fwd", phase="kernel") -> dict:
     """HGMMA counts of the bf16 instances and HMMA counts of the f32
-    instances of the built flash_fwd.cu; fails if either is 0."""
+    instances (``<name>_bf16`` / ``<name>_f32``) of the built
+    ``<name>.cu``; fails if either is 0."""
     from analytics_zoo_tpu_torch.ops import _kernels
-    counts = sass_counts(_kernels.build(["flash_fwd.cu"])["flash_fwd.cu"])
+    source = f"{name}.cu"
+    counts = sass_counts(_kernels.build([source])[source])
     got = {"hgmma_bf16": sum(c[0] for f, c in counts.items()
-                             if "flash_fwd_bf16" in f),
+                             if f"{name}_bf16" in f),
            "hmma_f32": sum(c[1] for f, c in counts.items()
-                           if "flash_fwd_f32" in f),
-           "instances": sum("flash_fwd_" in f for f in counts)}
-    log(f"[kernel] flash_fwd.cu SASS: {got['instances']} kernel instances, "
+                           if f"{name}_f32" in f),
+           "instances": sum(f"{name}_bf16" in f or f"{name}_f32" in f
+                            for f in counts)}
+    log(f"[{phase}] {source} SASS: {got['instances']} kernel instances, "
         f"HGMMA {got['hgmma_bf16']} in the bf16 ones, HMMA "
         f"{got['hmma_f32']} in the f32 ones (tensor cores reached)")
     if not got["hgmma_bf16"] or not got["hmma_f32"]:
-        raise AssertionError(f"flash_fwd.cu misses the tensor cores: {got}")
+        raise AssertionError(f"{source} misses the tensor cores: {got}")
     return got
 
 
@@ -572,7 +582,8 @@ def _bwd_inputs(dtype, B, H, Tq, Tk, D, gen, mask=False):
 def phase_backward():
     from analytics_zoo_tpu_torch.ops import _kernels
     from analytics_zoo_tpu_torch.ops.attention import (
-        _reference_attention_bwd, flash_attention)
+        _reference_attention_bwd)
+    sass = flash_sass("flash_bwd", "backward")
     B, H, T, D = 32, 12, 128, 64
     gen = torch.Generator().manual_seed(SEED + 1)
     cases = {
@@ -591,35 +602,28 @@ def phase_backward():
             q, k, v, go, mask = _bwd_inputs(dtype, B, H, case.pop("Tq"),
                                             case.pop("Tk"), D, gen,
                                             case.pop("mask", False))
-            o = flash_attention(q, k, v, padding_mask=mask, **case)
             kw = dict(causal=case.get("causal", False), sm_scale=D ** -0.5,
                       dropout_p=case.get("dropout_rate", 0.0),
                       seed=case.get("dropout_seed"))
-            got = _kernel_bwd(_kernels, q, k, v, o, go, mask, **kw)
-            again = _kernel_bwd(_kernels, q, k, v, o, go, mask, **kw)
+            # o and lse as a training forward hands them to the backward
+            o, lse = _kernel_fwd(_kernels, q, k, v, mask, **kw)
+            got = _kernel_bwd(_kernels, q, k, v, o, go, lse, mask, **kw)
+            again = _kernel_bwd(_kernels, q, k, v, o, go, lse, mask, **kw)
             ref = _reference_attention_bwd(
                 q, k, v, o, go, mask, kw["causal"], kw["sm_scale"],
                 kw["dropout_p"], kw["seed"])
             torch.cuda.synchronize()
-            worst = 0.0
-            for gname, a, b, c in zip(("dq", "dk", "dv"), got, ref, again):
-                scale = max(1.0, b.float().abs().max().item()) \
-                    if dtype == torch.float32 else 1.0
-                diff = (a.float() - b.float()).abs()
-                bad = (diff > atol * scale + rtol * b.float().abs()).sum()
-                if (bad.item() or not torch.isfinite(a).all()
-                        or not torch.equal(a, c)):
-                    raise AssertionError(
-                        f"flash_bwd {dtype} {name} {gname}: {bad.item()} "
-                        f"elements out of tolerance, max_abs_err "
-                        f"{diff.max().item():.3e}, repeat identical "
-                        f"{torch.equal(a, c)}")
-                worst = max(worst, diff.max().item())
+            worst = _check_grads(f"flash_bwd {dtype} {name}", got, ref,
+                                 dtype)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"flash_bwd {dtype} {name}: a repeat "
+                                     f"is not bit-identical")
             log(f"[backward] flash_bwd {str(dtype)[6:]:8s} {name:24s} "
                 f"max_abs_err={worst:.3e} (dq, dk, dv) tol=atol {atol:g}"
                 f"{' x max(1, max|ref|)' if dtype == torch.float32 else ''}"
                 f" + rtol {rtol:g}; repeat bit-identical -> ok")
             errs[dtype] = max(errs.get(dtype, 0.0), worst)
+    lse_errs = _ring_block_cases(gen)
 
     # timing at the training shape, all-valid mask: the bound counts the
     # full T x T per head
@@ -629,9 +633,10 @@ def phase_backward():
         q, k, v, go, _ = _bwd_inputs(dtype, B, H, T, T, D, gen)
         mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
         bool_mask = (mask != 0)[:, None, None, :]
-        o = flash_attention(q, k, v, padding_mask=mask)
         kw = dict(causal=False, sm_scale=D ** -0.5, dropout_p=0.0, seed=None)
-        kernel = lambda: _kernel_bwd(_kernels, q, k, v, o, go, mask, **kw)
+        o, lse = _kernel_fwd(_kernels, q, k, v, mask, **kw)
+        kernel = lambda: _kernel_bwd(_kernels, q, k, v, o, go, lse, mask,
+                                     **kw)
         plain = lambda: _reference_attention_bwd(q, k, v, o, go, mask,
                                                  False, D ** -0.5)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -642,37 +647,150 @@ def phase_backward():
         # the plain backward and SDPA's run many small launches under
         # autograd, whose host time CUDA events would count: their
         # columns are device time from the profiler (the kernel's too, to
-        # show the two clocks agree on it)
+        # show the two clocks agree on it, and by CUDA graph replay)
         kernel_dev = device_ms(kernel)
+        graph_dev = graph_ms(kernel)
         plain_ms = device_ms(plain)
         fwd_bwd_ms, fwd_ms = device_ms(sdpa_fwd_bwd), device_ms(sdpa)
-        nbytes = 8 * B * H * T * D * q.element_size() + mask.numel() * 4
+        nbytes = 8 * B * H * T * D * q.element_size() + mask.numel() * 4 \
+            + lse.numel() * 4
         flops = 10 * B * H * T * T * D
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bound, by, t_bytes, t_ops = _bound(nbytes, flops, dtype)
         rows[dtype] = dict(ms=ms, plain_ms=plain_ms,
-                           library_ms=fwd_bwd_ms - fwd_ms,
-                           bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations", max_abs_err=errs[dtype],
-                           device_ms=kernel_dev)
+                           library_ms=fwd_bwd_ms - fwd_ms, bound_ms=bound,
+                           bound_by=by, max_abs_err=errs[dtype],
+                           device_ms=kernel_dev, graph_device_ms=graph_dev,
+                           device_tflops=flops / graph_dev / 1e9, **sass)
         log(f"[backward] flash_bwd {str(dtype)[6:]:8s} B{B} H{H} T{T} D{D}: "
-            f"kernel {ms:.4f} ms (device {kernel_dev:.4f} ms), plain "
+            f"kernel {ms:.4f} ms (device {kernel_dev:.4f} ms profiler, "
+            f"{graph_dev:.4f} ms graph replay, "
+            f"{flops / graph_dev / 1e9:.1f} TFLOP/s), plain "
             f"{plain_ms:.4f} ms (device), sdpa backward "
             f"{fwd_bwd_ms - fwd_ms:.4f} ms (device: forward+backward "
             f"{fwd_bwd_ms:.4f} - forward {fwd_ms:.4f}), bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({rows[dtype]['bound_by']}; "
-            f"bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
-    return rows
+            f"{bound:.4f} ms ({by}; bytes {t_bytes:.4f} ms, operations "
+            f"{t_ops:.4f} ms)")
+    return rows, _time_ring_block(gen, lse_errs, sass)
 
 
-def _kernel_bwd(kernels, q, k, v, o, go, mask, causal, sm_scale, dropout_p,
-                seed):
+def _kernel_fwd(kernels, q, k, v, mask, causal, sm_scale, dropout_p, seed):
+    """The forward kernel's (o, lse), as a training forward keeps them."""
+    from analytics_zoo_tpu_torch.ops.attention import _drop_args
+    return kernels.flash_fwd(q, k, v, mask, causal=causal, sm_scale=sm_scale,
+                             with_lse=True, **_drop_args(dropout_p, seed))
+
+
+def _kernel_bwd(kernels, q, k, v, o, go, lse, mask, causal, sm_scale,
+                dropout_p, seed):
     """One direct call of the backward kernel's wrapper."""
     from analytics_zoo_tpu_torch.ops.attention import _drop_args
-    return kernels.flash_bwd(q, k, v, o, go, mask, causal=causal,
+    return kernels.flash_bwd(q, k, v, o, go, lse, mask, causal=causal,
                              sm_scale=sm_scale,
                              **_drop_args(dropout_p, seed))
+
+
+def _ring_block(dtype, T, D, causal, gen, B=RING["B"], H=RING["H"]):
+    """One ring block: q, k, v, g, the block's own lse and delta, and
+    random nonzero f32 accumulators."""
+    from analytics_zoo_tpu_torch.ops.attention import (
+        _reference_attention_with_lse, _row_delta)
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen).to("cuda", dtype)
+                  for _ in range(4))
+    o, lse = _reference_attention_with_lse(q, k, v, causal, D ** -0.5)
+    acc = [torch.randn(B, H, T, D, generator=gen).to("cuda")
+           for _ in range(3)]
+    return q, k, v, g, lse, _row_delta(o, g), acc
+
+
+def _ring_block_cases(gen):
+    """``flash_bwd_lse`` against the plain ``_block_grads`` at the ring's
+    block shapes, adding onto nonzero accumulators, a repeat
+    bit-identical; returns {dtype: max abs error}."""
+    from analytics_zoo_tpu_torch.parallel.ring import _block_grads
+    T_loc, D = RING["T"] // RING["sp"], RING["D"]
+    cases = {
+        f"full block T{T_loc} D{D}": dict(T=T_loc, D=D, causal=False),
+        f"diagonal block T{T_loc} D{D}": dict(T=T_loc, D=D, causal=True),
+        "diagonal T1000 D32": dict(T=1000, D=32, causal=True),
+        "full T1000 D128": dict(T=1000, D=128, causal=False),
+    }
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = BWD_TOL[dtype]
+        for name, case in cases.items():
+            q, k, v, g, lse, delta, acc0 = _ring_block(dtype, gen=gen, **case)
+            out = []
+            for impl in ("cuda", "plain", "cuda"):
+                acc = [t.clone() for t in acc0]
+                _block_grads(q, g, lse, delta, k, v,
+                             0 if case["causal"] else None,
+                             case["D"] ** -0.5, *acc, impl=impl)
+                out.append(acc)
+            torch.cuda.synchronize()
+            what = f"flash_bwd_lse {dtype} {name} vs its plain version"
+            err = _check_grads(what, out[0], out[1], dtype)
+            if not all(torch.equal(a, c) for a, c in zip(out[0], out[2])):
+                raise AssertionError(f"{what}: a repeat is not "
+                                     f"bit-identical")
+            log(f"[backward] flash_bwd_lse {str(dtype)[6:]:8s} {name:24s} "
+                f"onto nonzero f32 accumulators: max_abs_err={err:.3e} "
+                f"(dq, dk, dv) tol=atol {atol:g}"
+                f"{' x max(1, max|ref|)' if dtype == torch.float32 else ''}"
+                f" + rtol {rtol:g}; repeat bit-identical -> ok")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            del q, k, v, g, lse, delta, acc0, out
+    return errs
+
+
+def _time_ring_block(gen, errs, sass):
+    """``flash_bwd_lse`` on one full and one diagonal ring block beside
+    the plain ``_block_grads``, SDPA's backward on the same block (its
+    forward + backward less its forward) and the bound."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.parallel.ring import _block_grads
+    F = torch.nn.functional
+    B, H, D = RING["B"], RING["H"], RING["D"]
+    T = RING["T"] // RING["sp"]
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g, lse, delta, acc = _ring_block(dtype, T, D, False, gen)
+        kernel = lambda causal: lambda: _kernels.flash_bwd_lse(
+            q, k, v, g, lse, delta, *acc, causal=causal, sm_scale=D ** -0.5)
+        ms = cuda_ms(kernel(False), iters=10, warmup=2)
+        diag_ms = cuda_ms(kernel(True), iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: _block_grads(
+            q, g, lse, delta, k, v, None, D ** -0.5, *acc, impl="plain"),
+            iters=3, warmup=1)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib = {}
+        for causal in (False, True):
+            sdpa = lambda: F.scaled_dot_product_attention(*leaves,
+                                                          is_causal=causal)
+            lib[causal] = cuda_ms(lambda: torch.autograd.grad(
+                sdpa(), leaves, g), iters=5, warmup=1) - cuda_ms(
+                    sdpa, iters=5, warmup=1)
+        es = q.element_size()
+        nbytes = 4 * B * H * T * D * es + 2 * B * H * T * 4 \
+            + 2 * 3 * B * H * T * D * 4       # the accumulators: read, write
+        flops = 10 * B * H * T * T * D
+        diag_flops = 10 * B * H * T * (T + 1) // 2 * D   # seen pairs
+        bound, by, t_bytes, t_ops = _bound(nbytes, flops, dtype)
+        rows[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib[False],
+                           bound_ms=bound, bound_by=by,
+                           max_abs_err=errs[dtype], diag_causal_ms=diag_ms,
+                           diag_library_ms=lib[True],
+                           tflops=flops / ms / 1e9,
+                           diag_tflops=diag_flops / diag_ms / 1e9, **sass)
+        log(f"[backward] flash_bwd_lse {str(dtype)[6:]:8s} B{B} H{H} T{T} "
+            f"D{D}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
+            f"diagonal causal block {diag_ms:.4f} ms, "
+            f"{diag_flops / diag_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, sdpa backward {lib[False]:.4f} ms (causal "
+            f"{lib[True]:.4f} ms), bound {bound:.4f} ms ({by}; bytes "
+            f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms at "
+            f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s)")
+        del q, k, v, g, lse, delta, acc, leaves
+    return rows
 
 
 def _train_batches(n_batches, rng, cfg):
@@ -1331,26 +1449,31 @@ def phase_ring():
     inputs = {c: _bwd_inputs(c[0], B, H, T, T, D, gen)[:4]
               for c in configs}
     runs, counted = {}, {}
+    ring_kernels = ("flash_fwd_lse", "flash_bwd_lse")
     _kernels.reset_launches()
     for dtype, causal in configs:
-        before = _kernels.flash_fwd_lse.launches
+        before = [_kernels.KERNELS[n].launches for n in ring_kernels]
         runs[dtype, causal] = _ring_fwd_bwd(
             lambda *t: ring_attention(*t, mesh, causal=causal),
             *inputs[dtype, causal])
-        counted[dtype, causal] = _kernels.flash_fwd_lse.launches - before
+        counted[dtype, causal] = tuple(
+            _kernels.KERNELS[n].launches - b
+            for n, b in zip(ring_kernels, before))
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in _kernels.KERNELS.items()}
     no_copies("ring")
     want = dict.fromkeys(_kernels.KERNELS, 0)
-    want["flash_fwd_lse"] = sum(per_fwd(c) for _, c in configs)
+    for name in ring_kernels:
+        want[name] = sum(per_fwd(c) for _, c in configs)
     log(f"[ring] main path: ring_attention forward + backward, f32 and bf16,"
         f" full and causal, B{B} H{H} T{T} D{D} over {sp} shards of cuda:0:"
         f" launches {launches}")
-    if launches != want or any(counted[c] != per_fwd(c[1])
+    if launches != want or any(counted[c] != (per_fwd(c[1]),) * 2
                                for c in configs):
         raise AssertionError(f"expected {want} launches ({per_fwd(False)} "
                              f"per full and {per_fwd(True)} per causal "
-                             f"forward), got {launches}, per run {counted}")
+                             f"forward and backward), got {launches}, per "
+                             f"run (forward, backward) {counted}")
 
     for dtype, causal in configs:
         what = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
@@ -1372,8 +1495,10 @@ def phase_ring():
                                            causal, "plain")
         lse_err = _check_lse(f"ring {what} T{T}", lse, ref_lse)
         del lse, ref_lse
-        log(f"[ring] ring_attention {what:13s} T{T}: {counted[dtype, causal]}"
-            f" launches per forward; vs the ring with plain blocks: o "
+        log(f"[ring] ring_attention {what:13s} T{T}: "
+            f"{counted[dtype, causal][0]} flash_fwd_lse launches per "
+            f"forward, {counted[dtype, causal][1]} flash_bwd_lse per "
+            f"backward; vs the ring with plain blocks: o "
             f"max_abs_err {err:.3e}, lse {lse_err:.3e}, dq/dk/dv "
             f"{g_err:.3e} -> ok")
 
@@ -1389,6 +1514,10 @@ def phase_ring():
             with torch.no_grad():
                 profile_breakdown(fwd, f"one causal f32 ring forward, "
                                        f"T{T} over {sp} shards", top=8)
+            _no_gemm_in_backward(
+                lambda *t: ring_attention(*t, mesh, causal=causal),
+                q, k, v, go, f"one causal f32 ring backward, T{T} over "
+                             f"{sp} shards")
         del q, k, v, go
         inputs.pop((dtype, causal))
 
@@ -1414,6 +1543,39 @@ def phase_ring():
                 f"dq/dk/dv max_abs_err {g_err:.3e} -> ok")
             del q, k, v, go, o, grads, ref_o, ref_grads
     return launches, rows
+
+
+def _no_gemm_in_backward(fn, q, k, v, go, what, attempts=3):
+    """Profiles the backward alone of ``fn``'s autograd graph and fails if
+    a library GEMM ran in it (every product must be in the kernels); a
+    session that records no device time is made again."""
+    from torch.profiler import ProfilerActivity, profile
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    for attempt in range(1, attempts + 1):
+        out = fn(*leaves)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, leaves, go)
+            torch.cuda.synchronize()
+        dev = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if sum(dev.values()) > 0:
+            break
+        log(f"[profile] session {attempt} of {attempts} recorded no device "
+            "time")
+    else:
+        raise AssertionError(f"{what}: the profiler recorded no device time")
+    total = sum(dev.values())
+    log(f"[ring] {what}: device busy {total / 1e3:.3f} ms")
+    for key, t in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[profile]   {100 * t / total:5.1f}%  {t / 1e3:8.3f} ms  "
+            f"{key[:90]}")
+    gemms = [key for key in dev if any(
+        w in key.lower() for w in ("gemm", "xmma", "cutlass", "gemv"))]
+    if gemms or not any("flash_bwd" in key for key in dev):
+        raise AssertionError(f"{what}: library GEMMs {gemms} ran, or no "
+                             f"flash_bwd kernel: {sorted(dev)}")
 
 
 def phase_ring_cards(n):
@@ -1538,7 +1700,7 @@ def main() -> int:
         return _finish(card_line(every=True))
     rows = phase_kernels()
     serve_launches = phase_serve()
-    bwd_rows = phase_backward()
+    bwd_rows, bwd_lse_rows = phase_backward()
     train_launches, _ = phase_train()
     paged_rows = phase_paged()
     llm_launches, llm = phase_llm()
@@ -1594,6 +1756,18 @@ def main() -> int:
                           f"bf16, full and causal)",
               library="scaled_dot_product_attention, which returns no "
                       "log-sum-exp"),
+        entry("flash_bwd_lse", csrc + "flash_bwd.cu",
+              "analytics_zoo_tpu/parallel/ring.py:115 (_block_grads, jnp: "
+              "no TPU kernel)", bwd_lse_rows,
+              ring_launches["flash_bwd_lse"],
+              shape=f"B{RING['B']} H{RING['H']} "
+                    f"T{RING['T'] // RING['sp']} D{RING['D']} float32 (one "
+                    f"full ring block, f32 accumulators)",
+              launches_in=f"4 ring_attention forwards + backwards at "
+                          f"T{RING['T']} over {RING['sp']} shards (f32 and "
+                          f"bf16, full and causal)",
+              library="backward of scaled_dot_product_attention on the "
+                      "same block (forward + backward less forward)"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     return _finish(card)

@@ -12,7 +12,9 @@ The paged decode and chunk kernels take the forward's tolerances, and so
 does ``flash_fwd_lse`` for its output; its log-sum-exp, f32 in both
 versions, is held to 1e-5 * max(1, |lse|).  Ring attention on four shards
 of one card: the output against the ring with plain blocks to 2e-5, the
-gradients to 1e-4 * max(1, max|ref|).
+gradients to 1e-4 * max(1, max|ref|).  ``flash_bwd_lse`` (one ring block
+of the backward, added into f32 accumulators) takes the backward's
+tolerances against the plain ``_block_grads``.
 """
 
 import pytest
@@ -21,10 +23,12 @@ import torch
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.attention import (
     _hash_keep_mask, _reference_attention, _reference_attention_bwd,
-    flash_attention, flash_forward_with_lse)
+    _reference_attention_with_lse, _row_delta, _valid, flash_attention,
+    flash_forward_with_lse)
 from analytics_zoo_tpu_torch.ops.paged_attention import (
     paged_chunk_attention, paged_decode_attention)
 from analytics_zoo_tpu_torch.parallel import Mesh, ring_attention
+from analytics_zoo_tpu_torch.parallel.ring import _block_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -370,3 +374,103 @@ def test_ring_attention_on_four_shards_of_one_card(dev, causal):
             atol = 1e-4 * max(1.0, b.abs().max().item())
             torch.testing.assert_close(a, b, atol=atol, rtol=0,
                                        msg=f"d{name}")
+
+
+# --- the forward's lse and the ring block's backward ----------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_lse_equals_flash_fwd_lse_and_the_plain_lse(dev, dtype):
+    """Where both entry points apply (no mask, no dropout) the forward's
+    lse equals ``flash_fwd_lse``'s; under a mask with an empty row and
+    dropout it is the plain log-sum-exp of the visible scores before
+    dropout, -1e30 on the empty row."""
+    B, H, Tq, Tk, D = 3, 2, 77, 130, 64
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(B, H, T, D, generator=g).to(dev, dtype)
+               for T in (Tq, Tk, Tk))
+    _, lse = _kernels.flash_fwd(q, k, v, causal=True, sm_scale=0.125,
+                                with_lse=True)
+    _, want = _kernels.flash_fwd_lse(q, k, v, causal=True, sm_scale=0.125)
+    assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+    lens = torch.tensor([0, 60, Tk])
+    mask = (torch.arange(Tk)[None] < lens[:, None]).int().to(dev)
+    _, lse = _kernels.flash_fwd(q, k, v, mask, sm_scale=0.125,
+                                dropout_thresh=1 << 22, keep_scale=4 / 3,
+                                seed=3, with_lse=True)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * 0.125
+    s = torch.where(_valid((Tq, Tk), dev, False, mask), s, -torch.inf)
+    want = torch.logsumexp(s, -1)
+    empty = torch.isinf(want)
+    assert torch.all(lse[empty] == -1e30) and empty[0].all()
+    torch.testing.assert_close(lse[~empty], want[~empty], atol=1e-5,
+                               rtol=1e-5)
+
+
+def _ring_block(dev, dtype, B, H, T, D, causal, seed, init=0.0):
+    """(kernel accumulators, plain accumulators, inputs) of one ring block
+    from ``init`` * random accumulators, with the block's own lse."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, go = (torch.randn(B, H, T, D, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    o, lse = _reference_attention_with_lse(q, k, v, causal, D ** -0.5)
+    delta = _row_delta(o, go)
+    acc0 = [init * torch.randn(B, H, T, D, generator=g).to(dev)
+            for _ in range(3)]
+    out = {}
+    for impl in ("cuda", "plain"):
+        acc = [t.clone() for t in acc0]
+        _block_grads(q, go, lse, delta, k, v, 0 if causal else None,
+                     D ** -0.5, *acc, impl=impl)
+        out[impl] = acc
+    torch.cuda.synchronize()
+    return out["cuda"], out["plain"], (q, k, v, go, lse, delta, acc0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(B=2, H=3, T=512, D=64, causal=False),
+    dict(B=2, H=3, T=512, D=64, causal=True),
+    dict(B=1, H=2, T=300, D=32, causal=True),
+    dict(B=1, H=2, T=200, D=128, causal=False),
+], ids=["full", "diagonal", "ragged_d32", "ragged_d128"])
+def test_flash_bwd_lse_matches_plain_block(dev, dtype, case):
+    before = _kernels.flash_bwd_lse.launches
+    got, want, _ = _ring_block(dev, dtype, **case, seed=10)
+    assert _kernels.flash_bwd_lse.launches == before + 1
+    _assert_block_close(got, want, dtype)
+
+
+def _assert_block_close(got, want, dtype):
+    """f32 accumulators of a ring block, held to the backward's
+    tolerances for the inputs' dtype."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        atol, rtol = ((1e-4 * max(1.0, b.abs().max().item()), 0.0)
+                      if dtype == torch.float32 else (2e-2, 2.0 ** -6))
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_lse_adds_into_its_accumulators(dev, dtype):
+    """From nonzero accumulators the kernel adds what it writes from zero
+    ones: dk and dv in one f32 add each; dq too in bf16, while the f32
+    kernel adds each key tile's share of dq in turn, so there the sum is
+    the same up to f32 rounding."""
+    kw = dict(B=2, H=3, T=256, D=64, causal=True, seed=11)
+    from_zero, _, _ = _ring_block(dev, dtype, **kw)
+    got, want, (*_, acc0) = _ring_block(dev, dtype, **kw, init=1.0)
+    for name, a, z, a0 in zip(("dq", "dk", "dv"), got, from_zero, acc0):
+        if name == "dq" and dtype == torch.float32:
+            torch.testing.assert_close(a, a0 + z, atol=1e-5, rtol=0)
+        else:
+            assert torch.equal(a, a0 + z), name
+    _assert_block_close(got, want, dtype)
+
+
+def test_flash_bwd_lse_repeats_bit_identical(dev):
+    kw = dict(B=2, H=3, T=384, D=64, causal=False, seed=12)
+    first, _, _ = _ring_block(dev, torch.float32, **kw)
+    again, _, _ = _ring_block(dev, torch.float32, **kw)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

@@ -45,7 +45,7 @@ def _meshes(sequence):
     cfg.mesh.data, cfg.mesh.sequence = -1, sequence
     jmesh = jctx_mod.init_zoo_context(cfg).mesh
     ctx = tctx_mod.init_zoo_context(
-        ZooConfig(mesh=MeshConfig(data=-1, sequence=sequence)), CPU8)
+        ZooConfig(mesh=MeshConfig(data=-1, sequence=sequence)), devices=CPU8)
     assert ctx.mesh.shape == dict(jmesh.shape)
     return jmesh, ctx.mesh
 
@@ -165,7 +165,7 @@ def test_ring_bf16_matches_jax_jnp():
 
 def test_ring_splits_batch_only_when_it_divides():
     mesh = tctx_mod.init_zoo_context(
-        ZooConfig(mesh=MeshConfig(data=2, sequence=4)), CPU8).mesh
+        ZooConfig(mesh=MeshConfig(data=2, sequence=4)), devices=CPU8).mesh
     two = _Layout(mesh, "sequence", "data", B=4, T=64)
     assert (len(two.rings), len(two.rings[0]), two.B_loc, two.T_loc) == (
         2, 4, 2, 16)
@@ -219,7 +219,7 @@ def test_mesh_places_repeated_devices_by_coordinate():
 def test_init_zoo_context_lays_out_devices_by_the_config():
     ctx = tctx_mod.init_zoo_context(
         ZooConfig(mesh=MeshConfig(data=2, sequence=2, model=-1)),
-        ["cpu"] * 8)
+        devices=["cpu"] * 8)
     assert ctx.mesh.shape == {"data": 2, "model": 2, "sequence": 2,
                               "expert": 1, "pipeline": 1}
     assert ctx.num_devices == 8 and ctx.axis_size("model") == 2

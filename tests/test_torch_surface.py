@@ -4,9 +4,11 @@ Walks every public function and class (constructor and public methods)
 of ``analytics_zoo_tpu_torch`` that has a namesake in the same module of
 ``analytics_zoo_tpu``, and compares their parameter names.  A difference
 passes only where ``DIFFERENCES`` lists it, with its reason: one of the
-deliberate differences of the port (below), or an argument whose
-machinery a ROADMAP Queue 1 item has still to port.  An entry that no
-longer differs fails too, so the list stays exact.  Names the port keeps
+deliberate differences of the port (below).  An argument whose machinery
+a ROADMAP Queue 1 item has still to port is taken, at its JAX default,
+and any other value raises ``NotImplementedError`` naming the item
+(``test_unported_argument_names_its_item``).  An entry that no longer
+differs fails too, so the list stays exact.  Names the port keeps
 as stubs (``*args, **kwargs``) must raise ``NotImplementedError`` naming
 ROADMAP.  Then one test per argument repaired to the JAX surface.
 """
@@ -31,33 +33,18 @@ BACKEND = "backend= picks the kernel or its plain version"
 PREDICT = "predict batches on the host, so it takes the batch size"
 
 
-def _todo(item: int) -> str:
-    return f"not ported yet: ROADMAP Queue 1 item {item}"
-
-
 #: name -> (parameters of the JAX name the port lacks, parameters the
 #: port adds, why)
 DIFFERENCES = {
-    "common.config.TrainConfig.__init__": (
-        "failure_retry_times failure_retry_window_sec keep_checkpoints "
-        "donate_state rng_impl shard_model max_steps_per_dispatch", "",
-        _todo(2)),
-    "common.config.ZooConfig.__init__": (
-        "data serving fleet coordinator_address num_processes process_id "
-        "platform log_output default_dtype", "", _todo(1)),
-    "common.context.init_zoo_context": (
-        "config_path overrides", "devices", f"{_todo(1)}; {DEVICE}"),
+    "common.context.init_zoo_context": ("", "devices", DEVICE),
     "data.featureset.FeatureSet.batches": ("ctx", "device", DEVICE),
     "data.featureset.FeatureSet.batches_with_counts": ("ctx", "device",
                                                        DEVICE),
-    "estimator.estimator.Estimator.__init__": (
-        "ctx app_name checkpoint_trigger", "config device",
-        f"{DEVICE}; {_todo(2)}"),
+    "estimator.estimator.Estimator.__init__": ("ctx", "config device",
+                                               DEVICE),
     "estimator.estimator.Estimator.train": ("rng", "seed", RNG),
-    "inference.inference_model.InferenceModel.__init__": (
-        "place_on_load", "device", f"{_todo(1)}; {DEVICE}"),
-    "inference.inference_model.InferenceModel.load_keras": ("place", "",
-                                                            _todo(1)),
+    "inference.inference_model.InferenceModel.__init__": ("", "device",
+                                                          DEVICE),
     "keras.engine.Layer.__init__": ("input_shape", "", LAYOUT),
     "keras.engine.Layer.init": ("rng input_shape", "generator",
                                 f"{LAYOUT}; {RNG}"),
@@ -83,8 +70,6 @@ DIFFERENCES = {
     "keras.optimizers.Optimizer.update": ("opt_state", "state", OPTAX),
     "llm.engine.LLMServing.__init__": ("", "device", DEVICE),
     "llm.kv_cache.PagedKVCache.__init__": ("", "device", DEVICE),
-    "models.generation.prefill_chunk": ("mesh", "", _todo(5)),
-    "models.generation.decode_step": ("mesh", "", _todo(5)),
     "models.generation.DecoderLM.__init__": (
         "params", "hidden n_layers intermediate generator device",
         f"{LAYOUT}; {RNG}; {DEVICE}"),
@@ -92,7 +77,6 @@ DIFFERENCES = {
                                          f"{RNG}; {DEVICE}"),
     "ops.attention.flash_forward_with_lse": ("", "backend", BACKEND),
     "ops.paged_attention.paged_chunk_attention": ("", "backend", BACKEND),
-    "serving.engine.ClusterServing.__init__": ("tenancy", "", _todo(1)),
     "tfpark.text_estimators.BERTBaseEstimator.__init__": ("", "device",
                                                           DEVICE),
     "tfpark.text_estimators.BERTBaseEstimator.train": ("rng", "seed", RNG),
@@ -100,10 +84,6 @@ DIFFERENCES = {
                                                          PREDICT),
     "tfpark.text_estimators.BERTClassifier.__init__": (
         "", "device generator", f"{DEVICE}; {RNG}"),
-    "tfpark.tf_dataset.TFDataset.__init__": (
-        "has_labels validation_featureset", "", _todo(2)),
-    "tfpark.tf_dataset.TFDataset.from_ndarrays": ("val_tensors", "",
-                                                  _todo(2)),
 }
 
 
@@ -355,3 +335,117 @@ def test_predict_async_reserved_names_item_1():
     model = InferenceModel(device="cpu")
     with pytest.raises(NotImplementedError, match="reserved=.*item 1"):
         model.predict_async(np.zeros((1, 2), np.float32), reserved=True)
+
+
+# --- arguments taken at their JAX default, machinery not ported -----------
+
+def _unported_calls():
+    """(case id, call, argument, Queue 1 item) for every argument the port
+    takes at its JAX default and refuses otherwise."""
+    from analytics_zoo_tpu_torch.common import config as cfg
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.common.triggers import EveryEpoch
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        InferenceModel)
+    from analytics_zoo_tpu_torch.models import generation
+    from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+    from analytics_zoo_tpu_torch.tfpark import TFDataset
+    x = (np.zeros((4, 2), np.float32), np.zeros(4, np.int32))
+    calls = [(f"TrainConfig.{k}", lambda k=k, v=v: cfg.TrainConfig(**{k: v}),
+              k, 2) for k, v in (
+        ("failure_retry_times", 3), ("failure_retry_window_sec", 60),
+        ("keep_checkpoints", 1), ("donate_state", False),
+        ("rng_impl", "threefry"), ("shard_model", False),
+        ("max_steps_per_dispatch", 8))]
+    calls += [(f"ZooConfig.{k}", lambda k=k, v=v: cfg.ZooConfig(**{k: v}),
+               k, 1) for k, v in (
+        ("data", object()), ("serving", cfg.ServingConfig(batch_size=8)),
+        ("fleet", object()), ("coordinator_address", "host:1234"),
+        ("num_processes", 2), ("process_id", 1), ("platform", "cpu"),
+        ("log_output", True), ("default_dtype", "bfloat16"))]
+    calls += [
+        ("init_zoo_context.config_path",
+         lambda: init_zoo_context(config_path="zoo.yaml"), "config_path", 1),
+        ("init_zoo_context.overrides",
+         lambda: init_zoo_context(compute_dtype="float32"), "overrides", 1),
+        ("Estimator.app_name", lambda: Estimator(None, app_name="app"),
+         "app_name", 2),
+        ("Estimator.checkpoint_trigger",
+         lambda: Estimator(None, checkpoint_trigger=EveryEpoch()),
+         "checkpoint_trigger", 2),
+        ("InferenceModel.place_on_load",
+         lambda: InferenceModel(place_on_load=False, device="cpu"),
+         "place_on_load", 1),
+        ("InferenceModel.load_keras.place",
+         lambda: InferenceModel(device="cpu").load_keras(None, place=False),
+         "place", 1),
+        ("ClusterServing.tenancy",
+         lambda: ClusterServing(None, tenancy=object()), "tenancy", 1),
+        ("TFDataset.validation_featureset",
+         lambda: TFDataset(None, batch_size=2, validation_featureset=x),
+         "validation_featureset", 2),
+        ("TFDataset.from_ndarrays.val_tensors",
+         lambda: TFDataset.from_ndarrays(x, batch_size=2, val_tensors=x),
+         "val_tensors", 2),
+        ("prefill_chunk.mesh",
+         lambda: generation.prefill_chunk(None, None, 0, 0, None, None,
+                                          None, None, 1, mesh=object()),
+         "mesh", 5),
+        ("decode_step.mesh",
+         lambda: generation.decode_step(None, None, None, None, None, None,
+                                        None, None, 1, mesh=object()),
+         "mesh", 5),
+    ]
+    return calls
+
+
+UNPORTED = _unported_calls()
+
+
+@pytest.mark.parametrize("call,arg,item", [c[1:] for c in UNPORTED],
+                         ids=[c[0] for c in UNPORTED])
+def test_unported_argument_names_its_item(call, arg, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"{arg}=.*Queue 1 item {item}"):
+        call()
+
+
+def test_unported_arguments_at_their_jax_default_run():
+    from analytics_zoo_tpu.common import config as jcfg
+    from analytics_zoo_tpu_torch.common import config as cfg
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        InferenceModel)
+    from analytics_zoo_tpu_torch.tfpark import TFDataset
+    jtrain = jcfg.TrainConfig()
+    train = cfg.TrainConfig(**{
+        k: getattr(jtrain, k) for k in (
+            "failure_retry_times", "failure_retry_window_sec",
+            "keep_checkpoints", "donate_state", "rng_impl", "shard_model",
+            "max_steps_per_dispatch")})
+    assert train == cfg.TrainConfig()
+    jzoo = jcfg.ZooConfig()
+    zoo = cfg.ZooConfig(
+        serving=cfg.ServingConfig(), coordinator_address=None,
+        num_processes=None, process_id=None, platform=None,
+        log_output=jzoo.log_output, default_dtype=jzoo.default_dtype)
+    assert zoo == cfg.ZooConfig()
+    model = InferenceModel(place_on_load=True, device="cpu")
+    net = torch.nn.Linear(2, 2)
+    for place in (None, True):
+        assert model.load_keras(net, place=place).model is net
+    x = (np.zeros((4, 2), np.float32), np.zeros(4, np.int32))
+    assert len(TFDataset.from_ndarrays(x, batch_size=2,
+                                       val_tensors=None)) == 4
+
+
+def test_tfdataset_has_labels_as_the_jax_name():
+    from analytics_zoo_tpu.tfpark.tf_dataset import TFDataset as JTFDataset
+    from analytics_zoo_tpu_torch.tfpark import TFDataset
+    feats = np.zeros((8, 3), np.float32)
+    labels = np.zeros(8, np.int32)
+    for tensors in ((feats, labels), (feats,)):
+        got = TFDataset.from_ndarrays(tensors, batch_size=8)
+        want = JTFDataset.from_ndarrays(tensors, batch_size=8)
+        assert got.has_labels == want.has_labels
+    assert TFDataset(None, batch_size=8, has_labels=False).has_labels is False
