@@ -126,10 +126,10 @@ _ENTRY = {
     "zoo_flash_bwd_lse": ("flash_bwd.cu", [_PTR] * 10
                           + [ctypes.POINTER(_I64)] + [_I32] * 6
                           + [_F32, _I32, _PTR]),
-    "zoo_paged_decode": ("paged_decode.cu", [_PTR] * 6 + [_I64] * 11
-                         + [_I32] * 8 + [_F32, _PTR]),
-    "zoo_paged_chunk": ("paged_chunk.cu", [_PTR] * 5 + [_I64] * 10
-                        + [_I32] * 9 + [_F32, _PTR]),
+    "zoo_paged_decode": ("paged_decode.cu", [_PTR] * 8 + [_I64] * 11
+                         + [_I32] * 10 + [_F32, _PTR]),
+    "zoo_paged_chunk": ("paged_chunk.cu", [_PTR] * 7 + [_I64] * 10
+                        + [_I32] * 10 + [_F32, _PTR]),
 }
 
 
@@ -457,13 +457,78 @@ def _check_pages(kernel: str, q, k_pages, v_pages, tables, q_dims: str):
                              f"dimension, got {t.stride()}")
 
 
+#: the decode kernel's split rule: about this many blocks an SM, and no
+#: split shorter than this many keys (one 16-key chunk a warp, several
+#: loads in flight)
+DECODE_BLOCKS_PER_SM = 8
+DECODE_MIN_SPLIT_KEYS = 128
+#: the chunk kernel's query rows and keys a block / tile
+CHUNK_BLOCK_M = 64
+CHUNK_BLOCK_N = 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_splits(B: int, Hkv: int, nb: int, bs: int,
+                  n_sms: int) -> tuple:
+    """``(splits, pages_per_split)`` of ``paged_decode.cu``: each of the
+    ``B * Hkv`` (sequence, KV head) pairs is cut into ``splits`` blocks of
+    ``pages_per_split`` whole table entries (``splits * pages_per_split >=
+    nb``, the last split may be shorter), enough blocks for about
+    ``DECODE_BLOCKS_PER_SM`` an SM but none shorter than
+    ``DECODE_MIN_SPLIT_KEYS`` keys.  It reads only the table width ``nb *
+    bs``: a split that starts at or past a sequence's length reads
+    nothing, so the host never needs the lengths."""
+    if nb <= 0:
+        return 1, 1
+    min_pages = _cdiv(DECODE_MIN_SPLIT_KEYS, bs)
+    want = _cdiv(DECODE_BLOCKS_PER_SM * n_sms, max(1, B * Hkv))
+    splits = max(1, min(want, _cdiv(nb, min_pages)))
+    pages = max(min_pages, _cdiv(nb, splits)) if splits > 1 else nb
+    return _cdiv(nb, pages), pages
+
+
+def chunk_splits(H: int, Tc: int, start: int, nb: int, bs: int,
+                 n_sms: int) -> int:
+    """How many blocks ``paged_chunk.cu`` cuts each 64-row block's key
+    tiles over: 1 when the ``H * ceil(Tc / 64)`` row blocks fill the SMs
+    twice, else enough to, but no more than the 64-key tiles of the row
+    block that sees the fewest keys (the first), so that none of its
+    splits is empty."""
+    blocks = H * _cdiv(Tc, CHUNK_BLOCK_M)
+    if blocks >= 2 * n_sms:
+        return 1
+    first = min(nb * bs, start + min(CHUNK_BLOCK_M, Tc))
+    return max(1, min(_cdiv(2 * n_sms, blocks), _cdiv(first, CHUNK_BLOCK_N)))
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The device's number of SMs (cached; what the split rules read)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = torch.cuda.get_device_properties(idx).multi_processor_count
+        _sm_counts[idx] = n
+    return n
+
+
 class PagedDecode(_Wrapper):
     """Wrapper of ``zoo_paged_decode`` (``csrc/paged_decode.cu``): one
     decode step of attention through block tables.  q ``(B, H, D)``, the
     page pools ``(P, bs, Hkv, D)``, ``lengths (B,)`` and ``block_tables
     (B, nb)`` int32, all CUDA tensors; returns ``(B, H, D)`` in q's
     dtype.  Page ids must lie in ``[0, P)`` (the kernel clamps others, as
-    JAX's gather does)."""
+    JAX's gather does).  The pools are read in place where
+    ``tma_aligned`` (the 16-byte copies' rule), else copied and counted.
+    The keys are split over blocks by ``decode_splits``; with more than
+    one split the call allocates the f32 scratch the splits merge
+    through and runs the merging kernel too, and counts one launch."""
 
     name = "paged_decode"
 
@@ -481,18 +546,27 @@ class PagedDecode(_Wrapper):
             raise ValueError(f"block_tables must be ({B}, nb), got "
                              f"{tuple(block_tables.shape)}")
         lengths = lengths.contiguous()
+        k_pages, v_pages = self._readable(k_pages), self._readable(v_pages)
+        nb = block_tables.shape[1]
+        splits, pages = decode_splits(B, Hkv, nb, bs, sm_count(q.device))
         out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+        part_o = part_lse = None
+        if splits > 1:
+            part_o = torch.empty(B * H * splits * D, dtype=torch.float32,
+                                 device=q.device)
+            part_lse = torch.empty(B * H * splits, dtype=torch.float32,
+                                   device=q.device)
         lib = _lib("paged_decode.cu")
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             rc = lib.zoo_paged_decode(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+                _ptr(part_o), _ptr(part_lse),
                 *q.stride()[:2], *k_pages.stride()[:3],
                 *v_pages.stride()[:3], *out.stride()[:2],
-                block_tables.stride(0), B, H, Hkv, D, P, bs,
-                block_tables.shape[1], _DTYPES[q.dtype], float(sm_scale),
-                stream)
+                block_tables.stride(0), B, H, Hkv, D, P, bs, nb, splits,
+                pages, _DTYPES[q.dtype], float(sm_scale), stream)
         self._launched(lib, rc)
         return out
 
@@ -503,7 +577,11 @@ class PagedChunk(_Wrapper):
     D)`` for positions ``start .. start + Tc - 1``, the page pools ``(P,
     bs, Hkv, D)`` already holding the chunk's own K/V, ``page_table
     (nb,)`` int32, all CUDA tensors, and ``start`` a host int; returns
-    ``(Tc, H, D)`` in q's dtype."""
+    ``(Tc, H, D)`` in q's dtype.  The pools (and a bf16 q) are read in
+    place where ``tma_aligned``, else copied and counted.  Each 64-row
+    block's keys are split over ``chunk_splits`` blocks; with more than
+    one the call allocates the f32 scratch they merge through and runs
+    the merging kernel too, and counts one launch."""
 
     name = "paged_chunk"
 
@@ -518,17 +596,28 @@ class PagedChunk(_Wrapper):
             raise ValueError(f"start must be >= 0, got {start}")
         Tc, H, D = q.shape
         P, bs, Hkv, _ = k_pages.shape
+        nb = page_table.shape[0]
+        k_pages, v_pages = self._readable(k_pages), self._readable(v_pages)
+        if q.dtype == torch.bfloat16:       # copied into shared memory too
+            q = self._readable(q)
+        splits = chunk_splits(H, Tc, start, nb, bs, sm_count(q.device))
         out = torch.empty((Tc, H, D), dtype=q.dtype, device=q.device)
+        part_o = part_lse = None
+        if splits > 1:
+            part_o = torch.empty(splits * H * Tc * D, dtype=torch.float32,
+                                 device=q.device)
+            part_lse = torch.empty(splits * H * Tc, dtype=torch.float32,
+                                   device=q.device)
         lib = _lib("paged_chunk.cu")
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             rc = lib.zoo_paged_chunk(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), out.data_ptr(), *q.stride()[:2],
-                *k_pages.stride()[:3], *v_pages.stride()[:3],
-                *out.stride()[:2], Tc, H, Hkv, D, P, bs,
-                page_table.shape[0], start, _DTYPES[q.dtype],
-                float(sm_scale), stream)
+                page_table.data_ptr(), out.data_ptr(), _ptr(part_o),
+                _ptr(part_lse), *q.stride()[:2], *k_pages.stride()[:3],
+                *v_pages.stride()[:3], *out.stride()[:2], Tc, H, Hkv, D, P,
+                bs, nb, start, splits, _DTYPES[q.dtype], float(sm_scale),
+                stream)
         self._launched(lib, rc)
         return out
 

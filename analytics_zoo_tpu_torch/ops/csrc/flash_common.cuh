@@ -1,7 +1,8 @@
 // What the kernels of this directory share: the dropout counter hash
 // (flash_fwd.cu and flash_bwd.cu), the f32 <-> input-dtype conversions, the
-// warp reductions, and the small pieces of the two flash kernels' tiles
-// (exp2, bf16 packing, paired stores, the causal key range).  The hash
+// warp reductions, the small pieces of the flash kernels' tiles (exp2, bf16
+// packing, paired stores, the causal key range) and the fixed-order merge
+// of split partials (paged_decode.cu, paged_chunk.cu).  The hash
 // must be bit-identical in both kernels, in ops/attention.py's plain
 // version and in the JAX package: the backward replays the forward's
 // keep-mask from the seed.
@@ -93,6 +94,27 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Column d of the merge of n split partials of one row, in split order:
+// partial s is an output row normalised by its own sum (o + s * o_step,
+// f32) with the log-sum-exp of its scaled scores (lse[s * lse_step], -1e30
+// where it saw no key); returns sum_s w_s o_s[d] / sum_s w_s with
+// w_s = exp(lse_s - max_s lse_s), and 0 for n == 0.  No atomics: the same
+// partials give the same bits.
+__device__ __forceinline__ float merge_splits(const float* o, int64_t o_step,
+                                              const float* lse,
+                                              int64_t lse_step, int n,
+                                              int d) {
+  float mx = kNegInf;
+  for (int s = 0; s < n; ++s) mx = fmaxf(mx, lse[s * lse_step]);
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const float w = expf(lse[s * lse_step] - mx);
+    num = fmaf(w, o[s * o_step + d], num);
+    den += w;
+  }
+  return n > 0 ? num / den : 0.f;
 }
 
 // last key (exclusive) that rows [lo, hi) may see

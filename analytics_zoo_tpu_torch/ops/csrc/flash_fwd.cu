@@ -30,7 +30,9 @@
 // points, dispatched on the dtype, sharing the masks, the dropout hash, the
 // online softmax and the epilogue (both products leave each thread the same
 // accumulator fragment: rows g and g + 8 of a 16-row slice, columns
-// 8j + 2c and 8j + 2c + 1, g = lane / 4, c = lane % 4).
+// 8j + 2c and 8j + 2c + 1, g = lane / 4, c = lane % 4).  Those, the tile
+// layouts and both instances' products live in flash_tile.cuh, which
+// paged_chunk.cu builds on too.
 // - bf16: a block owns 128 query rows of one (batch, head) as two consumer
 //   warpgroups of 64 rows (64 rows and one warpgroup where Tk <= 128, so
 //   two blocks fit an SM) and one producer warp.  The producer loads Q
@@ -72,156 +74,13 @@
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace zoo_flash;
 using namespace zoo_hopper;
-
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kInf = INFINITY;
-
-// what the softmax of every tile of one (batch, head) needs
-struct TileCtx {
-  const int32_t* mrow;  // (Tk) padding mask row, 0 = padded key; or null
-  int Tk;
-  int causal_offset;    // Tk - Tq
-  int causal;
-  float scale2;         // sm_scale * log2(e): exp2 of raw scores
-  uint32_t head;        // head_hash(seed, b*H + h)
-  uint32_t thresh;      // drop iff (bits >> 8) < thresh; 0 = no dropout
-  float keep_scale;
-};
-
-// Whether a tile of n keys from k0 needs per-score masking for rows from
-// row_lo on: a padding mask, the ragged end of the keys, or the diagonal.
-__device__ __forceinline__ bool tile_masked(const TileCtx& x, int k0, int n,
-                                            int row_lo) {
-  return x.mrow != nullptr || k0 + n > x.Tk ||
-         (x.causal && k0 + n - 1 > row_lo + x.causal_offset);
-}
-
-// The online-softmax step of one tile of raw scores held as accumulator
-// fragments (NC chunks of 8 keys: s[4j + 2h + e] is row r0 + 8h, key
-// k0 + 8j + 2c + e).  kMask: the masks are applied per score (else the
-// tile is known to be wholly visible); kDrop: dropout.  Updates the
-// running max m (raw units, -inf while a row has seen no key) and the
-// thread's partial sum l (rows r0, r0 + 8), returns each row's rescale
-// factor in alpha and leaves in s the probabilities after dropout:
-// p = exp2(s * scale2 - m * scale2), one FFMA and one exp2 a score.  Max
-// and sum run as two interleaved chains for instruction-level parallelism.
-template <int NC, bool kMask, bool kDrop>
-__device__ __forceinline__ void online_softmax(float (&s)[NC * 4],
-                                               float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2],
-                                               const TileCtx& x, int r0,
-                                               int k0, int c) {
-  if (kMask) {
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + 8 * j + 2 * c + e;
-        const bool kv =
-            key < x.Tk && (x.mrow == nullptr || x.mrow[key] != 0);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const bool ok =
-              kv && (!x.causal || key <= r0 + 8 * h + x.causal_offset);
-          if (!ok) s[4 * j + 2 * h + e] = -kInf;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float mx[2] = {-kInf, -kInf};
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      mx[j & 1] = fmaxf(mx[j & 1],
-                        fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
-    float mxr = fmaxf(mx[0], mx[1]);
-    mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 1));
-    mxr = fmaxf(mxr, __shfl_xor_sync(0xffffffffu, mxr, 2));
-    const float m_new = fmaxf(m[h], mxr);
-    // a row that has seen no key keeps m = -inf and gets p = 0, alpha = 0
-    const float base = m_new == -kInf ? 0.f : m_new * x.scale2;
-    alpha[h] = fast_exp2(m[h] * x.scale2 - base);
-    m[h] = m_new;
-    float psum[2] = {0.f, 0.f};
-    const int row = r0 + 8 * h;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& v = s[4 * j + 2 * h + e];
-        float pv = fast_exp2(fmaf(v, x.scale2, -base));
-        psum[e] += pv;  // the normaliser takes the weights before dropout
-        if (kDrop)
-          pv = keep(x.head, row, k0 + 8 * j + 2 * c + e, x.thresh)
-                   ? pv * x.keep_scale
-                   : 0.f;
-        v = pv;
-      }
-    }
-    l[h] = alpha[h] * l[h] + (psum[0] + psum[1]);
-  }
-}
-
-// online_softmax with the per-score work the tile needs
-template <int NC>
-__device__ __forceinline__ void softmax_tile(float (&s)[NC * 4],
-                                             float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2],
-                                             const TileCtx& x, int r0,
-                                             int k0, int c, bool masked) {
-  if (x.thresh) {
-    if (masked)
-      online_softmax<NC, true, true>(s, m, l, alpha, x, r0, k0, c);
-    else
-      online_softmax<NC, false, true>(s, m, l, alpha, x, r0, k0, c);
-  } else {
-    if (masked)
-      online_softmax<NC, true, false>(s, m, l, alpha, x, r0, k0, c);
-    else
-      online_softmax<NC, false, false>(s, m, l, alpha, x, r0, k0, c);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void rescale(float (&o)[N], const float (&a)[2]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) o[i] *= a[(i >> 1) & 1];
-}
-
-// Output rows r0 and r0 + 8 of the accumulator fragment o (D columns),
-// divided by the quad-reduced row sums (rows that saw no key give zeros);
-// lse in the units of the scaled scores, -1e30 for such rows, when asked.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(const float (&o)[D / 2],
-                                           float (&l)[2], const float (&m)[2],
-                                           float scale2, T* og, int64_t o_st,
-                                           float* lse, int r0, int Tq,
-                                           int c) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 8 * h;
-    if (row >= Tq) continue;
-    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(og + row * o_st + 8 * j + 2 * c, o[4 * j + 2 * h] * inv,
-             o[4 * j + 2 * h + 1] * inv);
-    if (lse != nullptr && c == 0)
-      lse[row] = l[h] > 0.f ? m[h] * scale2 * kLn2 + logf(l[h]) : kNegInf;
-  }
-}
 
 __device__ __forceinline__ TileCtx make_ctx(const int32_t* mask, int b,
                                             int bh, int Tq, int Tk,
@@ -244,20 +103,13 @@ __device__ __forceinline__ TileCtx make_ctx(const int32_t* mask, int b,
 // bf16: wgmma with TMA-fed K/V
 
 template <int D, int BN, int NWG>
-struct BfCfg {
+struct BfCfg : BfTile<D, BN> {
   static constexpr int kConsumers = 128 * NWG;  // NWG warpgroups of 64 rows
   static constexpr int kThreads = kConsumers + 32;  // + a producer warp
   static constexpr int kBlockM = 64 * NWG;
   static constexpr int kStages = 2;  // K/V tiles in flight
-  static constexpr int kAtomCols = D < 64 ? D : 64;  // one swizzle row
-  static constexpr int kRowBytes = kAtomCols * 2;    // 64 or 128
-  static constexpr int kAtoms = D / kAtomCols;       // boxes across D
-  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;
-  static constexpr int kQAtomBytes = 64 * kRowBytes;  // a 64-row Q box
-  static constexpr int kQTile = kAtoms * kQAtomBytes;
-  static constexpr int kKVAtomBytes = BN * kRowBytes;  // a BN-row K/V box
-  static constexpr int kKVTile = kAtoms * kKVAtomBytes;
-  static constexpr int kBarOffset = NWG * kQTile + 2 * kStages * kKVTile;
+  static constexpr int kBarOffset =
+      NWG * BfTile<D, BN>::kQTile + 2 * kStages * BfTile<D, BN>::kKVTile;
   // + slack to align the base to 1024 bytes, + the mbarriers
   static constexpr size_t kSmem = 1024 + kBarOffset + 16 * kStages + 8;
 };
@@ -349,7 +201,6 @@ __global__ void __launch_bounds__(BfCfg<D, BN, NWG>::kThreads,
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f};
   const uint32_t q_base = sq + wg * C::kQTile;
-  constexpr int kStepsPerAtom = C::kRowBytes / 32;  // k16 steps in a row
   // Ping-pong: with two warpgroups, their Q.K^T issues alternate (named
   // barriers 1 and 2), so one warpgroup's softmax runs under the other's
   // products instead of both waiting on the tensor cores, then both on
@@ -374,22 +225,7 @@ __global__ void __launch_bounds__(BfCfg<D, BN, NWG>::kThreads,
       if (hand_on) named_arrive(2 - wg, 256);
     } else {  // warpgroup-uniform
       float sc[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t atom = kk / kStepsPerAtom;
-        const uint32_t within = (kk % kStepsPerAtom) * 32;
-        wgmma_ss(sc,
-                 wgmma_desc(q_base + atom * C::kQAtomBytes + within, 16,
-                            8 * C::kRowBytes, C::kSwizzle),
-                 wgmma_desc(sk + s * C::kKVTile + atom * C::kKVAtomBytes +
-                                within,
-                            16, 8 * C::kRowBytes, C::kSwizzle),
-                 kk > 0);
-      }
-      wgmma_commit();
+      bf16_qk<D, BN>(sc, q_base, sk + s * C::kKVTile);
       if (hand_on) named_arrive(2 - wg, 256);
       wgmma_wait_all();
 
@@ -397,22 +233,7 @@ __global__ void __launch_bounds__(BfCfg<D, BN, NWG>::kThreads,
       softmax_tile<BN / 8>(sc, m, l, alpha, x, r0, k0, c,
                            tile_masked(x, k0, BN, row_lo));
       rescale(o, alpha);
-      // P as bf16 A fragments: 16 keys (two 8-key chunks) per k step
-      uint32_t pa[BN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs(o, pa[kk],
-                 wgmma_desc(sv + s * C::kKVTile + kk * 16 * C::kRowBytes,
-                            C::kKVAtomBytes, 8 * C::kRowBytes, C::kSwizzle));
-      wgmma_commit();
-      wgmma_wait_all();
+      bf16_pv<D, BN>(o, sc, sv + s * C::kKVTile);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * s);  // stage s is free
@@ -429,14 +250,12 @@ __global__ void __launch_bounds__(BfCfg<D, BN, NWG>::kThreads,
 
 constexpr int kF32Threads = 128;  // four warps of 16 query rows
 constexpr int kF32BlockM = 64;
-constexpr int kF32BlockN = 64;
 constexpr int kF32Stages = 2;
 
 template <int D>
-struct F32Cfg {
-  static constexpr int kPitch = D + 4;  // floats a staged row
-  static constexpr int kTile = kF32BlockN * kPitch;
-  static constexpr size_t kSmem = sizeof(float) * 2 * kF32Stages * kTile;
+struct F32Cfg : F32Tile<D> {
+  static constexpr size_t kSmem =
+      sizeof(float) * 2 * kF32Stages * F32Tile<D>::kTile;
 };
 
 struct F32Params {
@@ -539,39 +358,13 @@ __global__ void __launch_bounds__(kF32Threads)
       const float* ks = smem + s * 2 * C::kTile;
       const float* vs = ks + C::kTile;
       float sc[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < D / 8; ++kd) {
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(qf[kd][i], ah[i], al[i]);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const float* kr = ks + (8 * nt + g) * C::kPitch + 8 * kd + c;
-          mma_3xtf32(*reinterpret_cast<float(*)[4]>(sc + 4 * nt), ah, al,
-                     kr[0], kr[4]);
-        }
-      }
+      f32_qk<D>(sc, qf, ks, g, c);
 
       float alpha[2];
       softmax_tile<8>(sc, m, l, alpha, x, r0, k0, c,
                       tile_masked(x, k0, kF32BlockN, row_lo));
       rescale(o, alpha);
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        // A: rows g / g + 8; k index c is key 2c, c + 4 is key 2c + 1
-        const float pf[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
-                             sc[4 * kk + 3]};
-        uint32_t ph[4], pl[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(pf[i], ph[i], pl[i]);
-        const float* vr = vs + (8 * kk + 2 * c) * C::kPitch + g;
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt)
-          mma_3xtf32(*reinterpret_cast<float(*)[4]>(o + 4 * nt), ph, pl,
-                     vr[8 * nt], vr[C::kPitch + 8 * nt]);
-      }
+      f32_pv<D>(o, sc, vs, g, c);
     }
     __syncthreads();  // stage s may be refilled
   }

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace zoo_hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -304,6 +306,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// this thread's completed shared-memory writes (cp.async lands them in the
+// generic proxy) made visible to the async proxy that wgmma reads through;
+// then a barrier hands them to the other threads' wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // 3xTF32 operand x = hi + lo: hi is x with its low 13 mantissa bits
 // cleared (a TF32 value), lo the exact rest, of which a TF32 product reads
 // the top 10 mantissa bits; together about 21 bits of x.  One AND and one
@@ -406,5 +415,24 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));
 }
+
+// set_smem made once per device for one kernel: a launch function keeps one
+// of these in a static, so repeated launches skip cudaFuncSetAttribute
+struct SmemOptIn {
+  std::atomic<unsigned long long> done{0};  // a bit per device
+
+  template <typename K>
+  int operator()(K kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return 0;
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (done.load(std::memory_order_acquire) & bit) return 0;
+    const int err = set_smem(kernel, bytes);
+    if (err == 0) done.fetch_or(bit, std::memory_order_release);
+    return err;
+  }
+};
 
 }  // namespace zoo_hopper

@@ -46,15 +46,21 @@ Phases, each of which raises (exit code 1) on failure:
    and every gradient against the same step with the plain attention, the
    loss falling over 10 steps on a fixed batch in f32 and in mixed
    precision (bf16 kernels), the step time and a profiler breakdown.
-6. paged: ``paged_decode`` and ``paged_chunk`` against their plain
-   versions on the card at the shapes GPT-2-small serving gives them
-   (decode: B=32, H=Hkv=12, D=64, bs=16, 64-entry tables, lengths 0..1024;
-   chunk: 256 rows after 512 cached tokens), f32 and bf16, with GQA, dead
-   lanes, ragged lengths, tables that run past the sequence into a scratch
-   page of garbage and a padded chunk tail; then their times beside the
-   plain versions, beside ``scaled_dot_product_attention`` over the same
-   K/V laid out contiguously (a yardstick the port never calls: no single
-   PyTorch call computes paged attention) and beside the bound;
+6. paged: the tensor-core instructions of the built ``paged_chunk.cu``
+   (HGMMA in its bf16 instances, HMMA in its f32 ones); ``paged_decode``
+   and ``paged_chunk`` against their plain versions on the card at the
+   shapes GPT-2-small serving gives them (decode: B=32, H=Hkv=12, D=64,
+   bs=16, 64-entry tables, lengths 0..1024; chunk: 256 rows after 512
+   cached tokens), f32 and bf16, with GQA, dead lanes, ragged lengths,
+   tables that run past the sequence into a scratch page of garbage and a
+   padded chunk tail, a repeat of each bit-identical; then their times
+   (eager, and device time by CUDA graph replay with GB/s or TFLOP/s, also
+   with the split rule forced to one split) beside the plain versions,
+   beside ``scaled_dot_product_attention`` over the same K/V laid out
+   contiguously (a yardstick the port never calls: no single PyTorch call
+   computes paged attention) and beside the bound; decode also at the
+   ragged lengths (bound from the visible tokens), the chunk also at start
+   0 and 256;
 7. llm: a decoder LM at the published widths of GPT-2 small (vocab 50257,
    768 wide, 12 heads, 12 layers, FFN 3072, 1024 positions) with random
    weights from a numpy seed, served through ``LLMServing`` (32 decode
@@ -68,7 +74,8 @@ Phases, each of which raises (exit code 1) on failure:
    dense forward with plain attention, and one decode step's logits
    against the dense forward; reported: tokens/s, TTFT, inter-token
    latency, occupancy, the decode step at 32 live slots and profiler
-   breakdowns of a decode step and a prefill chunk.
+   breakdowns of a decode step and a prefill chunk, with each paged
+   kernel's device time in them.
 8. ring: ``flash_fwd_lse`` against its plain version on the card at the
    block shapes of sequence-parallel ring attention at GPT-2-small /
    BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
@@ -87,8 +94,8 @@ Phases, each of which raises (exit code 1) on failure:
    times, a profiler breakdown of one forward, and one of a backward in
    which no library GEMM may run.
 
-The serve, train and ring phases also check that no kernel input was
-copied before a launch (the wrappers' ``copies``).  It prints one JSON
+The serve, train, llm and ring phases also check that no kernel input
+was copied before a launch (the wrappers' ``copies``).  It prints one JSON
 line of kernel numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
@@ -999,13 +1006,43 @@ def _bound(nbytes, flops, dtype):
                                  else "operations"), t_bytes, t_ops
 
 
+def _repeat_identical(name, fn, out):
+    """A second run of a kernel equals the first bit for bit (the split
+    merges run in a fixed order, with no float atomics)."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        raise AssertionError(f"{name}: a repeat is not bit-identical")
+
+
+def _forced_splits(rule, value):
+    """``_kernels``' split rule ``rule`` replaced by one returning
+    ``value``, for timing the kernel without its split (a context)."""
+    from contextlib import contextmanager
+
+    from analytics_zoo_tpu_torch.ops import _kernels
+
+    @contextmanager
+    def forced():
+        saved = getattr(_kernels, rule)
+        setattr(_kernels, rule, lambda *args: value)
+        try:
+            yield
+        finally:
+            setattr(_kernels, rule, saved)
+    return forced()
+
+
 def phase_paged():
+    from analytics_zoo_tpu_torch.ops import _kernels
     from analytics_zoo_tpu_torch.ops.paged_attention import (
         paged_chunk_attention, paged_decode_attention)
     F = torch.nn.functional
+    sass = flash_sass("paged_chunk", phase="paged")
     B, H, D, bs, nb = (PAGED[k] for k in ("B", "H", "D", "bs", "nb"))
     Tc, start = CHUNK["Tc"], CHUNK["start"]
     L = nb * bs
+    n_sms = _kernels.sm_count(torch.device("cuda"))
     gen = torch.Generator().manual_seed(SEED + 2)
     ragged = torch.randint(0, L + 1, (B,), generator=gen)
     ragged[:3] = torch.tensor([0, L, 1000])   # dead lane, full, not x16
@@ -1018,7 +1055,7 @@ def phase_paged():
                    "GQA Hkv=4, start 0": dict(Hkv=4, start=0, n=Tc)}
     errs = {"paged_decode": {}, "paged_chunk": {}}
     for dtype in (torch.float32, torch.bfloat16):
-        for what, case in decode_cases.items():
+        for i, (what, case) in enumerate(decode_cases.items()):
             args = _decode_case(dtype, ragged, case["Hkv"], gen, B, H, D,
                                 bs, nb)
             out = paged_decode_attention(*args)
@@ -1027,9 +1064,12 @@ def phase_paged():
             err = _check_close("paged_decode", what, out, ref, dtype)
             if not torch.all(out[0] == 0):
                 raise AssertionError("paged_decode: a dead lane is not 0")
+            if i == 0:
+                _repeat_identical("paged_decode",
+                                  lambda: paged_decode_attention(*args), out)
             errs["paged_decode"][dtype] = max(
                 errs["paged_decode"].get(dtype, 0.0), err)
-        for what, case in chunk_cases.items():
+        for i, (what, case) in enumerate(chunk_cases.items()):
             q, kp, vp, table = _chunk_case(dtype, case["Hkv"],
                                            case["start"], case["n"], gen,
                                            Tc, H, D, bs, nb)
@@ -1039,62 +1079,127 @@ def phase_paged():
             torch.cuda.synchronize()
             n = case["n"]
             err = _check_close("paged_chunk", what, out[:n], ref[:n], dtype)
+            if i == 0:
+                _repeat_identical("paged_chunk", lambda: paged_chunk_attention(
+                    q, kp, vp, table, case["start"]), out)
             errs["paged_chunk"][dtype] = max(
                 errs["paged_chunk"].get(dtype, 0.0), err)
+    log(f"[paged] a repeat of each kernel (split merges in fixed order) is "
+        f"bit-identical, f32 and bf16")
 
-    # timing: decode with all 32 sequences at 1024 tokens; the chunk at
-    # its serving shape.  The yardstick is SDPA over the same K/V copied
-    # out into contiguous (B, H, T, D) tensors.
+    # timing: decode with all 32 sequences at 1024 tokens, then at the
+    # ragged lengths above; the chunk at its serving shape (start 512),
+    # then at start 0 and 256.  ms, plain_ms, library_ms: back-to-back
+    # eager calls (CUDA events, the wrapper's host time included), as in
+    # earlier rows; *device_ms: device time per call by CUDA graph replay.
+    # The yardstick is SDPA over the same K/V copied out into contiguous
+    # (B, H, T, D) tensors.  unsplit_device_ms: the same kernel with its
+    # split rule forced to one block per (sequence, head) / row block.
     rows = {"paged_decode": {}, "paged_chunk": {}}
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         full = torch.full((B,), L, dtype=torch.int32)
         q, kp, vp, lens, tables = _decode_case(dtype, full, H, gen, B, H, D,
                                                bs, nb)
-        ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, lens,
-                                                    tables))
+        kernel = lambda: paged_decode_attention(q, kp, vp, lens, tables)
+        ms, dev_ms = cuda_ms(kernel), graph_ms(kernel)
+        with _forced_splits("decode_splits", (1, nb)):
+            unsplit_ms = graph_ms(kernel)
         plain_ms = cuda_ms(lambda: paged_decode_attention(
             q, kp, vp, lens, tables, backend="plain"), iters=10)
         k, v = (p[tables.long()].reshape(B, L, H, D).transpose(1, 2)
                 .contiguous() for p in (kp, vp))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q[:, :, None], k, v)
+        lib_ms, lib_dev_ms = cuda_ms(sdpa), graph_ms(sdpa)
         nbytes = 2 * B * L * H * D * es + 2 * B * H * D * es \
             + tables.numel() * 4 + B * 4
         bound, by, t_bytes, t_ops = _bound(nbytes, 4 * B * H * L * D, dtype)
+        splits = _kernels.decode_splits(B, H, nb, bs, n_sms)
+        del k, v
+        rq, rkp, rvp, rlens, rtables = _decode_case(dtype, ragged, H, gen, B,
+                                                    H, D, bs, nb)
+        ragged_ms = graph_ms(lambda: paged_decode_attention(
+            rq, rkp, rvp, rlens, rtables))
+        seen = int(ragged.sum())
+        r_bytes = 2 * seen * H * D * es + 2 * B * H * D * es \
+            + int(((ragged + bs - 1) // bs).sum()) * 4 + B * 4
+        r_bound, r_by, _, _ = _bound(r_bytes, 4 * seen * H * D, dtype)
         rows["paged_decode"][dtype] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-            bound_by=by, max_abs_err=errs["paged_decode"][dtype])
+            bound_by=by, max_abs_err=errs["paged_decode"][dtype],
+            device_ms=dev_ms, library_device_ms=lib_dev_ms,
+            device_gbs=nbytes / dev_ms / 1e6, unsplit_device_ms=unsplit_ms,
+            splits=splits[0], split_keys=splits[1] * bs,
+            ragged_device_ms=ragged_ms, ragged_bound_ms=r_bound,
+            ragged_tokens=seen)
         log(f"[paged] paged_decode {str(dtype)[6:]:8s} B{B} H{H} D{D} "
-            f"len {L} bs {bs}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" sdpa over contiguous K/V {lib_ms:.4f} ms, bound {bound:.4f}"
-            f" ms ({by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
-        del k, v
+            f"len {L} bs {bs}: eager calls: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa over contiguous K/V {lib_ms:.4f} ms; "
+            f"device time (graph replay): kernel {dev_ms:.4f} ms "
+            f"({nbytes / dev_ms / 1e6:.1f} GB/s; {splits[0]} splits of "
+            f"{splits[1] * bs} keys, {B * H * splits[0]} blocks; one split "
+            f"{unsplit_ms:.4f} ms), sdpa {lib_dev_ms:.4f} ms; bound "
+            f"{bound:.4f} ms ({by}; bytes {t_bytes:.4f} ms, operations "
+            f"{t_ops:.4f} ms)")
+        log(f"[paged] paged_decode {str(dtype)[6:]:8s} at the ragged lengths "
+            f"({seen} visible tokens in all): device {ragged_ms:.4f} ms, "
+            f"bound {r_bound:.4f} ms ({r_by}, from the visible tokens)")
+        del rkp, rvp
 
-        q, kp, vp, table = _chunk_case(dtype, H, start, Tc, gen, Tc, H, D,
-                                       bs, nb)
-        ms = cuda_ms(lambda: paged_chunk_attention(q, kp, vp, table, start))
-        plain_ms = cuda_ms(lambda: paged_chunk_attention(
-            q, kp, vp, table, start, backend="plain"), iters=10)
-        S = start + Tc
-        k, v = (p[table.long()].reshape(nb * bs, H, D)[:S].transpose(0, 1)
-                [None].contiguous() for p in (kp, vp))
-        qq = q.transpose(0, 1)[None].contiguous()
-        mask = (torch.arange(S, device="cuda")[None, :]
-                <= start + torch.arange(Tc, device="cuda")[:, None])
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qq, k, v, attn_mask=mask))
-        keys_seen = Tc * start + Tc * (Tc + 1) // 2   # causal pairs
-        nbytes = 2 * Tc * H * D * es + 2 * S * H * D * es + nb * 4
-        bound, by, t_bytes, t_ops = _bound(nbytes, 4 * H * D * keys_seen,
-                                           dtype)
-        rows["paged_chunk"][dtype] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-            bound_by=by, max_abs_err=errs["paged_chunk"][dtype])
-        log(f"[paged] paged_chunk {str(dtype)[6:]:8s} Tc{Tc} start {start} "
-            f"H{H} D{D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"over contiguous K/V {lib_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+        chunk = {}
+        for s0 in (0, 256, start):
+            q, kp, vp, table = _chunk_case(dtype, H, s0, Tc, gen, Tc, H, D,
+                                           bs, nb)
+            kernel = lambda: paged_chunk_attention(q, kp, vp, table, s0)
+            S = s0 + Tc
+            k, v = (p[table.long()].reshape(nb * bs, H, D)[:S]
+                    .transpose(0, 1)[None].contiguous() for p in (kp, vp))
+            qq = q.transpose(0, 1)[None].contiguous()
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    <= s0 + torch.arange(Tc, device="cuda")[:, None])
+            sdpa = lambda: F.scaled_dot_product_attention(qq, k, v,
+                                                          attn_mask=mask)
+            keys_seen = Tc * s0 + Tc * (Tc + 1) // 2   # causal pairs
+            flops = 4 * H * D * keys_seen
+            nbytes = 2 * Tc * H * D * es + 2 * S * H * D * es + nb * 4
+            bound, by, t_bytes, t_ops = _bound(nbytes, flops, dtype)
+            dev_ms = graph_ms(kernel)
+            with _forced_splits("chunk_splits", 1):
+                unsplit_ms = graph_ms(kernel)
+            chunk[s0] = dict(device_ms=dev_ms, unsplit_device_ms=unsplit_ms,
+                             library_device_ms=graph_ms(sdpa),
+                             bound_ms=bound, bound_by=by,
+                             splits=_kernels.chunk_splits(H, Tc, s0, nb, bs,
+                                                          n_sms))
+            log(f"[paged] paged_chunk {str(dtype)[6:]:8s} Tc{Tc} start {s0}"
+                f" H{H} D{D}: device time (graph replay): kernel "
+                f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s; "
+                f"{chunk[s0]['splits']} split(s); one split "
+                f"{unsplit_ms:.4f} ms), sdpa "
+                f"{chunk[s0]['library_device_ms']:.4f} ms; bound "
+                f"{bound:.4f} ms ({by}; bytes {t_bytes:.4f} ms, operations "
+                f"{t_ops:.4f} ms)")
+            if s0 == start:
+                ms = cuda_ms(kernel)
+                plain_ms = cuda_ms(lambda: paged_chunk_attention(
+                    q, kp, vp, table, s0, backend="plain"), iters=10)
+                lib_ms = cuda_ms(sdpa)
+                log(f"[paged] paged_chunk {str(dtype)[6:]:8s} Tc{Tc} start "
+                    f"{s0}: eager calls: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, sdpa over contiguous K/V "
+                    f"{lib_ms:.4f} ms")
+                rows["paged_chunk"][dtype] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound, bound_by=by,
+                    max_abs_err=errs["paged_chunk"][dtype],
+                    device_ms=dev_ms,
+                    library_device_ms=chunk[s0]["library_device_ms"],
+                    device_tflops=flops / dev_ms / 1e9,
+                    unsplit_device_ms=unsplit_ms,
+                    splits=chunk[s0]["splits"], **sass)
+            del k, v
+        rows["paged_chunk"][dtype].update(
+            {f"start{s0}": chunk[s0] for s0 in (0, 256)})
     return rows
 
 
@@ -1207,6 +1312,7 @@ def phase_llm(n_requests=64, new_tokens=32):
     if short or len(served) != n_requests:
         raise AssertionError(f"requests without {new_tokens} tokens: "
                              f"{short}")
+    no_copies("llm")
     pc = metrics["prefix_cache"]
     tok_s = n_requests * new_tokens / burst_s
     log(f"[llm] burst of {n_requests} requests (prompts "
@@ -1319,9 +1425,22 @@ def phase_llm(n_requests=64, new_tokens=32):
 
     chunk_prof = profile_breakdown(
         chunk, f"one prefill chunk ({n} tokens after {s0} cached)", top=10)
+    # each paged kernel's device time in that decode step / prefill chunk
+    # (its split and merge kernels; 12 launches)
+    paged = {}
+    for name, prof, call in (("paged_decode", decode_prof, "decode step"),
+                             ("paged_chunk", chunk_prof, "prefill chunk")):
+        if prof is None:
+            continue
+        ms = sum(t for k, t, _ in prof[2] if name in k) / 1e3
+        paged[name] = dict(device_ms=ms, busy_ms=prof[1],
+                           share=ms / prof[1])
+        log(f"[llm] {name} in one {call}: {ms:.4f} ms of {prof[1]:.4f} ms "
+            f"device busy ({100 * ms / prof[1]:.1f}%), "
+            f"{ms / n_layers:.4f} ms a launch")
     return launches, dict(tokens_per_s=tok_s, burst_s=burst_s,
                           step_ms=step_ms, decode_prof=decode_prof,
-                          chunk_prof=chunk_prof, calls=n_calls)
+                          chunk_prof=chunk_prof, calls=n_calls, paged=paged)
 
 
 def _check_lse(what, lse, ref):
@@ -1641,7 +1760,8 @@ def phase_ring_cards(n):
 def profile_breakdown(fn, what, top=8):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the call's wall time; returns (wall ms,
-    device busy ms), or None when the profiler saw no device time."""
+    device busy ms, [(kernel name, device us, calls)]), or None when the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1664,7 +1784,7 @@ def profile_breakdown(fn, what, top=8):
     for key, t, n in sorted(dev, key=lambda r: -r[1])[:top]:
         log(f"[profile]   {100 * t / total:5.1f}%  {t / 1e3:8.3f} ms  "
             f"x{n:<4d} {key[:90]}")
-    return wall_us / 1e3, total / 1e3
+    return wall_us / 1e3, total / 1e3, dev
 
 
 def main() -> int:
@@ -1737,14 +1857,16 @@ def main() -> int:
               shape="B32 H12 Hkv12 D64 bs16 len1024 float32",
               launches_in=f"the 64-request burst "
                           f"({llm['calls']['decode']} decode calls)",
-              library=paged_lib),
+              library=paged_lib,
+              in_decode_step=llm["paged"].get("paged_decode")),
         entry("paged_chunk", csrc + "paged_chunk.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:134",
               paged_rows["paged_chunk"], llm_launches["paged_chunk"],
               shape="Tc256 start512 H12 Hkv12 D64 bs16 float32",
               launches_in=f"the 64-request burst "
                           f"({llm['calls']['prefill_chunk']} prefill chunks)",
-              library=paged_lib),
+              library=paged_lib,
+              in_prefill_chunk=llm["paged"].get("paged_chunk")),
         entry("flash_fwd_lse", csrc + "flash_fwd.cu",
               "analytics_zoo_tpu/ops/attention.py:307", ring_rows,
               ring_launches["flash_fwd_lse"],

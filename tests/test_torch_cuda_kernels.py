@@ -17,6 +17,9 @@ of the backward, added into f32 accumulators) takes the backward's
 tolerances against the plain ``_block_grads``.
 """
 
+import os
+import subprocess
+
 import pytest
 import torch
 
@@ -238,53 +241,105 @@ def _assert_paged_close(out, ref, dtype):
                                rtol=rtol)
 
 
+def _decode_run(dev, dtype, B, H, Hkv, D, bs, nb, lengths, seed=3):
+    """paged_decode against its plain version, one counted launch; each
+    sequence on its own pages, table entries past ``ceil(len / bs)``
+    pointing at the scratch page, which holds garbage."""
+    P = B * nb + 1
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, H, D, generator=g).to(dev, dtype)
+    kp, vp = _pages(dev, dtype, P, bs, Hkv, D, g)
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    tables = (torch.randperm(P - 1, generator=g)[:B * nb] + 1).int()
+    tables = tables.view(B, nb)
+    used = (lengths[:, None] + bs - 1) // bs
+    tables[torch.arange(nb)[None, :] >= used] = 0     # -> scratch
+    args = (q, kp, vp, lengths.to(dev), tables.to(dev))
+    before = _kernels.paged_decode.launches
+    out = paged_decode_attention(*args)
+    ref = paged_decode_attention(*args, backend="plain")
+    torch.cuda.synchronize()
+    assert _kernels.paged_decode.launches == before + 1
+    _assert_paged_close(out, ref, dtype)
+    assert torch.all(out[(lengths == 0).to(dev)] == 0)   # dead lanes
+    return out, args
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     dict(H=8, Hkv=2, D=64, bs=16, nb=8),
     dict(H=4, Hkv=4, D=128, bs=16, nb=5),
     dict(H=12, Hkv=4, D=32, bs=8, nb=20),
-], ids=["gqa_d64", "mha_d128", "gqa3_d32"])
+    dict(H=8, Hkv=8, D=64, bs=32, nb=12),
+    dict(H=6, Hkv=2, D=64, bs=12, nb=15),
+    dict(H=16, Hkv=1, D=128, bs=16, nb=9),
+], ids=["gqa_d64", "mha_d128", "gqa3_d32", "bs32", "bs12_off_chunk",
+        "gqa16_d128"])
 def test_paged_decode_matches_plain(dev, dtype, case):
     """Lengths 0 (a dead lane), below one block, not a block multiple,
     the full table; table entries past each sequence point at the
     scratch page, which holds garbage."""
-    H, Hkv, D, bs, nb = (case[k] for k in ("H", "Hkv", "D", "bs", "nb"))
-    B, P = 6, 4 * nb
-    g = torch.Generator().manual_seed(3)
-    q = torch.randn(B, H, D, generator=g).to(dev, dtype)
-    kp, vp = _pages(dev, dtype, P, bs, Hkv, D, g)
-    lengths = torch.tensor([0, 1, bs - 3, 2 * bs + 5, nb * bs, nb * bs - 1],
-                           dtype=torch.int32)
-    tables = torch.randint(1, P, (B, nb), generator=g, dtype=torch.int32)
-    used = (lengths[:, None] + bs - 1) // bs
-    tables[torch.arange(nb)[None, :] >= used] = 0     # -> scratch
-    lengths, tables = lengths.to(dev), tables.to(dev)
-    before = _kernels.paged_decode.launches
-    out = paged_decode_attention(q, kp, vp, lengths, tables)
-    ref = paged_decode_attention(q, kp, vp, lengths, tables,
-                                 backend="plain")
-    torch.cuda.synchronize()
-    assert _kernels.paged_decode.launches == before + 1
-    _assert_paged_close(out, ref, dtype)
-    assert torch.all(out[0] == 0)
+    bs, nb = case["bs"], case["nb"]
+    _decode_run(dev, dtype, 6, case["H"], case["Hkv"], case["D"], bs, nb,
+                [0, 1, bs - 3, 2 * bs + 5, nb * bs, nb * bs - 1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [
-    dict(H=4, Hkv=4, D=64, Tc=64, start=0, n=64),
-    dict(H=8, Hkv=2, D=64, Tc=96, start=133, n=70),   # padded tail
-    dict(H=4, Hkv=1, D=128, Tc=40, start=17, n=40),
-], ids=["start0_d64", "gqa_start_padded_tail", "gqa4_d128"])
-def test_paged_chunk_matches_plain(dev, dtype, case):
-    """A chunk at ``start`` whose own K/V sit in the pages, padded past
-    its ``n`` true rows; the table is longer than the sequence and its
-    tail points at the scratch page, which holds garbage."""
-    H, Hkv, D, Tc, start, n = (case[k] for k in
-                               ("H", "Hkv", "D", "Tc", "start", "n"))
-    bs = 16
+@pytest.mark.parametrize("heads", [(12, 12), (12, 4)], ids=["mha", "gqa"])
+def test_paged_decode_long_sequences_take_many_splits(dev, dtype, heads):
+    """4,096-token tables: many splits per sequence, merged in order."""
+    H, Hkv = heads
+    bs, nb = 16, 256
+    splits, _ = _kernels.decode_splits(4, Hkv, nb, bs,
+                                       _kernels.sm_count(dev))
+    assert splits >= 8
+    _decode_run(dev, dtype, 4, H, Hkv, 64, bs, nb, [4096, 4095, 1000, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_splits_past_a_sequence_read_nothing(dev, dtype):
+    """Wide tables, short sequences: most splits start past the length
+    and exit.  The entries past each sequence hold out-of-range ids,
+    which the kernel would clamp onto a real page had it read them."""
+    B, H, D, bs, nb = 5, 4, 64, 16, 128
+    assert _kernels.decode_splits(B, H, nb, bs,
+                                  _kernels.sm_count(dev))[0] > 1
+    lengths = [3, 17, 200, 0, 2048]
+    g = torch.Generator().manual_seed(9)
+    P = B * nb + 1
+    q = torch.randn(B, H, D, generator=g).to(dev, dtype)
+    kp, vp = _pages(dev, dtype, P, bs, H, D, g)
+    tables = (torch.randperm(P - 1, generator=g)[:B * nb] + 1).int()
+    tables = tables.view(B, nb)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    past = torch.arange(nb)[None, :] >= (lens[:, None] + bs - 1) // bs
+    tables[past] = 0
+    ref = paged_decode_attention(q, kp, vp, lens.to(dev), tables.to(dev),
+                                 backend="plain")
+    tables[past] = 10 ** 6
+    out = paged_decode_attention(q, kp, vp, lens.to(dev), tables.to(dev))
+    torch.cuda.synchronize()
+    _assert_paged_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_at_the_serving_shape(dev, dtype):
+    """GPT-2-small serving: B 32, 12 heads of 64, 64-entry tables of 16,
+    lengths 0..1024 (a dead lane, the full table, one off a block)."""
+    g = torch.Generator().manual_seed(11)
+    lengths = torch.randint(0, 1025, (32,), generator=g)
+    lengths[:3] = torch.tensor([0, 1024, 1000])
+    _decode_run(dev, dtype, 32, 12, 12, 64, 16, 64, lengths.tolist())
+
+
+def _chunk_run(dev, dtype, H, Hkv, D, Tc, start, n, bs=16, seed=4):
+    """paged_chunk against its plain version on its ``n`` true rows, one
+    counted launch: a chunk at ``start`` whose own K/V sit in the pages,
+    the table longer than the sequence with its tail at the scratch page,
+    which holds garbage."""
     used = (start + n + bs - 1) // bs
     nb, P = used + 3, 3 * (used + 3)
-    g = torch.Generator().manual_seed(4)
+    g = torch.Generator().manual_seed(seed)
     q = torch.randn(Tc, H, D, generator=g).to(dev, dtype)
     kp, vp = _pages(dev, dtype, P, bs, Hkv, D, g)
     table = torch.zeros(nb, dtype=torch.int32)
@@ -295,8 +350,96 @@ def test_paged_chunk_matches_plain(dev, dtype, case):
     ref = paged_chunk_attention(q, kp, vp, table, start, backend="plain")
     torch.cuda.synchronize()
     assert _kernels.paged_chunk.launches == before + 1
-    _assert_paged_close(out[:n], ref[:n], dtype)
     assert out.shape == (Tc, H, D)
+    _assert_paged_close(out[:n], ref[:n], dtype)
+    return out, (q, kp, vp, table, start)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(H=4, Hkv=4, D=64, Tc=64, start=0, n=64),
+    dict(H=8, Hkv=2, D=64, Tc=96, start=133, n=70),   # padded tail
+    dict(H=4, Hkv=1, D=128, Tc=40, start=17, n=40),
+    dict(H=4, Hkv=4, D=32, Tc=100, start=300, n=90, bs=32),
+    dict(H=4, Hkv=2, D=64, Tc=130, start=77, n=130, bs=24),
+    dict(H=2, Hkv=2, D=128, Tc=64, start=1000, n=5, bs=8),
+], ids=["start0_d64", "gqa_start_padded_tail", "gqa4_d128", "bs32_d32",
+        "bs24_off_tile", "d128_bs8_long"])
+def test_paged_chunk_matches_plain(dev, dtype, case):
+    """A chunk at ``start`` whose own K/V sit in the pages, padded past
+    its ``n`` true rows; the table is longer than the sequence and its
+    tail points at the scratch page, which holds garbage."""
+    _chunk_run(dev, dtype, **case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("start", [0, 256, 512])
+def test_paged_chunk_at_the_serving_shape(dev, dtype, start):
+    """GPT-2-small prefill: a 256-token chunk of 12 heads of 64, pages of
+    16; at start 512 each row block's keys are split over blocks."""
+    _chunk_run(dev, dtype, 12, 12, 64, 256, start, 256)
+
+
+def test_paged_kernels_repeat_bit_identical(dev):
+    """No float atomics: the split merges run in a fixed order."""
+    for dtype in (torch.float32, torch.bfloat16):
+        out, args = _decode_run(dev, dtype, 8, 12, 12, 64, 16, 256,
+                                [4096, 3000, 17, 0, 1, 2048, 4000, 600])
+        assert torch.equal(out, paged_decode_attention(*args))
+        out, args = _chunk_run(dev, dtype, 12, 12, 64, 256, 512, 256)
+        assert torch.equal(out, paged_chunk_attention(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_pools_off_16_bytes_are_copied_and_right(dev, dtype):
+    """Page pools whose base is one element off a 16-byte boundary reach
+    the kernels as packed copies, counted in the wrappers' ``copies``."""
+    B, H, D, bs, nb = 3, 4, 64, 16, 4
+    P = B * nb + 1
+    n = P * bs * H * D
+    g = torch.Generator().manual_seed(12)
+    flat = torch.randn(2 * n + 2, generator=g).to(dev, dtype)
+    kp = flat[1:1 + n].view(P, bs, H, D)
+    vp = flat[n + 2:].view(P, bs, H, D)
+    q = torch.randn(B, H, D, generator=g).to(dev, dtype)
+    lengths = torch.tensor([5, 64, 0], dtype=torch.int32, device=dev)
+    tables = torch.arange(1, 1 + B * nb, dtype=torch.int32,
+                          device=dev).view(B, nb)
+    before = _kernels.paged_decode.copies
+    out = paged_decode_attention(q, kp, vp, lengths, tables)
+    ref = paged_decode_attention(q, kp, vp, lengths, tables,
+                                 backend="plain")
+    torch.cuda.synchronize()
+    assert _kernels.paged_decode.copies == before + 2
+    _assert_paged_close(out, ref, dtype)
+    qc = torch.randn(20, H, D, generator=g).to(dev, dtype)
+    before = _kernels.paged_chunk.copies
+    out = paged_chunk_attention(qc, kp, vp, tables[0], 30)
+    ref = paged_chunk_attention(qc, kp, vp, tables[0], 30, backend="plain")
+    torch.cuda.synchronize()
+    assert _kernels.paged_chunk.copies == before + 2
+    _assert_paged_close(out[:20], ref[:20], dtype)
+
+
+def test_paged_chunk_reaches_the_tensor_cores(dev):
+    """cuobjdump of the built paged_chunk.cu: HGMMA in its bf16
+    instances, HMMA in its f32 ones."""
+    lib = _kernels.build(["paged_chunk.cu"])["paged_chunk.cu"]
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {"bf16": 0, "f32": 0}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+            fn = ("bf16" if "paged_chunk_bf16" in name else
+                  "f32" if "paged_chunk_f32" in name else None)
+        elif fn == "bf16" and "HGMMA" in line:
+            counts["bf16"] += 1
+        elif fn == "f32" and "HMMA" in line:
+            counts["f32"] += 1
+    assert counts["bf16"] > 0 and counts["f32"] > 0, counts
 
 
 def test_paged_kernels_refuse_what_they_do_not_take(dev):
