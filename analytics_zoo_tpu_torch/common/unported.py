@@ -16,6 +16,9 @@ QUEUE_ITEMS = {
        "routing, tenancy and reservations, and the serving config",
     2: "ROADMAP Queue 1 item 2: the rest of training, with checkpoints, "
        "validation sets, retries and multi-step dispatch",
+    3: "ROADMAP Queue 1 item 3: the rest of the recommendation slice, "
+       "with the data/ tiers (device, disk, generator), sharded sources, "
+       "transforms and TFRecord",
     5: "ROADMAP Queue 1 item 5: the rest of parallel/, with sharded "
        "models and model-parallel serving",
     6: "ROADMAP Queue 1 item 6: observability, with trace context and "

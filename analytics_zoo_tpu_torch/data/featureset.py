@@ -6,7 +6,8 @@ held as host numpy; an epoch is a permutation from the ``"records"``
 stream of ``epoch_rng(seed, epoch)``, so the same seed and epoch give the
 same batches as the JAX package.  Where the JAX version shards each batch
 over a device mesh, this one copies it to one device as torch tensors.
-The disk, generator and device tiers are not ported.
+The disk, generator and device tiers, and the sources other than
+ndarrays, raise naming ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
 from analytics_zoo_tpu_torch.data.cursor import epoch_rng
 
 Tree = Any
@@ -47,6 +49,14 @@ def _tree_len(tree: Tree) -> int:
     return n
 
 
+def _unported(name: str):
+    def stub(*args, **kwargs):
+        raise NotImplementedError(f"FeatureSet.{name} is not ported yet "
+                                  f"({QUEUE_ITEMS[3]})")
+    stub.__name__ = name
+    return stub
+
+
 def to_device(tree: Tree, device) -> Tree:
     """Host numpy leaves -> torch tensors on ``device``."""
     return tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a))
@@ -73,6 +83,14 @@ class FeatureSet:
     def from_ndarrays(features: Tree, labels: Optional[Tree] = None,
                       **kw) -> "FeatureSet":
         return FeatureSet(features, labels, **kw)
+
+    from_dataframe = staticmethod(_unported("from_dataframe"))
+    from_tfrecord_file = staticmethod(_unported("from_tfrecord_file"))
+    from_generator = staticmethod(_unported("from_generator"))
+    from_sources = staticmethod(_unported("from_sources"))
+    disk = staticmethod(_unported("disk"))
+    cache_device = _unported("cache_device")
+    to_disk = _unported("to_disk")
 
     def __len__(self) -> int:
         return self._n

@@ -18,13 +18,17 @@ Lists and tuples in a tree are walked by index, so the decoder LM's
 (an ``nn.ModuleList``), and ``params_tree`` rebuilds a list wherever every
 key of a level is a digit.
 
+What the JAX package keeps in ``state`` (a frozen embedding table) is a
+buffer of the module: ``state_tree`` reads the buffers and
+``load_jax_params(module, params, state)`` writes them.
+
 Nothing is transposed or renamed.  Loading is strict: a key missing from
 either side, or a shape that differs, raises and names the path.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -54,11 +58,17 @@ def _lists(node):
     return out
 
 
-def params_tree(module: nn.Module) -> dict:
-    """The module's weights as the JAX layout's nested dicts (and lists)
-    of numpy arrays (copies on the host)."""
+def _split(module: nn.Module):
+    """``module``'s state_dict as (parameters, buffers) by path."""
+    names = {n for n, _ in module.named_parameters()}
+    items = module.state_dict().items()
+    return ({p: t for p, t in items if p in names},
+            {p: t for p, t in items if p not in names})
+
+
+def _tree(flat: Mapping[str, torch.Tensor]) -> dict:
     tree: dict = {}
-    for path, t in module.state_dict().items():
+    for path, t in flat.items():
         node = tree
         *parents, leaf = path.split(".")
         for p in parents:
@@ -67,26 +77,43 @@ def params_tree(module: nn.Module) -> dict:
     return _lists(tree)
 
 
+def params_tree(module: nn.Module) -> dict:
+    """The module's parameters as the JAX layout's nested dicts (and
+    lists) of numpy arrays (copies on the host)."""
+    return _tree(_split(module)[0])
+
+
+def state_tree(module: nn.Module) -> dict:
+    """The module's buffers (the JAX package's ``state``: frozen tables)
+    in the same layout; ``{}`` when it has none."""
+    return _tree(_split(module)[1])
+
+
 @torch.no_grad()
-def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
+def load_jax_params(module: nn.Module, tree: Mapping,
+                    state: Optional[Mapping] = None) -> nn.Module:
     """Copy every leaf of ``tree`` into ``module``'s parameter of the same
-    path, on the parameter's own device and dtype.  Raises ``KeyError``
-    for a missing or extra key and ``ValueError`` for a shape mismatch,
+    path, and every leaf of ``state`` into its buffer of the same path, on
+    the tensor's own device and dtype.  Raises ``KeyError`` for a missing
+    or extra key in either tree and ``ValueError`` for a shape mismatch,
     naming the path, before it writes anything."""
-    flat = _flatten(tree)
-    target = module.state_dict()
-    missing = sorted(set(target) - set(flat))
-    extra = sorted(set(flat) - set(target))
-    if missing or extra:
-        raise KeyError(f"parameter tree does not match {type(module).__name__}:"
-                       f" missing {missing}, extra {extra}")
-    for path, dst in target.items():
-        src = np.asarray(flat[path])
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"shape mismatch at {path!r}: tree has "
-                             f"{tuple(src.shape)}, module has "
-                             f"{tuple(dst.shape)}")
-    for path, dst in target.items():
-        # np.array copies: exported JAX leaves are read-only views
-        dst.copy_(torch.from_numpy(np.array(flat[path], order="C")))
+    params, buffers = _split(module)
+    pairs = [("parameter", _flatten(tree), params),
+             ("state", _flatten(state or {}), buffers)]
+    for what, flat, target in pairs:
+        missing = sorted(set(target) - set(flat))
+        extra = sorted(set(flat) - set(target))
+        if missing or extra:
+            raise KeyError(f"{what} tree does not match "
+                           f"{type(module).__name__}: missing {missing}, "
+                           f"extra {extra}")
+        for path, dst in target.items():
+            shape = tuple(np.shape(flat[path]))
+            if shape != tuple(dst.shape):
+                raise ValueError(f"shape mismatch at {path!r}: tree has "
+                                 f"{shape}, module has {tuple(dst.shape)}")
+    for _, flat, target in pairs:
+        for path, dst in target.items():
+            # np.array copies: exported JAX leaves are read-only views
+            dst.copy_(torch.from_numpy(np.array(flat[path], order="C")))
     return module

@@ -1,0 +1,68 @@
+"""The embedding layer.
+
+Port of ``Embedding`` in ``analytics_zoo_tpu/keras/layers/embedding.py``:
+a ``(input_dim, output_dim)`` table, ``embeddings``, gathered by the
+input's ids.  A trainable table is a parameter; a frozen one
+(``trainable=False``) is a buffer, the JAX layer's ``state``, which no
+optimizer sees.  ``WordEmbedding`` and ``SparseEmbedding`` are not ported
+yet (ROADMAP Queue 1 item 2).
+
+Ids outside the table give what ``jnp.take`` gives in the JAX package:
+an id in ``[-input_dim, 0)`` counts from the end, and any other
+out-of-range id gives a row of NaN (with no gradient to the table).  The
+gather never sees such an id, so no device-side assert can fire.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch.keras import initializers
+from analytics_zoo_tpu_torch.keras.engine import Layer
+
+
+class Embedding(Layer):
+    def __init__(self, input_dim: int, output_dim: int, init="uniform",
+                 trainable: bool = True, weights: Optional[np.ndarray] = None,
+                 partition: Optional[str] = None, **kw):
+        super().__init__(**kw)
+        reject("Embedding", 5, partition=partition)
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.kernel_init = initializers.get(init)
+        self.trainable = trainable
+        self.pretrained = weights
+        if weights is not None and np.shape(weights) != (input_dim,
+                                                         output_dim):
+            raise ValueError("pretrained embedding shape mismatch")
+        table = torch.empty(input_dim, output_dim)
+        if trainable:
+            self.embeddings = nn.Parameter(table)
+        else:
+            self.register_buffer("embeddings", table)
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        if self.pretrained is None:
+            self.kernel_init(self.embeddings, generator)
+        else:
+            self.embeddings.copy_(torch.from_numpy(
+                np.asarray(self.pretrained, np.float32)))
+
+    def forward(self, x):
+        ids = x.to(torch.int32) if x.is_floating_point() else x  # as astype
+        n = self.input_dim
+        ids = torch.where(ids < 0, ids + n, ids)
+        valid = (ids >= 0) & (ids < n)
+        rows = F.embedding(torch.where(valid, ids, 0), self.embeddings)
+        return torch.where(valid.unsqueeze(-1), rows, float("nan"))
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape) + (self.output_dim,)

@@ -26,30 +26,19 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.keras import activations, initializers
 from analytics_zoo_tpu_torch.keras.engine import Layer
+from analytics_zoo_tpu_torch.keras.layers.core import Dense
 from analytics_zoo_tpu_torch.keras.layers.normalization import LayerNorm
-from analytics_zoo_tpu_torch.ops.attention import BACKENDS, flash_attention
+from analytics_zoo_tpu_torch.ops.attention import (flash_attention,
+                                                  resolve_backend)
 from analytics_zoo_tpu_torch.ops.dropout import (as_seed, derive_seed,
                                                  hash_dropout)
 
 
-class Dense(Layer):
-    """``{"W": (d_in, d_out), "b": (d_out,)}``, applied as ``x @ W + b``."""
-
-    def __init__(self, d_in: int, d_out: int, init="glorot_uniform"):
-        super().__init__(name="dense")
-        self.kernel_init = initializers.get(init)
-        self.W = nn.Parameter(torch.empty(d_in, d_out))
-        self.b = nn.Parameter(torch.zeros(d_out))
-        self.reset_parameters()
-
-    @torch.no_grad()
-    def reset_parameters(self, generator=None) -> None:
-        self.kernel_init(self.W, generator)
-        self.b.zero_()
-
-    def forward(self, x):
-        # one fused GEMM + bias; W.t() is a view, not a copy
-        return F.linear(x, self.W.t(), self.b)
+def projection(d_in: int, d_out: int, init="glorot_uniform") -> Dense:
+    """``{"W": (d_in, d_out), "b": (d_out,)}`` applied as ``x @ W + b``: a
+    sublayer's projection, named "dense" so that it takes no auto-name
+    (the JAX layers keep these weights inline)."""
+    return Dense(d_out, init=init, input_shape=(d_in,), name="dense")
 
 
 def _split_mask(x):
@@ -70,16 +59,15 @@ class MultiHeadAttention(Layer):
         super().__init__(name=name)
         if hidden_size % n_head:
             raise ValueError("hidden_size must divide n_head")
-        if backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}")
+        backend = resolve_backend(backend)
         self.hidden_size = hidden_size
         self.n_head = n_head
         self.head_dim = hidden_size // n_head
         self.attn_dropout = attn_dropout
         self.causal = causal
         self.backend = backend
-        self.qkv = Dense(hidden_size, 3 * hidden_size, init)
-        self.out = Dense(hidden_size, hidden_size, init)
+        self.qkv = projection(hidden_size, 3 * hidden_size, init)
+        self.out = projection(hidden_size, hidden_size, init)
 
     def forward(self, x, mask=None, seed: Optional[int] = None):
         if mask is None:
@@ -105,8 +93,8 @@ class PositionwiseFFN(Layer):
                  name: Optional[str] = None):
         super().__init__(name=name)
         self.activation = activations.get(activation)
-        self.fc1 = Dense(hidden_size, intermediate, init)
-        self.fc2 = Dense(intermediate, hidden_size, init)
+        self.fc1 = projection(hidden_size, intermediate, init)
+        self.fc2 = projection(intermediate, hidden_size, init)
 
     def forward(self, x):
         return self.fc2(self.activation(self.fc1(x)))
@@ -203,7 +191,7 @@ class BERT(Layer):
         self.token_embed = nn.Parameter(torch.empty(vocab, hidden_size))
         self.position_embed = nn.Parameter(torch.empty(seq_len, hidden_size))
         self.segment_embed = nn.Parameter(torch.empty(2, hidden_size))
-        self.pooler = Dense(hidden_size, hidden_size)
+        self.pooler = projection(hidden_size, hidden_size)
         self.embed_ln = LayerNorm(hidden_size, name=self.name + "_embed_ln")
         self.blocks = []
         for i in range(n_block):
@@ -242,9 +230,9 @@ class BERT(Layer):
 
 def set_attention_backend(module: nn.Module, backend: Optional[str]) -> None:
     """Point every ``MultiHeadAttention`` under ``module`` at ``backend``
-    (None, "plain" or "cuda"; see ``ops.flash_attention``)."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}")
+    (None, "plain" or "cuda", or the JAX names "jnp" / "pallas"; see
+    ``ops.flash_attention``)."""
+    backend = resolve_backend(backend)
     for m in module.modules():
         if isinstance(m, MultiHeadAttention):
             m.backend = backend

@@ -48,6 +48,19 @@ _Q_C = 0x85EBCA77
 _K_C = 0xC2B2AE3D
 
 BACKENDS = (None, "plain", "cuda")
+#: the JAX package's names: "jnp" is the plain version, "pallas" the kernel
+#: (which, with no interpret mode here, needs CUDA tensors as "cuda" does)
+JAX_BACKENDS = {"jnp": "plain", "pallas": "cuda"}
+
+
+def resolve_backend(backend: Optional[str]) -> Optional[str]:
+    """``backend`` as one of ``BACKENDS``, the JAX names translated;
+    ``ValueError`` for anything else."""
+    backend = JAX_BACKENDS.get(backend, backend)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS} or "
+                         f"{tuple(JAX_BACKENDS)}, got {backend!r}")
+    return backend
 
 
 def _u32(x) -> torch.Tensor:
@@ -242,9 +255,9 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
       block_q, block_k: the TPU kernel's tile sizes, accepted and ignored
         (the CUDA kernel picks its own tiles).
       backend: None runs the kernels for CUDA tensors and the plain
-        versions for CPU tensors; ``"cuda"`` demands the kernels;
-        ``"plain"`` runs the plain versions on any device (the kernels'
-        reference).
+        versions for CPU tensors; ``"cuda"`` (or the JAX package's
+        ``"pallas"``) demands the kernels; ``"plain"`` (or ``"jnp"``) runs
+        the plain versions on any device (the kernels' reference).
       dropout_rate: attention-probability dropout in [0, 1); applied only
         when ``dropout_seed`` (an int) is given, as in the JAX package,
         whose inference path passes no seed.
@@ -257,9 +270,7 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
     versions: an unsupported shape or dtype, a failed build or a failed
     launch raises.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got "
-                         f"{backend!r}")
+    backend = resolve_backend(backend)
     if dropout_rng is not None:
         raise ValueError("dropout_rng (a JAX PRNG key) has no counterpart "
                          "in the port: pass the int seed as dropout_seed")
@@ -318,15 +329,14 @@ def flash_forward_with_lse(q, k, v, causal: bool = False,
     its Pallas interpret mode) are accepted and ignored: the CUDA kernel
     picks its own tiles, and CPU tensors run the plain version.
     ``backend``: None launches the kernel for CUDA tensors and runs the
-    plain version for CPU tensors; ``"cuda"`` demands the kernel;
-    ``"plain"`` runs ``_reference_attention_with_lse`` on any device.  A
-    CUDA tensor never falls back: an unsupported shape or dtype, a failed
-    build or a failed launch raises.  Any Tq and Tk (the TPU kernel's
-    tiling rule, and the fallback it forced, do not apply).  No gradient.
+    plain version for CPU tensors; ``"cuda"`` (``"pallas"``) demands the
+    kernel; ``"plain"`` (``"jnp"``) runs ``_reference_attention_with_lse``
+    on any device.  A CUDA tensor never falls back: an unsupported shape
+    or dtype, a failed build or a failed launch raises.  Any Tq and Tk
+    (the TPU kernel's tiling rule, and the fallback it forced, do not
+    apply).  No gradient.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got "
-                         f"{backend!r}")
+    backend = resolve_backend(backend)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dev = q.device.type

@@ -33,10 +33,9 @@ from typing import Optional
 import torch
 
 from analytics_zoo_tpu_torch.ops import _kernels
+from analytics_zoo_tpu_torch.ops.attention import resolve_backend
 
 _NEG_INF = -1e30
-
-BACKENDS = (None, "plain", "cuda")
 
 
 def _gqa(k: torch.Tensor, v: torch.Tensor, H: int, axis: int):
@@ -99,9 +98,7 @@ def _reference_chunk(q, k_pages, v_pages, page_table, start, sm_scale):
 
 
 def _use_kernel(q, backend, what: str) -> bool:
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got "
-                         f"{backend!r}")
+    backend = resolve_backend(backend)
     dev = q.device.type
     kernel = not (backend == "plain" or (backend is None and dev == "cpu"))
     if kernel and dev != "cuda":

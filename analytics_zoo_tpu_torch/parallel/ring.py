@@ -44,6 +44,8 @@ from analytics_zoo_tpu_torch.ops.attention import (
 from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 
 IMPLS = ("auto", "cuda", "plain")
+#: the JAX package's names: "pallas" is the kernel, "jnp" the plain blocks
+JAX_IMPLS = {"pallas": "cuda", "jnp": "plain"}
 
 
 def _block_attn(q, k_blk, v_blk, my_idx, owner, sm_scale, causal, impl):
@@ -247,18 +249,18 @@ def ring_attention(q, k, v, mesh: Mesh, axis_name: str = "sequence",
     differentiable in q, k and v (the ring backward, see the module
     docstring).
 
-    ``impl``: ``"cuda"`` launches the kernels ``flash_fwd_lse`` and, in
-    the backward, ``flash_bwd_lse`` for each visible block (the JAX
-    package's ``"pallas"``, whose backward is jnp) and raises for shards
-    not on a card; ``"plain"`` runs ``_reference_attention_with_lse`` and
-    ``_block_grads``' plain body per block with the causal shift (the JAX
-    package's ``"jnp"``); ``"auto"`` takes the kernels for shards on a CUDA
-    device and the plain blocks elsewhere.
+    ``impl``: ``"cuda"`` (or the JAX package's ``"pallas"``, whose
+    backward is jnp) launches the kernels ``flash_fwd_lse`` and, in the
+    backward, ``flash_bwd_lse`` for each visible block, and raises for
+    shards not on a card; ``"plain"`` (or ``"jnp"``) runs
+    ``_reference_attention_with_lse`` and ``_block_grads``' plain body per
+    block with the causal shift; ``"auto"`` takes the kernels for shards on
+    a CUDA device and the plain blocks elsewhere.
     """
+    impl = JAX_IMPLS.get(impl, impl)
     if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS} (the JAX package's "
-                         f"'pallas' is 'cuda' here, 'jnp' is 'plain'), got "
-                         f"{impl!r}")
+        raise ValueError(f"impl must be one of {IMPLS} or "
+                         f"{tuple(JAX_IMPLS)}, got {impl!r}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     layout = _Layout(mesh, axis_name, batch_axis, q.shape[0], q.shape[2])

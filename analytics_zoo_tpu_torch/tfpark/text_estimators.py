@@ -21,7 +21,8 @@ from analytics_zoo_tpu_torch.common.triggers import MaxIteration
 from analytics_zoo_tpu_torch.data.featureset import FeatureSet
 from analytics_zoo_tpu_torch.estimator import Estimator
 from analytics_zoo_tpu_torch.keras.engine import KerasNet
-from analytics_zoo_tpu_torch.keras.layers.self_attention import BERT, Dense
+from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+    BERT, projection)
 from analytics_zoo_tpu_torch.tfpark.tf_dataset import TFDataset
 
 
@@ -51,7 +52,7 @@ class _ClassifierNet(_BertNet):
     def __init__(self, num_classes: int, **kw):
         self.num_classes = num_classes
         super().__init__(**kw)
-        self.head = Dense(self.cfg["hidden_size"], num_classes)
+        self.head = projection(self.cfg["hidden_size"], num_classes)
 
     def _head(self, seq_out, pooled):
         return torch.softmax(self.head(pooled), dim=-1)

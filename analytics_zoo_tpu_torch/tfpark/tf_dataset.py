@@ -12,7 +12,7 @@ ROADMAP Queue 1 item 2) and the other factories are not.
 
 from __future__ import annotations
 
-from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS, reject
 from analytics_zoo_tpu_torch.data.featureset import FeatureSet
 
 NUM_DEVICES = 1
@@ -66,7 +66,7 @@ class TFDataset:
         if memory_type.upper() in ("DEVICE", "HBM"):
             raise NotImplementedError(
                 "TFDataset memory_type='DEVICE' (batches resident on the "
-                "card) is not ported yet (ROADMAP Queue 1 item 3: data/)")
+                f"card) is not ported yet ({QUEUE_ITEMS[3]})")
         feats, labels = (tensors if isinstance(tensors, tuple)
                          and len(tensors) == 2 else (tensors, None))
         return TFDataset(FeatureSet.from_ndarrays(feats, labels), batch_size,

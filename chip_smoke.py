@@ -93,6 +93,19 @@ Phases, each of which raises (exit code 1) on failure:
    and its autograd gradients at T=4,096; forward and forward+backward
    times, a profiler breakdown of one forward, and one of a backward in
    which no library GEMM may run.
+9. ncf: NeuralCF at MovieLens-1M width (6040 users, 3706 items, 64-wide
+   tables, MLP 128-64-32, fused tables) with random weights from a numpy
+   seed, served through ``InferenceModel.load_keras`` -> classic
+   ``ClusterServing`` (in-memory broker): a burst of request batches of
+   1..1024 (user, item) pairs, every answer within 1e-5 of the same model
+   on the CPU, one batch with out-of-range ids answered with the CPU's NaN
+   rows and the requests after it still answered (no device assert), and
+   ``recommend_for_user`` over all items giving the CPU's top 10; then NCF
+   and WideAndDeep (MovieLens-1M columns) trained through ``compile`` /
+   ``fit`` at batch 65,536 for 10 steps, the first 3 losses within 1e-4
+   relative of the same steps on the CPU; predict ms, requests/s, step ms,
+   samples/s and one training step's device-busy share.  The path runs
+   no kernel of the port (checked: every launch count stays 0).
 
 The serve, train, llm and ring phases also check that no kernel input
 was copied before a launch (the wrappers' ``copies``).  It prints one JSON
@@ -157,6 +170,20 @@ DECODE_ATOL = 1e-3            # one decode step's logits vs the dense ones
 RING = dict(B=2, H=12, T=16384, D=64, sp=4)
 RING_DENSE_T = 4096           # the ring against dense attention
 LSE_RTOL = 1e-5               # lse (f32 in both versions): x max(1, |lse|)
+# the recommendation models at MovieLens-1M width: NCF as bench.py:722-726,
+# WideAndDeep's columns as bench.py:980-986, both trained at bench's batch
+NCF_ML1M = dict(user_count=6040, item_count=3706, class_num=2,
+                user_embed=64, item_embed=64, hidden_layers=(128, 64, 32),
+                mf_embed=64)
+WND_ML1M = dict(
+    wide_base_cols=["occupation", "gender"], wide_base_dims=[21, 3],
+    wide_cross_cols=["age-gender"], wide_cross_dims=[100],
+    indicator_cols=["occupation", "gender"], indicator_dims=[21, 3],
+    embed_cols=["userId", "itemId"], embed_in_dims=[6040, 3952],
+    embed_out_dims=[64, 64], continuous_cols=["age"])
+REC_BATCH = 65536
+REC_SERVE_ATOL = 1e-5         # served probabilities vs the CPU forward
+REC_LOSS_RTOL = 1e-4          # training losses, card vs CPU (f32)
 
 
 def log(*args):
@@ -1787,6 +1814,236 @@ def profile_breakdown(fn, what, top=8):
     return wall_us / 1e3, total / 1e3, dev
 
 
+def _keras_tree(net, rng):
+    """Weights from a numpy seed in the JAX tree layout: embedding tables
+    N(0, 0.5), dense kernels glorot-uniform, biases 0 (wide enough apart
+    that a top-10 ranking is not a run of near-ties)."""
+    tree = {}
+    for path, p in net.state_dict().items():
+        shape = tuple(p.shape)
+        if path.endswith("embeddings"):
+            w = rng.normal(0.0, 0.5, shape)
+        elif path.endswith(".W"):
+            limit = np.sqrt(6.0 / sum(shape))
+            w = rng.uniform(-limit, limit, shape)
+        else:
+            w = np.zeros(shape)
+        node = tree
+        *parents, leaf = path.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = w.astype(np.float32)
+    return tree
+
+
+def _rec_pair(build, rng, device):
+    """The same model on ``device`` and on the CPU, random weights."""
+    from analytics_zoo_tpu_torch.keras import engine
+    engine.reset_uids()
+    card = build(device)
+    engine.reset_uids()
+    cpu = build("cpu")
+    tree = _keras_tree(cpu, rng)
+    card.set_weights(tree)
+    cpu.set_weights(tree)
+    return card, cpu
+
+
+class _StepLosses:
+    """Records every training step's loss (a device scalar, read after the
+    run) while active."""
+
+    def __enter__(self):
+        from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+        self._cls, self._orig, self.losses = (est_mod.Estimator,
+                                              est_mod.Estimator._train_step,
+                                              [])
+        orig, seen = self._orig, self.losses
+
+        def spy(est, *args, **kw):
+            loss = orig(est, *args, **kw)
+            seen.append(loss)
+            return loss
+        self._cls._train_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._train_step = self._orig
+        self.losses = [float(v) for v in self.losses]
+
+
+def _train_rec(what, card, cpu, x, y, card_name, steps=10, compare=3):
+    """``fit`` on the card for ``steps`` steps of REC_BATCH (the first
+    ``compare`` against the same steps on the CPU), then a timed warm
+    ``fit`` and a profile of one step."""
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    from analytics_zoo_tpu_torch.data.featureset import tree_map
+    B = REC_BATCH
+    n = B * steps
+    head = lambda t: tree_map(lambda a: a[:B * compare], t)
+    fs = FeatureSet.from_ndarrays(x, y, shuffle=False)
+    for m in (card, cpu):
+        m.compile("adam", "sparse_categorical_crossentropy", ["accuracy"])
+    with _StepLosses() as on_card:
+        card.fit(fs, batch_size=B, nb_epoch=1)
+        torch.cuda.synchronize()
+    with _StepLosses() as on_cpu:
+        cpu.fit(FeatureSet.from_ndarrays(head(x), head(y), shuffle=False),
+                batch_size=B, nb_epoch=1)
+    got, want = np.array(on_card.losses), np.array(on_cpu.losses)
+    rel = float(np.max(np.abs(got[:compare] - want) / np.abs(want)))
+    log(f"[ncf] {what} fit, batch {B}: per-step loss "
+        f"{' '.join(f'{v:.6f}' for v in got)}; CPU "
+        f"{' '.join(f'{v:.6f}' for v in want)}; first {compare} max rel "
+        f"diff {rel:.3e} (tol {REC_LOSS_RTOL:g})")
+    if (len(got) != steps or len(want) != compare
+            or not np.isfinite(got).all() or rel > REC_LOSS_RTOL):
+        raise AssertionError(f"{what}: training on the card disagrees with "
+                             "the CPU")
+    t0 = time.perf_counter()
+    card.fit(fs, batch_size=B, nb_epoch=1, warm_start=True)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # the host feed alone: the same batches sliced and copied to the card
+    t0 = time.perf_counter()
+    for _ in fs.batches(B, device=card.device):
+        pass
+    torch.cuda.synchronize()
+    feed_ms = (time.perf_counter() - t0) * 1e3 / steps
+    log(f"[ncf] {what} training step at batch {B}: {step_ms:.3f} ms, "
+        f"{B * 1e3 / step_ms:.1f} samples/s over {steps} steps "
+        f"(host batches), of it the host feed {feed_ms:.3f} ms a batch, on "
+        f"{card_name}")
+    first = lambda t: tree_map(lambda a: a[:B], t)
+    one = FeatureSet.from_ndarrays(first(x), first(y), shuffle=False)
+    one_step = lambda: card.fit(one, batch_size=B, nb_epoch=1,
+                                warm_start=True)
+    prof = profile_breakdown(one_step, f"{what}: one training step at "
+                             f"batch {B} on {card_name}", top=10)
+    return dict(step_ms=step_ms, samples_s=B * 1e3 / step_ms,
+                feed_ms=feed_ms, losses=got.tolist(), cpu_losses=want.tolist(),
+                busy_share=None if prof is None else prof[1] / prof[0])
+
+
+def phase_ncf(card_name, n_requests=48, device="cuda"):
+    from analytics_zoo_tpu_torch.common.config import ServingConfig
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models import (
+        ColumnFeatureInfo, NeuralCF, WideAndDeep, assemble_feature_dict)
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    from analytics_zoo_tpu_torch.serving.client import InputQueue, OutputQueue
+    from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+
+    rng = np.random.default_rng(SEED)
+    ncf, ncf_cpu = _rec_pair(lambda d: NeuralCF(device=d, **NCF_ML1M), rng,
+                             device)
+    log(f"[ncf] NeuralCF {NCF_ML1M}, {ncf.param_count():,} parameters (f32)")
+    _kernels.reset_launches()
+
+    # 1. serve: a burst of request batches of 1..1024 pairs; one batch in
+    # the middle carries ids past either end of the user table
+    users, items = NCF_ML1M["user_count"], NCF_ML1M["item_count"]
+    sizes = rng.integers(1, 1025, n_requests)
+    sizes[:2] = (1, 1024)
+    bad = n_requests // 2
+    reqs = []
+    for r, n in enumerate(sizes):
+        u = rng.integers(1, users + 1, (n, 1)).astype(np.int32)
+        i = rng.integers(1, items + 1, (n, 1)).astype(np.int32)
+        if r == bad:
+            u[:2, 0] = (users + 1, -(users + 2))
+        reqs.append((u, i))
+    im = InferenceModel(device=device).load_keras(ncf)
+    im.warmup({"user": reqs[1][0], "item": reqs[1][1]},
+              [2 ** k for k in range(16)])
+    broker = InMemoryBroker()
+    serving = ClusterServing(im, ServingConfig(
+        pipeline=False, batch_size=32, redis_url="memory://"),
+        broker=broker).start()
+    uris = [[f"r{r}-{j}" for j in range(len(u))]
+            for r, (u, _) in enumerate(reqs)]
+    try:
+        iq, oq = InputQueue(broker=broker), OutputQueue(broker=broker)
+        t0 = time.perf_counter()
+        for (u, i), names in zip(reqs, uris):
+            iq.enqueue_batch(names, user=u, item=i)
+        got = [np.stack([oq.query_blocking(name, timeout=300)
+                         for name in names]) for names in uris]
+        secs = time.perf_counter() - t0
+    finally:
+        serving.stop()
+    pairs = int(sizes.sum())
+    want = [ncf_cpu.predict([u, i], batch_size=1024) for u, i in reqs]
+    nan_ok = all(np.array_equal(np.isnan(g), np.isnan(w))
+                 for g, w in zip(got, want))
+    err = max(float(np.nanmax(np.abs(g - w))) for g, w in zip(got, want))
+    nan_rows = np.isnan(got[bad]).any(axis=1)
+    ok = (nan_ok and err <= REC_SERVE_ATOL and nan_rows[:2].all()
+          and not nan_rows[2:].any()
+          and all(not np.isnan(g).any() for r, g in enumerate(got)
+                  if r != bad))
+    log(f"[ncf] served {n_requests} request batches ({pairs} pairs, sizes "
+        f"1..1024) in {secs:.4f} s: {n_requests / secs:.2f} requests/s, "
+        f"{pairs / secs:.1f} pairs/s on {card_name}; vs the CPU forward "
+        f"max_abs_err={err:.3e} tol={REC_SERVE_ATOL:g}; out-of-range ids "
+        f"(request {bad}) NaN as on the CPU, {n_requests - bad - 1} later "
+        f"requests answered -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("served NCF answers disagree with the CPU")
+    top = ncf.recommend_for_user(17, 10)
+    top_cpu = ncf_cpu.recommend_for_user(17, 10)
+    score = dict(ncf_cpu.recommend_for_user(17, items))
+    same = all(a == b or abs(score[a] - score[b]) <= REC_SERVE_ATOL
+               for (a, _), (b, _) in zip(top, top_cpu))
+    log(f"[ncf] recommend_for_user(17, 10) over {items} items: "
+        f"{[a for a, _ in top]} (CPU {[b for b, _ in top_cpu]}) -> "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("recommend_for_user differs from the CPU")
+    predict_ms = {b: cuda_ms(lambda b=b: im.predict(
+        {"user": reqs[1][0][:b], "item": reqs[1][1][:b]}), iters=50,
+        warmup=5) for b in (1, 1024)}
+    log(f"[ncf] InferenceModel.predict: batch 1 {predict_ms[1]:.4f} ms, "
+        f"batch 1024 {predict_ms[1024]:.4f} ms on {card_name}")
+
+    # 2. train NCF and WideAndDeep at bench's batch (host batches)
+    steps = 10
+    rs = np.random.RandomState(0)            # drawn as bench.py:730-735
+    n = REC_BATCH * steps
+    x = [rs.randint(1, users + 1, (n, 1)).astype(np.int32),
+         rs.randint(1, items + 1, (n, 1)).astype(np.int32)]
+    y = rs.randint(0, 2, (n,)).astype(np.int32)
+    train = {"NeuralCF": _train_rec("NeuralCF", ncf, ncf_cpu, x, y,
+                                    card_name, steps)}
+    del x, y
+    ci = ColumnFeatureInfo(**WND_ML1M)
+    rs = np.random.RandomState(0)            # drawn as bench.py:988-994
+    columns = {"occupation": rs.randint(0, 21, n),
+               "gender": rs.randint(0, 3, n),
+               "age-gender": rs.randint(0, 100, n),
+               "userId": rs.randint(1, 6041, n),
+               "itemId": rs.randint(1, 3953, n),
+               "age": rs.randint(18, 60, n).astype(np.float32)}
+    feats = assemble_feature_dict(columns, ci, "wide_n_deep")
+    labels = rs.randint(0, 2, n).astype(np.int32)
+    wnd, wnd_cpu = _rec_pair(
+        lambda d: WideAndDeep("wide_n_deep", class_num=2, column_info=ci,
+                              device=d), rng, device)
+    log(f"[ncf] WideAndDeep (wide_n_deep, MovieLens-1M columns), "
+        f"{wnd.param_count():,} parameters (f32)")
+    train["WideAndDeep"] = _train_rec("WideAndDeep", wnd, wnd_cpu, feats,
+                                      labels, card_name, steps)
+    launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the ncf path launched port kernels: "
+                             f"{launches}")
+    log(f"[ncf] port kernel launches in the phase: {launches} (none "
+        "expected: embedding gathers and dense products are PyTorch calls)")
+    return dict(requests_s=n_requests / secs, pairs_s=pairs / secs,
+                predict_ms=predict_ms, train=train)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ring-cards", type=int, default=0, metavar="N",
@@ -1825,6 +2082,7 @@ def main() -> int:
     paged_rows = phase_paged()
     llm_launches, llm = phase_llm()
     ring_launches, ring_rows = phase_ring()
+    phase_ncf(card)
 
     def entry(name, source, replaces, rows, launches,
               shape="B32 H12 T128 D64 float32", **extra):

@@ -145,7 +145,7 @@ def test_cpu_tensors_never_reach_the_kernel():
         TA.flash_attention(q, k, v, backend="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.flash_fwd(q, k, v)
-    with pytest.raises(ValueError, match="backend"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         TA.flash_attention(q, k, v, backend="pallas")
     with pytest.raises(ValueError, match="dropout_rate"):
         TA.flash_attention(q, k, v, dropout_rate=1.0)

@@ -109,8 +109,10 @@ def test_one_attention_layer_per_block_and_backend_switch():
     assert len(mhas) == 3 and all(m.backend is None for m in mhas)
     set_attention_backend(tb.net, "plain")
     assert all(m.backend == "plain" for m in mhas)
+    set_attention_backend(tb.net, "jnp")        # the JAX name of "plain"
+    assert all(m.backend == "plain" for m in mhas)
     with pytest.raises(ValueError):
-        set_attention_backend(tb.net, "jnp")
+        set_attention_backend(tb.net, "xla")
 
 
 def test_training_is_not_ported_yet():

@@ -46,7 +46,9 @@ def test_no_module_of_the_port_imports_jax():
                  "common.resilience", "ops.paged_attention",
                  "models.generation", "llm.kv_cache", "llm.prefix_cache",
                  "llm.scheduler", "llm.engine", "llm.client", "parallel",
-                 "parallel.mesh", "parallel.ring"):
+                 "parallel.mesh", "parallel.ring", "keras.engine",
+                 "keras.layers.core", "keras.layers.embedding",
+                 "models.common", "models.recommendation"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -74,9 +76,20 @@ def test_no_module_of_the_port_imports_jax():
     " f(1, 4, 4, 2, 8)",
     "from analytics_zoo_tpu_torch.common.context import init_zoo_context"
     " as f; f()",
+    "from analytics_zoo_tpu_torch.models import NeuralCF as f; f(10, 8)",
+    "from analytics_zoo_tpu_torch.models import ColumnFeatureInfo, "
+    "WideAndDeep as f\n"
+    "    f('wide', column_info=ColumnFeatureInfo(wide_base_cols=['a'], "
+    "wide_base_dims=[4]))",
+    "from analytics_zoo_tpu_torch.keras.engine import Model as f\n"
+    "    from analytics_zoo_tpu_torch.keras.layers import Dense, Input\n"
+    "    x = Input((3,))\n"
+    "    f(x, Dense(2)(x))",
+    "from analytics_zoo_tpu_torch.keras.engine import Sequential as f; f()",
 ], ids=["resolve_device", "InferenceModel", "BERTClassifier",
         "BERTClassifier.train", "Estimator", "DecoderLM", "LLMServing",
-        "PagedKVCache", "init_zoo_context"])
+        "PagedKVCache", "init_zoo_context", "NeuralCF", "WideAndDeep",
+        "Model", "Sequential"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "

@@ -182,10 +182,11 @@ def test_ring_refuses_what_it_does_not_take():
                        mesh)
     with pytest.raises(ValueError, match="no mesh axis"):
         ring_attention(q, q, q, mesh, axis_name="model")
-    with pytest.raises(ValueError, match="'pallas' is 'cuda'"):
-        ring_attention(q, q, q, mesh, impl="pallas")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ring_attention(q, q, q, mesh, impl="cuda")
+    with pytest.raises(ValueError, match="impl must be one of"):
+        ring_attention(q, q, q, mesh, impl="xla")
+    for impl in ("pallas", "cuda"):       # the kernels, not on CPU shards
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ring_attention(q, q, q, mesh, impl=impl)
 
 
 # --- the mesh and the context --------------------------------------------

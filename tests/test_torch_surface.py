@@ -45,16 +45,15 @@ DIFFERENCES = {
     "estimator.estimator.Estimator.train": ("rng", "seed", RNG),
     "inference.inference_model.InferenceModel.__init__": ("", "device",
                                                           DEVICE),
-    "keras.engine.Layer.__init__": ("input_shape", "", LAYOUT),
-    "keras.engine.Layer.init": ("rng input_shape", "generator",
-                                f"{LAYOUT}; {RNG}"),
+    "keras.engine.Layer.build": ("rng", "", f"{LAYOUT}; {RNG}"),
+    "keras.engine.Layer.init": ("rng", "generator", f"{LAYOUT}; {RNG}"),
     "keras.engine.Layer.param_count": ("params", "", LAYOUT),
-    "keras.engine.KerasNet.__init__": ("kw", "name", LAYOUT),
+    "keras.engine.KerasNet.fit": ("rng", "seed", RNG),
     "keras.engine.KerasNet.predict_fn": ("params state", "", LAYOUT),
-    "keras.initializers.glorot_uniform": ("rng shape dtype", "t generator",
-                                          f"{LAYOUT}; {RNG}"),
-    "keras.initializers.normal": ("rng shape dtype", "t generator",
-                                  f"{LAYOUT}; {RNG}"),
+    "keras.engine.Model.__init__": ("", "device", DEVICE),
+    "keras.engine.Sequential.__init__": ("", "device", DEVICE),
+    "keras.engine.Sequential.build": ("rng", "", f"{LAYOUT}; {RNG}"),
+    "keras.layers.core.Dense.build": ("rng", "", f"{LAYOUT}; {RNG}"),
     "keras.layers.normalization.LayerNorm.__init__": (
         "kw", "hidden_size name", LAYOUT),
     "keras.layers.self_attention.MultiHeadAttention.__init__": (
@@ -69,6 +68,7 @@ DIFFERENCES = {
     "keras.optimizers.Optimizer.__init__": ("tx", "", OPTAX),
     "keras.optimizers.Optimizer.update": ("opt_state", "state", OPTAX),
     "llm.engine.LLMServing.__init__": ("", "device", DEVICE),
+    "models.common.ZooModel.__init__": ("", "device", DEVICE),
     "llm.kv_cache.PagedKVCache.__init__": ("", "device", DEVICE),
     "models.generation.DecoderLM.__init__": (
         "params", "hidden n_layers intermediate generator device",
@@ -85,6 +85,13 @@ DIFFERENCES = {
     "tfpark.text_estimators.BERTClassifier.__init__": (
         "", "device generator", f"{DEVICE}; {RNG}"),
 }
+# the initializers fill a tensor in place from a torch.Generator
+DIFFERENCES.update({
+    f"keras.initializers.{name}": ("rng shape dtype", "t generator",
+                                   f"{LAYOUT}; {RNG}")
+    for name in ("glorot_uniform", "glorot_normal", "he_normal",
+                 "he_uniform", "lecun_uniform", "uniform", "normal", "zero",
+                 "one")})
 
 
 def _params(fn):
@@ -348,6 +355,7 @@ def _unported_calls():
     from analytics_zoo_tpu_torch.estimator import Estimator
     from analytics_zoo_tpu_torch.inference.inference_model import (
         InferenceModel)
+    from analytics_zoo_tpu_torch.keras.layers import Embedding
     from analytics_zoo_tpu_torch.models import generation
     from analytics_zoo_tpu_torch.serving.engine import ClusterServing
     from analytics_zoo_tpu_torch.tfpark import TFDataset
@@ -396,6 +404,8 @@ def _unported_calls():
          lambda: generation.decode_step(None, None, None, None, None, None,
                                         None, None, 1, mesh=object()),
          "mesh", 5),
+        ("Embedding.partition",
+         lambda: Embedding(4, 2, partition="model"), "partition", 5),
     ]
     return calls
 
@@ -449,3 +459,76 @@ def test_tfdataset_has_labels_as_the_jax_name():
         want = JTFDataset.from_ndarrays(tensors, batch_size=8)
         assert got.has_labels == want.has_labels
     assert TFDataset(None, batch_size=8, has_labels=False).has_labels is False
+
+
+# --- the JAX package's backend names ---------------------------------------
+
+def _paged_case(seed=3):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+    q, pages = f(2, 4, 32), [f(6, 4, 2, 32) for _ in range(2)]
+    lengths = torch.tensor([5, 9], dtype=torch.int32)
+    tables = torch.tensor([[1, 2, 0], [3, 4, 5]], dtype=torch.int32)
+    return q, pages, lengths, tables
+
+
+def _alias_calls():
+    """name -> call(backend name) for every op that takes the JAX
+    package's backend names."""
+    from analytics_zoo_tpu_torch.ops.attention import (
+        flash_attention, flash_forward_with_lse)
+    from analytics_zoo_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention, paged_decode_attention)
+    from analytics_zoo_tpu_torch.parallel import Mesh, ring_attention
+    q, k, v = _qkv(4)
+    pq, pages, lengths, tables = _paged_case()
+    mesh = Mesh(["cpu"] * 4, ("sequence",))
+    return {
+        "flash_attention": lambda b: flash_attention(q, k, v, causal=True,
+                                                     backend=b),
+        "flash_forward_with_lse": lambda b: flash_forward_with_lse(
+            q, k, v, backend=b),
+        "paged_decode_attention": lambda b: paged_decode_attention(
+            pq, *pages, lengths, tables, backend=b),
+        "paged_chunk_attention": lambda b: paged_chunk_attention(
+            pq[:1].expand(3, 4, 32), *pages, tables[1], 2, backend=b),
+        "ring_attention": lambda b: ring_attention(q, k, v, mesh,
+                                                   causal=True, impl=b),
+    }
+
+
+ALIAS_OPS = ["flash_attention", "flash_forward_with_lse",
+             "paged_decode_attention", "paged_chunk_attention",
+             "ring_attention"]
+
+
+@pytest.mark.parametrize("op", ALIAS_OPS)
+def test_jnp_names_the_plain_version(op):
+    call = _alias_calls()[op]
+    got, want = call("jnp"), call("plain")
+    for g, w in zip(*(t if isinstance(t, tuple) else (t,)
+                      for t in (got, want))):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("op", ALIAS_OPS)
+def test_pallas_names_the_kernel(op):
+    # the kernels have no interpret mode: on CPU tensors "pallas" raises,
+    # as "cuda" does
+    call = _alias_calls()[op]
+    for name in ("pallas", "cuda"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(name)
+    with pytest.raises(ValueError, match="pallas"):
+        call("triton")
+
+
+def test_attention_layers_take_the_jax_backend_names():
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        MultiHeadAttention, set_attention_backend)
+    mha = MultiHeadAttention(8, 2, backend="jnp")
+    assert mha.backend == "plain"
+    set_attention_backend(mha, "pallas")
+    assert mha.backend == "cuda"
+    with pytest.raises(ValueError, match="backend"):
+        set_attention_backend(mha, "xla")
