@@ -1,23 +1,29 @@
 """Configuration: copies of the JAX package's ``MeshConfig``,
-``ServingConfig``, ``LLMServingConfig``, ``TrainConfig`` and ``ZooConfig``.
-Fields whose machinery is not ported take the JAX default, and any other
-value raises ``NotImplementedError`` naming the ROADMAP item that ports it
-(``common/unported.py``).
+``TrainConfig``, ``DataConfig``, ``ServingConfig``, ``FleetConfig``,
+``LLMServingConfig`` and ``ZooConfig``, and ``load_config``, which builds a
+``ZooConfig`` from defaults < json/yaml file < environment (``ZOO_TPU_*``)
+< explicit overrides, as the JAX package does (the serving
+``config.yaml`` reads the same in both packages).
 
 Copied from ``analytics_zoo_tpu/common/config.py`` (the port cannot import
-that module: every ``analytics_zoo_tpu`` import loads jax), so a config
-written for one package reads the same in the other.  The classic serving
-loop of this port reads ``batch_size``, ``replicas``, ``top_n``,
-``filter``, ``input_stream``, ``consumer_group``, ``redis_url``,
-``pipeline`` and ``image_uint8``; the other serving fields belong to parts
-not ported yet (the pipelined engine, the HTTP frontend, tenancy), and
-``ClusterServing`` refuses ``pipeline=True``.
+that module: every ``analytics_zoo_tpu`` import loads jax).  Fields whose
+machinery is not ported take the JAX default, and any other value raises
+``NotImplementedError`` naming the ROADMAP item that ports it
+(``common/unported.py``): the multi-process fields of ``ZooConfig``
+(item 5), the unported ``TrainConfig`` fields (item 2).  ``DataConfig``
+and ``FleetConfig`` are fields only: the port has no fleet, and its
+estimator reads no data tier setting.  ``ServingConfig`` fields that
+need the tenancy, image decode or TensorBoard machinery are refused by
+``ClusterServing``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field, fields
-from typing import Optional
+from typing import Any, Dict, Optional
 
 from analytics_zoo_tpu_torch.common.unported import reject
 
@@ -65,33 +71,12 @@ class TrainConfig:
 
 
 @dataclass
-class ZooConfig:
-    mesh: MeshConfig = field(default_factory=MeshConfig)
-    train: TrainConfig = field(default_factory=TrainConfig)
-    # the data and fleet sections (no port counterpart yet), the serving
-    # section and the multi-process fields: Queue 1 item 1
-    data: Optional[object] = None
-    serving: "ServingConfig" = field(
-        default_factory=lambda: ServingConfig())
-    fleet: Optional[object] = None
-    coordinator_address: Optional[str] = None
-    num_processes: Optional[int] = None
-    process_id: Optional[int] = None
-    platform: Optional[str] = None
-    log_output: bool = False
-    default_dtype: str = "float32"
-    # the forward / backward dtype of mixed-precision training
-    compute_dtype: str = "bfloat16"
-
-    def __post_init__(self):
-        reject("ZooConfig", 1, dict(serving=ServingConfig(),
-                                    log_output=False,
-                                    default_dtype="float32"),
-               data=self.data, serving=self.serving, fleet=self.fleet,
-               coordinator_address=self.coordinator_address,
-               num_processes=self.num_processes, process_id=self.process_id,
-               platform=self.platform, log_output=self.log_output,
-               default_dtype=self.default_dtype)
+class DataConfig:
+    # memory-tier surface kept from FeatureSet.scala:663-684
+    memory_type: str = "DRAM"  # DRAM | DIRECT | DISK_AND_DRAM:<numSlice> | PMEM
+    shuffle: bool = True
+    sequential_order: bool = False
+    prefetch: int = 2
 
 
 @dataclass
@@ -179,6 +164,40 @@ class ServingConfig:
     tenants: Optional[tuple] = None
 
 
+@dataclass
+class FleetConfig:
+    """The multi-process serving fleet's settings, as the JAX package
+    names them.  Fields only: the fleet is not ported (ROADMAP Queue 1
+    item 1), so nothing in the port reads them."""
+    frontend_workers: int = 2
+    replicas: int = 1
+    min_replicas: int = 1
+    max_replicas: int = 4
+    bridge_host: str = "127.0.0.1"
+    bridge_port: int = 0
+    snapshot_interval_s: float = 0.5
+    snapshot_span_limit: int = 512
+    router_refresh_s: float = 0.25
+    overload_latch_s: float = 0.25
+    breaker_failure_threshold: int = 3
+    breaker_recovery_s: float = 2.0
+    autoscale_interval_s: float = 0.5
+    scale_up_queue_depth: float = 32.0
+    scale_down_queue_depth: float = 2.0
+    scale_up_sustain_s: float = 1.0
+    scale_down_sustain_s: float = 3.0
+    autoscale_cooldown_s: float = 2.0
+    drain_grace_s: float = 1.0
+    durable: bool = False
+    wal_dir: Optional[str] = None
+    broker_port: int = 0
+    wal_segment_bytes: int = 4 << 20
+    wal_commit_interval_ms: float = 0.0
+    wal_sync: bool = False
+    redeliver_idle_s: float = 3.0
+    failover_poll_s: float = 0.25
+
+
 _MODEL_PARALLEL_SLICE = ("model_parallel > 1 (decode sharded along KV heads "
                          "over several cards) is not ported yet (ROADMAP "
                          "Queue 1 item 5: parallel/)")
@@ -245,3 +264,167 @@ class LLMServingConfig:
         if int(self.model_parallel) > 1:
             raise NotImplementedError(_MODEL_PARALLEL_SLICE)
 
+
+@dataclass
+class ZooConfig:
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    # multi-host bring-up: one process only (ROADMAP Queue 1 item 5)
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    # where init_zoo_context lays its mesh: None, "cuda" or "gpu" the
+    # card(s), "cpu" the host
+    platform: Optional[str] = None
+    log_output: bool = False
+    default_dtype: str = "float32"
+    # the forward / backward dtype of mixed-precision training
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        reject("ZooConfig", 5,
+               coordinator_address=self.coordinator_address or None,
+               num_processes=(None if (self.num_processes or 1) == 1
+                              else self.num_processes),
+               process_id=self.process_id or None)
+
+    def replace(self, **kw) -> "ZooConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _apply_overrides(cfg: Any, flat: Dict[str, Any], prefix: str = "") -> None:
+    for f in dataclasses.fields(cfg):
+        key = f"{prefix}{f.name}"
+        val = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(val):
+            _apply_overrides(val, flat, prefix=key + ".")
+        elif key in flat:
+            raw = flat[key]
+            tname = f.type if isinstance(f.type, str) else getattr(
+                f.type, "__name__", str(f.type))
+            if isinstance(raw, str):
+                if "bool" in tname:
+                    raw = raw.lower() in ("1", "true", "yes")
+                elif "int" in tname:
+                    raw = int(raw)
+                elif "float" in tname:
+                    raw = float(raw)
+                elif "tuple" in tname:
+                    # e.g. image_resize: 224,224 (or 224x224) and
+                    # axis_names: data,model: numeric elements become
+                    # ints, everything else stays a string
+                    parts = [p.strip() for p in raw.split(",") if p.strip()]
+                    if len(parts) == 1 and "x" in parts[0] and all(
+                            s.strip().lstrip("-").isdigit()
+                            for s in parts[0].split("x")):
+                        parts = [s.strip() for s in parts[0].split("x")]
+                    raw = tuple(int(p) if p.lstrip("-").isdigit() else p
+                                for p in parts)
+            setattr(cfg, f.name, raw)
+
+
+def _check(cfg: Any) -> None:
+    """Run every section's ``__post_init__`` again: ``_apply_overrides``
+    sets fields after construction, and a refused value must raise as it
+    does in the constructor."""
+    for f in dataclasses.fields(cfg):
+        val = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(val):
+            _check(val)
+    post = getattr(cfg, "__post_init__", None)
+    if post is not None:
+        post()
+
+
+def _env_overrides() -> Dict[str, Any]:
+    """ZOO_TPU_TRAIN__GRADIENT_CLIP_NORM=1 -> {"train.gradient_clip_norm":
+    "1"}; top-level fields use no separator: ZOO_TPU_PLATFORM=cpu ->
+    {"platform": "cpu"}."""
+    out = {}
+    for k, v in os.environ.items():
+        if k.startswith("ZOO_TPU_"):
+            path = k[len("ZOO_TPU_"):].lower().replace("__", ".")
+            out[path] = v
+    return out
+
+
+def load_config(path: Optional[str] = None, **overrides) -> ZooConfig:
+    """Build a ZooConfig from defaults < json/yaml file < env < overrides.
+    A key that names no field is ignored, as in the JAX package."""
+    cfg = ZooConfig()
+    flat: Dict[str, Any] = {}
+    if path:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"config file not found: {path}")
+        with open(path) as fh:
+            text = fh.read()
+        try:
+            loaded = json.loads(text)
+        except json.JSONDecodeError:
+            loaded = _parse_simple_yaml(text)
+        flat.update(_flatten(loaded))
+    flat.update(_env_overrides())
+    flat.update({k.replace("__", "."): v for k, v in overrides.items()})
+    _apply_overrides(cfg, flat)
+    _check(cfg)
+    return cfg
+
+
+def _flatten(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix=f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _parse_simple_yaml(text: str) -> Dict[str, Any]:
+    """Tiny two-level yaml subset parser (serving config.yaml parity
+    without a yaml dependency)."""
+    root: Dict[str, Any] = {}
+    current = root
+    for line in text.splitlines():
+        if not line.strip() or line.strip().startswith("#"):
+            continue
+        indent = len(line) - len(line.lstrip())
+        key, _, val = line.strip().partition(":")
+        val = _strip_inline_comment(val).strip()
+        if indent == 0:
+            if val == "":
+                current = root.setdefault(key, {})
+            else:
+                root[key] = _coerce(val)
+                current = root
+        else:
+            current[key] = _coerce(val)
+    return root
+
+
+def _strip_inline_comment(val: str) -> str:
+    """YAML semantics: '#' starts a comment only at value start or after
+    whitespace; a quoted value keeps everything inside the quotes."""
+    stripped = val.strip()
+    if stripped[:1] in ("'", '"'):
+        end = stripped.find(stripped[0], 1)
+        if end != -1:
+            return stripped[: end + 1]     # quotes removed later by _coerce
+    for i, ch in enumerate(val):
+        if ch == "#" and (i == 0 or val[i - 1] in " \t"):
+            return val[:i]
+    return val
+
+
+def _coerce(v: str) -> Any:
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    if v.lower() in ("true", "false"):
+        return v.lower() == "true"
+    return v.strip("\"'")

@@ -4,11 +4,12 @@ Port of ``analytics_zoo_tpu/common/context.py``.  An entry point runs on
 ``cuda`` unless its caller names another device; with no card and no
 device named it raises rather than run on the CPU.  ``init_zoo_context``
 builds the device mesh (``parallel.mesh.Mesh``) by the JAX package's
-rule.  Unlike the JAX package, the port keeps no process-wide context: each
-call builds a new ``ZooContext`` and callers pass its mesh on, as
-``parallel.ring_attention`` takes its mesh.  ``data_sharding``, ``put``,
-``device_scope`` and the multi-host bring-up are not ported (ROADMAP
-Queue 1 item 5).
+rule, from a ``ZooConfig`` or from ``load_config``'s file, environment
+and overrides.  Unlike the JAX package, the port keeps no process-wide
+context: each call builds a new ``ZooContext`` and callers pass its mesh
+on, as ``parallel.ring_attention`` takes its mesh.  ``data_sharding``,
+``put``, ``device_scope`` and the multi-host bring-up are not ported
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
-from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch.common.config import (
+    MeshConfig, ZooConfig, load_config)
 from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 
 
@@ -43,6 +44,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "default. Pass device='cpu' to run the plain PyTorch versions "
             "on the CPU.")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def _platform_devices(platform: Optional[str]) -> list:
+    """The devices of a ``ZooConfig.platform``: every visible CUDA device
+    for None, ``"cuda"`` or ``"gpu"``, the host for ``"cpu"``."""
+    if platform == "cpu":
+        return [torch.device("cpu")]
+    if platform not in (None, "cuda", "gpu"):
+        raise ValueError(f"platform {platform!r}: the port runs on "
+                         "'cuda' (or 'gpu', or None: the card) or 'cpu'")
+    resolve_device()
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 class ZooContext:
@@ -94,25 +108,22 @@ def init_zoo_context(conf: Optional[ZooConfig] = None,
                      config_path: Optional[str] = None, *,
                      devices: Optional[Sequence] = None,
                      **overrides) -> ZooContext:
-    """A context whose mesh lays ``devices`` out by ``conf.mesh``.
+    """A context whose mesh lays ``devices`` out by ``cfg.mesh``.
 
-    ``config_path`` and ``**overrides`` (the JAX package's config file and
-    field overrides) are not ported yet: passing either raises
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 1.
+    ``cfg`` is ``conf``, or else ``load_config(config_path,
+    **overrides)``: defaults < json/yaml file < ``ZOO_TPU_*`` environment
+    < overrides, as in the JAX package.
 
-    ``devices`` defaults to every visible CUDA device and raises
-    ``NoCudaDeviceError`` when there is none.  A caller may name devices,
-    repeated as often as the mesh has shards: ``["cpu"] * 8`` runs an
-    8-shard mesh on the host (as the tests do), ``["cuda:0"] * 4`` four
-    shards on one card.
+    ``devices`` defaults to the devices of ``cfg.platform``: every visible
+    CUDA device for None, ``"cuda"`` or ``"gpu"`` (``NoCudaDeviceError``
+    when there is none), the host for ``"cpu"``; any other platform
+    raises ``ValueError``.  A caller may name devices, repeated as often
+    as the mesh has shards: ``["cpu"] * 8`` runs an 8-shard mesh on the
+    host (as the tests do), ``["cuda:0"] * 4`` four shards on one card.
     """
-    reject("init_zoo_context", 1, config_path=config_path,
-           overrides=overrides or None)
-    cfg = conf or ZooConfig()
+    cfg = conf or load_config(config_path, **overrides)
     if devices is None:
-        resolve_device()
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = _platform_devices(cfg.platform)
     else:
         devices = [resolve_device(d) for d in devices]
     return ZooContext(cfg, _build_mesh(devices, cfg.mesh))

@@ -4,7 +4,9 @@ Copied from ``analytics_zoo_tpu/common/resilience.py`` (the port cannot
 import that module: every ``analytics_zoo_tpu`` import loads jax):
 
 - ``Deadline``: an absolute point in time work must finish by, monotonic
-  inside the process and an epoch timestamp on the wire.
+  inside the process and an epoch timestamp on the wire;
+  ``deadline_scope`` / ``current_deadline`` carry one as the ambient
+  deadline of a call (a context variable).
 - ``AdmissionController``: credit-based admission; work beyond a bounded
   in-flight depth is rejected explicitly (``try_acquire`` False, then
   ``shed``) instead of queueing without bound.
@@ -12,20 +14,24 @@ import that module: every ``analytics_zoo_tpu`` import loads jax):
 The metric gauges, trace events and flight-recorder hooks of the JAX
 module are not ported (ROADMAP Queue 1 item 6, observability): expired and
 shed work is counted in plain integers (``expired_counts``,
-``AdmissionController.shed_count``).  Retry policies, circuit breakers and
-the ambient ``deadline_scope`` belong to parts not ported yet.
+``AdmissionController.shed_count``).  Retry policies and circuit breakers
+belong to parts not ported yet (the Redis broker and the model registry,
+ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 from analytics_zoo_tpu_torch.common.unported import reject
 
 __all__ = ["AdmissionController", "Deadline", "DeadlineExceeded",
-           "expired_counts", "record_expired"]
+           "current_deadline", "deadline_scope", "expired_counts",
+           "record_expired"]
 
 
 class DeadlineExceeded(RuntimeError):
@@ -85,6 +91,34 @@ class Deadline:
         return f"Deadline(remaining={self.remaining():.3f}s)"
 
 
+_current_deadline: "contextvars.ContextVar[Optional[Deadline]]" = \
+    contextvars.ContextVar("zoo_deadline", default=None)
+
+
+def current_deadline() -> Optional[Deadline]:
+    """The ambient deadline of this (logical) call, or None."""
+    return _current_deadline.get()
+
+
+@contextlib.contextmanager
+def deadline_scope(deadline) -> Iterator[Optional[Deadline]]:
+    """Set the ambient deadline for the dynamic extent of the block.
+
+    ``deadline`` is a ``Deadline``, a float budget in seconds, or None
+    (no-op scope, so call sites need no conditional).  Context variables
+    do not cross thread hops by themselves: pipeline stages carry the
+    ``Deadline`` object on the work item and enter a scope again when
+    they pick the item up.
+    """
+    if deadline is not None and not isinstance(deadline, Deadline):
+        deadline = Deadline(float(deadline))
+    token = _current_deadline.set(deadline)
+    try:
+        yield deadline
+    finally:
+        _current_deadline.reset(token)
+
+
 class AdmissionController:
     """Credit-based admission: at most ``capacity`` work units in flight.
 
@@ -92,6 +126,9 @@ class AdmissionController:
     and released when it completes (result or error written), so
     admitted-but-unfinished work is bounded and offered load beyond it is
     rejected explicitly instead of growing every queue.
+    ``force_acquire`` admits regardless of credits: the shutdown drain
+    uses it so entries whose stream cursor already advanced are never
+    dropped.
     """
 
     def __init__(self, capacity: int, name: str = "serving"):
@@ -122,6 +159,32 @@ class AdmissionController:
                 self._in_flight += n
                 return True
             return False
+
+    def acquire(self, n: int = 1, timeout: float = 0.0,
+                stop: Optional[threading.Event] = None) -> bool:
+        """Admit ``n`` units, waiting up to ``timeout`` seconds for
+        credits (bounded queueing).  Returns False on timeout or when
+        ``stop`` is set (the caller tells them apart by the event).
+        Never raises."""
+        deadline = time.monotonic() + max(0.0, float(timeout))
+        with self._cond:
+            while self._in_flight + n > self._capacity:
+                if stop is not None and stop.is_set():
+                    return False
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                # wake now and then to look at the stop event (a release
+                # normally notifies much sooner)
+                self._cond.wait(min(remaining, 0.05))
+            self._in_flight += n
+            return True
+
+    def force_acquire(self, n: int = 1) -> None:
+        """Admit unconditionally (the drain path): in-flight may exceed
+        capacity; the books stay exact so later releases balance."""
+        with self._cond:
+            self._in_flight += n
 
     def release(self, n: int = 1) -> None:
         with self._cond:

@@ -12,15 +12,18 @@ from typing import Optional
 
 #: ROADMAP Queue 1 items, by the number the messages cite
 QUEUE_ITEMS = {
-    1: "ROADMAP Queue 1 item 1: pipelined serving, with multi-model "
-       "routing, tenancy and reservations, and the serving config",
+    1: "ROADMAP Queue 1 item 1: the rest of serving, with multi-model "
+       "routing (ModelRegistry, InferenceModel.place / unplace, "
+       "reserved=), tenancy and capacity, BatchingService, server-side "
+       "image decode, the Redis / native / fleet brokers, the journaled "
+       "broker and common/health.py",
     2: "ROADMAP Queue 1 item 2: the rest of training, with checkpoints, "
        "validation sets, retries and multi-step dispatch",
     3: "ROADMAP Queue 1 item 3: the rest of the recommendation slice, "
        "with the data/ tiers (device, disk, generator), sharded sources, "
        "transforms and TFRecord",
     5: "ROADMAP Queue 1 item 5: the rest of parallel/, with sharded "
-       "models and model-parallel serving",
+       "models, model-parallel serving and multi-process bring-up",
     6: "ROADMAP Queue 1 item 6: observability, with trace context and "
        "trace events",
 }

@@ -8,6 +8,14 @@ few distinct shapes.  PyTorch runs eagerly, so there is no per-shape
 program cache; ``warmup`` runs each bucket once so that kernel builds and
 library handles are paid before the first request.
 
+Threads: ``predict_async`` may be called from several threads at once
+(the pipelined ``ClusterServing`` dispatches from a pool of them) and
+``fetch`` from another (its sink).  A dispatch launches on the calling
+thread's current stream of the device and records a CUDA event there;
+``fetch`` makes its own current stream wait on that event before the
+copy to the host, so a result is never read before the work that wrote
+it, whichever streams the two threads use.
+
 ``place`` / ``unplace`` (the multi-model weight cache) and the TF, ONNX
 and Caffe loaders are not ported yet.
 """
@@ -169,12 +177,16 @@ class InferenceModel:
             slot = self._slots.get()
             try:
                 y = self._forward(x)
+                done = None
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
             finally:
                 self._slots.put(slot)
         except BaseException:
             self._inflight.release()
             raise
-        return _PendingResult(y, n, self._inflight)
+        return _PendingResult(y, n, self._inflight, done)
 
     @staticmethod
     def fetch(pending):
@@ -182,6 +194,9 @@ class InferenceModel:
         happens here), trimmed to the caller's rows, and release its
         in-flight permit."""
         try:
+            if pending.done is not None:
+                torch.cuda.current_stream(pending.done.device).wait_event(
+                    pending.done)
             return _tree_map(lambda t: _to_numpy(t[:pending.n]), pending.y)
         finally:
             pending.release()
@@ -192,11 +207,14 @@ class _PendingResult:
     once: on ``fetch``, on ``release``, or when an abandoned handle is
     collected."""
 
-    __slots__ = ("y", "n", "_inflight", "_released", "_rel_lock")
+    __slots__ = ("y", "n", "done", "_inflight", "_released", "_rel_lock")
 
-    def __init__(self, y, n, inflight):
+    def __init__(self, y, n, inflight, done=None):
         self.y = y
         self.n = n
+        # the CUDA event recorded after the dispatch's launches (None on
+        # the CPU)
+        self.done = done
         self._inflight = inflight
         self._released = False
         self._rel_lock = threading.Lock()

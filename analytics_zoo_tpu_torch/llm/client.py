@@ -6,8 +6,9 @@ token-streaming wire: ``submit`` XADDs one request entry — the same
 workload — and ``stream_tokens`` tails the request's ``llmtok:<uri>``
 stream, yielding ``(index, token)`` in order until the terminal entry,
 with the typed errors (``ServingShedError`` / ``ServingDeadlineError``) of
-one-shot serving.  The HTTP face (``FastWireHttpClient.generate``) is not
-ported yet (ROADMAP Queue 1 item 1).
+one-shot serving.  The HTTP face of the same stream is
+``serving.client.FastWireHttpClient.generate`` against
+``serving.http_frontend.ServingFrontend(llm=...)``.
 """
 
 from __future__ import annotations

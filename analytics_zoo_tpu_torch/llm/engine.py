@@ -27,10 +27,11 @@ stream ``llmtok:<uri>``, the terminal entry carrying ``done``/``code``;
 the aggregate result lands on ``result:<uri>`` like every other workload
 so ``OutputQueue`` clients keep working.
 
-Not ported yet: the HTTP face (``ServingFrontend(llm=)``), the Redis and
-native brokers, tracing spans and events, chaos injection points, the
-flight recorder and the metric registry (ROADMAP Queue 1 items 1 and 6);
-the plain counters of ``metrics()`` stay.  ``model_parallel > 1`` is
+The HTTP face is ``serving.http_frontend.ServingFrontend(llm=...)``.
+Not ported yet: the Redis and native brokers, tracing spans and events,
+chaos injection points, the flight recorder and the metric registry
+(ROADMAP Queue 1 items 1 and 6); the plain counters of ``metrics()``
+stay.  ``model_parallel > 1`` is
 refused by ``LLMServingConfig`` (ROADMAP Queue 1 item 5).
 """
 

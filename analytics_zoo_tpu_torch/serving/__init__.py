@@ -1,1 +1,2 @@
-"""Cluster Serving: in-memory broker, queue clients and the classic engine."""
+"""Cluster Serving: the in-memory broker, the queue and HTTP clients, the
+classic and pipelined engine and the HTTP frontend."""

@@ -16,9 +16,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-_BROKER_SLICE = ("not ported yet (ROADMAP Queue 1: pipelined serving and "
-                 "the HTTP frontend, with the Redis / native / fleet "
-                 "brokers)")
+_BROKER_SLICE = ("not ported yet (ROADMAP Queue 1 item 1: the Redis / "
+                 "native / fleet brokers)")
 
 
 class InMemoryBroker:

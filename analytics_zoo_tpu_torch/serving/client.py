@@ -1,27 +1,42 @@
-"""Serving clients: ``InputQueue.enqueue`` / ``OutputQueue.dequeue``.
+"""Serving clients: ``InputQueue.enqueue`` / ``OutputQueue.dequeue`` and
+``FastWireHttpClient``.
 
-Port of the queue clients of ``analytics_zoo_tpu/serving/client.py`` over
-the in-memory broker.  Requests go on the stream as raw wire frames
+Port of ``analytics_zoo_tpu/serving/client.py`` over the in-memory broker.
+Requests go on the stream as raw wire frames
 (``codec.encode_items_bytes``), or as base64 strings when
 ``ZOO_SERVING_WIRE=arrow`` asks for the reference wire; results come back
-from ``result:<uri>`` hashes.  The HTTP client, transport retries, trace
-context, model routing and tenancy stamps are not ported yet: their
-arguments raise ``NotImplementedError`` naming the ROADMAP item.
+from ``result:<uri>`` hashes.  ``FastWireHttpClient`` is the HTTP face of
+the same frames: ``predict`` POSTs one binary frame per request
+(``Content-Type: application/x-zoo-fastwire``) and decodes the binary
+response; ``generate`` reads a frame-per-token stream.  Transport
+retries, trace context, model routing and tenancy stamps are not ported
+yet: their arguments raise ``NotImplementedError`` naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import http.client
+import json
 import logging
+import struct
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from analytics_zoo_tpu_torch.common.resilience import Deadline
+from analytics_zoo_tpu_torch.common.resilience import (
+    Deadline, current_deadline)
 from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
-    ImageBytes, StringTensor, decode_output, encode_items,
-    encode_items_bytes, reference_wire_forced)
+    ImageBytes, StringTensor, decode_items_bytes, decode_output,
+    encode_items, encode_items_bytes, reference_wire_forced)
+
+#: the binary /predict negotiation token
+FASTWIRE_CONTENT_TYPE = "application/x-zoo-fastwire"
+#: the chunked frame-per-token response type: each chunk payload is
+#: u32-le length + one fast-wire frame
+TOKEN_STREAM_CONTENT_TYPE = "application/x-zoo-token-stream"
 
 logger = logging.getLogger(__name__)
 
@@ -47,14 +62,20 @@ class ServingDeadlineError(ServingError):
 _ERROR_BY_CODE = {cls.code: cls for cls in
                   (ServingError, ServingShedError, ServingDeadlineError)}
 
+#: numeric terminal-frame codes of the token-stream wire (mirrors
+#: llm.engine.TERMINAL_CODES)
+_TERMINAL_CODE_NAMES = {0: "ok", 1: "error", 2: "shed", 3: "expired",
+                        4: "cancelled"}
+
 
 def _deadline_fields(deadline_s: Optional[float],
                      deadline: Optional[Deadline] = None) -> dict:
-    """The wire stamp for an explicit ``Deadline`` or, failing that, a
-    relative budget: the absolute wall-clock deadline the engine checks
-    (empty when neither is given)."""
+    """The wire stamp for an explicit ``Deadline``, an explicit relative
+    budget, or the ambient ``deadline_scope`` deadline (in that
+    precedence): the absolute wall-clock deadline the engine checks
+    (empty when there is none)."""
     dl = deadline if deadline is not None else (
-        Deadline(deadline_s) if deadline_s else None)
+        Deadline(deadline_s) if deadline_s else current_deadline())
     return {"deadline_ts": repr(dl.wall())} if dl is not None else {}
 
 
@@ -113,6 +134,19 @@ class InputQueue:
         return self.broker.xadd(self.stream, {
             "uri": uri, "data": _encode_wire(items),
             **_deadline_fields(deadline_s, deadline)})
+
+    def enqueue_raw(self, uri: str, frame: bytes,
+                    deadline: Optional[Deadline] = None,
+                    trace_ctx: Optional[str] = None,
+                    model: Optional[str] = None,
+                    tenant: Optional[str] = None) -> str:
+        """An already-encoded wire frame (a fast-wire HTTP body) goes on
+        the stream verbatim: no decode, no re-encode.  The engine's decode
+        stage error-finishes an undecodable frame."""
+        _reject_stamps("InputQueue.enqueue_raw", trace_ctx, model, tenant)
+        return self.broker.xadd(self.stream, {
+            "uri": uri, "data": bytes(frame),
+            **_deadline_fields(None, deadline)})
 
     def enqueue_batch(self, uris, deadline_s: Optional[float] = None,
                       **data) -> str:
@@ -193,3 +227,145 @@ class OutputQueue:
                 out[uri] = r
                 self.broker.delete(key)
         return out
+
+
+def _http_error(resp, blob: bytes) -> ServingError:
+    """The typed error of a non-200 answer: 429 shed, 504 deadline, any
+    other ``ServingError``; ``retry_after_s`` holds ``Retry-After``."""
+    try:
+        msg = json.loads(blob).get("error", "")
+    except ValueError:
+        msg = blob[:200].decode("utf-8", "replace")
+    cls = {429: ServingShedError,
+           504: ServingDeadlineError}.get(resp.status, ServingError)
+    err = cls(f"/predict returned {resp.status}: {msg}")
+    ra = resp.headers.get("Retry-After")
+    err.retry_after_s = float(ra) if ra else None
+    return err
+
+
+class FastWireHttpClient:
+    """Binary ``/predict`` over one keep-alive connection, the fast-wire
+    face of ``ServingFrontend``: ``predict`` POSTs the request tensors as
+    ONE raw frame and decodes the binary response frame.  429 (shed)
+    raises ``ServingShedError`` (``retry_after_s`` holds the server's
+    pacing hint), 504 (deadline or timeout) ``ServingDeadlineError``,
+    other non-200s ``ServingError``; error bodies are JSON on every
+    wire.  ``model``, ``tenant`` and ``trace_ctx`` are not ported yet and
+    raise ``NotImplementedError`` naming their item."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 10020,
+                 timeout: float = 30.0):
+        self._conn = http.client.HTTPConnection(host, port, timeout=timeout)
+
+    def _post(self, frame: bytes, headers: dict):
+        try:
+            self._conn.request("POST", "/predict", frame, headers)
+            return self._conn.getresponse()
+        except ConnectionError:
+            # stale keep-alive: the server closed the idle connection
+            # before taking the request (zero response bytes), so one
+            # reconnect and resend is safe.  Read failures and timeouts
+            # are not retried: the server may be running the request.
+            self._conn.close()
+            self._conn.request("POST", "/predict", frame, headers)
+            return self._conn.getresponse()
+
+    @staticmethod
+    def _headers(uri, deadline_ms) -> dict:
+        headers = {"Content-Type": FASTWIRE_CONTENT_TYPE}
+        if uri:
+            headers["X-Zoo-Uri"] = str(uri)
+        if deadline_ms is not None:
+            headers["X-Zoo-Deadline-Ms"] = repr(float(deadline_ms))
+        return headers
+
+    def predict(self, uri: Optional[str] = None,
+                deadline_ms: Optional[float] = None,
+                trace_ctx: Optional[str] = None,
+                model: Optional[str] = None,
+                tenant: Optional[str] = None, **inputs) -> Result:
+        """One round trip: tensors in, prediction (ndarray) or top-N
+        pairs out.  ``uri`` rides the ``X-Zoo-Uri`` header (the server
+        makes one when absent), ``deadline_ms`` the ``X-Zoo-Deadline-Ms``
+        budget."""
+        _reject_stamps("FastWireHttpClient.predict", trace_ctx, model, tenant)
+        frame = encode_items_bytes(
+            {k: np.asarray(v) for k, v in inputs.items()})
+        resp = self._post(frame, self._headers(uri, deadline_ms))
+        blob = resp.read()
+        if resp.status != 200:
+            raise _http_error(resp, blob)
+        out = decode_items_bytes(blob)
+        if "topn" in out:
+            return [(int(c), float(p)) for c, p in out["topn"]]
+        return out["prediction"]
+
+    def generate(self, tokens, uri: Optional[str] = None,
+                 max_new_tokens: Optional[int] = None,
+                 priority: int = 0,
+                 deadline_ms: Optional[float] = None,
+                 trace_ctx: Optional[str] = None):
+        """Streamed generation: POSTs one frame carrying the ``tokens``
+        prompt and returns an ITERATOR of ``(index, token_id)`` read from
+        the chunked frame-per-token response.  Failures before the first
+        token raise as ``predict`` does (429 shed, 504 deadline); a non-ok
+        terminal frame raises the typed error of its code."""
+        reject("FastWireHttpClient.generate", 6, trace_ctx=trace_ctx)
+        items = {"tokens": np.asarray(tokens, np.int32).reshape(-1)}
+        if max_new_tokens is not None:
+            items["max_new_tokens"] = np.asarray(max_new_tokens, np.int32)
+        if priority:
+            items["priority"] = np.asarray(priority, np.int32)
+        headers = self._headers(uri, deadline_ms)
+        headers["X-Zoo-Generate"] = "1"
+        resp = self._post(encode_items_bytes(items), headers)
+        if resp.status != 200:
+            raise _http_error(resp, resp.read())
+
+        def read_exact(n: int) -> bytes:
+            parts, got = [], 0
+            while got < n:
+                chunk = resp.read(n - got)
+                if not chunk:
+                    raise ServingError("token stream truncated mid-frame")
+                parts.append(chunk)
+                got += len(chunk)
+            return b"".join(parts)
+
+        def frames():
+            # leaving this iterator early leaves a half-read chunked
+            # answer on the connection: close it, so the next request
+            # reconnects and the server's next write cancels the sequence
+            done = False
+            try:
+                while True:
+                    (n,) = struct.unpack("<I", read_exact(4))
+                    out = decode_items_bytes(read_exact(n))
+                    if "done" in out:
+                        code = out["code"].item() if "code" in out else 0
+                        if code:
+                            name = _TERMINAL_CODE_NAMES.get(code, "error")
+                            cls = _ERROR_BY_CODE.get(name, ServingError)
+                            n_tok = out["n"].item() if "n" in out else 0
+                            raise cls(
+                                f"generation for {uri or '?'} ended with "
+                                f"code {name!r} after {n_tok} tokens")
+                        resp.read()      # the chunked EOF
+                        done = True
+                        return
+                    yield out["index"].item(), out["token"].item()
+            finally:
+                if not done:
+                    self._conn.close()
+
+        return frames()
+
+    def close(self) -> None:
+        self._conn.close()
+
+    def __enter__(self) -> "FastWireHttpClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

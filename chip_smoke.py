@@ -106,9 +106,27 @@ Phases, each of which raises (exit code 1) on failure:
    relative of the same steps on the CPU; predict ms, requests/s, step ms,
    samples/s and one training step's device-busy share.  The path runs
    no kernel of the port (checked: every launch count stays 0).
+10. http: the pipelined engine and the HTTP frontend.  BERT-base (as in
+   serve, random weights from numpy seed 0, f32) behind
+   ``ClusterServing(ServingConfig())`` (pipelined, in-memory broker): 64
+   requests in one burst through the broker, then the same 64 over
+   ``ServingFrontend(port=0)`` from 4 client threads, half JSON, half
+   ``FastWireHttpClient``; a malformed frame first (400, the next request
+   on that connection answered); every answer within 1e-4 of the model
+   with the plain attention on the card, exactly 12 ``flash_fwd``
+   launches per dispatched forward; requests/s, p50 / p99 latency and
+   the dispatched batch sizes.  Then the GPT-2-small-width decoder LM of
+   the llm phase behind ``ServingFrontend(llm=...)``: 16 prompts (half
+   behind one 256-token prefix, 32 new tokens each) through the broker
+   and then streamed over HTTP, 4 client threads each; every stream the
+   broker path's tokens, one frame per token in order; 12 ``paged_chunk``
+   launches per prefill chunk and 12 ``paged_decode`` per decode step; a
+   1 ms deadline raising ``ServingDeadlineError`` and the same client
+   serving the next stream; ``leak_check`` zero after; TTFT p50 / p99
+   over HTTP and through the broker, mean inter-token latency over HTTP.
 
-The serve, train, llm and ring phases also check that no kernel input
-was copied before a launch (the wrappers' ``copies``).  It prints one JSON
+The serve, train, llm, ring and http phases also check that no kernel
+input was copied before a launch (the wrappers' ``copies``).  It prints one JSON
 line of kernel numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
@@ -2044,6 +2062,349 @@ def phase_ncf(card_name, n_requests=48, device="cuda"):
                 predict_ms=predict_ms, train=train)
 
 
+def _pct(ms, q):
+    return float(np.percentile(np.asarray(ms), q))
+
+
+def _batch_recorder(im):
+    """Wrap ``im.predict_async`` (the pipelined engine's dispatch) to record
+    each dispatched batch's record count, before bucket padding."""
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        example_x_shape0)
+    sizes = []
+    inner = im.predict_async
+
+    def dispatch(x, *args, **kw):
+        sizes.append(int(example_x_shape0(x)))
+        return inner(x, *args, **kw)
+    im.predict_async = dispatch
+    return sizes
+
+
+def _http_bert(cfg, n_requests, threads):
+    """BERT-base behind the pipelined ClusterServing and ServingFrontend:
+    a pipelined burst through the broker, then the same requests over HTTP
+    (half JSON, half fast-wire, from ``threads`` client threads), every
+    answer against the plain attention on the card."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    from analytics_zoo_tpu_torch.common.config import ServingConfig
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        set_attention_backend)
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    from analytics_zoo_tpu_torch.serving.client import (
+        FastWireHttpClient, InputQueue, OutputQueue)
+    from analytics_zoo_tpu_torch.serving.codec import encode_items_bytes
+    from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+    from analytics_zoo_tpu_torch.serving.http_frontend import ServingFrontend
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    rng = np.random.default_rng(SEED)
+    clf = BERTClassifier(num_classes=2, bert_config=cfg, device="cuda")
+    names = ("input_ids", "token_type_ids", "input_mask")
+    im = InferenceModel(device="cuda").load_keras(
+        clf.net, (_random_tree(clf.net, rng), {}),
+        preprocessor=lambda d: [d[n] for n in names])
+    reqs = _requests(n_requests, rng, cfg)
+    uris = list(reqs)
+    stacked = {n: np.stack([reqs[u][n] for u in uris]) for n in names}
+    im.warmup(stacked, [1, 2, 4, 8, 16, 32, 64])
+    forwards = [0]
+    hook = clf.net.register_forward_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sizes = _batch_recorder(im)
+    config = ServingConfig()
+    assert config.pipeline
+    broker = InMemoryBroker()
+    serving = ClusterServing(im, config, broker=broker).start()
+    served, lat = {}, {}
+    try:
+        # the pipelined engine alone: one burst through the broker
+        iq, oq = InputQueue(broker=broker), OutputQueue(broker=broker)
+        t0 = time.perf_counter()
+        for uri in uris:
+            iq.enqueue(f"burst-{uri}", **reqs[uri])
+        burst = {u: oq.query_blocking(f"burst-{u}", timeout=300)
+                 for u in uris}
+        burst_s = time.perf_counter() - t0
+        burst_sizes = list(sizes)
+        fe = ServingFrontend(serving, port=0).start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", fe.port,
+                                              timeout=300)
+            conn.request("POST", "/predict", b"\x00not a frame",
+                         {"Content-Type": "application/x-zoo-fastwire"})
+            resp = conn.getresponse()
+            bad = (resp.status, resp.read())
+            conn.request("POST", "/predict", encode_items_bytes(reqs[uris[0]]),
+                         {"Content-Type": "application/x-zoo-fastwire"})
+            resp = conn.getresponse()
+            after_bad = resp.status
+            resp.read()
+            conn.close()
+            if bad[0] != 400 or after_bad != 200:
+                raise AssertionError(f"malformed frame: {bad}, then "
+                                     f"{after_bad} on the same connection")
+            log(f"[http] a malformed frame: 400 {bad[1][:60]!r}; the next "
+                f"request on that connection: {after_bad}")
+
+            def client(k):
+                conn = http.client.HTTPConnection("127.0.0.1", fe.port,
+                                                  timeout=300)
+                with FastWireHttpClient(port=fe.port, timeout=300) as fw:
+                    for i in range(k, n_requests, threads):
+                        uri, t = uris[i], time.perf_counter()
+                        if i % 2:
+                            served[uri] = fw.predict(uri=uri, **reqs[uri])
+                        else:
+                            conn.request("POST", "/predict", json.dumps(
+                                {"uri": uri, "inputs": {
+                                    n: v.tolist()
+                                    for n, v in reqs[uri].items()}}),
+                                {"Content-Type": "application/json"})
+                            resp = conn.getresponse()
+                            body = json.loads(resp.read())
+                            if resp.status != 200 or body["uri"] != uri:
+                                raise AssertionError(f"{uri}: {resp.status} "
+                                                     f"{body}")
+                            served[uri] = np.asarray(body["prediction"],
+                                                     np.float32)
+                        lat[uri] = (time.perf_counter() - t) * 1e3
+                conn.close()
+
+            _kernels.reset_launches()
+            forwards[0] = 0
+            del sizes[:]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(threads) as pool:
+                for f in [pool.submit(client, k) for k in range(threads)]:
+                    f.result()
+            http_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches, n_forwards = _kernels.flash_fwd.launches, forwards[0]
+            http_sizes = list(sizes)
+            no_copies("http")
+        finally:
+            fe.stop()
+    finally:
+        serving.stop()
+        hook.remove()
+        del im.predict_async
+    metrics = serving.metrics()
+    if metrics["admission"]["in_flight"] or metrics["records_shed"]:
+        raise AssertionError(f"engine books after the run: {metrics}")
+    log(f"[http] pipelined engine, {n_requests} requests in one burst "
+        f"through the broker: {burst_s:.4f} s = "
+        f"{n_requests / burst_s:.2f} req/s; dispatched batches "
+        f"{burst_sizes}")
+    log(f"[http] {n_requests} requests over HTTP ({threads} client threads, "
+        f"half JSON, half fast-wire): {http_s:.4f} s = "
+        f"{n_requests / http_s:.2f} req/s, latency p50 {_pct(list(lat.values()), 50):.3f} "
+        f"ms, p99 {_pct(list(lat.values()), 99):.3f} ms; dispatched batches "
+        f"{http_sizes}")
+    log(f"[http] flash_fwd launches {launches} in {n_forwards} dispatched "
+        f"forwards = {launches / max(n_forwards, 1):g} per forward")
+    if (n_forwards != len(http_sizes)
+            or launches != cfg["n_block"] * n_forwards):
+        raise AssertionError(f"expected {cfg['n_block']} flash_fwd launches "
+                             f"per forward: {launches} in {n_forwards} "
+                             f"forwards, {len(http_sizes)} dispatches")
+    set_attention_backend(clf.net, "plain")
+    try:
+        want = np.concatenate([
+            im.predict({n: v[s:s + 32] for n, v in stacked.items()})
+            for s in range(0, n_requests, 32)])
+    finally:
+        set_attention_backend(clf.net, None)
+    got = np.stack([np.asarray(served[u]).ravel() for u in uris])
+    got_burst = np.stack([np.asarray(burst[u]).ravel() for u in uris])
+    err = float(np.abs(got - want).max())
+    err_burst = float(np.abs(got_burst - want).max())
+    ok = (got.shape == (n_requests, 2) and np.isfinite(got).all()
+          and max(err, err_burst) <= SERVE_ATOL)
+    log(f"[http] answers vs plain attention on the card: max_abs_err "
+        f"{err:.3e} over HTTP, {err_burst:.3e} through the broker (tol "
+        f"{SERVE_ATOL:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("HTTP answers disagree with the plain path")
+    return launches, dict(
+        http_rps=n_requests / http_s, burst_rps=n_requests / burst_s,
+        p50_ms=_pct(list(lat.values()), 50),
+        p99_ms=_pct(list(lat.values()), 99), batches=http_sizes)
+
+
+def _stream(fw, toks, new_tokens, uri):
+    """One streamed generation: (tokens, ms to the first frame, ms between
+    frames); the frames must come one per token, in order."""
+    t0 = time.perf_counter()
+    stamps, tokens = [], []
+    for k, tok in fw.generate(toks, uri=uri, max_new_tokens=new_tokens):
+        stamps.append(time.perf_counter())
+        if k != len(tokens):
+            raise AssertionError(f"{uri}: frame {k} after {len(tokens)}")
+        tokens.append(tok)
+    gaps = np.diff(stamps) * 1e3
+    return tokens, (stamps[0] - t0) * 1e3, gaps.tolist()
+
+
+def _http_llm(n_requests, new_tokens, threads):
+    """The GPT-2-small-width decoder LM behind ServingFrontend(llm=): the
+    same prompts through the broker and over HTTP, from ``threads`` client
+    threads each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from analytics_zoo_tpu_torch import interop
+    from analytics_zoo_tpu_torch.common.config import LLMServingConfig
+    from analytics_zoo_tpu_torch.llm import GenerationClient, LLMServing
+    from analytics_zoo_tpu_torch.models.generation import DecoderLM
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    from analytics_zoo_tpu_torch.serving.client import (
+        FastWireHttpClient, ServingDeadlineError)
+    from analytics_zoo_tpu_torch.serving.http_frontend import ServingFrontend
+
+    cfg = GPT2_SMALL
+    n_layers = cfg["n_layers"]
+    rng = np.random.default_rng(SEED)
+    model = DecoderLM(**cfg, device="cuda")
+    interop.load_jax_params(model, _random_tree(model, rng))
+    eng = LLMServing(model, LLMServingConfig(
+        max_active=32, block_size=16, num_blocks=2048, max_model_len=1024,
+        prefill_chunk_tokens=256, prefix_cache=True),
+        broker=InMemoryBroker()).start()
+    reqs = _llm_requests(n_requests, rng, cfg["vocab"])
+    uris = list(reqs)
+    calls = {"decode": 0, "prefill_chunk": 0}
+
+    def counted(name):
+        inner = getattr(model, name)
+
+        def call(*args):
+            calls[name] += 1
+            return inner(*args)
+        return call
+
+    def broker_client(k, out, ttft):
+        cli = GenerationClient(broker=eng.broker)
+        for i in range(k, n_requests, threads):
+            uri = uris[i]
+            t0 = time.perf_counter()
+            cli.submit(f"b-{uri}", reqs[uri], new_tokens)
+            toks = []
+            for _, tok in cli.stream_tokens(f"b-{uri}", timeout=300):
+                if not toks:
+                    ttft[uri] = (time.perf_counter() - t0) * 1e3
+                toks.append(tok)
+            out[uri] = toks
+
+    def http_client(k, out, ttft, itl, port):
+        with FastWireHttpClient(port=port, timeout=300) as fw:
+            for i in range(k, n_requests, threads):
+                uri = uris[i]
+                out[uri], ttft[uri], gaps = _stream(fw, reqs[uri],
+                                                    new_tokens, uri)
+                itl.extend(gaps)
+
+    def run(fn, *args):
+        with ThreadPoolExecutor(threads) as pool:
+            for f in [pool.submit(fn, k, *args) for k in range(threads)]:
+                f.result()
+
+    fe = None
+    try:
+        cli = GenerationClient(broker=eng.broker)
+        cli.generate("warmup", rng.integers(0, cfg["vocab"], 40), 4,
+                     timeout=300)
+        via_broker, broker_ttft = {}, {}
+        run(broker_client, via_broker, broker_ttft)
+        _wait_idle(eng)
+        fe = ServingFrontend(llm=eng, port=0).start()
+        via_http, http_ttft, itl = {}, {}, []
+        model.decode = counted("decode")
+        model.prefill_chunk = counted("prefill_chunk")
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        run(http_client, via_http, http_ttft, itl, fe.port)
+        http_s = time.perf_counter() - t0
+        _wait_idle(eng)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+        n_calls = dict(calls)
+        no_copies("http")
+        for name in calls:
+            model.__dict__.pop(name, None)
+        # a deadline too short for the first token: 504, then the same
+        # client serves the next request
+        with FastWireHttpClient(port=fe.port, timeout=300) as fw:
+            try:
+                list(fw.generate(reqs[uris[0]], max_new_tokens=new_tokens,
+                                 deadline_ms=1))
+                raise AssertionError("a 1 ms deadline was served")
+            except ServingDeadlineError as exc:
+                log(f"[http] deadline_ms=1: {type(exc).__name__}: {exc}")
+            again, _, _ = _stream(fw, reqs[uris[1]], new_tokens, "again")
+        _wait_idle(eng)
+        leak = eng.cache.leak_check()
+    finally:
+        for name in calls:
+            model.__dict__.pop(name, None)
+        if fe is not None:
+            fe.stop()
+        eng.stop()
+    differ = [u for u in uris if via_http[u] != via_broker[u]
+              or len(via_http[u]) != new_tokens]
+    log(f"[http] {n_requests} streamed generations ({threads} client "
+        f"threads, {new_tokens} new tokens each, prompts "
+        f"{min(map(len, reqs.values()))}..{max(map(len, reqs.values()))} "
+        f"tokens, half behind one 256-token prefix): "
+        f"{n_requests - len(differ)}/{n_requests} equal the broker path's "
+        f"tokens, in {http_s:.4f} s = "
+        f"{n_requests * new_tokens / http_s:.2f} tokens/s")
+    log(f"[http] TTFT over HTTP p50 {_pct(list(http_ttft.values()), 50):.3f} "
+        f"ms, p99 {_pct(list(http_ttft.values()), 99):.3f} ms; through the "
+        f"broker p50 {_pct(list(broker_ttft.values()), 50):.3f} ms, p99 "
+        f"{_pct(list(broker_ttft.values()), 99):.3f} ms; mean inter-token "
+        f"latency over HTTP {float(np.mean(itl)):.3f} ms")
+    log(f"[http] launches {launches}: paged_decode "
+        f"{launches['paged_decode'] / max(n_calls['decode'], 1):g} per "
+        f"decode call ({n_calls['decode']}), paged_chunk "
+        f"{launches['paged_chunk'] / max(n_calls['prefill_chunk'], 1):g} per "
+        f"prefill chunk ({n_calls['prefill_chunk']}); after the phase "
+        f"{leak}")
+    if differ:
+        raise AssertionError(f"HTTP streams differ from the broker path: "
+                             f"{differ}")
+    if again != via_broker[uris[1]]:
+        raise AssertionError("the request after the deadline case differs")
+    if (not n_calls["decode"] or not n_calls["prefill_chunk"]
+            or launches["paged_decode"] != n_layers * n_calls["decode"]
+            or launches["paged_chunk"]
+            != n_layers * n_calls["prefill_chunk"]):
+        raise AssertionError(f"expected {n_layers} launches per call: "
+                             f"{launches} for {n_calls}")
+    if leak["tables"] or leak["held_blocks"]:
+        raise AssertionError(f"live tables after the phase: {leak}")
+    return launches, dict(
+        tokens_per_s=n_requests * new_tokens / http_s,
+        ttft_p50_ms=_pct(list(http_ttft.values()), 50),
+        ttft_p99_ms=_pct(list(http_ttft.values()), 99),
+        broker_ttft_p50_ms=_pct(list(broker_ttft.values()), 50),
+        itl_ms=float(np.mean(itl)), calls=n_calls)
+
+
+def phase_http(n_requests=64, n_streams=16, new_tokens=32, threads=4):
+    """The pipelined engine and the HTTP frontend on the card: BERT-base
+    one-shot, the GPT-2-small-width decoder LM streaming."""
+    bert_launches, bert = _http_bert(BERT_BASE, n_requests, threads)
+    llm_launches, llm = _http_llm(n_streams, new_tokens, threads)
+    return {"flash_fwd": bert_launches,
+            "paged_decode": llm_launches["paged_decode"],
+            "paged_chunk": llm_launches["paged_chunk"]}, bert, llm
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ring-cards", type=int, default=0, metavar="N",
@@ -2083,6 +2444,7 @@ def main() -> int:
     llm_launches, llm = phase_llm()
     ring_launches, ring_rows = phase_ring()
     phase_ncf(card)
+    http_launches, _, http_llm = phase_http()
 
     def entry(name, source, replaces, rows, launches,
               shape="B32 H12 T128 D64 float32", **extra):
@@ -2103,7 +2465,8 @@ def main() -> int:
               "analytics_zoo_tpu/ops/attention.py:169", rows,
               train_launches["flash_fwd"],
               launches_in="10 f32 training steps",
-              serve_launches=serve_launches),
+              serve_launches=serve_launches,
+              http_launches=http_launches["flash_fwd"]),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               train_launches["flash_bwd"],
@@ -2116,7 +2479,9 @@ def main() -> int:
               launches_in=f"the 64-request burst "
                           f"({llm['calls']['decode']} decode calls)",
               library=paged_lib,
-              in_decode_step=llm["paged"].get("paged_decode")),
+              in_decode_step=llm["paged"].get("paged_decode"),
+              http_launches=http_launches["paged_decode"],
+              http_calls=http_llm["calls"]["decode"]),
         entry("paged_chunk", csrc + "paged_chunk.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:134",
               paged_rows["paged_chunk"], llm_launches["paged_chunk"],
@@ -2124,7 +2489,9 @@ def main() -> int:
               launches_in=f"the 64-request burst "
                           f"({llm['calls']['prefill_chunk']} prefill chunks)",
               library=paged_lib,
-              in_prefill_chunk=llm["paged"].get("paged_chunk")),
+              in_prefill_chunk=llm["paged"].get("paged_chunk"),
+              http_launches=http_launches["paged_chunk"],
+              http_calls=http_llm["calls"]["prefill_chunk"]),
         entry("flash_fwd_lse", csrc + "flash_fwd.cu",
               "analytics_zoo_tpu/ops/attention.py:307", ring_rows,
               ring_launches["flash_fwd_lse"],

@@ -42,6 +42,7 @@ def test_no_module_of_the_port_imports_jax():
                  "estimator.estimator", "data.cursor", "data.featureset",
                  "inference.inference_model", "serving.engine",
                  "serving.codec", "serving.broker", "serving.client",
+                 "serving.http_frontend",
                  "common.config", "common.context", "common.triggers",
                  "common.resilience", "ops.paged_attention",
                  "models.generation", "llm.kv_cache", "llm.prefix_cache",

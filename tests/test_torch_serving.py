@@ -156,7 +156,7 @@ def test_bucket_padding_trims_rows(models):
 def test_unported_modes_raise(models):
     _, tim = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClusterServing(tim, ServingConfig())            # pipeline=True
+        ClusterServing(tim, ServingConfig())            # redis:// default
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ClusterServing(tim, ServingConfig(pipeline=False))  # redis://
     with pytest.raises(ValueError, match="topN"):

@@ -149,7 +149,11 @@ def test_the_walk_finds_the_ported_surface():
     assert set(DIFFERENCES) <= set(COMPARED)
     for name in ("ops.attention.flash_attention",
                  "serving.client.InputQueue.enqueue_items",
-                 "llm.client.GenerationClient.submit"):
+                 "llm.client.GenerationClient.submit",
+                 "common.config.load_config",
+                 "common.resilience.deadline_scope",
+                 "serving.client.FastWireHttpClient.generate",
+                 "serving.http_frontend.ServingFrontend.__init__"):
         assert name in COMPARED
 
 
@@ -215,20 +219,47 @@ def test_enqueue_batch_items_takes_an_explicit_deadline():
     assert fields["batch"] == "2"
 
 
-@pytest.mark.parametrize("method", ["enqueue_items", "enqueue_batch_items"])
+@pytest.mark.parametrize("method", ["enqueue_items", "enqueue_batch_items",
+                                    "enqueue_raw"])
 @pytest.mark.parametrize("arg,item", [("trace_ctx", 6), ("model", 1),
                                       ("tenant", 1)])
 def test_enqueue_unported_stamp_names_its_item(method, arg, item):
+    from analytics_zoo_tpu_torch.serving.codec import encode_items_bytes
     broker, q = _queues()
-    call = (lambda **kw: q.enqueue_items("a", {"x": np.ones(2)}, **kw)) \
-        if method == "enqueue_items" else \
-        (lambda **kw: q.enqueue_batch_items(["a"], {"x": np.ones((1, 2))},
-                                            **kw))
+    call = {
+        "enqueue_items": lambda **kw: q.enqueue_items(
+            "a", {"x": np.ones(2)}, **kw),
+        "enqueue_batch_items": lambda **kw: q.enqueue_batch_items(
+            ["a"], {"x": np.ones((1, 2))}, **kw),
+        "enqueue_raw": lambda **kw: q.enqueue_raw(
+            "a", encode_items_bytes({"x": np.ones(2)}), **kw)}[method]
     with pytest.raises(NotImplementedError, match=f"{arg}=.*Queue 1 item "
                                                   f"{item}"):
         call(**{arg: "x"})
     assert not broker.entries                    # nothing was queued
     call()                                       # None still runs
+
+
+@pytest.mark.parametrize("arg,item", [("trace_ctx", 6), ("model", 1),
+                                      ("tenant", 1)])
+def test_http_predict_unported_stamp_names_its_item(arg, item):
+    from analytics_zoo_tpu_torch.serving.client import FastWireHttpClient
+    client = FastWireHttpClient(port=0)       # never connects: raises first
+    with pytest.raises(NotImplementedError, match=f"{arg}=.*Queue 1 item "
+                                                  f"{item}"):
+        client.predict(x=np.ones(2), **{arg: "x"})
+
+
+def test_enqueue_takes_the_ambient_deadline():
+    from analytics_zoo_tpu_torch.common.resilience import (
+        Deadline, deadline_scope)
+    broker, q = _queues()
+    dl = Deadline(30.0)
+    with deadline_scope(dl):
+        q.enqueue_items("a", {"x": np.ones(2)})
+    assert abs(float(_last_entry(broker)["deadline_ts"]) - dl.wall()) < 1e-3
+    q.enqueue_items("b", {"x": np.ones(2)})
+    assert "deadline_ts" not in _last_entry(broker)
 
 
 def test_generation_submit_trace_ctx_names_item_6():
@@ -350,13 +381,13 @@ def _unported_calls():
     """(case id, call, argument, Queue 1 item) for every argument the port
     takes at its JAX default and refuses otherwise."""
     from analytics_zoo_tpu_torch.common import config as cfg
-    from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.common.triggers import EveryEpoch
     from analytics_zoo_tpu_torch.estimator import Estimator
     from analytics_zoo_tpu_torch.inference.inference_model import (
         InferenceModel)
     from analytics_zoo_tpu_torch.keras.layers import Embedding
     from analytics_zoo_tpu_torch.models import generation
+    from analytics_zoo_tpu_torch.serving.client import FastWireHttpClient
     from analytics_zoo_tpu_torch.serving.engine import ClusterServing
     from analytics_zoo_tpu_torch.tfpark import TFDataset
     x = (np.zeros((4, 2), np.float32), np.zeros(4, np.int32))
@@ -367,16 +398,10 @@ def _unported_calls():
         ("rng_impl", "threefry"), ("shard_model", False),
         ("max_steps_per_dispatch", 8))]
     calls += [(f"ZooConfig.{k}", lambda k=k, v=v: cfg.ZooConfig(**{k: v}),
-               k, 1) for k, v in (
-        ("data", object()), ("serving", cfg.ServingConfig(batch_size=8)),
-        ("fleet", object()), ("coordinator_address", "host:1234"),
-        ("num_processes", 2), ("process_id", 1), ("platform", "cpu"),
-        ("log_output", True), ("default_dtype", "bfloat16"))]
+               k, 5) for k, v in (
+        ("coordinator_address", "host:1234"), ("num_processes", 2),
+        ("process_id", 1))]
     calls += [
-        ("init_zoo_context.config_path",
-         lambda: init_zoo_context(config_path="zoo.yaml"), "config_path", 1),
-        ("init_zoo_context.overrides",
-         lambda: init_zoo_context(compute_dtype="float32"), "overrides", 1),
         ("Estimator.app_name", lambda: Estimator(None, app_name="app"),
          "app_name", 2),
         ("Estimator.checkpoint_trigger",
@@ -390,6 +415,9 @@ def _unported_calls():
          "place", 1),
         ("ClusterServing.tenancy",
          lambda: ClusterServing(None, tenancy=object()), "tenancy", 1),
+        ("FastWireHttpClient.generate.trace_ctx",
+         lambda: FastWireHttpClient(port=0).generate([1], trace_ctx="t"),
+         "trace_ctx", 6),
         ("TFDataset.validation_featureset",
          lambda: TFDataset(None, batch_size=2, validation_featureset=x),
          "validation_featureset", 2),
