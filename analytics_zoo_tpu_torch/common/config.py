@@ -40,10 +40,10 @@ class MeshConfig:
     axis_names: tuple = ("data", "model", "sequence", "expert", "pipeline")
 
 
-#: TrainConfig fields whose machinery is Queue 1 item 2
-_TRAIN_UNPORTED = ("failure_retry_times", "failure_retry_window_sec",
-                   "keep_checkpoints", "donate_state", "rng_impl",
-                   "shard_model", "max_steps_per_dispatch")
+#: TrainConfig fields whose machinery is Queue 1 item 2 (the JAX
+#: package's buffer donation and PRNG implementation have no counterpart)
+_TRAIN_UNPORTED = ("failure_retry_window_sec", "donate_state", "rng_impl",
+                   "shard_model")
 
 
 @dataclass
@@ -59,7 +59,7 @@ class TrainConfig:
     # sharded optimizer update over the data axis (not ported: one card)
     shard_optimizer: bool = False
     shard_model: bool = True
-    # microbatches per optimizer step (only 1 is ported)
+    # microbatches per optimizer step
     grad_accum_steps: int = 1
     max_steps_per_dispatch: int = 1024
 

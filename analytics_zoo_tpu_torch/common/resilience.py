@@ -14,24 +14,30 @@ import that module: every ``analytics_zoo_tpu`` import loads jax):
 The metric gauges, trace events and flight-recorder hooks of the JAX
 module are not ported (ROADMAP Queue 1 item 6, observability): expired and
 shed work is counted in plain integers (``expired_counts``,
-``AdmissionController.shed_count``).  Retry policies and circuit breakers
-belong to parts not ported yet (the Redis broker and the model registry,
-ROADMAP Queue 1 item 1).
+``AdmissionController.shed_count``).
+- ``RetryPolicy`` / ``RetryState``: bounded retry with decorrelated-jitter
+  backoff, which the estimator's retry from the latest checkpoint runs
+  through.
+
+Circuit breakers belong to parts not ported yet (the Redis broker and the
+model registry, ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import random
 import threading
 import time
-from typing import Dict, Iterator, Optional
+from concurrent.futures import CancelledError
+from typing import Callable, Dict, Iterator, Optional, Tuple, Type
 
 from analytics_zoo_tpu_torch.common.unported import reject
 
 __all__ = ["AdmissionController", "Deadline", "DeadlineExceeded",
-           "current_deadline", "deadline_scope", "expired_counts",
-           "record_expired"]
+           "RetryPolicy", "RetryState", "current_deadline", "deadline_scope",
+           "expired_counts", "record_expired"]
 
 
 class DeadlineExceeded(RuntimeError):
@@ -212,3 +218,111 @@ def record_expired(n: int = 1, scope: str = "serving",
     reject("record_expired", 6, trace_id=trace_id)
     with _expired_lock:
         expired_counts[scope] = expired_counts.get(scope, 0) + n
+
+
+# ---- retry ----------------------------------------------------------------
+
+
+class RetryPolicy:
+    """Bounded retry with decorrelated-jitter exponential backoff.
+
+    ``sleep = min(cap, uniform(base, 3 * prev))``: retries from a
+    thundering herd spread out instead of re-colliding on synchronized
+    powers of two.  Deadline-aware: a retry that could not complete before
+    the ambient (or explicitly passed) ``Deadline`` is not attempted.
+    ``KeyboardInterrupt`` / ``SystemExit`` are never retried,
+    ``CancelledError`` only when ``retry_on`` names it, and a backoff
+    sleep ends early when the caller's ``cancel`` event fires.
+    """
+
+    def __init__(self, max_retries: int = 3, base_s: float = 0.05,
+                 cap_s: float = 2.0,
+                 retry_on: Tuple[Type[BaseException], ...] = (
+                     ConnectionError, TimeoutError),
+                 retry_if: Optional[Callable[[BaseException], bool]] = None,
+                 scope: str = "default", seed: Optional[int] = None):
+        self.max_retries = int(max_retries)
+        self.base_s = float(base_s)
+        self.cap_s = float(cap_s)
+        self.retry_on = retry_on
+        self.retry_if = retry_if
+        self.scope = scope
+        self.seed = seed
+
+    def _retryable(self, exc: BaseException) -> bool:
+        if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+            return False
+        if isinstance(exc, CancelledError):
+            return any(issubclass(t, CancelledError)
+                       for t in self.retry_on)
+        if self.retry_if is not None and self.retry_if(exc):
+            return True
+        return isinstance(exc, self.retry_on)
+
+    def new_state(self) -> "RetryState":
+        """Attempt tracking for loop-shaped callers (the estimator's epoch
+        loop) that cannot wrap their body in a closure for ``call``."""
+        return RetryState(self)
+
+    def call(self, fn: Callable, *args,
+             deadline: Optional[Deadline] = None,
+             cancel: Optional[threading.Event] = None, **kw):
+        """Run ``fn(*args, **kw)``, retrying transient failures."""
+        state = self.new_state()
+        while True:
+            try:
+                return fn(*args, **kw)
+            except BaseException as exc:
+                if not state.should_retry(exc, deadline=deadline):
+                    raise
+                state.backoff(cancel=cancel)
+
+
+class RetryState:
+    """One retry sequence: attempt accounting and jittered backoff."""
+
+    def __init__(self, policy: RetryPolicy):
+        self.policy = policy
+        self.attempts = 0          # failures seen so far
+        self._prev_delay = policy.base_s
+        self._pending_delay: Optional[float] = None
+        self._rng: Optional[random.Random] = None
+
+    def next_delay(self) -> float:
+        """The delay the next ``backoff`` sleeps, drawn once per attempt
+        (the deadline check validates the delay that will be slept)."""
+        if self._pending_delay is None:
+            if self._rng is None:
+                self._rng = random.Random(self.policy.seed)
+            self._pending_delay = min(
+                self.policy.cap_s,
+                self._rng.uniform(self.policy.base_s,
+                                  max(self.policy.base_s,
+                                      3.0 * self._prev_delay)))
+        return self._pending_delay
+
+    def should_retry(self, exc: BaseException,
+                     deadline: Optional[Deadline] = None) -> bool:
+        """Record a failure; True iff the policy allows another attempt
+        (retryable class, attempts left, and backoff + one attempt fits
+        the deadline)."""
+        self.attempts += 1
+        if self.attempts > self.policy.max_retries:
+            return False
+        if not self.policy._retryable(exc):
+            return False
+        dl = deadline or current_deadline()
+        if dl is not None and dl.remaining() <= self.next_delay():
+            return False
+        return True
+
+    def backoff(self, cancel: Optional[threading.Event] = None) -> None:
+        """Sleep the decorrelated-jitter delay; returns early when
+        ``cancel`` fires."""
+        delay = self.next_delay()
+        self._pending_delay = None
+        self._prev_delay = delay
+        if cancel is not None:
+            cancel.wait(delay)
+        else:
+            time.sleep(delay)

@@ -17,10 +17,11 @@ QUEUE_ITEMS = {
        "reserved=), tenancy and capacity, BatchingService, server-side "
        "image decode, the Redis / native / fleet brokers, the journaled "
        "broker and common/health.py",
-    2: "ROADMAP Queue 1 item 2: the rest of training, with checkpoints, "
-       "validation sets, retries and multi-step dispatch",
+    2: "ROADMAP Queue 1 item 2: the rest of training, with the rest of "
+       "keras/ (layers, metrics), autograd, the local estimator and the "
+       "NER and SQuAD heads",
     3: "ROADMAP Queue 1 item 3: the rest of the recommendation slice, "
-       "with the data/ tiers (device, disk, generator), sharded sources, "
+       "with the data/ tiers (disk, generator), sharded sources, "
        "transforms and TFRecord",
     5: "ROADMAP Queue 1 item 5: the rest of parallel/, with sharded "
        "models, model-parallel serving and multi-process bring-up",

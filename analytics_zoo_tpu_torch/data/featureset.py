@@ -1,12 +1,20 @@
-"""The in-memory (DRAM-tier) FeatureSet.
+"""The in-memory FeatureSet (DRAM tier) and its card-resident tier.
 
-Port of ``FeatureSet`` from ``analytics_zoo_tpu/data/featureset.py``:
-features and labels are trees (arrays, lists, tuples, dicts of arrays)
-held as host numpy; an epoch is a permutation from the ``"records"``
-stream of ``epoch_rng(seed, epoch)``, so the same seed and epoch give the
-same batches as the JAX package.  Where the JAX version shards each batch
-over a device mesh, this one copies it to one device as torch tensors.
-The disk, generator and device tiers, and the sources other than
+Port of ``FeatureSet`` and ``DeviceFeatureSet`` from
+``analytics_zoo_tpu/data/featureset.py``: features and labels are trees
+(arrays, lists, tuples, dicts of arrays) held as host numpy; an epoch is a
+permutation from the ``"records"`` stream of ``epoch_rng(seed, epoch)``,
+so the same seed and epoch give the same batches as the JAX package.
+Where the JAX version shards each batch over a device mesh, this one
+copies it to one device as torch tensors.
+
+``cache_device()`` (the DEVICE tier, ``memory_type="DEVICE"``) keeps the
+epoch's batches resident on the card as one ``(steps, batch, ...)`` tensor
+per leaf, composed once from a shuffled pass; every epoch then permutes
+the batch order only, with the ``"batches"`` stream of ``epoch_rng``, as
+the JAX tier does.  The estimator gathers each step's batch on the device
+through a device cursor into that order, so a step reads no host input.
+The disk, generator and sharded tiers, and the sources other than
 ndarrays, raise naming ROADMAP Queue 1 item 3.
 """
 
@@ -89,8 +97,14 @@ class FeatureSet:
     from_generator = staticmethod(_unported("from_generator"))
     from_sources = staticmethod(_unported("from_sources"))
     disk = staticmethod(_unported("disk"))
-    cache_device = _unported("cache_device")
     to_disk = _unported("to_disk")
+
+    def cache_device(self, shuffle_batches: Optional[bool] = None,
+                     seed: Optional[int] = None) -> "DeviceFeatureSet":
+        """The batches resident on the card (the DEVICE tier); epochs
+        permute the batch order only."""
+        return DeviceFeatureSet(self, shuffle_batches=shuffle_batches,
+                                seed=seed)
 
     def __len__(self) -> int:
         return self._n
@@ -139,3 +153,104 @@ class FeatureSet:
             n = tree_leaves(x)[0].shape[0]
             yield (to_device(x, device),
                    None if y is None else to_device(y, device), n)
+
+
+class DeviceFeatureSet:
+    """The DEVICE tier: the epoch's training batches materialised once on a
+    device as ``(steps, batch, ...)`` tensors and reused by every epoch.
+    Batch composition is fixed at cache time (a shuffled pass when the
+    base shuffles); each epoch replays the batches in the order
+    ``epoch_order`` gives.  Evaluation and prediction (ragged tails,
+    ordered rows) stream from the base, so they never hold a second
+    copy."""
+
+    def __init__(self, base: FeatureSet,
+                 shuffle_batches: Optional[bool] = None,
+                 seed: Optional[int] = None):
+        self.base = base
+        self.shuffle_batches = (getattr(base, "shuffle", False)
+                                if shuffle_batches is None
+                                else shuffle_batches)
+        self.seed = getattr(base, "seed", 0) if seed is None else seed
+        self._cache = {}
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    @property
+    def labels(self):
+        return self.base.labels
+
+    def steps_per_epoch(self, batch_size: int,
+                        drop_remainder: bool = True) -> int:
+        return self.base.steps_per_epoch(batch_size, drop_remainder)
+
+    def local_batches(self, batch_size: int, epoch: int = 0,
+                      drop_remainder: bool = True, ordered: bool = False):
+        yield from self.base.local_batches(batch_size, epoch, drop_remainder,
+                                           ordered=ordered)
+
+    def _perm(self, steps: int, epoch: int) -> Optional[np.ndarray]:
+        """The order the cached batches replay in at ``epoch`` (the JAX
+        tier's ``epoch_rng(seed, epoch, "batches")`` permutation), or None
+        for the cached order without batch shuffling."""
+        if not self.shuffle_batches:
+            return None
+        return epoch_rng(self.seed, epoch, "batches").permutation(steps)
+
+    def stacked_epoch(self, batch_size: int, epoch: int = 0, device=None):
+        """``(xs, ys, steps, perm)``: every training batch of an epoch
+        stacked on a leading axis, resident on ``device`` and cached (one
+        entry: a new batch size or device replaces it), and ``epoch``'s
+        batch order (None: in order).  ``None`` when an epoch has no full
+        batch or the set has no labels."""
+        steps = self.steps_per_epoch(batch_size, True)
+        if steps == 0 or self.base.labels is None:
+            return None
+        key = (batch_size, str(torch.device(device) if device is not None
+                               else "cpu"))
+        if key not in self._cache:
+            self._cache.clear()
+            n = steps * batch_size
+            idx = (self.base._epoch_indices(0)[:n] if self.shuffle_batches
+                   else np.arange(n))
+
+            def resh(a):
+                a = np.asarray(a)[idx]
+                return torch.from_numpy(np.ascontiguousarray(
+                    a.reshape((steps, batch_size) + a.shape[1:]))).to(device)
+
+            self._cache[key] = (tree_map(resh, self.base.features),
+                                tree_map(resh, self.base.labels))
+        xs, ys = self._cache[key]
+        return xs, ys, steps, self._perm(steps, epoch)
+
+    def batches(self, batch_size: int, epoch: int = 0,
+                drop_remainder: bool = True, device=None):
+        for x, y, _ in self.batches_with_counts(
+                batch_size, epoch, drop_remainder, device, ordered=False):
+            yield x, y
+
+    def batches_with_counts(self, batch_size: int, epoch: int = 0,
+                            drop_remainder: bool = True, device=None,
+                            ordered: bool = True):
+        """Training batches (``drop_remainder``, in the epoch's order) come
+        from the resident epoch; a ragged or row-ordered feed from a
+        shuffled cache streams from the base."""
+        stacked = (self.stacked_epoch(batch_size, epoch, device)
+                   if drop_remainder and not (ordered
+                                              and self.shuffle_batches)
+                   else None)
+        if stacked is None:
+            yield from self.base.batches_with_counts(
+                batch_size, epoch, drop_remainder, device, ordered=ordered)
+            return
+        xs, ys, steps, perm = stacked
+        order = np.arange(steps) if ordered or perm is None else perm
+        for i in order:
+            take = lambda a: a[int(i)]
+            yield tree_map(take, xs), tree_map(take, ys), batch_size
+
+    def evict(self) -> None:
+        """Release the resident batches."""
+        self._cache.clear()

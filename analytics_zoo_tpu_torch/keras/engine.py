@@ -27,8 +27,10 @@ goes to the card when built unless ``device=`` names another.
 
 from __future__ import annotations
 
+import copy
 import inspect
 import itertools
+import pickle
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -250,10 +252,6 @@ def Input(shape: Shape, name: Optional[str] = None) -> Variable:
     return Variable((None,) + tuple(shape), name=name or _auto_name("input"))
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({QUEUE_ITEMS[2]})")
-
-
 def _seeded(layer: nn.Module) -> bool:
     """Whether ``layer``'s forward takes a dropout ``seed``."""
     return "seed" in inspect.signature(layer.forward).parameters
@@ -267,6 +265,9 @@ class KerasNet(Layer):
     ``estimator.Estimator`` on the device its weights are on."""
 
     _device: Optional[torch.device] = None
+    _train_summary_dir: Optional[str] = None
+    _app_name: Optional[str] = None
+    _checkpoint_dir: Optional[str] = None
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -329,10 +330,14 @@ class KerasNet(Layer):
         self.metrics = [metrics_mod.get(m) for m in (metrics or [])]
 
     def set_tensorboard(self, log_dir: str, app_name: str) -> None:
-        raise _unported("KerasNet.set_tensorboard")
+        """Write the training curves of later ``fit`` calls under
+        ``log_dir/app_name/train``."""
+        self._train_summary_dir = log_dir
+        self._app_name = app_name
 
     def set_checkpoint(self, path: str) -> None:
-        raise _unported("KerasNet.set_checkpoint")
+        """Checkpoint later ``fit`` calls into ``path`` (every epoch)."""
+        self._checkpoint_dir = path
 
     def _estimator(self, **kw):
         from analytics_zoo_tpu_torch.estimator import Estimator
@@ -362,7 +367,10 @@ class KerasNet(Layer):
             validation_data = FeatureSet.from_ndarrays(vx, vy, shuffle=False)
         est = self._last_estimator if warm_start else None
         if est is None:
-            est = self._estimator(**estimator_kw)
+            est = self._estimator(
+                **{"tensorboard_dir": self._train_summary_dir,
+                   "app_name": self._app_name,
+                   "checkpoint_dir": self._checkpoint_dir, **estimator_kw})
         elif estimator_kw:
             raise ValueError(
                 "estimator kwargs cannot change on a warm-start refit; start "
@@ -386,12 +394,53 @@ class KerasNet(Layer):
             x = FeatureSet.from_ndarrays(x, shuffle=False)
         return self._estimator().predict(x, batch_size=batch_size)
 
+    # ---- persistence: the JAX file layout --------------------------------
     def save(self, path: str) -> None:
-        raise _unported("KerasNet.save")
+        """Pickle ``{"model", "params", "state"}`` as the JAX package does:
+        the net (on the host, without its weights' values mattering: they
+        are the numpy trees beside it, in the JAX layout), its parameter
+        tree and its state tree.  Only the port reads the file back: the
+        JAX package cannot unpickle a PyTorch module, and the port cannot
+        unpickle a JAX-written ``"model"`` (ROADMAP Queue 1 item 2)."""
+        params, state = self.get_weights()
+        # what is compiled or trained stays out of the file, as in the JAX
+        # package (its loader compiles anew)
+        held = (self.optimizer, self.loss, self.metrics,
+                self._last_estimator)
+        self.optimizer, self.loss, self.metrics = None, None, []
+        self._last_estimator = None
+        try:
+            net = copy.deepcopy(self).to("cpu")
+        finally:
+            (self.optimizer, self.loss, self.metrics,
+             self._last_estimator) = held
+        net._device = None
+        with open(path, "wb") as fh:
+            pickle.dump({"model": net, "params": params, "state": state}, fh)
 
     @staticmethod
-    def load(path: str) -> "KerasNet":
-        raise _unported("KerasNet.load")
+    def load(path: str, device=None) -> "KerasNet":
+        """The net of a file ``save`` wrote, with its weights, on
+        ``device`` (default: the card).  A file the JAX package wrote
+        holds a JAX net, which the port cannot load: that raises."""
+        with open(path, "rb") as fh:
+            blob = _PortUnpickler(fh).load()
+        net = blob["model"]
+        net.set_weights((blob["params"], blob["state"]))
+        _place(net, device)
+        return net
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Refuses the JAX package's classes with a message that says why."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("analytics_zoo_tpu", "jax", "jaxlib"):
+            raise NotImplementedError(
+                f"this file holds a JAX net ({module}.{name}); loading a "
+                f"JAX-written KerasNet is not ported ({QUEUE_ITEMS[2]}); "
+                f"load its weights with interop.load_jax_params instead")
+        return super().find_class(module, name)
 
 
 def _place(net: KerasNet, device) -> None:

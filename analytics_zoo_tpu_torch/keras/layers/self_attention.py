@@ -9,11 +9,14 @@ GPT-style ``TransformerLayer`` and the ``BERT`` encoder.  The 2D-mesh
 Dense weights keep the JAX layout ``W: (d_in, d_out)`` applied as
 ``x @ W + b`` so parameter trees cross without transposes.  Layers start in
 eval mode, as the JAX layers' ``training`` flag defaults to False.  In
-training mode a forward given an int ``seed`` (the JAX ``rng``) drops
-exactly what the JAX layers drop for that seed: per-site seeds derive as
-there (``ops/dropout.derive_seed``), hidden dropout is
-``ops/dropout.hash_dropout`` and attention dropout runs inside the kernel.
-Without a seed, or in eval mode, nothing is dropped.
+training mode a forward given a ``seed`` (the JAX ``rng``: an int, or a
+0-d int32 tensor on the card, which the training step derives from its
+device step counter) drops exactly what the JAX layers drop for that
+seed: per-site seeds derive as there (``ops/dropout.derive_seed``; a
+tensor seed's sites in one derivation each), hidden dropout is
+``ops/dropout.hash_dropout`` and attention dropout runs inside the kernel,
+which reads a tensor seed from device memory.  Without a seed, or in eval
+mode, nothing is dropped.
 """
 
 from __future__ import annotations
@@ -39,6 +42,18 @@ def projection(d_in: int, d_out: int, init="glorot_uniform") -> Dense:
     sublayer's projection, named "dense" so that it takes no auto-name
     (the JAX layers keep these weights inline)."""
     return Dense(d_out, init=init, input_shape=(d_in,), name="dense")
+
+
+def _site_seeds(seed, salts: range) -> list:
+    """``derive_seed(seed, s)`` for each salt of ``salts``: for a tensor
+    seed one derivation over all of them on its device (a step on the card
+    launches a few kernels per seed it derives), views of it returned."""
+    if seed is None:
+        return [None] * len(salts)
+    if isinstance(seed, torch.Tensor):
+        return list(derive_seed(seed, torch.arange(
+            salts.start, salts.stop, device=seed.device)).unbind())
+    return [derive_seed(seed, s) for s in salts]
 
 
 def _split_mask(x):
@@ -116,16 +131,18 @@ class TransformerBlock(Layer):
         self.ln2 = LayerNorm(hidden_size, name=self.name + "_ln2")
         self.hidden_drop = hidden_drop
 
-    def _drop(self, x, seed, salt):
-        if not self.training or seed is None or self.hidden_drop <= 0:
+    def _drop(self, x, seed):
+        if seed is None:
             return x
-        return hash_dropout(x, self.hidden_drop, seed=derive_seed(seed, salt))
+        return hash_dropout(x, self.hidden_drop, seed=seed)
 
     def forward(self, x, mask=None, seed: Optional[int] = None):
         if mask is None:
             x, mask = _split_mask(x)
-        x = self.ln1(x + self._drop(self.attn(x, mask, seed=seed), seed, 1))
-        return self.ln2(x + self._drop(self.ffn(x), seed, 2))
+        drops = (_site_seeds(seed, range(1, 3))
+                 if self.training and self.hidden_drop > 0 else [None] * 2)
+        x = self.ln1(x + self._drop(self.attn(x, mask, seed=seed), drops[0]))
+        return self.ln2(x + self._drop(self.ffn(x), drops[1]))
 
 
 class TransformerLayer(Layer):
@@ -167,8 +184,9 @@ class TransformerLayer(Layer):
             h = hash_dropout(h, self.embedding_drop,
                              seed=derive_seed(base, 0x5eed))
         outs = []
-        for i, blk in enumerate(self.blocks):
-            h = blk(h, seed=derive_seed(base, i + 1))
+        seeds = _site_seeds(base, range(1, len(self.blocks) + 1))
+        for blk, blk_seed in zip(self.blocks, seeds):
+            h = blk(h, seed=blk_seed)
             outs.append(h)
         return outs if self.output_all_block else h
 
@@ -222,8 +240,9 @@ class BERT(Layer):
                              seed=derive_seed(base, 0x5eed))
         # one (B, T) int32 mask for all blocks: the kernel reads it as is
         mask = (mask != 0).to(torch.int32)
-        for i, blk in enumerate(self.blocks):
-            h = blk(h, mask, seed=derive_seed(base, i + 1))
+        seeds = _site_seeds(base, range(1, len(self.blocks) + 1))
+        for blk, blk_seed in zip(self.blocks, seeds):
+            h = blk(h, mask, seed=blk_seed)
         pooled = torch.tanh(self.pooler(h[:, 0, :]))
         return h, pooled
 

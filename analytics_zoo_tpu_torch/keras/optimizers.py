@@ -1,58 +1,142 @@
 """Optimizers, step for step the optax updates of the JAX package.
 
-Port of ``analytics_zoo_tpu/keras/optimizers.py`` (SGD, Adam,
-AdamWeightDecay, ``PolyWarmup``, ``default_decay_mask``).  The JAX package
-builds them from optax; here each is written out as plain tensor ops
+Port of ``analytics_zoo_tpu/keras/optimizers.py`` (SGD, Adam, Adamax,
+Adagrad, Adadelta, RMSprop, AdamWeightDecay, LAMB, LARS, ``PolyWarmup``,
+``LarsWarmupPoly``, ``default_decay_mask``).  The JAX package builds them
+from optax; here each is written out as plain tensor ops
 (``torch._foreach_*``, a few multi-tensor launches per step on the card)
 that equal optax's step: the schedule is read at the count before the
 step, Adam's moments are bias-corrected, ``eps`` sits outside the square
-root, and AdamWeightDecay adds the decoupled decay on the masked
-parameters, ``p - lr * (u + wd * p)``.
+root, decoupled weight decay goes on the masked parameters, and the
+update is ``p + (-lr) * u``.
+
+Everything a step reads lives on the parameters' device, so a CUDA graph
+can replay the step: the step count is a 0-d int32 tensor in the state
+(optax's ``count``), and the learning rate and Adam's bias corrections
+are computed from it on the device in f32, the betas rounded to f32 as
+optax's are (``1 - b2**c`` at b2 = 0.999 moves by ~1e-5 relative with
+that rounding alone).  Trust ratios and norms stay on the device too.  A
+schedule is a function of that count tensor (or returns a constant).
 
 As in optax the optimizer holds no state: ``init(params)`` returns it and
 ``update(params, grads, state)`` advances it and the parameters in place.
 Parameters are a ``{dotted name: tensor}`` dict (``named_parameters``).
+The Adam family takes gradients of a lower precision than their
+parameters (the bf16 gradient tree of ``Estimator(grad_dtype=
+"bfloat16")``) as optax does, each product in the dtype optax gives it;
+the other optimizers widen them to the parameter's dtype first.
+``AdamWeightDecay(state_dtype="bfloat16")`` stores the first moment in
+bf16 (optax's ``mu_dtype``); the second stays f32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import functools
+from typing import Callable, Dict, List, Optional, Union
 
-import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
-_ROADMAP = "not ported yet (ROADMAP Queue 1 item 2: training)"
+Schedule = Callable[[torch.Tensor], Union[torch.Tensor, float]]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    """A schedule's value as an f32 tensor on ``like``'s device (a
+    constant is written by a fill kernel, never copied from the host)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.float32)
+    return torch.full(like.shape, float(v), dtype=torch.float32,
+                      device=like.device)
 
 
 class Optimizer:
     """An update rule with its learning-rate schedule."""
 
-    def __init__(self, schedule: Callable[[int], float],
-                 name: str = "optimizer"):
+    #: whether ``_step`` takes the gradients in their own dtype (else
+    #: widened to their parameters')
+    raw_grads = False
+
+    def __init__(self, schedule: Schedule, name: str = "optimizer"):
         self.schedule = schedule
         self.name = name
 
-    def learning_rate(self, step: int) -> float:
-        return float(self.schedule(step))
+    def _lr(self, count: torch.Tensor) -> torch.Tensor:
+        return _f32(self.schedule(count), count)
+
+    def learning_rate(self, step: int) -> Optional[float]:
+        """The schedule at ``step``, read on the host."""
+        return float(self._lr(torch.tensor(int(step), dtype=torch.int32)))
+
+    def learning_rates(self, steps) -> List[Optional[float]]:
+        """The schedule at every step of ``steps`` in one evaluation."""
+        return [float(v) for v in self._lr(
+            torch.tensor(list(steps), dtype=torch.int32)).reshape(-1)]
 
     def init(self, params: Params) -> dict:
-        return {"count": 0, **self._init(params)}
+        device = next(iter(params.values())).device if params else None
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        return {"count": count, **self._init(params)}
 
     @torch.no_grad()
     def update(self, params: Params, grads: Params, state: dict) -> None:
-        """One step: ``params`` and ``state`` change in place."""
+        """One step: ``params`` and ``state`` change in place, with no
+        host read (a CUDA graph can replay it)."""
         names = list(params)
-        lr = self.learning_rate(state["count"])
-        state["count"] += 1
-        self._step(names, [params[n] for n in names],
-                   [grads[n] for n in names], state, lr)
+        ps = [params[n] for n in names]
+        gs = [grads[n] for n in names]
+        if not self.raw_grads:
+            gs = [g if g.dtype == p.dtype else g.to(p.dtype)
+                  for g, p in zip(gs, ps)]
+        count = state["count"]
+        lr = self._lr(count)                  # at the count before the step
+        self._step(names, ps, gs, state, lr, count + 1)
+        count.add_(1)
 
     def _init(self, params: Params) -> dict:
         raise NotImplementedError
 
-    def _step(self, names, ps, gs, state, lr) -> None:
+    def _step(self, names, ps, gs, state, lr, count) -> None:
         raise NotImplementedError
+
+    @staticmethod
+    def _apply(ps, upd, lr) -> None:
+        """optax's ``scale_by_learning_rate`` then ``apply_updates``:
+        ``p + (-lr) * u``."""
+        torch._foreach_add_(ps, torch._foreach_mul(upd, -lr))
+
+
+def _weak(c: float, like: List[torch.Tensor]) -> float:
+    """A Python constant as JAX's weak typing applies it to tensors of
+    ``like``'s dtype: rounded to that dtype first (b1 = 0.9 multiplies a
+    bf16 moment as 0.8984375)."""
+    if not like or like[0].dtype == torch.float32:
+        return c
+    return _rounded(c, like[0].dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """optax's ``1 - decay**count`` in f32 (decay rounded to f32)."""
+    return 1.0 - torch.pow(decay, count.to(torch.float32))
+
+
+def _trust_scale_(upd, ps, idx, coeff=1.0, eps=0.0) -> None:
+    """optax's ``scale_by_trust_ratio`` on ``upd[i]`` for ``i`` in
+    ``idx``: ``coeff * |p| / (|u| + eps)``, 1 where either norm is 0."""
+    if not idx:
+        return
+    pn = torch.stack(torch._foreach_norm([ps[i] for i in idx]))
+    un = torch.stack(torch._foreach_norm([upd[i] for i in idx]))
+    ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                        coeff * pn / (un + eps))
+    torch._foreach_mul_([upd[i] for i in idx], list(ratio.unbind()))
 
 
 class _SGD(Optimizer):
@@ -68,7 +152,7 @@ class _SGD(Optimizer):
             return {}
         return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
 
-    def _step(self, names, ps, gs, state, lr):
+    def _step(self, names, ps, gs, state, lr, count):
         upd = gs
         if self.momentum:
             trace = [state["trace"][n] for n in names]
@@ -77,70 +161,257 @@ class _SGD(Optimizer):
             upd = trace
             if self.nesterov:
                 upd = torch._foreach_add(gs, trace, alpha=self.momentum)
-        torch._foreach_add_(ps, upd, alpha=-lr)
+        self._apply(ps, upd, lr)
 
 
 class _Adam(Optimizer):
-    """optax.adam / optax.adamw: bias-corrected moments,
+    """optax.adam / adamw / lamb: bias-corrected moments,
     ``u = mu_hat / (sqrt(nu_hat) + eps)``, plus ``wd * p`` on the
-    parameters ``decay_mask`` selects, then ``-lr``."""
+    parameters ``decay_mask`` selects; LAMB then scales each tensor's
+    update by its trust ratio.  ``mu_dtype`` is the stored first moment's
+    dtype.  The arithmetic is optax's as XLA compiles it into the JAX
+    step: each constant rounded to the dtype of the tensor it multiplies
+    (b1 = 0.9 multiplies a bf16 moment as 0.8984375), a low-precision
+    result rounded unless it feeds an f32 sum directly (then it is used
+    unrounded), the bias-corrected moments, the update and the second
+    moment in f32."""
+
+    raw_grads = True
 
     def __init__(self, schedule, b1, b2, eps, name, weight_decay=0.0,
                  decay_mask: Optional[Callable[[Params], Dict[str, bool]]]
-                 = None):
+                 = None, mu_dtype: Optional[torch.dtype] = None,
+                 trust_ratio: bool = False):
         super().__init__(schedule, name)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.decay_mask = decay_mask
+        self.mu_dtype = mu_dtype
+        self.trust_ratio = trust_ratio
 
     def _init(self, params):
-        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
         decayed = []
         if self.weight_decay:
             mask = (self.decay_mask(params) if self.decay_mask is not None
-                    else dict.fromkeys(params, True))
-            decayed = [n for n in params if mask[n]]
-        return {"mu": zeros(), "nu": zeros(), "decayed": decayed}
+                    else None)
+            decayed = [n for n in params if mask is None or mask[n]]
+        return {"mu": {n: torch.zeros_like(p, dtype=self.mu_dtype)
+                       for n, p in params.items()},
+                "nu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "decayed": decayed}
 
-    def _step(self, names, ps, gs, state, lr):
+    def _step(self, names, ps, gs, state, lr, count):
         b1, b2 = self.b1, self.b2
-        c = state["count"]                          # after the increment
-        mu = [state["mu"][n] for n in names]
+        f32 = torch.float32
+        mu_store = [state["mu"][n] for n in names]
         nu = [state["nu"][n] for n in names]
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, gs, alpha=1.0 - b1)
+        low_mu = bool(mu_store) and mu_store[0].dtype != f32
+        low_g = bool(gs) and gs[0].dtype != f32
+        wide = lambda ts: [t.float() for t in ts]
+        bc1 = _bias_correction(b1, count)
+        gmu = torch._foreach_mul(wide(gs) if low_g and not low_mu else gs,
+                                 _weak(1.0 - b1, gs))
+        if not low_mu:                      # an f32 moment, in place
+            torch._foreach_mul_(mu_store, b1)
+            torch._foreach_add_(mu_store, gmu)
+            mu = mu_store
+        elif low_g and mu_store[0].dtype == gs[0].dtype:
+            # one low dtype: in place, each op rounding to it; the moment
+            # is read unrounded into the f32 division
+            torch._foreach_mul_(mu_store, _weak(b1, mu_store))
+            torch._foreach_add_(mu_store, gmu)
+            mu = wide(mu_store)
+            bc1 = bc1.to(mu_store[0].dtype).float()
+        else:
+            # a low moment feeding an f32 sum is used unrounded, and stored
+            # rounded after the step
+            mu = wide(mu_store)
+            torch._foreach_mul_(mu, _weak(b1, mu_store))
+            torch._foreach_add_(mu, wide(gmu) if low_g else gmu)
+        g2 = torch._foreach_mul(gs, gs)             # g**2 in g's dtype
+        if low_g:
+            g2 = wide(g2)
+        torch._foreach_mul_(g2, _weak(1.0 - b2, gs))
         torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, gs, gs, value=1.0 - b2)
-        # optax's bias corrections are f32, the betas rounded to f32: at
-        # b2 = 0.999 that rounding alone moves 1 - b2**c by ~1e-5 relative
-        den = torch._foreach_div(nu, 1.0 - float(np.float32(b2)) ** c)
+        torch._foreach_add_(nu, g2)
+        den = torch._foreach_div(nu, _bias_correction(b2, count))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu, 1.0 - float(np.float32(b1)) ** c)
+        upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, den)
         if state["decayed"]:
             decayed = set(state["decayed"])
             idx = [i for i, n in enumerate(names) if n in decayed]
             torch._foreach_add_([upd[i] for i in idx], [ps[i] for i in idx],
                                 alpha=self.weight_decay)
-        torch._foreach_add_(ps, upd, alpha=-lr)
+        if self.trust_ratio:
+            _trust_scale_(upd, ps, list(range(len(ps))))
+        if low_mu and not (low_g and mu_store[0].dtype == gs[0].dtype):
+            for stored, m in zip(mu_store, mu):
+                stored.copy_(m)
+        self._apply(ps, upd, lr)
 
 
-def _sched(lr, decay):
+class _Adamax(Optimizer):
+    """optax.adamax: ``nu = max(|g| + eps, b2 * nu)``,
+    ``u = mu_hat / nu``."""
+
+
+    def __init__(self, schedule, b1, b2, eps):
+        super().__init__(schedule, "adamax")
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def _init(self, params):
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
+        return {"mu": zeros(), "nu": zeros()}
+
+    def _step(self, names, ps, gs, state, lr, count):
+        mu = [state["mu"][n] for n in names]
+        nu = [state["nu"][n] for n in names]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, gs, alpha=1.0 - self.b1)
+        inf = torch._foreach_abs(gs)
+        torch._foreach_add_(inf, self.eps)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_maximum_(nu, inf)
+        upd = torch._foreach_div(mu, _bias_correction(self.b1, count))
+        torch._foreach_div_(upd, nu)
+        self._apply(ps, upd, lr)
+
+
+class _Adagrad(Optimizer):
+    """optax.adagrad: ``s += g**2`` from 0.1, ``u = g / sqrt(s + eps)``
+    (optax's zero for ``s <= 0`` cannot occur: ``s`` starts at 0.1)."""
+
+    initial_accumulator_value = 0.1
+
+    def __init__(self, schedule, eps):
+        super().__init__(schedule, "adagrad")
+        self.eps = eps
+
+    def _init(self, params):
+        return {"sum_of_squares": {
+            n: torch.full_like(p, self.initial_accumulator_value)
+            for n, p in params.items()}}
+
+    def _step(self, names, ps, gs, state, lr, count):
+        ss = [state["sum_of_squares"][n] for n in names]
+        torch._foreach_addcmul_(ss, gs, gs)
+        inv = torch._foreach_add(ss, self.eps)
+        torch._foreach_rsqrt_(inv)
+        torch._foreach_mul_(inv, gs)
+        self._apply(ps, inv, lr)
+
+
+class _Adadelta(Optimizer):
+    """optax.adadelta: ``e_g`` and ``e_x`` EMAs of the squared gradient and
+    update, ``u = sqrt(e_x + eps) / sqrt(e_g + eps) * g`` (its weight
+    decay is 0 here, as the JAX package builds it)."""
+
+
+    def __init__(self, schedule, rho, eps):
+        super().__init__(schedule, "adadelta")
+        self.rho, self.eps = rho, eps
+
+    def _init(self, params):
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
+        return {"e_g": zeros(), "e_x": zeros()}
+
+    def _step(self, names, ps, gs, state, lr, count):
+        rho = self.rho
+        e_g = [state["e_g"][n] for n in names]
+        e_x = [state["e_x"][n] for n in names]
+        torch._foreach_mul_(e_g, rho)
+        torch._foreach_addcmul_(e_g, gs, gs, value=1.0 - rho)
+        num = torch._foreach_add(e_x, self.eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(e_g, self.eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(num, den)
+        torch._foreach_mul_(num, gs)                  # the update
+        torch._foreach_mul_(e_x, rho)
+        torch._foreach_addcmul_(e_x, num, num, value=1.0 - rho)
+        self._apply(ps, num, lr)
+
+
+class _RMSprop(Optimizer):
+    """optax.rmsprop: ``nu`` EMA of the squared gradient from 0,
+    ``u = g / sqrt(nu + eps)``."""
+
+
+    def __init__(self, schedule, decay, eps):
+        super().__init__(schedule, "rmsprop")
+        self.decay, self.eps = decay, eps
+
+    def _init(self, params):
+        return {"nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    def _step(self, names, ps, gs, state, lr, count):
+        nu = [state["nu"][n] for n in names]
+        torch._foreach_mul_(nu, self.decay)
+        torch._foreach_addcmul_(nu, gs, gs, value=1.0 - self.decay)
+        upd = torch._foreach_add(nu, self.eps)
+        torch._foreach_rsqrt_(upd)
+        torch._foreach_mul_(upd, gs)
+        self._apply(ps, upd, lr)
+
+
+class _LARS(Optimizer):
+    """optax.lars: ``g + wd * p`` and the trust ratio
+    ``coeff * |p| / (|u| + eps)`` on the masked parameters, ``-lr``, then
+    momentum (``trace``) on the scaled update."""
+
+
+    def __init__(self, schedule, momentum, weight_decay, trust_coefficient,
+                 eps, nesterov, mask):
+        super().__init__(schedule, "lars")
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.trust_coefficient = trust_coefficient
+        self.eps = eps
+        self.nesterov = nesterov
+        self.mask = mask
+
+    def _init(self, params):
+        mask = self.mask(params) if self.mask is not None else None
+        return {"trace": {n: torch.zeros_like(p) for n, p in params.items()},
+                "decayed": [n for n in params if mask is None or mask[n]]}
+
+    def _step(self, names, ps, gs, state, lr, count):
+        decayed = set(state["decayed"])
+        idx = [i for i, n in enumerate(names) if n in decayed]
+        upd = torch._foreach_mul(gs, 1.0)
+        if self.weight_decay:
+            torch._foreach_add_([upd[i] for i in idx], [ps[i] for i in idx],
+                                alpha=self.weight_decay)
+        _trust_scale_(upd, ps, idx, self.trust_coefficient, self.eps)
+        torch._foreach_mul_(upd, -lr)
+        trace = [state["trace"][n] for n in names]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, upd)              # u + m * t
+        out = (torch._foreach_add(upd, trace, alpha=self.momentum)
+               if self.nesterov else trace)
+        torch._foreach_add_(ps, out)
+
+
+def _sched(lr, decay) -> Schedule:
     if callable(lr):
         return lr
     if decay:
-        return lambda step: lr / (1.0 + decay * step)
+        return lambda step: lr / (1.0 + decay * step.to(torch.float32))
     return lambda step: lr
 
 
-def _poly(init: float, end: float, power: float, steps: int,
-          count: int) -> float:
-    """optax.polynomial_schedule at ``count``."""
+def _poly(init: float, end: float, power: float, steps: int) -> Schedule:
+    """optax.polynomial_schedule: ``(init - end) * frac**power + end``,
+    ``frac = 1 - clip(count, 0, steps) / steps``, in f32."""
     if steps <= 0:
-        return init
-    frac = 1.0 - min(max(count, 0), steps) / steps
-    return (init - end) * frac ** power + end
+        return lambda count: init
+
+    def schedule(count):
+        frac = 1.0 - torch.clamp(count, 0, steps) / steps
+        return (init - end) * frac.to(torch.float32) ** power + end
+    return schedule
 
 
 def SGD(lr=0.01, momentum=0.0, decay=0.0, nesterov=False) -> Optimizer:
@@ -153,21 +424,52 @@ def Adam(lr=0.001, beta_1=0.9, beta_2=0.999, epsilon=1e-8, decay=0.0,
                  "adam")
 
 
+def Adamax(lr=0.002, beta_1=0.9, beta_2=0.999, epsilon=1e-8,
+           decay=0.0) -> Optimizer:
+    return _Adamax(_sched(lr, decay), beta_1, beta_2, epsilon)
+
+
+def Adagrad(lr=0.01, epsilon=1e-8, decay=0.0) -> Optimizer:
+    return _Adagrad(_sched(lr, decay), epsilon)
+
+
+def Adadelta(lr=1.0, rho=0.95, epsilon=1e-8, decay=0.0) -> Optimizer:
+    return _Adadelta(_sched(lr, decay), rho, epsilon)
+
+
+def RMSprop(lr=0.001, rho=0.9, epsilon=1e-8, decay=0.0) -> Optimizer:
+    return _RMSprop(_sched(lr, decay), rho, epsilon)
+
+
 def PolyWarmup(base_lr: float, warmup_steps: int, total_steps: int,
                power: float = 1.0, end_lr: float = 0.0,
-               warmup_power: float = 1.0) -> Callable[[int], float]:
+               warmup_power: float = 1.0) -> Schedule:
     """BERT-style warmup then polynomial decay: optax's
-    ``join_schedules([warmup, polynomial], [warmup_steps])``."""
-    decay_steps = max(total_steps - warmup_steps, 1)
+    ``join_schedules([warmup, polynomial], [warmup_steps])`` of a count
+    tensor.  ``warmup_power`` > 1 is the MLPerf large-batch polynomial
+    warmup ``(step / warmup)**p * base_lr``."""
+    if warmup_power == 1.0:
+        warm = _poly(0.0, base_lr, 1.0, warmup_steps)
+    else:
+        def warm(step):
+            frac = step.to(torch.float32) / max(warmup_steps, 1)
+            return base_lr * frac ** warmup_power
+    decay = _poly(base_lr, end_lr, power,
+                  max(total_steps - warmup_steps, 1))
 
-    def schedule(step: int) -> float:
-        if step < warmup_steps:
-            if warmup_power == 1.0:
-                return _poly(0.0, base_lr, 1.0, warmup_steps, step)
-            return base_lr * (step / max(warmup_steps, 1)) ** warmup_power
-        return _poly(base_lr, end_lr, power, decay_steps,
-                     step - warmup_steps)
+    def schedule(step):
+        step = torch.as_tensor(step)
+        return torch.where(step < warmup_steps, _f32(warm(step), step),
+                           _f32(decay(step - warmup_steps), step))
     return schedule
+
+
+def LarsWarmupPoly(base_lr: float, warmup_steps: int, total_steps: int,
+                   end_lr: float = 0.0) -> Schedule:
+    """The MLPerf-pods LARS schedule: power-2 warmup into power-2
+    decay."""
+    return PolyWarmup(base_lr, warmup_steps, total_steps, power=2.0,
+                      end_lr=end_lr, warmup_power=2.0)
 
 
 def default_decay_mask(params: Params) -> Dict[str, bool]:
@@ -193,26 +495,48 @@ def AdamWeightDecay(lr=0.001, warmup_portion=0.1, total=1000,
     """The BERT optimizer: decoupled weight decay outside
     ``default_decay_mask``'s exclusions, linear warmup over
     ``warmup_portion * total`` steps then linear decay to 0 at ``total``.
-    Moments are kept in f32; a low-precision ``state_dtype`` is not ported
-    yet."""
-    if state_dtype is not None:
-        raise NotImplementedError(f"AdamWeightDecay(state_dtype=...) is "
-                                  f"{_ROADMAP}")
+    ``state_dtype="bfloat16"`` stores the first moment in bf16 (optax's
+    ``mu_dtype``); the second moment stays f32, whose per-step change at
+    b2 = 0.999 is below bf16's resolution."""
     s = schedule or PolyWarmup(lr, int(warmup_portion * total), total)
+    mu_dtype = None
+    if state_dtype is not None:
+        if str(state_dtype) not in _DTYPES:
+            raise ValueError(f"state_dtype must be one of {sorted(_DTYPES)}, "
+                             f"got {state_dtype!r}")
+        mu_dtype = _DTYPES[str(state_dtype)]
     return _Adam(s, beta_1, beta_2, epsilon, "adam_weight_decay",
-                 weight_decay=weight_decay, decay_mask=default_decay_mask)
+                 weight_decay=weight_decay, decay_mask=default_decay_mask,
+                 mu_dtype=mu_dtype)
 
 
-def LAMB(*args, **kwargs):
-    raise NotImplementedError(f"LAMB is {_ROADMAP}")
+def LAMB(lr=0.001, beta_1=0.9, beta_2=0.999, epsilon=1e-6,
+         weight_decay=0.01, schedule=None, mask=None) -> Optimizer:
+    """LAMB: Adam moments, decoupled weight decay on the masked subset
+    (``default_decay_mask`` unless ``mask`` is given), then each tensor's
+    update scaled by its trust ratio ``|p| / |u|``."""
+    s = schedule or _sched(lr, 0.0)
+    return _Adam(s, beta_1, beta_2, epsilon, "lamb",
+                 weight_decay=weight_decay,
+                 decay_mask=mask if mask is not None else default_decay_mask,
+                 trust_ratio=True)
 
 
-def LARS(*args, **kwargs):
-    raise NotImplementedError(f"LARS is {_ROADMAP}")
+def LARS(lr=0.1, momentum=0.9, weight_decay=1e-4,
+         trust_coefficient=0.001, epsilon=0.0, nesterov=False,
+         schedule=None, mask=None) -> Optimizer:
+    """LARS: momentum SGD with the layerwise trust ratio
+    ``trust_coefficient * |p| / |g + wd * p|``; the parameters outside
+    ``mask`` (default ``default_decay_mask``) take neither the decay nor
+    the trust scaling."""
+    s = schedule or _sched(lr, 0.0)
+    return _LARS(s, momentum, weight_decay, trust_coefficient, epsilon,
+                 nesterov, mask if mask is not None else default_decay_mask)
 
 
 _REGISTRY = {
-    "sgd": SGD, "adam": Adam,
+    "sgd": SGD, "adam": Adam, "adamax": Adamax, "adagrad": Adagrad,
+    "adadelta": Adadelta, "rmsprop": RMSprop,
     "adam_weight_decay": AdamWeightDecay, "adamweightdecay": AdamWeightDecay,
     "lamb": LAMB, "lars": LARS,
     # tf.train-style names

@@ -12,19 +12,22 @@ Sources build in parallel, one ``nvcc`` each.
 Every wrapper checks its tensors before it launches, launches on PyTorch's
 current stream, raises if the launch returned a CUDA error, and counts its
 launches in ``.launches`` (a plain integer, raised only where the kernel
-is launched).  Nothing is built or loaded at import, so a CPU-only install
-imports this module too.
+is launched).  Inside a CUDA graph's capture a call records its launch
+instead of running it; ``recording`` and ``replayed`` move that count to
+the graph's replays, where the kernels run.  Nothing is built or loaded
+at import, so a CPU-only install imports this module too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -117,12 +120,12 @@ _F32, _U32 = ctypes.c_float, ctypes.c_uint
 #: each entry point: its library's source and its C signature
 _ENTRY = {
     "zoo_flash_fwd": ("flash_fwd.cu", [_PTR] * 6 + [_I64] * 12 + [_I32] * 6
-                      + [_F32, _I32, _U32, _F32, _I32, _PTR]),
+                      + [_F32, _I32, _U32, _F32, _PTR, _PTR]),
     "zoo_flash_fwd_lse": ("flash_fwd.cu", [_PTR] * 5 + [_I64] * 12
                           + [_I32] * 6 + [_F32, _I32, _PTR]),
     "zoo_flash_bwd": ("flash_bwd.cu", [_PTR] * 12
                       + [ctypes.POINTER(_I64)] + [_I32] * 6
-                      + [_F32, _I32, _U32, _F32, _I32, _PTR]),
+                      + [_F32, _I32, _U32, _F32, _PTR, _PTR]),
     "zoo_flash_bwd_lse": ("flash_bwd.cu", [_PTR] * 10
                           + [ctypes.POINTER(_I64)] + [_I32] * 6
                           + [_F32, _I32, _PTR]),
@@ -225,6 +228,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _device_seed(seed, dropout_thresh, device):
+    """The dropout seed as the kernels read it: one int32 in device memory
+    (None without dropout).  A tensor seed (a 0-d or one-element integer
+    tensor on ``device``, what the training step derives on the card) is
+    passed as it is, so a captured CUDA graph reads each replay's value;
+    an int is written into a new one-element tensor by a fill kernel (no
+    host copy, so this also works while a graph is captured)."""
+    if not dropout_thresh:
+        return None
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.device != device \
+                or seed.is_floating_point():
+            raise ValueError(f"a tensor dropout seed is one integer on "
+                             f"{device}, got {tuple(seed.shape)} "
+                             f"{seed.dtype} on {seed.device}")
+        return seed.reshape(1).to(torch.int32)
+    return torch.full((1,), _as_i32(seed), dtype=torch.int32, device=device)
+
+
 def _int_mask(padding_mask):
     """The kernels' padding mask: contiguous int32, nonzero = valid."""
     if padding_mask is None or (padding_mask.dtype == torch.int32
@@ -254,6 +276,7 @@ class FlashForward(_Wrapper):
         Tk = k.shape[2]
         q, k, v = (self._readable(t) for t in (q, k, v))
         mask = _int_mask(padding_mask)
+        seed = _device_seed(seed, dropout_thresh, q.device)
         out = torch.empty((B, Tq, H, D), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
         lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
@@ -267,7 +290,7 @@ class FlashForward(_Wrapper):
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], B, H, Tq, Tk, D, _DTYPES[q.dtype],
                 float(sm_scale), int(bool(causal)), int(dropout_thresh),
-                float(keep_scale), _as_i32(seed), stream)
+                float(keep_scale), _ptr(seed), stream)
         self._launched(lib, rc)
         return (out, lse) if with_lse else out
 
@@ -353,6 +376,7 @@ class FlashBackward(_Wrapper):
         lse = lse.contiguous()
         q, k, v, o, g = (self._readable(t) for t in (q, k, v, o, g))
         mask = _int_mask(padding_mask)
+        seed = _device_seed(seed, dropout_thresh, q.device)
         heads = lambda T: torch.empty((B, T, H, D), dtype=q.dtype,
                                       device=q.device).transpose(1, 2)
         dq, dk, dv = heads(Tq), heads(Tk), heads(Tk)
@@ -370,7 +394,7 @@ class FlashBackward(_Wrapper):
                 lse.data_ptr(), delta.data_ptr(), _ptr(turns), strides, B, H,
                 Tq, Tk, D, _DTYPES[q.dtype], float(sm_scale),
                 int(bool(causal)), int(dropout_thresh), float(keep_scale),
-                _as_i32(seed), stream)
+                _ptr(seed), stream)
         self._launched(lib, rc)
         return dq, dk, dv
 
@@ -654,3 +678,37 @@ def reset_launches() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
         kernel.copies = 0
+
+
+def _counts() -> Dict[str, tuple]:
+    return {k: (w.launches, w.copies) for k, w in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def recording(record: Optional[Dict[str, tuple]] = None):
+    """Calls made inside launch nothing that counts: a CUDA graph's
+    capture (which records its launches instead of running them) and the
+    discarded warm-up step before it.  ``launches`` and ``copies`` are
+    restored on exit; when ``record`` is given it receives what the calls
+    inside would have counted, ``{name: (launches, copies)}``, which
+    ``replayed`` adds once for every replay of the captured graph."""
+    before = _counts()
+    try:
+        yield record
+    finally:
+        after = _counts()
+        for name, kernel in KERNELS.items():
+            kernel.launches, kernel.copies = before[name]
+            if record is not None:
+                record[name] = tuple(a - b for a, b in zip(after[name],
+                                                           before[name]))
+
+
+def replayed(record: Dict[str, tuple], n: int = 1) -> None:
+    """Count ``n`` replays of a CUDA graph whose capture ``recording``
+    recorded: each replay launches every kernel the capture recorded."""
+    for name, (launches, copies) in record.items():
+        kernel = KERNELS[name]
+        with kernel._count_lock:
+            kernel.launches += launches * n
+            kernel.copies += copies * n

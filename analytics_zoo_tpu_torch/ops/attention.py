@@ -194,8 +194,9 @@ class _FlashAttention(torch.autograd.Function):
     as forward and backward.  Saves q, k, v, o and the mask, and on the
     kernel path, when a gradient will be asked for, the forward kernel's
     row log-sum-exp (serving under ``inference_mode`` writes none); the
-    dropout seed rides as an int, so the backward replays the forward's
-    keep-mask.  ``grad_mode``: whether autograd was recording at the call
+    dropout seed rides along, so the backward replays the forward's
+    keep-mask (an int, or a tensor the kernels read on the card).
+    ``grad_mode``: whether autograd was recording at the call
     (inside ``forward`` it never is, and ``needs_input_grad`` reads the
     inputs alone)."""
 
@@ -233,11 +234,25 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _drop_args(dropout_p: float, seed) -> dict:
-    """The kernels' dropout arguments: threshold, survivor scale, seed."""
+    """The kernels' dropout arguments: threshold, survivor scale, seed
+    (an int, or a one-integer tensor on the card that the kernel reads)."""
     if not dropout_p:
-        return dict(dropout_thresh=0, keep_scale=1.0, seed=0)
+        return dict(dropout_thresh=0, keep_scale=1.0, seed=None)
     return dict(dropout_thresh=_dropout_thresh(dropout_p),
-                keep_scale=1.0 / (1.0 - dropout_p), seed=int(seed))
+                keep_scale=1.0 / (1.0 - dropout_p), seed=seed)
+
+
+def _seed(seed):
+    """A dropout seed as the kernels and the plain versions take it: an int
+    as a wrapping int32, a one-integer tensor as it is (on the card the
+    kernel reads it from device memory, so a CUDA graph's replays each
+    read their own)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.is_floating_point():
+            raise ValueError(f"a tensor dropout_seed is one integer, got "
+                             f"{tuple(seed.shape)} {seed.dtype}")
+        return seed
+    return _kernels._as_i32(seed)
 
 
 def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
@@ -259,8 +274,9 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
         ``"pallas"``) demands the kernels; ``"plain"`` (or ``"jnp"``) runs
         the plain versions on any device (the kernels' reference).
       dropout_rate: attention-probability dropout in [0, 1); applied only
-        when ``dropout_seed`` (an int) is given, as in the JAX package,
-        whose inference path passes no seed.
+        when ``dropout_seed`` (an int, or a 0-d integer tensor on q's
+        device) is given, as in the JAX package, whose inference path
+        passes no seed.
       dropout_rng: the JAX package's PRNG key; the port takes the int
         seed as ``dropout_seed`` and raises ``ValueError`` for a key.
 
@@ -286,7 +302,7 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
     if kernel and dev != "cuda":
         raise ValueError(f"the flash-attention kernel needs CUDA tensors; "
                          f"got {q.device} (backend={backend!r})")
-    seed = int(dropout_seed) if dropout_rate else None
+    seed = _seed(dropout_seed) if dropout_rate else None
     return _FlashAttention.apply(q, k, v, padding_mask, bool(causal),
                                  float(sm_scale), float(dropout_rate), seed,
                                  kernel, torch.is_grad_enabled())

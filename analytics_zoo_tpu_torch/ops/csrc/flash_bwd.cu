@@ -116,7 +116,7 @@ struct Params {
   int causal;
   uint32_t thresh;  // drop iff (bits >> 8) < thresh; 0 = no dropout
   float keep_scale;
-  uint32_t seed;
+  const int32_t* seed;  // one int32 in device memory; read iff thresh
 };
 
 // what the elementwise step of every tile of one (batch, head) needs
@@ -139,7 +139,9 @@ __device__ __forceinline__ Ctx make_ctx(const Params& p, int b, int bh) {
   x.causal = p.causal;
   x.scale = p.scale;
   x.scale2 = p.scale2;
-  x.head = p.thresh ? head_hash(p.seed, bh) : 0u;
+  // read from device memory, so a replayed CUDA graph sees each replay's
+  x.head = p.thresh ? head_hash(static_cast<uint32_t>(__ldg(p.seed)), bh)
+                    : 0u;
   x.thresh = p.thresh;
   x.keep_scale = p.keep_scale;
   return x;
@@ -963,16 +965,18 @@ void fill(Params& p, const void* q, const void* k, const void* v,
 // head, seq) for q, k, v, o, g, dq, dk, dv in that order.  lse: the
 // forward's contiguous (B, H, Tq) f32 row log-sum-exp (zoo_flash_fwd
 // writes it); delta: (B*H*Tq) f32 scratch the pre-pass fills; turns:
-// (B*H*Tq) int32 scratch of the f32 ordered dq.  The kernels go on
-// `stream`; nothing synchronises.
+// (B*H*Tq) int32 scratch of the f32 ordered dq; seed: the forward's
+// dropout seed, one int32 in device memory (null when thresh is 0).  The
+// kernels go on `stream`; nothing synchronises.
 extern "C" int zoo_flash_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* g, const void* mask, void* dq, void* dk, void* dv,
     const float* lse, float* delta, int* turns, const long long* strides,
     int B, int H,
     int Tq, int Tk, int D, int dtype, float scale, int causal,
-    unsigned int thresh, float keep_scale, int seed, void* stream) {
+    unsigned int thresh, float keep_scale, const int* seed, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || lse == nullptr) return -1;
+  if (thresh != 0u && seed == nullptr) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long og[6] = {strides[9],  strides[10], strides[11],
                            strides[12], strides[13], strides[14]};
@@ -996,7 +1000,7 @@ extern "C" int zoo_flash_bwd(
   p.dl_sh = p.lse_sh;
   p.thresh = thresh;
   p.keep_scale = keep_scale;
-  p.seed = static_cast<uint32_t>(seed);
+  p.seed = static_cast<const int32_t*>(seed);
   return run<false>(p, B, D, dtype, st);
 }
 
@@ -1025,7 +1029,7 @@ extern "C" int zoo_flash_bwd_lse(
   p.dl_sh = strides[24];
   p.thresh = 0u;
   p.keep_scale = 1.f;
-  p.seed = 0u;
+  p.seed = nullptr;
   return run<true>(p, B, D, dtype, static_cast<cudaStream_t>(stream));
 }
 

@@ -86,14 +86,17 @@ __device__ __forceinline__ TileCtx make_ctx(const int32_t* mask, int b,
                                             int bh, int Tq, int Tk,
                                             int causal, float scale2,
                                             uint32_t thresh, float keep_scale,
-                                            uint32_t seed) {
+                                            const int32_t* seed) {
   TileCtx x;
   x.mrow = mask ? mask + static_cast<int64_t>(b) * Tk : nullptr;
   x.Tk = Tk;
   x.causal_offset = Tk - Tq;
   x.causal = causal;
   x.scale2 = scale2;
-  x.head = thresh ? head_hash(seed, bh) : 0u;
+  // the seed lives in device memory, so a replayed CUDA graph reads the
+  // value of each replay; it is read only when there is dropout
+  x.head =
+      thresh ? head_hash(static_cast<uint32_t>(__ldg(seed)), bh) : 0u;
   x.thresh = thresh;
   x.keep_scale = keep_scale;
   return x;
@@ -125,7 +128,7 @@ struct BfParams {
   int causal;
   uint32_t thresh;
   float keep_scale;
-  uint32_t seed;
+  const int32_t* seed;  // one int32 in device memory; read iff thresh
 };
 
 template <int D, int BN, int NWG>
@@ -274,7 +277,7 @@ struct F32Params {
   int causal;
   uint32_t thresh;
   float keep_scale;
-  uint32_t seed;
+  const int32_t* seed;  // one int32 in device memory; read iff thresh
 };
 
 template <int D>
@@ -392,7 +395,7 @@ struct Args {
   int causal;
   uint32_t thresh;
   float keep_scale;
-  uint32_t seed;
+  const int32_t* seed;  // one int32 in device memory; read iff thresh
 };
 
 template <int D, int BN, int NWG>
@@ -482,7 +485,9 @@ int run(const Args& a, int dtype, cudaStream_t stream) {
 // contiguous (B, H, Tq) f32 buffer that receives each row's log-sum-exp of
 // the scaled scores over the keys it sees, before dropout (what
 // flash_bwd.cu rebuilds P from; -1e30 for a row that sees no key).
-// Launches on `stream` and does not synchronise.
+// `seed` points to the dropout seed, one int32 in device memory, read by
+// the kernel (so a captured CUDA graph reads each replay's value); it may
+// be null when thresh is 0.  Launches on `stream` and does not synchronise.
 extern "C" int zoo_flash_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     float* lse, long long q_sb, long long q_sh, long long q_st,
@@ -490,13 +495,14 @@ extern "C" int zoo_flash_fwd(
     long long v_sb, long long v_sh, long long v_st,
     long long o_sb, long long o_sh, long long o_st,
     int B, int H, int Tq, int Tk, int D, int dtype, float scale, int causal,
-    unsigned int thresh, float keep_scale, int seed, void* stream) {
+    unsigned int thresh, float keep_scale, const int* seed, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk < 0) return -1;
+  if (thresh != 0u && seed == nullptr) return -1;
   const Args a = {q, k, v, static_cast<const int32_t*>(mask), o, lse,
                   {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                    o_sb, o_sh, o_st},
                   B, H, Tq, Tk, D, scale, causal, thresh, keep_scale,
-                  static_cast<uint32_t>(seed)};
+                  static_cast<const int32_t*>(seed)};
   return run(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -515,7 +521,7 @@ extern "C" int zoo_flash_fwd_lse(
   const Args a = {q, k, v, nullptr, o, lse,
                   {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                    o_sb, o_sh, o_st},
-                  B, H, Tq, Tk, D, scale, causal, 0u, 1.f, 0u};
+                  B, H, Tq, Tk, D, scale, causal, 0u, 1.f, nullptr};
   return run(a, dtype, static_cast<cudaStream_t>(stream));
 }
 

@@ -3,60 +3,91 @@
 Port of ``analytics_zoo_tpu/ops/dropout.py``.  The mask is a hash of
 (seed, flat element index), bit-identical to the JAX package's
 single-multiply hash, so a seed gives the same mask in both packages and
-the backward rebuilds it from the seed instead of saving it.  Seeds are
-Python ints read as wrapping int32: the JAX package also folds PRNG keys
-into seeds, and keys do not exist in the port, so ``as_seed`` takes an int
-or None.  ``derive_seed`` splits a seed per site as the JAX one does, so a
-model given the same int seed drops the same elements in both packages.
+the backward rebuilds it from the seed instead of saving it.  A seed is a
+Python int read as wrapping int32, or a 0-d int32 tensor: the training
+step derives its seeds on the card from a step counter in device memory,
+so that a CUDA graph replaying the step drops other elements at every
+replay (an int would be frozen into the graph at its capture).  The JAX
+package also folds PRNG keys into seeds; keys do not exist in the port.
+``derive_seed`` splits a seed per site as the JAX one does, so a model
+given the same seed drops the same elements in both packages.
 
 The hash is 32-bit unsigned arithmetic; torch has no uint32 arithmetic, so
 it runs in int64 holding values in ``[0, 2**32)`` (see
-``ops/attention.py``).  It is plain torch, as it is plain jnp in the JAX
-package: no hand-written kernel.
+``ops/attention.py``), the same operations on an int and on a tensor.  It
+is plain torch, as it is plain jnp in the JAX package: no hand-written
+kernel.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.ops._kernels import _as_i32
 from analytics_zoo_tpu_torch.ops.attention import (
-    _MIX_C1, _M32, _SEED_C, _dropout_thresh, _mix32, _mul32)
+    _MIX_C1, _M32, _SEED_C, _dropout_thresh, _mix32, _mul32, _u32)
 
 __all__ = ["as_seed", "derive_seed", "hash_dropout"]
 
 
-def as_seed(rng_or_seed) -> Optional[int]:
-    """The int32 seed of an int (wrapping), or None for None.  JAX PRNG
-    keys, which the JAX version folds into a seed, do not exist here."""
+def as_seed(rng_or_seed):
+    """The int32 seed of an int (wrapping), a tensor seed as a 0-d int32
+    tensor, or None for None.  JAX PRNG keys, which the JAX version folds
+    into a seed, do not exist here."""
     if rng_or_seed is None:
         return None
+    if isinstance(rng_or_seed, torch.Tensor):
+        if rng_or_seed.numel() != 1 or rng_or_seed.is_floating_point() \
+                or rng_or_seed.dtype == torch.bool:
+            raise TypeError(f"a tensor dropout seed is one integer, got "
+                            f"{tuple(rng_or_seed.shape)} {rng_or_seed.dtype}")
+        if rng_or_seed.dtype == torch.int32:
+            return rng_or_seed.reshape(())
+        return _i32(rng_or_seed.reshape(()).to(torch.int64) & _M32)
     if isinstance(rng_or_seed, bool) or not isinstance(
             rng_or_seed, (int, np.integer)):
-        raise TypeError(f"a dropout seed is an int, got "
-                        f"{type(rng_or_seed).__name__}")
+        raise TypeError(f"a dropout seed is an int or an integer tensor, "
+                        f"got {type(rng_or_seed).__name__}")
     return _as_i32(rng_or_seed)
 
 
-def derive_seed(rng_or_seed, salt: int) -> Optional[int]:
+def _i32(u: torch.Tensor) -> torch.Tensor:
+    """int64 values in ``[0, 2**32)`` -> the int32 of the same bits."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def derive_seed(rng_or_seed, salt):
     """A decorrelated child seed, ``mix32(seed ^ salt * golden)`` in
-    wrapping int32, as the JAX version; None stays None."""
+    wrapping int32, as the JAX version; None stays None.  Ints give an
+    int; a tensor seed or salt (a device step counter) gives a 0-d int32
+    tensor of the same value, computed on its device."""
     s = as_seed(rng_or_seed)
     if s is None:
         return None
-    return _as_i32(_mix32((s & _M32) ^ _mul32(int(salt) & _M32, _SEED_C)))
+    # an int operand stays a Python int (a scalar of the tensor op): a
+    # host value copied to the card is not allowed in a graph's capture
+    su = _u32(s) if isinstance(s, torch.Tensor) else s & _M32
+    tu = _mul32(_u32(salt) if isinstance(salt, torch.Tensor)
+                else int(salt) & _M32, _SEED_C)
+    if isinstance(s, torch.Tensor) and isinstance(salt, torch.Tensor):
+        tu = tu.to(s.device)
+    x = _mix32(su ^ tu)
+    return _i32(x) if isinstance(x, torch.Tensor) else _as_i32(x)
 
 
-def _mask(shape, seed: int, rate: float, device=None) -> torch.Tensor:
+def _mask(shape, seed, rate: float, device=None) -> torch.Tensor:
     """Boolean keep-mask of ``shape``: the JAX ``_mask`` bit for bit
     (``idx + seed * C``, two shift-left injections with wraparound, one
     multiply, logical right shifts)."""
+    base = (_mul32(_u32(seed).to(device), _SEED_C)
+            if isinstance(seed, torch.Tensor) else _mul32(seed & _M32,
+                                                           _SEED_C))
     z = (torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-         + _mul32(seed & _M32, _SEED_C)) & _M32
+         + base) & _M32
     z = z ^ ((z << 9) & _M32)
     z = z ^ ((z << 11) & _M32)
     z = _mul32(z ^ (z >> 13), _MIX_C1)
@@ -64,12 +95,19 @@ def _mask(shape, seed: int, rate: float, device=None) -> torch.Tensor:
     return ((z >> 8) >= _dropout_thresh(rate)).reshape(shape)
 
 
-def _apply(x, seed: int, rate: float):
+def _apply(x, seed, rate: float):
     """``keep ? x / (1 - rate) : 0``, the scale rounded to x's dtype first
     as the JAX version's weakly typed constant is."""
     keep = _mask(x.shape, seed, rate, x.device)
-    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
-    return torch.where(keep, x * scale, torch.zeros_like(scale))
+    return torch.where(keep, x * _scale(rate, x.dtype), 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(rate: float, dtype: torch.dtype) -> float:
+    """``1 / (1 - rate)`` rounded to ``dtype``, as a Python number (a
+    device tensor made from a host value would be a copy, which a CUDA
+    graph's capture does not allow)."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
 
 
 class _HashDropout(torch.autograd.Function):
@@ -88,8 +126,8 @@ class _HashDropout(torch.autograd.Function):
 def hash_dropout(x, rate: float, rng=None, seed=None):
     """Drop elements of ``x`` with probability ``rate``; survivors scale by
     1/(1-rate).  The mask is a deterministic hash of (seed, element
-    index); ``seed`` (or ``rng``, also an int here) picks it.  No-op when
-    rate <= 0 or no seed is given."""
+    index); ``seed`` (or ``rng``: an int or a 0-d integer tensor here)
+    picks it.  No-op when rate <= 0 or no seed is given."""
     if rate <= 0.0:
         return x
     s = as_seed(seed if seed is not None else rng)

@@ -2,11 +2,13 @@
 
 Port of ``_BertNet``, ``_ClassifierNet``, ``BERTBaseEstimator`` and
 ``BERTClassifier`` from ``analytics_zoo_tpu/tfpark/text_estimators.py``:
-train, evaluate and predict through the port's ``Estimator``.  Inputs
-follow the reference feature order ``[input_ids, token_type_ids,
-input_mask]``.  The default ``bert_config`` is the JAX package's small one
-(hidden 128, 2 blocks), not BERT-base; pass BERT-base's widths
-explicitly.  The NER and SQuAD heads are not ported.
+train, evaluate and predict through the port's ``Estimator``, with the
+JAX estimator's knobs: ``model_dir`` (checkpoints), ``mixed_precision``,
+``steps_per_dispatch`` (CUDA graphs on the card), ``grad_dtype`` and
+``grad_accum_steps``.  Inputs follow the reference feature order
+``[input_ids, token_type_ids, input_mask]``.  The default ``bert_config``
+is the JAX package's small one (hidden 128, 2 blocks), not BERT-base; pass
+BERT-base's widths explicitly.  The NER and SQuAD heads are not ported.
 """
 
 from __future__ import annotations

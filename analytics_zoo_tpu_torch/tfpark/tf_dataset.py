@@ -5,14 +5,15 @@ Port of ``TFDataset`` from ``analytics_zoo_tpu/tfpark/tf_dataset.py``
 ``check_train_batching``, ``get_training_data``).  The two batch modes
 are kept: ``batch_size`` is the global training batch, and
 ``batch_per_thread`` the per-device inference batch.  The port runs on one
-device, so the device count in both rules is 1.  Only the DRAM tier is
-ported; validation sets (``validation_featureset=``, ``val_tensors=``:
-ROADMAP Queue 1 item 2) and the other factories are not.
+device, so the device count in both rules is 1.  The DRAM tier and the
+DEVICE tier (``memory_type="DEVICE"``: the training batches resident on
+the card, ``FeatureSet.cache_device``) are ported, with the validation set
+(``validation_featureset=``, ``val_tensors=``); the other factories are
+not (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
-from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS, reject
 from analytics_zoo_tpu_torch.data.featureset import FeatureSet
 
 NUM_DEVICES = 1
@@ -28,8 +29,8 @@ class TFDataset:
             raise ValueError(
                 "one and only one of batch_size and batch_per_thread should "
                 "be specified")
-        reject("TFDataset", 2, validation_featureset=validation_featureset)
         self.featureset = featureset
+        self.validation_featureset = validation_featureset
         self.has_labels = has_labels
         self.batch_size = batch_size
         self.batch_per_thread = batch_per_thread
@@ -52,6 +53,9 @@ class TFDataset:
     def get_training_data(self):
         return self.featureset
 
+    def get_validation_data(self):
+        return self.validation_featureset
+
     def __len__(self):
         return len(self.featureset)
 
@@ -59,15 +63,24 @@ class TFDataset:
     def from_ndarrays(tensors, batch_size: int = -1,
                       batch_per_thread: int = -1, val_tensors=None,
                       memory_type: str = "DRAM") -> "TFDataset":
-        """``(features,)`` or ``(features, labels)`` numpy trees.  Only the
-        host (DRAM) tier is ported: ``memory_type="DEVICE"`` raises, and so
-        does ``val_tensors``."""
-        reject("TFDataset.from_ndarrays", 2, val_tensors=val_tensors)
+        """``(features,)`` or ``(features, labels)`` numpy trees.
+        ``memory_type="DEVICE"`` keeps the training batches resident on the
+        card across epochs (``FeatureSet.cache_device``); ``val_tensors``
+        is the validation set, read by ``get_validation_data``."""
+        feats, labels = _split_tensors(tensors)
+        fs = FeatureSet.from_ndarrays(feats, labels)
         if memory_type.upper() in ("DEVICE", "HBM"):
-            raise NotImplementedError(
-                "TFDataset memory_type='DEVICE' (batches resident on the "
-                f"card) is not ported yet ({QUEUE_ITEMS[3]})")
-        feats, labels = (tensors if isinstance(tensors, tuple)
-                         and len(tensors) == 2 else (tensors, None))
-        return TFDataset(FeatureSet.from_ndarrays(feats, labels), batch_size,
-                         batch_per_thread, has_labels=labels is not None)
+            fs = fs.cache_device()
+        val = None
+        if val_tensors is not None:
+            vf, vl = _split_tensors(val_tensors)
+            val = FeatureSet.from_ndarrays(vf, vl)
+        return TFDataset(fs, batch_size, batch_per_thread,
+                         has_labels=labels is not None,
+                         validation_featureset=val)
+
+
+def _split_tensors(tensors):
+    if isinstance(tensors, tuple) and len(tensors) == 2:
+        return tensors
+    return tensors, None

@@ -46,6 +46,23 @@ Phases, each of which raises (exit code 1) on failure:
    and every gradient against the same step with the plain attention, the
    loss falling over 10 steps on a fixed batch in f32 and in mixed
    precision (bf16 kernels), the step time and a profiler breakdown.
+5b. train_bench: BERT-base training as ``bench.py:322-346`` builds it,
+   through ``BERTClassifier.train``: the bench's 8,192 sequences of
+   ``RandomState(0)`` (learnable labels), batch 256 on the DEVICE tier
+   (``memory_type="DEVICE"``), ``AdamWeightDecay(lr=1e-4,
+   state_dtype="bfloat16")``, mixed precision with the bf16 gradient tree,
+   ``steps_per_dispatch=32`` (one CUDA graph of a whole step, replayed 32
+   times a dispatch), 8 epochs.  Checked: exactly 12 ``flash_fwd`` and 12
+   ``flash_bwd`` launches a step counted through the replays; the epoch
+   losses fall and the first 32 steps agree with ``steps_per_dispatch=1``
+   within ``BENCH_BF16_RTOL``; in f32 at batch 32 with dropout, 8 steps
+   through the graph (K = 4) equal 8 eager steps (losses 1e-5 relative,
+   weights 1e-5 of max|p|); a checkpoint at an epoch end restored into a
+   new estimator (``resume=True``) trains the next epoch to the
+   uninterrupted run's losses within 1e-6 relative.  Reported at batch
+   256, graph against K = 1: step ms, samples/s, the device-busy share of
+   a dispatch (profiler), peak memory and the model-FLOPs share of the
+   bf16 dense peak.
 6. paged: the tensor-core instructions of the built ``paged_chunk.cu``
    (HGMMA in its bf16 instances, HMMA in its f32 ones); ``paged_decode``
    and ``paged_chunk`` against their plain versions on the card at the
@@ -173,6 +190,20 @@ BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2.0 ** -6)}
 TRAIN_LOSS_ATOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3        # of max|g| of each parameter's gradient
 BATCH = 32
+# the bench's BERT training leg (bench.py:322-346): batch, steps an epoch,
+# epochs, steps per dispatch
+BENCH = dict(batch=256, steps=32, epochs=8, spd=32)
+# graph vs eager steps in f32 (the same kernels; cuBLAS and the f32
+# backward sum in a fixed order): losses relative, weights of max|p|
+GRAPH_LOSS_RTOL = 1e-5
+GRAPH_WEIGHT_RTOL = 1e-5
+# graph vs eager in bf16 over the first 32 steps: the same kernels on the
+# same inputs in the same order (flash_bwd sums dq in a fixed order, with
+# no float atomics), so the losses agree to the bit (0 in every run so
+# far); this allows one f32 rounding of a mean loss, where one step's
+# wrong dropout mask moves it by 1e-4 or more
+BENCH_BF16_RTOL = 1e-6
+RESUME_RTOL = 1e-6            # a resumed epoch vs the uninterrupted one
 # the public gpt2 checkpoint's config.json: vocab_size, n_embd, n_head,
 # n_layer, n_positions; FFN 4 x n_embd
 GPT2_SMALL = dict(vocab=50257, hidden=768, n_head=12, n_layers=12,
@@ -987,6 +1018,246 @@ def phase_train(cfg=None, steps=10):
                           f"one {what} training step at batch {BATCH}",
                           top=16)
     return runs["f32"]["launches"], dict(step_ms=step_ms, runs=runs)
+
+
+class _DispatchLosses:
+    """Records every training step's loss while active: the losses each
+    dispatch hands ``Estimator._post_dispatch`` (device tensors, read
+    after the run)."""
+
+    def __enter__(self):
+        from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+        self._cls = est_mod.Estimator
+        self._orig = orig = est_mod.Estimator._post_dispatch
+        self.losses = seen = []
+
+        def spy(est, n, k, lv, *args, **kw):
+            seen.append(lv)
+            return orig(est, n, k, lv, *args, **kw)
+        self._cls._post_dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._post_dispatch = self._orig
+        self.losses = [float(v) for lv in self.losses
+                       for v in lv.float().cpu().reshape(-1)]
+
+
+def _bench_data(cfg):
+    """``bench.py:322-330``: 8,192 sequences from ``RandomState(0)``, no
+    padding, one segment, labels the first token's parity."""
+    n, T = BENCH["batch"] * BENCH["steps"], cfg["seq_len"]
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg["vocab"], (n, T)).astype(np.int32)
+    return ((ids, np.zeros((n, T), np.int32), np.ones((n, T), np.int32)),
+            (ids[:, 0] % 2).astype(np.int32))
+
+
+def _bench_clf(cfg, tree, spd, mixed=True, model_dir=None):
+    """The bench's classifier (f32 masters; bf16 forward, gradients and
+    first moment under mixed precision) from the weights ``tree``."""
+    from analytics_zoo_tpu_torch.keras.optimizers import AdamWeightDecay
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    low = "bfloat16" if mixed else None
+    clf = BERTClassifier(
+        num_classes=2, bert_config=cfg,
+        optimizer=AdamWeightDecay(lr=1e-4, state_dtype=low),
+        mixed_precision=mixed, steps_per_dispatch=spd, grad_dtype=low,
+        model_dir=model_dir, device="cuda")
+    return clf.load_weights(tree)
+
+
+def _release():
+    """Free what the caller dropped: an estimator and its captured graph
+    hold each other, so the cycle collector runs before the cache is
+    emptied."""
+    import gc
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _close(what, got, want, rtol):
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+    log(f"[train_bench] {what}: worst relative loss difference {worst:.3e} "
+        f"over {len(got)} steps (tol {rtol:g})")
+    if len(got) != len(want) or worst > rtol:
+        raise AssertionError(f"{what}: {got} vs {want}")
+
+
+def _step_flops(net, cfg, batch):
+    """One training step's model FLOPs as model-FLOPs shares count them:
+    6 x tokens x the encoder blocks' parameters, 6 x sequences x the
+    pooler's and the head's (they read the first token only), plus the
+    attention products (forward 4 B H T^2 D a layer, backward twice).
+    The embedding tables and their LayerNorm are left out: a gather and
+    elementwise work, not products."""
+    T, H = cfg["seq_len"], cfg["n_head"]
+    D = cfg["hidden_size"] // H
+    per_token = per_seq = 0
+    for name, p in net.named_parameters():
+        if "_block" in name:
+            per_token += p.numel()
+        elif "embed" not in name:
+            per_seq += p.numel()
+    attn = 12 * batch * H * T * T * D * cfg["n_block"]
+    return 6 * (per_token * batch * T + per_seq * batch) + attn
+
+
+def phase_train_bench():
+    """The bench's BERT training leg on the card; see the module
+    docstring (5b).  Returns (launches of the bench run, numbers)."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.keras.optimizers import AdamWeightDecay
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    cfg = dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
+    n_block = cfg["n_block"]
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg)
+    bench_ds = TFDataset.from_ndarrays((x, y), batch_size=BENCH["batch"],
+                                       memory_type="DEVICE")
+    small = ((tuple(a[:8 * BATCH] for a in x)), y[:8 * BATCH])
+    small_ds = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                       memory_type="DEVICE")
+    out = {}
+
+    # check 2: 8 f32 steps with dropout through the graph (K = 4) against
+    # 8 eager steps, from the same weights and seed
+    runs = {}
+    for k in (4, 1):
+        clf = _bench_clf(cfg, tree, k, mixed=False)
+        _kernels.reset_launches()
+        with _DispatchLosses() as rec:
+            clf.train(lambda: small_ds, epochs=1)
+        torch.cuda.synchronize()
+        runs[k] = (rec.losses, {n: p.detach().clone()
+                                for n, p in clf.net.named_parameters()},
+                   (_kernels.flash_fwd.launches, _kernels.flash_bwd.launches))
+        del clf
+        _release()
+    _close("f32 batch 32, 8 steps: graph (K=4) vs eager (K=1)",
+           runs[4][0], runs[1][0], GRAPH_LOSS_RTOL)
+    worst = max(((runs[4][1][n] - p).abs().max()
+                 / p.abs().max().clamp_min(1e-30)).item()
+                for n, p in runs[1][1].items())
+    log(f"[train_bench] ... weights: worst |d|/max|p| {worst:.3e} (tol "
+        f"{GRAPH_WEIGHT_RTOL:g}); launches graph {runs[4][2]}, eager "
+        f"{runs[1][2]}")
+    if worst > GRAPH_WEIGHT_RTOL or runs[4][2] != (8 * n_block,
+                                                   8 * n_block) \
+            or runs[1][2] != runs[4][2]:
+        raise AssertionError("the graph's steps differ from eager steps")
+    del runs
+
+    # check 4: checkpoint at an epoch end, restore into a new estimator,
+    # train the next epoch; against the uninterrupted run (f32, K = 4)
+    tmp = tempfile.mkdtemp(prefix="zoo_ckpt_")
+    try:
+        clf = _bench_clf(cfg, tree, 4, mixed=False)
+        with _DispatchLosses() as whole:
+            clf.train(lambda: small_ds, epochs=2)
+        clf = _bench_clf(cfg, tree, 4, mixed=False, model_dir=tmp)
+        clf.train(lambda: small_ds, epochs=1)
+        del clf
+        _release()
+        net = BERTClassifier(2, bert_config=cfg, device="cuda").net
+        est = Estimator(net, AdamWeightDecay(lr=1e-4),
+                        "sparse_categorical_crossentropy",
+                        checkpoint_dir=tmp, steps_per_dispatch=4,
+                        device="cuda")
+        with _DispatchLosses() as resumed:
+            est.train(small_ds.get_training_data(), BATCH, epochs=2,
+                      resume=True)
+        log(f"[train_bench] resumed at step 8 from {sorted(os.listdir(tmp))}"
+            f" -> global step {est.global_step}")
+        _close("resume: the epoch after a restored checkpoint vs the "
+               "uninterrupted run", resumed.losses, whole.losses[8:],
+               RESUME_RTOL)
+        del est, net
+        _release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # checks 1 and 3: the bench's run, counted from zero: 12 + 12 launches
+    # a step through the replays, the epoch losses falling
+    steps = BENCH["steps"] * BENCH["epochs"]
+    clf = _bench_clf(cfg, tree, BENCH["spd"])
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    with _DispatchLosses() as bench:
+        clf.train(lambda: bench_ds, epochs=BENCH["epochs"])
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+    no_copies("train_bench")
+    hist = clf._train_est.history
+    epoch_losses = [h["loss"] for h in hist]
+    log(f"[train_bench] bench run: {steps} steps in {len(hist)} epochs of "
+        f"one {BENCH['spd']}-step dispatch; epoch losses "
+        f"{' '.join(f'{v:.4f}' for v in epoch_losses)}; launches "
+        f"{launches}")
+    want = dict.fromkeys(_kernels.KERNELS, 0)
+    want.update(flash_fwd=steps * n_block, flash_bwd=steps * n_block)
+    if launches != want:
+        raise AssertionError(f"bench run: expected {want} launches through "
+                             f"the replays, got {launches}")
+    if not (np.isfinite(epoch_losses).all()
+            and epoch_losses[-1] < epoch_losses[0]):
+        raise AssertionError(f"bench run: the loss did not fall: "
+                             f"{epoch_losses}")
+    graph_peak = torch.cuda.max_memory_allocated()
+    graph_ms = (np.mean([h["seconds"] for h in hist[1:]]) * 1e3
+                / BENCH["steps"])
+    busy = profile_breakdown(lambda: clf.train(lambda: bench_ds, epochs=1),
+                             f"one {BENCH['spd']}-step dispatch (CUDA graph "
+                             f"replays) at batch {BENCH['batch']}", top=12)
+    flops = _step_flops(clf.net, cfg, BENCH["batch"])
+    first = bench.losses[:BENCH["steps"]]
+    del clf
+    _release()
+
+    # K = 1 in the same call: the first 32 steps against the graph's, then
+    # a timed epoch and a profile
+    clf = _bench_clf(cfg, tree, 1)
+    torch.cuda.reset_peak_memory_stats()
+    with _DispatchLosses() as eager:
+        clf.train(lambda: bench_ds, epochs=1)
+    _close(f"bf16 bench configuration, first {BENCH['steps']} steps: graph "
+           f"(K={BENCH['spd']}) vs eager (K=1)", first, eager.losses,
+           BENCH_BF16_RTOL)
+    clf.train(lambda: bench_ds, epochs=1)
+    eager_ms = (clf._train_est.history[-1]["seconds"] * 1e3
+                / BENCH["steps"])
+    eager_peak = torch.cuda.max_memory_allocated()
+    busy_eager = profile_breakdown(
+        lambda: clf.train(lambda: bench_ds, epochs=1),
+        f"{BENCH['steps']} eager steps (K=1) at batch {BENCH['batch']}",
+        top=12)
+    del clf
+    _release()
+    for what, ms, peak, prof in (
+            (f"graph (K={BENCH['spd']})", graph_ms, graph_peak, busy),
+            ("eager (K=1)", eager_ms, eager_peak, busy_eager)):
+        share = (f"{100 * prof[1] / prof[0]:.1f}%" if prof
+                 else "not measured")
+        out[what] = dict(step_ms=ms,
+                         samples_s=BENCH["batch"] * 1e3 / ms,
+                         busy_share=prof[1] / prof[0] if prof else None,
+                         peak_gib=peak / 2 ** 30,
+                         mfu=flops / (ms * 1e-3) / PEAK_FLOPS[torch.bfloat16])
+        log(f"[train_bench] {what} at batch {BENCH['batch']}: "
+            f"{ms:.3f} ms a step ({out[what]['samples_s']:.1f} samples/s), "
+            f"device busy {share} of a dispatch, peak memory "
+            f"{out[what]['peak_gib']:.2f} GiB, model FLOPs "
+            f"{flops / 1e12:.2f} TFLOP a step = "
+            f"{100 * out[what]['mfu']:.1f}% of the bf16 dense peak "
+            f"({PEAK_FLOPS[torch.bfloat16] / 1e12:g} TFLOP/s)")
+    out["epoch_losses"] = epoch_losses
+    return launches, out
 
 
 def _paged_pools(dtype, P, bs, Hkv, D, gen):
@@ -1867,29 +2138,6 @@ def _rec_pair(build, rng, device):
     return card, cpu
 
 
-class _StepLosses:
-    """Records every training step's loss (a device scalar, read after the
-    run) while active."""
-
-    def __enter__(self):
-        from analytics_zoo_tpu_torch.estimator import estimator as est_mod
-        self._cls, self._orig, self.losses = (est_mod.Estimator,
-                                              est_mod.Estimator._train_step,
-                                              [])
-        orig, seen = self._orig, self.losses
-
-        def spy(est, *args, **kw):
-            loss = orig(est, *args, **kw)
-            seen.append(loss)
-            return loss
-        self._cls._train_step = spy
-        return self
-
-    def __exit__(self, *exc):
-        self._cls._train_step = self._orig
-        self.losses = [float(v) for v in self.losses]
-
-
 def _train_rec(what, card, cpu, x, y, card_name, steps=10, compare=3):
     """``fit`` on the card for ``steps`` steps of REC_BATCH (the first
     ``compare`` against the same steps on the CPU), then a timed warm
@@ -1902,10 +2150,10 @@ def _train_rec(what, card, cpu, x, y, card_name, steps=10, compare=3):
     fs = FeatureSet.from_ndarrays(x, y, shuffle=False)
     for m in (card, cpu):
         m.compile("adam", "sparse_categorical_crossentropy", ["accuracy"])
-    with _StepLosses() as on_card:
+    with _DispatchLosses() as on_card:
         card.fit(fs, batch_size=B, nb_epoch=1)
         torch.cuda.synchronize()
-    with _StepLosses() as on_cpu:
+    with _DispatchLosses() as on_cpu:
         cpu.fit(FeatureSet.from_ndarrays(head(x), head(y), shuffle=False),
                 batch_size=B, nb_epoch=1)
     got, want = np.array(on_card.losses), np.array(on_cpu.losses)
@@ -2440,6 +2688,7 @@ def main() -> int:
     serve_launches = phase_serve()
     bwd_rows, bwd_lse_rows = phase_backward()
     train_launches, _ = phase_train()
+    bench_launches, _ = phase_train_bench()
     paged_rows = phase_paged()
     llm_launches, llm = phase_llm()
     ring_launches, ring_rows = phase_ring()
@@ -2459,18 +2708,22 @@ def main() -> int:
                 "bf16": dict(rows[torch.bfloat16]), **extra}
 
     csrc = "analytics_zoo_tpu_torch/ops/csrc/"
+    BENCH_RUN = (f"the bench's BERT training: "
+                 f"{BENCH['steps'] * BENCH['epochs']} steps, "
+                 f"{BENCH['epochs']} dispatches of {BENCH['spd']} CUDA "
+                 f"graph replays")
     paged_lib = "scaled_dot_product_attention over the same K/V made contiguous"
     kernels = [
         entry("flash_fwd", csrc + "flash_fwd.cu",
               "analytics_zoo_tpu/ops/attention.py:169", rows,
-              train_launches["flash_fwd"],
-              launches_in="10 f32 training steps",
+              bench_launches["flash_fwd"], launches_in=BENCH_RUN,
+              f32_train_launches=train_launches["flash_fwd"],
               serve_launches=serve_launches,
               http_launches=http_launches["flash_fwd"]),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
-              train_launches["flash_bwd"],
-              launches_in="10 f32 training steps",
+              bench_launches["flash_bwd"], launches_in=BENCH_RUN,
+              f32_train_launches=train_launches["flash_bwd"],
               library="backward of scaled_dot_product_attention"),
         entry("paged_decode", csrc + "paged_decode.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:79",

@@ -6,6 +6,8 @@ into the port, and both predict on the same numpy inputs.  f32 tolerance
 1e-5 absolute on the class probabilities.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,17 +117,19 @@ def test_one_attention_layer_per_block_and_backend_switch():
         set_attention_backend(tb.net, "xla")
 
 
-def test_training_is_not_ported_yet():
-    # the parts of training still to port raise naming ROADMAP; the
-    # training forward runs, and without a seed it drops nothing
+def test_training_is_not_ported_yet(tmp_path):
+    # the JAX estimator's knobs train now (multi-step dispatch, model_dir
+    # checkpoints, LAMB); the training forward runs, and without a seed
+    # it drops nothing
     x = _inputs([16, 9])
     ds = TFDataset.from_ndarrays((tuple(x), np.array([0, 1], np.int32)),
                                  batch_size=2)
-    for kw in (dict(steps_per_dispatch=4), dict(model_dir="ck"),
+    for kw in (dict(steps_per_dispatch=4), dict(model_dir=str(tmp_path)),
                dict(optimizer="lamb")):
         tb = TBERT(num_classes=2, bert_config=CFG, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.train(ds)
+        tb.train(ds, epochs=2)
+        assert tb._train_est.global_step == 2
+    assert sorted(os.listdir(tmp_path)) == ["ckpt-0", "ckpt-1", "ckpt-2"]
     tb.net.train()
     xt = [torch.from_numpy(a) for a in x]
     train_out = tb.net(xt)

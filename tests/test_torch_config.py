@@ -131,13 +131,27 @@ def test_same_errors_and_unknown_keys_ignored(tmp_path):
 
 @pytest.mark.parametrize("override,item", [
     (dict(num_processes="2"), 5), (dict(coordinator_address="h:1234"), 5),
-    (dict(process_id="1"), 5), (dict(train__keep_checkpoints="1"), 2)])
+    (dict(process_id="1"), 5), (dict(train__rng_impl="threefry"), 2)])
 def test_unported_values_raise_naming_their_item(override, item):
     name = next(iter(override)).split("__")[-1]
     with pytest.raises(NotImplementedError,
                        match=f"{name}=.*Queue 1 item {item}"):
         tcfg.load_config(None, **override)
     jcfg.load_config(None, **override)          # the JAX package takes it
+
+
+def test_ported_train_values_are_taken():
+    # checkpoint retention, retries and the dispatch cap are ported now
+    cfg = tcfg.load_config(None, train__keep_checkpoints="1",
+                           train__failure_retry_times="2",
+                           train__max_steps_per_dispatch="64")
+    want = jcfg.load_config(None, train__keep_checkpoints="1",
+                            train__failure_retry_times="2",
+                            train__max_steps_per_dispatch="64")
+    assert (cfg.train.keep_checkpoints, cfg.train.failure_retry_times,
+            cfg.train.max_steps_per_dispatch) == (
+        want.train.keep_checkpoints, want.train.failure_retry_times,
+        want.train.max_steps_per_dispatch) == (1, 2, 64)
 
 
 def test_one_process_values_are_taken():

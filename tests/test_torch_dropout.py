@@ -50,10 +50,31 @@ def test_as_seed_and_derive_seed_match(seed):
 
 
 def test_as_seed_takes_ints_only():
+    # ints, or one integer in a tensor (the training step's device seeds)
     assert TD.as_seed(np.int64(-3)) == -3
-    for bad in (1.5, "7", True, torch.tensor(3)):
+    t = TD.as_seed(torch.tensor(2**31 + 5))
+    assert t.dtype == torch.int32 and t.shape == () and int(t) == -2**31 + 5
+    for bad in (1.5, "7", True, torch.tensor(1.5), torch.tensor([1, 2]),
+                torch.tensor(True)):
         with pytest.raises(TypeError, match="int"):
             TD.as_seed(bad)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_tensor_seeds_give_the_int_seeds_values(seed):
+    # a seed (or salt) held in a tensor, as a device step counter is,
+    # derives the same int32 seeds and the same masks as the int
+    ts = torch.tensor(seed & 0xFFFFFFFF, dtype=torch.int64)
+    assert int(TD.as_seed(ts)) == TD.as_seed(seed)
+    for salt in SALTS:
+        want = TD.derive_seed(seed, salt)
+        for got in (TD.derive_seed(ts, salt),
+                    TD.derive_seed(seed, torch.tensor(salt)),
+                    TD.derive_seed(ts, torch.tensor(salt, dtype=torch.int32))):
+            assert got.dtype == torch.int32 and int(got) == want
+    for rate in (0.1, 0.5):
+        assert torch.equal(TD._mask((3, 40), TD.as_seed(ts), rate),
+                           TD._mask((3, 40), TD.as_seed(seed), rate))
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.3])

@@ -10,6 +10,8 @@ initializer and loss registries, and a frozen embedding table that lives
 in state.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from analytics_zoo_tpu.keras import initializers as JInit
 from analytics_zoo_tpu.keras import layers as JL
 from analytics_zoo_tpu.keras import losses as JLoss
 from analytics_zoo_tpu_torch import interop
+from analytics_zoo_tpu_torch import tensorboard as TTB
 from analytics_zoo_tpu_torch.keras import activations as TAct
 from analytics_zoo_tpu_torch.keras import engine as TEng
 from analytics_zoo_tpu_torch.keras import initializers as TInit
@@ -290,7 +293,10 @@ def test_initializer_scale_matches_jax(name):
     assert TL.Embedding(3, 2).kernel_init is TInit.uniform
 
 
-def test_compile_fit_need_a_compile_and_save_names_item_2():
+def test_compile_fit_need_a_compile_and_save_names_item_2(tmp_path):
+    # compile is still needed first; save / load, set_checkpoint,
+    # set_tensorboard and fit's checkpoint_dir / steps_per_dispatch are
+    # ported now; loading a JAX-written file names item 2
     x = TL.Input((2,))
     m = TEng.Model(x, TL.Dense(2, activation="softmax")(x), device="cpu")
     with pytest.raises(RuntimeError, match="compile"):
@@ -299,15 +305,23 @@ def test_compile_fit_need_a_compile_and_save_names_item_2():
         m.evaluate(np.zeros((4, 2), np.float32), np.zeros(4, np.int32))
     with pytest.raises(ValueError, match="per-name optimizer"):
         m.compile({"a": "adam"}, "mse")
-    for call in (lambda: m.save("p"), lambda: TEng.KerasNet.load("p"),
-                 lambda: m.set_checkpoint("p"),
-                 lambda: m.set_tensorboard("d", "app")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            call()
     m.compile("sgd", "sparse_categorical_crossentropy")
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        m.fit(np.zeros((4, 2), np.float32), np.zeros(4, np.int32),
-              batch_size=2, checkpoint_dir="ck")
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        m.fit(np.zeros((4, 2), np.float32), np.zeros(4, np.int32),
-              batch_size=2, steps_per_dispatch=4)
+    xs = np.random.default_rng(0).standard_normal((4, 2)).astype(np.float32)
+    ys = np.array([0, 1, 1, 0], np.int32)
+    m.set_checkpoint(str(tmp_path / "ck"))
+    m.set_tensorboard(str(tmp_path / "tb"), "app")
+    m.fit(xs, ys, batch_size=2, steps_per_dispatch=2)
+    assert sorted(os.listdir(tmp_path / "ck")) == ["ckpt-0", "ckpt-2"]
+    assert TTB.read_scalar(str(tmp_path / "tb" / "app" / "train"),
+                           "Loss").shape == (1, 3)
+    m.fit(xs, ys, batch_size=2, checkpoint_dir=str(tmp_path / "ck2"))
+    assert os.path.isdir(tmp_path / "ck2" / "ckpt-2")
+    m.save(str(tmp_path / "m.pkl"))
+    back = TEng.KerasNet.load(str(tmp_path / "m.pkl"), device="cpu")
+    np.testing.assert_array_equal(back.predict(xs), m.predict(xs))
+    jx = JL.Input((2,))
+    jm = JEng.Model(jx, JL.Dense(2)(jx))
+    jm.init(jax.random.PRNGKey(0))
+    jm.save(str(tmp_path / "j.pkl"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        TEng.KerasNet.load(str(tmp_path / "j.pkl"), device="cpu")
