@@ -17,9 +17,9 @@ QUEUE_ITEMS = {
        "reserved=), tenancy and capacity, BatchingService, server-side "
        "image decode, the Redis / native / fleet brokers, the journaled "
        "broker and common/health.py",
-    2: "ROADMAP Queue 1 item 2: the rest of training, with the rest of "
-       "keras/ (layers, metrics), autograd, the local estimator and the "
-       "NER and SQuAD heads",
+    2: "ROADMAP Queue 1 item 2: the rest of training, with autograd, "
+       "the local estimator, the NER and SQuAD heads, then Seq2seq and "
+       "KNRM",
     3: "ROADMAP Queue 1 item 3: the rest of the recommendation slice, "
        "with the data/ tiers (disk, generator), sharded sources, "
        "transforms and TFRecord",

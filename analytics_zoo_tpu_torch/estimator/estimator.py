@@ -61,6 +61,7 @@ Not ported: the sharded update and tensor parallelism (``shard_optimizer``,
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from concurrent.futures import CancelledError
@@ -85,6 +86,7 @@ from analytics_zoo_tpu_torch.estimator.checkpoint import (
 from analytics_zoo_tpu_torch.keras import losses as losses_mod
 from analytics_zoo_tpu_torch.keras import metrics as metrics_mod
 from analytics_zoo_tpu_torch.keras import optimizers as optim_mod
+from analytics_zoo_tpu_torch.keras.layers.normalization import recomputing
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.dropout import as_seed, derive_seed
 
@@ -258,7 +260,8 @@ class Estimator:
             # the hash dropout recomputes the same mask; no RNG state to
             # keep (none is drawn)
             preds = _remat(lambda xx: self._forward(p_fwd, xx, seed), x,
-                           use_reentrant=False, preserve_rng_state=False)
+                           use_reentrant=False, preserve_rng_state=False,
+                           context_fn=_remat_contexts)
         else:
             preds = self._forward(p_fwd, x, seed)
         loss = self.loss(preds, y)
@@ -781,6 +784,13 @@ class Estimator:
         if isinstance(outs[0], np.ndarray):
             return np.concatenate(outs)
         return [np.concatenate(parts) for parts in zip(*outs)]
+
+
+def _remat_contexts():
+    """(forward, recomputation) contexts of a rematerialised step: the
+    recomputation leaves BatchNormalization's running statistics as the
+    forward left them."""
+    return contextlib.nullcontext(), recomputing()
 
 
 def _fires_in_range(trigger, ts, prev_step, cur_step):

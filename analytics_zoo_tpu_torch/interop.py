@@ -18,9 +18,14 @@ Lists and tuples in a tree are walked by index, so the decoder LM's
 (an ``nn.ModuleList``), and ``params_tree`` rebuilds a list wherever every
 key of a level is a digit.
 
-What the JAX package keeps in ``state`` (a frozen embedding table) is a
-buffer of the module: ``state_tree`` reads the buffers and
-``load_jax_params(module, params, state)`` writes them.
+What the JAX package keeps in ``state`` (a frozen embedding table,
+BatchNormalization's ``moving_mean`` / ``moving_var``) is a buffer of the
+module: ``state_tree`` reads the buffers and
+``load_jax_params(module, params, state)`` writes them.  The layer
+catalogue's trees cross the same way: convolution kernels ``(k..., in,
+out)``, recurrent ``W`` / ``U`` / ``b``, ``Bidirectional``'s ``forward`` /
+``backward`` subtrees, and ``TimeDistributed`` / ``KerasLayerWrapper``,
+whose tree is their inner layer's, unnested.
 
 Nothing is transposed or renamed.  Loading is strict: a key missing from
 either side, or a shape that differs, raises and names the path.

@@ -465,6 +465,9 @@ class Sequential(KerasNet):
     def add(self, layer: Layer) -> "Sequential":
         if not self.layers and self.input_shape is None:
             self.input_shape = layer.input_shape
+        # a layer built at construction holds its weights on the host:
+        # they join the net's device before they count in ``device``
+        layer.to(self.device)
         self._register(layer)
         self.layers.append(layer)
         if self.input_shape is not None:
@@ -473,12 +476,14 @@ class Sequential(KerasNet):
         return self
 
     def build(self, input_shape: Shape) -> None:
-        """Build the layers still waiting for their input's shape."""
+        """Build the layers still waiting for their input's shape, on the
+        net's device (read before the new weights exist)."""
+        device = self.device
         s = input_shape
         for layer in self.layers:
             layer.ensure_built(s)
             s = layer.compute_output_shape(s)
-        self.to(self.device)
+        self.to(device)
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         s = input_shape

@@ -1,11 +1,13 @@
-"""The embedding layer.
+"""The embedding layers.
 
-Port of ``Embedding`` in ``analytics_zoo_tpu/keras/layers/embedding.py``:
-a ``(input_dim, output_dim)`` table, ``embeddings``, gathered by the
+Port of ``analytics_zoo_tpu/keras/layers/embedding.py``: ``Embedding``, a
+``(input_dim, output_dim)`` table, ``embeddings``, gathered by the
 input's ids.  A trainable table is a parameter; a frozen one
 (``trainable=False``) is a buffer, the JAX layer's ``state``, which no
-optimizer sees.  ``WordEmbedding`` and ``SparseEmbedding`` are not ported
-yet (ROADMAP Queue 1 item 2).
+optimizer sees.  ``WordEmbedding`` is a frozen table of pretrained word
+vectors, read from a GloVe text file (one ``word v1 v2 ...`` line each)
+through a word index; ``SparseEmbedding`` is ``Embedding`` (a dense
+gather), as in the JAX package.
 
 Ids outside the table give what ``jnp.take`` gives in the JAX package:
 an id in ``[-input_dim, 0)`` counts from the end, and any other
@@ -66,3 +68,44 @@ class Embedding(Layer):
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)
+
+
+class WordEmbedding(Embedding):
+    """Pretrained word vectors, frozen by default.  ``embedding_file`` (a
+    GloVe text file) with ``word_index`` (word -> row; default the file's
+    order from row 1) gives the table; row 0 and words missing from the
+    file stay zero."""
+
+    def __init__(self, embedding_file: Optional[str] = None,
+                 word_index: Optional[dict] = None, trainable: bool = False,
+                 input_dim: Optional[int] = None,
+                 output_dim: Optional[int] = None,
+                 weights: Optional[np.ndarray] = None, **kw):
+        if embedding_file is not None:
+            weights, input_dim, output_dim = _load_glove(
+                embedding_file, word_index)
+        super().__init__(input_dim, output_dim, trainable=trainable,
+                         weights=weights, **kw)
+
+
+def _load_glove(path: str, word_index: Optional[dict]):
+    vecs = {}
+    dim = None
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            parts = line.rstrip().split(" ")
+            vecs[parts[0]] = np.asarray(parts[1:], dtype=np.float32)
+            dim = len(parts) - 1
+    if word_index is None:
+        word_index = {w: i + 1 for i, w in enumerate(vecs)}
+    n = max(word_index.values()) + 1
+    table = np.zeros((n, dim), dtype=np.float32)
+    for w, i in word_index.items():
+        if w in vecs and i < n:
+            table[i] = vecs[w]
+    return table, n, dim
+
+
+class SparseEmbedding(Embedding):
+    """Embedding for one-hot-style sparse ids: a dense gather, as in the
+    JAX package."""

@@ -1,13 +1,19 @@
 """Model zoo: the decoder LM that LLM serving runs
-(``models/generation.py``) and the recommendation models
-(``models/recommendation.py``)."""
+(``models/generation.py``), the recommendation models
+(``models/recommendation.py``), TextClassifier, AnomalyDetector and
+ImageClassifier."""
 
+from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.common import ZooModel
 from analytics_zoo_tpu_torch.models.generation import DecoderLM
+from analytics_zoo_tpu_torch.models.imageclassification import (
+    ImageClassifier)
 from analytics_zoo_tpu_torch.models.recommendation import (
-    ColumnFeatureInfo, NeuralCF, UserItemFeature, WideAndDeep,
-    assemble_feature_dict, get_deep_tensors, get_wide_tensor)
+    ColumnFeatureInfo, NeuralCF, SessionRecommender, UserItemFeature,
+    WideAndDeep, assemble_feature_dict, get_deep_tensors, get_wide_tensor)
+from analytics_zoo_tpu_torch.models.textclassification import TextClassifier
 
-__all__ = ["ColumnFeatureInfo", "DecoderLM", "NeuralCF", "UserItemFeature",
-           "WideAndDeep", "ZooModel", "assemble_feature_dict",
-           "get_deep_tensors", "get_wide_tensor"]
+__all__ = ["AnomalyDetector", "ColumnFeatureInfo", "DecoderLM",
+           "ImageClassifier", "NeuralCF", "SessionRecommender",
+           "TextClassifier", "UserItemFeature", "WideAndDeep", "ZooModel",
+           "assemble_feature_dict", "get_deep_tensors", "get_wide_tensor"]

@@ -1,8 +1,8 @@
 """ZooModel: a functional-graph model with a domain API on top.
 
 Port of ``ZooModel`` in ``analytics_zoo_tpu/models/common.py``.  ``Ranker``
-waits for the text models; ``save`` / ``load`` raise with ``KerasNet``'s
-(ROADMAP Queue 1 item 2: checkpoints).
+waits for the text-matching model it serves (``KNRM``, ROADMAP Queue 1
+item 2); ``save`` / ``load`` are ``KerasNet``'s.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Recommendation models: NeuralCF and WideAndDeep.
+"""Recommendation models: NeuralCF, WideAndDeep and SessionRecommender.
 
 Port of ``analytics_zoo_tpu/models/recommendation.py``: the same graphs,
 layer names and parameter trees, built from the port's functional
@@ -8,10 +8,11 @@ layer names and parameter trees, built from the port's functional
 (``get_wide_tensor`` / ``get_deep_tensors`` / ``assemble_feature_dict``,
 copies of the JAX package's numpy code).  The embedding gathers and the
 towers' products are PyTorch calls: the JAX package computes them outside
-any Pallas kernel.  ``SessionRecommender`` needs ``GRU`` and waits for the
-recurrent layers (ROADMAP Queue 1 item 2).
+any Pallas kernel.  ``SessionRecommender`` is a GRU over the session's
+items, with an optional multi-hot history tower, and
+``recommend_for_session``.
 
-Both models take ``device=`` (default: the card; raises without one).
+The models take ``device=`` (default: the card; raises without one).
 """
 
 from __future__ import annotations
@@ -285,3 +286,50 @@ def assemble_feature_dict(columns: Dict[str, np.ndarray],
     if model_type in ("deep", "wide_n_deep"):
         out.update(get_deep_tensors(columns, column_info))
     return out
+
+
+class SessionRecommender(ZooModel):
+    """Session-based recommender: GRUs over the session's item sequence,
+    with an optional MLP over the user's history, into an
+    ``item_count + 1``-way softmax (ids are 1-based)."""
+
+    def __init__(self, item_count: int, item_embed: int = 20,
+                 rnn_hidden_layers: Sequence[int] = (40, 20),
+                 session_length: int = 10, include_history: bool = False,
+                 mlp_hidden_layers: Sequence[int] = (40, 20),
+                 history_length: int = 5, **kw):
+        self.item_count = item_count
+        self.include_history = include_history
+        session = Input((session_length,), name="session")
+        inputs = [session]
+        h = L.Embedding(item_count + 1, item_embed, name="session_embed")(
+            session)
+        for idx, width in enumerate(rnn_hidden_layers[:-1]):
+            h = L.GRU(width, return_sequences=True, name=f"gru_{idx}")(h)
+        h = L.GRU(rnn_hidden_layers[-1], name="gru_last")(h)
+        if include_history:
+            history = Input((history_length,), name="history")
+            inputs.append(history)
+            hh = L.Flatten()(L.Embedding(item_count + 1, item_embed,
+                                         name="history_embed")(history))
+            for idx, width in enumerate(mlp_hidden_layers):
+                hh = L.Dense(width, activation="relu",
+                             name=f"hist_dense_{idx}")(hh)
+            h = L.Merge(mode="concat")([h, hh])
+        out = L.Dense(item_count + 1, activation="softmax", name="head")(h)
+        super().__init__(input=inputs, output=out, **kw)
+
+    def recommend_for_session(self, sessions: np.ndarray, max_items: int,
+                              zero_based_label: bool = True,
+                              batch_size: int = 1024):
+        """The top ``max_items`` (item, probability) of each session, as
+        the JAX model ranks them (its input: the sessions alone)."""
+        fs = FeatureSet.from_ndarrays(np.asarray(sessions, np.int32),
+                                      shuffle=False)
+        probs = self.predict(fs, batch_size=batch_size)
+        out = []
+        for row in probs:
+            order = np.argsort(-row)[:max_items]
+            out.append([(int(j) if zero_based_label else int(j) + 1,
+                         float(row[j])) for j in order])
+        return out

@@ -17,6 +17,14 @@ it runs in int64 holding values in ``[0, 2**32)`` (see
 ``ops/attention.py``), the same operations on an int and on a tensor.  It
 is plain torch, as it is plain jnp in the JAX package: no hand-written
 kernel.
+
+The layers whose JAX draws come from ``jax.random`` (spatial and Gaussian
+dropout, Gaussian noise, the Gaussian sampler, RReLU's slopes), which no
+port can reproduce, draw from the same kind of counter hash instead:
+``hash_uniform`` (24 bits of the full ``_mix32`` of seed and index),
+``hash_bernoulli`` and ``hash_normal`` (Box-Muller over two uniforms of
+derived seeds).  A seed on the card (a 0-d int32 tensor) draws anew at
+every replay of a captured step, as the masks do.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ from analytics_zoo_tpu_torch.ops._kernels import _as_i32
 from analytics_zoo_tpu_torch.ops.attention import (
     _MIX_C1, _M32, _SEED_C, _dropout_thresh, _mix32, _mul32, _u32)
 
-__all__ = ["as_seed", "derive_seed", "hash_dropout"]
+__all__ = ["as_seed", "derive_seed", "hash_bernoulli", "hash_dropout",
+           "hash_normal", "hash_uniform"]
 
 
 def as_seed(rng_or_seed):
@@ -79,15 +88,21 @@ def derive_seed(rng_or_seed, salt):
     return _i32(x) if isinstance(x, torch.Tensor) else _as_i32(x)
 
 
+def _counter_base(seed, device):
+    """``seed * golden mod 2**32``: an int, or an int64 tensor on
+    ``device`` for a tensor seed."""
+    s = as_seed(seed)
+    if isinstance(s, torch.Tensor):
+        return _mul32(_u32(s).to(device), _SEED_C)
+    return _mul32(s & _M32, _SEED_C)
+
+
 def _mask(shape, seed, rate: float, device=None) -> torch.Tensor:
     """Boolean keep-mask of ``shape``: the JAX ``_mask`` bit for bit
     (``idx + seed * C``, two shift-left injections with wraparound, one
     multiply, logical right shifts)."""
-    base = (_mul32(_u32(seed).to(device), _SEED_C)
-            if isinstance(seed, torch.Tensor) else _mul32(seed & _M32,
-                                                           _SEED_C))
     z = (torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-         + base) & _M32
+         + _counter_base(seed, device)) & _M32
     z = z ^ ((z << 9) & _M32)
     z = z ^ ((z << 11) & _M32)
     z = _mul32(z ^ (z >> 13), _MIX_C1)
@@ -134,3 +149,30 @@ def hash_dropout(x, rate: float, rng=None, seed=None):
     if s is None:
         return x
     return _HashDropout.apply(x, s, float(rate))
+
+
+def hash_uniform(shape, seed, device=None,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Uniforms in (0, 1) of ``shape``: 24 bits of ``mix32(index + seed *
+    golden)`` per element, centred in their bin (never 0 or 1)."""
+    z = (torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+         + _counter_base(seed, device)) & _M32
+    bits = _mix32(z) >> 8
+    return ((bits.to(torch.float32) + 0.5) * 2.0 ** -24).to(dtype) \
+        .reshape(shape)
+
+
+def hash_bernoulli(shape, seed, p: float, device=None) -> torch.Tensor:
+    """Boolean tensor of ``shape``, each element True with probability
+    ``p``, from ``hash_uniform``."""
+    return hash_uniform(shape, seed, device) < p
+
+
+def hash_normal(shape, seed, device=None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normals of ``shape`` by Box-Muller over two uniforms drawn
+    under the derived seeds ``derive_seed(seed, 1)`` and ``(seed, 2)``."""
+    u1 = hash_uniform(shape, derive_seed(seed, 1), device)
+    u2 = hash_uniform(shape, derive_seed(seed, 2), device)
+    return (torch.sqrt(-2.0 * torch.log(u1))
+            * torch.cos((2.0 * math.pi) * u2)).to(dtype)

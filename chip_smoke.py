@@ -123,6 +123,29 @@ Phases, each of which raises (exit code 1) on failure:
    relative of the same steps on the CPU; predict ms, requests/s, step ms,
    samples/s and one training step's device-busy share.  The path runs
    no kernel of the port (checked: every launch count stays 0).
+9b. zoo: TextClassifier at its full default width (vocab 20,000, 200-wide
+   tokens, 500 steps, a 256-wide encoder, 20 classes) with each encoder,
+   cnn / lstm / gru, random weights from a numpy seed, f32 with TF32 off:
+   served through ``InferenceModel.load_keras`` -> ``ClusterServing(
+   ServingConfig())`` (pipelined, in-memory broker), one burst of 64
+   requests of 500 token ids, every answer within 1e-4 of the same model
+   on the CPU, requests/s and p50 / p99; trained with ``compile(Adagrad(
+   lr=0.01), "sparse_categorical_crossentropy")`` / ``fit`` at batch 128
+   from the DEVICE tier (4,096 sequences of ``RandomState(0)``, the label
+   a class token planted at a random position), 2 epochs of 32 steps, 32
+   steps a dispatch (CUDA graph replays), and one epoch again with one
+   step a dispatch: the first 3 steps within 1e-4 relative of the CPU's
+   (dropout on, the same seeds), the graph's first epoch within 1e-5 of
+   eager (losses relative, weights of max|p|), the last epoch's loss below
+   the first's; step ms, samples/s, the device-busy share of 2 profiled
+   steps, peak memory, and the LSTM step's top device operations.
+   SessionRecommender (3706 items, history), AnomalyDetector((24, 1)) and
+   ImageClassifier (lenet 28x28x1, vgg and resnet 32x32x3, 10 classes):
+   predictions within 1e-5 of the CPU, 3 SGD steps within 1e-4 relative.  A Sequential of
+   Convolution2D -> BatchNormalization -> relu -> global average pool ->
+   Dense: 8 steps through the graph (K = 4) against 8 eager steps, losses
+   1e-5 relative, weights and moving statistics 1e-5 of max.  No kernel of
+   the port launches on this path (checked: every count stays 0).
 10. http: the pipelined engine and the HTTP frontend.  BERT-base (as in
    serve, random weights from numpy seed 0, f32) behind
    ``ClusterServing(ServingConfig())`` (pipelined, in-memory broker): 64
@@ -233,6 +256,18 @@ WND_ML1M = dict(
 REC_BATCH = 65536
 REC_SERVE_ATOL = 1e-5         # served probabilities vs the CPU forward
 REC_LOSS_RTOL = 1e-4          # training losses, card vs CPU (f32)
+# TextClassifier at its full default width (models/textclassification.py's
+# defaults), 20 classes: the news20 groups of the upstream example
+TEXT_NEWS20 = dict(class_num=20, vocab_size=20000, token_length=200,
+                   sequence_length=500, encoder_output_dim=256)
+# its training run: the upstream news20 example's batch (and Adagrad), 2
+# epochs of 32 steps from the DEVICE tier, 32 steps a dispatch; the burst
+ZOO = dict(n=4096, batch=128, steps=32, epochs=2, spd=32, requests=64)
+ZOO_SESSION = dict(item_count=3706, include_history=True)  # MovieLens-1M
+ZOO_SERVE_ATOL = 1e-4         # served probabilities vs the CPU forward
+ZOO_PREDICT_ATOL = 1e-5       # the other zoo models' predictions vs CPU
+ZOO_LOSS_RTOL = 1e-4          # training losses, card vs CPU (f32)
+ZOO_GRAPH_RTOL = 1e-5         # graph replays vs eager steps (f32)
 
 
 def log(*args):
@@ -1077,12 +1112,15 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _close(what, got, want, rtol):
+def _close(what, got, want, rtol, phase="train_bench"):
+    """Per-step losses against a reference within ``rtol`` relative;
+    returns the worst difference."""
     worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
-    log(f"[train_bench] {what}: worst relative loss difference {worst:.3e} "
+    log(f"[{phase}] {what}: worst relative loss difference {worst:.3e} "
         f"over {len(got)} steps (tol {rtol:g})")
-    if len(got) != len(want) or worst > rtol:
+    if len(got) != len(want) or not np.isfinite(got).all() or worst > rtol:
         raise AssertionError(f"{what}: {got} vs {want}")
+    return worst
 
 
 def _step_flops(net, cfg, batch):
@@ -2125,14 +2163,15 @@ def _keras_tree(net, rng):
     return tree
 
 
-def _rec_pair(build, rng, device):
-    """The same model on ``device`` and on the CPU, random weights."""
+def _rec_pair(build, rng, device, weights=_keras_tree):
+    """The same model on ``device`` and on the CPU, random weights
+    (``weights(cpu_net, rng)``)."""
     from analytics_zoo_tpu_torch.keras import engine
     engine.reset_uids()
     card = build(device)
     engine.reset_uids()
     cpu = build("cpu")
-    tree = _keras_tree(cpu, rng)
+    tree = weights(cpu, rng)
     card.set_weights(tree)
     cpu.set_weights(tree)
     return card, cpu
@@ -2308,6 +2347,365 @@ def phase_ncf(card_name, n_requests=48, device="cuda"):
         "expected: embedding gathers and dense products are PyTorch calls)")
     return dict(requests_s=n_requests / secs, pairs_s=pairs / secs,
                 predict_ms=predict_ms, train=train)
+
+
+def _zoo_tree(net, rng):
+    """Weights from a numpy seed in the JAX tree layout: embedding tables
+    uniform in +-0.05 (Keras-1's ``uniform``), kernels (``W``, ``U``,
+    ``depthwise`` / ``pointwise``) glorot-uniform over their fans as the
+    initializers count them, every other leaf (biases, BatchNorm's gamma /
+    beta and statistics, an LSTM's forget bias of 1) as the model's own
+    initialisation leaves it."""
+    params, state = net.get_weights()
+
+    def fill(tree):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = fill(val)
+                continue
+            shape = val.shape
+            if key == "embeddings":
+                w = rng.uniform(-0.05, 0.05, shape)
+            elif key in ("W", "U", "depthwise", "pointwise") and \
+                    len(shape) >= 2:
+                recept = int(np.prod(shape[:-2]))
+                fan_in, fan_out = shape[-2] * recept, shape[-1] * recept
+                limit = np.sqrt(6.0 / (fan_in + fan_out))
+                w = rng.uniform(-limit, limit, shape)
+            else:
+                w = val
+            out[key] = np.asarray(w, np.float32)
+        return out
+    return fill(params), state
+
+
+def _weights_close(what, a, b, rtol):
+    """Every tensor of two state dicts within ``rtol`` of its largest
+    magnitude (parameters and buffers)."""
+    worst = 0.0
+    for k, t in b.items():
+        scale = max(float(t.abs().max()), 1e-30)
+        worst = max(worst, float((a[k].cpu() - t.cpu()).abs().max()) / scale)
+    log(f"[zoo] {what}: weights and buffers, worst |d| / max|p| "
+        f"{worst:.3e} (tol {rtol:g})")
+    if worst > rtol:
+        raise AssertionError(f"{what}: weights disagree")
+    return worst
+
+
+def _zoo_data():
+    """The training set: ZOO['n'] sequences of TEXT_NEWS20's length from
+    ``RandomState(0)``, the label a class token planted at one random
+    position (tokens 1..20 are the class tokens; the rest are drawn from
+    21..vocab-1)."""
+    n, T, C = ZOO["n"], TEXT_NEWS20["sequence_length"], TEXT_NEWS20[
+        "class_num"]
+    rs = np.random.RandomState(0)
+    x = rs.randint(C + 1, TEXT_NEWS20["vocab_size"], (n, T)).astype(np.int32)
+    y = rs.randint(0, C, n).astype(np.int32)
+    x[np.arange(n), rs.randint(0, T, n)] = y + 1
+    return x, y
+
+
+def _fit_record(net, fs, epochs, spd=None, warm_start=False):
+    """``fit`` at ZOO's batch; returns every step's loss.  A cold fit
+    takes ``spd``; a warm start continues the last fit's estimator."""
+    kw = {} if warm_start else {"steps_per_dispatch": spd}
+    with _DispatchLosses() as rec:
+        net.fit(fs, batch_size=ZOO["batch"], nb_epoch=epochs,
+                warm_start=warm_start, **kw)
+        torch.cuda.synchronize()
+    return rec.losses
+
+
+def _serve_text(card, cpu, card_name, rng_np, enc):
+    from analytics_zoo_tpu_torch.common.config import ServingConfig
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    from analytics_zoo_tpu_torch.serving.client import InputQueue, OutputQueue
+    from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+    T, V = TEXT_NEWS20["sequence_length"], TEXT_NEWS20["vocab_size"]
+    n = ZOO["requests"]
+    reqs = rng_np.integers(1, V, (n, T)).astype(np.int32)
+    im = InferenceModel(device="cuda").load_keras(card)
+    im.warmup({"tokens": reqs[:1]}, [1, 2, 4, 8, 16, 32, 64])
+    config = ServingConfig()
+    assert config.pipeline
+    broker = InMemoryBroker()
+    serving = ClusterServing(im, config, broker=broker).start()
+    try:
+        iq, oq = InputQueue(broker=broker), OutputQueue(broker=broker)
+        sent = []
+        t0 = time.perf_counter()
+        for i in range(n):
+            sent.append(time.perf_counter())
+            iq.enqueue(f"{enc}-{i}", tokens=reqs[i])
+        got, done = [], []
+        for i in range(n):
+            got.append(oq.query_blocking(f"{enc}-{i}", timeout=300))
+            done.append(time.perf_counter())
+        secs = time.perf_counter() - t0
+    finally:
+        serving.stop()
+    got = np.stack(got)
+    want = cpu.predict(reqs, batch_size=n)
+    err = float(np.max(np.abs(got - want)))
+    lat = [1e3 * (d - s) for s, d in zip(sent, done)]
+    ok = got.shape == want.shape and np.isfinite(got).all() and \
+        err <= ZOO_SERVE_ATOL
+    log(f"[zoo] TextClassifier({enc}) served {n} requests of {T} tokens "
+        f"through the pipelined ClusterServing in {secs:.4f} s: "
+        f"{n / secs:.2f} requests/s, latency p50 {_pct(lat, 50):.3f} ms, "
+        f"p99 {_pct(lat, 99):.3f} ms (enqueue to the result read, read in "
+        f"request order) on {card_name}; vs the CPU forward max_abs_err="
+        f"{err:.3e} tol={ZOO_SERVE_ATOL:g} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"served TextClassifier({enc}) answers "
+                             "disagree with the CPU")
+    return dict(requests_s=n / secs, p50_ms=_pct(lat, 50),
+                p99_ms=_pct(lat, 99), max_abs_err=err)
+
+
+def _train_text(card, cpu, card_name, enc, x, y, build, tree, t0):
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    from analytics_zoo_tpu_torch.keras import engine
+    from analytics_zoo_tpu_torch.keras.optimizers import Adagrad
+    B, steps, epochs = ZOO["batch"], ZOO["steps"], ZOO["epochs"]
+    fs = FeatureSet.from_ndarrays(x, y, shuffle=False).cache_device(
+        shuffle_batches=False)
+    compare = 3
+    out = {}
+    # the graph run (K = 32): epoch 1 (the capture, then 32 replays), its
+    # weights kept, then epoch 2 continuing it (warm start): step time,
+    # peak memory
+    card.compile(Adagrad(lr=0.01), "sparse_categorical_crossentropy",
+                 ["accuracy"])
+    torch.cuda.reset_peak_memory_stats()
+    graph_losses = _fit_record(card, fs, 1, ZOO["spd"])
+    graph_state = {k: v.detach().clone() for k, v in
+                   card.state_dict().items()}
+    graph_losses += _fit_record(card, fs, epochs - 1, warm_start=True)
+    graph_peak = torch.cuda.max_memory_allocated()
+    hist = card._last_estimator.history
+    graph_ms = hist[-1]["seconds"] * 1e3 / steps
+    log(f"[zoo] TextClassifier({enc}) graph run: {len(graph_losses)} steps "
+        f"({time.perf_counter() - t0:.1f} s into the phase)")
+    # the CPU: the same first steps (dropout on, the same seeds)
+    cpu.compile(Adagrad(lr=0.01), "sparse_categorical_crossentropy")
+    head = FeatureSet.from_ndarrays(x[:B * compare], y[:B * compare],
+                                    shuffle=False)
+    with _DispatchLosses() as on_cpu:
+        cpu.fit(head, batch_size=B, nb_epoch=1)
+    out["cpu_rel"] = _close(
+        f"TextClassifier({enc}) first {compare} steps, card (graph) vs CPU",
+        graph_losses[:compare], on_cpu.losses, ZOO_LOSS_RTOL, "zoo")
+    log(f"[zoo] TextClassifier({enc}) CPU steps done "
+        f"({time.perf_counter() - t0:.1f} s into the phase)")
+    # eager (K = 1) from the same weights, one epoch: against the graph's
+    # first epoch
+    engine.reset_uids()
+    eager = build("cuda")
+    eager.set_weights(tree)
+    eager.compile(Adagrad(lr=0.01), "sparse_categorical_crossentropy",
+                  ["accuracy"])
+    torch.cuda.reset_peak_memory_stats()
+    eager_losses = _fit_record(eager, fs, 1, 1)
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_ms = eager._last_estimator.history[-1]["seconds"] * 1e3 / steps
+    out["graph_rel"] = _close(
+        f"TextClassifier({enc}) {steps} steps, graph (K={ZOO['spd']}) vs "
+        f"eager (K=1)", graph_losses[:steps], eager_losses, ZOO_GRAPH_RTOL,
+        "zoo")
+    out["graph_weights"] = _weights_close(
+        f"TextClassifier({enc}) graph vs eager after {steps} steps",
+        graph_state, eager.state_dict(), ZOO_GRAPH_RTOL)
+    epoch_losses = [h["loss"] for h in hist]
+    log(f"[zoo] TextClassifier({enc}) epoch losses "
+        f"{' '.join(f'{v:.4f}' for v in epoch_losses)} "
+        f"({time.perf_counter() - t0:.1f} s into the phase)")
+    if not (len(epoch_losses) == epochs and np.isfinite(epoch_losses).all()
+            and epoch_losses[-1] < epoch_losses[0]):
+        raise AssertionError(f"TextClassifier({enc}): the loss did not "
+                             f"fall: {epoch_losses}")
+    # one dispatch of 2 replays profiled, and 2 eager steps (a 32-step
+    # dispatch of a recurrent encoder is some 400,000 kernels, past what
+    # the profiler holds)
+    small = FeatureSet.from_ndarrays(x[:2 * B], y[:2 * B], shuffle=False)\
+        .cache_device(shuffle_batches=False)
+    profs = {}
+    for what, net, spd in (("graph", card, 2), ("eager", eager, 1)):
+        net.fit(small, batch_size=B, nb_epoch=1, steps_per_dispatch=spd)
+        torch.cuda.synchronize()
+        profs[what] = profile_breakdown(
+            lambda: net.fit(small, batch_size=B, nb_epoch=1,
+                            warm_start=True),
+            f"TextClassifier({enc}): 2 training steps at batch {B}, "
+            f"{what} (K={spd}), on {card_name}",
+            top=10 if enc == "lstm" else 4)
+    for what, ms, peak in (("graph", graph_ms, graph_peak),
+                           ("eager", eager_ms, eager_peak)):
+        prof = profs[what]
+        share = prof[1] / prof[0] if prof else None
+        out[what] = dict(step_ms=ms, samples_s=B * 1e3 / ms,
+                         busy_share=share, peak_gib=peak / 2 ** 30)
+        log(f"[zoo] TextClassifier({enc}) {what} at batch {B}: {ms:.3f} ms "
+            f"a step ({B * 1e3 / ms:.1f} samples/s over an epoch of "
+            f"{steps} steps), device busy "
+            f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
+            f" of 2 profiled steps, peak memory {peak / 2 ** 30:.3f} GiB, "
+            f"on {card_name}")
+    out["epoch_losses"] = epoch_losses
+    del eager
+    return out
+
+
+def _zoo_other(what, build, x, y, loss, rng, card_name, batch=128):
+    """Predict against the CPU (1e-5 abs) and 3 training steps against the
+    CPU's (1e-4 relative), dropout on with the same seeds."""
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    card, cpu = _rec_pair(build, rng, "cuda", _zoo_tree)
+    want = cpu.predict(x, batch_size=batch)
+    t0 = time.perf_counter()
+    got = card.predict(x, batch_size=batch)
+    predict_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(got - want)))
+    n = len(y)
+    log(f"[zoo] {what}: {card.param_count():,} parameters; predict "
+        f"{n} rows in {1e3 * predict_s:.3f} ms on {card_name}, vs the CPU "
+        f"max_abs_err={err:.3e} tol={ZOO_PREDICT_ATOL:g}")
+    if err > ZOO_PREDICT_ATOL or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: predictions disagree with the CPU")
+    fs = lambda: FeatureSet.from_ndarrays(x, y, shuffle=False)
+    # SGD: Adam's first steps are m / sqrt(v), about +-lr for every
+    # gradient near 0, so a last-bit difference of such a gradient between
+    # two summation orders becomes a full step (VGG's third loss moved
+    # 2.1e-4 under Adam in the first chip run of this phase)
+    for m in (card, cpu):
+        m.compile("sgd", loss)
+    with _DispatchLosses() as on_card:
+        card.fit(fs(), batch_size=batch, nb_epoch=1)
+        torch.cuda.synchronize()
+    with _DispatchLosses() as on_cpu:
+        cpu.fit(fs(), batch_size=batch, nb_epoch=1)
+    rel = _close(f"{what}: 3 training steps at batch {batch}, card vs CPU",
+                 on_card.losses, on_cpu.losses, ZOO_LOSS_RTOL, "zoo")
+    return dict(max_abs_err=err, loss_rel=rel)
+
+
+def _bn_graph(card_name):
+    """Conv -> BatchNorm -> relu -> GAP -> Dense at (32, 32, 3): 8 steps
+    through the graph (K = 4) against 8 eager steps."""
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    from analytics_zoo_tpu_torch.keras import engine
+    from analytics_zoo_tpu_torch.keras import layers as L
+
+    def build(d):
+        # no bias before the BatchNorm (it would cancel: its gradient is
+        # rounding noise around 0)
+        return engine.Sequential([
+            L.Convolution2D(32, 3, 3, border_mode="same", bias=False,
+                            input_shape=(32, 32, 3)),
+            L.BatchNormalization(), L.Activation("relu"),
+            L.GlobalAveragePooling2D(), L.Dense(10, activation="softmax")],
+            device=d)
+    rs = np.random.RandomState(0)
+    x = (rs.randn(512, 32, 32, 3) * 2.0 + 0.5).astype(np.float32)
+    y = rs.randint(0, 10, 512).astype(np.int32)
+    engine.reset_uids()
+    tree = _zoo_tree(build("cpu"), np.random.default_rng(SEED + 7))
+    runs = {}
+    for spd in (4, 1):
+        engine.reset_uids()
+        net = build("cuda")
+        if net.device.type != "cuda":
+            raise AssertionError(f"the Sequential's weights are on "
+                                 f"{net.device}, not the card")
+        net.set_weights(tree)
+        net.compile("sgd", "sparse_categorical_crossentropy")
+        fs = FeatureSet.from_ndarrays(x, y, shuffle=False).cache_device()
+        with _DispatchLosses() as rec:
+            net.fit(fs, batch_size=128, nb_epoch=2, steps_per_dispatch=spd)
+            torch.cuda.synchronize()
+        runs[spd] = (rec.losses, {k: v.detach().clone()
+                                  for k, v in net.state_dict().items()})
+    rel = _close("BatchNorm Sequential, 8 steps: graph (K=4) vs eager",
+                 runs[4][0], runs[1][0], ZOO_GRAPH_RTOL, "zoo")
+    worst = _weights_close("BatchNorm Sequential graph vs eager", runs[4][1],
+                           runs[1][1], ZOO_GRAPH_RTOL)
+    mm = runs[4][1]["batchnormalization_1.moving_mean"]
+    if not bool(mm.abs().max() > 0):
+        raise AssertionError("the replays left BatchNorm's moving mean at 0")
+    log(f"[zoo] BatchNorm moving mean after 8 replays: max |m| "
+        f"{float(mm.abs().max()):.4e} (f32: {mm.dtype}) on {card_name}")
+    return dict(loss_rel=rel, weights=worst)
+
+
+def phase_zoo(card_name):
+    """TextClassifier at its full default width (cnn / lstm / gru) served
+    and trained, the other three zoo models against the CPU, BatchNorm in
+    a captured step; see the module docstring (9b)."""
+    from analytics_zoo_tpu_torch.models import (
+        AnomalyDetector, ImageClassifier, SessionRecommender, TextClassifier)
+    from analytics_zoo_tpu_torch.ops import _kernels
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    x, y = _zoo_data()
+    out = {}
+    for enc in ("cnn", "lstm", "gru"):
+        rng = np.random.default_rng(SEED)
+        build = lambda d, enc=enc: TextClassifier(encoder=enc, device=d,
+                                                  **TEXT_NEWS20)
+        card, cpu = _rec_pair(build, rng, "cuda", _zoo_tree)
+        tree = card.get_weights()
+        log(f"[zoo] TextClassifier({enc}) {TEXT_NEWS20}: "
+            f"{card.param_count():,} parameters (f32, TF32 off)")
+        serve = _serve_text(card, cpu, card_name, rng, enc)
+        train = _train_text(card, cpu, card_name, enc, x, y, build, tree,
+                            t_phase)
+        out[enc] = dict(serve=serve, train=train)
+        del card, cpu
+        _release()
+    rng = np.random.default_rng(SEED + 1)
+    rs = np.random.RandomState(1)
+    n = 384
+    items = ZOO_SESSION["item_count"]
+    sess = [rs.randint(1, items + 1, (n, 10)).astype(np.int32),
+            rs.randint(1, items + 1, (n, 5)).astype(np.int32)]
+    out["session"] = _zoo_other(
+        f"SessionRecommender{ZOO_SESSION}",
+        lambda d: SessionRecommender(device=d, **ZOO_SESSION), sess,
+        rs.randint(0, items + 1, n).astype(np.int32),
+        "sparse_categorical_crossentropy", rng, card_name)
+    series = np.sin(np.arange(n + 24) / 6.0).astype(np.float32) \
+        + 0.1 * rs.randn(n + 24).astype(np.float32)
+    wx, wy = AnomalyDetector.unroll(series, 24)
+    out["anomaly"] = _zoo_other(
+        "AnomalyDetector(feature_shape=(24, 1))",
+        lambda d: AnomalyDetector((24, 1), device=d), wx[:n], wy[:n], "mse",
+        rng, card_name)
+    for backbone, shape in (("lenet", (28, 28, 1)), ("vgg", (32, 32, 3)),
+                            ("resnet", (32, 32, 3))):
+        out[backbone] = _zoo_other(
+            f"ImageClassifier(10, {shape}, {backbone!r})",
+            lambda d, b=backbone, s=shape: ImageClassifier(10, s, b,
+                                                           device=d),
+            rs.randn(n, *shape).astype(np.float32),
+            rs.randint(0, 10, n).astype(np.int32),
+            "sparse_categorical_crossentropy", rng, card_name)
+        _release()
+    log(f"[zoo] the other models done ({time.perf_counter() - t_phase:.1f}"
+        f" s into the phase)")
+    out["batchnorm"] = _bn_graph(card_name)
+    launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the zoo path launched port kernels: "
+                             f"{launches}")
+    log(f"[zoo] port kernel launches in the phase: {launches} (none "
+        "expected: no TPU kernel lies on the layer catalogue's path)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[zoo] phase time {out['seconds']:.1f} s on {card_name}")
+    return out
 
 
 def _pct(ms, q):
@@ -2693,6 +3091,7 @@ def main() -> int:
     llm_launches, llm = phase_llm()
     ring_launches, ring_rows = phase_ring()
     phase_ncf(card)
+    phase_zoo(card)
     http_launches, _, http_llm = phase_http()
 
     def entry(name, source, replaces, rows, launches,

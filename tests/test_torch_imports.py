@@ -49,7 +49,12 @@ def test_no_module_of_the_port_imports_jax():
                  "llm.scheduler", "llm.engine", "llm.client", "parallel",
                  "parallel.mesh", "parallel.ring", "keras.engine",
                  "keras.layers.core", "keras.layers.embedding",
-                 "models.common", "models.recommendation"):
+                 "models.common", "models.recommendation",
+                 "keras.layers.advanced_activations",
+                 "keras.layers.normalization", "keras.layers.convolutional",
+                 "keras.layers.pooling", "keras.layers.recurrent",
+                 "models.textclassification", "models.anomalydetection",
+                 "models.imageclassification"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -87,10 +92,18 @@ def test_no_module_of_the_port_imports_jax():
     "    x = Input((3,))\n"
     "    f(x, Dense(2)(x))",
     "from analytics_zoo_tpu_torch.keras.engine import Sequential as f; f()",
+    "from analytics_zoo_tpu_torch.models import TextClassifier as f\n"
+    "    f(3, sequence_length=8, vocab_size=20, encoder='gru')",
+    "from analytics_zoo_tpu_torch.models import SessionRecommender as f;"
+    " f(12)",
+    "from analytics_zoo_tpu_torch.models import AnomalyDetector as f;"
+    " f((6, 1))",
+    "from analytics_zoo_tpu_torch.models import ImageClassifier as f; f(4)",
 ], ids=["resolve_device", "InferenceModel", "BERTClassifier",
         "BERTClassifier.train", "Estimator", "DecoderLM", "LLMServing",
         "PagedKVCache", "init_zoo_context", "NeuralCF", "WideAndDeep",
-        "Model", "Sequential"])
+        "Model", "Sequential", "TextClassifier", "SessionRecommender",
+        "AnomalyDetector", "ImageClassifier"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "

@@ -91,6 +91,24 @@ DIFFERENCES = {
     "tfpark.text_estimators.BERTClassifier.__init__": (
         "", "device generator", f"{DEVICE}; {RNG}"),
 }
+# a layer whose weights wait for its input's shape creates them from that
+# shape alone; its initializers take a torch.Generator in init()
+DIFFERENCES.update({
+    f"keras.layers.{name}.build": ("rng", "", f"{LAYOUT}; {RNG}")
+    for name in (
+        "advanced_activations.PReLU", "advanced_activations.SReLU",
+        "convolutional.Deconvolution2D", "convolutional.LocallyConnected1D",
+        "convolutional.LocallyConnected2D",
+        "convolutional.SeparableConvolution2D", "convolutional.ShareConv2D",
+        "convolutional.ShareConvolution2D", "core.Highway",
+        "core.KerasLayerWrapper", "core.MaxoutDense", "core.Scale",
+        "normalization.BatchNormalization", "recurrent.Bidirectional",
+        "recurrent.ConvLSTM2D", "recurrent.Recurrent",
+        "recurrent.TimeDistributed")})
+DIFFERENCES.update({
+    "keras.layers.recurrent.LSTM.scan_with_state": ("params", "", LAYOUT),
+    "models.anomalydetection.AnomalyDetector.fit": ("rng", "seed", RNG),
+})
 # the initializers fill a tensor in place from a torch.Generator
 DIFFERENCES.update({
     f"keras.initializers.{name}": ("rng shape dtype", "t generator",
@@ -159,8 +177,48 @@ def test_the_walk_finds_the_ported_surface():
                  "common.config.load_config",
                  "common.resilience.deadline_scope",
                  "serving.client.FastWireHttpClient.generate",
-                 "serving.http_frontend.ServingFrontend.__init__"):
+                 "serving.http_frontend.ServingFrontend.__init__",
+                 "keras.layers.core.Dropout.__init__",
+                 "keras.layers.core.GaussianSampler.__init__",
+                 "keras.layers.convolutional.Deconvolution2D.__init__",
+                 "keras.layers.pooling.MaxPooling1D.__init__",
+                 "keras.layers.recurrent.LSTM.scan_with_state",
+                 "keras.layers.normalization.BatchNormalization.__init__",
+                 "keras.layers.embedding.WordEmbedding.__init__",
+                 "keras.metrics.AUC.__init__",
+                 "models.textclassification.TextClassifier.__init__",
+                 "models.recommendation.SessionRecommender"
+                 ".recommend_for_session",
+                 "models.anomalydetection.AnomalyDetector.detect_anomalies",
+                 "models.imageclassification.ImageClassifier.label_output"):
         assert name in COMPARED
+
+
+def test_every_jax_layer_metric_and_zoo_model_is_walked():
+    """Every name of the JAX layer catalogue, every metric and the four
+    zoo models of the slice have a port counterpart that the walk
+    compares (constructor included)."""
+    import analytics_zoo_tpu.keras.layers as jlayers
+    from analytics_zoo_tpu.keras import metrics as jmetrics
+    import analytics_zoo_tpu_torch.keras.layers as tlayers
+    names = [n for n in dir(jlayers) if n[0].isupper()]
+    assert len(names) > 90
+    for name in names:
+        port = getattr(tlayers, name)
+        module = port.__module__[len("analytics_zoo_tpu_torch."):]
+        if module == "keras.engine" or name.startswith("Conv") and len(
+                name) == 6:
+            continue          # Input / Lambda / Layer, and Keras-1 aliases
+        assert f"{module}.{port.__name__}.__init__" in COMPARED, name
+    for name in ("Accuracy", "SparseCategoricalAccuracy", "Top5Accuracy",
+                 "MAE", "MSE", "Loss", "AUC"):
+        assert hasattr(jmetrics, name)
+        assert f"keras.metrics.{name}.__init__" in COMPARED
+    for name in ("textclassification.TextClassifier",
+                 "recommendation.SessionRecommender",
+                 "anomalydetection.AnomalyDetector",
+                 "imageclassification.ImageClassifier"):
+        assert f"models.{name}.__init__" in COMPARED
 
 
 @pytest.mark.parametrize("name", COMPARED)
