@@ -17,16 +17,16 @@ QUEUE_ITEMS = {
        "reserved=), tenancy and capacity, BatchingService, server-side "
        "image decode, the Redis / native / fleet brokers, the journaled "
        "broker and common/health.py",
-    2: "ROADMAP Queue 1 item 2: the rest of training, with autograd, "
-       "the local estimator, the NER and SQuAD heads, then Seq2seq and "
-       "KNRM",
-    3: "ROADMAP Queue 1 item 3: the rest of the recommendation slice, "
-       "with the data/ tiers (disk, generator), sharded sources, "
-       "transforms and TFRecord",
+    2: "ROADMAP Queue 1 item 2: the rest of training, with the "
+       "TrainConfig fields failure_retry_window_sec, donate_state and "
+       "rng_impl, and loading a KerasNet file the JAX package wrote",
+    3: "ROADMAP Queue 1 item 3: the rest of data/, with the sharded "
+       "sources (data/sharded.py) and the transforms (data/transforms.py)",
     5: "ROADMAP Queue 1 item 5: the rest of parallel/, with sharded "
        "models, model-parallel serving and multi-process bring-up",
-    6: "ROADMAP Queue 1 item 6: observability, with trace context and "
-       "trace events",
+    6: "ROADMAP Queue 1 item 6: the rest, with observability (trace "
+       "context and trace events), net/ (torch.optim and tf.keras "
+       "optimizer conversion), feature/ and the rest of tfpark/",
 }
 
 

@@ -265,7 +265,7 @@ class Estimator:
         else:
             preds = self._forward(p_fwd, x, seed)
         loss = self.loss(preds, y)
-        return loss, list(torch.autograd.grad(loss, list(p_fwd.values())))
+        return loss, grads_of(loss, list(p_fwd.values()))
 
     def _cast_grads(self, grads):
         if not self.mixed_precision:
@@ -784,6 +784,17 @@ class Estimator:
         if isinstance(outs[0], np.ndarray):
             return np.concatenate(outs)
         return [np.concatenate(parts) for parts in zip(*outs)]
+
+
+def grads_of(loss: torch.Tensor, params: List[torch.Tensor]
+             ) -> List[torch.Tensor]:
+    """``d loss / d p`` for each of ``params``; zeros for a parameter the
+    loss does not reach (a head that reads the sequence output leaves the
+    pooler unused), as ``jax.grad`` gives, so the optimizer's decay still
+    sees it."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)]
 
 
 def _remat_contexts():

@@ -59,15 +59,71 @@ class Embedding(Layer):
                 np.asarray(self.pretrained, np.float32)))
 
     def forward(self, x):
-        ids = x.to(torch.int32) if x.is_floating_point() else x  # as astype
-        n = self.input_dim
-        ids = torch.where(ids < 0, ids + n, ids)
-        valid = (ids >= 0) & (ids < n)
-        rows = F.embedding(torch.where(valid, ids, 0), self.embeddings)
-        return torch.where(valid.unsqueeze(-1), rows, float("nan"))
+        return take_rows(self.embeddings, x)
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)
+
+
+def take_rows(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, x.astype(int32), axis=0)``: an id in ``[-n, 0)``
+    counts from the end, any other out-of-range id gives a NaN row, and
+    the gather never sees such an id (no device-side assert)."""
+    ids = x.to(torch.int32) if x.is_floating_point() else x  # as astype
+    n = table.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    valid = (ids >= 0) & (ids < n)
+    rows = gather_rows(table, torch.where(valid, ids, 0))
+    return torch.where(valid.unsqueeze(-1), rows, float("nan"))
+
+
+class _OrderedGather(torch.autograd.Function):
+    """``F.embedding(ids, table)`` with a backward whose sums do not
+    depend on the run.  The gather's own backward on the card adds the
+    gradients of an id's positions into its row in no fixed order, which
+    on a row that many positions share (a padding id, BERT's two
+    segments) made two runs of a training step differ.  Adding them in
+    turn (``index_put_`` with ``accumulate``) is fixed but serial, about
+    a microsecond a position on the longest row; a scan of all the
+    positions' gradients lets each row's sum take rounding from every
+    other row's.  Here the positions are sorted by id (stably) and each
+    id's gradients are summed among themselves as a tree: at step ``s``
+    every position adds the one ``s`` after it if that one holds the same
+    id, so after ``log2(n)`` steps the first position of each id holds
+    its sum."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        rows, width = ctx.shape
+        sid, order = torch.sort(ids.reshape(-1), stable=True)
+        x = grad.reshape(-1, width)[order].to(ctx.dtype)
+        n, s = x.shape[0], 1
+        if not n:
+            return grad.new_zeros(ctx.shape, dtype=ctx.dtype), None
+        while s < n:
+            x[:-s] += torch.where((sid[s:] == sid[:-s])[:, None], x[s:], 0.0)
+            s *= 2
+        every = torch.arange(rows, device=sid.device, dtype=sid.dtype)
+        first = torch.searchsorted(sid, every).clamp(max=n - 1)
+        return torch.where((sid[first] == every)[:, None], x[first], 0.0), None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)``; on the card, when the table takes a
+    gradient, through ``_OrderedGather``.  On the CPU the gather's
+    backward already adds in position order, as the JAX package's
+    scatter-add does."""
+    ids = ids.long()
+    if table.is_cuda and table.requires_grad and torch.is_grad_enabled():
+        return _OrderedGather.apply(table, ids)
+    return F.embedding(ids, table)
 
 
 class WordEmbedding(Embedding):

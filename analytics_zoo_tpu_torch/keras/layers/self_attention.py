@@ -24,12 +24,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.keras import activations, initializers
 from analytics_zoo_tpu_torch.keras.engine import Layer
 from analytics_zoo_tpu_torch.keras.layers.core import Dense
+from analytics_zoo_tpu_torch.keras.layers.embedding import gather_rows
 from analytics_zoo_tpu_torch.keras.layers.normalization import LayerNorm
 from analytics_zoo_tpu_torch.ops.attention import (flash_attention,
                                                   resolve_backend)
@@ -176,7 +176,7 @@ class TransformerLayer(Layer):
         initializers.normal(self.embed, generator, scale=0.02)
 
     def forward(self, x, seed: Optional[int] = None):
-        h = F.embedding(x.long(), self.embed)
+        h = gather_rows(self.embed, x)
         pos = self.embed[self.vocab:self.vocab + x.shape[1]]
         h = h + pos[None]
         base = as_seed(seed)
@@ -228,9 +228,9 @@ class BERT(Layer):
     def forward(self, x, seed: Optional[int] = None):
         tokens, segments, mask = x
         T = tokens.shape[1]
-        h = (F.embedding(tokens.long(), self.token_embed)
+        h = (gather_rows(self.token_embed, tokens)
              + self.position_embed[None, :T, :]
-             + F.embedding(segments.long(), self.segment_embed))
+             + gather_rows(self.segment_embed, segments))
         h = self.embed_ln(h)
         # one seed for the stack, per-block seeds by int32 mixing, as in
         # the JAX layer; dropout after the embedding LayerNorm

@@ -1,14 +1,22 @@
-"""BERT text estimators: the sequence classifier.
+"""BERT text estimators: sequence classification, token tagging (NER) and
+extractive QA (SQuAD).
 
-Port of ``_BertNet``, ``_ClassifierNet``, ``BERTBaseEstimator`` and
-``BERTClassifier`` from ``analytics_zoo_tpu/tfpark/text_estimators.py``:
-train, evaluate and predict through the port's ``Estimator``, with the
-JAX estimator's knobs: ``model_dir`` (checkpoints), ``mixed_precision``,
-``steps_per_dispatch`` (CUDA graphs on the card), ``grad_dtype`` and
-``grad_accum_steps``.  Inputs follow the reference feature order
-``[input_ids, token_type_ids, input_mask]``.  The default ``bert_config``
-is the JAX package's small one (hidden 128, 2 blocks), not BERT-base; pass
-BERT-base's widths explicitly.  The NER and SQuAD heads are not ported.
+Port of ``analytics_zoo_tpu/tfpark/text_estimators.py``: ``_BertNet`` and
+its three heads, ``BERTBaseEstimator``, ``BERTClassifier``, ``BERTNER``,
+``BERTSQuAD`` and ``_squad_loss``.  Train, evaluate and predict run
+through the port's ``Estimator``, with the JAX estimator's knobs:
+``model_dir`` (checkpoints), ``mixed_precision``, ``steps_per_dispatch``
+(CUDA graphs on the card), ``grad_dtype`` and ``grad_accum_steps``.
+Inputs follow the reference feature order ``[input_ids, token_type_ids,
+input_mask]``.  Each head's tree is ``{"bert": ..., "head": {"W", "b"}}``.
+The default ``bert_config`` is the JAX package's small one (hidden 128, 2
+blocks), not BERT-base; pass BERT-base's widths explicitly.
+
+NER's loss is ``sparse_categorical_crossentropy`` over every token, padding
+included, as in the JAX package.  SQuAD's model gives the list
+``[start_logits, end_logits]`` and its labels are the list ``[start, end]``
+of positions; ``_squad_loss`` reads them on the device with no host read,
+so a captured training step carries the list through its graph.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.triggers import MaxIteration
@@ -58,6 +67,26 @@ class _ClassifierNet(_BertNet):
 
     def _head(self, seq_out, pooled):
         return torch.softmax(self.head(pooled), dim=-1)
+
+
+class _NERNet(_BertNet):
+    def __init__(self, num_entities: int, **kw):
+        self.num_entities = num_entities
+        super().__init__(**kw)
+        self.head = projection(self.cfg["hidden_size"], num_entities)
+
+    def _head(self, seq_out, pooled):
+        return torch.softmax(self.head(seq_out), dim=-1)
+
+
+class _SQuADNet(_BertNet):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.head = projection(self.cfg["hidden_size"], 2)
+
+    def _head(self, seq_out, pooled):
+        logits = self.head(seq_out)                  # (B, T, 2)
+        return [logits[..., 0], logits[..., 1]]      # start, end logits
 
 
 class BERTBaseEstimator:
@@ -136,6 +165,11 @@ class BERTBaseEstimator:
         return Estimator(self.net, device=self.device).predict(
             fs, batch_size=batch_size)
 
+    def load_weights(self, params) -> "BERTBaseEstimator":
+        """Load a JAX-layout parameter tree (``interop.load_jax_params``)."""
+        self.net.set_weights(params)
+        return self
+
 
 class BERTClassifier(BERTBaseEstimator):
     """Sequence classification: class probabilities from the pooled
@@ -160,7 +194,64 @@ class BERTClassifier(BERTBaseEstimator):
                          grad_accum_steps=grad_accum_steps,
                          shard_model=shard_model, device=device)
 
-    def load_weights(self, params) -> "BERTClassifier":
-        """Load a JAX-layout parameter tree (``interop.load_jax_params``)."""
-        self.net.set_weights(params)
-        return self
+
+class BERTNER(BERTBaseEstimator):
+    """Token-level entity tagging: per-token probabilities (B, T, C) from
+    the sequence output.  ``generator`` seeds the initial weights."""
+
+    def __init__(self, num_entities: int, bert_config: Optional[dict] = None,
+                 optimizer="adam", model_dir: Optional[str] = None,
+                 mixed_precision: bool = False, steps_per_dispatch: int = 1,
+                 grad_dtype=None, shard_optimizer=None,
+                 grad_accum_steps=None, shard_model=None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 generator: Optional[torch.Generator] = None):
+        net = _NERNet(num_entities, bert_config=bert_config, name="bert_ner")
+        net.init(generator)
+        super().__init__(net, optimizer, model_dir,
+                         mixed_precision=mixed_precision,
+                         steps_per_dispatch=steps_per_dispatch,
+                         grad_dtype=grad_dtype,
+                         shard_optimizer=shard_optimizer,
+                         grad_accum_steps=grad_accum_steps,
+                         shard_model=shard_model, device=device)
+
+
+def _squad_loss(preds, labels):
+    """The mean of the start and end sparse cross-entropies on logits
+    (``-0.5 * (mean(log p_start[s]) + mean(log p_end[e]))``).  The
+    positions are gathered as int64 (``gather``'s index type)."""
+    start_logits, end_logits = preds
+    start_pos, end_pos = labels
+
+    def pick(logits, pos):
+        logp = F.log_softmax(logits, dim=-1)
+        return logp.gather(1, pos.reshape(-1, 1).long())[:, 0]
+    return -0.5 * (torch.mean(pick(start_logits, start_pos))
+                   + torch.mean(pick(end_logits, end_pos)))
+
+
+class BERTSQuAD(BERTBaseEstimator):
+    """Extractive QA: start / end span logits, each (B, T); ``predict``
+    returns the list ``[start_logits, end_logits]``.  ``generator`` seeds
+    the initial weights."""
+
+    loss_name = staticmethod(_squad_loss)
+
+    def __init__(self, bert_config: Optional[dict] = None, optimizer="adam",
+                 model_dir: Optional[str] = None,
+                 mixed_precision: bool = False, steps_per_dispatch: int = 1,
+                 grad_dtype=None, shard_optimizer=None,
+                 grad_accum_steps=None, shard_model=None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 generator: Optional[torch.Generator] = None):
+        net = _SQuADNet(bert_config=bert_config, name="bert_squad")
+        net.init(generator)
+        super().__init__(net, optimizer, model_dir,
+                         mixed_precision=mixed_precision,
+                         steps_per_dispatch=steps_per_dispatch,
+                         grad_dtype=grad_dtype,
+                         shard_optimizer=shard_optimizer,
+                         grad_accum_steps=grad_accum_steps,
+                         shard_model=shard_model, device=device)
+        self.loss_name = _squad_loss

@@ -146,6 +146,40 @@ Phases, each of which raises (exit code 1) on failure:
    Dense: 8 steps through the graph (K = 4) against 8 eager steps, losses
    1e-5 relative, weights and moving statistics 1e-5 of max.  No kernel of
    the port launches on this path (checked: every count stays 0).
+9c. heads: BERT token tagging (NER) and extractive QA (SQuAD) at BERT-base
+   width (vocab 30522, hidden 768, 12 blocks, 12 heads, FFN 3072, its
+   512-position table, dropout 0.1) from random weights of a numpy seed:
+   NER at seq 128, batch 32, the 9 CoNLL-2003 BIO tags (a fixed function
+   of the token id), ``AdamWeightDecay(lr=1e-4)``; SQuAD at Google BERT's
+   README settings for SQuAD 1.1 with BERT-Base (seq 384, batch 12,
+   ``AdamWeightDecay(lr=3e-5)``), its features written under
+   ``run_squad.py``'s names to a TFRecord file with the port's
+   ``build_example`` / ``write_records``, read back with
+   ``read_example_file`` and checked equal; valid lengths ragged (16..128,
+   128..384), the answer span planted in the valid part.  Each head,
+   through ``BERTNER`` / ``BERTSQuAD`` and ``TFDataset``: 12 ``flash_fwd``
+   launches a forward and 12 + 12 a training step (eager, and through CUDA
+   graph replays); one step with the kernels against plain attention (loss
+   1e-5, gradients 1e-3 of max|g|, f32), and repeated with the same bits;
+   predictions against plain
+   attention (NER 1e-4, SQuAD 1e-4 x max(1, max|ref|), ``predict``'s
+   list of two (N, 384) arrays); 8 f32 steps through the graph
+   (``steps_per_dispatch=4``) against 8 eager steps (losses 1e-5 relative,
+   weights 1e-5 of max|p|); mixed precision from the DEVICE tier, 2 epochs
+   of one dispatch each, the last epoch's loss below the first's.  Step
+   ms, samples/s, device-busy share and peak memory (graph and eager),
+   predict ms.  ``flash_fwd`` / ``flash_bwd`` at B12 H12 T384 D64 with a
+   ragged padding mask, f32 and bf16, against their plain versions and
+   timed beside them, ``scaled_dot_product_attention`` given the same mask
+   (its backward) and the bound.  Then, against the same models on the
+   CPU, with no port kernel launched: KNRM (vocab 20,000, embed 300, 21
+   kernels, texts of 10 and 40 tokens; scores within 1e-5, the pooling
+   constants made on the card equal to numpy's f32 values, 3 SGD steps
+   1e-4 relative, NDCG@3 and MAP equal), Seq2seq (vocab 20,000, embed 64,
+   hidden 128, 2 layers, 30 tokens; probabilities 1e-5, ``infer``'s tokens
+   equal or each chosen logit within 1e-4 of its step's best, 3 SGD steps
+   1e-4), ``LocalEstimator`` and a ``CustomLoss`` in ``fit`` (losses 1e-4
+   relative).
 10. http: the pipelined engine and the HTTP frontend.  BERT-base (as in
    serve, random weights from numpy seed 0, f32) behind
    ``ClusterServing(ServingConfig())`` (pipelined, in-memory broker): 64
@@ -165,11 +199,11 @@ Phases, each of which raises (exit code 1) on failure:
    serving the next stream; ``leak_check`` zero after; TTFT p50 / p99
    over HTTP and through the broker, mean inter-token latency over HTTP.
 
-The serve, train, llm, ring and http phases also check that no kernel
-input was copied before a launch (the wrappers' ``copies``).  It prints one JSON
-line of kernel numbers, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or without the port beside it, it exits non-zero and prints no result.
+The serve, train, llm, ring, heads and http phases also check that no
+kernel input was copied before a launch (the wrappers' ``copies``).  It
+prints one JSON line of kernel numbers, the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the port beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --ring-cards 4     # on a host with 4 cards
 
@@ -268,6 +302,29 @@ ZOO_SERVE_ATOL = 1e-4         # served probabilities vs the CPU forward
 ZOO_PREDICT_ATOL = 1e-5       # the other zoo models' predictions vs CPU
 ZOO_LOSS_RTOL = 1e-4          # training losses, card vs CPU (f32)
 ZOO_GRAPH_RTOL = 1e-5         # graph replays vs eager steps (f32)
+# the BERT heads at BERT-base width with its 512-position table (dropout
+# 0.1): NER at seq 128, batch 32, the 9 CoNLL-2003 BIO tags; SQuAD 1.1 at
+# Google BERT's README settings for BERT-Base (run_squad.py
+# --max_seq_length=384 --train_batch_size=12 --learning_rate=3e-5)
+NER_TAGS = ("O", "B-PER", "I-PER", "B-LOC", "I-LOC", "B-ORG", "I-ORG",
+            "B-MISC", "I-MISC")
+HEADS = {"ner": dict(seq=128, batch=32, lr=1e-4, min_len=16),
+         "squad": dict(seq=384, batch=12, lr=3e-5, min_len=128)}
+HEADS_STEPS = 8               # steps an epoch of each head's training set
+SQUAD_KEYS = ("unique_ids", "input_ids", "input_mask", "segment_ids",
+              "start_positions", "end_positions")   # run_squad.py's names
+HEADS_PREDICT_ATOL = 1e-4     # x max(1, max|ref|) for SQuAD's logits
+SHIFT_FREE_NOISE = 1e-5       # a gradient 0 in exact arithmetic, of max|g|
+# the heads' CPU-comparable models (no kernel): KNRM (vocab, embed, kernels
+# and sigmas of models/textmatching.py's defaults; the text lengths are
+# this phase's choice), Seq2seq (the JAX defaults' widths, 2 layers)
+KNRM_CFG = dict(text1_length=10, text2_length=40, vocab_size=20000,
+                embed_size=300, kernel_num=21, sigma=0.1, exact_sigma=0.001)
+SEQ2SEQ_CFG = dict(vocab_size=20000, embed_dim=64, hidden=128, num_layers=2)
+SEQ2SEQ_T = 30
+HEADS_CPU_ATOL = 1e-5         # predictions vs the CPU (f32, TF32 off)
+HEADS_CPU_LOSS_RTOL = 1e-4    # training losses vs the CPU
+SEQ2SEQ_TIE_ATOL = 1e-4       # a chosen token's logit vs the step's best
 
 
 def log(*args):
@@ -935,20 +992,45 @@ def _classifier(cfg, tree, mixed_precision=False):
     return clf.load_weights(tree)
 
 
-def _step_loss_and_grads(clf, x, y, seed):
-    """One training forward and backward (no update): loss, gradients."""
+def _step_loss_and_grads(est, x, y, seed, unused=False):
+    """One training forward and backward (no update) of a BERT estimator
+    with its loss: loss, gradients by name.  Every parameter must get a
+    gradient, but with ``unused`` the pooler's, which a head reading the
+    sequence output never reaches: those are zeros, as the estimator
+    takes them."""
     from analytics_zoo_tpu_torch.keras import losses
-    net = clf.net
+    net = est.net
     net.train()
     try:
-        loss = losses.get("sparse_categorical_crossentropy")(
-            net(x, seed=seed), y)
-        params = [p for _, p in net.named_parameters()]
-        grads = torch.autograd.grad(loss, params)
+        loss = losses.get(est.loss_name)(net(x, seed=seed), y)
+        named = list(net.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
     finally:
         net.eval()
-    return loss.item(), dict(zip([n for n, _ in net.named_parameters()],
-                                 grads))
+    out = {}
+    for (name, p), g in zip(named, grads):
+        if g is None:
+            if not (unused and ".pooler." in name):
+                raise AssertionError(f"{name}: the loss does not reach it")
+            g = torch.zeros_like(p)
+        out[name] = g
+    return loss.item(), out
+
+
+def _worst_grad(grads_k, grads_p, skip=()):
+    """The largest |d| / max|g| over the gradients (but ``skip``'s), and
+    where."""
+    worst, worst_name = 0.0, ""
+    for name, gk in grads_k.items():
+        if name in skip:
+            continue
+        gp = grads_p[name]
+        rel = ((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30)
+               ).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
 
 
 def _train_run(clf, ds, steps, what):
@@ -1004,13 +1086,7 @@ def phase_train(cfg=None, steps=10):
     set_attention_backend(clf.net, "plain")
     loss_p, grads_p = _step_loss_and_grads(clf, x, y, seed=7)
     set_attention_backend(clf.net, None)
-    worst, worst_name = 0.0, ""
-    for name, gk in grads_k.items():
-        gp = grads_p[name]
-        rel = ((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30)
-               ).item()
-        if rel > worst:
-            worst, worst_name = rel, name
+    worst, worst_name = _worst_grad(grads_k, grads_p)
     log(f"[train] kernels vs plain attention, one step: loss {loss_k:.7f} vs "
         f"{loss_p:.7f} (|d| {abs(loss_k - loss_p):.2e}, tol "
         f"{TRAIN_LOSS_ATOL:g}); worst gradient |d|/max|g| {worst:.2e} at "
@@ -2708,6 +2784,603 @@ def phase_zoo(card_name):
     return out
 
 
+def _heads_inputs(head, n, rng):
+    """``n`` BERT inputs at the head's length: ragged valid lengths, the
+    rest padding (id 0), ids drawn from 1000 up (the low ids are BERT's
+    [unused] tokens, which the SQuAD set plants as span markers)."""
+    h = HEADS[head]
+    T = h["seq"]
+    ids = rng.integers(1000, BERT_BASE["vocab"], (n, T)).astype(np.int32)
+    lens = rng.integers(h["min_len"], T + 1, n)
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    seg = (np.arange(T)[None] >= (lens // 3)[:, None]).astype(np.int32)
+    return ids * mask, seg, mask, lens
+
+
+def _ner_data(n, rng):
+    """Tags a fixed function of the token id (so the loss can fall), over
+    every token: padding (id 0) is "O", as the JAX loss counts it."""
+    ids, seg, mask, _ = _heads_inputs("ner", n, rng)
+    return (ids, seg, mask), (ids % len(NER_TAGS)).astype(np.int32)
+
+
+def _squad_file(n, rng, tmp):
+    """``n`` SQuAD features under run_squad.py's names (int64), the answer
+    span planted in the valid part and marked by tokens 1 / 2, written to a
+    TFRecord file, read back and checked equal; returns the arrays as
+    run_squad.py's input_fn casts them (int32)."""
+    from analytics_zoo_tpu_torch.data.tfrecord import (
+        build_example, examples_to_arrays, read_example_file, write_records)
+    ids, seg, mask, lens = _heads_inputs("squad", n, rng)
+    start = rng.integers(lens // 3, lens - 8)
+    end = start + rng.integers(0, 8, n)
+    ids[np.arange(n), start] = 1
+    ids[np.arange(n), end] = 2
+    written = [{"unique_ids": np.array([1000000000 + i], np.int64),
+                "input_ids": ids[i].astype(np.int64),
+                "input_mask": mask[i].astype(np.int64),
+                "segment_ids": seg[i].astype(np.int64),
+                "start_positions": np.array([start[i]], np.int64),
+                "end_positions": np.array([end[i]], np.int64)}
+               for i in range(n)]
+    path = os.path.join(tmp, "train.tf_record")
+    t0 = time.perf_counter()
+    write_records(path, [build_example(ex) for ex in written])
+    back = read_example_file(path)
+    secs = time.perf_counter() - t0
+    if len(back) != n or any(
+            sorted(b) != sorted(SQUAD_KEYS) or any(
+                b[k].dtype != np.int64 or not np.array_equal(b[k], w[k])
+                for k in SQUAD_KEYS) for b, w in zip(back, written)):
+        raise AssertionError("the SQuAD TFRecord file read back differs "
+                             "from what was written")
+    a = {k: v.astype(np.int32)
+         for k, v in examples_to_arrays(back, SQUAD_KEYS).items()}
+    log(f"[heads] squad: {n} features written to a TFRecord file "
+        f"({os.path.getsize(path):,} bytes) and read back equal in "
+        f"{1e3 * secs:.1f} ms")
+    return ((a["input_ids"], a["segment_ids"], a["input_mask"]),
+            [a["start_positions"][:, 0], a["end_positions"][:, 0]])
+
+
+def _head_est(head, cfg, tree, mixed=False, spd=1):
+    """The head's estimator on the card from the weights ``tree``:
+    AdamWeightDecay at the head's learning rate."""
+    from analytics_zoo_tpu_torch.keras.optimizers import AdamWeightDecay
+    from analytics_zoo_tpu_torch.tfpark import BERTNER, BERTSQuAD
+    kw = dict(bert_config=cfg,
+              optimizer=AdamWeightDecay(lr=HEADS[head]["lr"]),
+              mixed_precision=mixed, steps_per_dispatch=spd, device="cuda")
+    est = (BERTNER(len(NER_TAGS), **kw) if head == "ner"
+           else BERTSQuAD(**kw))
+    return est.load_weights(tree)
+
+
+def _as_list(out):
+    return out if isinstance(out, list) else [out]
+
+
+def _head_run(head, cfg, tmp, card_name):
+    """One head at BERT-base width through its user entry points; see the
+    module docstring (9c).  Returns its numbers."""
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        set_attention_backend)
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.tfpark import BERTNER, BERTSQuAD, TFDataset
+    h = HEADS[head]
+    B, T, n_block = h["batch"], h["seq"], cfg["n_block"]
+    n = HEADS_STEPS * B
+    rng = np.random.default_rng(SEED + (11 if head == "ner" else 12))
+    x, y = _ner_data(n, rng) if head == "ner" else _squad_file(n, rng, tmp)
+    cpu_net = (BERTNER(len(NER_TAGS), bert_config=cfg, device="cpu")
+               if head == "ner" else BERTSQuAD(bert_config=cfg,
+                                               device="cpu")).net
+    tree = _random_tree(cpu_net, rng)
+    del cpu_net
+    take = lambda t: [a[:B] for a in t] if isinstance(t, list) else t[:B]
+    first = (tuple(take(list(x))), take(y))
+    one_ds = TFDataset.from_ndarrays(first, batch_size=B)
+    dev_ds = lambda: TFDataset.from_ndarrays((x, y), batch_size=B,
+                                             memory_type="DEVICE")
+    out = {}
+    log(f"[heads] {head}: BERT-base {cfg}, seq {T}, batch {B}, "
+        f"AdamWeightDecay(lr={h['lr']:g}), valid lengths {h['min_len']}"
+        f"..{T}, {n} sequences ({HEADS_STEPS} steps an epoch) on "
+        f"{card_name}")
+
+    # launches of one forward and of one training step (eager, f32)
+    est = _head_est(head, cfg, tree)
+    xb = [torch.from_numpy(a).cuda() for a in first[0]]
+    yb = [torch.from_numpy(a).cuda() for a in _as_list(first[1])]
+    yb = yb if head == "squad" else yb[0]
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        est.net(xb)
+    torch.cuda.synchronize()
+    fwd = _kernels.flash_fwd.launches
+    _kernels.reset_launches()
+    est.train(one_ds, epochs=1, seed=SEED)
+    torch.cuda.synchronize()
+    step = (_kernels.flash_fwd.launches, _kernels.flash_bwd.launches)
+    log(f"[heads] {head}: one forward {fwd} flash_fwd launches; one eager "
+        f"training step flash_fwd {step[0]}, flash_bwd {step[1]}")
+    if fwd != n_block or step != (n_block, n_block):
+        raise AssertionError(f"{head}: expected {n_block} launches a "
+                             f"forward and {n_block} + {n_block} a step")
+
+    # predictions with the kernels against plain attention (same weights)
+    got = est.predict(list(x), batch_size=B)
+    set_attention_backend(est.net, "plain")
+    ref = est.predict(list(x), batch_size=B)
+    set_attention_backend(est.net, None)
+    shapes = [a.shape for a in _as_list(got)]
+    want_shapes = ([(n, T, len(NER_TAGS))] if head == "ner"
+                   else [(n, T)] * 2)
+    err = max(float(np.max(np.abs(g - r))) for g, r in zip(
+        _as_list(got), _as_list(ref)))
+    scale = 1.0 if head == "ner" else max(1.0, max(
+        float(np.max(np.abs(r))) for r in _as_list(ref)))
+    log(f"[heads] {head}: predict {shapes} vs plain attention max_abs_err="
+        f"{err:.3e} (tol {HEADS_PREDICT_ATOL:g} x {scale:.3g})")
+    if shapes != want_shapes or err > HEADS_PREDICT_ATOL * scale or not all(
+            np.isfinite(a).all() for a in _as_list(got)):
+        raise AssertionError(f"{head}: predictions disagree with plain "
+                             f"attention or have shapes {shapes}")
+    est.predict(list(first[0]), batch_size=B)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        est.predict(list(first[0]), batch_size=B)
+    out["predict_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    out["predict_err"] = err
+
+    # one training step with the kernels against plain attention (f32)
+    loss_k, grads_k = _step_loss_and_grads(est, xb, yb, seed=7, unused=True)
+    # the same step again gives the same bits (Adam steps a gradient that
+    # is 0 in exact arithmetic on its rounding noise, so noise that
+    # changed from run to run made the graph-vs-eager check below vary)
+    again = _step_loss_and_grads(est, xb, yb, seed=7, unused=True)[1]
+    differ = sorted(nm for nm, g in grads_k.items()
+                    if not torch.equal(g, again[nm]))
+    log(f"[heads] {head}: one step repeated: {len(differ)} of {len(again)} "
+        f"gradients differ in any bit {differ[:4]}")
+    if differ:
+        raise AssertionError(f"{head}: a repeated step's gradients differ")
+    del again
+    set_attention_backend(est.net, "plain")
+    loss_p, grads_p = _step_loss_and_grads(est, xb, yb, seed=7, unused=True)
+    set_attention_backend(est.net, None)
+    # SQuAD's softmax runs over positions, so a parameter that adds the
+    # same vector to every position's output shifts a row's start (end)
+    # logits by one constant, which cancels: the head's bias and the last
+    # block's LayerNorm shift (post-LN: it adds beta to every token's
+    # output).  Their gradients are 0 in exact arithmetic and rounding
+    # noise in both versions; they are held to that (both below
+    # SHIFT_FREE_NOISE of the largest gradient), not to their own scale
+    shift_free = ({nm for nm in grads_p if nm == "head.b" or nm.endswith(
+        f"_block{n_block - 1}.ln2.beta")} if head == "squad" else set())
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    noise = max((float(g.abs().max()) for nm in shift_free
+                 for g in (grads_k[nm], grads_p[nm])), default=0.0)
+    worst, worst_name = _worst_grad(grads_k, grads_p, shift_free)
+    log(f"[heads] {head}: one step kernels vs plain attention: loss "
+        f"{loss_k:.7f} vs {loss_p:.7f} (|d| {abs(loss_k - loss_p):.2e}, tol "
+        f"{TRAIN_LOSS_ATOL:g}); worst gradient |d|/max|g| {worst:.2e} at "
+        f"{worst_name} (tol {TRAIN_GRAD_RTOL:g})"
+        + (f"; {sorted(shift_free)} (0 in exact arithmetic) max|g| "
+           f"{noise:.2e} = {noise / top:.1e} of the largest gradient (tol "
+           f"{SHIFT_FREE_NOISE:g})" if shift_free else ""))
+    if abs(loss_k - loss_p) > TRAIN_LOSS_ATOL or worst > TRAIN_GRAD_RTOL \
+            or noise > SHIFT_FREE_NOISE * top:
+        raise AssertionError(f"{head}: a training step with the kernels "
+                             f"disagrees with plain attention")
+    out.update(step_loss_err=abs(loss_k - loss_p), step_grad_rel=worst)
+    del est, grads_k, grads_p, xb, yb
+    _release()
+
+    # 8 f32 steps through the graph (K = 4) against 8 eager steps, from
+    # the DEVICE tier with the same weights and dropout seed
+    runs = {}
+    for k in (4, 1):
+        est = _head_est(head, cfg, tree, spd=k)
+        _kernels.reset_launches()
+        with _DispatchLosses() as rec:
+            est.train(dev_ds(), epochs=1, seed=SEED)
+        torch.cuda.synchronize()
+        runs[k] = (rec.losses, {nm: p.detach().clone()
+                                for nm, p in est.net.named_parameters()},
+                   (_kernels.flash_fwd.launches, _kernels.flash_bwd.launches))
+        del est
+        _release()
+    out["graph_loss_rel"] = _close(
+        f"{head} f32, {HEADS_STEPS} steps: graph (K=4) vs eager (K=1)",
+        runs[4][0], runs[1][0], GRAPH_LOSS_RTOL, "heads")
+    worst, worst_name = max((((runs[4][1][nm] - p).abs().max()
+                              / p.abs().max().clamp_min(1e-30)).item(), nm)
+                            for nm, p in runs[1][1].items())
+    log(f"[heads] {head} ... weights: worst |d|/max|p| {worst:.3e} at "
+        f"{worst_name} (tol {GRAPH_WEIGHT_RTOL:g}); launches graph "
+        f"{runs[4][2]}, eager {runs[1][2]}")
+    want = (HEADS_STEPS * n_block,) * 2
+    if worst > GRAPH_WEIGHT_RTOL or runs[4][2] != want or runs[1][2] != want:
+        raise AssertionError(f"{head}: the graph's steps differ from eager "
+                             f"steps")
+    out["graph_weight_rel"] = worst
+    del runs
+    _release()
+
+    # the main path: mixed precision from the DEVICE tier, one dispatch an
+    # epoch (K = the epoch's steps), 2 epochs; launches counted from 0
+    ds = dev_ds()
+    est = _head_est(head, cfg, tree, mixed=True, spd=HEADS_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    est.train(ds, epochs=2, seed=SEED)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+    no_copies("heads")
+    epoch_losses = [hh["loss"] for hh in est._train_est.history]
+    log(f"[heads] {head} main path (bf16, DEVICE tier, {HEADS_STEPS} steps "
+        f"a dispatch, 2 epochs): epoch losses "
+        f"{' '.join(f'{v:.4f}' for v in epoch_losses)}; launches {launches}")
+    want = dict.fromkeys(_kernels.KERNELS, 0)
+    want.update(flash_fwd=2 * HEADS_STEPS * n_block,
+                flash_bwd=2 * HEADS_STEPS * n_block)
+    if launches != want:
+        raise AssertionError(f"{head} main path: expected {want} launches "
+                             f"through the replays, got {launches}")
+    if not (np.isfinite(epoch_losses).all()
+            and epoch_losses[-1] < epoch_losses[0]):
+        raise AssertionError(f"{head}: the loss did not fall: "
+                             f"{epoch_losses}")
+    out.update(launches=launches, epoch_losses=epoch_losses)
+    graph_peak = torch.cuda.max_memory_allocated()
+    graph_ms = (est._train_est.history[-1]["seconds"] * 1e3 / HEADS_STEPS)
+    busy = profile_breakdown(lambda: est.train(ds, epochs=1, seed=SEED),
+                             f"{head}: one {HEADS_STEPS}-step dispatch "
+                             f"(CUDA graph replays, bf16) at batch {B}",
+                             top=10)
+    del est
+    _release()
+    est = _head_est(head, cfg, tree, mixed=True, spd=1)
+    torch.cuda.reset_peak_memory_stats()
+    est.train(ds, epochs=1, seed=SEED)
+    est.train(ds, epochs=1, seed=SEED)
+    eager_ms = est._train_est.history[-1]["seconds"] * 1e3 / HEADS_STEPS
+    eager_peak = torch.cuda.max_memory_allocated()
+    busy_eager = profile_breakdown(
+        lambda: est.train(ds, epochs=1, seed=SEED),
+        f"{head}: {HEADS_STEPS} eager steps (K=1, bf16) at batch {B}",
+        top=10)
+    del est, ds
+    _release()
+    for what, ms, peak, prof in (
+            (f"graph (K={HEADS_STEPS})", graph_ms, graph_peak, busy),
+            ("eager (K=1)", eager_ms, eager_peak, busy_eager)):
+        out[what] = dict(step_ms=ms, samples_s=B * 1e3 / ms,
+                         busy_share=prof[1] / prof[0] if prof else None,
+                         peak_gib=peak / 2 ** 30)
+        share = (f"{100 * prof[1] / prof[0]:.1f}%" if prof
+                 else "not measured")
+        log(f"[heads] {head} {what} at batch {B}, seq {T}: {ms:.3f} ms a "
+            f"step ({B * 1e3 / ms:.1f} samples/s), device busy {share}, "
+            f"peak memory {peak / 2 ** 30:.2f} GiB; predict "
+            f"{out['predict_ms']:.3f} ms a batch of {B} (f32) on "
+            f"{card_name}")
+    return out
+
+
+def _time_t384(card_name):
+    """``flash_fwd`` and ``flash_bwd`` at SQuAD's shape, B12 H12 T384 D64
+    with a ragged padding mask (valid lengths 128..384), f32 and bf16:
+    checked against their plain versions, then timed beside them,
+    ``scaled_dot_product_attention`` given the same mask (its backward for
+    the backward) and the bound (the work of this mask's valid keys)."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.ops.attention import (
+        _reference_attention_bwd, flash_attention)
+    F = torch.nn.functional
+    B, H, T, D = HEADS["squad"]["batch"], 12, HEADS["squad"]["seq"], 64
+    gen = torch.Generator().manual_seed(SEED + 13)
+    lens = torch.randint(HEADS["squad"]["min_len"], T + 1, (B,),
+                         generator=gen)
+    mask = (torch.arange(T)[None] < lens[:, None]).to("cuda", torch.int32)
+    bool_mask = (mask != 0)[:, None, None, :]
+    keys = int(lens.sum())                  # valid keys, over the batch
+    rows = {"flash_fwd": {}, "flash_bwd": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v, go, _ = _bwd_inputs(dtype, B, H, T, T, D, gen)
+        kernel = lambda: flash_attention(q, k, v, padding_mask=mask)
+        plain = lambda: flash_attention(q, k, v, padding_mask=mask,
+                                        backend="plain")
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=bool_mask)
+        err = _max_err(f"flash_fwd {name} B{B} H{H} T{T} ragged mask",
+                       kernel(), plain(), dtype)
+        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(sdpa)
+        dev, plain_dev, lib_dev = graph_ms(kernel), graph_ms(plain), \
+            graph_ms(sdpa)
+        # Q read and O written over every row; K and V read over the
+        # valid keys only (keys past a row's length never reach O)
+        nbytes = (2 * B * T + 2 * keys) * H * D * q.element_size() \
+            + mask.numel() * 4
+        flops = 4 * H * T * D * keys
+        bound, by, t_bytes, t_ops = _bound(nbytes, flops, dtype)
+        rows["flash_fwd"][dtype] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain_ms,
+            plain_device_ms=plain_dev, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+            max_abs_err=err, device_tflops=flops / dev / 1e9)
+        log(f"[heads] flash_fwd {name:8s} B{B} H{H} T{T} D{D} ragged mask "
+            f"(valid keys {keys} of {B * T}): max_abs_err={err:.3e}; eager "
+            f"calls: kernel {ms:.4f} ms, plain {plain_ms:.4f}, sdpa "
+            f"{lib_ms:.4f}; device (graph replay): kernel {dev:.4f} ms "
+            f"({flops / dev / 1e9:.1f} TFLOP/s), plain {plain_dev:.4f}, sdpa "
+            f"{lib_dev:.4f}; bound {bound:.4f} ms ({by}; bytes "
+            f"{t_bytes:.4f}, operations {t_ops:.4f}) on {card_name}")
+        kw = dict(causal=False, sm_scale=D ** -0.5, dropout_p=0.0, seed=None)
+        o, lse = _kernel_fwd(_kernels, q, k, v, mask, **kw)
+        kb = lambda: _kernel_bwd(_kernels, q, k, v, o, go, lse, mask, **kw)
+        pb = lambda: _reference_attention_bwd(q, k, v, o, go, mask, False,
+                                              D ** -0.5)
+        err = _check_grads(f"flash_bwd {name} T{T} ragged mask", kb(), pb(),
+                           dtype)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_l = lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=bool_mask)
+        sdpa_fb = lambda: torch.autograd.grad(sdpa_l(), leaves, go)
+        ms = cuda_ms(kb)
+        dev = graph_ms(kb)
+        plain_ms = device_ms(pb)
+        fb_ms, f_ms = device_ms(sdpa_fb), device_ms(sdpa_l)
+        # Q, O, dO read and dQ, dK, dV written over every row (the zeros
+        # past a row's length are part of dK, dV); K and V read over the
+        # valid keys only
+        nbytes = (6 * B * T + 2 * keys) * H * D * q.element_size() \
+            + mask.numel() * 4 + lse.numel() * 4
+        flops = 10 * H * T * D * keys
+        bound, by, t_bytes, t_ops = _bound(nbytes, flops, dtype)
+        rows["flash_bwd"][dtype] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain_ms,
+            library_ms=fb_ms - f_ms, bound_ms=bound, bound_by=by,
+            max_abs_err=err, device_tflops=flops / dev / 1e9)
+        log(f"[heads] flash_bwd {name:8s} B{B} H{H} T{T} D{D} ragged mask: "
+            f"max_abs_err={err:.3e} (dq, dk, dv); kernel {ms:.4f} ms (device "
+            f"{dev:.4f} ms graph replay, {flops / dev / 1e9:.1f} TFLOP/s), "
+            f"plain {plain_ms:.4f} ms (device), sdpa backward "
+            f"{fb_ms - f_ms:.4f} ms (device: forward+backward {fb_ms:.4f} - "
+            f"forward {f_ms:.4f}), bound {bound:.4f} ms ({by}; bytes "
+            f"{t_bytes:.4f}, operations {t_ops:.4f}) on {card_name}")
+        del q, k, v, go, o, lse, leaves
+    return rows
+
+
+class _Groups:
+    """Listwise ranking groups as the Ranker reads a TextSet:
+    ``features[i]["sample"] = (x, labels)``, x the query's ids then a
+    candidate's, one row per candidate."""
+
+    def __init__(self, groups):
+        self.features = [{"sample": g} for g in groups]
+
+
+def _seq2seq_logits(model, src, tokens, start):
+    """Each step's logits of a greedy decode that chose ``tokens``, fed
+    back token by token (``infer``'s arithmetic)."""
+    from analytics_zoo_tpu_torch.keras.layers.embedding import take_rows
+    dev = model.device
+    out = []
+    with torch.inference_mode():
+        states = model._encode(torch.from_numpy(src).to(dev))
+        token = torch.full((len(src),), start, dtype=torch.int32, device=dev)
+        for t in range(tokens.shape[1]):
+            d = take_rows(model.dec_embed, token)
+            new = []
+            for cell, carry in zip(model._dec_cells, states):
+                d, carry = cell._step(torch.matmul(d, cell.W), carry)
+                new.append(carry)
+            states = new
+            out.append(model.head(d).float().cpu().numpy())
+            token = torch.from_numpy(tokens[:, t].astype(np.int32)).to(dev)
+    return np.stack(out, axis=1)
+
+
+def _cpu_capability():
+    """The vector ISA PyTorch's CPU kernels dispatch to here."""
+    get = getattr(torch.backends.cpu, "get_cpu_capability", None)
+    return get() if get else "ISA not reported"
+
+
+def _fit_losses(net, x, y, batch, epochs=1):
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+    with _DispatchLosses() as rec:
+        net.fit(FeatureSet.from_ndarrays(x, y, shuffle=False),
+                batch_size=batch, nb_epoch=epochs)
+        if net.device.type == "cuda":
+            torch.cuda.synchronize()
+    return rec.losses
+
+
+def _heads_cpu_models(card_name):
+    """KNRM with the Ranker metrics, Seq2seq, LocalEstimator and a
+    CustomLoss in ``fit``, each against the same model on the CPU; none
+    launches a port kernel."""
+    from analytics_zoo_tpu_torch import autograd as A
+    from analytics_zoo_tpu_torch.estimator import LocalEstimator
+    from analytics_zoo_tpu_torch.keras import engine
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.models import KNRM, Seq2seq
+    from analytics_zoo_tpu_torch.ops import _kernels
+    _kernels.reset_launches()
+    out = {}
+    rng = np.random.default_rng(SEED + 14)
+    rs = np.random.RandomState(14)
+
+    # KNRM: predictions, 3 SGD steps, NDCG@3 and MAP
+    c = KNRM_CFG
+    card, cpu = _rec_pair(lambda d: KNRM(device=d, **c), rng, "cuda",
+                          _zoo_tree)
+    n = 384
+    x = {"text1": rs.randint(1, c["vocab_size"], (n, c["text1_length"])),
+         "text2": rs.randint(1, c["vocab_size"], (n, c["text2_length"]))}
+    x = {k: v.astype(np.int32) for k, v in x.items()}
+    y = rs.randint(0, 2, n).astype(np.float32)
+    want = cpu.predict(x, batch_size=128)
+    card.predict(x, batch_size=128)
+    t0 = time.perf_counter()
+    got = card.predict(x, batch_size=128)
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.max(np.abs(got - want)))
+    # the pooling's centres and widths, made on the card, are numpy's f32
+    # values; the cosine matrix, the one product, is logged beside the
+    # scores
+    from analytics_zoo_tpu_torch.models.textmatching import _pool_consts
+    K = c["kernel_num"]
+    mus = np.asarray(np.linspace(-1.0 + 1.0 / K, 1.0 - 1.0 / K,
+                                 K - 1).tolist() + [1.0], np.float32)
+    sig = np.asarray([c["sigma"]] * (K - 1) + [c["exact_sigma"]],
+                     np.float32)
+    got_mus, got_denom = (t.cpu().numpy() for t in _pool_consts(
+        card.device, K, c["sigma"], c["exact_sigma"]))
+    if not (np.array_equal(got_mus, mus)
+            and np.array_equal(got_denom, 2 * np.square(sig))):
+        raise AssertionError("KNRM: the pooling constants made on the card "
+                             "differ from numpy's f32 values")
+    cos = [torch.einsum("bqe,bde->bqd", *(
+        torch.nn.functional.normalize(m.embed.embeddings[torch.from_numpy(
+            x[k][:128]).long().to(m.device)], dim=-1) for k in x)).cpu()
+        for m in (card, cpu)]
+    log(f"[heads] KNRM {c}: {card.param_count():,} parameters; predict "
+        f"{n} pairs in {ms:.3f} ms on {card_name}, vs the CPU max_abs_err="
+        f"{err:.3e} tol={HEADS_CPU_ATOL:g} (max |score| "
+        f"{float(np.max(np.abs(want))):.3g}; pooling constants equal to "
+        f"numpy's; cosine matrix max |d| "
+        f"{float((cos[0] - cos[1]).abs().max()):.2e}; the CPU reference on "
+        f"{torch.get_num_threads()} threads, {_cpu_capability()})")
+    if err > HEADS_CPU_ATOL or not np.isfinite(got).all():
+        raise AssertionError("KNRM: predictions disagree with the CPU")
+    groups = []
+    for g in range(32):
+        q = np.repeat(x["text1"][g * 8:g * 8 + 1], 8, axis=0)
+        groups.append((np.concatenate([q, x["text2"][g * 8:(g + 1) * 8]],
+                                      axis=1), rs.randint(0, 3, 8)))
+    ts = _Groups(groups)
+    ranks = {m: (net.evaluate_ndcg(ts, 3), net.evaluate_map(ts))
+             for m, net in (("card", card), ("cpu", cpu))}
+    log(f"[heads] KNRM ranking over 32 queries x 8 candidates: NDCG@3 / MAP"
+        f" card {ranks['card']}, CPU {ranks['cpu']}")
+    if ranks["card"] != ranks["cpu"]:
+        raise AssertionError("KNRM: ranking metrics differ from the CPU's")
+    for m in (card, cpu):
+        m.compile(SGD(lr=1e-3), "mse")
+    out["knrm"] = dict(max_abs_err=err, ndcg_map=ranks["card"],
+                       loss_rel=_close(
+                           "KNRM: 3 SGD steps at batch 128, card vs CPU",
+                           _fit_losses(card, x, y, 128),
+                           _fit_losses(cpu, x, y, 128),
+                           HEADS_CPU_LOSS_RTOL, "heads"))
+    del card, cpu
+    _release()
+
+    # Seq2seq: teacher-forced probabilities, greedy infer, 3 SGD steps
+    c, T = SEQ2SEQ_CFG, SEQ2SEQ_T
+    card, cpu = _rec_pair(lambda d: Seq2seq(device=d, **c), rng, "cuda",
+                          _zoo_tree)
+    src = rs.randint(3, c["vocab_size"], (48, T)).astype(np.int32)
+    dec = np.concatenate([np.ones((48, 1), np.int32), src[:, :-1]], axis=1)
+    xs = {"enc": src[:32], "dec": dec[:32]}
+    err = float(np.max(np.abs(card.predict(xs, batch_size=16)
+                              - cpu.predict(xs, batch_size=16))))
+    toks, want = card.infer(src[:8], 1, T), cpu.infer(src[:8], 1, T)
+    gap = 0.0
+    if not np.array_equal(toks, want):
+        logits = _seq2seq_logits(cpu, src[:8], toks, 1)
+        chosen = np.take_along_axis(logits, toks[..., None], -1)[..., 0]
+        gap = float(np.max(logits.max(-1) - chosen))
+    same = np.array_equal(toks, want)
+    log(f"[heads] Seq2seq {c}, {T} tokens in and out: probabilities vs the "
+        f"CPU max_abs_err={err:.3e} tol={HEADS_CPU_ATOL:g}; infer tokens "
+        + ("equal to the CPU's" if same else
+           f"differ from the CPU's, worst chosen-logit gap {gap:.2e} (tol "
+           f"{SEQ2SEQ_TIE_ATOL:g})"))
+    if err > HEADS_CPU_ATOL or gap > SEQ2SEQ_TIE_ATOL:
+        raise AssertionError("Seq2seq disagrees with the CPU")
+    for m in (card, cpu):
+        m.compile("sgd", "sparse_categorical_crossentropy")
+    x3 = {"enc": src, "dec": dec}
+    out["seq2seq"] = dict(max_abs_err=err, tie_gap=gap, loss_rel=_close(
+        "Seq2seq: 3 SGD steps at batch 16, card vs CPU",
+        _fit_losses(card, x3, src, 16), _fit_losses(cpu, x3, src, 16),
+        HEADS_CPU_LOSS_RTOL, "heads"))
+    del card, cpu
+    _release()
+
+    # LocalEstimator (3 epochs) and a CustomLoss in KerasNet.fit
+    def build(d):
+        engine.reset_uids()
+        return engine.Sequential([L.Dense(64, activation="relu",
+                                          input_shape=(32,)),
+                                  L.Dense(10, activation="softmax")],
+                                 device=d)
+    xl = rs.randn(512, 32).astype(np.float32)
+    yl = (np.abs(xl[:, :10]).argmax(1)).astype(np.int32)
+    card, cpu = _rec_pair(build, rng, "cuda", _zoo_tree)
+    hists = [LocalEstimator(m, "sparse_categorical_crossentropy",
+                            SGD(lr=0.1)).fit((xl, yl), 64, epochs=3)
+             for m in (card, cpu)]
+    out["local_estimator"] = _close(
+        "LocalEstimator: 3 epochs at batch 64, card vs CPU (epoch losses)",
+        [h["loss"] for h in hists[0]], [h["loss"] for h in hists[1]],
+        HEADS_CPU_LOSS_RTOL, "heads")
+    loss = lambda: A.CustomLoss(
+        lambda yt, yp: A.mean(A.square(yt - yp) + 0.01 * A.abs(yp), axis=1),
+        (10,))
+    yc = np.eye(10, dtype=np.float32)[yl]
+    for m in (card, cpu):
+        m.compile(SGD(lr=0.1), loss())
+    out["custom_loss"] = _close(
+        "CustomLoss in KerasNet.fit: 8 steps at batch 64, card vs CPU",
+        _fit_losses(card, xl, yc, 64), _fit_losses(cpu, xl, yc, 64),
+        HEADS_CPU_LOSS_RTOL, "heads")
+    del card, cpu
+    _release()
+    launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+    log(f"[heads] port kernel launches of KNRM, Seq2seq, LocalEstimator and "
+        f"CustomLoss: {launches} (none expected)")
+    if any(launches.values()):
+        raise AssertionError(f"the no-kernel paths launched port kernels: "
+                             f"{launches}")
+    return out
+
+
+def phase_heads(card_name):
+    """BERT NER (T 128) and SQuAD (T 384, a TFRecord feed) trained and
+    served on the flash kernels at BERT-base width, the kernels timed at
+    SQuAD's shape, and the heads' no-kernel modules against the CPU; see
+    the module docstring (9c).  Returns (launches of each head's main
+    path, the T 384 rows, numbers)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    cfg = dict(BERT_BASE, seq_len=512, hidden_drop=0.1, attn_drop=0.1)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="zoo_squad_")
+    try:
+        for head in HEADS:
+            out[head] = _head_run(head, cfg, tmp, card_name)
+            log(f"[heads] {head} done ({time.perf_counter() - t_phase:.1f} s"
+                f" into the phase)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t384 = _time_t384(card_name)
+    out["cpu_models"] = _heads_cpu_models(card_name)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[heads] phase time {out['seconds']:.1f} s on {card_name}")
+    launches = {head: out[head]["launches"] for head in HEADS}
+    return launches, t384, out
+
+
 def _pct(ms, q):
     return float(np.percentile(np.asarray(ms), q))
 
@@ -3092,6 +3765,7 @@ def main() -> int:
     ring_launches, ring_rows = phase_ring()
     phase_ncf(card)
     phase_zoo(card)
+    heads_launches, t384, _ = phase_heads(card)
     http_launches, _, http_llm = phase_http()
 
     def entry(name, source, replaces, rows, launches,
@@ -3107,6 +3781,13 @@ def main() -> int:
                 "bf16": dict(rows[torch.bfloat16]), **extra}
 
     csrc = "analytics_zoo_tpu_torch/ops/csrc/"
+    HEADS_RUN = (f"each BERT head's main path: 2 epochs of {HEADS_STEPS} "
+                 f"steps, one dispatch of {HEADS_STEPS} CUDA graph replays "
+                 f"an epoch, bf16")
+    t384_shape = (f"B{HEADS['squad']['batch']} H12 T{HEADS['squad']['seq']}"
+                  f" D64, ragged padding mask")
+    t384_rows = lambda name: {"shape": t384_shape, **{
+        str(dt)[6:]: row for dt, row in t384[name].items()}}
     BENCH_RUN = (f"the bench's BERT training: "
                  f"{BENCH['steps'] * BENCH['epochs']} steps, "
                  f"{BENCH['epochs']} dispatches of {BENCH['spd']} CUDA "
@@ -3118,12 +3799,18 @@ def main() -> int:
               bench_launches["flash_fwd"], launches_in=BENCH_RUN,
               f32_train_launches=train_launches["flash_fwd"],
               serve_launches=serve_launches,
-              http_launches=http_launches["flash_fwd"]),
+              http_launches=http_launches["flash_fwd"],
+              heads_launches={h: heads_launches[h]["flash_fwd"]
+                              for h in HEADS},
+              heads_launches_in=HEADS_RUN, t384=t384_rows("flash_fwd")),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               bench_launches["flash_bwd"], launches_in=BENCH_RUN,
               f32_train_launches=train_launches["flash_bwd"],
-              library="backward of scaled_dot_product_attention"),
+              library="backward of scaled_dot_product_attention",
+              heads_launches={h: heads_launches[h]["flash_bwd"]
+                              for h in HEADS},
+              heads_launches_in=HEADS_RUN, t384=t384_rows("flash_bwd")),
         entry("paged_decode", csrc + "paged_decode.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:79",
               paged_rows["paged_decode"], llm_launches["paged_decode"],

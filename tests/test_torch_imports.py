@@ -54,7 +54,9 @@ def test_no_module_of_the_port_imports_jax():
                  "keras.layers.normalization", "keras.layers.convolutional",
                  "keras.layers.pooling", "keras.layers.recurrent",
                  "models.textclassification", "models.anomalydetection",
-                 "models.imageclassification"):
+                 "models.imageclassification", "autograd",
+                 "estimator.local_estimator", "models.textmatching",
+                 "models.seq2seq", "data.tfrecord"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -99,11 +101,17 @@ def test_no_module_of_the_port_imports_jax():
     "from analytics_zoo_tpu_torch.models import AnomalyDetector as f;"
     " f((6, 1))",
     "from analytics_zoo_tpu_torch.models import ImageClassifier as f; f(4)",
+    "from analytics_zoo_tpu_torch.tfpark import BERTNER as f; f(9)",
+    "from analytics_zoo_tpu_torch.tfpark import BERTSQuAD as f; f()",
+    "from analytics_zoo_tpu_torch.models import KNRM as f\n"
+    "    f(4, 6, vocab_size=20, embed_size=8)",
+    "from analytics_zoo_tpu_torch.models import Seq2seq as f; f(12)",
 ], ids=["resolve_device", "InferenceModel", "BERTClassifier",
         "BERTClassifier.train", "Estimator", "DecoderLM", "LLMServing",
         "PagedKVCache", "init_zoo_context", "NeuralCF", "WideAndDeep",
         "Model", "Sequential", "TextClassifier", "SessionRecommender",
-        "AnomalyDetector", "ImageClassifier"])
+        "AnomalyDetector", "ImageClassifier", "BERTNER", "BERTSQuAD", "KNRM",
+        "Seq2seq"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "

@@ -375,3 +375,27 @@ def test_sparse_embedding_matches_jax():
     ids = np.random.RandomState(0).randint(0, 9, (4, 5)).astype(np.int32)
     check_layer(JL.SparseEmbedding(9, 4), TL.SparseEmbedding(9, 4), ids,
                 grad=False)
+
+
+@pytest.mark.parametrize("rows", [2, 50])
+@pytest.mark.parametrize("how", ["gather_rows", "ordered"])
+def test_gather_rows_is_jnp_take(rows, how):
+    """``gather_rows`` (the embedding lookup: ``F.embedding`` here, its
+    ordered-backward form on the card, run here as ``ordered``) gives
+    ``jnp.take``'s rows and gradient, ids repeated many times over."""
+    from analytics_zoo_tpu_torch.keras.layers import embedding
+    gather = (embedding.gather_rows if how == "gather_rows"
+              else embedding._OrderedGather.apply)
+    rs = np.random.RandomState(rows)
+    table = rs.randn(rows, 5).astype(np.float32)
+    ids = rs.randint(0, rows, (6, 40)).astype(np.int32)
+    r = rs.randn(6, 40, 5).astype(np.float32)
+    take = lambda t: jnp.take(t, jnp.asarray(ids), axis=0)
+    want = np.asarray(take(jnp.asarray(table)))
+    gwant = np.asarray(jax.grad(lambda t: jnp.sum(take(t) * r))(
+        jnp.asarray(table)))
+    t = torch.from_numpy(table).requires_grad_()
+    got = gather(t, torch.from_numpy(ids).long())
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    torch.sum(got * torch.from_numpy(r)).backward()
+    np.testing.assert_allclose(t.grad.numpy(), gwant, rtol=1e-6, atol=1e-6)

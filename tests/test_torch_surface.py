@@ -90,6 +90,13 @@ DIFFERENCES = {
                                                          PREDICT),
     "tfpark.text_estimators.BERTClassifier.__init__": (
         "", "device generator", f"{DEVICE}; {RNG}"),
+    "tfpark.text_estimators.BERTNER.__init__": (
+        "", "device generator", f"{DEVICE}; {RNG}"),
+    "tfpark.text_estimators.BERTSQuAD.__init__": (
+        "", "device generator", f"{DEVICE}; {RNG}"),
+    "estimator.local_estimator.LocalEstimator.fit": ("rng", "seed", RNG),
+    "models.seq2seq.Seq2seq.__init__": ("", "device generator",
+                                        f"{DEVICE}; {RNG}"),
 }
 # a layer whose weights wait for its input's shape creates them from that
 # shape alone; its initializers take a torch.Generator in init()
@@ -219,6 +226,49 @@ def test_every_jax_layer_metric_and_zoo_model_is_walked():
                  "anomalydetection.AnomalyDetector",
                  "imageclassification.ImageClassifier"):
         assert f"models.{name}.__init__" in COMPARED
+
+
+def test_the_heads_autograd_and_feeds_are_walked():
+    """The NER / SQuAD heads, autograd, the local estimator, KNRM with the
+    Ranker, Seq2seq, the TFRecord codec and the FeatureSet / TFDataset
+    factories are compared with their JAX namesakes."""
+    from analytics_zoo_tpu import autograd as jautograd
+    names = [f"autograd.{n}" for n in jautograd.__all__
+             if n not in ("Parameter", "Constant", "CustomLoss", "Variable",
+                          "Lambda", "Input")]
+    names += [f"autograd.{c}.__init__" for c in ("Parameter", "Constant",
+                                                 "CustomLoss")]
+    names += ["autograd.Parameter.to_variable",
+              "autograd.Constant.to_variable", "autograd.CustomLoss.forward",
+              "autograd.CustomLoss.backward"]
+    names += [f"tfpark.text_estimators.{c}.__init__"
+              for c in ("BERTNER", "BERTSQuAD")]
+    names += [f"estimator.local_estimator.LocalEstimator.{m}"
+              for m in ("__init__", "fit", "evaluate", "predict")]
+    names += ["models.textmatching.KNRM.__init__",
+              "models.common.Ranker.evaluate_ndcg",
+              "models.common.Ranker.evaluate_map",
+              "models.seq2seq.Seq2seq.__init__",
+              "models.seq2seq.Seq2seq.infer"]
+    names += [f"data.tfrecord.{n}" for n in (
+        "read_records", "write_records", "parse_example", "build_example",
+        "read_example_file", "examples_to_arrays", "crc32c", "iter_fields",
+        "emit_bytes")]
+    names += [f"data.featureset.FeatureSet.{m}" for m in (
+        "from_dataframe", "from_tfrecord_file", "from_generator", "disk",
+        "from_sources", "to_disk", "size")]
+    names += [f"data.featureset.{c}.{m}"
+              for c in ("GeneratorFeatureSet", "DiskFeatureSet")
+              for m in ("__init__", "local_batches", "steps_per_epoch")]
+    names += [f"tfpark.tf_dataset.TFDataset.{m}" for m in (
+        "from_dataframe", "from_tfrecord_file", "from_feature_set",
+        "from_generator")]
+    missing = [n for n in names if n not in COMPARED]
+    assert not missing, missing
+    for name in ("from_rdd", "from_image_set", "from_text_set",
+                 "from_string_rdd", "from_bytes_rdd",
+                 "from_tf_data_dataset"):
+        assert f"tfpark.tf_dataset.TFDataset.{name}" in STUBS
 
 
 @pytest.mark.parametrize("name", COMPARED)
