@@ -11,13 +11,17 @@ import that module: every ``analytics_zoo_tpu`` import loads jax):
   in-flight depth is rejected explicitly (``try_acquire`` False, then
   ``shed``) instead of queueing without bound.
 
-The metric gauges, trace events and flight-recorder hooks of the JAX
-module are not ported (ROADMAP Queue 1 item 6, observability): expired and
-shed work is counted in plain integers (``expired_counts``,
-``AdmissionController.shed_count``).
 - ``RetryPolicy`` / ``RetryState``: bounded retry with decorrelated-jitter
   backoff, which the estimator's retry from the latest checkpoint runs
   through.
+
+Counters and gauges land in the observability registry as the JAX
+module's do (``zoo_resilience_shed_total``, ``zoo_resilience_expired_total``,
+``zoo_resilience_retries_total``, the admission gauges), and every shed,
+expiry and retry is journaled as a trace event (``shed``, ``expired``,
+``retry``) carrying the affected request's trace id where the caller has
+one.  Expired and shed work is also counted in plain integers
+(``expired_counts``, ``AdmissionController.shed_count``).
 
 Circuit breakers belong to parts not ported yet (the Redis broker and the
 model registry, ROADMAP Queue 1 item 1).
@@ -30,14 +34,25 @@ import contextvars
 import random
 import threading
 import time
+import weakref
 from concurrent.futures import CancelledError
 from typing import Callable, Dict, Iterator, Optional, Tuple, Type
 
-from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch import observability as obs
 
 __all__ = ["AdmissionController", "Deadline", "DeadlineExceeded",
            "RetryPolicy", "RetryState", "current_deadline", "deadline_scope",
            "expired_counts", "record_expired"]
+
+_m_shed = obs.lazy_counter(
+    "zoo_resilience_shed_total",
+    "work units rejected by admission control", ["scope"])
+_m_expired = obs.lazy_counter(
+    "zoo_resilience_expired_total",
+    "work units dropped because their deadline expired", ["scope"])
+_m_retries = obs.lazy_counter(
+    "zoo_resilience_retries_total",
+    "retry attempts taken after a transient failure", ["scope"])
 
 
 class DeadlineExceeded(RuntimeError):
@@ -137,6 +152,11 @@ class AdmissionController:
     dropped.
     """
 
+    #: live controllers by name: the gauge closures resolve through this
+    #: weak map, so a dropped controller reads 0 at scrape instead of
+    #: being pinned by the registry
+    _live: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
     def __init__(self, capacity: int, name: str = "serving"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
@@ -145,6 +165,20 @@ class AdmissionController:
         self._capacity = int(capacity)
         self._in_flight = 0
         self._shed = 0
+        # pull-time gauges: sampled at scrape, nothing on the hot path
+        AdmissionController._live[name] = self
+        obs.lazy_gauge(
+            "zoo_resilience_admission_in_flight",
+            "admitted work units not yet completed",
+            ["controller"]).labels(controller=name).set_function(
+                lambda n=name: getattr(
+                    AdmissionController._live.get(n), "_in_flight", 0))
+        obs.lazy_gauge(
+            "zoo_resilience_admission_capacity",
+            "admission credit capacity",
+            ["controller"]).labels(controller=name).set_function(
+                lambda n=name: getattr(
+                    AdmissionController._live.get(n), "_capacity", 0))
 
     @property
     def capacity(self) -> int:
@@ -199,11 +233,14 @@ class AdmissionController:
 
     def shed(self, n: int = 1, scope: Optional[str] = None,
              trace_id: Optional[int] = None) -> None:
-        """Account an explicit rejection of ``n`` units (``trace_id``, the
-        trace event's, is not ported yet and raises)."""
-        reject("AdmissionController.shed", 6, trace_id=trace_id)
+        """Account an explicit rejection of ``n`` units: counter + a
+        journal event carrying the shed request's trace id (the engine
+        reader has no active span, so the event attaches to none)."""
         with self._cond:
             self._shed += n
+        _m_shed.labels(scope=scope or self.name).inc(n)
+        obs.add_event("shed", span=None, trace_id=trace_id,
+                      controller=self.name, records=n)
 
 
 _expired_lock = threading.Lock()
@@ -213,11 +250,12 @@ expired_counts: Dict[str, int] = {}
 
 def record_expired(n: int = 1, scope: str = "serving",
                    trace_id: Optional[int] = None) -> None:
-    """Account ``n`` work units dropped for an expired deadline
-    (``trace_id``, the trace event's, is not ported yet and raises)."""
-    reject("record_expired", 6, trace_id=trace_id)
+    """Account ``n`` work units dropped for an expired deadline."""
     with _expired_lock:
         expired_counts[scope] = expired_counts.get(scope, 0) + n
+    _m_expired.labels(scope=scope).inc(n)
+    obs.add_event("expired", span=None, trace_id=trace_id, scope=scope,
+                  records=n)
 
 
 # ---- retry ----------------------------------------------------------------
@@ -314,6 +352,11 @@ class RetryState:
         dl = deadline or current_deadline()
         if dl is not None and dl.remaining() <= self.next_delay():
             return False
+        _m_retries.labels(scope=self.policy.scope).inc()
+        # journaled onto the caller's active span when there is one
+        obs.add_event("retry", scope=self.policy.scope,
+                      attempt=self.attempts,
+                      error=f"{type(exc).__name__}: {exc}"[:200])
         return True
 
     def backoff(self, cancel: Optional[threading.Event] = None) -> None:

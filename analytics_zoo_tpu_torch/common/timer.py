@@ -2,11 +2,10 @@
 
 Port of ``Timers``, ``time_it`` and ``default_timers`` from
 ``analytics_zoo_tpu/common/timer.py`` (copied: any ``analytics_zoo_tpu``
-import loads jax).  The bridge of every observation into the metrics
-registry (``metrics_prefix``) belongs to observability, ROADMAP Queue 1
-item 6: the argument is taken at its JAX default, None, and any other
-value raises naming the item.  ``profile_trace`` (the JAX profiler) has no
-port here; ``torch.profiler`` is the card's.
+import loads jax).  ``metrics_prefix`` bridges every observation into
+the metrics registry as ``<prefix>_seconds{name=...}`` histogram series,
+as the JAX module does.  ``profile_trace`` (the JAX profiler) has no port
+here; ``torch.profiler`` is the card's.
 """
 
 from __future__ import annotations
@@ -17,19 +16,21 @@ import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
-from analytics_zoo_tpu_torch.common.unported import reject
-
 logger = logging.getLogger("analytics_zoo_tpu_torch.timer")
 
 
 class Timers:
     """Accumulating named timers; ``report()`` gives totals, counts and
-    averages."""
+    averages.
+
+    ``metrics_prefix`` bridges every observation into the registry as
+    ``<prefix>_seconds{name=...}`` histogram series."""
 
     def __init__(self, metrics_prefix: Optional[str] = None):
-        reject("Timers", 6, metrics_prefix=metrics_prefix)
         self._total: Dict[str, float] = defaultdict(float)
         self._count: Dict[str, int] = defaultdict(int)
+        self._metrics_prefix = metrics_prefix
+        self._hist = None
 
     @contextlib.contextmanager
     def time(self, name: str, log: bool = False) -> Iterator[None]:
@@ -40,6 +41,15 @@ class Timers:
             elapsed = time.perf_counter() - start
             self._total[name] += elapsed
             self._count[name] += 1
+            if self._metrics_prefix is not None:
+                if self._hist is None:
+                    from analytics_zoo_tpu_torch import observability as obs
+                    # lazy handle: follows a set_registry() swap instead
+                    # of pinning the registry live at first use
+                    self._hist = obs.lazy_histogram(
+                        f"{self._metrics_prefix}_seconds",
+                        "scoped timer durations", ["name"])
+                self._hist.labels(name=name).observe(elapsed)
             if log:
                 logger.info("%s: %.3fs", name, elapsed)
 

@@ -24,9 +24,9 @@ QUEUE_ITEMS = {
        "sources (data/sharded.py) and the transforms (data/transforms.py)",
     5: "ROADMAP Queue 1 item 5: the rest of parallel/, with sharded "
        "models, model-parallel serving and multi-process bring-up",
-    6: "ROADMAP Queue 1 item 6: the rest, with observability (trace "
-       "context and trace events), net/ (torch.optim and tf.keras "
-       "optimizer conversion), feature/ and the rest of tfpark/",
+    6: "ROADMAP Queue 1 item 6: the rest, with net/ (torch.optim and "
+       "tf.keras optimizer conversion), feature/, the rest of tfpark/ "
+       "and InferenceSummary",
 }
 
 

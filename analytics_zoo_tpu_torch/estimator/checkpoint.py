@@ -28,6 +28,9 @@ its chain).  The JAX parameter and state trees map onto dotted names
 (``interop``'s layout) and the optax state onto the port optimizer's
 slots.  Checkpoints written by the port are restorable by the port only:
 its ``treedef.pkl`` holds the port's own structure, not a ``PyTreeDef``.
+The ``checkpoint_write`` chaos point fires before every write, as in the
+JAX package: a failed write takes the estimator's retry path, and the
+tmp-then-rename layout keeps a partial write from being restorable.
 The per-host sharded layout is not ported (ROADMAP Queue 1 item 5).
 """
 
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch.testing import chaos
 
 #: who wrote a checkpoint, in its treedef.pkl
 WRITER = "analytics_zoo_tpu_torch"
@@ -118,6 +122,9 @@ def save_checkpoint(directory: str, step: int, bundle: Any,
     ``bundle`` is a tree of dicts, lists and tuples whose leaves are
     tensors, arrays or numbers."""
     reject("save_checkpoint", 5, per_host=per_host)
+    # fault-injection point: a failed write here must hit the Estimator's
+    # checkpoint-restore retry path
+    chaos.fire("checkpoint_write")
     leaves: list = []
     skeleton = _flatten(bundle, leaves)
     os.makedirs(directory, exist_ok=True)

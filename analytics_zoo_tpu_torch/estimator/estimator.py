@@ -37,6 +37,10 @@ run one after another with the same device-tensor seeds and count; with
 K = 1 every step is an eager step.  The launch counts of the kernel
 wrappers count replays (``ops._kernels.recording`` / ``replayed``).
 
+A step repeats bit for bit on the card: the embedding lookups sum their
+gradients in a fixed order (``keras/layers/embedding.py`` ``gather_rows``)
+and cuDNN runs its deterministic algorithms during the step.
+
 Checkpoints (``checkpoint_dir`` / ``checkpoint_trigger`` /
 ``keep_checkpoints``) write ``(params, opt_state, state, meta)`` with the
 epoch and the data cursor; ``train(resume=True)`` and the retry after a
@@ -54,15 +58,27 @@ from the device step counter when K > 1 and as a host int when K = 1 (the
 same value), and the model derives its per-layer seeds from that as the
 JAX layers do.
 
+Observability, as in the JAX estimator: the ``zoo_train_*`` /
+``zoo_estimator_*`` series (``zoo_train_loss`` from the epoch's one host
+read, never a per-dispatch read), the spans ``train.epoch``,
+``train.step`` (one dispatch: K graph replays or K eager steps, opened and
+closed on the host around them, never inside a capture),
+``train.retry``, ``train.checkpoint`` and ``train.prefetch`` (the host
+tier's feed thread, which hands host batches to the loop), the step
+timer as ``zoo_train_seconds{name="train_step"}``, and the
+``train_state`` pool on the device-memory ledger (parameter and optimizer
+bytes counted once from the tensors when training starts).
+
 Not ported: the sharded update and tensor parallelism (``shard_optimizer``,
-``shard_model``: ROADMAP Queue 1 item 5) and the observability bridges
-(item 6).
+``shard_model``: ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import queue
+import threading
 import time
 from concurrent.futures import CancelledError
 from dataclasses import replace
@@ -73,6 +89,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint as _remat
 
+from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.config import ZooConfig
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.resilience import RetryPolicy
@@ -91,6 +108,33 @@ from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.dropout import as_seed, derive_seed
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.estimator")
+
+# registry series: per-DISPATCH cost only, and no record reads a CUDA
+# tensor (the loss gauge is set from the epoch's one host read)
+_m_steps = obs.lazy_counter("zoo_train_steps_total",
+                            "optimizer steps run")
+_m_epochs = obs.lazy_counter("zoo_train_epochs_total",
+                             "epochs completed")
+_m_sps = obs.lazy_gauge("zoo_train_samples_per_sec",
+                        "training throughput over the last epoch")
+_m_loss = obs.lazy_gauge("zoo_train_loss", "mean loss of the last epoch")
+_m_data_wait = obs.lazy_counter(
+    "zoo_train_data_wait_seconds_total",
+    "time the train loop spent blocked on the input pipeline")
+_m_opt_bytes = obs.lazy_gauge(
+    "zoo_estimator_opt_state_bytes_per_device",
+    "per-device optimizer-state bytes after placement (the ZeRO-sharded "
+    "update shrinks this ~dp-fold)")
+_m_accum = obs.lazy_gauge(
+    "zoo_train_accum_microbatches",
+    "gradient-accumulation fill: microbatches per optimizer step")
+_m_weight_bytes = obs.lazy_gauge(
+    "zoo_estimator_weight_bytes_per_device",
+    "per-device parameter bytes after placement (tensor-parallel "
+    "2D-mesh training shrinks this ~mp-fold vs replicated)")
+_m_mesh = obs.lazy_gauge(
+    "zoo_train_mesh_shape",
+    "training mesh axis sizes (one series per axis)", ("axis",))
 
 
 class GraphCaptureError(RuntimeError):
@@ -206,7 +250,12 @@ class Estimator:
         self.max_steps_per_dispatch = cfg.max_steps_per_dispatch
         self.tensorboard_dir = tensorboard_dir
         self.app_name = app_name or "zoo"
-        self.timers = Timers()
+        # step times land in the registry as
+        # zoo_train_seconds{name="train_step"} histogram series
+        self.timers = Timers(metrics_prefix="zoo_train")
+        self._prefetch_depth = int(config.data.prefetch)
+        # one card: every mesh axis of the JAX layout has size 1
+        self._mesh_axes = tuple(config.mesh.axis_names)
         self.remat = remat
         self.mixed_precision = mixed_precision
         self.compute_dtype = getattr(torch, config.compute_dtype)
@@ -231,6 +280,15 @@ class Estimator:
         self._graph = None
         self._resume_cursor = None
         self._epoch_step0 = 0
+
+    @contextlib.contextmanager
+    def _step_scope(self, n: int):
+        """One dispatch (n steps): span + timer, both feeding the
+        registry.  Opened and closed on the host around the launches (or
+        graph replays), so nothing of it is captured."""
+        with obs.span("train.step", steps=n):
+            with self.timers.time("train_step"):
+                yield
 
     # ------------------------------------------------------------ the step
     def _params(self) -> Dict[str, torch.Tensor]:
@@ -345,7 +403,8 @@ class Estimator:
         seed = (derive_seed(self._seed_dev, self._step_dev)
                 if self.steps_per_dispatch > 1
                 else derive_seed(self._seed, self.global_step))
-        loss = self._train_step(x, y, seed)
+        with _deterministic_cudnn():
+            loss = self._train_step(x, y, seed)
         with torch.no_grad():
             self._step_dev.add_(1)
             self._loss_buf.index_copy_(0, self._slot.reshape(1),
@@ -400,6 +459,34 @@ class Estimator:
         self._seed = as_seed(seed) if seed is not None else 0
         self._seed_dev.fill_(self._seed)
 
+    def _register_memory_pool(self) -> None:
+        """The ``train_state`` pool of the device-memory ledger: weight +
+        optimizer-state bytes (``numel * element_size`` of the tensors),
+        counted ONCE here and kept as plain ints, so the ledger's sampler
+        and scrape threads never touch a tensor.  The per-device byte
+        gauges are views routed through the ledger.  Train state is all
+        pinned: nothing in it is evictable."""
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        params = list(self.model.parameters())
+        opt_ts = _opt_tensors(self.opt_state)
+        weights, opt = int(nbytes(params)), int(nbytes(opt_ts))
+        blocks = len(params) + len(opt_ts)
+        devs = obs.device_memory_stats()
+        capacity = int(devs[0].get("bytes_limit", 0)) if devs else 0
+        job = self.app_name
+        books = {f"{job}/weights": weights, f"{job}/opt_state": opt}
+
+        def snap(books=books, capacity=capacity, blocks=blocks):
+            used = sum(books.values())
+            return {"capacity_bytes": capacity, "used_bytes": used,
+                    "pinned_bytes": used, "blocks": blocks,
+                    "owners": dict(books)}
+
+        self._mem_pool = obs.get_memory_ledger().register(
+            "train_state", snap, owner=self,
+            gauges=((_m_weight_bytes, lambda s, w=weights: w),
+                    (_m_opt_bytes, lambda s, o=opt: o)))
+
     # ---------------------------------------------------------------- train
     def train(self, featureset, batch_size: int, epochs: int = 1,
               validation_data=None, validation_trigger=None,
@@ -422,6 +509,10 @@ class Estimator:
         if variables is not None:
             self.model.set_weights(variables)
         self._prepare(seed)
+        self._register_memory_pool()
+        _m_accum.set(float(self.grad_accum_steps))
+        for ax in self._mesh_axes:
+            _m_mesh.labels(axis=ax).set(1.0)
         start_epoch = 0
         if resume and self.checkpoint_dir:
             ck = latest_checkpoint(self.checkpoint_dir)
@@ -457,11 +548,13 @@ class Estimator:
                     retry, tb, validation_data, validation_trigger,
                     end_trigger) -> bool:
         epoch, stop = start_epoch, False
+        esp = None
         while epoch < epochs and not stop:
             try:
-                stop = self._run_epoch(featureset, batch_size, epoch, epochs,
-                                       tb, validation_data,
-                                       validation_trigger, end_trigger)
+                with obs.span("train.epoch", epoch=epoch) as esp:
+                    stop = self._run_epoch(
+                        featureset, batch_size, epoch, epochs, tb,
+                        validation_data, validation_trigger, end_trigger)
                 epoch += 1
             except _NOT_RETRIED:
                 raise
@@ -473,10 +566,16 @@ class Estimator:
                 logger.warning("training failed (%s); retry %d/%d from the "
                                "latest checkpoint after backoff", exc,
                                retry.attempts, self.retry_times)
-                retry.backoff()
-                meta = self._restore(ck)
-                epoch = int(meta["epoch"])
-                self._resume_cursor = meta.get("data_cursor")
+                # joined to the epoch it recovers: the failed epoch span
+                # (closed, error recorded) is this span's parent, so the
+                # trace reads failure → backoff → restore
+                with obs.span("train.retry", parent=esp,
+                              attempt=retry.attempts,
+                              error=f"{type(exc).__name__}: {exc}"[:200]):
+                    retry.backoff()
+                    meta = self._restore(ck)
+                    epoch = int(meta["epoch"])
+                    self._resume_cursor = meta.get("data_cursor")
                 self.model.train()
         return stop
 
@@ -509,6 +608,11 @@ class Estimator:
         mean_loss = self._epoch_flush(tb, tb_pend, losses, t_epoch)
         entry = {"epoch": epoch + 1, "loss": mean_loss,
                  "seconds": time.perf_counter() - t_epoch}
+        # the loss gauge reads the epoch's one host read above
+        _m_epochs.inc()
+        _m_loss.set(mean_loss)
+        _m_sps.set((self.global_step - step0) * batch_size
+                   / max(entry["seconds"], 1e-9))
         ts = TriggerState(epoch=epoch + 1, iteration=self.global_step,
                           epoch_finished=True, loss=mean_loss)
         if validation_data is not None and validation_trigger(ts):
@@ -537,14 +641,14 @@ class Estimator:
         done = 0
         while done < full:
             n = self._plan_chain(k, full - done, end_trigger)
-            with self.timers.time("train_step"):
+            with self._step_scope(n):
                 lv = self._run_steps(n, src)
             done += n
             if self._post_dispatch(n, k, lv, batch_size, epoch, tb, tb_pend,
                                    losses, end_trigger, t_epoch):
                 return True
         for _ in range(full, steps):
-            with self.timers.time("train_step"):
+            with self._step_scope(1):
                 lv = self._run_steps(1, src)
             if self._post_dispatch(1, 1, lv, batch_size, epoch, tb, tb_pend,
                                    losses, end_trigger, t_epoch):
@@ -585,7 +689,9 @@ class Estimator:
                         losses, end_trigger, t_epoch):
         """Host (DRAM) tier: groups of K batches, each copied into the
         static buffers and run as one dispatch; a ragged tail of fewer than
-        K batches runs as single steps."""
+        K batches runs as single steps.  The batches come off the feed as
+        host tensors (``_prefetch``); their copy to the card happens here,
+        on the training thread's stream."""
         k = self.steps_per_dispatch
         pend = []
 
@@ -597,14 +703,16 @@ class Estimator:
                                       tree_leaves((x, y))):
                         dst[i].copy_(a)
             self._cursor.zero_()
-            with self.timers.time("train_step"):
+            with self._step_scope(len(group)):
                 lv = self._run_steps(len(group), src)
             return self._post_dispatch(len(group), k_gran, lv, batch_size,
                                        epoch, tb, tb_pend, losses,
                                        end_trigger, t_epoch)
 
-        for xy in featureset.batches(batch_size, epoch=epoch,
-                                     device=self.device):
+        feed = _prefetch(featureset.batches(batch_size, epoch=epoch,
+                                            device=torch.device("cpu")),
+                         depth=self._prefetch_depth)
+        for xy in feed:
             pend.append(xy)
             if len(pend) == k:
                 if dispatch(pend, k):
@@ -645,6 +753,7 @@ class Estimator:
         fired.  ``lv`` stays on the device; only a loss-reading trigger
         (MinLoss) reads it."""
         self.global_step += n
+        _m_steps.inc(n)
         losses.append(lv)
         if tb:
             tb_pend.append((self.global_step, lv, k_gran, batch_size))
@@ -723,9 +832,12 @@ class Estimator:
         buffers = {n: b for n, b in self.model.named_buffers()}
         meta = {"epoch": epoch,
                 "data_cursor": {"epoch": epoch, "step": step_in_epoch}}
-        save_checkpoint(self.checkpoint_dir, self.global_step,
-                        (params, _opt_tree(self.opt_state), buffers, meta),
-                        keep=self.keep_checkpoints)
+        # nests under train.epoch when triggered inside an epoch (the
+        # step-0 bootstrap checkpoint roots alone)
+        with obs.span("train.checkpoint", step=self.global_step):
+            save_checkpoint(self.checkpoint_dir, self.global_step,
+                            (params, _opt_tree(self.opt_state), buffers,
+                             meta), keep=self.keep_checkpoints)
 
     @torch.no_grad()
     def _restore(self, path: str) -> dict:
@@ -755,8 +867,7 @@ class Estimator:
         accs = [m.init() for m in self.metrics]
         loss_sum, n_total = 0.0, 0
         with torch.inference_mode():
-            for x, y, n in featureset.batches_with_counts(
-                    batch_size, drop_remainder=False, device=self.device):
+            for x, y, n in self._feed(featureset, batch_size):
                 preds = self.model(x)
                 accs = [m.update(a, preds, y)
                         for m, a in zip(self.metrics, accs)]
@@ -768,6 +879,15 @@ class Estimator:
             out["loss"] = float(loss_sum) / n_total
         return out
 
+    def _feed(self, featureset, batch_size: int):
+        """Every row in order, the ragged tail included, read ahead as
+        host batches (``_prefetch``) and moved to the device here."""
+        to_dev = lambda t: tree_map(lambda a: a.to(self.device), t)
+        for x, y, n in _prefetch(featureset.batches_with_counts(
+                batch_size, drop_remainder=False,
+                device=torch.device("cpu")), depth=self._prefetch_depth):
+            yield to_dev(x), None if y is None else to_dev(y), n
+
     def predict(self, featureset, batch_size: int = 32, variables=None):
         """The model's outputs over the dataset, in order, as numpy."""
         if variables is not None:
@@ -775,8 +895,7 @@ class Estimator:
         self.model.eval()
         outs = []
         with torch.inference_mode():
-            for x, _, _ in featureset.batches_with_counts(
-                    batch_size, drop_remainder=False, device=self.device):
+            for x, _, _ in self._feed(featureset, batch_size):
                 outs.append(tree_map(lambda t: t.float().cpu().numpy(),
                                      self.model(x)))
         if not outs:
@@ -784,6 +903,115 @@ class Estimator:
         if isinstance(outs[0], np.ndarray):
             return np.concatenate(outs)
         return [np.concatenate(parts) for parts in zip(*outs)]
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the enclosed forward and
+    backward.  A convolution's weight gradient otherwise sums in an order
+    that changes from call to call on the card, so a step would not repeat
+    bit for bit (graph replays against eager steps), and Adagrad or Adam
+    turns such a last-bit difference of a small gradient into a full
+    step.  The setting is process-wide while the step runs."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _prefetch(iterator, depth: int):
+    """The host tier's feed: up to ``depth`` batches read ahead on a worker
+    thread (``depth <= 0``: read in line), with the time the loop waits
+    counted into ``zoo_train_data_wait_seconds_total``.  The worker only
+    reads the source (host tensors, no CUDA work), so it cannot disturb a
+    graph capture on the training thread.  Abandoning the generator (an
+    end trigger, an exception) stops the worker."""
+    if depth <= 0:
+        return _sync_counted(iterator)
+    return _prefetch_threaded(iterator, depth)
+
+
+def _sync_counted(iterator):
+    """Synchronous passthrough with the data-wait accounting."""
+    it = iter(iterator)
+    while True:
+        t_wait = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        _m_data_wait.inc(time.perf_counter() - t_wait)
+        yield item
+
+
+def _prefetch_threaded(iterator, depth: int):
+    buf: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+    sentinel = object()
+    stop = threading.Event()
+    errbox = []
+    # the worker's span joins the consumer's ambient span (the
+    # train.epoch driving this feed) by explicit parent handoff:
+    # contextvars do not cross the thread hop
+    parent = obs.current_span()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                buf.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        with obs.span("train.prefetch", parent=parent) as psp:
+            try:
+                for item in iterator:
+                    if not _put(item):
+                        return
+            except BaseException as e:   # surfaced on the consuming thread
+                errbox.append(e)
+                if psp is not None:
+                    psp.set(error_type=type(e).__name__)
+            finally:
+                _put(sentinel)
+                # the worker owns the iterator: close it here (closing a
+                # running generator from the consumer raises ValueError)
+                close = getattr(iterator, "close", None)
+                if close is not None:
+                    try:
+                        close()
+                    except Exception:
+                        pass
+
+    t = threading.Thread(target=worker, name="train-prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            t_wait = time.perf_counter()
+            item = buf.get()
+            _m_data_wait.inc(time.perf_counter() - t_wait)
+            if item is sentinel:
+                if errbox:
+                    raise errbox[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        try:                          # unblock a worker stuck on put()
+            while True:
+                buf.get_nowait()
+        except queue.Empty:
+            pass
+        t.join(timeout=5.0)
+        if t.is_alive():
+            # blocked inside the source's read: the worker stops (and
+            # closes the source) as soon as that read returns
+            logger.warning("prefetch worker still blocked in the source "
+                           "iterator after 5s; it will stop and close the "
+                           "source when the pending read returns")
 
 
 def grads_of(loss: torch.Tensor, params: List[torch.Tensor]

@@ -32,6 +32,7 @@ import torch
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch.testing import chaos
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.inference")
 
@@ -163,10 +164,13 @@ class InferenceModel:
         ``fetch``.  The slot is held only across the launch, and at most
         2x ``supported_concurrent_num`` handles are outstanding (blocks
         here beyond that).  ``reserved=True`` (a multi-model engine's
-        reserved slot) is not ported yet and raises."""
+        reserved slot) is not ported yet and raises.  The
+        ``device_execute`` chaos point fires here on the host, once per
+        call, before anything is launched."""
         reject("InferenceModel.predict_async", 1, reserved=reserved or None)
         if self.model is None:
             raise RuntimeError("no model loaded")
+        chaos.fire("device_execute")
         x = _tree_map(np.asarray, x)
         n = example_x_shape0(x)
         m = _next_pow2(n) if pad_to_bucket else n

@@ -2,11 +2,11 @@
 
 Port of ``analytics_zoo_tpu/llm/client.py``, the broker-native face of the
 token-streaming wire: ``submit`` XADDs one request entry — the same
-``uri`` / ``data`` / ``deadline_ts`` fields as every other serving
-workload — and ``stream_tokens`` tails the request's ``llmtok:<uri>``
-stream, yielding ``(index, token)`` in order until the terminal entry,
-with the typed errors (``ServingShedError`` / ``ServingDeadlineError``) of
-one-shot serving.  The HTTP face of the same stream is
+``uri`` / ``data`` / ``deadline_ts`` / ``trace_ctx`` fields as every
+other serving workload — and ``stream_tokens`` tails the request's
+``llmtok:<uri>`` stream, yielding ``(index, token)`` in order until the
+terminal entry, with the typed errors (``ServingShedError`` /
+``ServingDeadlineError``) of one-shot serving.  The HTTP face of the same stream is
 ``serving.client.FastWireHttpClient.generate`` against
 ``serving.http_frontend.ServingFrontend(llm=...)``.
 """
@@ -20,11 +20,11 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from analytics_zoo_tpu_torch.common.resilience import Deadline
-from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.llm.engine import token_stream_name
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.client import (
-    _ERROR_BY_CODE, ServingDeadlineError, ServingError, _deadline_fields)
+    _ERROR_BY_CODE, ServingDeadlineError, ServingError, _deadline_fields,
+    _trace_fields)
 from analytics_zoo_tpu_torch.serving.codec import (
     decode_items_bytes, encode_items_bytes)
 
@@ -41,9 +41,8 @@ class GenerationClient:
                priority: int = 0, deadline_s: Optional[float] = None,
                deadline: Optional[Deadline] = None,
                trace_ctx: Optional[str] = None) -> str:
-        """Queue a generation request; ``trace_ctx`` is not ported yet and
-        raises ``NotImplementedError``."""
-        reject("GenerationClient.submit", 6, trace_ctx=trace_ctx)
+        """Queue a generation request; ``trace_ctx`` is an explicit wire
+        trace context (else the ambient span's, or a fresh one)."""
         items = {"tokens": np.asarray(tokens, np.int32).reshape(-1)}
         if max_new_tokens is not None:
             items["max_new_tokens"] = np.asarray(max_new_tokens, np.int32)
@@ -51,7 +50,8 @@ class GenerationClient:
             items["priority"] = np.asarray(priority, np.int32)
         self.broker.xadd(self.stream, {
             "uri": uri, "data": encode_items_bytes(items),
-            **_deadline_fields(deadline_s, deadline)})
+            **_deadline_fields(deadline_s, deadline),
+            **_trace_fields(trace_ctx)})
         return uri
 
     def stream_tokens(self, uri: str, timeout: float = 30.0

@@ -1,9 +1,10 @@
 """LLMServing — the generative-serving daemon.
 
 Port of ``analytics_zoo_tpu/llm/engine.py``.  Requests arrive as stream
-entries on the broker (``uri`` / ``data`` wire frame / ``deadline_ts``),
-results publish to the broker result plane, and the resilience
-primitives are wired per *token* instead of per request:
+entries on the broker (``uri`` / ``data`` wire frame / ``deadline_ts`` /
+``trace_ctx``), results publish to the broker result plane, and the
+resilience and observability primitives are wired per *token* instead of
+per request:
 
 - admission: one ``AdmissionController`` credit per sequence, acquired
   non-blocking at the reader gate (the decode loop must never park on
@@ -14,6 +15,17 @@ primitives are wired per *token* instead of per request:
 - a failed step error-finishes every slotted sequence — blocks freed,
   credits released, terminal frames published — and the loop keeps
   serving.
+- tracing: each prefill chunk runs under an ``llm.prefill`` span parented
+  to the wire context; every emitted token journals an ``llm.token``
+  event and every retirement an ``llm.finish`` event, tagged with the
+  request's trace id.
+- chaos: the injection points ``broker_read``, ``decode_step``,
+  ``prefix_match`` and ``prefill_chunk``, all on the host between
+  launches.
+- flight recorder: block-pool exhaustion (``kv_exhausted``) and a dying
+  engine thread dump the black box.
+- metrics: the ``zoo_llm_*`` series, recorded from host-side books only
+  (no record reads a CUDA tensor).
 
 Each engine step runs a fixed TOKEN budget of chunked prefill
 (``DecoderLM.prefill_chunk`` → the ``paged_chunk`` kernel), then one decode
@@ -28,11 +40,9 @@ the aggregate result lands on ``result:<uri>`` like every other workload
 so ``OutputQueue`` clients keep working.
 
 The HTTP face is ``serving.http_frontend.ServingFrontend(llm=...)``.
-Not ported yet: the Redis and native brokers, tracing spans and events,
-chaos injection points, the flight recorder and the metric registry
-(ROADMAP Queue 1 items 1 and 6); the plain counters of ``metrics()``
-stay.  ``model_parallel > 1`` is
-refused by ``LLMServingConfig`` (ROADMAP Queue 1 item 5).
+Not ported yet: the Redis and native brokers (ROADMAP Queue 1 item 1).
+``model_parallel > 1`` is refused by ``LLMServingConfig`` (ROADMAP Queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.config import LLMServingConfig
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.resilience import (
@@ -54,9 +65,11 @@ from analytics_zoo_tpu_torch.llm.kv_cache import (
     BlockPoolExhausted, PagedKVCache)
 from analytics_zoo_tpu_torch.llm.scheduler import (
     DECODING, PREFILL, ContinuousBatchingScheduler, GenSequence)
+from analytics_zoo_tpu_torch.observability import flight_recorder
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     decode_items, encode_items_bytes)
+from analytics_zoo_tpu_torch.testing import chaos
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.llm")
 
@@ -132,6 +145,56 @@ class LLMServing:
         self._cancel_lock = threading.Lock()
         self._cancelled: Dict[str, None] = {}
         self._finished_streams: List[str] = []
+        # the plain counters of metrics() + the registry series
+        self._m_tokens = obs.lazy_counter(
+            "zoo_llm_tokens_total", "generated tokens published")
+        self._m_tps = obs.lazy_gauge(
+            "zoo_llm_tokens_per_s",
+            "generated tokens/sec over the last ~1s window")
+        self._m_ttft = obs.lazy_histogram(
+            "zoo_llm_ttft_seconds",
+            "enqueue -> first streamed token")
+        self._m_itl = obs.lazy_histogram(
+            "zoo_llm_intertoken_seconds",
+            "gap between consecutive streamed tokens of one sequence")
+        self._m_occ = obs.lazy_histogram(
+            "zoo_llm_batch_occupancy",
+            "live sequences / decode slots per step",
+            buckets=(0.125, 0.25, 0.5, 0.75, 0.875, 1.0))
+        self._m_blocks = obs.lazy_gauge(
+            "zoo_llm_kv_blocks_in_use", "allocated KV blocks")
+        self._m_util = obs.lazy_gauge(
+            "zoo_llm_kv_block_utilization",
+            "allocated / total KV blocks")
+        self._m_preempt = obs.lazy_counter(
+            "zoo_llm_preemptions_total",
+            "sequences evicted on KV block exhaustion")
+        self._m_seqs = obs.lazy_counter(
+            "zoo_llm_sequences_total",
+            "sequences finished by outcome", ["outcome"])
+        self._m_prefix_hits = obs.lazy_counter(
+            "zoo_llm_prefix_hits_total",
+            "prefills that adopted a cached prefix (radix cache)")
+        self._m_prefix_misses = obs.lazy_counter(
+            "zoo_llm_prefix_misses_total",
+            "prefills that matched no cached prefix")
+        self._m_prefix_tokens = obs.lazy_counter(
+            "zoo_llm_prefix_tokens_saved_total",
+            "prompt tokens adopted from the radix cache (not recomputed)")
+        self._m_prefix_bytes = obs.lazy_counter(
+            "zoo_llm_prefix_bytes_saved_total",
+            "KV bytes adopted from the radix cache instead of prefilled")
+        self._m_prefix_blocks = obs.lazy_gauge(
+            "zoo_llm_prefix_cached_blocks",
+            "KV blocks currently held by the radix prefix cache")
+        self._m_prefix_evict = obs.lazy_counter(
+            "zoo_llm_prefix_evictions_total",
+            "radix cache blocks evicted (LRU-by-leaf) under pool pressure")
+        self._m_chunks = obs.lazy_counter(
+            "zoo_llm_prefill_chunks_total",
+            "prefill chunks executed (chunked prefill)")
+        self._preempt_reported = 0
+        self._evict_reported = 0
         self._metrics_lock = threading.Lock()
         self.tokens_generated = 0
         self.sequences_finished = 0
@@ -176,11 +239,15 @@ class LLMServing:
 
     def _run_stage(self) -> None:
         """Engine-thread entry: the loop guards its own body, so anything
-        escaping here IS a dying worker — log, then die loudly."""
+        escaping here IS a dying worker — snapshot, then die loudly."""
         try:
             self._loop()
-        except BaseException:
+        except BaseException as exc:
             logger.exception("llm engine thread died")
+            obs.add_event("thread_death", span=None, thread="llm-engine",
+                          error=f"{type(exc).__name__}: {exc}")
+            flight_recorder.get().trigger("thread_death",
+                                          detail="llm-engine")
             raise
 
     # ---- the continuous-batching loop -------------------------------------
@@ -192,6 +259,7 @@ class LLMServing:
             busy = self.scheduler.has_work()
             try:
                 self._poll_requests(block_ms=0 if busy else 20)
+                chaos.fire("decode_step")
                 self._step()
             except (Exception, CancelledError) as exc:
                 # one faulted step must not strand its sequences: every
@@ -250,10 +318,27 @@ class LLMServing:
             # without this the loop keeps launching chunks and the NEXT
             # sequence's first read stalls behind the whole backlog
             torch.cuda.current_stream(self.cache.device).synchronize()
+        # host-side books only: no record reads a CUDA tensor
+        pool = self.cache.pool
+        self._m_blocks.set(float(pool.blocks_in_use))
+        self._m_util.set(pool.blocks_in_use / max(pool.num_blocks, 1))
+        pc = self.cache.prefix_cache
+        if pc is not None:
+            self._m_prefix_blocks.set(float(pc.cached_blocks))
+            if pc.evictions > self._evict_reported:
+                self._m_prefix_evict.inc(pc.evictions
+                                         - self._evict_reported)
+                self._evict_reported = pc.evictions
+        sched = self.scheduler
+        if sched.preemptions > self._preempt_reported:
+            self._m_preempt.inc(sched.preemptions
+                                - self._preempt_reported)
+            self._preempt_reported = sched.preemptions
 
     # ---- request intake ---------------------------------------------------
     def _poll_requests(self, block_ms: int) -> None:
         try:
+            chaos.fire("broker_read")
             entries = self.broker.xreadgroup(
                 self.stream, self.group, "llm-engine",
                 count=2 * self.config.max_active, block_ms=block_ms)
@@ -266,18 +351,23 @@ class LLMServing:
 
     def _admit(self, sid: str, fields: dict) -> None:
         uri = fields.get("uri", "?")
+        tref = None
+        if obs.get_tracer().enabled:
+            tref = obs.decode_trace_context(fields.get("trace_ctx"))
         try:
             self.broker.xack(self.stream, self.group, sid)
         except (Exception, CancelledError):
             logger.exception("could not ack llm entry %s", sid)
         dl = self._entry_deadline(fields)
         if dl is not None and dl.expired:
-            record_expired(1, scope="llm")
+            record_expired(1, scope="llm",
+                           trace_id=tref[0] if tref else None)
             with self._metrics_lock:
                 self.sequences_expired += 1
             self._publish_terminal(uri, code="expired",
                                    error="deadline expired before "
                                          "admission")
+            self._count_seq("expired")
             return
         try:
             items = decode_items(fields["data"])
@@ -301,21 +391,23 @@ class LLMServing:
             logger.exception("undecodable llm entry %s", uri)
             self._publish_terminal(uri, code="error",
                                    error=str(exc) or type(exc).__name__)
+            self._count_seq("error")
             return
         adm = self.admission
         if adm is not None and not adm.try_acquire(1):
             # non-blocking by design: the decode loop cannot park on
             # credits without stalling every running sequence's ITL
-            adm.shed(1, scope="llm")
+            adm.shed(1, scope="llm", trace_id=tref[0] if tref else None)
             with self._metrics_lock:
                 self.sequences_shed += 1
             self._publish_terminal(
                 uri, code="shed",
                 error="llm engine overloaded; admission control shed "
                       "this request — retry with backoff")
+            self._count_seq("shed")
             return
         seq = GenSequence(uri, prompt.tolist(), max_new,
-                          priority=priority, deadline=dl)
+                          priority=priority, deadline=dl, tref=tref)
         seq.credits = 1 if adm is not None else 0
         with self._cancel_lock:
             pre_cancelled = self._cancelled.pop(uri, "?") is None
@@ -358,7 +450,9 @@ class LLMServing:
         for seq in (list(self.scheduler.waiting)
                     + self.scheduler.active()):
             if seq.deadline is not None and seq.deadline.expired:
-                record_expired(1, scope="llm")
+                record_expired(
+                    1, scope="llm",
+                    trace_id=seq.tref[0] if seq.tref else None)
                 with self._metrics_lock:
                     self.sequences_expired += 1
                 self._finish(seq, code="expired",
@@ -381,15 +475,29 @@ class LLMServing:
         if (seq.prefill_pos == 0 and not seq.prefix_checked
                 and cache.prefix_cache is not None):
             # once per slotting: a block-exhaustion retry next step
-            # must not recount the lookup
+            # must not re-fire the chaos point or recount the miss
             seq.prefix_checked = True
+            chaos.fire("prefix_match")
             matched = cache.adopt_prefix(seq.uri, ctx)
             if matched:
                 seq.prefill_pos = matched
+                self._m_prefix_hits.inc()
+                self._m_prefix_tokens.inc(matched)
+                self._m_prefix_bytes.inc(
+                    matched * cache.kv_bytes_per_token)
+                obs.add_event(
+                    "llm.prefix_hit", span=None,
+                    trace_id=seq.tref[0] if seq.tref else None,
+                    uri=seq.uri, tokens=matched)
+            elif len(ctx) > cache.block_size:
+                # prompts shorter than one block can never match or
+                # insert; counting them as misses would drown the rate
+                self._m_prefix_misses.inc()
         chunk = max(self.config.prefill_chunk_tokens, 1)
         n = min(budget, chunk, len(ctx) - seq.prefill_pos)
         if n <= 0:
             return 0
+        chaos.fire("prefill_chunk")
         try:
             slots = cache.append_tokens(seq.uri, n)
         except BlockPoolExhausted:
@@ -404,13 +512,18 @@ class LLMServing:
         pslots = np.arange(chunk, dtype=np.int32) % cache.block_size
         pslots[:n] = slots             # padding writes land on scratch
         table = cache.page_table(seq.uri, self.table_width)
-        logits, cache.k_pages, cache.v_pages = \
-            self.model.prefill_chunk(toks, seq.prefill_pos, n, table,
-                                     cache.k_pages, cache.v_pages, pslots)
-        seq.prefill_pos += n
-        if seq.prefill_pos < len(ctx):
-            return n               # more chunks to go
-        tok = int(logits.argmax())
+        self._m_chunks.inc()
+        with obs.span("llm.prefill", parent=seq.tref, uri=seq.uri,
+                      start=seq.prefill_pos, tokens=n,
+                      resumed=bool(seq.preemptions)):
+            logits, cache.k_pages, cache.v_pages = \
+                self.model.prefill_chunk(toks, seq.prefill_pos, n, table,
+                                         cache.k_pages, cache.v_pages,
+                                         pslots)
+            seq.prefill_pos += n
+            if seq.prefill_pos < len(ctx):
+                return n               # more chunks to go
+            tok = int(logits.argmax())
         cache.insert_prefix(seq.uri, ctx)
         seq.state = DECODING
         self._emit_token(seq, tok)
@@ -451,6 +564,14 @@ class LLMServing:
                         # cache on, a full pool is the NORMAL steady
                         # state
                         continue
+                    flight_recorder.get().trigger(
+                        "kv_exhausted",
+                        detail=f"blocks={self.cache.pool.num_blocks}",
+                        min_interval_s=5.0)
+                    obs.add_event(
+                        "llm.kv_exhausted", span=None,
+                        trace_id=seq.tref[0] if seq.tref else None,
+                        uri=seq.uri)
                     if not self.scheduler.free_blocks_for_decode(seq):
                         # nothing left to evict: the pool cannot hold
                         # even this one sequence's next token — a
@@ -464,6 +585,7 @@ class LLMServing:
                 and s.uri in reserved]
         if not live:
             return 0
+        self._m_occ.observe(len(live) / self.scheduler.max_slots)
         with self._metrics_lock:
             self._occ_sum += len(live) / self.scheduler.max_slots
             self._occ_n += 1
@@ -503,6 +625,10 @@ class LLMServing:
         idx = len(seq.generated)
         seq.generated.append(token)
         now = time.monotonic()
+        if seq.t_first_token is None:
+            self._m_ttft.observe(now - seq.t_enqueue)
+        else:
+            self._m_itl.observe(now - seq.t_last_token)
         with self._metrics_lock:
             if seq.t_first_token is None:
                 seq.t_first_token = now
@@ -516,6 +642,9 @@ class LLMServing:
                 self._itl_sum += now - seq.t_last_token
                 self._itl_n += 1
         seq.t_last_token = now
+        obs.add_event("llm.token", span=None,
+                      trace_id=seq.tref[0] if seq.tref else None,
+                      uri=seq.uri, idx=idx)
         # ndim-0 ARRAYS, not numpy scalars: a np.int32 scalar fails the
         # codec's ndarray fast-wire check and falls back to the much
         # slower Arrow frame
@@ -527,12 +656,14 @@ class LLMServing:
                              {"idx": str(idx), "frame": frame})
         except (Exception, CancelledError):
             logger.exception("token publish failed for %s", seq.uri)
+        self._m_tokens.inc()
         with self._metrics_lock:
             self.tokens_generated += 1
             self._window_tokens += 1
             if now - self._window_start >= 1.0:
                 self.tokens_per_s = (self._window_tokens
                                      / (now - self._window_start))
+                self._m_tps.set(self.tokens_per_s)
                 self._window_start, self._window_tokens = now, 0
 
     def _publish_terminal(self, uri: str, code: str = "ok",
@@ -561,6 +692,10 @@ class LLMServing:
             seq.credits = 0
             if self.admission is not None:
                 self.admission.release(1)
+        obs.add_event("llm.finish", span=None,
+                      trace_id=seq.tref[0] if seq.tref else None,
+                      uri=seq.uri, code=code,
+                      tokens=len(seq.generated))
         self._publish_terminal(seq.uri, code=code, error=error,
                                n_tokens=len(seq.generated))
         try:
@@ -579,7 +714,11 @@ class LLMServing:
             logger.exception("result publish failed for %s", seq.uri)
         with self._metrics_lock:
             self.sequences_finished += 1
+        self._count_seq(code)
         self._gc_token_streams(seq.uri)
+
+    def _count_seq(self, outcome: str) -> None:
+        self._m_seqs.labels(outcome=outcome).inc()
 
     def _gc_token_streams(self, uri: str) -> None:
         """Bound broker memory: completed token streams older than the

@@ -27,8 +27,12 @@ copy-on-write finishes before the step that writes into its destination.
 
 Thread-safety: the pool takes a lock — the decode loop owns all
 allocation, but cancels arrive from other threads and the leak accounting
-must stay exact under that race.  The device-memory ledger registration of
-the JAX package is not ported (ROADMAP Queue 1 item 6).
+must stay exact under that race.
+
+Every cache registers a ``kv_blocks`` pool on the device-memory ledger, as
+the JAX cache does: its snapshot walks the host-side tables and radix
+cache (never a page tensor), and ``refcount_balance`` is the ground truth
+the leak sentinel sweeps against.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
+from analytics_zoo_tpu_torch.observability import memory as zoomem
 
 
 class BlockPoolExhausted(RuntimeError):
@@ -221,6 +226,12 @@ class PagedKVCache:
             2 * n_layers * n_kv_heads * head_dim
             * self.k_pages.element_size())
         self._tables: Dict[str, BlockTable] = {}
+        # device-memory ledger pool: attribution walks the tables + radix
+        # cache; refcount_balance is the ground truth the leak sentinel
+        # sweeps against
+        self._mem_pool = zoomem.get_ledger().register(
+            "kv_blocks", self._mem_snapshot,
+            reconcile_fn=self._mem_reconcile, owner=self)
 
     # ---- table lifecycle --------------------------------------------------
     def table(self, seq_id: str) -> BlockTable:
@@ -344,6 +355,53 @@ class PagedKVCache:
                 "cached_blocks": cached,
                 "free_blocks": self.pool.free_blocks,
                 "in_use": self.pool.blocks_in_use}
+
+    # ---- memory ledger pool ----------------------------------------------
+    @property
+    def block_bytes(self) -> int:
+        """Device bytes one pool block holds (k + v, all layers)."""
+        return self.block_size * self.kv_bytes_per_token
+
+    def _mem_snapshot(self) -> Dict[str, object]:
+        """The ``kv_blocks`` pool contract, derived from ONE walk of the
+        tables + radix cache so attribution sums to used by construction:
+        a block held by exactly one sequence books under ``seq:<id>``, a
+        cache-only block under ``prefix_cache``, and a block with several
+        holders (forked or adopted prefix) under ``shared``.  Pinned =
+        blocks any live sequence references; cache-only blocks are what
+        ``reclaim()`` can demote."""
+        bb = self.block_bytes
+        holders: Dict[int, List[str]] = {}
+        for seq_id, t in list(self._tables.items()):
+            for b in list(t.blocks):
+                holders.setdefault(b, []).append(f"seq:{seq_id}")
+        if self.prefix_cache is not None:
+            for b in self.prefix_cache.held_blocks():
+                holders.setdefault(b, []).append("prefix_cache")
+        owners: Dict[str, int] = {}
+        pinned = 0
+        for b, hs in holders.items():
+            key = hs[0] if len(hs) == 1 else "shared"
+            owners[key] = owners.get(key, 0) + bb
+            if any(h.startswith("seq:") for h in hs):
+                pinned += bb
+        return {"capacity_bytes": self.pool.num_blocks * bb,
+                "used_bytes": len(holders) * bb,
+                "pinned_bytes": pinned,
+                "blocks": len(holders),
+                "owners": owners}
+
+    def _mem_reconcile(self) -> List[str]:
+        """The leak sentinel's ground truth: exact per-block refcount
+        books plus the radix cache's node-book recount.  A block acquired
+        behind the tables' back (``pool.alloc_n`` with no table or cache
+        holding it) shows up here as an expected-0 ref mismatch within
+        one sweep."""
+        lines = [f"block {b}: {msg}"
+                 for b, msg in sorted(self.refcount_balance().items())]
+        if self.prefix_cache is not None:
+            lines.extend(self.prefix_cache.reconcile())
+        return lines
 
     def refcount_balance(self) -> Dict[int, str]:
         """EXACT per-block books: every pool refcount must equal the

@@ -8,10 +8,11 @@ Requests go on the stream as raw wire frames
 from ``result:<uri>`` hashes.  ``FastWireHttpClient`` is the HTTP face of
 the same frames: ``predict`` POSTs one binary frame per request
 (``Content-Type: application/x-zoo-fastwire``) and decodes the binary
-response; ``generate`` reads a frame-per-token stream.  Transport
-retries, trace context, model routing and tenancy stamps are not ported
-yet: their arguments raise ``NotImplementedError`` naming the ROADMAP
-item.
+response; ``generate`` reads a frame-per-token stream.  Every enqueue
+carries a wire trace context (``trace_ctx``) as the JAX client stamps
+it, and ``FastWireHttpClient`` sends a given one as ``X-Zoo-Trace``.
+Transport retries, model routing and tenancy stamps are not ported yet:
+their arguments raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.resilience import (
     Deadline, current_deadline)
 from analytics_zoo_tpu_torch.common.unported import reject
@@ -79,9 +81,25 @@ def _deadline_fields(deadline_s: Optional[float],
     return {"deadline_ts": repr(dl.wall())} if dl is not None else {}
 
 
-def _reject_stamps(where: str, trace_ctx, model, tenant) -> None:
-    reject(where, 6, trace_ctx=trace_ctx)
+def _reject_stamps(where: str, model, tenant) -> None:
     reject(where, 1, model=model, tenant=tenant)
+
+
+def _trace_fields(trace_ctx: Optional[str] = None) -> dict:
+    """The wire trace-context stamp: an explicit wire context when given
+    (cross-thread enqueues: the HTTP coalescer stamps the handler's span,
+    not the flush worker's), else the ambient span's context when one is
+    active, so the engine's stage spans join the caller's trace, or a
+    fresh wire-minted trace id otherwise.  One flag check when tracing
+    is disabled."""
+    if trace_ctx:
+        return {"trace_ctx": trace_ctx}
+    tracer = obs.get_tracer()
+    if not tracer.enabled:
+        return {}
+    cur = tracer.current()
+    ref = cur if cur is not None else obs.new_trace_context()
+    return {"trace_ctx": obs.encode_trace_context(ref)}
 
 
 def _encode_wire(items) -> Union[bytes, str]:
@@ -113,9 +131,11 @@ class InputQueue:
                       tenant: Optional[str] = None) -> str:
         """``enqueue`` with the payload as an explicit dict, so any tensor
         name is valid; ``deadline`` stamps an explicit ``Deadline`` in
-        place of ``deadline_s``.  ``trace_ctx``, ``model`` and ``tenant``
-        are not ported yet and raise ``NotImplementedError``."""
-        _reject_stamps("InputQueue.enqueue_items", trace_ctx, model, tenant)
+        place of ``deadline_s`` and ``trace_ctx`` an explicit wire trace
+        context (for callers enqueuing on behalf of another thread).
+        ``model`` and ``tenant`` are not ported yet and raise
+        ``NotImplementedError``."""
+        _reject_stamps("InputQueue.enqueue_items", model, tenant)
         items = {}
         for k, v in data.items():
             if isinstance(v, (bytes, bytearray)):
@@ -133,7 +153,8 @@ class InputQueue:
                 items[k] = np.asarray(v)
         return self.broker.xadd(self.stream, {
             "uri": uri, "data": _encode_wire(items),
-            **_deadline_fields(deadline_s, deadline)})
+            **_deadline_fields(deadline_s, deadline),
+            **_trace_fields(trace_ctx)})
 
     def enqueue_raw(self, uri: str, frame: bytes,
                     deadline: Optional[Deadline] = None,
@@ -143,10 +164,11 @@ class InputQueue:
         """An already-encoded wire frame (a fast-wire HTTP body) goes on
         the stream verbatim: no decode, no re-encode.  The engine's decode
         stage error-finishes an undecodable frame."""
-        _reject_stamps("InputQueue.enqueue_raw", trace_ctx, model, tenant)
+        _reject_stamps("InputQueue.enqueue_raw", model, tenant)
         return self.broker.xadd(self.stream, {
             "uri": uri, "data": bytes(frame),
-            **_deadline_fields(None, deadline)})
+            **_deadline_fields(None, deadline),
+            **_trace_fields(trace_ctx)})
 
     def enqueue_batch(self, uris, deadline_s: Optional[float] = None,
                       **data) -> str:
@@ -162,8 +184,7 @@ class InputQueue:
                             tenant: Optional[str] = None) -> str:
         """``enqueue_batch`` with the payload as an explicit dict; the
         other arguments as ``enqueue_items``."""
-        _reject_stamps("InputQueue.enqueue_batch_items", trace_ctx, model,
-                       tenant)
+        _reject_stamps("InputQueue.enqueue_batch_items", model, tenant)
         uris = [str(u) for u in uris]
         n = len(uris)
         if n == 0:
@@ -182,7 +203,8 @@ class InputQueue:
         return self.broker.xadd(self.stream, {
             "uri": "\x1f".join(uris), "batch": str(n),
             "data": _encode_wire(items),
-            **_deadline_fields(deadline_s, deadline)})
+            **_deadline_fields(deadline_s, deadline),
+            **_trace_fields(trace_ctx)})
 
 
 class OutputQueue:
@@ -251,8 +273,9 @@ class FastWireHttpClient:
     raises ``ServingShedError`` (``retry_after_s`` holds the server's
     pacing hint), 504 (deadline or timeout) ``ServingDeadlineError``,
     other non-200s ``ServingError``; error bodies are JSON on every
-    wire.  ``model``, ``tenant`` and ``trace_ctx`` are not ported yet and
-    raise ``NotImplementedError`` naming their item."""
+    wire.  ``trace_ctx`` rides the ``X-Zoo-Trace`` header; ``model`` and
+    ``tenant`` are not ported yet and raise ``NotImplementedError`` naming
+    their item."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 10020,
                  timeout: float = 30.0):
@@ -272,12 +295,14 @@ class FastWireHttpClient:
             return self._conn.getresponse()
 
     @staticmethod
-    def _headers(uri, deadline_ms) -> dict:
+    def _headers(uri, deadline_ms, trace_ctx) -> dict:
         headers = {"Content-Type": FASTWIRE_CONTENT_TYPE}
         if uri:
             headers["X-Zoo-Uri"] = str(uri)
         if deadline_ms is not None:
             headers["X-Zoo-Deadline-Ms"] = repr(float(deadline_ms))
+        if trace_ctx:
+            headers["X-Zoo-Trace"] = trace_ctx
         return headers
 
     def predict(self, uri: Optional[str] = None,
@@ -288,11 +313,12 @@ class FastWireHttpClient:
         """One round trip: tensors in, prediction (ndarray) or top-N
         pairs out.  ``uri`` rides the ``X-Zoo-Uri`` header (the server
         makes one when absent), ``deadline_ms`` the ``X-Zoo-Deadline-Ms``
-        budget."""
-        _reject_stamps("FastWireHttpClient.predict", trace_ctx, model, tenant)
+        budget, ``trace_ctx`` the ``X-Zoo-Trace`` context the server's
+        spans join."""
+        _reject_stamps("FastWireHttpClient.predict", model, tenant)
         frame = encode_items_bytes(
             {k: np.asarray(v) for k, v in inputs.items()})
-        resp = self._post(frame, self._headers(uri, deadline_ms))
+        resp = self._post(frame, self._headers(uri, deadline_ms, trace_ctx))
         blob = resp.read()
         if resp.status != 200:
             raise _http_error(resp, blob)
@@ -311,13 +337,12 @@ class FastWireHttpClient:
         the chunked frame-per-token response.  Failures before the first
         token raise as ``predict`` does (429 shed, 504 deadline); a non-ok
         terminal frame raises the typed error of its code."""
-        reject("FastWireHttpClient.generate", 6, trace_ctx=trace_ctx)
         items = {"tokens": np.asarray(tokens, np.int32).reshape(-1)}
         if max_new_tokens is not None:
             items["max_new_tokens"] = np.asarray(max_new_tokens, np.int32)
         if priority:
             items["priority"] = np.asarray(priority, np.int32)
-        headers = self._headers(uri, deadline_ms)
+        headers = self._headers(uri, deadline_ms, trace_ctx)
         headers["X-Zoo-Generate"] = "1"
         resp = self._post(encode_items_bytes(items), headers)
         if resp.status != 200:

@@ -23,14 +23,24 @@ a model that takes a sequence (BERT: ``[input_ids, token_type_ids,
 input_mask]``) is served through the ``InferenceModel`` preprocessor.
 Results go back as ndarray frames or as top-N ``cls:prob`` pairs.
 
+Observability as in the JAX engine: the ``zoo_serving_*`` series, the
+wire trace context (``trace_ctx``) continued by the ``serving.decode`` →
+``serving.dispatch`` → ``serving.sink`` spans (the dispatch span's id
+rides the pending queue to the sink), the chaos points ``broker_read``,
+``decode`` and ``dispatch_submit``, and a flight-recorder dump when a
+stage thread dies or the overload latch closes.  The dispatch span covers
+the submission (the launch is asynchronous); the device's time shows in
+the sink span, which waits on the dispatch's CUDA event.  No record reads
+a CUDA tensor.
+
 Not ported yet (ROADMAP Queue 1 item 1): the model registry, tenancy,
 server-side image decode and the Redis / native / fleet brokers with the
-sink's publish retries; the spans, metric series and TensorBoard curves
-(item 6).
+sink's publish retries; the TensorBoard curves (item 6).
 """
 
 from __future__ import annotations
 
+import contextvars
 import logging
 import queue
 import threading
@@ -40,6 +50,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.config import ServingConfig
 from analytics_zoo_tpu_torch.common.resilience import (
     AdmissionController, Deadline, DeadlineExceeded, deadline_scope,
@@ -49,6 +60,8 @@ from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     ImageBytes, StringTensor, decode_items, encode_ndarray_output,
     encode_ndarray_output_bytes, reference_wire_forced)
+from analytics_zoo_tpu_torch.observability import flight_recorder
+from analytics_zoo_tpu_torch.testing import chaos
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.serving")
 
@@ -83,16 +96,23 @@ def parse_filter(spec: str) -> int:
 class _PreBatched:
     """A client-batched stream entry (or a merge of several) travelling
     the pipeline as ONE unit: per-record sids and uris and the decoded
-    dict of (N, ...) arrays."""
+    dict of (N, ...) arrays.  ``tref`` is the trace reference its dispatch
+    span parents to (the entry's decode span, or the wire context); a
+    merge of several entries keeps the first entry's parent and lists the
+    other merged trace ids in ``links``."""
 
-    __slots__ = ("sids", "uris", "decoded", "n", "deadline")
+    __slots__ = ("sids", "uris", "decoded", "n", "deadline", "tref",
+                 "links")
 
-    def __init__(self, sids, uris, decoded, n, deadline=None):
+    def __init__(self, sids, uris, decoded, n, deadline=None, tref=None,
+                 links=None):
         self.sids = sids
         self.uris = uris
         self.decoded = decoded
         self.n = n
         self.deadline = deadline
+        self.tref = tref
+        self.links = links
 
 
 class ClusterServing:
@@ -131,6 +151,29 @@ class ClusterServing:
         self.throughput = 0.0
         self.admission: Optional[AdmissionController] = None
         self._q_hwm: Dict[str, int] = {}
+        # registry series: lazy handles shared process-wide, following
+        # set_registry() swaps like every other instrumentation point
+        self._m_records = obs.lazy_counter(
+            "zoo_serving_records_total", "records served to completion")
+        self._m_errors = obs.lazy_counter(
+            "zoo_serving_errors_total", "entries finished with an error")
+        self._m_disp_lat = obs.lazy_histogram(
+            "zoo_serving_dispatch_latency_seconds",
+            "device dispatch submit -> sink completion")
+        self._m_fill = obs.lazy_histogram(
+            "zoo_serving_batch_fill_ratio",
+            "records per device dispatch / dispatch capacity "
+            "(max_batch pipelined, batch_size classic)",
+            buckets=(0.0625, 0.125, 0.25, 0.5, 0.75, 1.0))
+        self._m_tput = obs.lazy_gauge(
+            "zoo_serving_throughput_rps",
+            "records/sec over the last ~1s window")
+        self._m_qdepth = obs.lazy_gauge(
+            "zoo_serving_queue_depth",
+            "pipeline stage queue depths", ["queue"])
+        self._m_qhwm = obs.lazy_gauge(
+            "zoo_serving_queue_high_water",
+            "max stage queue depth seen since start()", ["queue"])
 
     # ---- lifecycle --------------------------------------------------------
     def start(self) -> "ClusterServing":
@@ -169,6 +212,13 @@ class ClusterServing:
         self._q_raw: queue.Queue = queue.Queue(maxsize=4 * mb)
         self._q_dec: queue.Queue = queue.Queue(maxsize=4 * mb)
         self._q_pend: queue.Queue = queue.Queue(maxsize=4)
+        # pull-time gauges: depth is read at scrape, never maintained on
+        # the hot path (the latest started engine owns the series)
+        self._m_qdepth.labels(queue="raw").set_function(self._q_raw.qsize)
+        self._m_qdepth.labels(queue="decoded").set_function(
+            self._q_dec.qsize)
+        self._m_qdepth.labels(queue="pending").set_function(
+            self._q_pend.qsize)
         self._reader_done = threading.Event()
         self._decoders_done = threading.Event()
         self._exec_done = threading.Event()
@@ -197,6 +247,8 @@ class ClusterServing:
             self.admission = AdmissionController(credits, name="serving")
         else:
             self.admission = None
+        for qname in ("raw", "decoded", "pending"):
+            self._m_qhwm.labels(queue=qname).set(0.0)
         stages = [("serving-reader", self._reader_loop)]
         for i in range(max(cfg.decode_workers, 1)):
             stages.append((f"serving-decode-{i}", self._decode_loop))
@@ -205,14 +257,17 @@ class ClusterServing:
         for name, fn in stages:
             self._spawn(name, fn)
 
-    @staticmethod
-    def _run_stage(name: str, fn) -> None:
+    def _run_stage(self, name: str, fn) -> None:
         """Stage-thread entry: the loops guard their own bodies, so what
-        escapes here is a dying worker thread; log it and let it die."""
+        escapes here is a dying worker thread, the moment the flight
+        recorder exists for.  Snapshot, then let the thread die loudly."""
         try:
             fn()
-        except BaseException:
+        except BaseException as exc:
             logger.exception("stage thread %s died", name)
+            obs.add_event("thread_death", span=None, thread=name,
+                          error=f"{type(exc).__name__}: {exc}")
+            flight_recorder.get().trigger("thread_death", detail=name)
             raise
 
     # ---- pipelined stages -------------------------------------------------
@@ -237,11 +292,14 @@ class ClusterServing:
             depth = q.qsize()
             if depth > self._q_hwm.get(name, 0):
                 self._q_hwm[name] = depth
+                # gauge write only on a new max
+                self._m_qhwm.labels(queue=name).set(float(depth))
 
     def _reader_loop(self) -> None:
         saturated = False   # overload latch, local to the reader thread
         while not self._stop.is_set():
             try:
+                chaos.fire("broker_read")
                 entries = self.broker.xreadgroup(
                     self.stream, self.group, "serving-reader",
                     count=self.config.max_batch, block_ms=20)
@@ -260,6 +318,26 @@ class ClusterServing:
     # only the first entry pays the wait: the latch sheds the backlog at
     # once until credits free up.
 
+    @staticmethod
+    def _trace_ref(fields):
+        """The entry's wire trace context (``trace_ctx``, stamped by
+        InputQueue) as a span parent, or None.  One flag check when
+        tracing is disabled: no parsing on the disabled hot path."""
+        if not obs.get_tracer().enabled:
+            return None
+        return obs.decode_trace_context(fields.get("trace_ctx"))
+
+    @staticmethod
+    def _dispatch_trace(trefs):
+        """``(parent_ref, span_attrs)`` for a dispatch span covering
+        entries with these trace refs.  The parent is the first traced
+        entry, and every other distinct trace rides a ``links`` attr so
+        none loses its dispatch."""
+        parent = next((t for t in trefs if t is not None), None)
+        links = sorted({t[0] for t in trefs if t is not None}
+                       - ({parent[0]} if parent is not None else set()))
+        return parent, ({"links": links} if links else {})
+
     def _entry_deadline(self, fields) -> Optional[Deadline]:
         """The entry's wire deadline, else the configured default."""
         ts = fields.get("deadline_ts")
@@ -276,10 +354,12 @@ class ClusterServing:
         """Gate one entry; returns the updated overload latch."""
         sid, fields = entry
         n = int(fields.get("batch", 0) or 0) or 1
+        tref = self._trace_ref(fields)
         dl = self._entry_deadline(fields)
         if dl is not None and dl.expired:
             self._reject_entry(sid, fields, "expired",
-                               "deadline expired before admission", n=n)
+                               "deadline expired before admission", n=n,
+                               tref=tref)
             return saturated
         adm = self.admission
         if adm is not None:
@@ -298,7 +378,14 @@ class ClusterServing:
                 if self._stop.is_set():
                     adm.force_acquire(need)
                 else:
-                    self._shed_entry(sid, fields, n)
+                    if not saturated:
+                        # latch transition = the start of a sustained
+                        # overload episode: capture the moment once,
+                        # rate-limited against latch flapping
+                        flight_recorder.get().trigger(
+                            "overload", detail=f"stream={self.stream}",
+                            min_interval_s=5.0)
+                    self._shed_entry(sid, fields, n, tref=tref)
                     return True
             else:
                 saturated = False
@@ -306,27 +393,30 @@ class ClusterServing:
                 adm.force_acquire(n - need)
         # the acquired credit count rides the work item: releases mirror
         # exactly what was acquired here, never the client's uri split
-        self._put_forever(self._q_raw, (sid, fields, dl, n), name="raw")
+        self._put_forever(self._q_raw, (sid, fields, dl, n, tref),
+                          name="raw")
         return saturated
 
-    def _shed_entry(self, sid, fields, n: int,
+    def _shed_entry(self, sid, fields, n: int, tref=None,
                     msg: str = "server overloaded; admission control "
                                "shed this request - retry with backoff"
                     ) -> None:
         if self.admission is not None:
-            self.admission.shed(n)
+            self.admission.shed(n, trace_id=tref[0] if tref else None)
         with self._metrics_lock:
             self.records_shed += n
         self._reject_entry(sid, fields, "shed", msg)
 
-    def _count_expired(self, k: int) -> None:
-        """One accounting point for deadline-expired records."""
-        record_expired(k)
+    def _count_expired(self, k: int, tref=None) -> None:
+        """One accounting point for deadline-expired records: the
+        registry series, the event journal and the ``metrics()`` counter
+        never diverge."""
+        record_expired(k, trace_id=tref[0] if tref else None)
         with self._metrics_lock:
             self.records_expired += k
 
     def _reject_entry(self, sid, fields, code: str, msg: str,
-                      n: Optional[int] = None) -> None:
+                      n: Optional[int] = None, tref=None) -> None:
         """Error-finish every record of a NOT-YET-ADMITTED entry (no
         credits to release) with a machine-readable code, in one bulk
         write.  ``n`` is the entry's declared record count, which expiry
@@ -334,7 +424,8 @@ class ClusterServing:
         uris = fields.get("uri", "?").split("\x1f")
         if code == "expired":
             self._count_expired(n if n is not None else
-                                int(fields.get("batch", 0) or 0) or 1)
+                                int(fields.get("batch", 0) or 0) or 1,
+                                tref=tref)
         try:
             self.broker.set_results(
                 {f"result:{u}": {"error": msg, "code": code} for u in uris})
@@ -351,7 +442,7 @@ class ClusterServing:
         # between xreadgroup and _put_forever when _stop flips
         while not (self._reader_done.is_set() and self._q_raw.empty()):
             try:
-                sid, fields, dl, n_adm = self._q_raw.get(timeout=0.05)
+                sid, fields, dl, n_adm, tref = self._q_raw.get(timeout=0.05)
             except queue.Empty:
                 continue
             uri = fields.get("uri", "?")
@@ -362,8 +453,8 @@ class ClusterServing:
                     self._try_finish_error(
                         sid, u, DeadlineExceeded(
                             "deadline expired before decode"),
-                        code="expired", release=False)
-                self._count_expired(n_adm)
+                        code="expired", count_error=False, release=False)
+                self._count_expired(n_adm, tref=tref)
                 self._release_admission(n_adm)
                 continue
             try:
@@ -376,8 +467,14 @@ class ClusterServing:
                         raise ValueError(
                             f"batched entry carries {n} records but "
                             f"{len(uris)} uris")
-                    with deadline_scope(dl):
+                    with obs.span("serving.decode", parent=tref,
+                                  records=n) as dsp, deadline_scope(dl):
                         decoded = self._decode_entry(fields, batch_n=n)
+                    # downstream spans parent to the decode span, which
+                    # carries the request's trace onward (wire context →
+                    # decode → dispatch → sink, one trace end to end)
+                    dref = ((dsp.trace_id, dsp.span_id)
+                            if dsp is not None else tref)
                     # max_batch caps the device batch; client batches
                     # are cut to it
                     mb = max(self.config.max_batch, 1)
@@ -386,11 +483,16 @@ class ClusterServing:
                         self._put_forever(self._q_dec, _PreBatched(
                             [sid] * (hi - lo), uris[lo:hi],
                             {k: v[lo:hi] for k, v in decoded.items()},
-                            hi - lo, deadline=dl), name="decoded")
+                            hi - lo, deadline=dl, tref=dref),
+                            name="decoded")
                 else:
-                    with deadline_scope(dl):
+                    with obs.span("serving.decode", parent=tref,
+                                  records=1) as dsp, deadline_scope(dl):
                         decoded1 = self._decode_entry(fields)
-                    self._put_forever(self._q_dec, (sid, uri, decoded1, dl),
+                    dref = ((dsp.trace_id, dsp.span_id)
+                            if dsp is not None else tref)
+                    self._put_forever(self._q_dec,
+                                      (sid, uri, decoded1, dl, dref),
                                       name="decoded")
             except (Exception, CancelledError) as exc:
                 logger.exception("decode failed for %s", uri)
@@ -405,7 +507,7 @@ class ClusterServing:
         for g in groups:
             if g.deadline is not None and g.deadline.expired:
                 for sid, uri in zip(g.sids, g.uris):
-                    self._expire_record(sid, uri)
+                    self._expire_record(sid, uri, tref=g.tref)
             else:
                 live.append(g)
         if not live:
@@ -416,12 +518,15 @@ class ClusterServing:
             # one device dispatch for the whole window: per-GROUP
             # concatenation, never per-record work
             names = list(live[0].decoded.keys())
+            parent, link_attrs = self._dispatch_trace(
+                [g.tref for g in live])
             merged = _PreBatched(
                 [s for g in live for s in g.sids],
                 [u for g in live for u in g.uris],
                 {k: np.concatenate([g.decoded[k] for g in live])
                  for k in names},
-                sum(g.n for g in live))
+                sum(g.n for g in live), tref=parent,
+                links=link_attrs.get("links"))
         try:
             self._dispatch_prebatched(merged)
         except (Exception, CancelledError) as exc:
@@ -452,7 +557,7 @@ class ClusterServing:
             for item in batch:
                 dl = item[3]
                 if dl is not None and dl.expired:
-                    self._expire_record(item[0], item[1])
+                    self._expire_record(item[0], item[1], tref=item[4])
                 else:
                     live.append(item)
             if not live:
@@ -461,7 +566,7 @@ class ClusterServing:
                 self._dispatch(live)
             except (Exception, CancelledError) as exc:
                 logger.exception("dispatch batch failed; erroring entries")
-                for sid, uri, _, _ in live:
+                for sid, uri, _, _, _ in live:
                     self._try_finish_error(sid, uri, exc)
 
         def flush_batches():
@@ -517,6 +622,7 @@ class ClusterServing:
         sids = [item[0] for item in batch]
         uris = [item[1] for item in batch]
         tensors = [item[2] for item in batch]
+        trefs = [item[4] for item in batch]
         # the group key holds the tensor NAMES too: clients with different
         # input signatures may share one linger window
         shape_of = lambda t: tuple(sorted((n, v.shape, v.dtype.str)
@@ -535,7 +641,13 @@ class ClusterServing:
                 x = gx[names[0]] if len(names) == 1 else gx
                 # published one group at a time, so the sink can fetch
                 # (returning a permit) before a later group needs one
-                fut = self._submit_dispatch(x)
+                parent, attrs = self._dispatch_trace(
+                    [trefs[i] for i in idxs])
+                with obs.span("serving.dispatch", parent=parent,
+                              records=len(idxs), **attrs) as sp:
+                    self._m_fill.observe(
+                        len(idxs) / max(self.config.max_batch, 1))
+                    fut = self._submit_dispatch(x)
             except (Exception, CancelledError) as exc:
                 logger.exception("dispatch group failed; erroring its "
                                  "entries")
@@ -543,16 +655,21 @@ class ClusterServing:
                     self._try_finish_error(sids[i], uris[i], exc)
                 continue
             self._put_forever(self._q_pend,
-                              (sids, uris, [(idxs, fut)], time.monotonic()),
+                              (sids, uris, [(idxs, fut)], time.monotonic(),
+                               sp.span_id if sp else None),
                               name="pending")
 
     def _submit_dispatch(self, x):
         """Submit one device dispatch to the pool, after taking a permit
         in the exec thread (permit order == submission order == the sink's
-        order)."""
+        order).  The pool worker runs it in a copy of this thread's
+        context, so the ``serving.dispatch`` span is its active span: a
+        fault at ``device_execute`` lands on that span."""
+        chaos.fire("dispatch_submit")
         self._permits.acquire()
         try:
-            fut = self._dispatch_pool.submit(self.model.predict_async, x)
+            fut = self._dispatch_pool.submit(
+                contextvars.copy_context().run, self.model.predict_async, x)
         except BaseException:
             self._permits.release()
             raise
@@ -561,10 +678,14 @@ class ClusterServing:
     def _dispatch_prebatched(self, pb: _PreBatched) -> None:
         names = list(pb.decoded.keys())
         x = pb.decoded[names[0]] if len(names) == 1 else pb.decoded
-        fut = self._submit_dispatch(x)
+        attrs = {"links": pb.links} if pb.links else {}
+        with obs.span("serving.dispatch", parent=pb.tref,
+                      records=pb.n, **attrs) as sp:
+            self._m_fill.observe(pb.n / max(self.config.max_batch, 1))
+            fut = self._submit_dispatch(x)
         self._put_forever(self._q_pend,
                           (pb.sids, pb.uris, [(list(range(pb.n)), fut)],
-                           time.monotonic()),
+                           time.monotonic(), sp.span_id if sp else None),
                           name="pending")
 
     def _sink_loop(self) -> None:
@@ -574,21 +695,26 @@ class ClusterServing:
                 item = self._q_pend.get(timeout=0.05)
             except queue.Empty:
                 continue
-            sids, uris, handles, t_disp = item
+            sids, uris, handles, t_disp, parent = item
             for idxs, pending in handles:
                 # CancelledError is a BaseException: a future cancelled by
                 # stop()'s pool shutdown must error-finish its entries,
                 # not kill the sink
                 try:
                     try:
-                        out = np.asarray(self.model.fetch(pending.result()))
-                        # one bulk result write, one xack per group
-                        self.broker.set_results(
-                            {f"result:{uris[i]}":
-                             {"value": self._encode_result(out[j])}
-                             for j, i in enumerate(idxs)})
-                        self.broker.xack(self.stream, self.group,
-                                         *[sids[i] for i in idxs])
+                        # the fetch waits on the dispatch's CUDA event:
+                        # the device's time shows in this span
+                        with obs.span("serving.sink", parent=parent,
+                                      records=len(idxs)):
+                            out = np.asarray(
+                                self.model.fetch(pending.result()))
+                            # one bulk result write, one xack per group
+                            self.broker.set_results(
+                                {f"result:{uris[i]}":
+                                 {"value": self._encode_result(out[j])}
+                                 for j, i in enumerate(idxs)})
+                            self.broker.xack(self.stream, self.group,
+                                             *[sids[i] for i in idxs])
                     finally:
                         self._permits.release()
                 except (Exception, CancelledError) as exc:
@@ -601,17 +727,22 @@ class ClusterServing:
                 # outside the publish guard
                 self._release_admission(len(idxs))
                 try:
+                    self._m_disp_lat.observe(time.monotonic() - t_disp)
                     self._count(len(idxs))
                 except (Exception, CancelledError):
                     logger.exception("post-publish accounting failed")
 
     def _try_finish_error(self, sid, uri, exc, code: str = "error",
+                          count_error: bool = True,
                           release: bool = True) -> None:
         """Error-finish one ADMITTED record: write the error result and
         return its admission credit (each record takes one credit at the
         reader and returns it on exactly one completion path).  Decode
         callers pass ``release=False`` and return the entry's acquired
-        count in one call."""
+        count in one call; expiries pass ``count_error=False`` (they
+        count as expired, not as errors)."""
+        if count_error:
+            self._m_errors.inc()
         if release:
             self._release_admission(1)
         try:
@@ -623,11 +754,12 @@ class ClusterServing:
         except (Exception, CancelledError):
             logger.exception("could not record error result for %s", uri)
 
-    def _expire_record(self, sid, uri) -> None:
-        self._count_expired(1)
+    def _expire_record(self, sid, uri, tref=None) -> None:
+        self._count_expired(1, tref=tref)
         self._try_finish_error(
             sid, uri, DeadlineExceeded("deadline expired before device "
-                                       "dispatch"), code="expired")
+                                       "dispatch"), code="expired",
+            count_error=False)
 
     def _release_admission(self, k: int) -> None:
         if self.admission is not None:
@@ -659,6 +791,15 @@ class ClusterServing:
             self._exec_done.set()
             if "serving-sink" in by_name:
                 by_name["serving-sink"].join(timeout=30)
+            # detach the queue-depth gauges if they still point at this
+            # engine's queues (a newer engine may own the series): a
+            # registry-held qsize would pin the stopped queues forever
+            for qname, q in (("raw", self._q_raw), ("decoded", self._q_dec),
+                             ("pending", self._q_pend)):
+                child = self._m_qdepth.labels(queue=qname)
+                if getattr(child, "_fn", None) == q.qsize:
+                    child.set_function(None)
+                    child.set(0.0)
             pool = getattr(self, "_dispatch_pool", None)
             if pool is not None:
                 # the sink drained q_pend, so every future is resolved;
@@ -676,6 +817,7 @@ class ClusterServing:
     def run(self, consumer: str = "serving-0") -> None:
         while not self._stop.is_set():
             try:
+                chaos.fire("broker_read")
                 entries = self.broker.xreadgroup(
                     self.stream, self.group, consumer,
                     count=self.config.batch_size, block_ms=50)
@@ -689,7 +831,8 @@ class ClusterServing:
                 dl = self._entry_deadline(fields)
                 if dl is not None and dl.expired:
                     self._reject_entry(sid, fields, "expired",
-                                       "deadline expired before execution")
+                                       "deadline expired before execution",
+                                       tref=self._trace_ref(fields))
                 else:
                     live.append((sid, fields))
             entries = live
@@ -709,6 +852,7 @@ class ClusterServing:
                         uri = entry[1].get("uri", "?")
                         logger.exception("entry %s failed", uri)
                         # a batched entry's error lands on every uri in it
+                        self._m_errors.inc(len(uri.split("\x1f")))
                         self.broker.set_results(
                             {f"result:{u}": {"error": str(exc)
                                              or type(exc).__name__,
@@ -719,11 +863,13 @@ class ClusterServing:
 
     def _process_batch(self, entries) -> None:
         t0 = time.perf_counter()
-        uris, tensor_lists = [], []
+        uris, tensor_lists, trefs = [], [], []
         for _, fields in entries:
+            tref = self._trace_ref(fields)
             for uri, decoded in self._expand_entry(fields):
                 uris.append(uri)
                 tensor_lists.append(decoded)
+                trefs.append(tref)
         # group by input signature: heterogeneous entries must not poison
         # the whole batch
         shape_of = lambda t: tuple(sorted((n, v.shape, v.dtype.str)
@@ -737,7 +883,16 @@ class ClusterServing:
             batch = {n: np.stack([tensor_lists[i][n] for i in idxs])
                      for n in names}
             x = batch[names[0]] if len(names) == 1 else batch
-            out = np.asarray(self.model.predict(x))
+            parent, attrs = self._dispatch_trace([trefs[i] for i in idxs])
+            with obs.span("serving.dispatch", parent=parent,
+                          records=len(idxs), **attrs):
+                # a client-batched entry can expand past the classic
+                # read bound; the ratio stays in the declared [0, 1]
+                self._m_fill.observe(
+                    min(1.0, len(idxs) / max(self.config.batch_size, 1)))
+                t_disp = time.monotonic()
+                out = np.asarray(self.model.predict(x))
+                self._m_disp_lat.observe(time.monotonic() - t_disp)
             for j, i in enumerate(idxs):
                 preds[i] = out[j]
         # replace, don't merge: a stale error field from an earlier failed
@@ -759,6 +914,7 @@ class ClusterServing:
         return encode_ndarray_output_bytes(value)
 
     def _count(self, k: int) -> None:
+        self._m_records.inc(k)
         with self._metrics_lock:
             self.records_processed += k
             self._window_count += k
@@ -766,6 +922,7 @@ class ClusterServing:
             if now - self._window_start >= 1.0:
                 self.throughput = self._window_count / (now
                                                         - self._window_start)
+                self._m_tput.set(self.throughput)
                 self._window_start, self._window_count = now, 0
 
     def _expand_entry(self, fields):
@@ -783,6 +940,7 @@ class ClusterServing:
                 for j in range(n)]
 
     def _decode_entry(self, fields, batch_n=None) -> Dict[str, np.ndarray]:
+        chaos.fire("decode")
         decoded = {}
         for name, v in decode_items(fields["data"]).items():
             if isinstance(v, ImageBytes):

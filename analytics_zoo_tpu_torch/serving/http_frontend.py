@@ -27,11 +27,28 @@ and/or ``LLMServing``.
 - ``GET /metrics.json`` gives the engines' ``metrics()``, ``GET /`` a
   welcome.
 
-Not ported yet: ``/metrics`` (Prometheus text), ``/spans`` and
-``/debug/*`` answer 501 (ROADMAP Queue 1 item 6, observability; the
-frontend opens no spans, so an ``X-Zoo-Trace`` header is not echoed);
-``/predict/<model>``, ``X-Zoo-Model`` and ``X-Zoo-Tenant`` answer 501, and
-the fleet-worker arguments raise (item 1).
+Observability, as in the JAX frontend:
+
+- ``GET /metrics``: Prometheus text for the whole process registry
+  (serving, LLM, training, resilience, memory ledger series);
+- ``GET /spans``: the tracer ring buffer as JSON (``?name=``,
+  ``?trace_id=`` and ``?limit=`` filters; a bad query answers 400);
+- ``GET /debug/memory?topk=``: the memory ledger's snapshot (every
+  pool's books with top-K owners, and the card's allocator figures);
+- ``GET /debug/flightrecorder``: the flight-recorder dump listing
+  (``?name=<file>`` serves one dump).
+
+``?local=`` is accepted on each and changes nothing: this frontend has no
+fleet, so its view is always the process's own.  ``POST /predict``
+accepts an ``X-Zoo-Trace`` header (``trace_id-span_id``) and parents its
+``http.predict`` (or ``http.generate``) span to it; every response
+carries the span's own context back in ``X-Zoo-Trace``, so a client can
+pull exactly its request's spans via ``/spans?trace_id=...``.
+``zoo_http_requests_total{route, code}`` counts the answers and
+``zoo_http_coalesce_*`` the coalescer's flushes.
+
+Not ported yet: ``/predict/<model>``, ``X-Zoo-Model`` and ``X-Zoo-Tenant``
+answer 501, and the fleet-worker arguments raise (ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -48,10 +65,11 @@ import time
 from concurrent.futures import CancelledError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.resilience import Deadline, deadline_scope
 from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS, reject
 from analytics_zoo_tpu_torch.serving.client import (
@@ -76,9 +94,12 @@ class _RequestCoalescer:
     record never merges with a deadlined one, and two deadlined records
     merge only when their budgets are within 2x, so the minimum budget a
     merged entry carries costs a member at most half its own.  A flush
-    failure error-finishes exactly the failed group's records.
-    ``flushes`` / ``records`` count the stream entries written and the
-    records in them."""
+    failure error-finishes exactly the failed group's records.  A merged
+    entry carries the first member's trace context (the engine's
+    first-wins rule for merged client batches).  ``flushes`` /
+    ``records`` count the stream entries written and the records in
+    them, as do ``zoo_http_coalesce_flushes_total`` /
+    ``zoo_http_coalesce_records_total``."""
 
     def __init__(self, input_queue: InputQueue, broker,
                  max_records: int, window_ms: float):
@@ -91,16 +112,24 @@ class _RequestCoalescer:
         self._stop = threading.Event()
         self.flushes = 0
         self.records = 0
+        self._m_flushes = obs.lazy_counter(
+            "zoo_http_coalesce_flushes_total",
+            "coalescer stream appends (entries written)")
+        self._m_records = obs.lazy_counter(
+            "zoo_http_coalesce_records_total",
+            "records flushed through the HTTP coalescer")
         self._thread = threading.Thread(target=self._run,
                                         name="http-coalesce", daemon=True)
         self._thread.start()
 
     def submit(self, uri: str, raw: Optional[bytes], items: dict,
-               deadline: Optional[Deadline]) -> None:
+               deadline: Optional[Deadline],
+               trace_ctx: Optional[str] = None) -> None:
         """Hand one record to the flush worker.  ``raw`` is the encoded
         fast-wire frame when the record arrived binary: a single-record
-        flush passes it to the stream verbatim."""
-        rec = (uri, raw, items, deadline, time.monotonic())
+        flush passes it to the stream verbatim.  ``trace_ctx`` is the
+        handler's span context, stamped on the entry."""
+        rec = (uri, raw, items, deadline, trace_ctx, time.monotonic())
         with self._cond:
             if self._stop.is_set():
                 raise RuntimeError("coalescer is stopped")
@@ -118,7 +147,7 @@ class _RequestCoalescer:
                     if self._stop.is_set():
                         return
                     self._cond.wait(0.1)
-                flush_at = self._pending[0][4] + self._window_s
+                flush_at = self._pending[0][5] + self._window_s
                 while (len(self._pending) < self._max
                        and not self._stop.is_set()):
                     remaining = flush_at - time.monotonic()
@@ -162,18 +191,23 @@ class _RequestCoalescer:
     def _flush_group(self, recs: List[tuple]) -> None:
         self.flushes += 1
         self.records += len(recs)
+        self._m_flushes.inc()
+        self._m_records.inc(len(recs))
         if len(recs) == 1:
-            uri, raw, items, dl = recs[0][:4]
+            uri, raw, items, dl, tctx = recs[0][:5]
             if raw is not None:
-                self._inq.enqueue_raw(uri, raw, deadline=dl)
+                self._inq.enqueue_raw(uri, raw, deadline=dl, trace_ctx=tctx)
             else:
-                self._inq.enqueue_items(uri, items, deadline=dl)
+                self._inq.enqueue_items(uri, items, deadline=dl,
+                                        trace_ctx=tctx)
             return
         uris = [r[0] for r in recs]
         stacked = {k: np.stack([r[2][k] for r in recs]) for k in recs[0][2]}
         dls = [r[3] for r in recs if r[3] is not None]
         dl = min(dls, key=lambda d: d.remaining()) if dls else None
-        self._inq.enqueue_batch_items(uris, stacked, deadline=dl)
+        tctx = next((r[4] for r in recs if r[4]), None)
+        self._inq.enqueue_batch_items(uris, stacked, deadline=dl,
+                                      trace_ctx=tctx)
 
     def _fail(self, recs: List[tuple], exc: BaseException) -> None:
         results = {f"result:{r[0]}": {"error": str(exc)
@@ -246,6 +280,9 @@ class ServingFrontend:
         # is discarded by standard clients
         self._retry_after = str(max(1, math.ceil(float(
             getattr(cfg, "shed_retry_after_s", 1.0)))))
+        self._m_http = obs.counter("zoo_http_requests_total",
+                                   "frontend requests by route and code",
+                                   ["route", "code"])
 
     def _next_uri(self) -> str:
         return f"http-{next(self._uri_seq)}"
@@ -266,8 +303,25 @@ class ServingFrontend:
                 self._send_raw(code, json.dumps(payload).encode(),
                                "application/json", headers=headers)
 
+            _ROUTES = frozenset(
+                ("/", "/predict", "/metrics", "/metrics.json", "/spans",
+                 "/debug/flightrecorder", "/debug/memory"))
+
+            def _count(self, code: int) -> None:
+                # bounded label cardinality: a scanner probing random
+                # paths must not mint one series per URL
+                path = urlparse(self.path).path
+                if path in self._ROUTES:
+                    route = path
+                elif path.startswith("/predict/"):
+                    route = "/predict"
+                else:
+                    route = "other"
+                frontend._m_http.labels(route=route, code=str(code)).inc()
+
             def _send_raw(self, code: int, blob: bytes, ctype: str,
                           headers=None):
+                self._count(code)
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(blob)))
@@ -280,19 +334,60 @@ class ServingFrontend:
                 self._headers_buffer = []
 
             def do_GET(self):
-                path = urlparse(self.path).path
-                if path == "/metrics.json":
+                url = urlparse(self.path)
+                path = url.path
+                q = parse_qs(url.query)
+                if path == "/metrics":
+                    # Prometheus text for the whole process registry
+                    self._send_raw(200, obs.render().encode(),
+                                   obs.CONTENT_TYPE)
+                elif path == "/metrics.json":
                     m = (frontend.serving.metrics()
                          if frontend.serving is not None else {})
                     if frontend.llm is not None:
                         m = dict(m)
                         m["llm"] = frontend.llm.metrics()
                     self._send(200, m)
+                elif path == "/spans":
+                    try:
+                        limit = q.get("limit")
+                        limit = int(limit[0]) if limit else None
+                        if limit is not None and limit < 0:
+                            raise ValueError(limit)
+                        trace_id = q.get("trace_id")
+                        trace_id = int(trace_id[0]) if trace_id else None
+                    except ValueError:  # bad query: 400, not a crash
+                        self._send(400, {"error": "limit/trace_id must "
+                                                  "be non-negative ints"})
+                        return
+                    name = (q.get("name") or [None])[0]
+                    self._send(200, {"spans": obs.get_tracer().export(
+                        name=name, limit=limit, trace_id=trace_id)})
+                elif path == "/debug/memory":
+                    try:
+                        topk = q.get("topk")
+                        topk = int(topk[0]) if topk else 10
+                        if topk < 0:
+                            raise ValueError(topk)
+                    except ValueError:
+                        self._send(400, {"error": "topk must be a "
+                                                  "non-negative int"})
+                        return
+                    self._send(200, obs.get_memory_ledger().snapshot(
+                        top_k=topk))
+                elif path == "/debug/flightrecorder":
+                    rec = obs.get_flight_recorder()
+                    name = (q.get("name") or [None])[0]
+                    if name:
+                        try:
+                            self._send(200, rec.read_dump(name))
+                        except (KeyError, ValueError, OSError):
+                            self._send(404, {"error": "no such dump"})
+                    else:
+                        self._send(200, {"dir": rec.dir,
+                                         "dumps": rec.list_dumps()})
                 elif path == "/":
                     self._send(200, {"status": "welcome to zoo serving"})
-                elif path in ("/metrics", "/spans") or \
-                        path.startswith("/debug/"):
-                    self._send(501, _not_ported(6))
                 else:
                     self._send(404, {"error": "not found"})
 
@@ -354,18 +449,23 @@ class ServingFrontend:
                         self._send(400, {"error": "X-Zoo-Deadline-Ms "
                                                   "must be a number"})
                         return
+                # X-Zoo-Trace carries the caller's trace context in; the
+                # request's span joins it (or roots a new trace)
+                pctx = obs.decode_trace_context(
+                    self.headers.get("X-Zoo-Trace"))
                 if frontend.llm is not None and binary and (
                         self.headers.get("X-Zoo-Generate") == "1"
                         or "tokens" in inputs):
-                    self._do_generate(uri, inputs, dl)
+                    self._do_generate(uri, inputs, dl, pctx)
                     return
                 if frontend.input_queue is None:
                     self._send(503, {"error": "no one-shot serving "
                                               "engine attached"})
                     return
-                self._do_predict(uri, inputs, raw if binary else None, dl)
+                self._do_predict(uri, inputs, raw if binary else None, dl,
+                                 pctx)
 
-            def _do_predict(self, uri, inputs, raw, dl):
+            def _do_predict(self, uri, inputs, raw, dl, pctx):
                 binary = raw is not None
                 coal = frontend._coalescer
                 # tensor-only records coalesce; image / string payloads
@@ -375,19 +475,26 @@ class ServingFrontend:
                             and all(isinstance(v, np.ndarray)
                                     for v in inputs.values()))
                 inq = frontend.input_queue
-                with deadline_scope(dl):
+                with obs.span("http.predict", parent=pctx,
+                              uri=uri) as hsp, deadline_scope(dl):
+                    # every answer hands the span's own context back, so
+                    # /spans?trace_id= pulls exactly this request's spans
+                    thdr = ({"X-Zoo-Trace": obs.encode_trace_context(hsp)}
+                            if hsp is not None else {})
+                    tctx = thdr.get("X-Zoo-Trace")
                     try:
                         if use_coal:
-                            coal.submit(uri, raw, inputs, dl)
+                            coal.submit(uri, raw, inputs, dl, tctx)
                         elif binary:
                             # the frame goes on the stream verbatim
-                            inq.enqueue_raw(uri, raw, deadline=dl)
+                            inq.enqueue_raw(uri, raw, deadline=dl,
+                                            trace_ctx=tctx)
                         else:
                             # explicit dict: a tensor named like an
                             # enqueue parameter cannot shadow it
                             inq.enqueue_items(uri, inputs)
                     except Exception as exc:  # broker down: 503
-                        self._send(503, {"error": str(exc)})
+                        self._send(503, {"error": str(exc)}, headers=thdr)
                         return
                     timeout = 30.0 if dl is None else dl.timeout(30.0)
                     try:
@@ -397,16 +504,16 @@ class ServingFrontend:
                         # retryable, with a pacing hint
                         self._send(429, {"error": str(exc)},
                                    headers={"Retry-After":
-                                            frontend._retry_after})
+                                            frontend._retry_after, **thdr})
                         return
                     except ServingDeadlineError as exc:
-                        self._send(504, {"error": str(exc)})
+                        self._send(504, {"error": str(exc)}, headers=thdr)
                         return
                     except RuntimeError as exc:  # engine failure: 500
-                        self._send(500, {"error": str(exc)})
+                        self._send(500, {"error": str(exc)}, headers=thdr)
                         return
                 if result is None:
-                    self._send(504, {"error": "timeout"})
+                    self._send(504, {"error": "timeout"}, headers=thdr)
                 elif binary:
                     if isinstance(result, np.ndarray):
                         frame = encode_items_bytes({"prediction": result})
@@ -414,25 +521,37 @@ class ServingFrontend:
                         frame = encode_items_bytes(
                             {"topn": np.asarray(result, np.float32)})
                     self._send_raw(200, frame, FASTWIRE_CONTENT_TYPE,
-                                   headers={"X-Zoo-Uri": uri})
+                                   headers={"X-Zoo-Uri": uri, **thdr})
                 else:
                     # ndarray -> nested list; topN -> [[cls, prob], ...]
                     pred = (result.tolist() if isinstance(result, np.ndarray)
                             else [[c, p] for c, p in result])
-                    self._send(200, {"uri": uri, "prediction": pred})
+                    self._send(200, {"uri": uri, "prediction": pred},
+                               headers=thdr)
 
             # ---- token streaming --------------------------------------
-            def _do_generate(self, uri, inputs, dl):
-                """Relay one generation as a chunked token stream.  The
-                stream is bounded per TOKEN (30 s of inactivity), not in
-                total; a deadlined request gets its remaining budget plus
-                5 s of slack, in which the engine's expired terminal frame
-                arrives (the engine enforces the deadline per token)."""
-                llm = frontend.llm
+            def _do_generate(self, uri, inputs, dl, pctx):
+                """Relay one generation as a chunked token stream inside an
+                ``http.generate`` span parented to the caller's
+                ``X-Zoo-Trace``; the span's context rides the request to
+                the engine and comes back on every answer."""
                 if "tokens" not in inputs:
                     self._send(400, {"error": "generation requests need a "
                                               "`tokens` tensor"})
                     return
+                with obs.span("http.generate", parent=pctx,
+                              uri=uri) as hsp, deadline_scope(dl):
+                    thdr = ({"X-Zoo-Trace": obs.encode_trace_context(hsp)}
+                            if hsp is not None else {})
+                    self._relay_generate(uri, inputs, dl, thdr)
+
+            def _relay_generate(self, uri, inputs, dl, thdr):
+                """The stream is bounded per TOKEN (30 s of inactivity),
+                not in total; a deadlined request gets its remaining
+                budget plus 5 s of slack, in which the engine's expired
+                terminal frame arrives (the engine enforces the deadline
+                per token)."""
+                llm = frontend.llm
                 try:
                     frontend._llm_client.submit(
                         uri, inputs["tokens"],
@@ -443,9 +562,9 @@ class ServingFrontend:
                         priority=(int(np.asarray(inputs["priority"])
                                       .reshape(()))
                                   if "priority" in inputs else 0),
-                        deadline=dl)
+                        deadline=dl, trace_ctx=thdr.get("X-Zoo-Trace"))
                 except Exception as exc:
-                    self._send(503, {"error": str(exc)})
+                    self._send(503, {"error": str(exc)}, headers=thdr)
                     return
                 from analytics_zoo_tpu_torch.llm.engine import (
                     token_stream_name)
@@ -462,7 +581,8 @@ class ServingFrontend:
                             remaining = min(remaining, dl.remaining() + 5.0)
                         if remaining <= 0:
                             if not started:
-                                self._send(504, {"error": "timeout"})
+                                self._send(504, {"error": "timeout"},
+                                           headers=thdr)
                             else:
                                 llm.cancel(uri)
                                 self.close_connection = True
@@ -484,10 +604,11 @@ class ServingFrontend:
                                 }.get(code, (500, {}))
                                 if status != 200:
                                     self._send(status, {"error": fields.get(
-                                        "error", code)}, headers=headers)
+                                        "error", code)},
+                                        headers={**headers, **thdr})
                                     return
                             if not started:
-                                self._begin_stream({"X-Zoo-Uri": uri})
+                                self._begin_stream({**thdr, "X-Zoo-Uri": uri})
                                 started = True
                             self._write_stream_frame(fields["frame"])
                             if done:
@@ -509,6 +630,7 @@ class ServingFrontend:
                             logger.exception("could not drop %s", stream)
 
             def _begin_stream(self, headers):
+                self._count(200)
                 self.send_response(200)
                 self.send_header("Content-Type", TOKEN_STREAM_CONTENT_TYPE)
                 self.send_header("Transfer-Encoding", "chunked")

@@ -2,9 +2,9 @@
 ``ValidationSummary`` and ``read_scalar``.
 
 A copy of ``analytics_zoo_tpu/tensorboard/writer.py`` (host-only, copied
-because any ``analytics_zoo_tpu`` import loads jax), without its count of
-events in the metrics registry (observability, ROADMAP Queue 1 item 6).
-Events are queued and written by a daemon thread; curves go under
+because any ``analytics_zoo_tpu`` import loads jax), with its count of
+events in the metrics registry (``zoo_tb_events_total``).  Events are
+queued and written by a daemon thread; curves go under
 ``<log_dir>/<app_name>/train`` (loss, throughput, learning rate) and
 ``.../validation``.
 """
@@ -18,6 +18,7 @@ import time
 from queue import Queue
 from typing import Optional
 
+from analytics_zoo_tpu_torch import observability as _obs
 from analytics_zoo_tpu_torch.tensorboard.events import (
     decode_scalar_events,
     encode_event,
@@ -73,13 +74,18 @@ class SummaryWriter:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
+    _m_events = _obs.lazy_counter("zoo_tb_events_total",
+                                  "TensorBoard events enqueued for writing")
+
     def add_scalar(self, tag: str, value: float, step: int) -> None:
         ev = encode_event(encode_scalar_summary(tag, float(value)), step=step)
         self._queue.put(frame_record(ev))
+        self._m_events.inc()
 
     def add_histogram(self, tag: str, values, step: int) -> None:
         ev = encode_event(encode_histogram_summary(tag, values), step=step)
         self._queue.put(frame_record(ev))
+        self._m_events.inc()
 
     def read_scalar(self, tag: str):
         """Read back this writer's own curve (flushes first); (n, 3)

@@ -45,7 +45,14 @@ Phases, each of which raises (exit code 1) on failure:
    ``flash_fwd`` and 12 ``flash_bwd`` launches per step, one step's loss
    and every gradient against the same step with the plain attention, the
    loss falling over 10 steps on a fixed batch in f32 and in mixed
-   precision (bf16 kernels), the step time and a profiler breakdown.
+   precision (bf16 kernels), the step time and a profiler breakdown; then
+   with tracing on, f32, an eager epoch and a graph epoch (K = 4) of 8
+   steps: the ``train.epoch`` / ``train.step`` / ``train.prefetch`` span
+   counts (one ``train.step`` a dispatch), ``zoo_train_steps_total``, the
+   launches, and the ``train_state`` pool of the memory ledger equal to
+   the parameter and optimizer bytes summed from the tensors; and one
+   planned ``checkpoint_write`` fault, retried from the latest checkpoint
+   (one ``train.retry`` span) to the weights of a run without the fault.
 5b. train_bench: BERT-base training as ``bench.py:322-346`` builds it,
    through ``BERTClassifier.train``: the bench's 8,192 sequences of
    ``RandomState(0)`` (learnable labels), batch 256 on the DEVICE tier
@@ -173,7 +180,9 @@ Phases, each of which raises (exit code 1) on failure:
    timed beside them, ``scaled_dot_product_attention`` given the same mask
    (its backward) and the bound.  Then, against the same models on the
    CPU, with no port kernel launched: KNRM (vocab 20,000, embed 300, 21
-   kernels, texts of 10 and 40 tokens; scores within 1e-5, the pooling
+   kernels, texts of 10 and 40 tokens; scores within 1e-5 of the f32
+   reference, logged beside the card's and the f32 reference's distance
+   to a float64 reference on the CPU; the pooling
    constants made on the card equal to numpy's f32 values, 3 SGD steps
    1e-4 relative, NDCG@3 and MAP equal), Seq2seq (vocab 20,000, embed 64,
    hidden 128, 2 layers, 30 tokens; probabilities 1e-5, ``infer``'s tokens
@@ -198,6 +207,27 @@ Phases, each of which raises (exit code 1) on failure:
    1 ms deadline raising ``ServingDeadlineError`` and the same client
    serving the next stream; ``leak_check`` zero after; TTFT p50 / p99
    over HTTP and through the broker, mean inter-token latency over HTTP.
+   With observability (every request carries ``X-Zoo-Trace`` from
+   ``new_trace_context()``): the JSON answers echo it and every request's
+   trace holds its ``http.predict`` span; ``/metrics`` parses as
+   Prometheus text, ``zoo_http_requests_total`` and
+   ``zoo_serving_records_total`` move by the requests sent and
+   ``zoo_llm_tokens_total`` by the tokens streamed; four requests sent
+   one at a time have exactly ``http.predict`` -> ``serving.decode`` ->
+   ``serving.dispatch`` -> ``serving.sink`` under ``/spans?trace_id=``;
+   two streams are ``http.generate`` -> ``llm.prefill`` with one
+   ``llm.token`` event per token; ``/debug/memory``'s ``kv_blocks``
+   books equal the blocks held x bytes per block, within
+   ``torch.cuda.memory_allocated()``, its device section within the
+   card's memory.  The BERT burst runs again with ``set_enabled(False)``
+   (both rates and p50s logged, no bar).  The chaos checks ride on the
+   same engines (``[obs]`` lines): one ``raise`` at ``device_execute``
+   fails exactly its client batch of 8, its dump under
+   ``/debug/flightrecorder`` holds the faulted ``serving.dispatch`` with
+   the injection event, and the next 8 answers hold against the plain
+   attention; one ``raise`` at ``decode_step`` errors the 4 decoding
+   sequences, after which no table is left and the memory ledger's sweep
+   reads clean.
 
 The serve, train, llm, ring, heads and http phases also check that no
 kernel input was copied before a launch (the wrappers' ``copies``).  It
@@ -1128,7 +1158,133 @@ def phase_train(cfg=None, steps=10):
         profile_breakdown(lambda: clf.train(fixed, epochs=1, seed=SEED),
                           f"one {what} training step at batch {BATCH}",
                           top=16)
+    _train_observed(cfg, tree, fixed, many)
     return runs["f32"]["launches"], dict(step_ms=step_ms, runs=runs)
+
+
+def _counter(name, labels=()):
+    """A counter's value in the port's registry (0 before its first use)."""
+    from analytics_zoo_tpu_torch import observability as obs
+    fam = obs.get_registry().snapshot().get(name)
+    return 0.0 if fam is None else fam["series"].get(tuple(labels), 0.0)
+
+
+def _tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _opt_state_tensors(state):
+    out = []
+    for v in state.values():
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, dict):
+            out.extend(t for t in v.values() if isinstance(t, torch.Tensor))
+    return out
+
+
+def _train_observed(cfg, tree, fixed, many):
+    """Training with tracing on (f32): the span counts and step counter of
+    an eager epoch and of a graph epoch (K = 4: one span a dispatch of
+    four replays), the ``train_state`` pool's books against the tensors,
+    and one planned ``checkpoint_write`` fault, retried from the latest
+    checkpoint to the weights of a run without the fault."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch import observability as obs
+    from analytics_zoo_tpu_torch.keras.optimizers import AdamWeightDecay
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.testing import chaos
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    n_block, steps = cfg["n_block"], 8
+    obs.set_enabled(True)
+    for spd in (1, 4):
+        what = "eager" if spd == 1 else f"graph (K = {spd})"
+        clf = BERTClassifier(
+            num_classes=2, bert_config=cfg, steps_per_dispatch=spd,
+            optimizer=AdamWeightDecay(lr=1e-4, warmup_portion=0.1,
+                                      total=10),
+            device="cuda").load_weights(tree)
+        obs.get_tracer().clear()
+        before = _counter("zoo_train_steps_total")
+        _kernels.reset_launches()
+        clf.train(many, epochs=1, seed=SEED)
+        torch.cuda.synchronize()
+        names = [s["name"] for s in obs.get_tracer().export()]
+        counts = {n: names.count(n) for n in sorted(set(names))}
+        moved = _counter("zoo_train_steps_total") - before
+        fwd, bwd = _kernels.flash_fwd.launches, _kernels.flash_bwd.launches
+        est = clf._train_est
+        params = list(clf.net.parameters())
+        opt = _opt_state_tensors(est.opt_state)
+        want = _tensor_bytes(params) + _tensor_bytes(opt)
+        pool = obs.get_memory_ledger().snapshot()["pools"]["train_state"]
+        log(f"[train] traced {what} epoch of {steps} steps: spans {counts}, "
+            f"zoo_train_steps_total +{moved:g}, launches flash_fwd {fwd} "
+            f"flash_bwd {bwd}; train_state pool used {pool['used_bytes']:,} "
+            f"B ({pool['blocks']} tensors) vs parameters + optimizer "
+            f"{want:,} B, capacity {pool['capacity_bytes']:,} B")
+        if counts != {"train.epoch": 1, "train.prefetch": 1,
+                      "train.step": steps // spd} or moved != steps:
+            raise AssertionError(f"{what}: spans {counts}, steps +{moved}")
+        if (fwd, bwd) != (steps * n_block, steps * n_block):
+            raise AssertionError(f"{what}: launches {fwd} / {bwd}")
+        if (pool["used_bytes"] != want
+                or pool["blocks"] != len(params) + len(opt)
+                or pool["capacity_bytes"]
+                != torch.cuda.get_device_properties(0).total_memory):
+            raise AssertionError(f"train_state pool {pool} vs {want}")
+        del clf, est
+        _release()
+
+    # one planned checkpoint_write fault: write 0 is the bootstrap before
+    # the loop, write 1 (the first epoch's end) raises, and the epoch is
+    # retried from the bootstrap checkpoint
+    runs = {}
+    ckdir = tempfile.mkdtemp(prefix="zoo-smoke-ck-")
+    try:
+        for name, model_dir, inj in (
+                ("clean", None, chaos.ChaosInjector()),
+                ("faulted", ckdir, chaos.ChaosInjector().plan(
+                    "checkpoint_write", at=[1]))):
+            clf = BERTClassifier(
+                num_classes=2, bert_config=cfg, model_dir=model_dir,
+                optimizer=AdamWeightDecay(lr=1e-4, warmup_portion=0.1,
+                                          total=10),
+                device="cuda").load_weights(tree)
+            obs.get_tracer().clear()
+            t0 = time.perf_counter()
+            with chaos.installed(inj):
+                clf.train(fixed, epochs=2, seed=SEED)
+            torch.cuda.synchronize()
+            spans = [s["name"] for s in obs.get_tracer().export()]
+            runs[name] = dict(
+                weights={n: p.detach().clone()
+                         for n, p in clf.net.named_parameters()},
+                fired=inj.injected("checkpoint_write"),
+                writes=inj.count("checkpoint_write"),
+                retries=spans.count("train.retry"),
+                step=clf._train_est.global_step,
+                s=time.perf_counter() - t0)
+            del clf
+            _release()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    worst = max(((runs["faulted"]["weights"][n] - w).abs().max()
+                 / w.abs().max().clamp_min(1e-30)).item()
+                for n, w in runs["clean"]["weights"].items())
+    f = runs["faulted"]
+    log(f"[train] checkpoint_write fault at write 1: fired {f['fired']}, "
+        f"{f['writes']} write calls, {f['retries']} train.retry span, "
+        f"global step {f['step']} ({runs['clean']['step']} without the "
+        f"fault), {f['s']:.1f} s with checkpoints; weights vs the run "
+        f"without the fault: worst |d|/max|p| {worst:.3e}")
+    if (f["fired"], f["writes"], f["retries"], f["step"]) != (1, 4, 1, 2) \
+            or runs["clean"]["step"] != 2 or worst > 1e-6:
+        raise AssertionError(f"the checkpoint_write retry: {f}, worst "
+                             f"{worst}")
+    obs.get_tracer().clear()
 
 
 class _DispatchLosses:
@@ -3232,6 +3388,17 @@ def _heads_cpu_models(card_name):
     got = card.predict(x, batch_size=128)
     ms = (time.perf_counter() - t0) * 1e3
     err = float(np.max(np.abs(got - want)))
+    # the same model in float64 on the CPU: which side a high reading
+    # moved (the card, or the f32 reference's reduction order)
+    import copy
+    cpu64 = copy.deepcopy(cpu).double()
+    with torch.no_grad():
+        want64 = np.concatenate([cpu64({
+            k: torch.from_numpy(v[s:s + 128]) for k, v in x.items()})
+            .numpy() for s in range(0, n, 128)])
+    err64 = float(np.max(np.abs(got - want64)))
+    ref_err = float(np.max(np.abs(want - want64)))
+    del cpu64
     # the pooling's centres and widths, made on the card, are numpy's f32
     # values; the cosine matrix, the one product, is logged beside the
     # scores
@@ -3253,7 +3420,9 @@ def _heads_cpu_models(card_name):
         for m in (card, cpu)]
     log(f"[heads] KNRM {c}: {card.param_count():,} parameters; predict "
         f"{n} pairs in {ms:.3f} ms on {card_name}, vs the CPU max_abs_err="
-        f"{err:.3e} tol={HEADS_CPU_ATOL:g} (max |score| "
+        f"{err:.3e} tol={HEADS_CPU_ATOL:g}; |card - f32 ref| {err:.3e}, "
+        f"|card - f64 ref| {err64:.3e}, |f32 ref - f64 ref| {ref_err:.3e} "
+        f"(max |score| "
         f"{float(np.max(np.abs(want))):.3g}; pooling constants equal to "
         f"numpy's; cosine matrix max |d| "
         f"{float((cos[0] - cos[1]).abs().max()):.2e}; the CPU reference on "
@@ -3400,6 +3569,231 @@ def _batch_recorder(im):
     return sizes
 
 
+def _get(port, path):
+    """One GET on the frontend: (status, body bytes)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _scrape(port) -> dict:
+    """``GET /metrics`` parsed as Prometheus text (each line a comment or
+    ``name{labels} value``): ``{(name, labels): value}``."""
+    import re
+    status, body = _get(port, "/metrics")
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? '
+                        r'(-?[0-9.eE+-]+|[+-]Inf|NaN)$')
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith(("# HELP ", "# TYPE ")) or not line:
+            continue
+        m = sample.match(line)
+        if status != 200 or m is None:
+            raise AssertionError(f"/metrics: {status}, unparsable line "
+                                 f"{line!r}")
+        out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def _moved(port, before, key, want, timeout=10.0):
+    """Scrape until ``key`` has moved by ``want`` (the sink counts a record
+    just after the client can read its result); returns the last scrape
+    and the move."""
+    deadline = time.monotonic() + timeout
+    while True:
+        now = _scrape(port)
+        moved = now.get(key, 0.0) - before.get(key, 0.0)
+        if moved >= want or time.monotonic() > deadline:
+            return now, moved
+        time.sleep(0.02)
+
+
+def _spans_of(port, trace_id, names, timeout=10.0):
+    """``/spans?trace_id=``, once the trace holds every one of ``names``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        status, body = _get(port, f"/spans?trace_id={trace_id}")
+        spans = json.loads(body)["spans"]
+        if status != 200:
+            raise AssertionError(f"/spans: {status} {body[:200]!r}")
+        if {s["name"] for s in spans} >= set(names) \
+                or time.monotonic() > deadline:
+            return spans
+        time.sleep(0.02)
+
+
+def _check_chain(spans, names, what):
+    """Exactly ``names``, each the parent of the next."""
+    by = {s["name"]: s for s in spans}
+    if len(spans) != len(names) or set(by) != set(names):
+        raise AssertionError(f"{what}: spans {[s['name'] for s in spans]}")
+    if by[names[0]]["parent_id"] is not None:
+        raise AssertionError(f"{what}: {names[0]} has a parent")
+    for child, parent in zip(names[1:], names):
+        if by[child]["parent_id"] != by[parent]["span_id"]:
+            raise AssertionError(f"{what}: {child} is not under {parent}")
+
+
+def _http_observed(port, scrape0, traces, n_requests, launches,
+                   n_forwards, sizes, cfg):
+    """After the traced HTTP burst: /metrics parses and counts every
+    request and record; every request's trace holds its http.predict."""
+    from analytics_zoo_tpu_torch import observability as obs
+    ok_key = ("zoo_http_requests_total", '{route="/predict",code="200"}')
+    rec_key = ("zoo_serving_records_total", "")
+    scrape1, records = _moved(port, scrape0, rec_key, n_requests)
+    answered = scrape1.get(ok_key, 0.0) - scrape0.get(ok_key, 0.0)
+    fill = ("zoo_serving_batch_fill_ratio_count", "")
+    dispatches = scrape1.get(fill, 0.0) - scrape0.get(fill, 0.0)
+    tracer = obs.get_tracer()
+    chains, predict_spans = 0, 0
+    for ctx in traces.values():
+        names = [s["name"] for s in tracer.export(trace_id=ctx[0])]
+        predict_spans += names.count("http.predict")
+        chains += {"serving.decode", "serving.dispatch",
+                   "serving.sink"} <= set(names)
+    log(f"[http] /metrics ({len(scrape1)} series) over the traced burst: "
+        f"zoo_http_requests_total{{/predict, 200}} +{answered:g}, "
+        f"zoo_serving_records_total +{records:g}, dispatches +"
+        f"{dispatches:g} ({n_forwards} forwards, {len(sizes)} batches); "
+        f"{n_requests} X-Zoo-Trace contexts, {predict_spans} http.predict "
+        f"spans under them, {chains} carrying the engine's chain (a "
+        f"coalesced entry carries its first record's trace)")
+    if (answered, records) != (n_requests, n_requests):
+        raise AssertionError("the registry's request / record counts "
+                             "disagree with the burst")
+    if predict_spans != n_requests or not chains:
+        raise AssertionError("a traced request lost its spans")
+    if launches != cfg["n_block"] * dispatches:
+        raise AssertionError(f"{launches} flash_fwd launches for "
+                             f"{dispatches} dispatches in the registry")
+
+
+def _sampled_chains(port, reqs, uris):
+    """Four requests one at a time (JSON, then fast-wire, in turn), each
+    with its own X-Zoo-Trace: the answer echoes the trace, and its spans
+    are exactly http.predict -> serving.decode -> serving.dispatch ->
+    serving.sink.  Returns the answers."""
+    import http.client
+
+    from analytics_zoo_tpu_torch import observability as obs
+    from analytics_zoo_tpu_torch.serving.codec import (
+        decode_items_bytes, encode_items_bytes)
+    names = ("http.predict", "serving.decode", "serving.dispatch",
+             "serving.sink")
+    out = {}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        for i, uri in enumerate(uris):
+            ctx = obs.new_trace_context()
+            hdr = {"X-Zoo-Trace": obs.encode_trace_context(ctx),
+                   "X-Zoo-Uri": f"sampled-{uri}"}
+            if i % 2:
+                hdr["Content-Type"] = "application/x-zoo-fastwire"
+                body = encode_items_bytes(reqs[uri])
+            else:
+                hdr["Content-Type"] = "application/json"
+                body = json.dumps({"uri": f"sampled-{uri}", "inputs": {
+                    n: v.tolist() for n, v in reqs[uri].items()}})
+            conn.request("POST", "/predict", body, hdr)
+            resp = conn.getresponse()
+            blob = resp.read()
+            echo = obs.decode_trace_context(resp.headers.get("X-Zoo-Trace"))
+            if resp.status != 200 or echo is None or echo[0] != ctx[0]:
+                raise AssertionError(f"sampled {uri}: {resp.status}, "
+                                     f"X-Zoo-Trace {ctx} -> {echo}")
+            out[uri] = (decode_items_bytes(blob)["prediction"] if i % 2
+                        else np.asarray(json.loads(blob)["prediction"],
+                                        np.float32))
+            spans = _spans_of(port, ctx[0], names)
+            _check_chain(spans, names, f"sampled request {uri}")
+            if spans[0]["trace_id"] != ctx[0] or not any(
+                    s["span_id"] == echo[1] and s["name"] == names[0]
+                    for s in spans):
+                raise AssertionError(f"sampled {uri}: the echo {echo} is "
+                                     f"not its http.predict span")
+    finally:
+        conn.close()
+    log(f"[http] 4 sampled requests (2 JSON, 2 fast-wire), each alone: "
+        f"X-Zoo-Trace echoed, /spans?trace_id= exactly {' -> '.join(names)}"
+        f" linked parent to child")
+    return out
+
+
+def _obs_serving(port, broker, reqs, uris, n=8):
+    """One planned ``raise`` at ``device_execute`` on the pipelined
+    BERT-base engine: the batch it hits (``n`` records in one client
+    batch) fails whole, the flight-recorder dump served by
+    /debug/flightrecorder holds the faulted serving.dispatch with its
+    injection event, and the next requests are served (their answers are
+    returned, to hold against the plain attention)."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch import observability as obs
+    from analytics_zoo_tpu_torch.serving.client import (
+        InputQueue, OutputQueue, ServingError)
+    from analytics_zoo_tpu_torch.testing import chaos
+    t0 = time.perf_counter()
+    rec_dir = tempfile.mkdtemp(prefix="zoo-smoke-fr-")
+    obs.configure_flight_recorder(dir=rec_dir)
+    iq, oq = InputQueue(broker=broker), OutputQueue(broker=broker)
+    names = list(reqs[uris[0]])
+    try:
+        inj = chaos.ChaosInjector().plan("device_execute", times=1)
+        failed = []
+        with chaos.installed(inj):
+            iq.enqueue_batch([f"fault-{u}" for u in uris[:n]], **{
+                k: np.stack([reqs[u][k] for u in uris[:n]]) for k in names})
+            for u in uris[:n]:
+                try:
+                    oq.query_blocking(f"fault-{u}", timeout=300)
+                except ServingError:
+                    failed.append(u)
+        status, body = _get(port, "/debug/flightrecorder")
+        dumps = [d for d in json.loads(body)["dumps"]
+                 if d["reason"] == "chaos"]
+        if status != 200 or len(dumps) != 1:
+            raise AssertionError(f"/debug/flightrecorder: {status} {body!r}")
+        status, body = _get(port, "/debug/flightrecorder?name="
+                            + dumps[0]["file"])
+        dump = json.loads(body)
+        sp = dump["active_span"] or {}
+        after = {}
+        for u in uris[:n]:
+            iq.enqueue(f"after-{u}", **reqs[u])
+        for u in uris[:n]:
+            after[u] = oq.query_blocking(f"after-{u}", timeout=300)
+    finally:
+        obs.configure_flight_recorder()
+        shutil.rmtree(rec_dir, ignore_errors=True)
+    log(f"[obs] device_execute raise planned once on the pipelined "
+        f"BERT-base engine: fired {inj.injected('device_execute')} of "
+        f"{inj.count('device_execute')} calls, {len(failed)}/{n} records of "
+        f"the client batch failed; /debug/flightrecorder: 1 chaos dump "
+        f"({dump['detail']}), active span {sp.get('name')} "
+        f"{sp.get('attrs')} events {[e[1] for e in sp.get('events', [])]}"
+        f", {len(dump['spans'])} recent spans; the next {n} served "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if (len(failed) != n or inj.injected("device_execute") != 1
+            or inj.count("device_execute") != 1):
+        raise AssertionError("the device_execute fault did not fail "
+                             "exactly its batch")
+    if (dump["detail"] != "device_execute:raise"
+            or sp.get("name") != "serving.dispatch"
+            or (sp.get("attrs") or {}).get("records") != n
+            or [e[1] for e in sp.get("events", [])] != ["chaos.raise"]):
+        raise AssertionError(f"the chaos dump: {dump['detail']}, {sp}")
+    if any(v is None for v in after.values()):
+        raise AssertionError("a request after the fault was not served")
+    return after
+
+
 def _http_bert(cfg, n_requests, threads):
     """BERT-base behind the pipelined ClusterServing and ServingFrontend:
     a pipelined burst through the broker, then the same requests over HTTP
@@ -3408,6 +3802,7 @@ def _http_bert(cfg, n_requests, threads):
     import http.client
     from concurrent.futures import ThreadPoolExecutor
 
+    from analytics_zoo_tpu_torch import observability as obs
     from analytics_zoo_tpu_torch.common.config import ServingConfig
     from analytics_zoo_tpu_torch.inference import InferenceModel
     from analytics_zoo_tpu_torch.keras.layers.self_attention import (
@@ -3470,42 +3865,86 @@ def _http_bert(cfg, n_requests, threads):
             log(f"[http] a malformed frame: 400 {bad[1][:60]!r}; the next "
                 f"request on that connection: {after_bad}")
 
-            def client(k):
+            def client(k, tag, out, lat, traces):
+                """Closed-loop requests, half JSON, half fast-wire; with
+                ``traces``, each carries a fresh X-Zoo-Trace and the
+                JSON answers must echo it."""
                 conn = http.client.HTTPConnection("127.0.0.1", fe.port,
                                                   timeout=300)
                 with FastWireHttpClient(port=fe.port, timeout=300) as fw:
                     for i in range(k, n_requests, threads):
-                        uri, t = uris[i], time.perf_counter()
+                        uri, t = tag + uris[i], time.perf_counter()
+                        ctx = None
+                        if traces is not None:
+                            ctx = obs.new_trace_context()
+                            traces[uri] = ctx
+                        wire = ctx and obs.encode_trace_context(ctx)
                         if i % 2:
-                            served[uri] = fw.predict(uri=uri, **reqs[uri])
+                            out[uris[i]] = fw.predict(
+                                uri=uri, trace_ctx=wire, **reqs[uris[i]])
                         else:
+                            hdr = {"Content-Type": "application/json"}
+                            if wire:
+                                hdr["X-Zoo-Trace"] = wire
                             conn.request("POST", "/predict", json.dumps(
                                 {"uri": uri, "inputs": {
                                     n: v.tolist()
-                                    for n, v in reqs[uri].items()}}),
-                                {"Content-Type": "application/json"})
+                                    for n, v in reqs[uris[i]].items()}}),
+                                hdr)
                             resp = conn.getresponse()
                             body = json.loads(resp.read())
                             if resp.status != 200 or body["uri"] != uri:
                                 raise AssertionError(f"{uri}: {resp.status} "
                                                      f"{body}")
-                            served[uri] = np.asarray(body["prediction"],
-                                                     np.float32)
+                            echo = obs.decode_trace_context(
+                                resp.headers.get("X-Zoo-Trace"))
+                            if ctx is not None and (
+                                    echo is None or echo[0] != ctx[0]):
+                                raise AssertionError(
+                                    f"{uri}: X-Zoo-Trace {ctx} answered "
+                                    f"with {echo}")
+                            out[uris[i]] = np.asarray(body["prediction"],
+                                                      np.float32)
                         lat[uri] = (time.perf_counter() - t) * 1e3
                 conn.close()
 
+            def burst_over_http(tag, out, lat, traces=None):
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(threads) as pool:
+                    for f in [pool.submit(client, k, tag, out, lat, traces)
+                              for k in range(threads)]:
+                        f.result()
+                return time.perf_counter() - t0
+
+            obs.get_tracer().clear()
+            scrape0 = _scrape(fe.port)
             _kernels.reset_launches()
             forwards[0] = 0
             del sizes[:]
-            t0 = time.perf_counter()
-            with ThreadPoolExecutor(threads) as pool:
-                for f in [pool.submit(client, k) for k in range(threads)]:
-                    f.result()
-            http_s = time.perf_counter() - t0
+            traces = {}
+            http_s = burst_over_http("", served, lat, traces)
             torch.cuda.synchronize()
             launches, n_forwards = _kernels.flash_fwd.launches, forwards[0]
             http_sizes = list(sizes)
             no_copies("http")
+            _http_observed(fe.port, scrape0, traces, n_requests,
+                           launches, n_forwards, http_sizes, cfg)
+            sampled = _sampled_chains(fe.port, reqs, uris[:4])
+            # the same burst with observability off: the rates beside the
+            # traced run's, no bar held
+            obs.set_enabled(False)
+            try:
+                off_lat = {}
+                off_s = burst_over_http("off-", {}, off_lat)
+                t0 = time.perf_counter()
+                for uri in uris:
+                    iq.enqueue(f"off-burst-{uri}", **reqs[uri])
+                for uri in uris:
+                    oq.query_blocking(f"off-burst-{uri}", timeout=300)
+                off_burst_s = time.perf_counter() - t0
+            finally:
+                obs.set_enabled(True)
+            faulted = _obs_serving(fe.port, broker, reqs, uris)
         finally:
             fe.stop()
     finally:
@@ -3524,6 +3963,12 @@ def _http_bert(cfg, n_requests, threads):
         f"{n_requests / http_s:.2f} req/s, latency p50 {_pct(list(lat.values()), 50):.3f} "
         f"ms, p99 {_pct(list(lat.values()), 99):.3f} ms; dispatched batches "
         f"{http_sizes}")
+    off_lats = list(off_lat.values())
+    log(f"[http] observability on / off ({card_line()}): over HTTP "
+        f"{n_requests / http_s:.2f} / {n_requests / off_s:.2f} req/s, p50 "
+        f"{_pct(list(lat.values()), 50):.3f} / {_pct(off_lats, 50):.3f} ms; "
+        f"the pipelined burst through the broker {n_requests / burst_s:.2f}"
+        f" / {n_requests / off_burst_s:.2f} req/s (one run each, no bar)")
     log(f"[http] flash_fwd launches {launches} in {n_forwards} dispatched "
         f"forwards = {launches / max(n_forwards, 1):g} per forward")
     if (n_forwards != len(http_sizes)
@@ -3542,11 +3987,17 @@ def _http_bert(cfg, n_requests, threads):
     got_burst = np.stack([np.asarray(burst[u]).ravel() for u in uris])
     err = float(np.abs(got - want).max())
     err_burst = float(np.abs(got_burst - want).max())
+    err_sampled = float(np.abs(np.stack([
+        np.asarray(sampled[u]).ravel() for u in uris[:4]]) - want[:4]).max())
+    err_after = float(np.abs(np.stack([
+        np.asarray(faulted[u]).ravel() for u in uris[:8]]) - want[:8]).max())
     ok = (got.shape == (n_requests, 2) and np.isfinite(got).all()
-          and max(err, err_burst) <= SERVE_ATOL)
+          and max(err, err_burst, err_sampled, err_after) <= SERVE_ATOL)
     log(f"[http] answers vs plain attention on the card: max_abs_err "
-        f"{err:.3e} over HTTP, {err_burst:.3e} through the broker (tol "
-        f"{SERVE_ATOL:g}) -> {'ok' if ok else 'FAIL'}")
+        f"{err:.3e} over HTTP, {err_burst:.3e} through the broker, "
+        f"{err_sampled:.3e} for the 4 sampled, {err_after:.3e} for the 8 "
+        f"after the device_execute fault (tol {SERVE_ATOL:g}) -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("HTTP answers disagree with the plain path")
     return launches, dict(
@@ -3555,18 +4006,110 @@ def _http_bert(cfg, n_requests, threads):
         p99_ms=_pct(list(lat.values()), 99), batches=http_sizes)
 
 
-def _stream(fw, toks, new_tokens, uri):
+def _stream(fw, toks, new_tokens, uri, trace_ctx=None):
     """One streamed generation: (tokens, ms to the first frame, ms between
     frames); the frames must come one per token, in order."""
     t0 = time.perf_counter()
     stamps, tokens = [], []
-    for k, tok in fw.generate(toks, uri=uri, max_new_tokens=new_tokens):
+    for k, tok in fw.generate(toks, uri=uri, max_new_tokens=new_tokens,
+                              trace_ctx=trace_ctx):
         stamps.append(time.perf_counter())
         if k != len(tokens):
             raise AssertionError(f"{uri}: frame {k} after {len(tokens)}")
         tokens.append(tok)
     gaps = np.diff(stamps) * 1e3
     return tokens, (stamps[0] - t0) * 1e3, gaps.tolist()
+
+
+def _llm_observed(port, eng, scrape0, traces, sampled, n_tokens,
+                  new_tokens):
+    """After the traced streams: two streams' traces are http.generate ->
+    llm.prefill with one llm.token event per token; /metrics counts the
+    tokens; /debug/memory's kv_blocks books equal the blocks held and sit
+    within what the allocator holds, and its device section within the
+    card's memory."""
+    from analytics_zoo_tpu_torch import observability as obs
+    tracer = obs.get_tracer()
+    for uri in sampled:
+        tid = traces[uri][0]
+        spans = _spans_of(port, tid, ("http.generate", "llm.prefill"))
+        gen = [s for s in spans if s["name"] == "http.generate"]
+        pre = [s for s in spans if s["name"] == "llm.prefill"]
+        tokens = [e for e in tracer.export_events(trace_id=tid)
+                  if e["kind"] == "llm.token"]
+        log(f"[http] stream {uri}: spans {[s['name'] for s in spans]}, "
+            f"{len(tokens)} llm.token events")
+        if (len(gen) != 1 or not pre or len(spans) != 1 + len(pre)
+                or any(s["parent_id"] != gen[0]["span_id"] for s in pre)
+                or [e["attrs"]["idx"] for e in tokens]
+                != list(range(new_tokens))):
+            raise AssertionError(f"stream {uri}: spans {spans}, "
+                                 f"{len(tokens)} token events")
+    key = ("zoo_llm_tokens_total", "")
+    _, moved = _moved(port, scrape0, key, n_tokens)
+    status, body = _get(port, "/debug/memory?topk=4")
+    mem = json.loads(body)
+    pool = mem["pools"]["kv_blocks"]
+    devs = mem["devices"]
+    allocated = torch.cuda.memory_allocated()
+    held = eng.cache.pool.blocks_in_use
+    log(f"[http] /metrics: zoo_llm_tokens_total +{moved:g} for {n_tokens} "
+        f"streamed tokens; /debug/memory kv_blocks: {pool['blocks']} blocks"
+        f" ({held} held by the pool) x {eng.cache.block_bytes:,} B = "
+        f"{pool['used_bytes']:,} B used of {pool['capacity_bytes']:,} B, "
+        f"owners {pool['owners']}; torch.cuda.memory_allocated "
+        f"{allocated:,} B; devices {devs}")
+    if moved != n_tokens:
+        raise AssertionError(f"zoo_llm_tokens_total moved {moved}, "
+                             f"{n_tokens} tokens were streamed")
+    if (status != 200 or pool["blocks"] != held
+            or pool["used_bytes"] != held * eng.cache.block_bytes
+            or pool["used_bytes"] > allocated):
+        raise AssertionError(f"/debug/memory kv_blocks: {pool}")
+    if not devs or any(d["bytes_in_use"] > d["bytes_limit"] for d in devs):
+        raise AssertionError(f"/debug/memory devices: {devs}")
+
+
+def _obs_llm(eng, reqs, uris, new_tokens):
+    """One planned ``raise`` at ``decode_step`` while ``len(uris)``
+    sequences decode: each finishes with ``error``; then no table is
+    left, the ledger's sweep reads clean and a new request is served."""
+    from analytics_zoo_tpu_torch import observability as obs
+    from analytics_zoo_tpu_torch.llm import GenerationClient
+    from analytics_zoo_tpu_torch.serving.client import ServingError
+    from analytics_zoo_tpu_torch.testing import chaos
+    t0 = time.perf_counter()
+    cli = GenerationClient(broker=eng.broker)
+    streams = {}
+    for u in uris:
+        cli.submit(f"obs-{u}", reqs[u], new_tokens)
+        streams[u] = cli.stream_tokens(f"obs-{u}", timeout=300)
+    for s in streams.values():
+        next(s)                       # every sequence is decoding
+    inj = chaos.ChaosInjector().plan("decode_step", times=1)
+    errors = 0
+    with chaos.installed(inj):
+        for s in streams.values():
+            try:
+                for _ in s:
+                    pass
+            except ServingError:
+                errors += 1
+    _wait_idle(eng)
+    leak = eng.cache.leak_check()
+    sweep = obs.get_memory_ledger().reconcile_once()
+    after = cli.generate("obs-after", reqs[uris[0]], 4, timeout=300)
+    log(f"[obs] decode_step raise planned once with {len(uris)} sequences "
+        f"decoding: fired {inj.injected('decode_step')}, {errors}/"
+        f"{len(uris)} finished with an error; after: {leak}, the ledger's "
+        f"sweep {sweep or 'clean'}; the next request served "
+        f"{len(after)} tokens ({time.perf_counter() - t0:.2f} s)")
+    if inj.injected("decode_step") != 1 or errors != len(uris):
+        raise AssertionError("the decode_step fault did not error its "
+                             "step's sequences")
+    if leak["tables"] or leak["held_blocks"] or sweep or len(after) != 4:
+        raise AssertionError(f"after the decode_step fault: {leak}, "
+                             f"{sweep}, {after}")
 
 
 def _http_llm(n_requests, new_tokens, threads):
@@ -3576,6 +4119,7 @@ def _http_llm(n_requests, new_tokens, threads):
     from concurrent.futures import ThreadPoolExecutor
 
     from analytics_zoo_tpu_torch import interop
+    from analytics_zoo_tpu_torch import observability as obs
     from analytics_zoo_tpu_torch.common.config import LLMServingConfig
     from analytics_zoo_tpu_torch.llm import GenerationClient, LLMServing
     from analytics_zoo_tpu_torch.models.generation import DecoderLM
@@ -3597,6 +4141,7 @@ def _http_llm(n_requests, new_tokens, threads):
     reqs = _llm_requests(n_requests, rng, cfg["vocab"])
     uris = list(reqs)
     calls = {"decode": 0, "prefill_chunk": 0}
+    traces = {}
 
     def counted(name):
         inner = getattr(model, name)
@@ -3623,8 +4168,10 @@ def _http_llm(n_requests, new_tokens, threads):
         with FastWireHttpClient(port=port, timeout=300) as fw:
             for i in range(k, n_requests, threads):
                 uri = uris[i]
-                out[uri], ttft[uri], gaps = _stream(fw, reqs[uri],
-                                                    new_tokens, uri)
+                traces[uri] = obs.new_trace_context()
+                out[uri], ttft[uri], gaps = _stream(
+                    fw, reqs[uri], new_tokens, uri,
+                    obs.encode_trace_context(traces[uri]))
                 itl.extend(gaps)
 
     def run(fn, *args):
@@ -3644,6 +4191,8 @@ def _http_llm(n_requests, new_tokens, threads):
         via_http, http_ttft, itl = {}, {}, []
         model.decode = counted("decode")
         model.prefill_chunk = counted("prefill_chunk")
+        obs.get_tracer().clear()
+        scrape0 = _scrape(fe.port)
         _kernels.reset_launches()
         t0 = time.perf_counter()
         run(http_client, via_http, http_ttft, itl, fe.port)
@@ -3655,6 +4204,9 @@ def _http_llm(n_requests, new_tokens, threads):
         no_copies("http")
         for name in calls:
             model.__dict__.pop(name, None)
+        _llm_observed(fe.port, eng, scrape0, traces, uris[:2],
+                      n_requests * new_tokens, new_tokens)
+        _obs_llm(eng, reqs, uris[:4], new_tokens)
         # a deadline too short for the first token: 504, then the same
         # client serves the next request
         with FastWireHttpClient(port=fe.port, timeout=300) as fw:

@@ -213,3 +213,33 @@ def test_mixed_precision_keeps_statistics_and_masters_f32(dev, losses, spd):
         assert np.isfinite(bf16).all() and len(bf16) == len(f32) == 8
         # bf16 activations: the first loss within bf16 rounding of f32's
         assert abs(bf16[0] - f32[0]) <= 2e-2 * abs(f32[0]), name
+
+
+def _cnn_run(spd, x, y, tree, losses):
+    engine.reset_uids()
+    net = FAMILIES["text-cnn"][0]("cuda")
+    net.set_weights(tree)
+    net.compile(O.Adagrad(lr=0.01), "sparse_categorical_crossentropy")
+    fs = FeatureSet.from_ndarrays(x, y, shuffle=False).cache_device(
+        shuffle_batches=False)
+    net.fit(fs, batch_size=32, nb_epoch=2, steps_per_dispatch=spd)
+    return _flat(losses), net
+
+
+def test_conv_text_graph_replays_repeat_eager_steps_exactly(dev, losses):
+    # cuDNN's default weight-gradient algorithms sum in an order that
+    # changes from call to call; the estimator runs its deterministic ones,
+    # so 8 Adagrad steps through the graph equal 8 eager steps to the bit
+    x, y = _data("text", 128)
+    engine.reset_uids()
+    ref = FAMILIES["text-cnn"][0]("cpu")
+    ref.init(torch.Generator().manual_seed(0))
+    tree = ref.get_weights()
+    graph_losses, graph = _cnn_run(4, x, y, tree, losses)
+    eager_losses, eager = _cnn_run(1, x, y, tree, losses)
+    assert len(graph_losses) == len(eager_losses) == 8
+    np.testing.assert_array_equal(graph_losses, eager_losses)
+    for (k, a), b in zip(graph.state_dict().items(),
+                         eager.state_dict().values()):
+        assert torch.equal(a, b), k
+    assert not torch.backends.cudnn.deterministic

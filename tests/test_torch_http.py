@@ -9,7 +9,8 @@ and fast-wire answers of one frontend must be equal.  Then the port's
 frontend alone: 400 on a malformed frame or body, 429 with an integer
 ``Retry-After`` on a shed, 504 on an expired deadline, each followed by a
 request served on the same keep-alive connection; the coalescer on and
-off; the ``uri`` echo; the routes that are not ported answering 501.
+off; the ``uri`` echo; the observability routes (``/metrics``,
+``/spans``, ``/debug/*``) and the routes that are not ported answering 501.
 No more than 4 client threads; every server stops in a ``finally``.
 """
 
@@ -317,14 +318,22 @@ def test_get_routes_and_the_unported_ones():
     conn = served.conn()
     try:
         for path, code in (("/", 200), ("/metrics.json", 200),
-                           ("/metrics", 501), ("/spans", 501),
-                           ("/debug/flightrecorder", 501), ("/nowhere", 404)):
+                           ("/spans", 200), ("/spans?limit=x", 400),
+                           ("/debug/memory?local=1", 200),
+                           ("/debug/memory?topk=-1", 400),
+                           ("/debug/flightrecorder", 200),
+                           ("/debug/flightrecorder?name=../x", 404),
+                           ("/nowhere", 404)):
             conn.request("GET", path)
             resp = conn.getresponse()
             body = json.loads(resp.read())
             assert resp.status == code, (path, body)
-            if code == 501:
-                assert "Queue 1 item 6" in body["error"]
+        conn.request("GET", "/metrics?local=1")
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        assert resp.status == 200
+        assert resp.headers["Content-Type"].startswith("text/plain")
+        assert "# TYPE zoo_http_requests_total counter" in text
         conn.request("GET", "/metrics.json")
         assert "records_processed" in json.loads(conn.getresponse().read())
         frame = encode_items_bytes({"x": X})

@@ -56,7 +56,11 @@ def test_no_module_of_the_port_imports_jax():
                  "models.textclassification", "models.anomalydetection",
                  "models.imageclassification", "autograd",
                  "estimator.local_estimator", "models.textmatching",
-                 "models.seq2seq", "data.tfrecord"):
+                 "models.seq2seq", "data.tfrecord", "observability",
+                 "observability.metrics", "observability.tracing",
+                 "observability.exposition", "observability.flight_recorder",
+                 "observability.memory", "observability.trace_cli",
+                 "testing", "testing.chaos"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 

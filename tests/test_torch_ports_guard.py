@@ -58,7 +58,10 @@ FILES = sorted(p for p in glob.glob(os.path.join(HERE, "test_torch_*.py"))
 def test_the_port_tests_are_read():
     names = {os.path.basename(p) for p in FILES}
     assert {"test_torch_http.py", "test_torch_http_llm.py",
-            "test_torch_pipelined_serving.py"} <= names
+            "test_torch_pipelined_serving.py",
+            "test_torch_trace_propagation.py", "test_torch_chaos.py",
+            "test_torch_memory_ledger.py",
+            "test_torch_observability.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=os.path.basename)

@@ -271,6 +271,48 @@ def test_the_heads_autograd_and_feeds_are_walked():
         assert f"tfpark.tf_dataset.TFDataset.{name}" in STUBS
 
 
+def test_observability_and_chaos_are_walked():
+    """The observability modules and the chaos harness are compared with
+    their JAX namesakes, and none of them is a stub."""
+    from analytics_zoo_tpu import observability as jobs
+    names = [f"observability.{n}" for n in (
+        "counter", "gauge", "histogram", "set_enabled", "lazy_counter",
+        "lazy_gauge", "lazy_histogram", "install_health_gauges",
+        "install_jax_compile_hook")]
+    names += [f"observability.metrics.{n}" for n in (
+        "MetricsRegistry.__init__", "MetricsRegistry.counter",
+        "MetricsRegistry.histogram", "MetricsRegistry.snapshot",
+        "MetricsRegistry.register_collector", "default_buckets",
+        "get_registry", "set_registry")]
+    names += [f"observability.tracing.{n}" for n in (
+        "Tracer.__init__", "Tracer.span", "Tracer.add_event",
+        "Tracer.export", "Tracer.export_events", "encode_trace_context",
+        "decode_trace_context", "new_trace_context", "chrome_trace",
+        "span", "add_event", "current_span", "get_tracer")]
+    names += [f"observability.exposition.{n}" for n in (
+        "render", "render_snapshot", "dump")]
+    names += [f"observability.flight_recorder.{n}" for n in (
+        "FlightRecorder.__init__", "FlightRecorder.trigger",
+        "FlightRecorder.list_dumps", "FlightRecorder.read_dump", "get",
+        "configure")]
+    names += [f"observability.memory.{n}" for n in (
+        "MemoryLedger.__init__", "MemoryLedger.register",
+        "MemoryLedger.snapshot", "MemoryLedger.reconcile_once",
+        "MemoryLedger.sample_once", "MemoryLedger.on_pressure",
+        "merge_memory_snapshots", "device_memory_stats", "get_ledger",
+        "configure")]
+    names += ["observability.trace_cli.main"]
+    names += [f"testing.chaos.{n}" for n in (
+        "ChaosInjector.plan", "ChaosInjector.fire", "ChaosInjector.count",
+        "ChaosInjector.injected", "install", "uninstall", "installed",
+        "fire")]
+    missing = [n for n in names if n not in COMPARED]
+    assert not missing, missing
+    assert not [n for n in STUBS if n.startswith(("observability.",
+                                                   "testing."))]
+    assert "CONTENT_TYPE" in jobs.__all__
+
+
 @pytest.mark.parametrize("name", COMPARED)
 def test_parameters_match_the_jax_name(name):
     fn, jfn = next((f, jf) for n, f, jf in PAIRS if n == name)
@@ -347,6 +389,12 @@ def test_enqueue_unported_stamp_names_its_item(method, arg, item):
             ["a"], {"x": np.ones((1, 2))}, **kw),
         "enqueue_raw": lambda **kw: q.enqueue_raw(
             "a", encode_items_bytes({"x": np.ones(2)}), **kw)}[method]
+    if arg == "trace_ctx":
+        # item 6's trace context is ported: the stamp rides the entry as
+        # the JAX client writes it
+        call(trace_ctx="7-9")
+        assert _last_entry(broker)["trace_ctx"] == "7-9"
+        return
     with pytest.raises(NotImplementedError, match=f"{arg}=.*Queue 1 item "
                                                   f"{item}"):
         call(**{arg: "x"})
@@ -358,6 +406,13 @@ def test_enqueue_unported_stamp_names_its_item(method, arg, item):
                                       ("tenant", 1)])
 def test_http_predict_unported_stamp_names_its_item(arg, item):
     from analytics_zoo_tpu_torch.serving.client import FastWireHttpClient
+    if arg == "trace_ctx":
+        # ported: the context rides the X-Zoo-Trace header
+        headers = FastWireHttpClient._headers("u", None, "7-9")
+        assert headers["X-Zoo-Trace"] == "7-9"
+        assert "X-Zoo-Trace" not in FastWireHttpClient._headers(
+            "u", None, None)
+        return
     client = FastWireHttpClient(port=0)       # never connects: raises first
     with pytest.raises(NotImplementedError, match=f"{arg}=.*Queue 1 item "
                                                   f"{item}"):
@@ -377,29 +432,41 @@ def test_enqueue_takes_the_ambient_deadline():
 
 
 def test_generation_submit_trace_ctx_names_item_6():
+    # item 6's trace context is ported: an explicit context is stamped as
+    # given, and an unstamped submit gets a fresh one while tracing is on
+    from analytics_zoo_tpu_torch import observability as obs
     from analytics_zoo_tpu_torch.llm.client import GenerationClient
-    client = GenerationClient(broker=_Capture())
-    with pytest.raises(NotImplementedError, match="trace_ctx=.*item 6"):
-        client.submit("r", [1, 2, 3], trace_ctx="00-ab-cd-01")
+    broker = _Capture()
+    client = GenerationClient(broker=broker)
+    assert client.submit("r", [1, 2, 3], trace_ctx="00-ab-cd-01") == "r"
+    assert broker.entries[-1]["trace_ctx"] == "00-ab-cd-01"
     assert client.submit("r", [1, 2, 3], trace_ctx=None) == "r"
+    assert obs.decode_trace_context(
+        broker.entries[-1]["trace_ctx"]) is not None
 
 
 def test_admission_shed_trace_id_names_item_6():
+    # ported: the shed is journaled with the request's trace id
+    from analytics_zoo_tpu_torch import observability as obs
     from analytics_zoo_tpu_torch.common.resilience import AdmissionController
     ctl = AdmissionController(capacity=4)
-    with pytest.raises(NotImplementedError, match="trace_id=.*item 6"):
-        ctl.shed(1, trace_id=7)
+    ctl.shed(1, trace_id=7)
     ctl.shed(1)
-    assert ctl.shed_count == 1
+    assert ctl.shed_count == 2
+    ev = obs.get_tracer().export_events(trace_id=7)
+    assert [e["kind"] for e in ev][-1:] == ["shed"]
 
 
 def test_record_expired_trace_id_names_item_6():
+    # ported: the expiry is journaled with the request's trace id
+    from analytics_zoo_tpu_torch import observability as obs
     from analytics_zoo_tpu_torch.common import resilience
     before = resilience.expired_counts.get("surface", 0)
-    with pytest.raises(NotImplementedError, match="trace_id=.*item 6"):
-        resilience.record_expired(1, scope="surface", trace_id=7)
+    resilience.record_expired(1, scope="surface", trace_id=8)
     resilience.record_expired(2, scope="surface")
-    assert resilience.expired_counts["surface"] == before + 2
+    assert resilience.expired_counts["surface"] == before + 3
+    ev = obs.get_tracer().export_events(trace_id=8)
+    assert [e["kind"] for e in ev][-1:] == ["expired"]
 
 
 def test_trigger_state_has_a_score():
@@ -538,8 +605,8 @@ def _unported_calls():
         ("ClusterServing.tenancy",
          lambda: ClusterServing(None, tenancy=object()), "tenancy", 1),
         ("FastWireHttpClient.generate.trace_ctx",
-         lambda: FastWireHttpClient(port=0).generate([1], trace_ctx="t"),
-         "trace_ctx", 6),
+         lambda: FastWireHttpClient._headers(None, None, "t")[
+             "X-Zoo-Trace"] == "t", "trace_ctx", None),
         ("TFDataset.validation_featureset",
          lambda: TFDataset(None, batch_size=2, validation_featureset=x)
          .get_validation_data() is x, "validation_featureset", None),

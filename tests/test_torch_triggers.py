@@ -113,5 +113,22 @@ def test_timers_as_jax():
         t.reset()
         assert t.report() == {}
     assert isinstance(TTimer.default_timers(), TTimer.Timers)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TTimer.Timers(metrics_prefix="zoo_train")
+    # metrics_prefix records every observation into the registry as
+    # <prefix>_seconds{name=...}, as the JAX bridge does
+    from analytics_zoo_tpu import observability as jobs
+    from analytics_zoo_tpu_torch import observability as tobs
+    counts = []
+    for M, O in ((JTimer, jobs), (TTimer, tobs)):
+        prev = O.set_registry(O.MetricsRegistry())
+        try:
+            t = M.Timers(metrics_prefix="zoo_train")
+            for _ in range(2):
+                with t.time("train_step"):
+                    pass
+            snap = O.get_registry().snapshot()["zoo_train_seconds"]
+            counts.append((snap["kind"], {k: v["count"] for k, v
+                                          in snap["series"].items()}))
+        finally:
+            O.set_registry(prev)
+    assert counts[0] == counts[1] == (
+        "histogram", {(("name", "train_step"),): 2})
