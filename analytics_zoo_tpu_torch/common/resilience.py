@@ -13,7 +13,12 @@ import that module: every ``analytics_zoo_tpu`` import loads jax):
 
 - ``RetryPolicy`` / ``RetryState``: bounded retry with decorrelated-jitter
   backoff, which the estimator's retry from the latest checkpoint runs
-  through.
+  through; ``is_transient_broker_error`` names the transport failures
+  worth a retry.
+- ``CircuitBreaker``: closed -> open -> half-open failure ejection, one
+  per registry model (``serving/model_zoo.py``) and per probed device
+  (``common/health.py``), with ``CircuitOpenError`` for callers that fail
+  fast.
 
 Counters and gauges land in the observability registry as the JAX
 module's do (``zoo_resilience_shed_total``, ``zoo_resilience_expired_total``,
@@ -23,8 +28,9 @@ expiry and retry is journaled as a trace event (``shed``, ``expired``,
 one.  Expired and shed work is also counted in plain integers
 (``expired_counts``, ``AdmissionController.shed_count``).
 
-Circuit breakers belong to parts not ported yet (the Redis broker and the
-model registry, ROADMAP Queue 1 item 1).
+Breakers export ``zoo_resilience_breaker_state`` /
+``zoo_resilience_breaker_transitions_total``, journal ``breaker.<state>``
+events and trigger a flight-recorder dump when they open.
 """
 
 from __future__ import annotations
@@ -39,10 +45,12 @@ from concurrent.futures import CancelledError
 from typing import Callable, Dict, Iterator, Optional, Tuple, Type
 
 from analytics_zoo_tpu_torch import observability as obs
+from analytics_zoo_tpu_torch.observability import flight_recorder
 
-__all__ = ["AdmissionController", "Deadline", "DeadlineExceeded",
-           "RetryPolicy", "RetryState", "current_deadline", "deadline_scope",
-           "expired_counts", "record_expired"]
+__all__ = ["AdmissionController", "CircuitBreaker", "CircuitOpenError",
+           "Deadline", "DeadlineExceeded", "RetryPolicy", "RetryState",
+           "current_deadline", "deadline_scope", "expired_counts",
+           "is_transient_broker_error", "record_expired"]
 
 _m_shed = obs.lazy_counter(
     "zoo_resilience_shed_total",
@@ -53,6 +61,12 @@ _m_expired = obs.lazy_counter(
 _m_retries = obs.lazy_counter(
     "zoo_resilience_retries_total",
     "retry attempts taken after a transient failure", ["scope"])
+_m_breaker_state = obs.lazy_gauge(
+    "zoo_resilience_breaker_state",
+    "circuit state: 0 closed, 1 half-open, 2 open", ["breaker"])
+_m_breaker_trans = obs.lazy_counter(
+    "zoo_resilience_breaker_transitions_total",
+    "circuit state transitions", ["breaker", "to"])
 
 
 class DeadlineExceeded(RuntimeError):
@@ -260,6 +274,16 @@ def record_expired(n: int = 1, scope: str = "serving",
 
 # ---- retry ----------------------------------------------------------------
 
+def is_transient_broker_error(exc: BaseException) -> bool:
+    """Transient transport failures worth retrying against a broker: the
+    builtin connection / timeout errors and redis-py's (matched by class
+    name, so redis stays an optional import)."""
+    if isinstance(exc, (ConnectionError, TimeoutError)):
+        return True
+    name = type(exc).__name__
+    return name in ("ConnectionError", "TimeoutError", "BusyLoadingError",
+                    "ClusterDownError")
+
 
 class RetryPolicy:
     """Bounded retry with decorrelated-jitter exponential backoff.
@@ -369,3 +393,147 @@ class RetryState:
             cancel.wait(delay)
         else:
             time.sleep(delay)
+
+
+# ---- circuit breaker ------------------------------------------------------
+
+class CircuitOpenError(RuntimeError):
+    """Raised by callers that fail fast on an open circuit."""
+
+
+#: gauge encoding of breaker states
+_STATE_CODE = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+
+
+class CircuitBreaker:
+    """Closed -> open -> half-open -> closed failure ejection.
+
+    CLOSED counts consecutive failures; at ``failure_threshold`` the
+    circuit OPENS and ``allow()`` fails fast.  After ``recovery_s`` the
+    next ``allow()`` moves to HALF-OPEN and grants up to
+    ``half_open_probes`` trial units: one success closes the circuit, one
+    failure re-opens it (and restarts the recovery clock).  Thread-safe;
+    ``clock`` is injectable for deterministic tests."""
+
+    def __init__(self, name: str, failure_threshold: int = 3,
+                 recovery_s: float = 5.0, half_open_probes: int = 1,
+                 clock: Callable[[], float] = time.monotonic):
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        self.name = name
+        self.failure_threshold = int(failure_threshold)
+        self.recovery_s = float(recovery_s)
+        self.half_open_probes = max(1, int(half_open_probes))
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = "closed"
+        self._failures = 0
+        self._opened_at = 0.0
+        self._probes_left = 0
+        _m_breaker_state.labels(breaker=name).set(0.0)
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            # the pending open -> half_open flip shows as soon as the
+            # recovery window has passed, not only after the next allow()
+            if (self._state == "open"
+                    and self._clock() - self._opened_at >= self.recovery_s):
+                return "half_open"
+            return self._state
+
+    def _transition(self, to: str) -> None:
+        # lock held by the caller: metrics and journal only (the
+        # flight-recorder dump on -> open happens after release)
+        if to == self._state:
+            return
+        self._state = to
+        _m_breaker_state.labels(breaker=self.name).set(_STATE_CODE[to])
+        _m_breaker_trans.labels(breaker=self.name, to=to).inc()
+        obs.add_event("breaker." + to, span=None, breaker=self.name)
+
+    @property
+    def admissible(self) -> bool:
+        """May regular (non-probe) work be placed?  True only when closed;
+        reading it never consumes the probe budget (what a scheduler
+        consults on a breaker someone else feeds)."""
+        return self.state == "closed"
+
+    def allow(self) -> bool:
+        """May one unit of work go through now?  After an ``allow()`` in
+        half-open the caller must report ``record_success`` /
+        ``record_failure``, or the probe budget stays consumed."""
+        with self._lock:
+            if self._state == "closed":
+                return True
+            now = self._clock()
+            if self._state == "open":
+                if now - self._opened_at < self.recovery_s:
+                    return False
+                self._transition("half_open")
+                self._probes_left = self.half_open_probes
+            if self._probes_left > 0:
+                self._probes_left -= 1
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            if self._state != "closed":
+                self._transition("closed")
+
+    def reset(self) -> None:
+        """Forget the failure history and close the circuit."""
+        with self._lock:
+            self._failures = 0
+            self._probes_left = 0
+            self._opened_at = 0.0
+            if self._state != "closed":
+                self._transition("closed")
+
+    def record_failure(self) -> None:
+        opened = False
+        with self._lock:
+            if self._state == "half_open":
+                # the probe failed: re-eject and restart the clock
+                self._opened_at = self._clock()
+                self._transition("open")
+                opened = True
+            else:
+                self._failures += 1
+                if (self._state == "closed"
+                        and self._failures >= self.failure_threshold):
+                    self._opened_at = self._clock()
+                    self._transition("open")
+                    opened = True
+        if opened:
+            # outside the lock; rate-limited per breaker, so a device that
+            # re-opens on every probe keeps the first incident's dump
+            flight_recorder.get().trigger("breaker_open",
+                                          detail=self.name,
+                                          min_interval_s=30.0)
+
+    def guard(self, what: str = "call"):
+        """Context manager: raises ``CircuitOpenError`` when the circuit
+        rejects, records success / failure from the block."""
+        return _BreakerGuard(self, what)
+
+
+class _BreakerGuard:
+    def __init__(self, breaker: CircuitBreaker, what: str):
+        self._b = breaker
+        self._what = what
+
+    def __enter__(self):
+        if not self._b.allow():
+            raise CircuitOpenError(
+                f"circuit {self._b.name!r} is open; rejecting {self._what}")
+        return self._b
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self._b.record_success()
+        elif not issubclass(exc_type, CircuitOpenError):
+            self._b.record_failure()
+        return False

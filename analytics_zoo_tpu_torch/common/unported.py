@@ -12,16 +12,12 @@ from typing import Optional
 
 #: ROADMAP Queue 1 items, by the number the messages cite
 QUEUE_ITEMS = {
-    1: "ROADMAP Queue 1 item 1: the rest of serving, with multi-model "
-       "routing (ModelRegistry, InferenceModel.place / unplace, "
-       "reserved=), tenancy and capacity, BatchingService, server-side "
-       "image decode, the Redis / native / fleet brokers, the journaled "
-       "broker and common/health.py",
+    1: "ROADMAP Queue 1 item 1: the rest of serving, with "
+       "BatchingService, the Redis, native-queue, fleet and journaled "
+       "brokers, common/wal.py and server-side image decode",
     2: "ROADMAP Queue 1 item 2: the rest of training, with the "
        "TrainConfig fields failure_retry_window_sec, donate_state and "
        "rng_impl, and loading a KerasNet file the JAX package wrote",
-    3: "ROADMAP Queue 1 item 3: the rest of data/, with the sharded "
-       "sources (data/sharded.py) and the transforms (data/transforms.py)",
     5: "ROADMAP Queue 1 item 5: the rest of parallel/, with sharded "
        "models, model-parallel serving and multi-process bring-up",
     6: "ROADMAP Queue 1 item 6: the rest, with net/ (torch.optim and "

@@ -22,14 +22,13 @@ The sources: ndarrays, a DataFrame (duck-typed: ``toPandas`` or
 window shuffle) and slice files (``DiskFeatureSet``: ``.npz`` files with
 one ``f{j}`` / ``l{j}`` key per leaf, in ``jax.tree_util``'s leaf order,
 so the two packages read each other's slices).  ``from_sources`` picks the
-tier from a memory-type keyword.  The sharded sources are ROADMAP Queue 1
-item 3.
+tier from a memory-type keyword.  The sharded sources are in
+``data/sharded.py``.
 """
 
 from __future__ import annotations
 
 import math
-import os
 from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -196,22 +195,12 @@ class FeatureSet:
         """Write the DISK_AND_DRAM(num_slices) slices as ``.npz`` files
         (records in order, ``ceil(n / num_slices)`` a slice) and return
         the tier over them, with this set's shuffle and seed."""
-        os.makedirs(cache_dir, exist_ok=True)
-        paths = []
-        per = math.ceil(self._n / num_slices)
-        flat_feats, feat_def = tree_flatten(self.features)
-        flat_labels, label_def = (tree_flatten(self.labels)
-                                  if self.labels is not None else ([], None))
-        for i in range(num_slices):
-            sel = np.arange(i * per, min((i + 1) * per, self._n))
-            if sel.size == 0:
-                continue
-            path = os.path.join(cache_dir, f"slice_{i:04d}.npz")
-            payload = {f"f{j}": a[sel] for j, a in enumerate(flat_feats)}
-            payload.update({f"l{j}": a[sel]
-                            for j, a in enumerate(flat_labels)})
-            np.savez(path, **payload)
-            paths.append(path)
+        from analytics_zoo_tpu_torch.data.sharded import write_npz_shards
+        paths = write_npz_shards(cache_dir, self.features, self.labels,
+                                 num_slices, prefix="slice")
+        feat_def = tree_flatten(self.features)[1]
+        label_def = (tree_flatten(self.labels)[1]
+                     if self.labels is not None else None)
         kw.setdefault("shuffle", self.shuffle)
         kw.setdefault("seed", self.seed)
         return DiskFeatureSet(paths, feat_def=feat_def, label_def=label_def,

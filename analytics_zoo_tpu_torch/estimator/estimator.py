@@ -49,7 +49,13 @@ backoff, single process) restore the latest one with ``copy_`` into the
 tensors a captured graph reads.  ``tensorboard_dir`` / ``app_name`` write
 the loss, throughput and learning rate per K-group of every dispatch.
 Validation runs ``evaluate`` at the epoch ends ``validation_trigger``
-picks (default every epoch).
+picks (default every epoch).  The cursor (``data.cursor.DataCursor``) is
+honoured by a featureset with ``supports_cursor`` (the sharded tier,
+``data/sharded.py``), which resumes mid-epoch at that batch; such a set
+stages its batches on the card itself.  A featureset's ``fuse=True``
+transform chain (``data/transforms.py``) runs inside the step, eager or
+captured, and in ``evaluate`` / ``predict``; its signature keys the
+captured step.
 
 Dropout seeds: the JAX estimator folds a PRNG key per step, which the port
 cannot reproduce.  Here step ``i`` of a run seeded with ``seed`` gets
@@ -97,6 +103,7 @@ from analytics_zoo_tpu_torch.common.timer import Timers
 from analytics_zoo_tpu_torch.common.triggers import (EveryEpoch, Trigger,
                                                      TriggerState)
 from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
+from analytics_zoo_tpu_torch.data.cursor import DataCursor
 from analytics_zoo_tpu_torch.data.featureset import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.estimator.checkpoint import (
     latest_checkpoint, restore_checkpoint, save_checkpoint)
@@ -278,6 +285,10 @@ class Estimator:
         self._loss_buf: Optional[torch.Tensor] = None
         self._host_src: Dict[tuple, _Source] = {}
         self._graph = None
+        # the featureset's fuse=True transform chain, run inside the step
+        # (set per call), and the signature the captured step was made for
+        self._fused_tf = None
+        self._graph_tf = None
         self._resume_cursor = None
         self._epoch_step0 = 0
 
@@ -394,6 +405,10 @@ class Estimator:
         j = src.ids.index_select(0, self._cursor.reshape(1))
         take = lambda a: a.index_select(0, j)[0]
         x, y = tree_map(take, src.xs), tree_map(take, src.ys)
+        if self._fused_tf is not None:
+            # the fused chain: torch ops on the batch, inside the step a
+            # graph captures
+            x = self._fused_tf.apply_jax(x)
         with torch.no_grad():
             self._cursor.add_(1).remainder_(src.rows)
         # K > 1: the seed derives on the device from the device step
@@ -425,11 +440,15 @@ class Estimator:
         Returns their losses, an ``(n,)`` device tensor."""
         self._slot.zero_()
         if self._graphs_on:
-            if self._graph is None or self._graph.src is not src:
+            key = (self._fused_tf.signature if self._fused_tf is not None
+                   else None)
+            if (self._graph is None or self._graph.src is not src
+                    or self._graph_tf != key):
                 self._graph = None          # one graph (its pool) at a time
                 torch.cuda.empty_cache()
                 self._graph = _CapturedStep(lambda: self._step_from(src),
                                             self._state_tensors(), src)
+                self._graph_tf = key
             self._graph.replay(n)
         else:
             for _ in range(n):
@@ -508,6 +527,7 @@ class Estimator:
                 f"= {self.grad_accum_steps}")
         if variables is not None:
             self.model.set_weights(variables)
+        self._adopt_transforms(featureset)
         self._prepare(seed)
         self._register_memory_pool()
         _m_accum.set(float(self.grad_accum_steps))
@@ -585,14 +605,14 @@ class Estimator:
         losses, tb_pend = [], []
         t_epoch = time.perf_counter()
         step0 = self.global_step
-        # the data cursor of a resume: consumed here, and honoured only by
-        # a featureset that can start an epoch at a step (none of the
-        # ported tiers: ROADMAP Queue 1 item 3), as in the JAX package
+        # the data cursor of a resume: consumed here (matched or not), and
+        # honoured by a featureset that can start an epoch at a step
         start_step = 0
         rc, self._resume_cursor = self._resume_cursor, None
-        if rc and getattr(featureset, "supports_cursor", False) \
-                and int(rc.get("epoch", -1)) == epoch:
-            start_step = int(rc.get("step", 0))
+        if rc and getattr(featureset, "supports_cursor", False):
+            cur = DataCursor.from_state(rc)
+            if cur.epoch == epoch:
+                start_step = cur.step
         self._epoch_step0 = self.global_step - start_step
         stacked = None
         if hasattr(featureset, "stacked_epoch"):
@@ -602,7 +622,7 @@ class Estimator:
         if stacked is not None:
             if self._run_resident_epoch(stacked, *args):
                 return True
-        elif self._run_host_epoch(featureset, *args):
+        elif self._run_host_epoch(featureset, *args, start_step=start_step):
             return True
         # one host read for the epoch: the mean loss and TB's group means
         mean_loss = self._epoch_flush(tb, tb_pend, losses, t_epoch)
@@ -686,12 +706,17 @@ class Estimator:
         return src
 
     def _run_host_epoch(self, featureset, batch_size, epoch, tb, tb_pend,
-                        losses, end_trigger, t_epoch):
-        """Host (DRAM) tier: groups of K batches, each copied into the
-        static buffers and run as one dispatch; a ragged tail of fewer than
-        K batches runs as single steps.  The batches come off the feed as
-        host tensors (``_prefetch``); their copy to the card happens here,
-        on the training thread's stream."""
+                        losses, end_trigger, t_epoch, start_step=0):
+        """Host tiers: groups of K batches, each copied into the static
+        buffers and run as one dispatch; a ragged tail of fewer than K
+        batches runs as single steps.  The in-memory, generator and disk
+        tiers hand host tensors over (``_prefetch``), copied to the card
+        here on the training thread's stream.  A cursor-capable set (the
+        sharded tier) starts at ``start_step`` and stages its batches on
+        the card itself (a stream of its own, after which this stream
+        waits on its event), so the copy into the static buffers is one
+        on the card: a graph reads fixed addresses, and the stage thread
+        never writes a buffer a replay may still read."""
         k = self.steps_per_dispatch
         pend = []
 
@@ -709,9 +734,14 @@ class Estimator:
                                        epoch, tb, tb_pend, losses,
                                        end_trigger, t_epoch)
 
-        feed = _prefetch(featureset.batches(batch_size, epoch=epoch,
-                                            device=torch.device("cpu")),
-                         depth=self._prefetch_depth)
+        if getattr(featureset, "supports_cursor", False):
+            feed = _sync_counted(featureset.batches(
+                batch_size, epoch=epoch, device=self.device,
+                start_step=start_step))
+        else:
+            feed = _prefetch(featureset.batches(batch_size, epoch=epoch,
+                                                device=torch.device("cpu")),
+                             depth=self._prefetch_depth)
         for xy in feed:
             pend.append(xy)
             if len(pend) == k:
@@ -831,7 +861,8 @@ class Estimator:
         params = {n: p.detach() for n, p in self.model.named_parameters()}
         buffers = {n: b for n, b in self.model.named_buffers()}
         meta = {"epoch": epoch,
-                "data_cursor": {"epoch": epoch, "step": step_in_epoch}}
+                "data_cursor": DataCursor(epoch=epoch,
+                                          step=step_in_epoch).state()}
         # nests under train.epoch when triggered inside an epoch (the
         # step-0 bootstrap checkpoint roots alone)
         with obs.span("train.checkpoint", step=self.global_step):
@@ -863,6 +894,7 @@ class Estimator:
         the ragged tail included."""
         if variables is not None:
             self.model.set_weights(variables)
+        self._adopt_transforms(featureset)
         self.model.eval()
         accs = [m.init() for m in self.metrics]
         loss_sum, n_total = 0.0, 0
@@ -881,17 +913,29 @@ class Estimator:
 
     def _feed(self, featureset, batch_size: int):
         """Every row in order, the ragged tail included, read ahead as
-        host batches (``_prefetch``) and moved to the device here."""
+        host batches (``_prefetch``) and moved to the device here, where a
+        fused transform chain then runs."""
         to_dev = lambda t: tree_map(lambda a: a.to(self.device), t)
+        tf = self._fused_tf
         for x, y, n in _prefetch(featureset.batches_with_counts(
                 batch_size, drop_remainder=False,
                 device=torch.device("cpu")), depth=self._prefetch_depth):
-            yield to_dev(x), None if y is None else to_dev(y), n
+            x = to_dev(x)
+            yield (x if tf is None else tf.apply_jax(x),
+                   None if y is None else to_dev(y), n)
+
+    def _adopt_transforms(self, featureset) -> None:
+        """The featureset's ``fuse=True`` chain runs in the step (a
+        ``fuse=False`` chain already ran in the ingest pipeline)."""
+        tfm = getattr(featureset, "transforms", None)
+        self._fused_tf = (tfm if tfm is not None
+                          and getattr(tfm, "fuse", False) else None)
 
     def predict(self, featureset, batch_size: int = 32, variables=None):
         """The model's outputs over the dataset, in order, as numpy."""
         if variables is not None:
             self.model.set_weights(variables)
+        self._adopt_transforms(featureset)
         self.model.eval()
         outs = []
         with torch.inference_mode():

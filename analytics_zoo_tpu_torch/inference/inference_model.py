@@ -16,8 +16,22 @@ thread's current stream of the device and records a CUDA event there;
 copy to the host, so a result is never read before the work that wrote
 it, whichever streams the two threads use.
 
-``place`` / ``unplace`` (the multi-model weight cache) and the TF, ONNX
-and Caffe loaders are not ported yet.
+Weight residency (the multi-model weight cache, ``serving/model_zoo.py``):
+``place_on_load=False`` / ``load_keras(place=False)`` keep the weights in
+pinned host tensors, so a model registered cold holds no card memory.
+``place()`` copies them into fresh device tensors on the calling thread's
+current stream (the registry's pager runs it on a stream of its own) and
+synchronises that stream before it returns, so a failed transfer surfaces
+there, never at a request's dispatch.  ``unplace()`` first waits for the
+last dispatch on each stream that read the weights, then drops every
+reference to the device tensors, so ``torch.cuda.memory_allocated()``
+falls by ``weight_nbytes`` at once and the caching allocator never hands
+their blocks out while a dispatch may still read them.  The module keeps
+its parameter and buffer objects throughout: only their data moves.
+``reserve`` / ``predict_async(reserved=True)`` take the in-flight permit
+in the caller's thread, as the JAX model does.
+
+The TF, ONNX and Caffe loaders are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,13 +39,12 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
-from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.testing import chaos
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.inference")
@@ -101,14 +114,19 @@ class InferenceModel:
     def __init__(self, supported_concurrent_num: int = 1,
                  place_on_load: bool = True,
                  device: Optional[Union[str, torch.device]] = None):
-        # weights always go to the device on load: keeping them on the host
-        # until placed is the multi-model weight cache's
-        reject("InferenceModel", 1, dict(place_on_load=True),
-               place_on_load=place_on_load)
         self.device = resolve_device(device)
         self.concurrency = supported_concurrent_num
+        # False: every load stages to host memory only, until place()
+        self.place_on_load = place_on_load
         self.model = None
         self.preprocessor = None
+        self._placed = False
+        # name -> host copy of each parameter and buffer (pinned on the
+        # card's host), or None while only the device copy exists
+        self._host: Optional[Dict[str, torch.Tensor]] = None
+        # the last dispatch's event on each stream that read the weights
+        self._last_done: Dict[int, torch.cuda.Event] = {}
+        self._done_lock = threading.Lock()
         self._slots: "queue.Queue[int]" = queue.Queue()
         for i in range(supported_concurrent_num):
             self._slots.put(i)
@@ -120,24 +138,126 @@ class InferenceModel:
     def load_keras(self, model, variables: Optional[Tuple] = None,
                    preprocessor=None,
                    place: Optional[bool] = None) -> "InferenceModel":
-        """Serve ``model``, moved to this model's device in place.
-        ``variables`` is ``(params, state)`` or a bare params tree in the
-        JAX layout; None keeps the model's current weights.
-        ``preprocessor`` maps the request (arrays already on the device,
-        in the request's dict / list structure) to the model's input, e.g.
-        ``lambda d: [d["input_ids"], d["token_type_ids"],
-        d["input_mask"]]`` for BERT.  ``place`` None or True (the
-        default placement): ``place=False`` raises, as the constructor's
-        ``place_on_load=False`` does."""
-        reject("InferenceModel.load_keras", 1, dict(place=True),
-               place=True if place is None else place)
-        model.to(self.device)
+        """Serve ``model``.  ``variables`` is ``(params, state)`` or a bare
+        params tree in the JAX layout; None keeps the model's current
+        weights.  ``preprocessor`` maps the request (arrays already on the
+        device, in the request's dict / list structure) to the model's
+        input, e.g. ``lambda d: [d["input_ids"], d["token_type_ids"],
+        d["input_mask"]]`` for BERT.  ``place`` (default: the
+        constructor's ``place_on_load``) moves the model to this model's
+        device now; ``place=False`` stages its weights in host memory
+        only (pinned when the device is the card), to be placed by
+        ``place()`` or the registry's pager."""
         if variables is not None:
             model.set_weights(variables)
         model.eval()
         self.model = model
         self.preprocessor = preprocessor
+        self._host = None
+        if self.place_on_load if place is None else place:
+            model.to(self.device)
+            self._placed = True
+        else:
+            self._placed = True         # wherever the weights are now
+            self.stage_host()
+            self._assign(self._host)
+            self._placed = False
         return self
+
+    # ---- weight residency (the multi-model weight cache) ------------------
+    def _weight_slots(self):
+        """(module, kind, attribute name, qualified name) of every
+        parameter and buffer."""
+        out = []
+        for mname, mod in self.model.named_modules():
+            for kind, table in (("p", mod._parameters),
+                                ("b", mod._buffers)):
+                for n, t in table.items():
+                    if t is not None:
+                        out.append((mod, kind, n,
+                                    f"{mname}.{n}" if mname else n))
+        return out
+
+    def _tensors(self) -> Dict[str, torch.Tensor]:
+        return {q: (mod._parameters if kind == "p" else mod._buffers)[n]
+                for mod, kind, n, q in self._weight_slots()}
+
+    def _assign(self, tensors: Dict[str, torch.Tensor]) -> None:
+        """Point every parameter (its ``.data``) and buffer at
+        ``tensors``: the module's objects stay, their storage moves."""
+        with torch.no_grad():
+            for mod, kind, n, q in self._weight_slots():
+                if kind == "p":
+                    mod._parameters[n].data = tensors[q]
+                else:
+                    mod._buffers[n] = tensors[q]
+
+    def stage_host(self) -> "InferenceModel":
+        """Capture the host copy now (a read of the placed weights), so a
+        later ``unplace()`` only releases memory.  The registry calls this
+        at registration for an evictable model: eviction runs under its
+        lock, where a device-to-host read would stall every model."""
+        if self._placed and self._host is None:
+            pin = self.device.type == "cuda"
+            host = {}
+            for q, t in self._tensors().items():
+                h = t.detach().to("cpu", copy=True)
+                host[q] = h.pin_memory() if pin else h
+            self._host = host
+        return self
+
+    def place(self) -> "InferenceModel":
+        """Copy the host-staged weights into fresh tensors on this model's
+        device, on the calling thread's current stream, and wait for that
+        stream before returning.  Idempotent."""
+        if self._placed:
+            return self
+        if self._host is None:
+            raise RuntimeError("no weights loaded; load_keras() first")
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            dev = {q: h.to(self.device, non_blocking=True)
+                   for q, h in self._host.items()}
+            stream.synchronize()
+        else:
+            dev = {q: h.clone() for q, h in self._host.items()}
+        self._assign(dev)
+        self._placed = True
+        return self
+
+    def unplace(self) -> "InferenceModel":
+        """Release the device copy of the weights now, back to the host
+        copy (captured first if the model was placed at load)."""
+        if not self._placed:
+            return self
+        self.stage_host()
+        with self._done_lock:
+            done, self._last_done = list(self._last_done.values()), {}
+        for ev in done:
+            # the dispatches that read these tensors have finished before
+            # their blocks go back to the allocator
+            ev.synchronize()
+        self._assign(self._host)
+        self._placed = False
+        return self
+
+    @property
+    def placed(self) -> bool:
+        return self._placed
+
+    @property
+    def weight_nbytes(self) -> int:
+        """Bytes of the weights (parameters and buffers), host- or
+        device-resident: what the weight cache books on a page-in."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in self._tensors().values())) \
+            if self.model is not None else 0
+
+    @property
+    def weight_blocks(self) -> int:
+        """Weight tensors placed on the device: the unit of the weight
+        cache's block books."""
+        return len(self._weight_slots()) if self.model is not None else 0
 
     def _forward(self, x):
         with torch.inference_mode():
@@ -158,33 +278,57 @@ class InferenceModel:
         reference's model-queue ``doPredict``."""
         return self.fetch(self.predict_async(x, pad_to_bucket))
 
+    def reserve(self) -> None:
+        """Take an in-flight permit in the caller's thread; pass
+        ``reserved=True`` to the matching ``predict_async``.  A pipelined
+        caller that dispatches from a pool but consumes results in
+        submission order takes permits in its one submitting thread, so
+        permit order is submission order."""
+        self._inflight.acquire()
+
+    def release_reservation(self) -> None:
+        """Return a ``reserve()`` permit whose dispatch never happened."""
+        self._inflight.release()
+
     def predict_async(self, x, pad_to_bucket: bool = True,
                       reserved: bool = False):
         """Launch without waiting for the device; returns a handle for
         ``fetch``.  The slot is held only across the launch, and at most
         2x ``supported_concurrent_num`` handles are outstanding (blocks
-        here beyond that).  ``reserved=True`` (a multi-model engine's
-        reserved slot) is not ported yet and raises.  The
+        here beyond that, unless ``reserved``: the permit was taken by
+        ``reserve()`` and is released here if the dispatch fails).  The
         ``device_execute`` chaos point fires here on the host, once per
         call, before anything is launched."""
-        reject("InferenceModel.predict_async", 1, reserved=reserved or None)
-        if self.model is None:
-            raise RuntimeError("no model loaded")
-        chaos.fire("device_execute")
-        x = _tree_map(np.asarray, x)
-        n = example_x_shape0(x)
-        m = _next_pow2(n) if pad_to_bucket else n
-        if m != n:
-            x = _resize_batch(x, m)
-        self._inflight.acquire()
+        try:
+            if self.model is None:
+                raise RuntimeError("no model loaded")
+            if not self._placed and self._host is not None:
+                raise RuntimeError(
+                    "model weights are host-staged; page them in via the "
+                    "ModelRegistry (or call place()) before predict")
+            chaos.fire("device_execute")
+            x = _tree_map(np.asarray, x)
+            n = example_x_shape0(x)
+            m = _next_pow2(n) if pad_to_bucket else n
+            if m != n:
+                x = _resize_batch(x, m)
+        except BaseException:
+            if reserved:           # a reserved permit must not leak
+                self._inflight.release()
+            raise
+        if not reserved:
+            self._inflight.acquire()
         try:
             slot = self._slots.get()
             try:
                 y = self._forward(x)
                 done = None
                 if self.device.type == "cuda":
+                    stream = torch.cuda.current_stream(self.device)
                     done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(self.device))
+                    done.record(stream)
+                    with self._done_lock:
+                        self._last_done[stream.cuda_stream] = done
             finally:
                 self._slots.put(slot)
         except BaseException:

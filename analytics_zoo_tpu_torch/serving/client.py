@@ -11,8 +11,10 @@ the same frames: ``predict`` POSTs one binary frame per request
 response; ``generate`` reads a frame-per-token stream.  Every enqueue
 carries a wire trace context (``trace_ctx``) as the JAX client stamps
 it, and ``FastWireHttpClient`` sends a given one as ``X-Zoo-Trace``.
-Transport retries, model routing and tenancy stamps are not ported yet:
-their arguments raise ``NotImplementedError`` naming the ROADMAP item.
+``model=`` stamps the wire ``model`` field (a multi-model engine routes by
+it; ``FastWireHttpClient`` posts to ``/predict/<model>``) and ``tenant=``
+the ``tenant`` field (``X-Zoo-Tenant`` over HTTP).  Transport retries are
+not ported yet (the Redis broker, ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ import numpy as np
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.resilience import (
     Deadline, current_deadline)
-from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     ImageBytes, StringTensor, decode_items_bytes, decode_output,
@@ -81,8 +82,27 @@ def _deadline_fields(deadline_s: Optional[float],
     return {"deadline_ts": repr(dl.wall())} if dl is not None else {}
 
 
-def _reject_stamps(where: str, model, tenant) -> None:
-    reject(where, 1, model=model, tenant=tenant)
+def _model_fields(model: Optional[str]) -> dict:
+    """The wire stamp routing a record to a named model of a multi-model
+    engine; empty means the registry's default model.  A model name must
+    not hold the record separator, which joins batch uris on the wire."""
+    if not model:
+        return {}
+    if "\x1f" in model:
+        raise ValueError("model name must not contain the unit "
+                         "separator (\\x1f)")
+    return {"model": str(model)}
+
+
+def _tenant_fields(tenant: Optional[str]) -> dict:
+    """The wire stamp charging a record to a tenant's credit pool; empty
+    means the engine's ``default`` tenant (under tenancy) or none."""
+    if not tenant:
+        return {}
+    if "\x1f" in tenant:
+        raise ValueError("tenant name must not contain the unit "
+                         "separator (\\x1f)")
+    return {"tenant": str(tenant)}
 
 
 def _trace_fields(trace_ctx: Optional[str] = None) -> dict:
@@ -133,9 +153,8 @@ class InputQueue:
         name is valid; ``deadline`` stamps an explicit ``Deadline`` in
         place of ``deadline_s`` and ``trace_ctx`` an explicit wire trace
         context (for callers enqueuing on behalf of another thread).
-        ``model`` and ``tenant`` are not ported yet and raise
-        ``NotImplementedError``."""
-        _reject_stamps("InputQueue.enqueue_items", model, tenant)
+        ``model`` routes the record to a named model, ``tenant`` charges
+        it to a tenant."""
         items = {}
         for k, v in data.items():
             if isinstance(v, (bytes, bytearray)):
@@ -154,7 +173,8 @@ class InputQueue:
         return self.broker.xadd(self.stream, {
             "uri": uri, "data": _encode_wire(items),
             **_deadline_fields(deadline_s, deadline),
-            **_trace_fields(trace_ctx)})
+            **_trace_fields(trace_ctx), **_model_fields(model),
+            **_tenant_fields(tenant)})
 
     def enqueue_raw(self, uri: str, frame: bytes,
                     deadline: Optional[Deadline] = None,
@@ -164,11 +184,11 @@ class InputQueue:
         """An already-encoded wire frame (a fast-wire HTTP body) goes on
         the stream verbatim: no decode, no re-encode.  The engine's decode
         stage error-finishes an undecodable frame."""
-        _reject_stamps("InputQueue.enqueue_raw", model, tenant)
         return self.broker.xadd(self.stream, {
             "uri": uri, "data": bytes(frame),
             **_deadline_fields(None, deadline),
-            **_trace_fields(trace_ctx)})
+            **_trace_fields(trace_ctx), **_model_fields(model),
+            **_tenant_fields(tenant)})
 
     def enqueue_batch(self, uris, deadline_s: Optional[float] = None,
                       **data) -> str:
@@ -184,7 +204,6 @@ class InputQueue:
                             tenant: Optional[str] = None) -> str:
         """``enqueue_batch`` with the payload as an explicit dict; the
         other arguments as ``enqueue_items``."""
-        _reject_stamps("InputQueue.enqueue_batch_items", model, tenant)
         uris = [str(u) for u in uris]
         n = len(uris)
         if n == 0:
@@ -204,7 +223,8 @@ class InputQueue:
             "uri": "\x1f".join(uris), "batch": str(n),
             "data": _encode_wire(items),
             **_deadline_fields(deadline_s, deadline),
-            **_trace_fields(trace_ctx)})
+            **_trace_fields(trace_ctx), **_model_fields(model),
+            **_tenant_fields(tenant)})
 
 
 class OutputQueue:
@@ -215,8 +235,12 @@ class OutputQueue:
         if not h:
             return None
         if "error" in h:
+            # typed by the engine's code field; ``scope`` "tenant" marks a
+            # shed at the tenant's own credit gate
             cls = _ERROR_BY_CODE.get(h.get("code", "error"), ServingError)
-            raise cls(f"serving failed for {uri}: {h['error']}")
+            err = cls(f"serving failed for {uri}: {h['error']}")
+            err.scope = h.get("scope")
+            raise err
         if "value" not in h:
             return None
         return decode_output(h["value"])
@@ -273,17 +297,17 @@ class FastWireHttpClient:
     raises ``ServingShedError`` (``retry_after_s`` holds the server's
     pacing hint), 504 (deadline or timeout) ``ServingDeadlineError``,
     other non-200s ``ServingError``; error bodies are JSON on every
-    wire.  ``trace_ctx`` rides the ``X-Zoo-Trace`` header; ``model`` and
-    ``tenant`` are not ported yet and raise ``NotImplementedError`` naming
-    their item."""
+    wire.  ``trace_ctx`` rides the ``X-Zoo-Trace`` header, ``model`` the
+    ``/predict/<model>`` path and ``tenant`` the ``X-Zoo-Tenant``
+    header."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 10020,
                  timeout: float = 30.0):
         self._conn = http.client.HTTPConnection(host, port, timeout=timeout)
 
-    def _post(self, frame: bytes, headers: dict):
+    def _post(self, frame: bytes, headers: dict, path: str = "/predict"):
         try:
-            self._conn.request("POST", "/predict", frame, headers)
+            self._conn.request("POST", path, frame, headers)
             return self._conn.getresponse()
         except ConnectionError:
             # stale keep-alive: the server closed the idle connection
@@ -291,7 +315,7 @@ class FastWireHttpClient:
             # reconnect and resend is safe.  Read failures and timeouts
             # are not retried: the server may be running the request.
             self._conn.close()
-            self._conn.request("POST", "/predict", frame, headers)
+            self._conn.request("POST", path, frame, headers)
             return self._conn.getresponse()
 
     @staticmethod
@@ -314,11 +338,24 @@ class FastWireHttpClient:
         pairs out.  ``uri`` rides the ``X-Zoo-Uri`` header (the server
         makes one when absent), ``deadline_ms`` the ``X-Zoo-Deadline-Ms``
         budget, ``trace_ctx`` the ``X-Zoo-Trace`` context the server's
-        spans join."""
-        _reject_stamps("FastWireHttpClient.predict", model, tenant)
+        spans join, ``model`` names the model of a multi-model frontend
+        (``/predict/<model>``) and ``tenant`` the ``X-Zoo-Tenant``
+        header."""
+        from urllib.parse import quote
         frame = encode_items_bytes(
             {k: np.asarray(v) for k, v in inputs.items()})
-        resp = self._post(frame, self._headers(uri, deadline_ms, trace_ctx))
+        headers = self._headers(uri, deadline_ms, trace_ctx)
+        if tenant:
+            headers["X-Zoo-Tenant"] = str(tenant)
+        path = "/predict"
+        if model:
+            # fail fast here: a name the server's route parser rejects
+            # would cost a round trip to learn the same error
+            from analytics_zoo_tpu_torch.serving.model_zoo import (
+                validate_model_name)
+            validate_model_name(str(model))
+            path = f"/predict/{quote(str(model), safe='')}"
+        resp = self._post(frame, headers, path)
         blob = resp.read()
         if resp.status != 200:
             raise _http_error(resp, blob)

@@ -1,7 +1,8 @@
 """ClusterServing: the streaming inference engine.
 
-Port of ``analytics_zoo_tpu/serving/engine.py`` over ONE
-``InferenceModel``, in its two modes:
+Port of ``analytics_zoo_tpu/serving/engine.py`` over one
+``InferenceModel``, or over a ``ModelRegistry`` of named models
+(``serving/model_zoo.py``, pipelined mode only), in its two modes:
 
 - pipelined (``ServingConfig(pipeline=True)``, the default): a reader
   thread admits stream entries (deadline gate, admission credits, shed
@@ -33,9 +34,26 @@ the submission (the launch is asynchronous); the device's time shows in
 the sink span, which waits on the dispatch's CUDA event.  No record reads
 a CUDA tensor.
 
-Not ported yet (ROADMAP Queue 1 item 1): the model registry, tenancy,
-server-side image decode and the Redis / native / fleet brokers with the
-sink's publish retries; the TensorBoard curves (item 6).
+Multi-model (``ClusterServing(registry)``): entries route by their wire
+``model`` field (none: the registry's default model); each model gates
+admission on its own credits and circuit breaker (both non-blocking at
+the reader), the reader prefetches a cold model's weights on admission,
+every dispatch pins its model from submit to the sink's fetch (so it
+cannot be evicted mid-flight), a dispatch whose model is not resident
+waits for its page-in on a small cold pool of its own, and batches never
+merge across models.  The sink consumes finished dispatches as they
+complete, so a page-in never holds up another model's results.
+
+Tenancy (``ClusterServing(tenancy=)`` or ``ServingConfig.tenants``,
+pipelined, single model): entries gate on their wire ``tenant``'s own
+credit pool (``serving/tenancy.py``), a tenant over quota is shed with
+``scope=tenant``, and the batched flush orders tenants by weighted
+virtual time.  Tenancy with a registry raises ``ValueError``, as in the
+JAX engine.
+
+Not ported yet (ROADMAP Queue 1 item 1): server-side image decode and the
+Redis / native / fleet / journaled brokers with the sink's publish
+retries; the TensorBoard curves (item 6).
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ import logging
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import CancelledError, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
@@ -60,6 +79,8 @@ from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     ImageBytes, StringTensor, decode_items, encode_ndarray_output,
     encode_ndarray_output_bytes, reference_wire_forced)
+from analytics_zoo_tpu_torch.serving.model_zoo import ModelRegistry
+from analytics_zoo_tpu_torch.serving.tenancy import TenancyController
 from analytics_zoo_tpu_torch.observability import flight_recorder
 from analytics_zoo_tpu_torch.testing import chaos
 
@@ -99,13 +120,16 @@ class _PreBatched:
     dict of (N, ...) arrays.  ``tref`` is the trace reference its dispatch
     span parents to (the entry's decode span, or the wire context); a
     merge of several entries keeps the first entry's parent and lists the
-    other merged trace ids in ``links``."""
+    other merged trace ids in ``links``.  ``ment`` is the routed
+    ``ModelEntry`` (None with one model) and ``tstate`` the entry's
+    ``TenantState`` (None without tenancy): batches merge only within one
+    model and one tenant."""
 
     __slots__ = ("sids", "uris", "decoded", "n", "deadline", "tref",
-                 "links")
+                 "links", "ment", "tstate")
 
     def __init__(self, sids, uris, decoded, n, deadline=None, tref=None,
-                 links=None):
+                 links=None, ment=None, tstate=None):
         self.sids = sids
         self.uris = uris
         self.decoded = decoded
@@ -113,19 +137,33 @@ class _PreBatched:
         self.deadline = deadline
         self.tref = tref
         self.links = links
+        self.ment = ment
+        self.tstate = tstate
 
 
 class ClusterServing:
-    """The serving daemon over ONE ``InferenceModel``."""
+    """The serving daemon over one ``InferenceModel`` or a
+    ``ModelRegistry`` of named models."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
                  broker=None, tenancy=None):
         self.config = config or ServingConfig()
         cfg = self.config
-        reject("ClusterServing", 1, dict(image_chw=False), tenancy=tenancy,
-               tenants=cfg.tenants, image_resize=cfg.image_resize,
-               image_chw=cfg.image_chw, image_scale=cfg.image_scale)
+        reject("ClusterServing", 1, dict(image_chw=False),
+               image_resize=cfg.image_resize, image_chw=cfg.image_chw,
+               image_scale=cfg.image_scale)
         reject("ClusterServing", 6, tensorboard_dir=cfg.tensorboard_dir)
+        # per-tenant isolation: an explicit controller, or one built from
+        # the config's tenants rows
+        self.tenancy = (tenancy if tenancy is not None
+                        else TenancyController.from_config(cfg.tenants))
+        if self.tenancy is not None and not cfg.pipeline:
+            raise ValueError("tenancy needs the pipelined engine: "
+                             "ServingConfig(pipeline=True)")
+        if self.tenancy is not None and isinstance(model, ModelRegistry):
+            raise ValueError("tenancy + multi-model registry is not "
+                             "supported yet: per-model and per-tenant "
+                             "credit gates would double-account")
         self.top_n = cfg.top_n
         if cfg.filter:
             n = parse_filter(cfg.filter)
@@ -134,7 +172,16 @@ class ClusterServing:
                     f"conflicting post-processing config: top_n="
                     f"{self.top_n} vs filter={cfg.filter!r}")
             self.top_n = n
-        self.model = model
+        if isinstance(model, ModelRegistry):
+            if not cfg.pipeline:
+                # the classic loop predicts inline on one model; routing,
+                # per-model credits and the pager live in the pipeline
+                raise ValueError(
+                    "multi-model serving (a ModelRegistry) requires the "
+                    "pipelined engine: ServingConfig(pipeline=True)")
+            self.registry, self.model = model, None
+        else:
+            self.registry, self.model = None, model
         self.broker = broker or get_broker(cfg.redis_url)
         self.stream = cfg.input_stream
         self.group = cfg.consumer_group
@@ -183,8 +230,9 @@ class ClusterServing:
             raise RuntimeError(
                 "previous drain threads still running; call stop() and "
                 "wait for them to finish before restarting")
-        if self.config.image_uint8 and getattr(
-                self.model, "preprocessor", None) is None:
+        if self.config.image_uint8 and any(
+                getattr(m, "preprocessor", None) is None
+                for m in self._served_models()):
             raise ValueError(
                 "ServingConfig.image_uint8=True but the model has no "
                 "preprocessor to widen the uint8 pixels on the device")
@@ -224,12 +272,20 @@ class ClusterServing:
         self._exec_done = threading.Event()
         self._pipelined = True
         # the dispatch pool overlaps one batch's launch with the previous
-        # one's fetch; the sink resolves the futures in q_pend
-        # (= submission) order, so result semantics are unchanged
-        concurrency = max(getattr(self.model, "concurrency", 1), 1)
+        # one's fetch; per-uri result keys make publication order free
+        concurrency = max(max((getattr(m, "concurrency", 1)
+                               for m in self._served_models()),
+                              default=1), 1)
         pool_workers = max(concurrency, 2)
         self._dispatch_pool = ThreadPoolExecutor(
             max_workers=pool_workers, thread_name_prefix="serving-dispatch")
+        if self.registry is not None:
+            # a dispatch whose model is not resident at submit waits for
+            # its page-in on a pool of its own, never taking a worker
+            # from the resident models; the one pager serialises the
+            # transfers, so two waiters suffice
+            self._cold_pool = ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="serving-dispatch-cold")
         # dispatched-but-unfetched batches, taken in the exec thread
         # before a submit and returned by the sink after the fetch: at
         # most the model's own in-flight bound (2x its concurrency), so
@@ -241,7 +297,16 @@ class ClusterServing:
         # is pure latency.  A fresh controller per start(): entries
         # dropped by an earlier stop() must not pin stale credits.
         self._q_hwm = {}
-        if cfg.admission_control:
+        if self.registry is not None:
+            # admission is per model (each entry's own credits), fresh at
+            # every start(): entries dropped by an earlier stop() must not
+            # pin stale credits
+            self.admission = None
+            self.registry.reset_admission()
+        elif self.tenancy is not None:
+            # admission is per tenant (each tenant's own pool)
+            self.admission = None
+        elif cfg.admission_control:
             credits = cfg.admission_max_inflight or max(
                 2 * pool_workers * mb, 4 * mb)
             self.admission = AdmissionController(credits, name="serving")
@@ -338,23 +403,126 @@ class ClusterServing:
                        - ({parent[0]} if parent is not None else set()))
         return parent, ({"links": links} if links else {})
 
-    def _entry_deadline(self, fields) -> Optional[Deadline]:
-        """The entry's wire deadline, else the configured default."""
+    def _served_models(self):
+        """The model objects this engine dispatches to (one, or every
+        registry entry's)."""
+        if self.registry is None:
+            return [self.model]
+        return [self.registry.resolve(name).model
+                for name in self.registry.models()]
+
+    def _entry_deadline(self, fields, ment=None,
+                        tstate=None) -> Optional[Deadline]:
+        """The entry's wire deadline, else its model's or its tenant's
+        default, else the configured default."""
         ts = fields.get("deadline_ts")
         if ts is not None:
             try:
                 return Deadline.from_wall(float(ts))
             except (TypeError, ValueError):
                 logger.warning("unparsable deadline_ts %r ignored", ts)
+        if ment is not None and ment.default_deadline_ms:
+            return Deadline(ment.default_deadline_ms / 1e3)
+        if tstate is not None and tstate.policy.default_deadline_ms:
+            return Deadline(tstate.policy.default_deadline_ms / 1e3)
         if self.config.default_deadline_ms:
             return Deadline(self.config.default_deadline_ms / 1e3)
         return None
+
+    def _admit_model(self, sid, fields, n: int, tref) -> None:
+        """The multi-model gate: resolve the entry's model, then its own
+        credits and breaker, every check non-blocking, so one model's
+        overload never holds up the shared reader."""
+        try:
+            ment = self.registry.resolve(fields.get("model") or None)
+        except KeyError as exc:
+            self._reject_entry(sid, fields, "error", str(exc), n=n,
+                               tref=tref)
+            return
+        dl = self._entry_deadline(fields, ment)
+        if dl is not None and dl.expired:
+            self._reject_entry(sid, fields, "expired",
+                               "deadline expired before admission", n=n,
+                               tref=tref)
+            return
+        madm = ment.admission
+        need = min(n, madm.capacity)
+        if madm.try_acquire(need):
+            if n > need:        # an oversized entry forces the excess
+                madm.force_acquire(n - need)
+        elif self._stop.is_set():
+            # drain path: the cursor already advanced, never drop
+            madm.force_acquire(n)
+        else:
+            self._shed_entry(sid, fields, n, tref=tref, ment=ment)
+            return
+        if not ment.breaker.allow():
+            # the model is ejected (its page-ins or dispatches keep
+            # failing): fail fast, retryable, and return the credits
+            madm.release(n)
+            self._shed_entry(
+                sid, fields, n, tref=tref, ment=ment,
+                msg=f"model {ment.name!r} circuit open; failing fast - "
+                    "retry with backoff")
+            return
+        # by dispatch time the pager has overlapped this page-in with the
+        # other models' work
+        self.registry.prefetch(ment)
+        self._put_forever(self._q_raw, (sid, fields, dl, n, tref, ment,
+                                        None), name="raw")
+
+    def _admit_tenant(self, sid, fields, n: int, tref) -> None:
+        """The multi-tenant gate: resolve the entry's tenant, then its own
+        credit pool, non-blocking, so a tenant past its quota sheds at its
+        own gate and never holds up another tenant."""
+        try:
+            tstate = self.tenancy.resolve(fields.get("tenant") or None)
+        except KeyError as exc:
+            self._reject_entry(sid, fields, "error", str(exc), n=n,
+                               tref=tref)
+            return
+        dl = self._entry_deadline(fields, tstate=tstate)
+        if dl is not None and dl.expired:
+            self._reject_entry(sid, fields, "expired",
+                               "deadline expired before admission", n=n,
+                               tref=tref, tstate=tstate)
+            return
+        need = min(n, tstate.admission.capacity)
+        try:
+            admitted = self.tenancy.tenant_acquire(tstate, need)
+        except (Exception, CancelledError) as exc:
+            # the gate faulted before any book moved: reject with the
+            # books untouched
+            logger.exception("tenant admission fault for %s", sid)
+            self._reject_entry(sid, fields, "error",
+                               f"tenant admission fault: {exc}", n=n,
+                               tref=tref)
+            return
+        if admitted:
+            if n > need:
+                self.tenancy.tenant_force_acquire(tstate, n - need)
+        elif self._stop.is_set():
+            self.tenancy.tenant_force_acquire(tstate, n)
+        else:
+            self._shed_entry(
+                sid, fields, n, tref=tref, tstate=tstate,
+                msg=f"tenant {tstate.name!r} is over its credit quota; "
+                    "shed at its own gate - retry with backoff")
+            return
+        self._put_forever(self._q_raw, (sid, fields, dl, n, tref, None,
+                                        tstate), name="raw")
 
     def _admit(self, entry, saturated: bool) -> bool:
         """Gate one entry; returns the updated overload latch."""
         sid, fields = entry
         n = int(fields.get("batch", 0) or 0) or 1
         tref = self._trace_ref(fields)
+        if self.registry is not None:
+            self._admit_model(sid, fields, n, tref)
+            return saturated
+        if self.tenancy is not None:
+            self._admit_tenant(sid, fields, n, tref)
+            return saturated
         dl = self._entry_deadline(fields)
         if dl is not None and dl.expired:
             self._reject_entry(sid, fields, "expired",
@@ -393,30 +561,43 @@ class ClusterServing:
                 adm.force_acquire(n - need)
         # the acquired credit count rides the work item: releases mirror
         # exactly what was acquired here, never the client's uri split
-        self._put_forever(self._q_raw, (sid, fields, dl, n, tref),
-                          name="raw")
+        self._put_forever(self._q_raw, (sid, fields, dl, n, tref, None,
+                                        None), name="raw")
         return saturated
 
-    def _shed_entry(self, sid, fields, n: int, tref=None,
+    def _shed_entry(self, sid, fields, n: int, tref=None, ment=None,
+                    tstate=None,
                     msg: str = "server overloaded; admission control "
                                "shed this request - retry with backoff"
                     ) -> None:
-        if self.admission is not None:
-            self.admission.shed(n, trace_id=tref[0] if tref else None)
+        adm = (tstate.admission if tstate is not None
+               else ment.admission if ment is not None else self.admission)
+        if adm is not None:
+            adm.shed(n, trace_id=tref[0] if tref else None)
+        if ment is not None:
+            ment.count_shed(n)
+        if tstate is not None:
+            self.tenancy.count_shed(tstate, n)
         with self._metrics_lock:
             self.records_shed += n
-        self._reject_entry(sid, fields, "shed", msg)
+        # a shed at a tenant's own gate is that tenant's quota, not engine
+        # overload: the result says so
+        self._reject_entry(sid, fields, "shed", msg,
+                           scope="tenant" if tstate is not None else None)
 
-    def _count_expired(self, k: int, tref=None) -> None:
+    def _count_expired(self, k: int, tref=None, tstate=None) -> None:
         """One accounting point for deadline-expired records: the
-        registry series, the event journal and the ``metrics()`` counter
-        never diverge."""
+        registry series, the event journal, the ``metrics()`` counter and
+        the tenant's book never diverge."""
         record_expired(k, trace_id=tref[0] if tref else None)
+        if tstate is not None:
+            self.tenancy.count_expired(tstate, k)
         with self._metrics_lock:
             self.records_expired += k
 
     def _reject_entry(self, sid, fields, code: str, msg: str,
-                      n: Optional[int] = None, tref=None) -> None:
+                      n: Optional[int] = None, tref=None, tstate=None,
+                      scope: Optional[str] = None) -> None:
         """Error-finish every record of a NOT-YET-ADMITTED entry (no
         credits to release) with a machine-readable code, in one bulk
         write.  ``n`` is the entry's declared record count, which expiry
@@ -425,10 +606,12 @@ class ClusterServing:
         if code == "expired":
             self._count_expired(n if n is not None else
                                 int(fields.get("batch", 0) or 0) or 1,
-                                tref=tref)
+                                tref=tref, tstate=tstate)
+        extra = {"scope": scope} if scope else {}
         try:
             self.broker.set_results(
-                {f"result:{u}": {"error": msg, "code": code} for u in uris})
+                {f"result:{u}": {"error": msg, "code": code, **extra}
+                 for u in uris})
         except (Exception, CancelledError):
             logger.exception("could not record %s results for entry %s",
                              code, sid)
@@ -442,7 +625,8 @@ class ClusterServing:
         # between xreadgroup and _put_forever when _stop flips
         while not (self._reader_done.is_set() and self._q_raw.empty()):
             try:
-                sid, fields, dl, n_adm, tref = self._q_raw.get(timeout=0.05)
+                sid, fields, dl, n_adm, tref, ment, tstate = \
+                    self._q_raw.get(timeout=0.05)
             except queue.Empty:
                 continue
             uri = fields.get("uri", "?")
@@ -453,9 +637,10 @@ class ClusterServing:
                     self._try_finish_error(
                         sid, u, DeadlineExceeded(
                             "deadline expired before decode"),
-                        code="expired", count_error=False, release=False)
-                self._count_expired(n_adm, tref=tref)
-                self._release_admission(n_adm)
+                        code="expired", count_error=False, release=False,
+                        ment=ment, tstate=tstate)
+                self._count_expired(n_adm, tref=tref, tstate=tstate)
+                self._release_admission(n_adm, ment, tstate)
                 continue
             try:
                 n = int(fields.get("batch", 0) or 0)
@@ -483,7 +668,8 @@ class ClusterServing:
                         self._put_forever(self._q_dec, _PreBatched(
                             [sid] * (hi - lo), uris[lo:hi],
                             {k: v[lo:hi] for k, v in decoded.items()},
-                            hi - lo, deadline=dl, tref=dref),
+                            hi - lo, deadline=dl, tref=dref, ment=ment,
+                            tstate=tstate),
                             name="decoded")
                 else:
                     with obs.span("serving.decode", parent=tref,
@@ -492,13 +678,15 @@ class ClusterServing:
                     dref = ((dsp.trace_id, dsp.span_id)
                             if dsp is not None else tref)
                     self._put_forever(self._q_dec,
-                                      (sid, uri, decoded1, dl, dref),
+                                      (sid, uri, decoded1, dl, dref, ment,
+                                       tstate),
                                       name="decoded")
             except (Exception, CancelledError) as exc:
                 logger.exception("decode failed for %s", uri)
                 for u in uri.split("\x1f"):
-                    self._try_finish_error(sid, u, exc, release=False)
-                self._release_admission(n_adm)
+                    self._try_finish_error(sid, u, exc, release=False,
+                                           ment=ment, tstate=tstate)
+                self._release_admission(n_adm, ment, tstate)
 
     def _dispatch_group_list(self, groups: List[_PreBatched]) -> int:
         """Expire, merge and dispatch one same-signature list of
@@ -507,7 +695,8 @@ class ClusterServing:
         for g in groups:
             if g.deadline is not None and g.deadline.expired:
                 for sid, uri in zip(g.sids, g.uris):
-                    self._expire_record(sid, uri, tref=g.tref)
+                    self._expire_record(sid, uri, tref=g.tref, ment=g.ment,
+                                        tstate=g.tstate)
             else:
                 live.append(g)
         if not live:
@@ -526,7 +715,8 @@ class ClusterServing:
                 {k: np.concatenate([g.decoded[k] for g in live])
                  for k in names},
                 sum(g.n for g in live), tref=parent,
-                links=link_attrs.get("links"))
+                links=link_attrs.get("links"), ment=live[0].ment,
+                tstate=live[0].tstate)
         try:
             self._dispatch_prebatched(merged)
         except (Exception, CancelledError) as exc:
@@ -534,8 +724,10 @@ class ClusterServing:
             # the merged batch, it does not kill the exec thread
             logger.exception("dispatch merged batch failed; erroring "
                              "entries")
+            self._resolve_breaker(merged.ment, ok=False)
             for sid, uri in zip(merged.sids, merged.uris):
-                self._try_finish_error(sid, uri, exc)
+                self._try_finish_error(sid, uri, exc, ment=merged.ment,
+                                       tstate=merged.tstate)
             return 0
         return merged.n
 
@@ -546,6 +738,10 @@ class ClusterServing:
         pendb: List[_PreBatched] = []    # same-signature client batches
         pendb_n = 0
         pendb_key = None
+        # with tenancy every key's groups wait out the linger window, so
+        # the flush can go in weighted-fair order
+        pendb_map: Dict[tuple, List[_PreBatched]] = {}
+        pendb_map_n = 0
         deadline = None                  # singles linger deadline
         deadline_b = None                # batches linger deadline
 
@@ -557,7 +753,8 @@ class ClusterServing:
             for item in batch:
                 dl = item[3]
                 if dl is not None and dl.expired:
-                    self._expire_record(item[0], item[1], tref=item[4])
+                    self._expire_record(item[0], item[1], tref=item[4],
+                                        ment=item[5], tstate=item[6])
                 else:
                     live.append(item)
             if not live:
@@ -566,8 +763,9 @@ class ClusterServing:
                 self._dispatch(live)
             except (Exception, CancelledError) as exc:
                 logger.exception("dispatch batch failed; erroring entries")
-                for sid, uri, _, _, _ in live:
-                    self._try_finish_error(sid, uri, exc)
+                for sid, uri, _, _, _, ment, tstate in live:
+                    self._try_finish_error(sid, uri, exc, ment=ment,
+                                           tstate=tstate)
 
         def flush_batches():
             nonlocal pendb, pendb_n, pendb_key, deadline_b
@@ -575,15 +773,50 @@ class ClusterServing:
             deadline_b = None
             self._dispatch_group_list(groups)
 
+        def flush_tenant_batches(drain: bool = False):
+            # the window's budget (max_batch records) goes least virtual
+            # time first, each tenant's virtual time advancing by records /
+            # weight; an overfilled window's overflow (the largest virtual
+            # times) waits for the next window.  A drain dispatches all.
+            nonlocal pendb_map, pendb_map_n, deadline_b
+            held, pendb_map, pendb_map_n = pendb_map, {}, 0
+            deadline_b = None
+            if not held:
+                return
+            by_tenant: Dict[str, List[tuple]] = {}
+            for key, groups in held.items():
+                by_tenant.setdefault(key[0] or "", []).append((key, groups))
+            budget = max(mb, 1)
+            spent = 0
+            for tname in self.tenancy.scheduler.order(by_tenant):
+                for key, groups in by_tenant[tname]:
+                    if not drain and spent >= budget:
+                        pendb_map.setdefault(key, []).extend(groups)
+                        pendb_map_n += sum(g.n for g in groups)
+                        continue
+                    served = self._dispatch_group_list(groups)
+                    spent += served
+                    if served and groups[0].tstate is not None:
+                        self.tenancy.scheduler.charge(
+                            tname, served, groups[0].tstate.policy.weight)
+            if pendb_map:
+                deadline_b = time.monotonic() + linger_s
+
         def sig_of(pb):
-            return tuple(sorted((k, v.shape[1:], str(v.dtype))
-                                for k, v in pb.decoded.items()))
+            # the model and the tenant are part of the key: a dispatch runs
+            # one model and is charged to one tenant
+            return (pb.tstate.name if pb.tstate is not None else None,
+                    pb.ment.name if pb.ment is not None else None,
+                    tuple(sorted((k, v.shape[1:], str(v.dtype))
+                                 for k, v in pb.decoded.items())))
 
         while not (self._stop.is_set() and self._decoders_done.is_set()
-                   and self._q_dec.empty() and not (pend or pendb)):
+                   and self._q_dec.empty()
+                   and not (pend or pendb or pendb_map)):
             timeout = 0.05
             waits = [d for d in (deadline if pend else None,
-                                 deadline_b if pendb else None)
+                                 deadline_b if (pendb or pendb_map)
+                                 else None)
                      if d is not None]
             if waits:
                 timeout = max(min(waits) - time.monotonic(), 0.0)
@@ -595,6 +828,14 @@ class ClusterServing:
             if isinstance(item, _PreBatched):
                 flush_singles()           # keep arrival order
                 key = sig_of(item)
+                if self.tenancy is not None:
+                    if not pendb_map:
+                        deadline_b = time.monotonic() + linger_s
+                    pendb_map.setdefault(key, []).append(item)
+                    pendb_map_n += item.n
+                    if pendb_map_n >= mb or self._stop.is_set():
+                        flush_tenant_batches(drain=self._stop.is_set())
+                    continue
                 if pendb and (key != pendb_key or pendb_n + item.n > mb):
                     flush_batches()
                 if not pendb:
@@ -607,6 +848,7 @@ class ClusterServing:
                 continue
             if item is not None:
                 flush_batches()           # keep arrival order
+                flush_tenant_batches(drain=self._stop.is_set())
                 if not pend:
                     deadline = time.monotonic() + linger_s
                 pend.append(item)
@@ -614,6 +856,10 @@ class ClusterServing:
             if pendb and (self._stop.is_set()
                           or (deadline_b is not None and now >= deadline_b)):
                 flush_batches()
+            if pendb_map and (self._stop.is_set()
+                              or (deadline_b is not None
+                                  and now >= deadline_b)):
+                flush_tenant_batches(drain=self._stop.is_set())
             if pend and (len(pend) >= mb or self._stop.is_set()
                          or (deadline is not None and now >= deadline)):
                 flush_singles()
@@ -623,14 +869,21 @@ class ClusterServing:
         uris = [item[1] for item in batch]
         tensors = [item[2] for item in batch]
         trefs = [item[4] for item in batch]
-        # the group key holds the tensor NAMES too: clients with different
-        # input signatures may share one linger window
+        ments = [item[5] for item in batch]
+        tstates = [item[6] for item in batch]
+        # the group key holds the tensor NAMES too (clients with different
+        # input signatures may share one linger window), the model (a
+        # dispatch runs one) and the tenant (a dispatch is charged to one)
         shape_of = lambda t: tuple(sorted((n, v.shape, v.dtype.str)
                                           for n, v in t.items()))
         groups: Dict[tuple, list] = {}
         for idx, t in enumerate(tensors):
-            groups.setdefault(shape_of(t), []).append(idx)
+            groups.setdefault(
+                (ments[idx].name if ments[idx] is not None else None,
+                 tstates[idx].name if tstates[idx] is not None else None,
+                 shape_of(t)), []).append(idx)
         for idxs in groups.values():
+            ment, tstate = ments[idxs[0]], tstates[idxs[0]]
             # failure containment is per GROUP: a group already submitted
             # is the sink's (result or error, and its credits); a later
             # group's failure must not error-finish it a second time
@@ -643,108 +896,238 @@ class ClusterServing:
                 # (returning a permit) before a later group needs one
                 parent, attrs = self._dispatch_trace(
                     [trefs[i] for i in idxs])
+                if ment is not None:
+                    attrs["model"] = ment.name
+                if tstate is not None:
+                    attrs["tenant"] = tstate.name
                 with obs.span("serving.dispatch", parent=parent,
                               records=len(idxs), **attrs) as sp:
                     self._m_fill.observe(
                         len(idxs) / max(self.config.max_batch, 1))
-                    fut = self._submit_dispatch(x)
+                    fut = self._submit_dispatch(x, ment)
             except (Exception, CancelledError) as exc:
                 logger.exception("dispatch group failed; erroring its "
                                  "entries")
+                self._resolve_breaker(ment, ok=False)
                 for i in idxs:
-                    self._try_finish_error(sids[i], uris[i], exc)
+                    self._try_finish_error(sids[i], uris[i], exc,
+                                           ment=ment, tstate=tstate)
                 continue
             self._put_forever(self._q_pend,
                               (sids, uris, [(idxs, fut)], time.monotonic(),
-                               sp.span_id if sp else None),
+                               sp.span_id if sp else None, ment, tstate),
                               name="pending")
 
-    def _submit_dispatch(self, x):
-        """Submit one device dispatch to the pool, after taking a permit
-        in the exec thread (permit order == submission order == the sink's
-        order).  The pool worker runs it in a copy of this thread's
-        context, so the ``serving.dispatch`` span is its active span: a
-        fault at ``device_execute`` lands on that span."""
+    def _submit_dispatch(self, x, ment=None):
+        """Submit one device dispatch to the pool.  The pool worker runs it
+        in a copy of this thread's context, so the ``serving.dispatch``
+        span is its active span: a fault at ``device_execute`` lands on
+        that span.
+
+        One model: an engine permit is taken here, in the exec thread
+        (permit order == submission order), and the sink returns it.
+        Multi-model: the model is pinned here (the pin rides the handle to
+        the sink, so a model with work in flight cannot be evicted) and
+        its weights are read under the pin; a resident model's permit
+        (``reserve``, where the model has one) is taken here, while a
+        dispatch whose model is not resident goes to the cold pool, whose
+        worker waits for the page-in and then takes the permit itself, so
+        the exec thread never blocks behind a transfer."""
         chaos.fire("dispatch_submit")
-        self._permits.acquire()
+        run = contextvars.copy_context().run
+        if ment is None:
+            self._permits.acquire()
+            try:
+                return self._dispatch_pool.submit(
+                    run, self.model.predict_async, x)
+            except BaseException:
+                self._permits.release()
+                raise
+        self.registry.pin(ment)
+        model = ment.model
         try:
-            fut = self._dispatch_pool.submit(
-                contextvars.copy_context().run, self.model.predict_async, x)
+            cold = not ment.resident
+            pool = self._cold_pool if cold else self._dispatch_pool
+            reserved = hasattr(model, "reserve")
+            if reserved and cold:
+                return pool.submit(run, self._paged_predict, ment, x,
+                                   reserved, True)
+            if reserved:
+                model.reserve()
+            try:
+                fut = pool.submit(run, self._paged_predict, ment, x,
+                                  reserved)
+            except BaseException:
+                if reserved:
+                    model.release_reservation()
+                raise
+            if reserved:
+                # a task cancelled before it ran (stop()'s
+                # cancel_futures) would otherwise keep its permit
+                fut.add_done_callback(lambda f: model.release_reservation()
+                                      if f.cancelled() else None)
+            return fut
         except BaseException:
-            self._permits.release()
+            # never submitted: the sink will not see this handle
+            self.registry.unpin(ment)
             raise
-        return fut
+
+    def _paged_predict(self, ment, x, reserved: bool,
+                       acquire: bool = False):
+        """Pool-worker body of one multi-model dispatch: wait for the
+        model's weights (the pager began at admission), then dispatch.  A
+        failed page-in raises here and error-finishes exactly this group
+        at the sink.  ``acquire``: the permit is taken here, after the
+        page-in (a cold dispatch), not at submit."""
+        try:
+            self.registry.ensure_resident(ment)
+        except BaseException:
+            if reserved and not acquire:
+                ment.model.release_reservation()
+            raise
+        if not reserved:
+            return ment.model.predict_async(x)
+        if acquire:
+            ment.model.reserve()
+        return ment.model.predict_async(x, reserved=True)
+
+    def _resolve_breaker(self, ment, ok: bool) -> None:
+        """One dispatch outcome on the model's breaker (nothing with one
+        model).  Fed from the model path only (page-in, dispatch, device),
+        never from a client's payload, so one bad client cannot eject a
+        healthy model."""
+        if ment is None:
+            return
+        if ok:
+            ment.breaker.record_success()
+        else:
+            ment.breaker.record_failure()
 
     def _dispatch_prebatched(self, pb: _PreBatched) -> None:
         names = list(pb.decoded.keys())
         x = pb.decoded[names[0]] if len(names) == 1 else pb.decoded
         attrs = {"links": pb.links} if pb.links else {}
+        if pb.ment is not None:
+            attrs["model"] = pb.ment.name
+        if pb.tstate is not None:
+            attrs["tenant"] = pb.tstate.name
         with obs.span("serving.dispatch", parent=pb.tref,
                       records=pb.n, **attrs) as sp:
             self._m_fill.observe(pb.n / max(self.config.max_batch, 1))
-            fut = self._submit_dispatch(x)
+            fut = self._submit_dispatch(x, pb.ment)
         self._put_forever(self._q_pend,
                           (pb.sids, pb.uris, [(list(range(pb.n)), fut)],
-                           time.monotonic(), sp.span_id if sp else None),
+                           time.monotonic(), sp.span_id if sp else None,
+                           pb.ment, pb.tstate),
                           name="pending")
 
     def _sink_loop(self) -> None:
+        # a cold model's dispatch completes only after its page-in: items
+        # whose future is not done wait in ``stash`` and are consumed as
+        # they complete, so finished results of other models never queue
+        # behind a transfer; at drain the stash is consumed blocking
+        stash: deque = deque()
         while not (self._stop.is_set() and self._exec_done.is_set()
-                   and self._q_pend.empty()):
-            try:
-                item = self._q_pend.get(timeout=0.05)
-            except queue.Empty:
-                continue
-            sids, uris, handles, t_disp, parent = item
-            for idxs, pending in handles:
-                # CancelledError is a BaseException: a future cancelled by
-                # stop()'s pool shutdown must error-finish its entries,
-                # not kill the sink
+                   and self._q_pend.empty() and not stash):
+            draining = (self._stop.is_set() and self._exec_done.is_set()
+                        and self._q_pend.empty())
+            item = None
+            for _ in range(len(stash)):
+                cand = stash.popleft()
+                if draining or cand[2][0][1].done():
+                    item = cand
+                    break
+                stash.append(cand)
+            if item is None:
                 try:
-                    try:
-                        # the fetch waits on the dispatch's CUDA event:
-                        # the device's time shows in this span
-                        with obs.span("serving.sink", parent=parent,
-                                      records=len(idxs)):
-                            out = np.asarray(
-                                self.model.fetch(pending.result()))
-                            # one bulk result write, one xack per group
-                            self.broker.set_results(
-                                {f"result:{uris[i]}":
-                                 {"value": self._encode_result(out[j])}
-                                 for j, i in enumerate(idxs)})
-                            self.broker.xack(self.stream, self.group,
-                                             *[sids[i] for i in idxs])
-                    finally:
-                        self._permits.release()
+                    item = self._q_pend.get(timeout=0.005 if stash
+                                            else 0.05)
+                except queue.Empty:
+                    continue
+                if not draining and not item[2][0][1].done():
+                    stash.append(item)
+                    continue
+            self._sink_item(*item)
+
+    def _sink_item(self, sids, uris, handles, t_disp, parent, ment,
+                   tstate) -> None:
+        model = ment.model if ment is not None else self.model
+        for idxs, pending in handles:
+            # CancelledError is a BaseException: a future cancelled by
+            # stop()'s pool shutdown must error-finish its entries, not
+            # kill the sink
+            try:
+                try:
+                    # the fetch waits on the dispatch's CUDA event: the
+                    # device's time shows in this span
+                    with obs.span("serving.sink", parent=parent,
+                                  records=len(idxs)):
+                        out = np.asarray(model.fetch(pending.result()))
+                        # one bulk result write, one xack per group
+                        self.broker.set_results(
+                            {f"result:{uris[i]}":
+                             {"value": self._encode_result(out[j])}
+                             for j, i in enumerate(idxs)})
+                        self.broker.xack(self.stream, self.group,
+                                         *[sids[i] for i in idxs])
                 except (Exception, CancelledError) as exc:
                     logger.exception("sink failed for %d entries",
                                      len(idxs))
+                    # the model path failed (page-in, dispatch, device):
+                    # its breaker hears it, unless the future was cancelled
+                    # before it ran (a shutdown, not the model's fault)
+                    if not pending.cancelled():
+                        self._resolve_breaker(ment, ok=False)
                     for i in idxs:
-                        self._try_finish_error(sids[i], uris[i], exc)
+                        self._try_finish_error(sids[i], uris[i], exc,
+                                               ment=ment, tstate=tstate)
                     continue
-                # the group is PUBLISHED: its credits return exactly once,
-                # outside the publish guard
-                self._release_admission(len(idxs))
-                try:
-                    self._m_disp_lat.observe(time.monotonic() - t_disp)
-                    self._count(len(idxs))
-                except (Exception, CancelledError):
-                    logger.exception("post-publish accounting failed")
+            finally:
+                # the permit (one model) or the dispatch pin (a registry)
+                # returns exactly once per handle, result or error
+                if ment is None:
+                    self._permits.release()
+                else:
+                    self.registry.unpin(ment)
+            # the group is PUBLISHED: its credits return exactly once,
+            # outside the publish guard
+            self._resolve_breaker(ment, ok=True)
+            if ment is not None:
+                ment.count_served(len(idxs))
+            if tstate is not None:
+                self.tenancy.count_served(tstate, len(idxs))
+            self._release_admission(len(idxs), ment, tstate)
+            try:
+                self._m_disp_lat.observe(time.monotonic() - t_disp)
+                self._count(len(idxs))
+            except (Exception, CancelledError):
+                logger.exception("post-publish accounting failed")
 
     def _try_finish_error(self, sid, uri, exc, code: str = "error",
                           count_error: bool = True,
-                          release: bool = True) -> None:
+                          release: bool = True, ment=None,
+                          tstate=None) -> None:
         """Error-finish one ADMITTED record: write the error result and
         return its admission credit (each record takes one credit at the
         reader and returns it on exactly one completion path).  Decode
         callers pass ``release=False`` and return the entry's acquired
         count in one call; expiries pass ``count_error=False`` (they
-        count as expired, not as errors)."""
+        count as expired, not as errors).  ``ment`` / ``tstate`` route the
+        release and the counts to the record's model and tenant."""
         if count_error:
             self._m_errors.inc()
+            if ment is not None:
+                ment.count_error()
+            if tstate is not None:
+                self.tenancy.count_error(tstate)
+        if ment is not None and ment.breaker.state == "half_open":
+            # while half-open the only admitted records are the breaker's
+            # probes: one dying off the model path (expired, undecodable)
+            # would spend the probe with no verdict and leave the model
+            # ejected for good; a failure restarts the recovery clock
+            ment.breaker.record_failure()
         if release:
-            self._release_admission(1)
+            self._release_admission(1, ment, tstate)
         try:
             # some exceptions stringify empty (CancelledError): the client
             # must still see what failed
@@ -754,16 +1137,21 @@ class ClusterServing:
         except (Exception, CancelledError):
             logger.exception("could not record error result for %s", uri)
 
-    def _expire_record(self, sid, uri, tref=None) -> None:
-        self._count_expired(1, tref=tref)
+    def _expire_record(self, sid, uri, tref=None, ment=None,
+                       tstate=None) -> None:
+        self._count_expired(1, tref=tref, tstate=tstate)
         self._try_finish_error(
             sid, uri, DeadlineExceeded("deadline expired before device "
                                        "dispatch"), code="expired",
-            count_error=False)
+            count_error=False, ment=ment, tstate=tstate)
 
-    def _release_admission(self, k: int) -> None:
-        if self.admission is not None:
-            self.admission.release(k)
+    def _release_admission(self, k: int, ment=None, tstate=None) -> None:
+        if tstate is not None:
+            self.tenancy.tenant_release(tstate, k)
+            return
+        adm = ment.admission if ment is not None else self.admission
+        if adm is not None:
+            adm.release(k)
 
     def stop(self) -> None:
         self._stop.set()
@@ -806,6 +1194,10 @@ class ClusterServing:
                 # cancel_futures fails a never-started task loudly
                 pool.shutdown(wait=False, cancel_futures=True)
                 self._dispatch_pool = None
+            cold = getattr(self, "_cold_pool", None)
+            if cold is not None:
+                cold.shutdown(wait=False, cancel_futures=True)
+                self._cold_pool = None
         else:
             for t in self._threads:
                 t.join(timeout=5)
@@ -975,4 +1367,8 @@ class ClusterServing:
         if adm is not None:
             out["admission"] = {"capacity": adm.capacity,
                                 "in_flight": adm.in_flight}
+        if self.registry is not None:
+            out["models"] = self.registry.stats()
+        if self.tenancy is not None:
+            out["tenants"] = self.tenancy.usage()
         return out

@@ -47,8 +47,16 @@ pull exactly its request's spans via ``/spans?trace_id=...``.
 ``zoo_http_requests_total{route, code}`` counts the answers and
 ``zoo_http_coalesce_*`` the coalescer's flushes.
 
-Not ported yet: ``/predict/<model>``, ``X-Zoo-Model`` and ``X-Zoo-Tenant``
-answer 501, and the fleet-worker arguments raise (ROADMAP Queue 1 item 1).
+Multi-model and tenancy: ``POST /predict/<model>`` (or the ``X-Zoo-Model``
+header, or the JSON body's ``"model"`` key) routes to a named model of a
+``ClusterServing`` over a ``ModelRegistry``; a bad or non-string name
+answers 400 and the connection goes on.  ``X-Zoo-Tenant`` (or the JSON
+``"tenant"`` key) charges the request to a tenant's credit pool; an
+unknown tenant is refused by the engine's gate.  Both ride the wire beside
+the deadline and join the coalescer's grouping key: a batch entry targets
+one model and one tenant.
+
+Not ported yet: the fleet-worker arguments raise (ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -71,13 +79,14 @@ import numpy as np
 
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.resilience import Deadline, deadline_scope
-from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS, reject
+from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.serving.client import (
     FASTWIRE_CONTENT_TYPE, TOKEN_STREAM_CONTENT_TYPE, InputQueue,
     OutputQueue, ServingDeadlineError, ServingShedError)
 from analytics_zoo_tpu_torch.serving.codec import (
     decode_items_bytes, encode_items_bytes)
 from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+from analytics_zoo_tpu_torch.serving.model_zoo import validate_model_name
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.serving")
 
@@ -124,12 +133,16 @@ class _RequestCoalescer:
 
     def submit(self, uri: str, raw: Optional[bytes], items: dict,
                deadline: Optional[Deadline],
-               trace_ctx: Optional[str] = None) -> None:
+               trace_ctx: Optional[str] = None,
+               model: Optional[str] = None,
+               tenant: Optional[str] = None) -> None:
         """Hand one record to the flush worker.  ``raw`` is the encoded
         fast-wire frame when the record arrived binary: a single-record
         flush passes it to the stream verbatim.  ``trace_ctx`` is the
-        handler's span context, stamped on the entry."""
-        rec = (uri, raw, items, deadline, trace_ctx, time.monotonic())
+        handler's span context, stamped on the entry; ``model`` and
+        ``tenant`` join the grouping key."""
+        rec = (uri, raw, items, deadline, trace_ctx, time.monotonic(),
+               model, tenant)
         with self._cond:
             if self._stop.is_set():
                 raise RuntimeError("coalescer is stopped")
@@ -178,7 +191,9 @@ class _RequestCoalescer:
         for rec in batch:
             key = (tuple(sorted((k, v.shape, str(v.dtype))
                                 for k, v in rec[2].items())),
-                   self._deadline_bucket(rec[3]))
+                   self._deadline_bucket(rec[3]),
+                   rec[6],       # model: one batch entry, one model
+                   rec[7])       # tenant: one batch entry, one tenant
             groups.setdefault(key, []).append(rec)
         for recs in groups.values():
             try:
@@ -193,13 +208,16 @@ class _RequestCoalescer:
         self.records += len(recs)
         self._m_flushes.inc()
         self._m_records.inc(len(recs))
+        model, tenant = recs[0][6], recs[0][7]
         if len(recs) == 1:
             uri, raw, items, dl, tctx = recs[0][:5]
             if raw is not None:
-                self._inq.enqueue_raw(uri, raw, deadline=dl, trace_ctx=tctx)
+                self._inq.enqueue_raw(uri, raw, deadline=dl, trace_ctx=tctx,
+                                      model=model, tenant=tenant)
             else:
                 self._inq.enqueue_items(uri, items, deadline=dl,
-                                        trace_ctx=tctx)
+                                        trace_ctx=tctx, model=model,
+                                        tenant=tenant)
             return
         uris = [r[0] for r in recs]
         stacked = {k: np.stack([r[2][k] for r in recs]) for k in recs[0][2]}
@@ -207,7 +225,8 @@ class _RequestCoalescer:
         dl = min(dls, key=lambda d: d.remaining()) if dls else None
         tctx = next((r[4] for r in recs if r[4]), None)
         self._inq.enqueue_batch_items(uris, stacked, deadline=dl,
-                                      trace_ctx=tctx)
+                                      trace_ctx=tctx, model=model,
+                                      tenant=tenant)
 
     def _fail(self, recs: List[tuple], exc: BaseException) -> None:
         results = {f"result:{r[0]}": {"error": str(exc)
@@ -223,10 +242,6 @@ class _RequestCoalescer:
         with self._cond:
             self._cond.notify_all()
         self._thread.join(timeout=10)
-
-
-def _not_ported(item: int) -> dict:
-    return {"error": f"not ported yet ({QUEUE_ITEMS[item]})"}
 
 
 class ServingFrontend:
@@ -397,15 +412,26 @@ class ServingFrontend:
                 # the body is always read in full first, so an early
                 # answer never strands unread bytes on the connection
                 raw = self.rfile.read(length)
-                if path.startswith("/predict/") or any(
-                        self.headers.get(h) for h in ("X-Zoo-Model",
-                                                      "X-Zoo-Tenant")):
-                    # multi-model routing and tenancy
-                    self._send(501, _not_ported(1))
-                    return
-                if path != "/predict":
+                # /predict/<model> routes to a named model; bare /predict
+                # serves the registry's default (or the one model)
+                model = None
+                if path.startswith("/predict/"):
+                    from urllib.parse import unquote
+                    model = unquote(path[len("/predict/"):])
+                    try:
+                        validate_model_name(model)
+                    except ValueError:
+                        self._send(400, {"error": "bad model name in "
+                                                  "/predict/<model>"})
+                        return
+                elif path != "/predict":
                     self._send(404, {"error": "not found"})
                     return
+                if model is None:
+                    model = self.headers.get("X-Zoo-Model") or None
+                # an unknown tenant is refused by the engine's gate: no
+                # pool is ever made from request traffic
+                tenant = self.headers.get("X-Zoo-Tenant") or None
                 ctype = (self.headers.get("Content-Type") or "") \
                     .split(";")[0].strip().lower()
                 binary = ctype == FASTWIRE_CONTENT_TYPE
@@ -420,9 +446,6 @@ class ServingFrontend:
                                or frontend._next_uri())
                     else:
                         body = json.loads(raw)
-                        if body.get("model") or body.get("tenant"):
-                            self._send(501, _not_ported(1))
-                            return
 
                         # str values are base64 image content; JSON ints
                         # stay integral (embedding ids), the rest rides
@@ -437,9 +460,19 @@ class ServingFrontend:
                         inputs = {k: to_arr(v)
                                   for k, v in body["inputs"].items()}
                         uri = body.get("uri") or frontend._next_uri()
+                        model = model or body.get("model") or None
+                        tenant = tenant or body.get("tenant") or None
                 except Exception as exc:  # bad payloads: 400, not a crash
                     self._send(400, {"error": str(exc)})
                     return
+                if model is not None:
+                    # the path form's rule for header and body names too,
+                    # a non-string body "model" included: a client error
+                    try:
+                        validate_model_name(model)
+                    except ValueError:
+                        self._send(400, {"error": "bad model name"})
+                        return
                 dl = None
                 hdr = self.headers.get("X-Zoo-Deadline-Ms")
                 if hdr:
@@ -463,9 +496,10 @@ class ServingFrontend:
                                               "engine attached"})
                     return
                 self._do_predict(uri, inputs, raw if binary else None, dl,
-                                 pctx)
+                                 pctx, model, tenant)
 
-            def _do_predict(self, uri, inputs, raw, dl, pctx):
+            def _do_predict(self, uri, inputs, raw, dl, pctx, model=None,
+                            tenant=None):
                 binary = raw is not None
                 coal = frontend._coalescer
                 # tensor-only records coalesce; image / string payloads
@@ -484,15 +518,18 @@ class ServingFrontend:
                     tctx = thdr.get("X-Zoo-Trace")
                     try:
                         if use_coal:
-                            coal.submit(uri, raw, inputs, dl, tctx)
+                            coal.submit(uri, raw, inputs, dl, tctx,
+                                        model=model, tenant=tenant)
                         elif binary:
                             # the frame goes on the stream verbatim
                             inq.enqueue_raw(uri, raw, deadline=dl,
-                                            trace_ctx=tctx)
+                                            trace_ctx=tctx, model=model,
+                                            tenant=tenant)
                         else:
                             # explicit dict: a tensor named like an
                             # enqueue parameter cannot shadow it
-                            inq.enqueue_items(uri, inputs)
+                            inq.enqueue_items(uri, inputs, model=model,
+                                              tenant=tenant)
                     except Exception as exc:  # broker down: 503
                         self._send(503, {"error": str(exc)}, headers=thdr)
                         return

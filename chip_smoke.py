@@ -229,8 +229,63 @@ Phases, each of which raises (exit code 1) on failure:
    sequences, after which no table is left and the memory ledger's sweep
    reads clean.
 
-The serve, train, llm, ring, heads and http phases also check that no
-kernel input was copied before a launch (the wrappers' ``copies``).  It
+11. ingest: the sharded ingest path.  SQuAD as the heads phase makes it
+   (BERT-base, seq 384, batch 12, ``AdamWeightDecay(lr=3e-5)``, dropout
+   0.1, mixed precision), its 192 features under ``run_squad.py``'s names
+   written as 8 TFRecord shards, read by ``ShardedFeatureSet(shuffle=True,
+   seed=0, window_shards=2)`` with ``Transforms().cast("int32", ...)`` on
+   the id fields fused into the step, trained through ``Estimator`` with
+   4 steps a dispatch (CUDA graph replays), 2 epochs of 16 steps; the net
+   reads the shards' dict of columns through a small adapter module.
+   Checked, each to 0 difference in the per-step losses and the weights:
+   ``fuse=False`` against ``fuse=True``; a run stopped after dispatch 2 of
+   epoch 1 and resumed in a fresh ``Estimator`` (``resume=True``, the
+   checkpoint's ``data_cursor``) against the uninterrupted run; one
+   planned ``shard_read`` raise in epoch 1 retried from the latest
+   checkpoint (no ``zoo-data-*`` thread left); ``shuffle=False`` shards
+   against the DEVICE tier of the same records in the same order.  Each
+   epoch sees every ``unique_ids`` once (across the restart too), 12 + 12
+   launches a step through the replays, ``zoo_data_shards_read_total``
+   8 decoded in epoch 0 and 8 staged in epoch 1, and a profiled epoch
+   holds no pageable host-to-device copy.  Step ms, samples/s, data-wait
+   ms a step and the device-busy share, beside the heads phase's
+   DEVICE-tier SQuAD step.  NeuralCF (MovieLens-1M width) from the
+   1,000,209 records of 8 ``.npz`` shards at batch 8,192, 3 epochs, in
+   bench.py's three legs (eager: no prefetch, no staging, transforms on
+   the host; prefetch: the pipeline and staging; fused): equal weights
+   (0 difference), warm-epoch samples/s and data wait per leg.
+12. multimodel: a ``ModelRegistry`` holding BERT-base ``bert_a`` (the
+   serve phase's weights, pinned), BERT-base ``bert_b`` (another seed),
+   the ncf phase's NeuralCF and the zoo phase's TextClassifier(cnn), the
+   last three staged in pinned host memory, under a budget of exactly
+   ``bert_a`` + ``bert_b`` bytes, behind ``ClusterServing(registry,
+   ServingConfig())`` and ``ServingFrontend(port=0)``: each page-in timed;
+   evicting ``bert_b`` frees its bytes of ``memory_allocated`` and a
+   re-placed copy equals its host copy bit for bit; 128 requests from 4
+   threads round-robin over the models and over ``/predict/<model>``,
+   ``X-Zoo-Model`` and the JSON ``"model"`` key: 12 ``flash_fwd``
+   launches per BERT forward and none else, the books equal to the
+   resident models' bytes at every sample, the ledger's sweep clean, at
+   least 2 evictions, every answer against the same model alone on the
+   card (BERT 1e-4, NCF 1e-5, TextClassifier 1e-4); ``bert_a``'s p50
+   idle and while ``bert_b`` pages in; ``weight_page`` raises, armed
+   while ``ncf``'s requests are out, fail only them and open its breaker
+   while the other three models answer.
+13. tenancy: the http phase's BERT-base behind
+   ``ServingConfig(tenants=(("gold", 64, 1.0), ("free", 8, 1.0)))``:
+   ``free`` floods from 3 threads (8 requests in flight each; the
+   frontend's coalescer off, so each request meets the gate alone) while
+   ``gold`` sends 16 from one; every ``gold`` request answered within
+   1e-4 of plain attention, ``free``'s excess shed with 429, and the
+   per-tenant books equal to what was sent and answered.
+14. health: ``HealthMonitor(device="cuda:0")``: a probe reads healthy;
+   three planned ``health_probe`` raises open the card's breaker and fire
+   ``on_failure`` once; a probe issued during a 32-replay training
+   dispatch of the train_bench configuration reads ``ok``.
+
+The serve, train, llm, ring, heads, http and ingest phases also check
+that no kernel input was copied before a launch (the wrappers'
+``copies``).  It
 prints one JSON line of kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port beside it, it exits non-zero and prints no result.
@@ -328,6 +383,18 @@ TEXT_NEWS20 = dict(class_num=20, vocab_size=20000, token_length=200,
 # epochs of 32 steps from the DEVICE tier, 32 steps a dispatch; the burst
 ZOO = dict(n=4096, batch=128, steps=32, epochs=2, spd=32, requests=64)
 ZOO_SESSION = dict(item_count=3706, include_history=True)  # MovieLens-1M
+# the sharded ingest path (11): SQuAD at the heads phase's settings, its
+# 192 features in 8 TFRecord shards read in windows of 2, 4 steps a
+# dispatch, 2 epochs; NCF from MovieLens-1M's 1,000,209 ratings in 8 .npz
+# shards at batch 8,192 (bench.py's ingest legs)
+INGEST = dict(features=192, shards=8, window=2, spd=4, epochs=2)
+INGEST_NCF = dict(records=1000209, shards=8, batch=8192, epochs=3)
+# multi-model serving (12): 128 requests from 4 threads over 4 models
+MULTI = dict(requests=128, threads=4, fault_requests=4)
+# tenancy (13): gold's 16 requests against free flooding from 3 threads,
+# each with 8 requests in flight, 4 rounds
+TENANTS = (("gold", 64, 1.0), ("free", 8, 1.0))
+TENANCY = dict(gold=16, free_threads=3, free_conns=8, free_rounds=4)
 ZOO_SERVE_ATOL = 1e-4         # served probabilities vs the CPU forward
 ZOO_PREDICT_ATOL = 1e-5       # the other zoo models' predictions vs CPU
 ZOO_LOSS_RTOL = 1e-4          # training losses, card vs CPU (f32)
@@ -4276,6 +4343,941 @@ def phase_http(n_requests=64, n_streams=16, new_tokens=32, threads=4):
             "paged_chunk": llm_launches["paged_chunk"]}, bert, llm
 
 
+# ---------------------------------------------------------------- ingest
+class _SquadRecords(torch.nn.Module):
+    """BERTSQuAD's net over a batch as the shards hold it: a dict of
+    ``run_squad.py``'s feature columns in (``unique_ids`` unused), the
+    net's ``[start, end]`` logits out."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x, seed=None):
+        return self.net([x["input_ids"], x["segment_ids"], x["input_mask"]],
+                        seed=seed)
+
+
+def _squad_record_loss(preds, labels):
+    """The SQuAD loss over the shards' label columns ((B, 1) each)."""
+    from analytics_zoo_tpu_torch.tfpark.text_estimators import _squad_loss
+    return _squad_loss(preds, [labels["start_positions"],
+                               labels["end_positions"]])
+
+
+def _squad_shards(rng, tmp):
+    """``INGEST['features']`` SQuAD features made as the heads phase makes
+    them (the answer span planted in the ragged valid part), under
+    ``run_squad.py``'s names as int64, written in order as
+    ``INGEST['shards']`` TFRecord shards; returns the paths and the
+    columns."""
+    from analytics_zoo_tpu_torch.data.tfrecord import (build_example,
+                                                       write_records)
+    n, k = INGEST["features"], INGEST["shards"]
+    ids, seg, mask, lens = _heads_inputs("squad", n, rng)
+    start = rng.integers(lens // 3, lens - 8)
+    end = start + rng.integers(0, 8, n)
+    ids[np.arange(n), start] = 1
+    ids[np.arange(n), end] = 2
+    cols = {"unique_ids": 1000000000 + np.arange(n)[:, None],
+            "input_ids": ids, "input_mask": mask, "segment_ids": seg,
+            "start_positions": start[:, None], "end_positions": end[:, None]}
+    cols = {c: np.asarray(v, np.int64) for c, v in cols.items()}
+    per, paths = n // k, []
+    for s in range(k):
+        path = os.path.join(tmp, f"train-{s:05d}-of-{k:05d}.tf_record")
+        write_records(path, [build_example({c: v[i] for c, v in cols.items()})
+                             for i in range(s * per, (s + 1) * per)])
+        paths.append(path)
+    return paths, cols
+
+
+SQUAD_FEATURES = ["unique_ids", "input_ids", "segment_ids", "input_mask"]
+SQUAD_LABELS = ["start_positions", "end_positions"]
+
+
+def _squad_set(paths, shuffle=True, fuse=True):
+    from analytics_zoo_tpu_torch.data import ShardedFeatureSet, Transforms
+    tf = Transforms(fuse=fuse)
+    for field in SQUAD_FEATURES[1:]:
+        tf = tf.cast("int32", field=field)
+    return ShardedFeatureSet(paths, feature_keys=SQUAD_FEATURES,
+                             label_keys=SQUAD_LABELS, shuffle=shuffle,
+                             seed=0, window_shards=INGEST["window"],
+                             transforms=tf)
+
+
+class _SeenIds:
+    """Records the ``unique_ids`` of every batch a sharded set hands the
+    estimator (device tensors, read after the run)."""
+
+    def __init__(self, fs):
+        self.batches = []
+        orig = fs.batches
+
+        def spy(*a, **kw):
+            for x, y in orig(*a, **kw):
+                self.batches.append(x["unique_ids"])
+                yield x, y
+        fs.batches = spy
+
+    def epochs(self, steps):
+        ids = [b.reshape(-1).cpu().numpy() for b in self.batches]
+        return [np.concatenate(ids[e * steps:(e + 1) * steps])
+                for e in range(len(ids) // steps)]
+
+
+def _squad_est(net, tree, ckdir=None, trigger=None):
+    """A fresh estimator at the ingest configuration over ``net``, its
+    weights reset to ``tree``."""
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.keras.optimizers import AdamWeightDecay
+    net.set_weights(tree)
+    return Estimator(_SquadRecords(net),
+                     AdamWeightDecay(lr=HEADS["squad"]["lr"]),
+                     _squad_record_loss, mixed_precision=True,
+                     steps_per_dispatch=INGEST["spd"], checkpoint_dir=ckdir,
+                     checkpoint_trigger=trigger, device="cuda")
+
+
+def _squad_train(net, tree, fs, ckdir=None, trigger=None, inj=None,
+                 **train_kw):
+    """One SQuAD run from ``fs`` at the ingest configuration, from the
+    weights ``tree``; returns (per-step losses, weights, the estimator's
+    history)."""
+    from analytics_zoo_tpu_torch.testing import chaos
+    est = _squad_est(net, tree, ckdir, trigger)
+    with _DispatchLosses() as rec, chaos.installed(
+            inj or chaos.ChaosInjector()):
+        est.train(fs, HEADS["squad"]["batch"], epochs=INGEST["epochs"],
+                  seed=SEED, **train_kw)
+    torch.cuda.synchronize()
+    weights = {n: p.detach().clone() for n, p in net.named_parameters()}
+    history = list(est.history)
+    del est
+    _release()
+    return rec.losses, weights, history
+
+
+def _same_run(what, got, want):
+    """Two runs' per-step losses and final weights, held to 0 difference."""
+    dl = max((abs(a - b) for a, b in zip(got[0], want[0])),
+             default=float("inf"))
+    dw = max(float((got[1][n] - w).abs().max()) for n, w in want[1].items())
+    ok = len(got[0]) == len(want[0]) and dl == 0.0 and dw == 0.0
+    log(f"[ingest] {what}: {len(got[0])} vs {len(want[0])} steps, losses "
+        f"max |d| {dl:.3e}, weights max |d| {dw:.3e} (held to 0) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the runs differ")
+
+
+def _shard_reads():
+    from analytics_zoo_tpu_torch import observability as obs
+    series = obs.get_registry().snapshot().get(
+        "zoo_data_shards_read_total", {}).get("series", {})
+    return {src: series.get((("source", src),), 0.0)
+            for src in ("decode", "stage")}
+
+
+def _counter_total(name):
+    from analytics_zoo_tpu_torch import observability as obs
+    return sum(obs.get_registry().snapshot().get(name, {}).get(
+        "series", {}).values())
+
+
+def _pageable_h2d(fn):
+    """``fn`` under the profiler: (wall ms, device busy ms, names of the
+    host-to-device copies from pageable memory)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    pageable = sorted({e.name for e in prof.events()
+                       if "HtoD" in e.name and "Pageable" in e.name})
+    copies = sorted({e.name for e in prof.events() if "Memcpy" in e.name})
+    return wall, busy, pageable, copies
+
+
+def _ingest_squad(card_name, heads):
+    """SQuAD from TFRecord shards; see the module docstring (11)."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.common.triggers import (MaxIteration,
+                                                         SeveralIteration)
+    from analytics_zoo_tpu_torch.data import FeatureSet
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.testing import chaos
+    from analytics_zoo_tpu_torch.tfpark import BERTSQuAD
+    cfg = dict(BERT_BASE, seq_len=512, hidden_drop=0.1, attn_drop=0.1)
+    B, n_block = HEADS["squad"]["batch"], cfg["n_block"]
+    steps = INGEST["features"] // B
+    rng = np.random.default_rng(SEED + 12)
+    tmp = tempfile.mkdtemp(prefix="zoo_ingest_")
+    out = {}
+    try:
+        paths, cols = _squad_shards(rng, tmp)
+        net = BERTSQuAD(bert_config=cfg, device="cuda").net
+        tree = _random_tree(net, rng)
+        log(f"[ingest] squad: {INGEST['features']} features in "
+            f"{len(paths)} TFRecord shards, ShardedFeatureSet(shuffle=True,"
+            f" seed=0, window_shards={INGEST['window']}), int32 casts of "
+            f"the id fields fused into the step; BERT-base seq "
+            f"{HEADS['squad']['seq']}, batch {B}, bf16, "
+            f"{INGEST['spd']} steps a dispatch, {INGEST['epochs']} epochs "
+            f"of {steps} steps on {card_name}")
+
+        # A: the main path, launches, shard reads and data wait per epoch
+        fs = _squad_set(paths)
+        fs.evict()      # the probe's staged shard: epoch 0 reads every file
+        seen = _SeenIds(fs)
+        reads, waits = [], []
+        from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+        orig_epoch = est_mod.Estimator._run_epoch
+
+        def at_epoch(est, *a, **kw):
+            reads.append(_shard_reads())
+            waits.append(_counter_total("zoo_train_data_wait_seconds_total"))
+            return orig_epoch(est, *a, **kw)
+        est_mod.Estimator._run_epoch = at_epoch
+        _kernels.reset_launches()
+        try:
+            main = _squad_train(net, tree, fs)
+        finally:
+            est_mod.Estimator._run_epoch = orig_epoch
+        reads.append(_shard_reads())
+        # the warm epoch's wait (epoch 0 decodes every file)
+        waited = _counter_total("zoo_train_data_wait_seconds_total") \
+            - waits[-1]
+        launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+        no_copies("ingest")
+        want = dict.fromkeys(_kernels.KERNELS, 0)
+        want.update(flash_fwd=INGEST["epochs"] * steps * n_block,
+                    flash_bwd=INGEST["epochs"] * steps * n_block)
+        per_epoch = [{s: reads[e + 1][s] - reads[e][s] for s in reads[e]}
+                     for e in range(len(reads) - 1)]
+        losses = [h["loss"] for h in main[2]]
+        log(f"[ingest] squad main path: epoch losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; launches {launches}; "
+            f"zoo_data_shards_read_total per epoch {per_epoch}")
+        if launches != want:
+            raise AssertionError(f"ingest: expected {want} launches through"
+                                 f" the replays, got {launches}")
+        if per_epoch != [{"decode": 8.0, "stage": 0.0},
+                         {"decode": 0.0, "stage": 8.0}]:
+            raise AssertionError(f"ingest: shard reads per epoch "
+                                 f"{per_epoch}, expected 8 decoded in epoch"
+                                 f" 0 and 8 staged in epoch 1")
+        ids = seen.epochs(steps)
+        every = np.sort(cols["unique_ids"][:, 0])
+        if len(ids) != INGEST["epochs"] or any(
+                not np.array_equal(np.sort(e), every) for e in ids):
+            raise AssertionError("ingest: an epoch did not see every "
+                                 "feature exactly once")
+        log(f"[ingest] squad: each of {len(ids)} epochs saw all "
+            f"{len(every)} unique_ids exactly once")
+        step_ms = main[2][-1]["seconds"] * 1e3 / steps
+        out.update(launches=launches, shard_reads=per_epoch,
+                   epoch_losses=losses)
+
+        # B: the chain applied on the host instead of in the step
+        _same_run("fuse=False against fuse=True",
+                  _squad_train(net, tree, _squad_set(paths, fuse=False)),
+                  main)
+
+        # C: stop after dispatch 2 of epoch 1, resume in a new estimator
+        ck = os.path.join(tmp, "ck")
+        fs_c = _squad_set(paths)
+        seen_c = _SeenIds(fs_c)
+        first = _squad_train(net, tree, fs_c, ckdir=ck,
+                             trigger=SeveralIteration(2 * INGEST["spd"]),
+                             end_trigger=MaxIteration(steps + steps // 2))
+        rest = _squad_train(net, tree, fs_c, ckdir=ck, resume=True)
+        _same_run(f"stopped at step {steps + steps // 2} and resumed "
+                  f"against the uninterrupted run",
+                  (first[0] + rest[0], rest[1]), main)
+        resumed = [b.reshape(-1).cpu().numpy() for b in seen_c.batches]
+        epoch1 = np.concatenate(resumed[steps:])
+        if len(resumed) != 2 * steps or not np.array_equal(
+                np.sort(epoch1), every):
+            raise AssertionError("ingest: the resumed epoch dropped or "
+                                 "repeated a feature")
+        log(f"[ingest] squad: the interrupted epoch saw all {len(every)} "
+            "unique_ids exactly once across the restart")
+
+        # D: one planned shard_read raise in epoch 1, retried
+        inj = chaos.ChaosInjector()
+        inj.plan("shard_read", fault="raise", at=[len(paths) + 4])
+        fault = _squad_train(net, tree, _squad_set(paths),
+                             ckdir=os.path.join(tmp, "ck_fault"),
+                             trigger=SeveralIteration(2 * INGEST["spd"]),
+                             inj=inj)
+        stranded = [t.name for t in __import__("threading").enumerate()
+                    if t.name.startswith("zoo-data")]
+        log(f"[ingest] squad: {inj.injected('shard_read')} planned "
+            f"shard_read raise in epoch 1, retried from the latest "
+            f"checkpoint; zoo-data threads left: {stranded}")
+        if inj.injected("shard_read") != 1 or stranded:
+            raise AssertionError("ingest: the shard_read fault was not "
+                                 "injected once, or left a thread")
+        # the steps after the restored checkpoint re-run: the last 8
+        # always do (the fault lies before them)
+        _same_run("a shard_read fault retried against the fault-free run",
+                  (fault[0][-8:], fault[1]), (main[0][-8:], main[1]))
+
+        # E: shuffle=False shards against the DEVICE tier of the same
+        # records in the same order
+        ordered = _squad_train(net, tree, _squad_set(paths, shuffle=False))
+        x = {c: cols[c].astype(np.int32) if c in SQUAD_FEATURES[1:]
+             else cols[c] for c in SQUAD_FEATURES}
+        y = {c: cols[c] for c in SQUAD_LABELS}
+        dev = FeatureSet(x, y, shuffle=False).cache_device(
+            shuffle_batches=False)
+        _same_run("shuffle=False shards against the DEVICE tier",
+                  _squad_train(net, tree, dev), ordered)
+
+        # F: one profiled epoch of the sharded run
+        est = _squad_est(net, tree)
+        fs_f = _squad_set(paths)
+        est.train(fs_f, B, epochs=1, seed=SEED)
+        wall, busy, pageable, copies = _pageable_h2d(
+            lambda: est.train(fs_f, B, epochs=1, seed=SEED))
+        del est, net
+        _release()
+        log(f"[ingest] squad: one profiled epoch ({steps} steps, "
+            f"{steps // INGEST['spd']} dispatches): wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); copies "
+            f"{copies}; pageable host-to-device copies {pageable}")
+        if pageable:
+            raise AssertionError(f"ingest: pageable host-to-device copies "
+                                 f"in the sharded run: {pageable}")
+        dev_step = heads["squad"][f"graph (K={HEADS_STEPS})"]["step_ms"]
+        out.update(step_ms=step_ms, samples_s=B * 1e3 / step_ms,
+                   data_wait_ms=waited * 1e3 / steps,
+                   busy_share=busy / wall, device_tier_step_ms=dev_step)
+        log(f"[ingest] squad from shards (graph, K={INGEST['spd']}): "
+            f"{step_ms:.3f} ms a step ({B * 1e3 / step_ms:.1f} samples/s), "
+            f"data wait {out['data_wait_ms']:.3f} ms a step (the warm "
+            f"epoch), device busy "
+            f"{100 * busy / wall:.1f}%; the heads phase's DEVICE-tier SQuAD "
+            f"step (K={HEADS_STEPS}): {dev_step:.3f} ms on {card_name}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _ingest_ncf(card_name):
+    """NeuralCF from .npz shards in three legs; see the module docstring
+    (11)."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.data import (ShardedFeatureSet, Transforms,
+                                              write_npz_shards)
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.keras import engine
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    n, B = INGEST_NCF["records"], INGEST_NCF["batch"]
+    rs = np.random.RandomState(0)
+    users = rs.randint(1, NCF_ML1M["user_count"] + 1, (n, 1)).astype(np.int64)
+    items = rs.randint(1, NCF_ML1M["item_count"] + 1, (n, 1)).astype(np.int64)
+    labels = rs.randint(0, 2, n).astype(np.int32)
+    engine.reset_uids()
+    tree = _keras_tree(NeuralCF(device="cpu", **NCF_ML1M),
+                       np.random.default_rng(SEED))
+    tmp = tempfile.mkdtemp(prefix="zoo_ingest_ncf_")
+    out, weights = {}, {}
+    try:
+        t0 = time.perf_counter()
+        paths = write_npz_shards(tmp, (users, items), labels,
+                                 INGEST_NCF["shards"])
+        log(f"[ingest] ncf: {n:,} records (MovieLens-1M's ratings) in "
+            f"{len(paths)} .npz shards written in "
+            f"{time.perf_counter() - t0:.2f} s; NeuralCF {NCF_ML1M}, batch "
+            f"{B}, {INGEST_NCF['epochs']} epochs")
+        for leg, prefetch, stage, fuse in (("eager", 0, False, False),
+                                           ("prefetch", 2, True, False),
+                                           ("fused", 2, True, True)):
+            tf = (Transforms(fuse=fuse).cast("int32", field=0)
+                  .cast("int32", field=1))
+            fs = ShardedFeatureSet(paths, shuffle=True, seed=0,
+                                   transforms=tf, prefetch=prefetch,
+                                   stage_cache=stage)
+            engine.reset_uids()
+            net = NeuralCF(device="cuda", **NCF_ML1M)
+            net.set_weights(tree)
+            est = Estimator(net, "adam", "sparse_categorical_crossentropy",
+                            device="cuda")
+            est.train(fs, B, epochs=1, seed=SEED)      # the cold epoch
+            torch.cuda.synchronize()
+            w0 = _counter_total("zoo_train_data_wait_seconds_total")
+            t0 = time.perf_counter()
+            est.train(fs, B, epochs=INGEST_NCF["epochs"] - 1, seed=SEED)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            warm_steps = (INGEST_NCF["epochs"] - 1) * fs.steps_per_epoch(B)
+            wait = _counter_total("zoo_train_data_wait_seconds_total") - w0
+            out[leg] = dict(samples_s=warm_steps * B / secs,
+                            data_wait_ms=wait * 1e3 / warm_steps)
+            weights[leg] = {k: v.detach().clone()
+                            for k, v in net.state_dict().items()}
+            log(f"[ingest] ncf {leg} (prefetch {prefetch}, staging "
+                f"{stage}, fuse {fuse}): warm epochs "
+                f"{out[leg]['samples_s']:,.0f} samples/s, data wait "
+                f"{out[leg]['data_wait_ms']:.3f} ms a step on {card_name}")
+            del est, net, fs
+            _release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for leg in ("prefetch", "fused"):
+        d = max(float((weights[leg][k] - w).abs().max())
+                for k, w in weights["eager"].items())
+        log(f"[ingest] ncf {leg} against eager: weights max |d| {d:.3e} "
+            f"(held to 0) -> {'ok' if d == 0.0 else 'FAIL'}")
+        if d != 0.0:
+            raise AssertionError(f"ingest: the ncf {leg} leg's weights "
+                                 f"differ from eager")
+    return out
+
+
+def phase_ingest(card_name, heads):
+    """The sharded ingest path; see the module docstring (11)."""
+    t_phase = time.perf_counter()
+    out = {"squad": _ingest_squad(card_name, heads)}
+    out["ncf"] = _ingest_ncf(card_name)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[ingest] phase time {out['seconds']:.1f} s on {card_name}")
+    return out
+
+
+# ------------------------------------------------------------ multimodel
+def _mm_models(cfg):
+    """(name -> InferenceModel, references) for the multimodel phase:
+    bert_a loaded on the card (pinned), the others staged on the host."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.keras import engine
+    from analytics_zoo_tpu_torch.models import NeuralCF, TextClassifier
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    names = ("input_ids", "token_type_ids", "input_mask")
+    pre = lambda d: [d[n] for n in names]
+    a = BERTClassifier(2, bert_config=cfg, device="cuda").net
+    a_tree = _random_tree(a, np.random.default_rng(SEED))
+    im_a = InferenceModel(device="cuda").load_keras(a, (a_tree, {}),
+                                                    preprocessor=pre)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    b = BERTClassifier(2, bert_config=cfg, device="cpu").net
+    b_tree = _random_tree(b, np.random.default_rng(SEED + 1))
+    engine.reset_uids()
+    ncf = NeuralCF(device="cpu", **NCF_ML1M)
+    ncf_tree = _keras_tree(ncf, np.random.default_rng(SEED))
+    ncf.set_weights(ncf_tree)
+    engine.reset_uids()
+    text = TextClassifier(encoder="cnn", device="cpu", **TEXT_NEWS20)
+    text_tree = _zoo_tree(text, np.random.default_rng(SEED))
+    text.set_weights(text_tree)
+    cold = lambda: InferenceModel(place_on_load=False, device="cuda")
+    ims = {"bert_a": im_a,
+           "bert_b": cold().load_keras(b, (b_tree, {}), preprocessor=pre),
+           "ncf": cold().load_keras(ncf),
+           "textcnn": cold().load_keras(text)}
+    torch.cuda.synchronize()
+    trees = {"bert_b": b_tree, "ncf": ncf_tree, "textcnn": text_tree}
+    return (ims, trees, {"bert_a": a, "bert_b": b},
+            torch.cuda.memory_allocated() - before)
+
+
+def _mm_alone(name, cfg, trees, ims):
+    """The same model alone on the card, for the served answers' check."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.keras import engine
+    from analytics_zoo_tpu_torch.models import NeuralCF, TextClassifier
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    if name == "bert_a":
+        return ims["bert_a"]
+    if name == "bert_b":
+        net = BERTClassifier(2, bert_config=cfg, device="cuda").net
+        net.set_weights((trees[name], {}))
+        return InferenceModel(device="cuda").load_keras(
+            net, preprocessor=ims["bert_b"].preprocessor)
+    engine.reset_uids()
+    net = (NeuralCF(device="cuda", **NCF_ML1M) if name == "ncf" else
+           TextClassifier(encoder="cnn", device="cuda", **TEXT_NEWS20))
+    net.set_weights(trees[name])
+    return InferenceModel(device="cuda").load_keras(net)
+
+
+def _mm_inputs(name, n, rng):
+    if name.startswith("bert"):
+        return list(_requests(n, rng, BERT_BASE).values())
+    if name == "ncf":
+        return [{"user": rng.integers(1, NCF_ML1M["user_count"] + 1,
+                                      1).astype(np.int32),
+                 "item": rng.integers(1, NCF_ML1M["item_count"] + 1,
+                                      1).astype(np.int32)}
+                for _ in range(n)]
+    return [{"tokens": rng.integers(1, TEXT_NEWS20["vocab_size"],
+                                    TEXT_NEWS20["sequence_length"])
+             .astype(np.int32)} for _ in range(n)]
+
+
+def _mm_ask(port, name, route, uri, inputs):
+    """One request to model ``name`` over ``route`` (the /predict/<model>
+    path, the X-Zoo-Model header, or the JSON "model" key)."""
+    import http.client
+    from analytics_zoo_tpu_torch.serving.client import FastWireHttpClient
+    from analytics_zoo_tpu_torch.serving.codec import (decode_items_bytes,
+                                                       encode_items_bytes)
+    if route == "path":
+        cli = FastWireHttpClient(port=port, timeout=300)
+        try:
+            return np.asarray(cli.predict(uri=uri, model=name, **inputs))
+        finally:
+            cli.close()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        if route == "header":
+            conn.request("POST", "/predict", encode_items_bytes(inputs),
+                         {"Content-Type": "application/x-zoo-fastwire",
+                          "X-Zoo-Model": name, "X-Zoo-Uri": uri})
+            resp = conn.getresponse()
+            blob = resp.read()
+            if resp.status != 200:
+                raise AssertionError(f"{uri}: {resp.status} {blob[:200]}")
+            return np.asarray(decode_items_bytes(blob)["prediction"])
+        body = {"uri": uri, "model": name,
+                "inputs": {k: v.tolist() for k, v in inputs.items()}}
+        conn.request("POST", "/predict", json.dumps(body).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        blob = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"{uri}: {resp.status} {blob[:200]}")
+        return np.asarray(json.loads(blob)["prediction"], np.float32)
+    finally:
+        conn.close()
+
+
+def phase_multimodel(card_name):
+    """Four models behind one registry and one frontend; see the module
+    docstring (12)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from analytics_zoo_tpu_torch import observability as obs
+    from analytics_zoo_tpu_torch.common.config import ServingConfig
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+    from analytics_zoo_tpu_torch.serving.http_frontend import ServingFrontend
+    from analytics_zoo_tpu_torch.serving.model_zoo import (
+        DEVICE, PAGING, ModelRegistry)
+    from analytics_zoo_tpu_torch.testing import chaos
+    t_phase = time.perf_counter()
+    cfg = BERT_BASE
+    ims, trees, berts, cold_bytes = _mm_models(cfg)
+    order = ("bert_a", "bert_b", "ncf", "textcnn")
+    nbytes = {m: ims[m].weight_nbytes for m in order}
+    budget = nbytes["bert_a"] + nbytes["bert_b"]
+    log(f"[multimodel] weight bytes {nbytes}; budget {budget:,} bytes "
+        f"(bert_a + bert_b: bert_b never fits beside a small model); the "
+        f"three cold models took {cold_bytes:,} bytes of the card's memory")
+    if cold_bytes != 0:
+        raise AssertionError("multimodel: a cold model took card memory")
+    reg = ModelRegistry(hbm_budget_bytes=budget, page_timeout_s=120.0,
+                        breaker_failure_threshold=2, breaker_recovery_s=1.0)
+    broker = InMemoryBroker()
+    serving = fe = None
+    out = {}
+    try:
+        for m in order:
+            reg.register(m, ims[m], pinned=(m == "bert_a"))
+        # page-in times, one model at a time
+        pagein = {}
+        for m in order[1:]:
+            t0 = time.perf_counter()
+            reg.ensure_resident(m)
+            pagein[m] = (time.perf_counter() - t0) * 1e3
+        log(f"[multimodel] page-in ms (host pinned -> card, the pager's "
+            f"stream): {', '.join(f'{m} {v:.2f}' for m, v in pagein.items())}"
+            f" on {card_name}")
+        out["pagein_ms"] = pagein
+
+        # a model placed, unplaced and placed again equals its host copy
+        reg.ensure_resident("bert_b")
+        im_b = ims["bert_b"]
+        before = torch.cuda.memory_allocated()
+        if not reg.evict("bert_b"):
+            raise AssertionError("multimodel: bert_b could not be evicted")
+        freed = before - torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        reg.ensure_resident("bert_b")
+        pagein["bert_b again"] = (time.perf_counter() - t0) * 1e3
+        dev = im_b._tensors()
+        same = all(torch.equal(dev[q].cpu(), h) for q, h in
+                   im_b._host.items())
+        log(f"[multimodel] evicting bert_b freed {freed:,} bytes of "
+            f"memory_allocated (its weights {nbytes['bert_b']:,}); placed "
+            f"again in {pagein['bert_b again']:.2f} ms: weights equal the "
+            f"host copy bit for bit: {same}")
+        if freed < nbytes["bert_b"] or not same:
+            raise AssertionError("multimodel: eviction did not free the "
+                                 "weights, or a re-placed copy differs")
+
+        serving = ClusterServing(reg, ServingConfig(),
+                                 broker=broker).start()
+        fe = ServingFrontend(serving, port=0).start()
+        rng = np.random.default_rng(SEED + 21)
+        per = MULTI["requests"] // len(order)
+        inputs = {m: _mm_inputs(m, per, rng) for m in order}
+        jobs = []
+        for j in range(MULTI["requests"]):
+            m = order[j % len(order)]
+            jobs.append((m, ("path", "header", "json")[j % 3],
+                         f"mm-{j}", inputs[m][j // len(order)]))
+        forwards = {m: 0 for m in berts}
+        hooks = [net.register_forward_hook(
+            lambda *_, m=m: forwards.__setitem__(m, forwards[m] + 1))
+            for m, net in berts.items()]
+        books, stop = [], threading.Event()
+
+        def sample():
+            # under the registry's lock: the books equal the bytes of the
+            # models resident or being placed (booked at reservation),
+            # every resident model booked in full, within the budget
+            while not stop.is_set():
+                with reg._space:
+                    owners = {o: b for o, (b, _) in
+                              reg._owner_books.items()}
+                    ents = {n: (e.state, e.nbytes)
+                            for n, e in reg._entries.items()}
+                    used = reg.used_bytes
+                ok = (sum(owners.values()) == used <= budget
+                      and all(owners.get(n) == nb for n, (st, nb)
+                              in ents.items() if st == DEVICE)
+                      and all(ents[o][0] in (DEVICE, PAGING)
+                              and b == ents[o][1]
+                              for o, b in owners.items()))
+                books.append((ok, used, owners))
+                time.sleep(0.002)
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        _kernels.reset_launches()
+        ev0 = reg.evictions
+        t0 = time.perf_counter()
+        try:
+            with ThreadPoolExecutor(MULTI["threads"]) as pool:
+                got = list(pool.map(
+                    lambda job: _mm_ask(fe.port, *job[:2], job[2], job[3]),
+                    jobs))
+        finally:
+            secs = time.perf_counter() - t0
+            stop.set()
+            sampler.join(timeout=5)
+            for h in hooks:
+                h.remove()
+        launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+        n_fwd = sum(forwards.values())
+        bad = [b[1:] for b in books if not b[0]]
+        evictions = reg.evictions - ev0
+        leaks = obs.get_memory_ledger().reconcile_once()
+        log(f"[multimodel] {len(jobs)} requests, {MULTI['threads']} "
+            f"threads, round-robin over {order} and over /predict/<model>, "
+            f"X-Zoo-Model and the JSON key, in {secs:.3f} s; evictions "
+            f"{evictions}; BERT forwards {forwards}; launches {launches}; "
+            f"books sampled {len(books)} times, {len(bad)} off; ledger "
+            f"sweep {leaks or 'clean'}")
+        if launches["flash_fwd"] != cfg["n_block"] * n_fwd or n_fwd == 0 \
+                or sum(launches.values()) != launches["flash_fwd"]:
+            raise AssertionError(f"multimodel: expected {cfg['n_block']} "
+                                 f"flash_fwd launches per BERT forward")
+        if bad or not books or "model_weights" in leaks or evictions < 2:
+            raise AssertionError(f"multimodel: books off {bad[:3]}, ledger"
+                                 f" {leaks}, evictions {evictions}")
+        # every answer against the same model alone on the card
+        errs = {}
+        for m in order:
+            idx = [j for j, job in enumerate(jobs) if job[0] == m]
+            if m != "bert_a":
+                reg.evict(m)
+            ref_im = _mm_alone(m, cfg, trees, ims)
+            batch = {k: np.stack([jobs[j][3][k] for j in idx])
+                     for k in jobs[idx[0]][3]}
+            if len(batch) == 1:        # one input: the engine's bare array
+                batch = next(iter(batch.values()))
+            want = np.asarray(ref_im.predict(batch))
+            served = np.stack([got[j].reshape(want.shape[1:]) for j in idx])
+            errs[m] = float(np.max(np.abs(served - want)))
+            del ref_im
+            _release()
+        tol = {"bert_a": SERVE_ATOL, "bert_b": SERVE_ATOL,
+               "ncf": REC_SERVE_ATOL, "textcnn": ZOO_SERVE_ATOL}
+        ok = all(errs[m] <= tol[m] for m in order)
+        log(f"[multimodel] served vs each model alone on the card: "
+            f"{', '.join(f'{m} {errs[m]:.3e} (tol {tol[m]:g})' for m in order)}"
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("multimodel: served answers disagree")
+        out.update(launches=launches, bert_forwards=n_fwd, errors=errs,
+                   evictions=evictions, requests_s=len(jobs) / secs)
+
+        # bert_a's latency alone, and while a cold page-in runs
+        x_a = inputs["bert_a"][0]
+        lat = {"idle": [], "paging": []}
+        for _ in range(8):
+            t0 = time.perf_counter()
+            _mm_ask(fe.port, "bert_a", "path", f"lat-{len(lat['idle'])}", x_a)
+            lat["idle"].append((time.perf_counter() - t0) * 1e3)
+        for k in range(8):
+            reg.evict("bert_b")
+            reg.prefetch("bert_b")
+            t0 = time.perf_counter()
+            _mm_ask(fe.port, "bert_a", "path", f"latp-{k}", x_a)
+            lat["paging"].append((time.perf_counter() - t0) * 1e3)
+            reg.ensure_resident("bert_b")
+        out["bert_a_p50_ms"] = {k: _pct(v, 50) for k, v in lat.items()}
+        log(f"[multimodel] bert_a p50 over HTTP: "
+            f"{out['bert_a_p50_ms']['idle']:.3f} ms idle, "
+            f"{out['bert_a_p50_ms']['paging']:.3f} ms with bert_b paging "
+            f"in on {card_name}")
+
+        # a planned weight_page raise fails only that model's requests:
+        # the injector is armed while an ncf request is out (the only
+        # page-in then is ncf's; its reservation evicts bert_b first, as
+        # any page-in that needs the room does), and the other three
+        # models answer between them
+        inj = chaos.ChaosInjector()
+        inj.plan("weight_page", fault="raise", times=None)
+        reg.evict("ncf")
+        fails, served = 0, 0
+        for k in range(MULTI["fault_requests"]):
+            with chaos.installed(inj):
+                try:
+                    _mm_ask(fe.port, "ncf", "path", f"f-{k}",
+                            inputs["ncf"][k])
+                except Exception:
+                    fails += 1
+            for m in ("bert_a", "bert_b", "textcnn"):
+                _mm_ask(fe.port, m, "path", f"f-{m}-{k}", inputs[m][k])
+                served += 1
+        brk = reg.resolve("ncf").breaker.state
+        log(f"[multimodel] weight_page raises ({inj.injected('weight_page')}"
+            f" injected) while ncf's requests were out: ncf {fails} of "
+            f"{MULTI['fault_requests']} requests failed, its breaker {brk};"
+            f" bert_a / bert_b / textcnn answered {served} of {served}")
+        if fails != MULTI["fault_requests"] or brk == "closed" or any(
+                reg.resolve(m).breaker.state != "closed"
+                for m in ("bert_a", "bert_b", "textcnn")):
+            raise AssertionError("multimodel: the weight_page fault was "
+                                 "not contained to its model")
+    finally:
+        if fe is not None:
+            fe.stop()
+        if serving is not None:
+            serving.stop()
+        reg.stop()
+    del ims, berts
+    _release()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[multimodel] phase time {out['seconds']:.1f} s on {card_name}")
+    return out
+
+
+# ---------------------------------------------------------------- tenancy
+def phase_tenancy(card_name):
+    """Per-tenant admission over HTTP; see the module docstring (13)."""
+    import http.client
+    import threading
+    from analytics_zoo_tpu_torch.common.config import ServingConfig
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        set_attention_backend)
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    from analytics_zoo_tpu_torch.serving.client import FastWireHttpClient
+    from analytics_zoo_tpu_torch.serving.codec import encode_items_bytes
+    from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+    from analytics_zoo_tpu_torch.serving.http_frontend import ServingFrontend
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    t_phase = time.perf_counter()
+    cfg = BERT_BASE
+    names = ("input_ids", "token_type_ids", "input_mask")
+    rng = np.random.default_rng(SEED)
+    clf = BERTClassifier(num_classes=2, bert_config=cfg, device="cuda")
+    im = InferenceModel(device="cuda").load_keras(
+        clf.net, (_random_tree(clf.net, rng), {}),
+        preprocessor=lambda d: [d[n] for n in names])
+    reqs = list(_requests(TENANCY["gold"], rng, cfg).values())
+    im.warmup({n: np.stack([r[n] for r in reqs]) for n in names},
+              [1, 2, 4, 8, 16, 32, 64])
+    # the frontend's coalescer off: each request one stream entry, so
+    # free's flood meets its credit gate request by request
+    serving = ClusterServing(im, ServingConfig(tenants=TENANTS,
+                                               http_coalesce=False),
+                             broker=InMemoryBroker()).start()
+    fe = ServingFrontend(serving, port=0).start()
+    sent = {"gold": 0, "free": 0}
+    codes = {"gold": {}, "free": {}}
+    lock = threading.Lock()
+    gold = []
+    try:
+        frame = encode_items_bytes(reqs[0])
+        stop = threading.Event()
+
+        def flood(t):
+            # each round sends one request on each of its connections
+            # before reading any answer: many in flight at once
+            conns = [http.client.HTTPConnection("127.0.0.1", fe.port,
+                                                timeout=300)
+                     for _ in range(TENANCY["free_conns"])]
+            try:
+                for r in range(TENANCY["free_rounds"]):
+                    for c, conn in enumerate(conns):
+                        conn.request("POST", "/predict", frame, {
+                            "Content-Type": "application/x-zoo-fastwire",
+                            "X-Zoo-Tenant": "free",
+                            "X-Zoo-Uri": f"free-{t}-{r}-{c}"})
+                    for conn in conns:
+                        resp = conn.getresponse()
+                        resp.read()
+                        with lock:
+                            sent["free"] += 1
+                            codes["free"][resp.status] = codes["free"].get(
+                                resp.status, 0) + 1
+            finally:
+                for conn in conns:
+                    conn.close()
+
+        floods = [threading.Thread(target=flood, args=(t,))
+                  for t in range(TENANCY["free_threads"])]
+        for t in floods:
+            t.start()
+        cli = FastWireHttpClient(port=fe.port, timeout=300)
+        for i, r in enumerate(reqs):
+            gold.append(np.asarray(cli.predict(uri=f"gold-{i}",
+                                               tenant="gold", **r)))
+            sent["gold"] += 1
+            codes["gold"][200] = codes["gold"].get(200, 0) + 1
+        cli.close()
+        for t in floods:
+            t.join(timeout=300)
+        usage = serving.tenancy.usage()
+    finally:
+        fe.stop()
+        serving.stop()
+    set_attention_backend(clf.net, "plain")
+    want = np.concatenate([im.predict({n: np.stack([r[n] for r in reqs])
+                                       for n in names})])
+    set_attention_backend(clf.net, None)
+    err = float(np.max(np.abs(np.stack(gold).reshape(want.shape) - want)))
+    log(f"[tenancy] tenants {TENANTS}: gold {sent['gold']} requests from 1 "
+        f"thread, free {sent['free']} from {TENANCY['free_threads']} threads"
+        f" x {TENANCY['free_conns']} connections; HTTP codes {codes}; "
+        f"usage {usage}; gold vs plain attention max_abs_err={err:.3e} "
+        f"(tol {SERVE_ATOL:g}) on {card_name}")
+    ok = (codes["gold"] == {200: sent["gold"]} and err <= SERVE_ATOL
+          and codes["free"].get(429, 0) > 0
+          and set(codes["free"]) <= {200, 429})
+    for t in ("gold", "free"):
+        u = usage[t]
+        ok = ok and (u["admitted"] + u["shed"] == sent[t]
+                     and u["served"] == u["admitted"]
+                     == codes[t].get(200, 0)
+                     and u["shed"] == codes[t].get(429, 0)
+                     and u["in_flight"] == 0 and u["errors"] == 0)
+    if not ok:
+        raise AssertionError("tenancy: gold was not served in full, free "
+                             "was not shed, or the books disagree")
+    del im, clf
+    _release()
+    secs = time.perf_counter() - t_phase
+    log(f"[tenancy] phase time {secs:.1f} s on {card_name}")
+    return dict(codes=codes, usage=usage, gold_err=err, seconds=secs)
+
+
+# ----------------------------------------------------------------- health
+def phase_health(card_name):
+    """Device probes; see the module docstring (14)."""
+    import threading
+    from analytics_zoo_tpu_torch.common.health import HealthMonitor
+    from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+    from analytics_zoo_tpu_torch.testing import chaos
+    from analytics_zoo_tpu_torch.tfpark import TFDataset
+    t_phase = time.perf_counter()
+    fired = []
+    # 5 s: a probe issued during the dispatch below has taken 0.1-1.0 s
+    # on the card; the dispatch itself takes about 7 s, so a probe that
+    # waited for all of it would still read "timeout"
+    mon = HealthMonitor(interval_s=3600, probe_timeout_s=5.0,
+                        breaker_failures=3, device="cuda:0",
+                        on_failure=fired.append)
+    try:
+        first = mon.probe_once()
+        inj = chaos.ChaosInjector()
+        inj.plan("health_probe", fault="raise", times=3)
+        with chaos.installed(inj):
+            faulted = [mon.probe_once() for _ in range(3)]
+        brk = mon.breaker_for("cuda:0")._state
+        log(f"[health] probe {first['devices']}; 3 planned health_probe "
+            f"raises -> healthy {[s['healthy'] for s in faulted]}, breaker "
+            f"{brk}, on_failure fired {len(fired)} time(s)")
+        if not first["healthy"] or any(s["healthy"] for s in faulted) \
+                or brk != "open" or len(fired) != 1:
+            raise AssertionError("health: the probe or its breaker "
+                                 "misbehaved")
+        # a probe while a training dispatch of train_bench runs
+        cfg = dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
+        x, y = _bench_data(cfg)
+        ds = TFDataset.from_ndarrays((x, y), batch_size=BENCH["batch"],
+                                     memory_type="DEVICE")
+        from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+        probe_net = BERTClassifier(2, bert_config=cfg, device="cuda").net
+        tree = _random_tree(probe_net, np.random.default_rng(SEED + 5))
+        del probe_net
+        clf = _bench_clf(cfg, tree, BENCH["spd"])
+        replaying = threading.Event()
+        orig = est_mod._CapturedStep.replay
+
+        def replay(self, n):
+            replaying.set()
+            return orig(self, n)
+        est_mod._CapturedStep.replay = replay
+        result = {}
+        try:
+            trainer = threading.Thread(
+                target=lambda: clf.train(lambda: ds, epochs=1))
+            t0 = time.perf_counter()
+            trainer.start()
+            if not replaying.wait(600):
+                raise AssertionError("health: the dispatch never started")
+            time.sleep(0.05)
+            t_probe = time.perf_counter()
+            result = mon.probe_once()
+            probe_ms = (time.perf_counter() - t_probe) * 1e3
+            trainer.join(timeout=600)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            est_mod._CapturedStep.replay = orig
+        dev = result["devices"]["cuda:0"]
+        log(f"[health] a probe during a {BENCH['spd']}-replay training "
+            f"dispatch (train_bench's configuration, batch "
+            f"{BENCH['batch']}): {dev} in {probe_ms:.3f} ms; the epoch took "
+            f"{train_s:.2f} s on {card_name}")
+        if not dev["ok"] or probe_ms >= 1e3 * train_s:
+            raise AssertionError("health: the probe during a dispatch did "
+                                 "not read ok")
+        del clf, ds
+        _release()
+    finally:
+        mon.stop()
+    secs = time.perf_counter() - t_phase
+    log(f"[health] phase time {secs:.1f} s on {card_name}")
+    return dict(probe_during_dispatch_ms=probe_ms, seconds=secs)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ring-cards", type=int, default=0, metavar="N",
@@ -4317,8 +5319,12 @@ def main() -> int:
     ring_launches, ring_rows = phase_ring()
     phase_ncf(card)
     phase_zoo(card)
-    heads_launches, t384, _ = phase_heads(card)
+    heads_launches, t384, heads = phase_heads(card)
     http_launches, _, http_llm = phase_http()
+    ingest = phase_ingest(card, heads)
+    multimodel = phase_multimodel(card)
+    phase_tenancy(card)
+    phase_health(card)
 
     def entry(name, source, replaces, rows, launches,
               shape="B32 H12 T128 D64 float32", **extra):
@@ -4340,6 +5346,10 @@ def main() -> int:
                   f" D64, ragged padding mask")
     t384_rows = lambda name: {"shape": t384_shape, **{
         str(dt)[6:]: row for dt, row in t384[name].items()}}
+    INGEST_RUN = (f"SQuAD from TFRecord shards: {INGEST['epochs']} epochs"
+                  f" of {INGEST['features'] // HEADS['squad']['batch']} "
+                  f"steps, {INGEST['spd']} CUDA graph replays a dispatch, "
+                  f"bf16")
     BENCH_RUN = (f"the bench's BERT training: "
                  f"{BENCH['steps'] * BENCH['epochs']} steps, "
                  f"{BENCH['epochs']} dispatches of {BENCH['spd']} CUDA "
@@ -4354,7 +5364,14 @@ def main() -> int:
               http_launches=http_launches["flash_fwd"],
               heads_launches={h: heads_launches[h]["flash_fwd"]
                               for h in HEADS},
-              heads_launches_in=HEADS_RUN, t384=t384_rows("flash_fwd")),
+              heads_launches_in=HEADS_RUN, t384=t384_rows("flash_fwd"),
+              ingest_launches=ingest["squad"]["launches"]["flash_fwd"],
+              ingest_launches_in=INGEST_RUN,
+              multimodel_launches=multimodel["launches"]["flash_fwd"],
+              multimodel_launches_in=f"{MULTI['requests']} requests over "
+                                     f"4 models "
+                                     f"({multimodel['bert_forwards']} BERT "
+                                     f"forwards)"),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               bench_launches["flash_bwd"], launches_in=BENCH_RUN,
@@ -4362,7 +5379,9 @@ def main() -> int:
               library="backward of scaled_dot_product_attention",
               heads_launches={h: heads_launches[h]["flash_bwd"]
                               for h in HEADS},
-              heads_launches_in=HEADS_RUN, t384=t384_rows("flash_bwd")),
+              heads_launches_in=HEADS_RUN, t384=t384_rows("flash_bwd"),
+              ingest_launches=ingest["squad"]["launches"]["flash_bwd"],
+              ingest_launches_in=INGEST_RUN),
         entry("paged_decode", csrc + "paged_decode.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:79",
               paged_rows["paged_decode"], llm_launches["paged_decode"],

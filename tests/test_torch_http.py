@@ -337,14 +337,24 @@ def test_get_routes_and_the_unported_ones():
         conn.request("GET", "/metrics.json")
         assert "records_processed" in json.loads(conn.getresponse().read())
         frame = encode_items_bytes({"x": X})
+        status, _, want = _post(conn, frame, FASTWIRE)
+        assert status == 200
+        # the model and tenant stamps are ported: a one-model engine
+        # without tenancy serves them as a bare /predict, as the JAX
+        # engine does; a bad model name is a 400 on a connection that
+        # keeps serving
         for path, headers in (("/predict/m", FASTWIRE),
                               ("/predict", {**FASTWIRE, "X-Zoo-Model": "m"}),
                               ("/predict", {**FASTWIRE,
                                             "X-Zoo-Tenant": "t"})):
             conn.request("POST", path, frame, headers)
             resp = conn.getresponse()
-            assert resp.status == 501
-            assert "Queue 1 item 1" in json.loads(resp.read())["error"]
+            assert resp.status == 200, path
+            assert resp.read() == want
+        conn.request("POST", "/predict/a%2Fb", frame, FASTWIRE)
+        resp = conn.getresponse()
+        assert resp.status == 400
+        assert "bad model name" in json.loads(resp.read())["error"]
         status, _, _ = _post(conn, frame, FASTWIRE)
         assert status == 200
     finally:

@@ -60,7 +60,9 @@ def test_no_module_of_the_port_imports_jax():
                  "observability.metrics", "observability.tracing",
                  "observability.exposition", "observability.flight_recorder",
                  "observability.memory", "observability.trace_cli",
-                 "testing", "testing.chaos"):
+                 "testing", "testing.chaos", "data.sharded",
+                 "data.transforms", "serving.model_zoo", "serving.tenancy",
+                 "common.health"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -110,12 +112,16 @@ def test_no_module_of_the_port_imports_jax():
     "from analytics_zoo_tpu_torch.models import KNRM as f\n"
     "    f(4, 6, vocab_size=20, embed_size=8)",
     "from analytics_zoo_tpu_torch.models import Seq2seq as f; f(12)",
+    "from analytics_zoo_tpu_torch.common.health import HealthMonitor as f;"
+    " f()",
+    "from analytics_zoo_tpu_torch.inference import InferenceModel as f;"
+    " f(place_on_load=False)",
 ], ids=["resolve_device", "InferenceModel", "BERTClassifier",
         "BERTClassifier.train", "Estimator", "DecoderLM", "LLMServing",
         "PagedKVCache", "init_zoo_context", "NeuralCF", "WideAndDeep",
         "Model", "Sequential", "TextClassifier", "SessionRecommender",
         "AnomalyDetector", "ImageClassifier", "BERTNER", "BERTSQuAD", "KNRM",
-        "Seq2seq"])
+        "Seq2seq", "HealthMonitor", "InferenceModel.place_on_load"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "

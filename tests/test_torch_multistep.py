@@ -391,3 +391,73 @@ def test_a_step_runs_cudnn_deterministic(monkeypatch):
     est.train(FeatureSet.from_ndarrays(list(x), y), batch_size=8, epochs=1)
     assert seen == [True, True]
     assert not torch.backends.cudnn.deterministic
+
+
+def test_bf16_pooler_bias_gradient_and_normalised_step_match_jax():
+    # one step of the bench's bf16 configuration from the same weights and
+    # batch in both packages: the raw bf16 gradient of the pooler (its
+    # bias and matrix) and Adam's normalised step m_hat / (sqrt(v_hat) +
+    # eps) from each package's own optimizer state after the update.
+    # Readings (the CPU, batch 8): the bias gradient differs by 1.25e-2 of
+    # its largest element (a median 2.5 bf16 ulps of each element) and its
+    # normalised step by 7.3e-3 of a unit step, so one step's bias agrees;
+    # the matrix's normalised step differs by up to 2 (a flipped sign) in
+    # 0.8 % of its elements, each with |g| within a few bf16 ulps of the
+    # largest (below 2**-6 of it; reads 4.8e-3), where the bf16 sum's
+    # rounding decides the sign
+    from analytics_zoo_tpu.keras import losses as jlosses
+    jnet, start, tnet = _pair()
+    x, y = _data(64, seed=2)
+    xb, yb = [a[:8] for a in x], y[:8]
+    test = TE.Estimator(tnet, TAdamW(state_dtype="bfloat16", **OPT), LOSS,
+                        device="cpu", mixed_precision=True,
+                        grad_dtype="bfloat16")
+    tgrads, update = {}, test.optimizer.update
+
+    def spy(params, grads, state):
+        tgrads.update({k: v.float().numpy().copy()
+                       for k, v in grads.items()})
+        return update(params, grads, state)
+    test.optimizer.update = spy
+    test.train(FeatureSet.from_ndarrays(xb, yb, shuffle=False),
+               batch_size=8, epochs=1)
+
+    bf16 = jax.numpy.bfloat16
+    down = lambda t: jax.tree_util.tree_map(
+        lambda a: a.astype(bf16) if jax.numpy.issubdtype(
+            a.dtype, jax.numpy.floating) else a, t)
+    params = jax.tree_util.tree_map(jax.numpy.asarray, start)
+
+    def objective(p):
+        preds, _ = jnet.apply(p, {}, down([jax.numpy.asarray(a)
+                                           for a in xb]),
+                              training=True, rng=jax.random.PRNGKey(0))
+        return jlosses.get(LOSS)(preds.astype(jax.numpy.float32),
+                                 jax.numpy.asarray(yb))
+    jg = jax.jit(jax.grad(objective))(down(params))
+    jopt = JAdamW(state_dtype="bfloat16", **OPT)
+    _, jstate = jopt.tx.update(jg, jopt.tx.init(params), params)
+    f32 = lambda t: _flat(jax.tree_util.tree_map(
+        lambda a: np.asarray(a.astype(jax.numpy.float32)), t))
+    jgrads, jmu, jnu = f32(jg), f32(jstate[0].mu), f32(jstate[0].nu)
+
+    b1, b2, eps = 0.9, 0.999, 1e-6
+    step = lambda mu, nu: (mu / (1 - b1)) / (np.sqrt(nu / (1 - b2)) + eps)
+    assert float(test.opt_state["count"]) == 1.0
+    norm = {}
+    for name in ("bert.pooler.b", "bert.pooler.W"):
+        g_t, g_j = tgrads[name], jgrads[name]
+        top = np.abs(g_j).max()
+        n_t = step(test.opt_state["mu"][name].float().numpy(),
+                   test.opt_state["nu"][name].float().numpy())
+        n_j = step(jmu[name], jnu[name])
+        norm[name] = (np.abs(g_t - g_j).max() / top, np.abs(n_t - n_j),
+                      np.abs(g_j) / top)
+    g_rel, n_diff, _ = norm["bert.pooler.b"]
+    assert g_rel <= 2e-2            # reads 1.25e-2
+    assert n_diff.max() <= 2e-2     # reads 7.3e-3
+    g_rel, n_diff, mag = norm["bert.pooler.W"]
+    assert g_rel <= 2e-2            # reads 1.28e-2
+    flipped = n_diff > 0.5
+    assert 0 < flipped.mean() <= 0.02           # reads 0.8 %
+    assert (mag[flipped] < 2.0 ** -6).all()     # reads 4.8e-3 at most

@@ -311,9 +311,13 @@ def test_restart_is_refused_while_a_thread_drains():
 
 def test_unported_serving_fields_name_their_item():
     im = InferenceModel(device="cpu")
-    for kw, item in ((dict(tenants=(("a", 4, 1.0),)), 1),
-                     (dict(image_resize=(8, 8)), 1),
+    for kw, item in ((dict(image_resize=(8, 8)), 1),
                      (dict(tensorboard_dir="tb"), 6)):
         with pytest.raises(NotImplementedError,
                            match=f"{next(iter(kw))}=.*Queue 1 item {item}"):
             ClusterServing(im, ServingConfig(redis_url="memory://", **kw))
+    # item 1's tenants are ported: the rows build the engine's tenancy
+    tenancy = ClusterServing(im, ServingConfig(
+        redis_url="memory://", tenants=(("a", 4, 1.0),))).tenancy
+    assert tenancy.tenants() == ["a"]
+    assert tenancy.usage()["a"]["credits"] == 4

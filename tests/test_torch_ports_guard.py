@@ -61,7 +61,9 @@ def test_the_port_tests_are_read():
             "test_torch_pipelined_serving.py",
             "test_torch_trace_propagation.py", "test_torch_chaos.py",
             "test_torch_memory_ledger.py",
-            "test_torch_observability.py"} <= names
+            "test_torch_observability.py", "test_torch_model_zoo.py",
+            "test_torch_tenancy.py", "test_torch_health.py",
+            "test_torch_data_plane.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=os.path.basename)

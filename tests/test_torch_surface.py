@@ -37,6 +37,8 @@ PREDICT = "predict batches on the host, so it takes the batch size"
 #: port adds, why)
 DIFFERENCES = {
     "common.context.init_zoo_context": ("", "devices", DEVICE),
+    "common.health.HealthMonitor.__init__": ("", "device", DEVICE),
+    "data.sharded.ShardedFeatureSet.batches": ("", "device", DEVICE),
     "data.featureset.FeatureSet.batches": ("ctx", "device", DEVICE),
     "data.featureset.FeatureSet.batches_with_counts": ("ctx", "device",
                                                        DEVICE),
@@ -395,11 +397,17 @@ def test_enqueue_unported_stamp_names_its_item(method, arg, item):
         call(trace_ctx="7-9")
         assert _last_entry(broker)["trace_ctx"] == "7-9"
         return
-    with pytest.raises(NotImplementedError, match=f"{arg}=.*Queue 1 item "
-                                                  f"{item}"):
-        call(**{arg: "x"})
-    assert not broker.entries                    # nothing was queued
-    call()                                       # None still runs
+    # item 1's model and tenant stamps are ported: each rides the entry
+    # under its JAX field name, and a name holding the record separator
+    # raises before anything is queued
+    call(**{arg: "x"})
+    assert _last_entry(broker)[arg] == "x"
+    n = len(broker.entries)
+    with pytest.raises(ValueError, match="separator"):
+        call(**{arg: "x\x1fy"})
+    assert len(broker.entries) == n
+    call()                                       # None stamps nothing
+    assert arg not in _last_entry(broker)
 
 
 @pytest.mark.parametrize("arg,item", [("trace_ctx", 6), ("model", 1),
@@ -413,10 +421,29 @@ def test_http_predict_unported_stamp_names_its_item(arg, item):
         assert "X-Zoo-Trace" not in FastWireHttpClient._headers(
             "u", None, None)
         return
-    client = FastWireHttpClient(port=0)       # never connects: raises first
-    with pytest.raises(NotImplementedError, match=f"{arg}=.*Queue 1 item "
-                                                  f"{item}"):
+    # item 1's stamps are ported: the model names the /predict/<model>
+    # route, the tenant rides X-Zoo-Tenant (captured before any send)
+    client = FastWireHttpClient(port=0)       # never connects
+    seen = {}
+
+    class _Sent(Exception):
+        pass
+
+    def post(frame, headers, path="/predict"):
+        seen.update(headers=headers, path=path)
+        raise _Sent
+
+    client._post = post
+    with pytest.raises(_Sent):
         client.predict(x=np.ones(2), **{arg: "x"})
+    if arg == "model":
+        assert seen["path"] == "/predict/x"
+        assert "X-Zoo-Tenant" not in seen["headers"]
+        with pytest.raises(ValueError):
+            client.predict(x=np.ones(2), model="a/b")
+    else:
+        assert seen["path"] == "/predict"
+        assert seen["headers"]["X-Zoo-Tenant"] == "x"
 
 
 def test_enqueue_takes_the_ambient_deadline():
@@ -549,11 +576,16 @@ def test_paged_decode_pages_per_compute_block_is_a_no_op():
 
 
 def test_predict_async_reserved_names_item_1():
+    # item 1's reserved= is ported: a permit taken by reserve() is given
+    # back when the dispatch fails before launching
     from analytics_zoo_tpu_torch.inference.inference_model import (
         InferenceModel)
     model = InferenceModel(device="cpu")
-    with pytest.raises(NotImplementedError, match="reserved=.*item 1"):
+    model.reserve()
+    assert model._inflight._value == 1
+    with pytest.raises(RuntimeError, match="no model loaded"):
         model.predict_async(np.zeros((1, 2), np.float32), reserved=True)
+    assert model._inflight._value == 2
 
 
 # --- arguments taken at their JAX default, machinery not ported -----------
@@ -571,6 +603,10 @@ def _unported_calls():
     from analytics_zoo_tpu_torch.serving.client import FastWireHttpClient
     from analytics_zoo_tpu_torch.serving.engine import ClusterServing
     from analytics_zoo_tpu_torch.tfpark import TFDataset
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    from analytics_zoo_tpu_torch.serving.tenancy import (TenancyController,
+                                                         TenantPolicy)
+    tenancy = TenancyController([TenantPolicy("t")])
     x = (np.zeros((4, 2), np.float32), np.zeros(4, np.int32))
     calls = [(f"TrainConfig.{k}", lambda k=k, v=v: cfg.TrainConfig(**{k: v}),
               k, 2) for k, v in (
@@ -597,13 +633,16 @@ def _unported_calls():
                            device="cpu").checkpoint_trigger is trigger,
          "checkpoint_trigger", None),
         ("InferenceModel.place_on_load",
-         lambda: InferenceModel(place_on_load=False, device="cpu"),
-         "place_on_load", 1),
+         lambda: InferenceModel(place_on_load=False,
+                                device="cpu").place_on_load is False,
+         "place_on_load", None),
         ("InferenceModel.load_keras.place",
-         lambda: InferenceModel(device="cpu").load_keras(None, place=False),
-         "place", 1),
+         lambda: not InferenceModel(device="cpu").load_keras(
+             net(), place=False).placed, "place", None),
         ("ClusterServing.tenancy",
-         lambda: ClusterServing(None, tenancy=object()), "tenancy", 1),
+         lambda: ClusterServing(None, broker=InMemoryBroker(),
+                                tenancy=tenancy).tenancy is tenancy,
+         "tenancy", None),
         ("FastWireHttpClient.generate.trace_ctx",
          lambda: FastWireHttpClient._headers(None, None, "t")[
              "X-Zoo-Trace"] == "t", "trace_ctx", None),
