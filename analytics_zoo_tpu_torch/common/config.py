@@ -166,35 +166,78 @@ class ServingConfig:
 
 @dataclass
 class FleetConfig:
-    """The multi-process serving fleet's settings, as the JAX package
-    names them.  Fields only: the fleet is not ported (ROADMAP Queue 1
-    item 1), so nothing in the port reads them."""
+    """Multi-process serving fleet, read by ``serving.fleet.FleetSupervisor``:
+    N frontend worker PROCESSES accepting on one port via SO_REUSEPORT,
+    M engine replica processes behind partitioned broker streams, a
+    broker bridge in the supervisor, and a metrics-driven replica
+    autoscaler — the tier that shards the serving front door past one
+    Python process's GIL."""
+    # frontend worker processes sharing fleet_http_port via SO_REUSEPORT
     frontend_workers: int = 2
+    # engine replica processes at start (partitions 0..replicas-1)
     replicas: int = 1
+    # autoscaler bounds: replicas never leave [min_replicas, max_replicas]
     min_replicas: int = 1
     max_replicas: int = 4
+    # broker bridge bind (port 0 = OS-assigned)
     bridge_host: str = "127.0.0.1"
     bridge_port: int = 0
+    # per-process registry/span snapshots publish at this cadence; any
+    # worker's GET /metrics / /spans merges the latest snapshots into
+    # fleet-wide series
     snapshot_interval_s: float = 0.5
+    # span ring entries carried per snapshot (bounds snapshot size)
     snapshot_span_limit: int = 512
+    # frontends re-read the active-partition count this often
     router_refresh_s: float = 0.25
+    # a partition that shed (429) is routed around for this long; when
+    # EVERY healthy partition is latched the frontend sheds immediately
+    # without a broker round trip (the engine's overload latch, lifted
+    # into the fleet routing path)
     overload_latch_s: float = 0.25
+    # per-partition circuit breaker (fed by result timeouts — a replica
+    # that stops answering is ejected and probed back)
     breaker_failure_threshold: int = 3
     breaker_recovery_s: float = 2.0
+    # autoscaler loop: evaluates the fleet queue signal (summed
+    # zoo_serving_queue_depth across replica snapshots, floored by
+    # high-water growth) against the thresholds; see ReplicaAutoscaler
     autoscale_interval_s: float = 0.5
+    # per-replica queue-depth thresholds (hysteresis band between them)
     scale_up_queue_depth: float = 32.0
     scale_down_queue_depth: float = 2.0
+    # sustained-signal windows + cooldown (anti-oscillation)
     scale_up_sustain_s: float = 1.0
     scale_down_sustain_s: float = 3.0
     autoscale_cooldown_s: float = 2.0
+    # scale-down drain: frontends stop routing to the retiring partition
+    # (router refresh), then the replica gets this long to drain before
+    # SIGTERM
     drain_grace_s: float = 1.0
+    # ---- durable control plane ----
+    # durable=True moves the broker into its OWN supervised process
+    # backed by a write-ahead log, plus a warm standby replica that is
+    # promoted on kill -9 of the owner — acknowledged requests survive
+    # either process dying
     durable: bool = False
+    # WAL root (one subdirectory per broker generation); None = a
+    # fresh temp directory per supervisor start
     wal_dir: Optional[str] = None
+    # broker bridge port the CURRENT primary binds (0 = pick a free
+    # port at start); the address stays stable across failovers, so
+    # frontends/replicas reconnect with bounded retry instead of
+    # re-discovering
     broker_port: int = 0
+    # WAL segment roll size and group-commit linger
     wal_segment_bytes: int = 4 << 20
     wal_commit_interval_ms: float = 0.0
+    # fsync per group commit (kill -9 safety needs only the default
+    # page-cache flush; True additionally survives host power loss)
     wal_sync: bool = False
+    # pending-entry ledger: delivered-but-unacked entries idle this
+    # long are redelivered (claim-on-death)
     redeliver_idle_s: float = 3.0
+    # supervisor liveness poll for the broker owner/standby processes
     failover_poll_s: float = 0.25
 
 

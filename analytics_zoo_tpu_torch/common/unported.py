@@ -12,9 +12,7 @@ from typing import Optional
 
 #: ROADMAP Queue 1 items, by the number the messages cite
 QUEUE_ITEMS = {
-    1: "ROADMAP Queue 1 item 1: the rest of serving, with "
-       "BatchingService, the Redis, native-queue, fleet and journaled "
-       "brokers, common/wal.py and server-side image decode",
+    1: "ROADMAP Queue 1 item 1: server-side image decode",
     2: "ROADMAP Queue 1 item 2: the rest of training, with the "
        "TrainConfig fields failure_retry_window_sec, donate_state and "
        "rng_impl, and loading a KerasNet file the JAX package wrote",

@@ -18,9 +18,8 @@ Port of ``analytics_zoo_tpu/data/sharded.py``, with the same semantics:
   the windows before that offset by arithmetic on the manifest's sizes
   and decodes only from the window holding it.
 - **Staging**: decoded shards are kept as bytes in a budgeted host store
-  (``_StageStore``, the JAX store's fallback dict: the native sample
-  cache is ROADMAP Queue 1 item 6), so warm epochs replay them without
-  re-parsing the files.
+  (``_StageStore`` over the native sample cache, as in the JAX package),
+  so warm epochs replay them without re-parsing the files.
 
 The transfer to the card is what changes.  ``batches`` runs two
 background threads: ``zoo-data-decode`` assembles host batches (eager
@@ -134,36 +133,29 @@ def assign_shards(num_shards: int, process_index: int,
 
 # ------------------------------------------------------------- stage store
 class _StageStore:
-    """Decoded-shard bytes in a host dict under a byte budget, oldest
-    first out.  A value is the concatenated raw bytes of one shard's
-    leaves."""
+    """Decoded-shard byte store: the native tiered cache
+    (``native.NativeSampleCache``: a DRAM budget off the Python heap,
+    least recently used shards spilled to disk), as the JAX store uses it.
+    A value is the concatenated raw bytes of one shard's leaves.  A host
+    library that cannot be built raises with ``g++``'s output."""
 
     def __init__(self, capacity_bytes: int):
+        from analytics_zoo_tpu_torch.native import NativeSampleCache
         self.capacity = int(capacity_bytes)
-        self._blobs: Dict[int, bytes] = {}
-        self._order: List[int] = []
-        self._used = 0
+        self.cache = NativeSampleCache(self.capacity)
 
     def put(self, sid: int, blob: bytes) -> None:
-        while self._order and self._used + len(blob) > self.capacity:
-            old = self._order.pop(0)
-            self._used -= len(self._blobs.pop(old, b""))
-        self._blobs[sid] = blob
-        self._order.append(sid)
-        self._used += len(blob)
+        self.cache.put(sid, np.frombuffer(blob, np.uint8))
 
     def get(self, sid: int) -> Optional[bytes]:
-        return self._blobs.get(sid)
+        arr = self.cache.get(sid, dtype=np.uint8)
+        return None if arr is None else arr.tobytes()
 
     def remove(self, sid: int) -> None:
-        if sid in self._blobs:
-            self._used -= len(self._blobs.pop(sid))
-            self._order.remove(sid)
+        self.cache.remove(sid)
 
     def close(self) -> None:
-        self._blobs.clear()
-        self._order.clear()
-        self._used = 0
+        self.cache.close()
 
 
 # --------------------------------------------------------- the feature set

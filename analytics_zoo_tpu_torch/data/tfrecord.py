@@ -6,8 +6,8 @@ length / masked CRC32C / payload / masked CRC32C, and its payload is a
 reads and writes them with no TF dependency.  The protobuf wire primitives
 are this module's own copy of those in ``analytics_zoo_tpu/onnx/proto.py``
 (host-only code, copied because any ``analytics_zoo_tpu`` import loads
-jax).  CRC32C is the table loop (the JAX package's fallback; its native
-slicing-by-8 library is ROADMAP Queue 1 item 6).  A file the writer here
+jax).  CRC32C is the host library's slicing-by-8 loop (``native``), as
+in the JAX package.  A file the writer here
 produces is byte-identical to the JAX writer's from the same examples.
 """
 
@@ -19,6 +19,8 @@ from typing import (Dict, Iterable, Iterator, List, Optional, Sequence, Tuple,
                     Union)
 
 import numpy as np
+
+from analytics_zoo_tpu_torch import native
 
 __all__ = [
     "read_records", "write_records", "parse_example", "build_example",
@@ -103,24 +105,10 @@ def _parse_packed_varints(raw: bytes) -> List[int]:
 # ------------------------------------------------------------------ crc32c
 # Castagnoli CRC-32 (poly 0x1EDC6F41, reflected 0x82F63B78), the checksum
 # TFRecord framing uses, masked per the Snappy / TFRecord convention.
-def _make_table() -> List[int]:
-    table = []
-    for i in range(256):
-        crc = i
-        for _ in range(8):
-            crc = (crc >> 1) ^ (0x82F63B78 if crc & 1 else 0)
-        table.append(crc)
-    return table
-
-
-_CRC_TABLE = _make_table()
-
-
 def crc32c(data: bytes) -> int:
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = (crc >> 8) ^ _CRC_TABLE[(crc ^ b) & 0xFF]
-    return crc ^ 0xFFFFFFFF
+    """CRC-32C by the host library's slicing-by-8 loop, as the JAX reader
+    computes it."""
+    return native.crc32c(data)
 
 
 _MASK_DELTA = 0xA282EAD8

@@ -40,7 +40,8 @@ the aggregate result lands on ``result:<uri>`` like every other workload
 so ``OutputQueue`` clients keep working.
 
 The HTTP face is ``serving.http_frontend.ServingFrontend(llm=...)``.
-Not ported yet: the Redis and native brokers (ROADMAP Queue 1 item 1).
+Any broker of ``serving.broker.get_broker`` carries it: ``memory://``,
+``native://``, ``redis://`` and ``fleet://``.
 ``model_parallel > 1`` is refused by ``LLMServingConfig`` (ROADMAP Queue 1
 item 5).
 """

@@ -13,14 +13,20 @@ carries a wire trace context (``trace_ctx``) as the JAX client stamps
 it, and ``FastWireHttpClient`` sends a given one as ``X-Zoo-Trace``.
 ``model=`` stamps the wire ``model`` field (a multi-model engine routes by
 it; ``FastWireHttpClient`` posts to ``/predict/<model>``) and ``tenant=``
-the ``tenant`` field (``X-Zoo-Tenant`` over HTTP).  Transport retries are
-not ported yet (the Redis broker, ROADMAP Queue 1 item 1).
+the ``tenant`` field (``X-Zoo-Tenant`` over HTTP).  Every enqueue carries a
+``dedup_id``, minted before the transport retry, so a retried enqueue of
+one record is dropped by the journaled broker's dedup barrier; transient
+broker errors (a connection reset, a bridge reconnect) retry with
+backoff.
 """
 
 from __future__ import annotations
 
 import http.client
+import itertools
 import json
+import os
+import time
 import logging
 import struct
 from typing import Dict, List, Optional, Tuple, Union
@@ -29,7 +35,7 @@ import numpy as np
 
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.resilience import (
-    Deadline, current_deadline)
+    Deadline, RetryPolicy, current_deadline, is_transient_broker_error)
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     ImageBytes, StringTensor, decode_items_bytes, decode_output,
@@ -105,6 +111,19 @@ def _tenant_fields(tenant: Optional[str]) -> dict:
     return {"tenant": str(tenant)}
 
 
+#: the dedup-id mint: unique per process per enqueue, stamped BEFORE the
+#: retry loop so an at-least-once transport retry of one logical enqueue
+#: carries the SAME id, which the durable broker's dedup barrier drops
+#: (returning the original sid).  The pid and monotonic-ns prefix keep ids
+#: disjoint across processes and restarts; brokers without the barrier
+#: ignore the field.
+_dedup_seq = itertools.count(1)
+
+
+def _mint_dedup_id() -> str:
+    return f"{os.getpid():x}-{time.monotonic_ns():x}-{next(_dedup_seq)}"
+
+
 def _trace_fields(trace_ctx: Optional[str] = None) -> dict:
     """The wire trace-context stamp: an explicit wire context when given
     (cross-thread enqueues: the HTTP coalescer stamps the handler's span,
@@ -133,6 +152,16 @@ class InputQueue:
                  stream: str = "serving_stream"):
         self.broker = broker or get_broker(url)
         self.stream = stream
+        # transient broker failures (a connection reset, a redis timeout)
+        # retry with decorrelated-jitter backoff instead of reaching every
+        # caller; deadline-aware, so a budgeted request never spends its
+        # whole budget retrying the transport
+        self._retry = RetryPolicy(max_retries=3, base_s=0.02, cap_s=0.5,
+                                  retry_if=is_transient_broker_error,
+                                  scope="client")
+
+    def _xadd(self, fields: dict) -> str:
+        return self._retry.call(self.broker.xadd, self.stream, fields)
 
     def enqueue(self, uri: str, deadline_s: Optional[float] = None,
                 **data) -> str:
@@ -170,8 +199,9 @@ class InputQueue:
                     "arrays")
             else:
                 items[k] = np.asarray(v)
-        return self.broker.xadd(self.stream, {
+        return self._xadd({
             "uri": uri, "data": _encode_wire(items),
+            "dedup_id": _mint_dedup_id(),
             **_deadline_fields(deadline_s, deadline),
             **_trace_fields(trace_ctx), **_model_fields(model),
             **_tenant_fields(tenant)})
@@ -184,8 +214,9 @@ class InputQueue:
         """An already-encoded wire frame (a fast-wire HTTP body) goes on
         the stream verbatim: no decode, no re-encode.  The engine's decode
         stage error-finishes an undecodable frame."""
-        return self.broker.xadd(self.stream, {
+        return self._xadd({
             "uri": uri, "data": bytes(frame),
+            "dedup_id": _mint_dedup_id(),
             **_deadline_fields(None, deadline),
             **_trace_fields(trace_ctx), **_model_fields(model),
             **_tenant_fields(tenant)})
@@ -219,9 +250,10 @@ class InputQueue:
                     f"batch payload {k!r} must be an array with leading "
                     f"dim {n}, got shape {getattr(a, 'shape', ())}")
             items[k] = a
-        return self.broker.xadd(self.stream, {
+        return self._xadd({
             "uri": "\x1f".join(uris), "batch": str(n),
             "data": _encode_wire(items),
+            "dedup_id": _mint_dedup_id(),
             **_deadline_fields(deadline_s, deadline),
             **_trace_fields(trace_ctx), **_model_fields(model),
             **_tenant_fields(tenant)})
@@ -251,10 +283,26 @@ class OutputQueue:
 
     def query_blocking(self, uri: str, timeout: float = 10.0
                        ) -> Optional[Result]:
-        """Wait (on the broker's result condition, no polling) up to
-        ``timeout`` seconds for ``uri``'s result."""
-        if self.broker.wait_result(f"result:{uri}", timeout):
-            return self.query(uri)
+        """Wait up to ``timeout`` seconds for ``uri``'s result: one
+        combined wait-and-read round trip over a fleet bridge
+        (``wait_hgetall``), a blocking wait on the broker's result
+        condition where it has one (``wait_result``), a 10 ms poll
+        otherwise (``RedisBroker``)."""
+        waittake = getattr(self.broker, "wait_hgetall", None)
+        if waittake is not None:
+            return self._parse_result(uri,
+                                      waittake(f"result:{uri}", timeout))
+        wait = getattr(self.broker, "wait_result", None)
+        if wait is not None:
+            if wait(f"result:{uri}", timeout):
+                return self.query(uri)
+            return None
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            r = self.query(uri)
+            if r is not None:
+                return r
+            time.sleep(0.01)
         return None
 
     def dequeue(self) -> Dict[str, Result]:

@@ -51,9 +51,10 @@ credit pool (``serving/tenancy.py``), a tenant over quota is shed with
 virtual time.  Tenancy with a registry raises ``ValueError``, as in the
 JAX engine.
 
-Not ported yet (ROADMAP Queue 1 item 1): server-side image decode and the
-Redis / native / fleet / journaled brokers with the sink's publish
-retries; the TensorBoard curves (item 6).
+The sink's result writes retry transient broker errors (a connection
+reset, the failover gap of the journaled broker) with backoff, as the JAX
+engine's do.  Not ported yet: server-side image decode (ROADMAP Queue 1
+item 1) and the TensorBoard curves (item 6).
 """
 
 from __future__ import annotations
@@ -72,8 +73,8 @@ import numpy as np
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.config import ServingConfig
 from analytics_zoo_tpu_torch.common.resilience import (
-    AdmissionController, Deadline, DeadlineExceeded, deadline_scope,
-    record_expired)
+    AdmissionController, Deadline, DeadlineExceeded, RetryPolicy,
+    deadline_scope, is_transient_broker_error, record_expired)
 from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
@@ -221,6 +222,14 @@ class ClusterServing:
         self._m_qhwm = obs.lazy_gauge(
             "zoo_serving_queue_high_water",
             "max stage queue depth seen since start()", ["queue"])
+        # result-publish retry: a transient broker failure in the sink
+        # (the journaled broker's failover gap: the broker port is
+        # stable, the next attempt reconnects) must not turn a computed
+        # result into an error finish and an ack; the backoff budget
+        # covers a sub-second failover
+        self._pub_retry = RetryPolicy(
+            max_retries=5, base_s=0.1, cap_s=2.0,
+            retry_if=is_transient_broker_error, scope="sink")
 
     # ---- lifecycle --------------------------------------------------------
     def start(self) -> "ClusterServing":
@@ -609,9 +618,9 @@ class ClusterServing:
                                 tref=tref, tstate=tstate)
         extra = {"scope": scope} if scope else {}
         try:
-            self.broker.set_results(
-                {f"result:{u}": {"error": msg, "code": code, **extra}
-                 for u in uris})
+            self._pub_retry.call(self.broker.set_results, {
+                f"result:{u}": {"error": msg, "code": code, **extra}
+                for u in uris})
         except (Exception, CancelledError):
             logger.exception("could not record %s results for entry %s",
                              code, sid)
@@ -1063,13 +1072,17 @@ class ClusterServing:
                     with obs.span("serving.sink", parent=parent,
                                   records=len(idxs)):
                         out = np.asarray(model.fetch(pending.result()))
-                        # one bulk result write, one xack per group
-                        self.broker.set_results(
-                            {f"result:{uris[i]}":
-                             {"value": self._encode_result(out[j])}
-                             for j, i in enumerate(idxs)})
-                        self.broker.xack(self.stream, self.group,
-                                         *[sids[i] for i in idxs])
+                        # one bulk result write, one xack per group,
+                        # each retried on transient broker failures: a
+                        # failover gap must not error-finish (and ack)
+                        # a computed result
+                        self._pub_retry.call(self.broker.set_results, {
+                            f"result:{uris[i]}":
+                            {"value": self._encode_result(out[j])}
+                            for j, i in enumerate(idxs)})
+                        self._pub_retry.call(
+                            self.broker.xack, self.stream, self.group,
+                            *[sids[i] for i in idxs])
                 except (Exception, CancelledError) as exc:
                     logger.exception("sink failed for %d entries",
                                      len(idxs))
@@ -1131,9 +1144,11 @@ class ClusterServing:
         try:
             # some exceptions stringify empty (CancelledError): the client
             # must still see what failed
-            self.broker.set_results({f"result:{uri}": {
-                "error": str(exc) or type(exc).__name__, "code": code}})
-            self.broker.xack(self.stream, self.group, sid)
+            self._pub_retry.call(self.broker.set_results, {
+                f"result:{uri}": {"error": str(exc) or type(exc).__name__,
+                                  "code": code}})
+            self._pub_retry.call(self.broker.xack, self.stream, self.group,
+                                 sid)
         except (Exception, CancelledError):
             logger.exception("could not record error result for %s", uri)
 
@@ -1245,13 +1260,13 @@ class ClusterServing:
                         logger.exception("entry %s failed", uri)
                         # a batched entry's error lands on every uri in it
                         self._m_errors.inc(len(uri.split("\x1f")))
-                        self.broker.set_results(
-                            {f"result:{u}": {"error": str(exc)
-                                             or type(exc).__name__,
-                                             "code": "error"}
-                             for u in uri.split("\x1f")})
-            self.broker.xack(self.stream, self.group,
-                             *[sid for sid, _ in entries])
+                        self._pub_retry.call(self.broker.set_results, {
+                            f"result:{u}": {"error": str(exc)
+                                            or type(exc).__name__,
+                                            "code": "error"}
+                            for u in uri.split("\x1f")})
+            self._pub_retry.call(self.broker.xack, self.stream, self.group,
+                                 *[sid for sid, _ in entries])
 
     def _process_batch(self, entries) -> None:
         t0 = time.perf_counter()
@@ -1289,9 +1304,9 @@ class ClusterServing:
                 preds[i] = out[j]
         # replace, don't merge: a stale error field from an earlier failed
         # attempt must not shadow this result
-        self.broker.set_results(
-            {f"result:{uri}": {"value": self._encode_result(preds[i])}
-             for i, uri in enumerate(uris)})
+        self._pub_retry.call(self.broker.set_results, {
+            f"result:{uri}": {"value": self._encode_result(preds[i])}
+            for i, uri in enumerate(uris)})
         self._count(len(uris))
         logger.debug("batch of %d in %.1fms", len(uris),
                      1000 * (time.perf_counter() - t0))

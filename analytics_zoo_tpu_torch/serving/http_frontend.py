@@ -38,8 +38,9 @@ Observability, as in the JAX frontend:
 - ``GET /debug/flightrecorder``: the flight-recorder dump listing
   (``?name=<file>`` serves one dump).
 
-``?local=`` is accepted on each and changes nothing: this frontend has no
-fleet, so its view is always the process's own.  ``POST /predict``
+In a fleet worker (below) ``/metrics``, ``/spans`` and ``/debug/memory``
+answer for the whole fleet, merging every process's published snapshot;
+``?local=1`` keeps this process's own view.  ``POST /predict``
 accepts an ``X-Zoo-Trace`` header (``trace_id-span_id``) and parents its
 ``http.predict`` (or ``http.generate``) span to it; every response
 carries the span's own context back in ``X-Zoo-Trace``, so a client can
@@ -56,7 +57,15 @@ unknown tenant is refused by the engine's gate.  Both ride the wire beside
 the deadline and join the coalescer's grouping key: a batch entry targets
 one model and one tenant.
 
-Not ported yet: the fleet-worker arguments raise (ROADMAP Queue 1 item 1).
+Fleet-worker mode (``serving.fleet``): no local engine; ``broker`` (a
+``RemoteBroker`` of the fleet bridge), ``config`` and ``stream``, a
+``FleetRouter`` that picks each request's partition inside a
+``fleet.route`` span (an open breaker or a set overload latch routes
+around a partition; a fleet whose every healthy partition is latched
+sheds with 429 before any broker round trip; no live replica answers
+503), a ``FleetContext`` for the fleet-wide views, ``worker_id`` (sent
+back as ``X-Zoo-Fleet-Worker``) and ``reuse_port``, which binds with
+``SO_REUSEPORT`` so N worker processes accept on one port.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ import itertools
 import json
 import logging
 import math
+import socket
 import struct
 import sys
 import threading
@@ -79,7 +89,6 @@ import numpy as np
 
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.resilience import Deadline, deadline_scope
-from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.serving.client import (
     FASTWIRE_CONTENT_TYPE, TOKEN_STREAM_CONTENT_TYPE, InputQueue,
     OutputQueue, ServingDeadlineError, ServingShedError)
@@ -133,16 +142,21 @@ class _RequestCoalescer:
 
     def submit(self, uri: str, raw: Optional[bytes], items: dict,
                deadline: Optional[Deadline],
-               trace_ctx: Optional[str] = None,
+               trace_ctx: Optional[str] = None, inq=None,
+               partition: Optional[int] = None,
                model: Optional[str] = None,
                tenant: Optional[str] = None) -> None:
         """Hand one record to the flush worker.  ``raw`` is the encoded
         fast-wire frame when the record arrived binary: a single-record
         flush passes it to the stream verbatim.  ``trace_ctx`` is the
-        handler's span context, stamped on the entry; ``model`` and
-        ``tenant`` join the grouping key."""
+        handler's span context, stamped on the entry.  ``inq`` /
+        ``partition`` (fleet workers) pin the record to its routed
+        partition's queue; ``partition``, ``model`` and ``tenant`` join
+        the grouping key, so a batch entry lands on one stream, targets
+        one model and charges one tenant."""
         rec = (uri, raw, items, deadline, trace_ctx, time.monotonic(),
-               model, tenant)
+               inq if inq is not None else self._inq, partition, model,
+               tenant)
         with self._cond:
             if self._stop.is_set():
                 raise RuntimeError("coalescer is stopped")
@@ -192,8 +206,9 @@ class _RequestCoalescer:
             key = (tuple(sorted((k, v.shape, str(v.dtype))
                                 for k, v in rec[2].items())),
                    self._deadline_bucket(rec[3]),
-                   rec[6],       # model: one batch entry, one model
-                   rec[7])       # tenant: one batch entry, one tenant
+                   rec[7],       # fleet partition: one stream per entry
+                   rec[8],       # model: one batch entry, one model
+                   rec[9])       # tenant: one batch entry, one tenant
             groups.setdefault(key, []).append(rec)
         for recs in groups.values():
             try:
@@ -208,25 +223,23 @@ class _RequestCoalescer:
         self.records += len(recs)
         self._m_flushes.inc()
         self._m_records.inc(len(recs))
-        model, tenant = recs[0][6], recs[0][7]
+        inq, model, tenant = recs[0][6], recs[0][8], recs[0][9]
         if len(recs) == 1:
             uri, raw, items, dl, tctx = recs[0][:5]
             if raw is not None:
-                self._inq.enqueue_raw(uri, raw, deadline=dl, trace_ctx=tctx,
-                                      model=model, tenant=tenant)
+                inq.enqueue_raw(uri, raw, deadline=dl, trace_ctx=tctx,
+                                model=model, tenant=tenant)
             else:
-                self._inq.enqueue_items(uri, items, deadline=dl,
-                                        trace_ctx=tctx, model=model,
-                                        tenant=tenant)
+                inq.enqueue_items(uri, items, deadline=dl, trace_ctx=tctx,
+                                  model=model, tenant=tenant)
             return
         uris = [r[0] for r in recs]
         stacked = {k: np.stack([r[2][k] for r in recs]) for k in recs[0][2]}
         dls = [r[3] for r in recs if r[3] is not None]
         dl = min(dls, key=lambda d: d.remaining()) if dls else None
         tctx = next((r[4] for r in recs if r[4]), None)
-        self._inq.enqueue_batch_items(uris, stacked, deadline=dl,
-                                      trace_ctx=tctx, model=model,
-                                      tenant=tenant)
+        inq.enqueue_batch_items(uris, stacked, deadline=dl, trace_ctx=tctx,
+                                model=model, tenant=tenant)
 
     def _fail(self, recs: List[tuple], exc: BaseException) -> None:
         results = {f"result:{r[0]}": {"error": str(exc)
@@ -249,34 +262,52 @@ class ServingFrontend:
     (``ClusterServing``) and/or generative streaming (``LLMServing``):
     pass either engine or both; the same ``/predict`` route negotiates
     between them.  ``port=0`` binds an ephemeral port, which ``port``
-    holds after ``start``.  The fleet-worker arguments (``broker``,
-    ``router``, ``fleet``, ``worker_id``, ``reuse_port``) are not ported
-    yet and raise ``NotImplementedError`` (ROADMAP Queue 1 item 1)."""
+    holds after ``start``.
+
+    Fleet-worker mode: no local engine; pass ``broker`` / ``config`` /
+    ``stream`` with a ``FleetRouter`` and the same handler stack runs in N
+    worker processes accepting on one port (``reuse_port``), each
+    enqueuing onto the routed partition's stream and waiting on its own
+    ``result:<uri>`` key at the shared bridge broker.  ``fleet`` (a
+    ``FleetContext``) makes ``/metrics``, ``/spans`` and ``/debug/memory``
+    fleet-wide (``?local=1`` keeps this process's own view)."""
 
     def __init__(self, serving: Optional[ClusterServing] = None,
                  port: int = 10020, host: Optional[str] = None,
                  llm=None, broker=None, config=None, stream=None,
                  router=None, fleet=None, worker_id: Optional[str] = None,
                  reuse_port: bool = False):
-        reject("ServingFrontend", 1, dict(reuse_port=False), broker=broker,
-               router=router, fleet=fleet, worker_id=worker_id,
-               reuse_port=reuse_port)
-        if serving is None and llm is None:
+        if serving is None and llm is None and broker is None:
             raise ValueError("need a ClusterServing and/or an LLMServing "
-                             "engine")
+                             "engine, or a fleet broker + config")
         self.serving = serving
         self.llm = llm
+        self.router = router
+        self.fleet = fleet
+        self.worker_id = worker_id
+        self.reuse_port = reuse_port
         self.port = port
-        cfg = config if config is not None else (
-            serving.config if serving is not None else llm.config)
+        if config is not None:
+            cfg = config
+        elif serving is not None:
+            cfg = serving.config
+        elif llm is not None:
+            cfg = llm.config
+        else:
+            # before any config is read: a broker alone gets this message,
+            # not an AttributeError
+            raise ValueError("fleet worker mode needs an explicit config")
         self.config = cfg
-        self.broker = serving.broker if serving is not None else None
+        self.broker = broker if broker is not None else (
+            serving.broker if serving is not None else None)
+        if stream is None and serving is not None:
+            stream = serving.stream
         # the bind address from ServingConfig; 127.0.0.1 stays the default
         self.host = host or getattr(cfg, "http_host", "127.0.0.1")
-        if serving is not None:
+        if self.broker is not None:
             self.input_queue: Optional[InputQueue] = InputQueue(
                 broker=self.broker,
-                stream=stream if stream is not None else serving.stream)
+                stream=stream if stream is not None else "serving_stream")
             self.output_queue: Optional[OutputQueue] = OutputQueue(
                 broker=self.broker)
         else:
@@ -352,10 +383,16 @@ class ServingFrontend:
                 url = urlparse(self.path)
                 path = url.path
                 q = parse_qs(url.query)
+                # a fleet worker answers for the whole fleet unless
+                # ?local=1 asks for this process's own view
+                fleet = (frontend.fleet if (q.get("local") or ["0"])[0]
+                         in ("0", "") else None)
                 if path == "/metrics":
-                    # Prometheus text for the whole process registry
-                    self._send_raw(200, obs.render().encode(),
-                                   obs.CONTENT_TYPE)
+                    # Prometheus text for the whole process registry, or
+                    # the fleet-wide merge of every process's snapshot
+                    text = (fleet.merged_metrics_text() if fleet is not None
+                            else obs.render())
+                    self._send_raw(200, text.encode(), obs.CONTENT_TYPE)
                 elif path == "/metrics.json":
                     m = (frontend.serving.metrics()
                          if frontend.serving is not None else {})
@@ -376,8 +413,15 @@ class ServingFrontend:
                                                   "be non-negative ints"})
                         return
                     name = (q.get("name") or [None])[0]
-                    self._send(200, {"spans": obs.get_tracer().export(
-                        name=name, limit=limit, trace_id=trace_id)})
+                    if fleet is not None:
+                        # one trace's chain spans the frontend worker and
+                        # the engine replica process
+                        spans = fleet.merged_spans(
+                            name=name, limit=limit, trace_id=trace_id)
+                    else:
+                        spans = obs.get_tracer().export(
+                            name=name, limit=limit, trace_id=trace_id)
+                    self._send(200, {"spans": spans})
                 elif path == "/debug/memory":
                     try:
                         topk = q.get("topk")
@@ -388,8 +432,10 @@ class ServingFrontend:
                         self._send(400, {"error": "topk must be a "
                                                   "non-negative int"})
                         return
-                    self._send(200, obs.get_memory_ledger().snapshot(
-                        top_k=topk))
+                    self._send(200, fleet.merged_memory(topk)
+                               if fleet is not None
+                               else obs.get_memory_ledger().snapshot(
+                                   top_k=topk))
                 elif path == "/debug/flightrecorder":
                     rec = obs.get_flight_recorder()
                     name = (q.get("name") or [None])[0]
@@ -508,18 +554,45 @@ class ServingFrontend:
                             and bool(inputs)
                             and all(isinstance(v, np.ndarray)
                                     for v in inputs.values()))
-                inq = frontend.input_queue
+                router = frontend.router
                 with obs.span("http.predict", parent=pctx,
                               uri=uri) as hsp, deadline_scope(dl):
                     # every answer hands the span's own context back, so
                     # /spans?trace_id= pulls exactly this request's spans
                     thdr = ({"X-Zoo-Trace": obs.encode_trace_context(hsp)}
                             if hsp is not None else {})
+                    if frontend.worker_id:
+                        thdr["X-Zoo-Fleet-Worker"] = frontend.worker_id
                     tctx = thdr.get("X-Zoo-Trace")
+                    # fleet routing: the partition whose replica serves
+                    # this request; an open breaker or a set latch routes
+                    # around a partition, an all-latched fleet sheds here
+                    # before any broker round trip
+                    part, inq = None, frontend.input_queue
+                    if router is not None:
+                        try:
+                            # keyed by model: one model's requests land
+                            # on the replica that holds its weights
+                            with obs.span("fleet.route", uri=uri) as rsp:
+                                part, inq, _probe = router.route(
+                                    uri, key=model)
+                                if rsp is not None:
+                                    rsp.set(partition=part)
+                        except ServingShedError as exc:
+                            self._send(429, {"error": str(exc)},
+                                       headers={"Retry-After":
+                                                frontend._retry_after,
+                                                **thdr})
+                            return
+                        except Exception as exc:  # no live replica
+                            self._send(503, {"error": str(exc)},
+                                       headers=thdr)
+                            return
                     try:
                         if use_coal:
-                            coal.submit(uri, raw, inputs, dl, tctx,
-                                        model=model, tenant=tenant)
+                            coal.submit(uri, raw, inputs, dl, tctx, inq=inq,
+                                        partition=part, model=model,
+                                        tenant=tenant)
                         elif binary:
                             # the frame goes on the stream verbatim
                             inq.enqueue_raw(uri, raw, deadline=dl,
@@ -531,6 +604,12 @@ class ServingFrontend:
                             inq.enqueue_items(uri, inputs, model=model,
                                               tenant=tenant)
                     except Exception as exc:  # broker down: 503
+                        # a granted half-open probe needs its verdict even
+                        # though the request never reached the replica,
+                        # or the partition's breaker would wedge; the
+                        # failure restarts its recovery clock
+                        if router is not None and part is not None:
+                            router.note_result(part, timed_out=True)
                         self._send(503, {"error": str(exc)}, headers=thdr)
                         return
                     timeout = 30.0 if dl is None else dl.timeout(30.0)
@@ -538,17 +617,33 @@ class ServingFrontend:
                         result = frontend.output_queue.query_blocking(
                             uri, timeout=timeout)
                     except ServingShedError as exc:
-                        # retryable, with a pacing hint
+                        # retryable, with a pacing hint.  The replica
+                        # answered: an engine-overload shed arms its
+                        # partition's latch; a shed at the tenant's own
+                        # credit gate is that tenant's quota, not overload
+                        if router is not None and part is not None:
+                            if getattr(exc, "scope", None) == "tenant":
+                                router.note_result(part, timed_out=False)
+                            else:
+                                router.note_shed(part)
                         self._send(429, {"error": str(exc)},
                                    headers={"Retry-After":
                                             frontend._retry_after, **thdr})
                         return
                     except ServingDeadlineError as exc:
+                        if router is not None and part is not None:
+                            router.note_result(part, timed_out=False)
                         self._send(504, {"error": str(exc)}, headers=thdr)
                         return
                     except RuntimeError as exc:  # engine failure: 500
+                        if router is not None and part is not None:
+                            router.note_result(part, timed_out=False)
                         self._send(500, {"error": str(exc)}, headers=thdr)
                         return
+                if router is not None and part is not None:
+                    # no result at all is the breaker's failure signal: a
+                    # replica that answered anything is alive
+                    router.note_result(part, timed_out=result is None)
                 if result is None:
                     self._send(504, {"error": "timeout"}, headers=thdr)
                 elif binary:
@@ -688,11 +783,24 @@ class ServingFrontend:
         return Handler
 
     def start(self) -> "ServingFrontend":
+        frontend = self
+
         class _Server(ThreadingHTTPServer):
             # keep-alive clients connect at once; the stdlib backlog of 5
             # resets the rest
             request_queue_size = 128
             daemon_threads = True
+
+            def server_bind(self):
+                # fleet workers: N processes accept on ONE port, the
+                # kernel spreading connections over the listeners
+                if frontend.reuse_port:
+                    if not hasattr(socket, "SO_REUSEPORT"):
+                        raise OSError("SO_REUSEPORT unsupported on this "
+                                      "platform; fleet workers need it")
+                    self.socket.setsockopt(socket.SOL_SOCKET,
+                                           socket.SO_REUSEPORT, 1)
+                super().server_bind()
 
             def handle_error(self, request, client_address):
                 # a client that went away between requests is no error
@@ -702,6 +810,7 @@ class ServingFrontend:
 
         cfg = self.config
         if self.input_queue is not None \
+                and (self.serving is not None or self.router is not None) \
                 and getattr(cfg, "http_coalesce", True) \
                 and self._coalescer is None:
             self._coalescer = _RequestCoalescer(

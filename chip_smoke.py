@@ -282,6 +282,47 @@ Phases, each of which raises (exit code 1) on failure:
    three planned ``health_probe`` raises open the card's breaker and fire
    ``on_failure`` once; a probe issued during a 32-replay training
    dispatch of the train_bench configuration reads ``ok``.
+15. batching: the http phase's BERT-base (numpy seed 0, f32) as an
+   ``InferenceModel`` taking the three inputs packed in one (N, 3, 128)
+   int32 array, behind ``BatchingService(max_batch=32, max_delay_ms=5)``
+   (the native request queue): 64 single requests of valid lengths 8..128
+   from 8 threads, every answer within 1e-4 of the model with the plain
+   attention, exactly 12 ``flash_fwd`` launches per batched forward;
+   requests/s, p50 / p99 and the batch sizes.  Then one planned
+   ``device_execute`` raise fails its batch and opens the service's
+   breaker (threshold 1), the next request fails fast with
+   ``CircuitOpenError``, and after the recovery time a probe is answered
+   and closes it.
+16. native: the same model behind the pipelined
+   ``ClusterServing(ServingConfig(redis_url="native://"))`` over
+   ``get_broker("native://")`` (the C++ queue broker): 64 requests through
+   ``InputQueue`` / ``OutputQueue``, answers within 1e-4 of plain
+   attention, 12 launches per dispatched forward.  (The ingest phase's
+   shards stage through the native ``NativeSampleCache``, which it checks
+   and prints.)
+17. fleet and durable, in a fresh interpreter of this script (a process
+   that has initialised CUDA cannot fork replicas that use the card):
+   ``FleetSupervisor`` with 2 frontend workers on one SO_REUSEPORT port
+   and 2 replicas, each building BERT-base on ``cuda:0`` after the fork
+   and reporting its ``flash_fwd`` launches to the bridge; 64 requests
+   over HTTP from 4 threads, half JSON, half fast-wire; the launches
+   summed over the replicas exactly 12 per dispatched forward;
+   ``/metrics`` on a worker showing ``zoo_serving_records_total`` 64 and
+   ``zoo_fleet_routed_total``; one traced request's 5-span chain
+   (``http.predict`` -> ``fleet.route``, ``http.predict`` ->
+   ``serving.decode`` -> ``serving.dispatch`` -> ``serving.sink``) under
+   ``/spans?trace_id=``; ``kill_replica(1)``, then 12 requests homed on
+   it with ``deadline_ms=800`` on one connection: at most the breaker
+   threshold (3) fail, the rest divert and are answered.  Then
+   ``FleetConfig(durable=True)``: 64 requests enqueued through
+   ``InputQueue`` over ``fleet://`` from 4 threads, each thread retrying
+   a call that fails, ``kill_broker_owner()`` once half are acknowledged,
+   the standby promoted: every acknowledged request answered (none lost)
+   and its acknowledged entry's ``dedup_id`` once in the WALs (none
+   duplicated); the requests that a caller's retry put in twice, and the
+   failover ms, are printed.
+   Once both fleets have stopped, every answer against the plain
+   attention on the card (1e-4).
 
 The serve, train, llm, ring, heads, http and ingest phases also check
 that no kernel input was copied before a launch (the wrappers'
@@ -395,6 +436,12 @@ MULTI = dict(requests=128, threads=4, fault_requests=4)
 # each with 8 requests in flight, 4 rounds
 TENANTS = (("gold", 64, 1.0), ("free", 8, 1.0))
 TENANCY = dict(gold=16, free_threads=3, free_conns=8, free_rounds=4)
+# the rest of serving (15-17): BatchingService, the native-queue broker, the
+# fleet (2 frontend workers x 2 BERT-base replicas on the card) and the
+# durable fleet across kill_broker_owner()
+BATCHING = dict(requests=64, threads=8, max_batch=32, max_delay_ms=5)
+FLEET = dict(requests=64, threads=4, workers=2, replicas=2, after_kill=12,
+             kill_deadline_ms=800, timeout_s=420)
 ZOO_SERVE_ATOL = 1e-4         # served probabilities vs the CPU forward
 ZOO_PREDICT_ATOL = 1e-5       # the other zoo models' predictions vs CPU
 ZOO_LOSS_RTOL = 1e-4          # training losses, card vs CPU (f32)
@@ -4535,6 +4582,13 @@ def _ingest_squad(card_name, heads):
         # A: the main path, launches, shard reads and data wait per epoch
         fs = _squad_set(paths)
         fs.evict()      # the probe's staged shard: epoch 0 reads every file
+        from analytics_zoo_tpu_torch.native import NativeSampleCache
+        if fs._stage is None or not isinstance(fs._stage.cache,
+                                               NativeSampleCache):
+            raise AssertionError("ingest: the shards do not stage through "
+                                 "the native sample cache")
+        log(f"[ingest] the stage store is native: NativeSampleCache "
+            f"({fs._stage.capacity:,} B of DRAM before the disk spill)")
         seen = _SeenIds(fs)
         reads, waits = [], []
         from analytics_zoo_tpu_torch.estimator import estimator as est_mod
@@ -5278,11 +5332,637 @@ def phase_health(card_name):
     return dict(probe_during_dispatch_ms=probe_ms, seconds=secs)
 
 
+BERT_INPUTS = ("input_ids", "token_type_ids", "input_mask")
+
+
+def _bert_serving_models(device="cuda"):
+    """The Serve / HTTP cell's BERT-base (numpy seed 0) with two faces:
+    ``im`` takes the dict of three inputs, ``packed`` one int32 array
+    (N, 3, T) of them (``BatchingService`` concatenates one array); and
+    the rng after the weights, from which the requests are drawn."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    rng = np.random.default_rng(SEED)
+    clf = BERTClassifier(num_classes=2, bert_config=BERT_BASE, device=device)
+    im = InferenceModel(device=device).load_keras(
+        clf.net, (_random_tree(clf.net, rng), {}),
+        preprocessor=lambda d: [d[n] for n in BERT_INPUTS])
+    packed = InferenceModel(device=device).load_keras(
+        clf.net, preprocessor=lambda x: [x[:, i].contiguous()
+                                         for i in range(3)])
+    return clf, im, packed, rng
+
+
+def _pack(req):
+    """One request's three inputs as a (1, 3, T) int32 array."""
+    return np.stack([req[n] for n in BERT_INPUTS])[None]
+
+
+def _plain_answers(clf, im, reqs, uris):
+    """The model with the plain attention on the card, over ``uris``."""
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        set_attention_backend)
+    set_attention_backend(clf.net, "plain")
+    try:
+        return np.concatenate([
+            im.predict({n: np.stack([reqs[u][n] for u in uris[s:s + 32]])
+                        for n in BERT_INPUTS})
+            for s in range(0, len(uris), 32)])
+    finally:
+        set_attention_backend(clf.net, None)
+
+
+def _answer_err(got, want):
+    return float(np.abs(np.stack([np.asarray(g).ravel() for g in got])
+                        - want.reshape(len(got), -1)).max())
+
+
+def phase_batching(card_name, clf, packed, reqs, want):
+    """BatchingService over BERT-base: 64 single requests from 8 threads,
+    then a device_execute fault opening the breaker and a probe closing
+    it; see the module docstring (15)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from analytics_zoo_tpu_torch.common.resilience import (
+        CircuitBreaker, CircuitOpenError)
+    from analytics_zoo_tpu_torch.inference import BatchingService
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.testing import chaos
+    t_phase = time.perf_counter()
+    uris = list(reqs)
+    n, threads = BATCHING["requests"], BATCHING["threads"]
+    packed.warmup(np.concatenate([_pack(reqs[u]) for u in uris]),
+                  [1, 2, 4, 8, 16, 32])
+    sizes, inner = [], packed.predict
+
+    def predict(x, *a, **kw):
+        sizes.append(len(x))
+        return inner(x, *a, **kw)
+    packed.predict = predict
+    now = [0.0]
+    breaker = CircuitBreaker("batching-bert", failure_threshold=1,
+                             recovery_s=1.0, clock=lambda: now[0])
+    svc = BatchingService(packed, max_batch=BATCHING["max_batch"],
+                          max_delay_ms=BATCHING["max_delay_ms"],
+                          breaker=breaker)
+    got, lat = {}, {}
+    try:
+        def client(k):
+            for i in range(k, n, threads):
+                t = time.perf_counter()
+                got[uris[i]] = svc.predict(_pack(reqs[uris[i]]),
+                                           timeout_ms=300000)
+                lat[uris[i]] = (time.perf_counter() - t) * 1e3
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            for f in [pool.submit(client, k) for k in range(threads)]:
+                f.result()
+        burst_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, batches = _kernels.flash_fwd.launches, list(sizes)
+        # one device_execute fault opens the breaker (threshold 1); the
+        # open circuit fails fast; after recovery_s a probe closes it
+        inj = chaos.ChaosInjector()
+        inj.plan("device_execute", fault="raise", times=1)
+        x0 = _pack(reqs[uris[0]])
+        outcomes = []
+        with chaos.installed(inj):
+            for _ in range(2):      # the faulted batch, then the open one
+                try:
+                    svc.predict(x0, timeout_ms=300000)
+                    outcomes.append("answered")
+                except CircuitOpenError:
+                    outcomes.append("circuit open")
+                except RuntimeError as exc:
+                    outcomes.append(str(exc).split(":")[0])
+                if not breaker.state == "open":
+                    break
+            opened = breaker.state
+            now[0] = 2.0
+            probe = svc.predict(x0, timeout_ms=300000)
+            closed = breaker.state
+    finally:
+        svc.stop()
+        del packed.predict
+    err = _answer_err([got[u] for u in uris], want)
+    err_probe = float(np.abs(np.asarray(probe).ravel() - want[0]).max())
+    ms = list(lat.values())
+    log(f"[batching] BatchingService(max_batch={BATCHING['max_batch']}, "
+        f"max_delay_ms={BATCHING['max_delay_ms']}) over BERT-base: {n} "
+        f"single requests (valid lengths 8..128) from {threads} threads in "
+        f"{burst_s:.4f} s = {n / burst_s:.2f} req/s, latency p50 "
+        f"{_pct(ms, 50):.3f} ms, p99 {_pct(ms, 99):.3f} ms; dispatched "
+        f"batches {batches} on {card_name}")
+    log(f"[batching] flash_fwd launches {launches} in {len(batches)} "
+        f"batched forwards = {launches / max(len(batches), 1):g} per "
+        f"forward; answers vs plain attention max_abs_err={err:.3e}, the "
+        f"probe's {err_probe:.3e} (tol {SERVE_ATOL:g}); a device_execute "
+        f"fault, then one more request: {outcomes}; breaker {opened!r}, "
+        f"after the probe {closed!r}")
+    if (sum(batches) != n or launches != BERT_BASE["n_block"] * len(batches)
+            or max(err, err_probe) > SERVE_ATOL or opened != "open"
+            or outcomes != ["batched inference failed", "circuit open"]
+            or closed != "closed" or inj.injected("device_execute") != 1):
+        raise AssertionError("batching: launches, answers or the breaker "
+                             "are wrong")
+    secs = time.perf_counter() - t_phase
+    log(f"[batching] phase time {secs:.1f} s on {card_name}")
+    return dict(launches=launches, forwards=len(batches),
+                rps=n / burst_s, p50_ms=_pct(ms, 50), p99_ms=_pct(ms, 99),
+                batches=batches, seconds=secs)
+
+
+def phase_native(card_name, clf, im, reqs, want):
+    """The pipelined engine over ``get_broker("native://")``; see the
+    module docstring (16)."""
+    from analytics_zoo_tpu_torch.common.config import ServingConfig
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.serving.broker import (
+        NativeQueueBroker, get_broker)
+    from analytics_zoo_tpu_torch.serving.client import InputQueue, OutputQueue
+    from analytics_zoo_tpu_torch.serving.engine import ClusterServing
+    t_phase = time.perf_counter()
+    uris = list(reqs)
+    n = len(uris)
+    im.warmup({k: np.stack([reqs[u][k] for u in uris]) for k in BERT_INPUTS},
+              [1, 2, 4, 8, 16, 32, 64])
+    forwards = [0]
+    hook = clf.net.register_forward_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sizes = _batch_recorder(im)
+    broker = get_broker("native://")
+    serving = ClusterServing(im, ServingConfig(redis_url="native://")).start()
+    try:
+        if not isinstance(serving.broker, NativeQueueBroker) \
+                or serving.broker is not broker:
+            raise AssertionError("native: the engine is not on native://")
+        iq, oq = InputQueue(broker=broker), OutputQueue(broker=broker)
+        _kernels.reset_launches()
+        forwards[0] = 0
+        t0 = time.perf_counter()
+        for u in uris:
+            iq.enqueue(u, **reqs[u])
+        got = [oq.query_blocking(u, timeout=300) for u in uris]
+        burst_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, n_forwards = _kernels.flash_fwd.launches, forwards[0]
+        batches = list(sizes)
+    finally:
+        serving.stop()
+        hook.remove()
+        del im.predict_async
+        broker.close()
+    missing = [u for u, g in zip(uris, got) if g is None]
+    if missing:
+        raise AssertionError(f"native: no result for {missing}")
+    err = _answer_err(got, want)
+    log(f"[native] pipelined ClusterServing(ServingConfig(redis_url="
+        f"\"native://\")) over the C++ queue broker: {n} requests in one "
+        f"burst through InputQueue / OutputQueue in {burst_s:.4f} s = "
+        f"{n / burst_s:.2f} req/s; dispatched batches {batches}; flash_fwd "
+        f"launches {launches} in {n_forwards} forwards; answers vs plain "
+        f"attention max_abs_err={err:.3e} (tol {SERVE_ATOL:g}) on "
+        f"{card_name}")
+    if (n_forwards != len(batches) or n_forwards == 0
+            or launches != BERT_BASE["n_block"] * n_forwards
+            or err > SERVE_ATOL):
+        raise AssertionError("native: launches or answers are wrong")
+    secs = time.perf_counter() - t_phase
+    log(f"[native] phase time {secs:.1f} s on {card_name}")
+    return dict(launches=launches, forwards=n_forwards, rps=n / burst_s,
+                batches=batches, seconds=secs)
+
+
+def phase_host_serving(card_name):
+    """The batching and native phases over one BERT-base on the card."""
+    clf, im, packed, rng = _bert_serving_models()
+    reqs = _requests(BATCHING["requests"], rng, BERT_BASE)
+    want = _plain_answers(clf, im, reqs, list(reqs))
+    out = {"batching": phase_batching(card_name, clf, packed, reqs, want),
+           "native": phase_native(card_name, clf, im, reqs, want)}
+    del clf, im, packed
+    _release()
+    return out
+
+
+# ---- the fleet phases, in a fresh interpreter (17) -------------------------
+
+def _fleet_factory(address):
+    """The replicas' model factory: BERT-base on ``cuda:0`` built after the
+    fork, warmed up, its ``flash_fwd`` launches and forwards reported to
+    the bridge at ``address`` after every fetch (``smoke:<pid>``)."""
+    def factory():
+        import threading
+
+        from analytics_zoo_tpu_torch.ops import _kernels
+        from analytics_zoo_tpu_torch.serving.fleet import RemoteBroker
+        clf, im, _, rng = _bert_serving_models()
+        reqs = _requests(8, rng, BERT_BASE)
+        im.warmup({k: np.stack([r[k] for r in reqs.values()])
+                   for k in BERT_INPUTS}, [1, 2, 4, 8, 16, 32, 64])
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        forwards = [0]
+        clf.net.register_forward_hook(
+            lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        rb, lock, fetch = RemoteBroker(address), threading.Lock(), im.fetch
+        key = f"smoke:{os.getpid()}"
+
+        def reporting_fetch(pending):
+            out = fetch(pending)
+            with lock:
+                try:
+                    rb.ctl_set(key, [_kernels.flash_fwd.launches,
+                                     forwards[0]])
+                except Exception:
+                    pass    # a failover gap: the next fetch reports again
+            return out
+        im.fetch = reporting_fetch
+        return im
+    return factory
+
+
+def _fleet_http(port, reqs, uris, threads):
+    """``uris`` over HTTP from ``threads`` client threads, half JSON and
+    half fast-wire: {uri: answer}, {uri: latency ms}."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    from analytics_zoo_tpu_torch.serving.client import FastWireHttpClient
+    out, lat = {}, {}
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        with FastWireHttpClient(port=port, timeout=300) as fw:
+            for i in range(k, len(uris), threads):
+                u, t = uris[i], time.perf_counter()
+                if i % 2:
+                    out[u] = fw.predict(uri=u, **reqs[u])
+                else:
+                    conn.request("POST", "/predict", json.dumps(
+                        {"uri": u, "inputs": {n: v.tolist() for n, v in
+                                              reqs[u].items()}}),
+                        {"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    body = json.loads(resp.read())
+                    if resp.status != 200:
+                        raise AssertionError(f"fleet: {u} {resp.status} "
+                                             f"{body}")
+                    out[u] = np.asarray(body["prediction"], np.float32)
+                lat[u] = (time.perf_counter() - t) * 1e3
+        conn.close()
+    with ThreadPoolExecutor(threads) as pool:
+        for f in [pool.submit(client, k) for k in range(threads)]:
+            f.result()
+    return out, lat
+
+
+def _fleet_launches(rb):
+    """Launches and forwards summed over the replicas' reports."""
+    rows = [v for k, v in rb.ctl_all().items() if k.startswith("smoke:")]
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), len(rows)
+
+
+def phase_fleet(card_name, reqs):
+    """FleetSupervisor over BERT-base replicas; see the module docstring
+    (17).  Returns the numbers and every answer, checked against the
+    plain attention by the caller once no process will fork again."""
+    import http.client
+
+    from analytics_zoo_tpu_torch import observability as obs
+    from analytics_zoo_tpu_torch.common.config import (FleetConfig,
+                                                       ServingConfig)
+    from analytics_zoo_tpu_torch.serving.client import (FastWireHttpClient,
+                                                        ServingError)
+    from analytics_zoo_tpu_torch.serving.codec import encode_items_bytes
+    from analytics_zoo_tpu_torch.serving.fleet import (
+        FleetSupervisor, RemoteBroker, _free_port, partition_for)
+    t_phase = time.perf_counter()
+    uris = list(reqs)
+    address = ("127.0.0.1", _free_port())
+    fcfg = FleetConfig(frontend_workers=FLEET["workers"],
+                       replicas=FLEET["replicas"], bridge_port=address[1])
+    sup = FleetSupervisor(_fleet_factory(address),
+                          ServingConfig(redis_url="memory://"), fcfg,
+                          http_port=0, autoscale=False)
+    t0 = time.perf_counter()
+    sup.start(wait_ready_s=600)
+    up_s = time.perf_counter() - t0
+    rb = RemoteBroker(address)
+    try:
+        port = sup.http_port
+        t0 = time.perf_counter()
+        got, lat = _fleet_http(port, reqs, uris, FLEET["threads"])
+        http_s = time.perf_counter() - t0
+        launches, n_forwards, reporters = _fleet_launches(rb)
+        # the merge reads each process's snapshot of the last publish
+        served = routed = 0.0
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and (served < len(uris)
+                                               or routed < len(uris)):
+            scrape = _scrape(port)
+            served = sum(v for (k, _), v in scrape.items()
+                         if k == "zoo_serving_records_total")
+            routed = sum(v for (k, _), v in scrape.items()
+                         if k == "zoo_fleet_routed_total")
+            time.sleep(0.1)
+        # one traced request: its 5-span chain across the two processes
+        ctx = obs.new_trace_context()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/predict", encode_items_bytes(reqs[uris[0]]),
+                     {"Content-Type": "application/x-zoo-fastwire",
+                      "X-Zoo-Uri": "traced-0",
+                      "X-Zoo-Trace": obs.encode_trace_context(ctx)})
+        resp = conn.getresponse()
+        resp.read()
+        worker = resp.headers.get("X-Zoo-Fleet-Worker")
+        conn.close()
+        chain = ("http.predict", "fleet.route", "serving.decode",
+                 "serving.dispatch", "serving.sink")
+        spans = _spans_of(port, ctx[0], chain, timeout=30)
+        by = {sp["name"]: sp for sp in spans}
+        chain_ok = (resp.status == 200 and len(spans) == 5
+                    and set(by) == set(chain)
+                    and {sp["trace_id"] for sp in spans} == {ctx[0]}
+                    and by["fleet.route"]["parent_id"]
+                    == by["http.predict"]["span_id"]
+                    and by["serving.decode"]["parent_id"]
+                    == by["http.predict"]["span_id"]
+                    and by["serving.dispatch"]["parent_id"]
+                    == by["serving.decode"]["span_id"]
+                    and by["serving.sink"]["parent_id"]
+                    == by["serving.dispatch"]["span_id"])
+        # kill replica 1: requests homed there on one connection (one
+        # worker's breakers) time out until its breaker opens, then divert
+        homed = [f"kill-{i}" for i in range(400)
+                 if partition_for(f"kill-{i}", FLEET["replicas"]) == 1]
+        homed = homed[:FLEET["after_kill"]]
+        sup.kill_replica(1)
+        after, failed = {}, 0           # uri -> (request index, answer)
+        with FastWireHttpClient(port=port, timeout=300) as fw:
+            for i, u in enumerate(homed):
+                try:
+                    after[u] = (i, fw.predict(
+                        uri=u, deadline_ms=FLEET["kill_deadline_ms"],
+                        **reqs[uris[i]]))
+                except ServingError:
+                    failed += 1
+        # the fleet-wide merge lags the routers by a snapshot interval
+        diverted, deadline = 0.0, time.monotonic() + 15
+        while (time.monotonic() < deadline
+               and diverted < len(homed) - failed):
+            diverted = sum(v for (k, lab), v in _scrape(port).items()
+                           if k == "zoo_fleet_diverted_total")
+            time.sleep(0.1)
+    finally:
+        rb.close()
+        sup.stop()
+    secs = time.perf_counter() - t_phase
+    ms = list(lat.values())
+    n = len(uris)
+    log(f"[fleet] FleetSupervisor: {FLEET['workers']} frontend workers on "
+        f"one SO_REUSEPORT port, {FLEET['replicas']} BERT-base replicas on "
+        f"cuda:0 (up in {up_s:.1f} s); {n} requests over HTTP from "
+        f"{FLEET['threads']} threads, half JSON, half fast-wire, in "
+        f"{http_s:.4f} s = {n / http_s:.2f} req/s, p50 {_pct(ms, 50):.3f} "
+        f"ms, p99 {_pct(ms, 99):.3f} ms on {card_name}")
+    log(f"[fleet] flash_fwd launches summed over {reporters} replicas "
+        f"{launches} in {n_forwards} forwards = "
+        f"{launches / max(n_forwards, 1):g} per forward; /metrics on a "
+        f"worker: zoo_serving_records_total {served:g}, "
+        f"zoo_fleet_routed_total {routed:g}; the traced request "
+        f"(answered by {worker}): spans {sorted(by)} "
+        f"{'chained' if chain_ok else 'NOT chained'}")
+    log(f"[fleet] kill_replica(1), then {len(homed)} requests homed on it "
+        f"with deadline_ms={FLEET['kill_deadline_ms']}: {failed} failed "
+        f"(breaker threshold {fcfg.breaker_failure_threshold}), "
+        f"{len(after)} answered; zoo_fleet_diverted_total {diverted:g}; "
+        f"phase time {secs:.1f} s")
+    if (reporters != FLEET["replicas"] or n_forwards == 0
+            or launches != BERT_BASE["n_block"] * n_forwards
+            or served != n or routed < n or not chain_ok
+            or not 1 <= failed <= fcfg.breaker_failure_threshold
+            or len(after) != len(homed) - failed
+            or diverted < len(homed) - failed or len(got) != n):
+        raise AssertionError("fleet: launches, metrics, the span chain or "
+                             "the diversion are wrong")
+    return dict(launches=launches, forwards=n_forwards, rps=n / http_s,
+                p50_ms=_pct(ms, 50), p99_ms=_pct(ms, 99),
+                failed_after_kill=failed, seconds=secs), got, after
+
+
+def _wal_entries(wal_root):
+    """{uri: {(stream, sid): dedup_id}} over every broker generation's WAL
+    under ``wal_root`` (a standby's ``repl`` records unwrapped)."""
+    from analytics_zoo_tpu_torch.serving.durability import replay_dir
+    seen = {}
+    for gen in sorted(os.listdir(wal_root)):
+        for _, rec in replay_dir(os.path.join(wal_root, gen)):
+            while rec[0] == "repl":
+                rec = rec[2]
+            if rec[0] == "xadd":
+                _, stream, sid, fields = rec
+                seen.setdefault(fields.get("uri"), {})[(stream, sid)] = \
+                    fields.get("dedup_id")
+    return seen
+
+
+def phase_durable(card_name, reqs):
+    """The durable fleet across ``kill_broker_owner()``; see the module
+    docstring (17)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from analytics_zoo_tpu_torch.common.config import (FleetConfig,
+                                                       ServingConfig)
+    from analytics_zoo_tpu_torch.serving.broker import get_broker
+    from analytics_zoo_tpu_torch.serving.client import InputQueue, OutputQueue
+    from analytics_zoo_tpu_torch.serving.fleet import (
+        FleetSupervisor, _free_port, partition_for, partition_stream)
+    t_phase = time.perf_counter()
+    uris = list(reqs)
+    wal_root = tempfile.mkdtemp(prefix="zoo_smoke_wal_")
+    address = ("127.0.0.1", _free_port())
+    fcfg = FleetConfig(frontend_workers=1, replicas=FLEET["replicas"],
+                       durable=True, wal_dir=wal_root,
+                       broker_port=address[1], failover_poll_s=0.1)
+    sup = FleetSupervisor(_fleet_factory(address),
+                          ServingConfig(redis_url="memory://"), fcfg,
+                          http_port=0, autoscale=False)
+    sup.start(wait_ready_s=600)
+    rb = get_broker(f"fleet://{address[0]}:{address[1]}")
+    acked, lock, caller_retries = {}, threading.Lock(), [0]
+    half = threading.Event()
+    retries0 = _counter_total("zoo_resilience_retries_total")
+    try:
+        def enqueue(k):
+            # the client's own entry point: its RetryPolicy resends one
+            # dedup_id; a call that still fails is retried by this caller,
+            # as a user would, and that call mints a new dedup_id
+            queues = {p: InputQueue(broker=rb, stream=partition_stream(
+                "serving_stream", p)) for p in range(FLEET["replicas"])}
+            for i in range(k, len(uris), FLEET["threads"]):
+                u = uris[i]
+                iq = queues[partition_for(u, FLEET["replicas"])]
+                for _attempt in range(400):
+                    try:
+                        sid = iq.enqueue_items(u, reqs[u])
+                        break
+                    except Exception:
+                        with lock:
+                            caller_retries[0] += 1
+                        time.sleep(0.1)
+                else:
+                    raise AssertionError(f"durable: {u} never acknowledged")
+                with lock:
+                    acked[u] = (iq.stream, sid)
+                    if len(acked) >= len(uris) // 2:
+                        half.set()
+        clients = [threading.Thread(target=enqueue, args=(k,))
+                   for k in range(FLEET["threads"])]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        half.wait(300)
+        at_kill = len(acked)
+        sup.kill_broker_owner()
+        for t in clients:
+            t.join(timeout=300)
+        oq = OutputQueue(broker=rb)
+        got = {}
+        for u in uris:
+            for _attempt in range(400):
+                try:
+                    got[u] = oq.query_blocking(u, timeout=5.0)
+                except Exception:
+                    got[u] = None
+                if got[u] is not None:
+                    break
+                time.sleep(0.1)
+        burst_s = time.perf_counter() - t0
+        failover_ms = sup.last_failover_ms
+        launches, n_forwards, reporters = _fleet_launches(rb)
+    finally:
+        rb.close()
+        sup.stop()
+    policy_retries = _counter_total("zoo_resilience_retries_total") - retries0
+    entries = _wal_entries(wal_root)
+    lost = [u for u in acked if got.get(u) is None]
+    unjournaled = [u for u in acked if acked[u] not in entries.get(u, {})]
+    # an acknowledged enqueue is its dedup_id: the barrier lets it land
+    # once, however often the client's policy resent it
+    duplicated = [u for u in acked if u not in unjournaled and list(
+        entries[u].values()).count(entries[u][acked[u]]) > 1]
+    # a caller's retry is a new enqueue with a new dedup_id: where the
+    # failed call's entry was journaled after all, the request lands twice
+    twice = [u for u in acked if len(entries.get(u, ())) > 1]
+    shutil.rmtree(wal_root, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[durable] FleetConfig(durable=True): {len(acked)} of {len(uris)} "
+        f"requests acknowledged through InputQueue over fleet:// from "
+        f"{FLEET['threads']} threads, kill_broker_owner() after {at_kill}; "
+        f"{policy_retries:g} retries inside the client's RetryPolicy (one "
+        f"dedup_id), {caller_retries[0]} caller retries (a new dedup_id "
+        f"each); standby promoted, failover {failover_ms} ms; lost "
+        f"{len(lost)}, acknowledged enqueues duplicated {len(duplicated)}, "
+        f"unjournaled {len(unjournaled)}; requests with more than one "
+        f"stream entry in the WALs (a caller retry after a journaled "
+        f"attempt) {len(twice)}; {len(uris)} answered in {burst_s:.2f} s; "
+        f"flash_fwd launches {launches} in {n_forwards} forwards over "
+        f"{reporters} replica reports on {card_name}; phase time "
+        f"{secs:.1f} s")
+    if (len(acked) != len(uris) or lost or duplicated or unjournaled
+            or failover_ms is None):
+        raise AssertionError("durable: an acknowledged request was lost or "
+                             "duplicated, or no failover ran")
+    return dict(failover_ms=failover_ms, lost=len(lost),
+                duplicated=len(duplicated), landed_twice=len(twice),
+                policy_retries=policy_retries,
+                caller_retries=caller_retries[0], seconds=secs), got
+
+
+def fleet_main() -> int:
+    """The fleet and durable phases, run by ``main`` in a fresh
+    interpreter: nothing here touches CUDA before the supervisors have
+    stopped (their replicas fork and build their models on the card);
+    then the answers are checked against the plain attention.  Prints one
+    JSON line of numbers last."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # flags: no CUDA init
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    reqs = _requests(FLEET["requests"], np.random.default_rng(SEED + 17),
+                     BERT_BASE)
+    fleet, got, after = phase_fleet(card, reqs)
+    durable, dgot = phase_durable(card, reqs)
+    if torch.cuda.is_initialized():
+        raise AssertionError("fleet: this process touched CUDA")
+    clf, im, _, _ = _bert_serving_models()
+    uris = list(reqs)
+    want = _plain_answers(clf, im, reqs, uris)
+    err = _answer_err([got[u] for u in uris], want)
+    err_durable = _answer_err([dgot[u] for u in uris], want)
+    err_after = _answer_err([a for _, a in after.values()],
+                         want[[i for i, _ in after.values()]]) \
+        if after else 0.0
+    log(f"[fleet] answers vs plain attention on the card: max_abs_err "
+        f"{err:.3e} over HTTP, {err_after:.3e} after the kill, "
+        f"{err_durable:.3e} through the durable fleet (tol {SERVE_ATOL:g})")
+    if max(err, err_durable, err_after) > SERVE_ATOL:
+        raise AssertionError("fleet: answers disagree with the plain path")
+    print(json.dumps({"fleet_phases": {"fleet": fleet, "durable": durable}}),
+          flush=True)
+    return 0
+
+
+def phase_fleets(card_name):
+    """Runs ``fleet_main`` in a fresh interpreter of this script (its own
+    session, so every process it forks is stopped with it); its output
+    passes through, a nonzero exit fails the run."""
+    import signal
+    _release()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fleet-phases"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+        env={**os.environ, "PYTORCH_NVML_BASED_CUDA_CHECK": "1"})
+    try:
+        out, err = proc.communicate(timeout=FLEET["timeout_s"])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"fleet: the phases took over "
+                             f"{FLEET['timeout_s']} s:\n{err[-4000:]}")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)   # anything left behind
+        except ProcessLookupError:
+            pass
+    lines = out.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        sys.stderr.write(err[-20000:])
+        raise AssertionError(f"fleet: the fresh interpreter exited "
+                             f"{proc.returncode}")
+    result = json.loads(lines[-1])["fleet_phases"]
+    log(f"[fleet] the fleet and durable phases in a fresh interpreter: "
+        f"{time.perf_counter() - t0:.1f} s on {card_name}")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ring-cards", type=int, default=0, metavar="N",
                         help="run only ring attention over N cards")
+    parser.add_argument("--fleet-phases", action="store_true",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.fleet_phases:
+        sys.path.insert(0, ROOT)
+        return fleet_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
               file=sys.stderr)
@@ -5325,6 +6005,8 @@ def main() -> int:
     multimodel = phase_multimodel(card)
     phase_tenancy(card)
     phase_health(card)
+    host = phase_host_serving(card)
+    fleets = phase_fleets(card)
 
     def entry(name, source, replaces, rows, launches,
               shape="B32 H12 T128 D64 float32", **extra):
@@ -5371,7 +6053,20 @@ def main() -> int:
               multimodel_launches_in=f"{MULTI['requests']} requests over "
                                      f"4 models "
                                      f"({multimodel['bert_forwards']} BERT "
-                                     f"forwards)"),
+                                     f"forwards)",
+              batching_launches=host["batching"]["launches"],
+              batching_launches_in=f"{BATCHING['requests']} requests "
+                                   f"through BatchingService "
+                                   f"({host['batching']['forwards']} "
+                                   f"batched forwards)",
+              native_launches=host["native"]["launches"],
+              native_launches_in=f"{BATCHING['requests']} requests over "
+                                 f"native:// "
+                                 f"({host['native']['forwards']} forwards)",
+              fleet_launches=fleets["fleet"]["launches"],
+              fleet_launches_in=f"{FLEET['requests']} HTTP requests over "
+                                f"{FLEET['replicas']} fleet replicas, summed "
+                                f"({fleets['fleet']['forwards']} forwards)"),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               bench_launches["flash_bwd"], launches_in=BENCH_RUN,

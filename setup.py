@@ -35,7 +35,9 @@ setup(
                   # the PyTorch / CUDA port builds its kernels from source
                   # with nvcc at first use
                   "analytics_zoo_tpu_torch.ops": ["csrc/*.cu",
-                                                 "csrc/*.cuh"]},
+                                                 "csrc/*.cuh"],
+                  # and its host library with g++ at first use
+                  "analytics_zoo_tpu_torch.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

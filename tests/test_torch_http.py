@@ -365,7 +365,20 @@ def test_get_routes_and_the_unported_ones():
 @pytest.mark.parametrize("arg", ["broker", "router", "fleet", "worker_id",
                                  "reuse_port"])
 def test_fleet_worker_arguments_name_item_1(arg):
-    with pytest.raises(NotImplementedError,
-                       match=f"{arg}=.*Queue 1 item 1"):
-        ServingFrontend(None, port=0, **{arg: True if arg == "reuse_port"
-                                         else "x"})
+    # Queue 1 item 1's fleet-worker arguments are ported: a frontend with
+    # a broker and a config and no engine takes each and keeps it, as the
+    # JAX frontend does; a broker without a config is refused
+    broker = InMemoryBroker()
+    value = {"broker": broker, "reuse_port": True,
+             "worker_id": "frontend-0"}.get(arg, object())
+    kw = dict(broker=broker, config=ServingConfig(redis_url="memory://"))
+    kw[arg] = value
+    fe = ServingFrontend(None, port=0, **kw)
+    assert getattr(fe, arg) is value
+    assert fe.input_queue.broker is broker
+    jfe = JFrontend(None, port=0, **{**kw, "broker": JBroker(),
+                                     "config": JConfig(
+                                         redis_url="memory://")})
+    assert getattr(jfe, arg) is not None
+    with pytest.raises(ValueError, match="explicit config"):
+        ServingFrontend(None, port=0, broker=broker)

@@ -62,7 +62,8 @@ def test_no_module_of_the_port_imports_jax():
                  "observability.memory", "observability.trace_cli",
                  "testing", "testing.chaos", "data.sharded",
                  "data.transforms", "serving.model_zoo", "serving.tenancy",
-                 "common.health"):
+                 "common.health", "native", "inference.batching",
+                 "common.wal", "serving.durability", "serving.fleet"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 

@@ -461,3 +461,84 @@ def test_bf16_pooler_bias_gradient_and_normalised_step_match_jax():
     flipped = n_diff > 0.5
     assert 0 < flipped.mean() <= 0.02           # reads 0.8 %
     assert (mag[flipped] < 2.0 ** -6).all()     # reads 4.8e-3 at most
+
+
+def test_bf16_pooler_bias_sign_split_over_the_16_steps():
+    # the configuration of test_bf16_gradients_and_moments_match_jax
+    # (bf16 gradients and first moment, K = 4, DEVICE tier, 16 steps of
+    # 8), with the pooler bias's bf16 gradient and Adam's normalised step
+    # m_hat / (sqrt(v_hat) + eps) read at every step in both packages: the
+    # port's through its optimizer's update, the JAX package's through a
+    # debug callback around its optimizer's update inside the jitted scan
+    jnet, start, tnet = _pair()
+    x, y = _data(64, seed=2)
+    kw = dict(mixed_precision=True, grad_dtype="bfloat16",
+              steps_per_dispatch=4)
+    name = "bert.pooler.b"
+    b1, b2, eps = 0.9, 0.999, 1e-6
+
+    def normalised(mu, nu, t):
+        return (mu / (1 - b1 ** t)) / (np.sqrt(nu / (1 - b2 ** t)) + eps)
+
+    test = TE.Estimator(tnet, TAdamW(state_dtype="bfloat16", **OPT), LOSS,
+                        device="cpu", **kw)
+    tlog, update = [], test.optimizer.update
+
+    def tspy(params, grads, state):
+        g = grads[name].float().numpy().copy()
+        update(params, grads, state)
+        t = float(state["count"])
+        tlog.append((g, normalised(state["mu"][name].float().numpy(),
+                                   state["nu"][name].float().numpy(), t)))
+    test.optimizer.update = tspy
+
+    jopt = JAdamW(state_dtype="bfloat16", **OPT)
+    jlog, jupdate = [], jopt.update
+    f32 = lambda a: np.asarray(a, np.float32)
+
+    def record(g, mu, nu, count):
+        # unordered, and once per device of the CPU mesh: kept by count
+        jlog.append((int(count), f32(g),
+                     normalised(f32(mu), f32(nu), float(count))))
+
+    def jspy(grads, opt_state, params):
+        upd, new = jupdate(grads, opt_state, params)
+        adam = new[0]
+        jax.debug.callback(record,
+                           grads["bert"]["pooler"]["b"],
+                           adam.mu["bert"]["pooler"]["b"],
+                           adam.nu["bert"]["pooler"]["b"], adam.count)
+        return upd, new
+    jopt.update = jspy
+    jest = JE.Estimator(jnet, jopt, LOSS, **kw)
+    jfs, tfs = _featuresets("DEVICE", x, y)
+    jest.train(jfs, batch_size=8, epochs=2, variables=(start, {}))
+    test.train(tfs, batch_size=8, epochs=2)
+    jsteps = {}
+    for count, g, n in jlog:
+        jsteps.setdefault(count, (g, n))
+    jlog = [jsteps[c] for c in sorted(jsteps)]
+    assert len(tlog) == len(jlog) == 16
+    rows = []
+    for step, ((tg, tn), (jg, jn)) in enumerate(zip(tlog, jlog), start=1):
+        top = np.abs(jg).max()
+        g_flip = np.sign(tg) != np.sign(jg)
+        n_flip = np.sign(tn) != np.sign(jn)
+        rows.append((step, float(np.abs(tg - jg).max() / top),
+                     int(g_flip.sum()), int(n_flip.sum()),
+                     float(np.abs(tn - jn).max()),
+                     float((np.abs(jg) / top)[g_flip].max())
+                     if g_flip.any() else 0.0))
+    # readings (the CPU): step 1, from the same weights, splits no sign
+    # (|dg| 1.06e-2 of max|g|, the bf16 sums' rounding alone); the first
+    # gradient split is at step 2, in 2 elements with |g| <= 3.97e-3 of
+    # max|g| against |dg| 4.76e-2 there; the normalised step's signs
+    # first split at step 8, in one element.  Every split element's |g|
+    # lies below its step's |dg| (3.3e-2 against 9.4e-2 at worst, step
+    # 6): the bias gradient nearly cancels over the batch, so the bf16
+    # rounding of its terms decides those signs, and Adam's normalisation
+    # turns each into a unit-sized step
+    assert rows[0][2] == rows[0][3] == 0
+    assert any(r[2] for r in rows)
+    for step, dg, g_split, n_split, dn, split_mag in rows:
+        assert split_mag <= dg, (step, split_mag, dg)

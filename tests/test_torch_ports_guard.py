@@ -63,7 +63,9 @@ def test_the_port_tests_are_read():
             "test_torch_memory_ledger.py",
             "test_torch_observability.py", "test_torch_model_zoo.py",
             "test_torch_tenancy.py", "test_torch_health.py",
-            "test_torch_data_plane.py"} <= names
+            "test_torch_data_plane.py", "test_torch_brokers.py",
+            "test_torch_durability.py", "test_torch_fleet.py",
+            "test_torch_batching.py", "test_torch_serving_wiring.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=os.path.basename)

@@ -7,6 +7,7 @@ answer read back through ``OutputQueue`` must equal JAX
 codec must produce the JAX codec's bytes.
 """
 
+import sys
 import time
 
 import jax
@@ -153,12 +154,18 @@ def test_bucket_padding_trims_rows(models):
     np.testing.assert_allclose(single[0], out[0], atol=1e-6)
 
 
-def test_unported_modes_raise(models):
-    _, tim = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClusterServing(tim, ServingConfig())            # redis:// default
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClusterServing(tim, ServingConfig(pipeline=False))  # redis://
+def test_unported_modes_raise(models, monkeypatch):
+    # the redis:// default is ported: it reaches RedisBroker, whose lazy
+    # import of redis-py raises where redis-py is missing, as the JAX
+    # engine's does
+    jim, tim = models
+    from analytics_zoo_tpu.serving.engine import ClusterServing as JServing
+    monkeypatch.setitem(sys.modules, "redis", None)
+    for pipeline in (True, False):
+        with pytest.raises(ImportError, match="redis"):
+            ClusterServing(tim, ServingConfig(pipeline=pipeline))
+        with pytest.raises(ImportError, match="redis"):
+            JServing(jim, JConfig(pipeline=pipeline))
     with pytest.raises(ValueError, match="topN"):
         ClusterServing(tim, ServingConfig(pipeline=False, filter="top(2)",
                                           redis_url="memory://"))

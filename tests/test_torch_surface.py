@@ -315,6 +315,50 @@ def test_observability_and_chaos_are_walked():
     assert "CONTENT_TYPE" in jobs.__all__
 
 
+def test_the_rest_of_serving_is_walked():
+    """The host library, ``BatchingService``, the native-queue and Redis
+    brokers, the WAL, the journaled broker with its standby and the fleet
+    are compared with their JAX namesakes, and none of them is a stub."""
+    names = [f"native.{n}" for n in (
+        "load_library", "crc32c", "resize_bilinear", "crop", "normalize",
+        "NativeSampleCache.__init__", "NativeSampleCache.get",
+        "NativeSampleCache.recount", "RequestQueue.push",
+        "RequestQueue.pop_batch", "RequestQueue.wait")]
+    names += [f"inference.batching.BatchingService.{m}"
+              for m in ("__init__", "predict", "stats", "stop")]
+    names += [f"serving.broker.{n}" for n in (
+        "redis_wire_value", "redis_unwire_value", "get_broker",
+        "NativeQueueBroker.__init__", "NativeQueueBroker.xreadgroup",
+        "NativeQueueBroker.wait_result", "RedisBroker.__init__",
+        "RedisBroker.set_results")]
+    names += [f"common.wal.{n}" for n in (
+        "list_segments", "WriteAheadLog.__init__", "WriteAheadLog.append",
+        "WriteAheadLog.commit", "WriteAheadLog.replay", "WriteAheadLog.tail",
+        "WriteAheadLog.gc")]
+    names += [f"serving.durability.{n}" for n in (
+        "replay_dir", "DurableBroker.__init__", "DurableBroker.xadd",
+        "DurableBroker.xreadgroup", "DurableBroker.pending",
+        "DurableBroker.checkpoint", "DurableBroker.wal_tail",
+        "BrokerReplica.__init__", "BrokerReplica.promote")]
+    names += [f"serving.fleet.{n}" for n in (
+        "partition_for", "partition_stream", "merge_snapshots",
+        "fleet_queue_signal", "BrokerBridge.__init__",
+        "RemoteBroker.__init__", "RemoteBroker.wait_hgetall",
+        "FleetPublisher.__init__", "FleetContext.merged_spans",
+        "FleetRouter.__init__", "FleetRouter.route",
+        "FleetRouter.note_result", "ReplicaAutoscaler.__init__",
+        "ReplicaAutoscaler.tick", "FleetSupervisor.__init__",
+        "FleetSupervisor.start", "FleetSupervisor.kill_broker_owner",
+        "FleetSupervisor.kill_replica", "FleetSupervisor.autoscale_tick")]
+    names += ["common.config.FleetConfig.__init__",
+              "serving.client.OutputQueue.query_blocking"]
+    missing = [n for n in names if n not in COMPARED]
+    assert not missing, missing
+    assert not [n for n in STUBS if n.startswith((
+        "native.", "inference.batching.", "common.wal.",
+        "serving.durability.", "serving.fleet.", "serving.broker."))]
+
+
 @pytest.mark.parametrize("name", COMPARED)
 def test_parameters_match_the_jax_name(name):
     fn, jfn = next((f, jf) for n, f, jf in PAIRS if n == name)
