@@ -10,9 +10,9 @@ that module: every ``analytics_zoo_tpu`` import loads jax).  Fields whose
 machinery is not ported take the JAX default, and any other value raises
 ``NotImplementedError`` naming the ROADMAP item that ports it
 (``common/unported.py``): the multi-process fields of ``ZooConfig``
-(item 5), the unported ``TrainConfig`` fields (item 2).  ``DataConfig``
-and ``FleetConfig`` are fields only: the port has no fleet, and its
-estimator reads no data tier setting.  ``ServingConfig`` fields that
+(item 5), the unported ``TrainConfig`` fields (item 2; ``shard_model``
+item 5).  ``DataConfig`` and ``FleetConfig`` are fields only: the port has
+no fleet, and its estimator reads no data tier setting.  ``ServingConfig`` fields that
 need the tenancy, image decode or TensorBoard machinery are refused by
 ``ClusterServing``.
 """
@@ -42,8 +42,9 @@ class MeshConfig:
 
 #: TrainConfig fields whose machinery is Queue 1 item 2 (the JAX
 #: package's buffer donation and PRNG implementation have no counterpart)
-_TRAIN_UNPORTED = ("failure_retry_window_sec", "donate_state", "rng_impl",
-                   "shard_model")
+_TRAIN_UNPORTED = ("failure_retry_window_sec", "donate_state", "rng_impl")
+#: ... and item 5: the tensor-parallel training step
+_TRAIN_UNPORTED_PARALLEL = ("shard_model",)
 
 
 @dataclass
@@ -64,10 +65,12 @@ class TrainConfig:
     max_steps_per_dispatch: int = 1024
 
     def __post_init__(self):
-        defaults = {f.name: f.default for f in fields(self)
-                    if f.name in _TRAIN_UNPORTED}
-        reject("TrainConfig", 2, defaults,
-               **{name: getattr(self, name) for name in defaults})
+        for item, names in ((2, _TRAIN_UNPORTED),
+                            (5, _TRAIN_UNPORTED_PARALLEL)):
+            defaults = {f.name: f.default for f in fields(self)
+                        if f.name in names}
+            reject("TrainConfig", item, defaults,
+                   **{name: getattr(self, name) for name in defaults})
 
 
 @dataclass
@@ -241,16 +244,10 @@ class FleetConfig:
     failover_poll_s: float = 0.25
 
 
-_MODEL_PARALLEL_SLICE = ("model_parallel > 1 (decode sharded along KV heads "
-                         "over several cards) is not ported yet (ROADMAP "
-                         "Queue 1 item 5: parallel/)")
-
-
 @dataclass
 class LLMServingConfig:
     """Generative serving: continuous batching over a paged KV cache with
-    frame-per-token streaming.  ``model_parallel > 1`` raises
-    ``NotImplementedError`` (one card in this port so far)."""
+    frame-per-token streaming."""
     redis_url: str = "memory://"
     input_stream: str = "llm_stream"
     consumer_group: str = "llm"
@@ -279,7 +276,7 @@ class LLMServingConfig:
     # (LRU-by-leaf eviction under pool pressure)
     prefix_cache: bool = True
     # shard one model's decode across this many devices along KV heads
-    # (n_kv_heads % model_parallel must be 0); only 1 is ported
+    # (n_kv_heads % model_parallel must be 0)
     model_parallel: int = 1
     # credit-based admission (AdmissionController "llm"): one credit
     # per ADMITTED sequence; acquisition is non-blocking — the decode
@@ -302,10 +299,6 @@ class LLMServingConfig:
     token_stream_retention: int = 256
     shed_retry_after_s: float = 1.0
     app_name: str = "llm"
-
-    def __post_init__(self):
-        if int(self.model_parallel) > 1:
-            raise NotImplementedError(_MODEL_PARALLEL_SLICE)
 
 
 @dataclass

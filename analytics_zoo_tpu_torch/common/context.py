@@ -1,19 +1,29 @@
-"""Device choice and the device mesh for the port's entry points.
+"""Device choice and the process-wide runtime context.
 
 Port of ``analytics_zoo_tpu/common/context.py``.  An entry point runs on
 ``cuda`` unless its caller names another device; with no card and no
 device named it raises rather than run on the CPU.  ``init_zoo_context``
 builds the device mesh (``parallel.mesh.Mesh``) by the JAX package's
 rule, from a ``ZooConfig`` or from ``load_config``'s file, environment
-and overrides.  Unlike the JAX package, the port keeps no process-wide
-context: each call builds a new ``ZooContext`` and callers pass its mesh
-on, as ``parallel.ring_attention`` takes its mesh.  ``data_sharding``,
-``put``, ``device_scope`` and the multi-host bring-up are not ported
-(ROADMAP Queue 1 item 5).
+and overrides, and keeps it as the process's context: a second call
+returns the same context, as ``initNNContext`` does, until
+``reset_context``.  ``get_context`` returns the context (building the
+default one if there is none), ``current_context`` peeks without building
+one, and ``context_scope`` / ``device_scope`` pin a context for the
+calling thread.  ``ZooContext`` carries the mesh's sharding helpers
+(``sharding``, ``data_sharding``, ``replicated``, ``replicate``), over the
+port's ``NamedSharding`` and ``device_put``.
+
+The port is single-process: the multi-host bring-up of the JAX package
+(``jax.distributed``) is not ported (ROADMAP Queue 1 item 5), so
+``replicate`` places every shard from this process.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -21,7 +31,13 @@ import torch
 
 from analytics_zoo_tpu_torch.common.config import (
     MeshConfig, ZooConfig, load_config)
-from analytics_zoo_tpu_torch.parallel.mesh import Mesh
+from analytics_zoo_tpu_torch.parallel.mesh import (
+    Mesh, NamedSharding, PartitionSpec, device_put)
+
+logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+_lock = threading.Lock()
+_context: Optional["ZooContext"] = None
 
 
 class NoCudaDeviceError(RuntimeError):
@@ -60,21 +76,52 @@ def _platform_devices(platform: Optional[str]) -> list:
 
 
 class ZooContext:
-    """The config tree and the device mesh built from it."""
+    """The config tree, the device mesh built from it, and its sharding
+    helpers."""
 
     def __init__(self, config: ZooConfig, mesh: Mesh):
         self.config = config
         self.mesh = mesh
+        #: the torch device type of the mesh: "cuda" or "cpu"
+        self.platform = mesh.devices.flat[0].type
 
+    # ---- axis facts -------------------------------------------------------
     @property
     def num_devices(self) -> int:
         return self.mesh.size
 
+    @property
+    def data_axis(self) -> str:
+        return "data"
+
     def axis_size(self, name: str) -> int:
         return self.mesh.shape.get(name, 1)
 
+    @property
+    def global_batch_divisor(self) -> int:
+        """Global batch sizes must divide by this (the data axis' size)."""
+        return self.axis_size("data")
+
+    # ---- sharding helpers -------------------------------------------------
+    def sharding(self, *spec) -> NamedSharding:
+        return NamedSharding(self.mesh, PartitionSpec(*spec))
+
+    @property
+    def data_sharding(self) -> NamedSharding:
+        return self.sharding("data")
+
+    @property
+    def replicated(self) -> NamedSharding:
+        return self.sharding()
+
+    def replicate(self, tree):
+        """``tree`` (tensors or numpy arrays) placed whole at every mesh
+        position (``parallel.mesh.device_put``)."""
+        return device_put(tree, self.replicated)
+
     def __repr__(self):
-        return f"ZooContext(mesh={self.mesh!r})"
+        return (f"ZooContext(platform={self.platform}, "
+                f"mesh={self.mesh.shape})")
 
 
 def _build_mesh(devices: Sequence[torch.device], mc: MeshConfig) -> Mesh:
@@ -108,7 +155,11 @@ def init_zoo_context(conf: Optional[ZooConfig] = None,
                      config_path: Optional[str] = None, *,
                      devices: Optional[Sequence] = None,
                      **overrides) -> ZooContext:
-    """A context whose mesh lays ``devices`` out by ``cfg.mesh``.
+    """Initialize (or fetch) the process's context, whose mesh lays
+    ``devices`` out by ``cfg.mesh``.
+
+    Idempotent, as in the JAX package: while a context exists, a call
+    returns it and ignores its arguments; ``reset_context`` drops it.
 
     ``cfg`` is ``conf``, or else ``load_config(config_path,
     **overrides)``: defaults < json/yaml file < ``ZOO_TPU_*`` environment
@@ -121,9 +172,90 @@ def init_zoo_context(conf: Optional[ZooConfig] = None,
     as the mesh has shards: ``["cpu"] * 8`` runs an 8-shard mesh on the
     host (as the tests do), ``["cuda:0"] * 4`` four shards on one card.
     """
-    cfg = conf or load_config(config_path, **overrides)
-    if devices is None:
-        devices = _platform_devices(cfg.platform)
-    else:
-        devices = [resolve_device(d) for d in devices]
-    return ZooContext(cfg, _build_mesh(devices, cfg.mesh))
+    global _context
+    with _lock:
+        if _context is not None:
+            return _context
+        cfg = conf or load_config(config_path, **overrides)
+        if devices is None:
+            devices = _platform_devices(cfg.platform)
+        else:
+            devices = [resolve_device(d) for d in devices]
+        _context = ZooContext(cfg, _build_mesh(devices, cfg.mesh))
+        logger.info("initialized %s", _context)
+        return _context
+
+
+_tls = threading.local()
+
+
+def get_context() -> ZooContext:
+    """The calling thread's scoped context, else the process's, built
+    with the defaults (on the card) if there is none yet."""
+    scoped = getattr(_tls, "ctx", None)
+    if scoped is not None:
+        return scoped
+    if _context is None:
+        return init_zoo_context()
+    return _context
+
+
+def current_context() -> Optional[ZooContext]:
+    """The active context (thread-scoped first) WITHOUT initializing one:
+    the layers peek at it to see whether a 2D (data × model) mesh is live,
+    from code that may run before any context exists."""
+    scoped = getattr(_tls, "ctx", None)
+    if scoped is not None:
+        return scoped
+    return _context
+
+
+class context_scope:
+    """Pin ``get_context()`` / ``current_context()`` to ``ctx`` in the
+    calling thread, for the body of a ``with``."""
+
+    def __init__(self, ctx: ZooContext):
+        self._ctx = ctx
+
+    def __enter__(self) -> ZooContext:
+        self._prev = getattr(_tls, "ctx", None)
+        _tls.ctx = self._ctx
+        return self._ctx
+
+    def __exit__(self, *exc):
+        _tls.ctx = self._prev
+        return False
+
+
+class device_scope(context_scope):
+    """Scope the context to a sub-mesh of ``devices``: inside the ``with``,
+    the calling thread sees a context of the same config whose mesh is
+    data-parallel over ``devices`` alone."""
+
+    def __init__(self, devices):
+        if not isinstance(devices, (list, tuple)):
+            devices = [devices]
+        if not devices:
+            raise ValueError("device_scope needs at least one device")
+        base = get_context()
+        cfg = dataclasses.replace(
+            base.config,
+            mesh=MeshConfig(data=len(devices), model=1, sequence=1,
+                            expert=1, pipeline=1))
+        super().__init__(ZooContext(cfg, _build_mesh(
+            [resolve_device(d) for d in devices], cfg.mesh)))
+
+
+def reset_context() -> None:
+    """Drop the process's context (and the calling thread's scope), so
+    that the next ``init_zoo_context`` builds a new mesh."""
+    global _context
+    with _lock:
+        _context = None
+        _tls.ctx = None
+
+
+def set_context(ctx: ZooContext) -> None:
+    global _context
+    with _lock:
+        _context = ctx

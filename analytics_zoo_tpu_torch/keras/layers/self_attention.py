@@ -3,8 +3,12 @@
 Port of ``analytics_zoo_tpu/keras/layers/self_attention.py``: multi-head
 attention over ``ops.flash_attention`` (the hand-written CUDA kernel on the
 card), the position-wise FFN, the post-LN ``TransformerBlock``, the
-GPT-style ``TransformerLayer`` and the ``BERT`` encoder.  The 2D-mesh
-(tensor-parallel) branch of the JAX attention is not ported.
+GPT-style ``TransformerLayer`` and the ``BERT`` encoder.  When the live
+context (``common.context.current_context``, a peek that builds none)
+has a mesh with a "model" axis above 1 that divides the heads, and its
+"data" axis divides the batch, attention runs as
+``ops.attention.sharded_flash_attention`` over that mesh, as the JAX
+layer does: one kernel launch per (data, model) block.
 
 Dense weights keep the JAX layout ``W: (d_in, d_out)`` applied as
 ``x @ W + b`` so parameter trees cross without transposes.  Layers start in
@@ -31,8 +35,8 @@ from analytics_zoo_tpu_torch.keras.engine import Layer
 from analytics_zoo_tpu_torch.keras.layers.core import Dense
 from analytics_zoo_tpu_torch.keras.layers.embedding import gather_rows
 from analytics_zoo_tpu_torch.keras.layers.normalization import LayerNorm
-from analytics_zoo_tpu_torch.ops.attention import (flash_attention,
-                                                  resolve_backend)
+from analytics_zoo_tpu_torch.ops.attention import (
+    flash_attention, resolve_backend, sharded_flash_attention)
 from analytics_zoo_tpu_torch.ops.dropout import (as_seed, derive_seed,
                                                  hash_dropout)
 
@@ -54,6 +58,18 @@ def _site_seeds(seed, salts: range) -> list:
         return list(derive_seed(seed, torch.arange(
             salts.start, salts.stop, device=seed.device)).unbind())
     return [derive_seed(seed, s) for s in salts]
+
+
+def _mesh_2d():
+    """The live context's mesh when it carries a model axis > 1, else
+    None.  Peeks without initializing (a bare layer call must not force
+    a default mesh into existence)."""
+    from analytics_zoo_tpu_torch.common.context import current_context
+    ctx = current_context()
+    if ctx is None:
+        return None
+    mesh = ctx.mesh
+    return mesh if mesh.shape.get("model", 1) > 1 else None
 
 
 def _split_mask(x):
@@ -95,10 +111,15 @@ class MultiHeadAttention(Layer):
         def heads(t):  # a strided view: the kernel reads it in place
             return t.view(B, T, self.n_head, self.head_dim).transpose(1, 2)
         q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
-        y = flash_attention(q, k, v, padding_mask=mask, causal=self.causal,
-                            dropout_rate=drop,
-                            dropout_seed=derive_seed(seed, 0x417)
-                            if drop else None, backend=self.backend)
+        kw = dict(padding_mask=mask, causal=self.causal, dropout_rate=drop,
+                  dropout_seed=derive_seed(seed, 0x417) if drop else None,
+                  backend=self.backend)
+        mesh = _mesh_2d()
+        if (mesh is not None and self.n_head % mesh.shape["model"] == 0
+                and B % mesh.shape.get("data", 1) == 0):
+            y = sharded_flash_attention(mesh, q, k, v, **kw)
+        else:
+            y = flash_attention(q, k, v, **kw)
         return self.out(y.transpose(1, 2).reshape(B, T, D))
 
 

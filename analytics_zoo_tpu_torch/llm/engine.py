@@ -42,8 +42,10 @@ so ``OutputQueue`` clients keep working.
 The HTTP face is ``serving.http_frontend.ServingFrontend(llm=...)``.
 Any broker of ``serving.broker.get_broker`` carries it: ``memory://``,
 ``native://``, ``redis://`` and ``fleet://``.
-``model_parallel > 1`` is refused by ``LLMServingConfig`` (ROADMAP Queue 1
-item 5).
+``model_parallel = mp > 1`` serves one model's decode sharded along KV
+heads: an unsharded model is sharded over the first ``mp`` visible CUDA
+devices, a model already sharded (``DecoderLM.shard``) must agree with
+``mp``, and the cache's pages split as the model's ``page_sharding`` says.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from analytics_zoo_tpu_torch.llm.kv_cache import (
 from analytics_zoo_tpu_torch.llm.scheduler import (
     DECODING, PREFILL, ContinuousBatchingScheduler, GenSequence)
 from analytics_zoo_tpu_torch.observability import flight_recorder
+from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 from analytics_zoo_tpu_torch.serving.broker import get_broker
 from analytics_zoo_tpu_torch.serving.codec import (
     decode_items, encode_items_bytes)
@@ -125,9 +128,29 @@ class LLMServing:
             raise ValueError(
                 f"max_model_len {cfg.max_model_len} exceeds the model's "
                 f"position table ({model.max_pos})")
+        mp = max(int(cfg.model_parallel), 1)
+        mesh = getattr(model, "mesh", None)
+        if mp > 1 and mesh is None:
+            # shard one model's decode across the first mp cards along KV
+            # heads
+            n = (torch.cuda.device_count() if self.device.type == "cuda"
+                 else 1)
+            if n < mp:
+                raise ValueError(f"model_parallel={mp} needs {mp} devices, "
+                                 f"have {n}")
+            model.shard(Mesh([torch.device("cuda", i) for i in range(mp)],
+                             ("model",)))
+        elif mp > 1 and mesh.shape["model"] != mp:
+            # a pre-sharded model must AGREE with the config: serving at
+            # the mesh's parallelism would make the 1/mp KV footprint
+            # planned for wrong
+            raise ValueError(
+                f"model_parallel={mp} but the model is already sharded "
+                f"over a {mesh.shape['model']}-way model axis")
         self.cache = PagedKVCache(
             model.n_layers, cfg.num_blocks, cfg.block_size,
             model.n_kv_heads, model.head_dim, dtype=model.dtype,
+            page_sharding=getattr(model, "page_sharding", None),
             prefix_cache=cfg.prefix_cache, device=self.device)
         self.scheduler = ContinuousBatchingScheduler(
             self.cache, cfg.max_active, mode=cfg.scheduling)

@@ -20,10 +20,17 @@ table rather than per-request buffers:
   corrupt a live sequence's blocks.  Pool block ``b`` maps to page
   ``b + 1``.
 
+With ``page_sharding`` (a ``NamedSharding`` splitting the KV-head axis over
+a mesh's "model" axis, ``DecoderLM.page_sharding``) the pages are a
+``parallel.mesh.ShardedTensor``: one contiguous ``(L, P, bs, Hkv/mp, D)``
+tensor per shard on the shard's device, so each device holds ``1/mp`` of
+the pool and the kernels read each shard in place.
+
 The pages are updated IN PLACE (``copy_page``, ``write`` and the model's
-entry points), where the JAX package replaces them functionally.  All of
-it runs on PyTorch's current stream, in the engine thread's order, so a
-copy-on-write finishes before the step that writes into its destination.
+entry points), on every shard, where the JAX package replaces them
+functionally.  All of it runs on PyTorch's current stream, in the engine
+thread's order, so a copy-on-write finishes before the step that writes
+into its destination.
 
 Thread-safety: the pool takes a lock — the decode loop owns all
 allocation, but cancels arrive from other threads and the leak accounting
@@ -45,6 +52,7 @@ import torch
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.observability import memory as zoomem
+from analytics_zoo_tpu_torch.parallel.mesh import ShardedTensor
 
 
 class BlockPoolExhausted(RuntimeError):
@@ -190,19 +198,17 @@ class PagedKVCache:
 
     Pages are ``(L, P, bs, Hkv, D)`` tensors on ``device`` (None: the
     card) with page 0 reserved as scratch; pool block ``b`` lives at page
-    ``b + 1``.  ``prefix_cache=True`` attaches a ``RadixPrefixCache``
-    over the same pool (cross-request prefix reuse).  ``page_sharding``
-    (a model-parallel placement in the JAX package) must be None here.
+    ``b + 1``.  ``page_sharding`` (a ``NamedSharding`` over the KV-head
+    axis, see ``DecoderLM.shard``) places them over a model-parallel mesh
+    instead: each shard holds ``Hkv / mp`` heads of every page, on its
+    device.  ``prefix_cache=True`` attaches a ``RadixPrefixCache`` over
+    the same pool (cross-request prefix reuse).
     """
 
     def __init__(self, n_layers: int, num_blocks: int, block_size: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,
                  page_sharding=None, prefix_cache: bool = False,
                  device=None):
-        if page_sharding is not None:
-            raise NotImplementedError(
-                "sharded KV pages are not ported yet (ROADMAP Queue 1 "
-                "item 5: parallel/)")
         self.pool = BlockPool(num_blocks, block_size)
         self.n_layers = n_layers
         self.block_size = block_size
@@ -211,9 +217,15 @@ class PagedKVCache:
         self.device = resolve_device(device)
         shape = (n_layers, num_blocks + 1, block_size, n_kv_heads,
                  head_dim)
-        self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.page_sharding = None
+        if page_sharding is None:
+            self.k_pages = torch.zeros(shape, dtype=dtype,
+                                       device=self.device)
+            self.v_pages = torch.zeros(shape, dtype=dtype,
+                                       device=self.device)
+        else:
+            self.k_pages = _zero_pages(shape, dtype, page_sharding)
+            self.v_pages = _zero_pages(shape, dtype, page_sharding)
+        self.page_sharding = page_sharding
         if prefix_cache:
             from analytics_zoo_tpu_torch.llm.prefix_cache import \
                 RadixPrefixCache
@@ -221,10 +233,15 @@ class PagedKVCache:
                 RadixPrefixCache(self.pool)
         else:
             self.prefix_cache = None
+        itemsize = torch.empty((), dtype=dtype).element_size()
         #: bytes of KV one cached token holds (both k and v, all layers)
         self.kv_bytes_per_token = int(
-            2 * n_layers * n_kv_heads * head_dim
-            * self.k_pages.element_size())
+            2 * n_layers * n_kv_heads * head_dim * itemsize)
+        #: ... of which one device holds (1/mp of it over a model axis)
+        self.kv_bytes_per_token_per_device = (
+            self.kv_bytes_per_token if page_sharding is None else int(
+                2 * n_layers * head_dim * itemsize
+                * page_sharding.shard_shape(shape)[3]))
         self._tables: Dict[str, BlockTable] = {}
         # device-memory ledger pool: attribution walks the tables + radix
         # cache; refcount_balance is the ground truth the leak sentinel
@@ -328,21 +345,19 @@ class PagedKVCache:
         (all layers), in place and on the current stream, before a forked
         sequence diverges into it."""
         src, dst = src_block + 1, dst_block + 1
-        self.k_pages[:, dst].copy_(self.k_pages[:, src])
-        self.v_pages[:, dst].copy_(self.v_pages[:, src])
+        for pages in _tensors(self.k_pages) + _tensors(self.v_pages):
+            pages[:, dst].copy_(pages[:, src])
 
     def write(self, layer: int, slots, k, v) -> None:
         """Scatter ``k``/``v`` (N, Hkv, D) into page-space ``slots`` of
         one layer, in place.  (The model's entry points do this inside
         their own forward; this host-level entry point serves tests and
         the pure-python scheduler paths.)"""
-        L, P, bs, Hkv, D = self.k_pages.shape
         idx = torch.as_tensor(np.asarray(slots), dtype=torch.long,
                               device=self.device)
         for pages, x in ((self.k_pages, k), (self.v_pages, v)):
-            pages[layer].view(P * bs, Hkv, D).index_copy_(
-                0, idx, torch.as_tensor(x, device=self.device)
-                .to(pages.dtype))
+            write_slots(pages, layer, idx,
+                        torch.as_tensor(x, device=self.device))
 
     def leak_check(self) -> Dict[str, int]:
         """Accounting snapshot for the leak invariants: with no live
@@ -424,3 +439,47 @@ class PagedKVCache:
             if exp != act:
                 out[b] = f"expected {exp} refs, pool says {act}"
         return out
+
+
+def _zero_pages(shape, dtype, sharding) -> ShardedTensor:
+    """Zero pages placed by ``sharding``: one zero tensor per distinct
+    (device, block), made on its device (never a whole pool first)."""
+    block = sharding.shard_shape(shape)
+    mesh = sharding.mesh
+    made: Dict[tuple, torch.Tensor] = {}
+    shards = []
+    for p, dev in enumerate(mesh.devices.flat):
+        key = (str(dev), tuple((s.start, s.stop)
+                               for s in sharding.index(p, shape)))
+        if key not in made:
+            made[key] = torch.zeros(block, dtype=dtype, device=dev)
+        shards.append(made[key])
+    return ShardedTensor(shards, shape, sharding)
+
+
+def _tensors(pages) -> List[torch.Tensor]:
+    if isinstance(pages, ShardedTensor):
+        return [t for _, t in pages.unique_shards()]
+    return [pages]
+
+
+def write_slots(pages, layer: int, slots: torch.Tensor,
+                kv: torch.Tensor) -> None:
+    """Scatter ``kv`` (N, Hkv, D) into page-space ``slots`` (int64, on
+    ``kv``'s device) of layer ``layer`` of ``pages`` (L, P, bs, Hkv, D),
+    in place: a tensor, or a ``ShardedTensor``, each of whose shards
+    takes its block of heads (and moves it to its device)."""
+    if not isinstance(pages, ShardedTensor):
+        L, P, bs, Hkv, D = pages.shape
+        pages[layer].view(P * bs, Hkv, D).index_copy_(0, slots,
+                                                      kv.to(pages.dtype))
+        return
+    for index, shard in pages.unique_shards():
+        if any((s.start, s.stop) != (0, n)
+               for s, n in zip(index[:3], pages.shape[:3])):
+            raise ValueError(f"pages split along L, P or bs cannot take "
+                             f"slot writes: {pages.sharding}")
+        L, P, bs, Hkv, D = shard.shape
+        part = kv[:, index[3], index[4]].to(shard.device, shard.dtype)
+        shard[layer].view(P * bs, Hkv, D).index_copy_(
+            0, slots.to(shard.device), part)

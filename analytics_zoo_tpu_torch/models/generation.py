@@ -27,8 +27,15 @@ tensor, and the functions return the same page tensors they were given, so
 ``logits, cache.k_pages, cache.v_pages = model.decode(...)`` still holds.
 Dead batch slots carry ``lengths == 0`` and scratch-page slots (page 0):
 their writes may collide there, in any order, and no live row reads them.
-The model-parallel ``mesh`` / ``shard`` of the JAX package belongs to
-``parallel/`` and is not ported yet.
+
+Model parallelism (``DecoderLM.shard(mesh)`` or ``mesh=``): the paged
+attention of ``prefill_chunk`` and ``decode_step`` splits along KV heads
+over the mesh's "model" axis (``ops.paged_attention.sharded_*``), one
+kernel launch per shard, on the pages of a ``PagedKVCache`` built with
+``page_sharding``.  Only attention is sharded: its output is gathered on
+the model's device before the out projection, so everything else runs
+there in the one-card order, and sharded decode is token-exact against
+the unsharded path.
 """
 
 from __future__ import annotations
@@ -42,12 +49,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.common.context import resolve_device
-from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch.llm.kv_cache import write_slots
 from analytics_zoo_tpu_torch.ops.paged_attention import (
-    _NEG_INF, paged_chunk_attention, paged_decode_attention)
-
-_PARALLEL = ("model-parallel serving (mesh / shard) is not ported yet "
-             "(ROADMAP Queue 1 item 5: parallel/)")
+    _NEG_INF, paged_chunk_attention, paged_decode_attention,
+    sharded_paged_chunk_attention, sharded_paged_decode_attention)
+from analytics_zoo_tpu_torch.parallel.mesh import (
+    NamedSharding, PartitionSpec)
 
 
 class _Dense(nn.Module):
@@ -103,10 +110,8 @@ def _ffn(blk: _Block, x):
 
 def _write(pages, li: int, slots, kv) -> None:
     """Scatter ``kv`` (N, Hkv, D) into page-space ``slots`` of layer
-    ``li``, in place."""
-    L, P, bs, Hkv, D = pages.shape
-    pages[li].view(P * bs, Hkv, D).index_copy_(0, slots,
-                                               kv.to(pages.dtype))
+    ``li``, in place (on every shard of sharded pages)."""
+    write_slots(pages, li, slots, kv)
 
 
 def dense_logits(params: "DecoderLM", tokens, n_head: int):
@@ -189,9 +194,8 @@ def prefill_chunk(params: "DecoderLM", tokens, start: int, length: int,
     page_table (nb,) int32 (scratch-padded), slots (Tc,) int64 page-space
     slot per chunk position (padding -> scratch).  Returns (next-token
     logits (V,) at position ``start + length - 1``, k_pages, v_pages); the
-    logits only mean anything on the final chunk.  ``mesh`` (model-parallel
-    serving) is not ported yet and raises."""
-    reject("prefill_chunk", 5, mesh=mesh)
+    logits only mean anything on the final chunk.  ``mesh`` shards the
+    attention along KV heads over the mesh's "model" axis."""
     Tc = tokens.shape[0]
     start = int(start)
     max_pos = params.pos_emb.shape[0]
@@ -204,8 +208,12 @@ def prefill_chunk(params: "DecoderLM", tokens, start: int, length: int,
         q, k, v = _qkv_heads(blk, x, n_head)          # (Tc, H, hd)
         _write(k_pages, li, slots, k)
         _write(v_pages, li, slots, v)
-        att = paged_chunk_attention(q, k_pages[li], v_pages[li], page_table,
-                                    start)
+        if mesh is None:
+            att = paged_chunk_attention(q, k_pages[li], v_pages[li],
+                                        page_table, start)
+        else:     # gathered on the model's device: see the module's notes
+            att = sharded_paged_chunk_attention(
+                mesh, q, k_pages[li], v_pages[li], page_table, start)
         att = att.reshape(Tc, -1).to(x.dtype)
         x = x + _dense(blk.out, att)
         x = x + _ffn(blk, x)
@@ -223,17 +231,22 @@ def decode_step(params: "DecoderLM", tokens, positions, lengths,
     written this step; dead slots carry length 0 and scratch slots.
     ``positions`` must lie below the position table's size (``LLMServing``
     checks ``max_model_len`` against it).  Returns (logits (B, V),
-    k_pages, v_pages).  ``mesh`` (model-parallel serving) is not ported
-    yet and raises."""
-    reject("decode_step", 5, mesh=mesh)
+    k_pages, v_pages).  ``mesh`` shards the paged attention along KV heads
+    over the mesh's "model" axis; everything outside attention runs on the
+    model's device, so the result is token-exact against the unsharded
+    path."""
     B = tokens.shape[0]
     x = params.tok_emb[tokens] + params.pos_emb[positions]
     for li, blk in enumerate(params.blocks):
         q, k, v = _qkv_heads(blk, x, n_head)          # (B, H, hd)
         _write(k_pages, li, slots, k)
         _write(v_pages, li, slots, v)
-        att = paged_decode_attention(q, k_pages[li], v_pages[li], lengths,
-                                     page_tables)
+        if mesh is None:
+            att = paged_decode_attention(q, k_pages[li], v_pages[li],
+                                         lengths, page_tables)
+        else:
+            att = sharded_paged_decode_attention(
+                mesh, q, k_pages[li], v_pages[li], lengths, page_tables)
         att = att.reshape(B, -1).to(x.dtype)
         x = x + _dense(blk.out, att)
         x = x + _ffn(blk, x)
@@ -250,15 +263,14 @@ class DecoderLM(nn.Module):
     when None), and are usually replaced by ``interop.load_jax_params``.
     ``device=None`` means the card (``resolve_device``).  The methods take
     host arrays (numpy, lists, ints), copy them to the device in one
-    transfer and run under ``torch.inference_mode()``.
+    transfer and run under ``torch.inference_mode()``.  ``mesh`` shards
+    the model's paged attention at once (``shard``).
     """
 
     def __init__(self, vocab: int, hidden: int, n_head: int, n_layers: int,
                  intermediate: int, max_pos: int, eos_id: int = -1,
                  generator: Optional[torch.Generator] = None,
                  device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_PARALLEL)
         if hidden % n_head:
             raise ValueError("hidden must divide n_head")
         device = resolve_device(device)
@@ -286,6 +298,8 @@ class DecoderLM(nn.Module):
         self.n_layers = n_layers
         self.mesh = None
         self.page_sharding = None
+        if mesh is not None:
+            self.shard(mesh)
 
     @property
     def device(self) -> torch.device:
@@ -296,7 +310,21 @@ class DecoderLM(nn.Module):
         return self.tok_emb.dtype
 
     def shard(self, mesh) -> "DecoderLM":
-        raise NotImplementedError(_PARALLEL)
+        """Shard this model's paged attention along KV heads over
+        ``mesh``'s "model" axis (model parallelism for serving): the
+        entry points route attention through the sharded paged ops, and
+        ``page_sharding`` places a ``PagedKVCache``'s pages so each
+        device holds ``n_kv_heads / mp`` heads.  The weights stay where
+        they are."""
+        mp = mesh.shape["model"]
+        if self.n_kv_heads % mp:
+            raise ValueError(
+                f"n_kv_heads {self.n_kv_heads} must divide the model "
+                f"axis ({mp} devices)")
+        self.mesh = mesh
+        self.page_sharding = NamedSharding(
+            mesh, PartitionSpec(None, None, None, "model", None))
+        return self
 
     @classmethod
     def tiny(cls, generator: Optional[torch.Generator] = None,
@@ -329,7 +357,8 @@ class DecoderLM(nn.Module):
                       v_pages, slots):
         toks, table, sl = self._ints(tokens, page_table, slots)
         return prefill_chunk(self, toks, int(start), int(length), table,
-                             k_pages, v_pages, sl.long(), self.n_head)
+                             k_pages, v_pages, sl.long(), self.n_head,
+                             self.mesh)
 
     @torch.inference_mode()
     def decode(self, tokens, positions, lengths, page_tables, k_pages,
@@ -337,4 +366,4 @@ class DecoderLM(nn.Module):
         toks, pos, lens, tables, sl = self._ints(
             tokens, positions, lengths, page_tables, slots)
         return decode_step(self, toks, pos, lens, tables, k_pages, v_pages,
-                           sl.long(), self.n_head)
+                           sl.long(), self.n_head, self.mesh)

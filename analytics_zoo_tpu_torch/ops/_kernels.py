@@ -552,12 +552,15 @@ class PagedDecode(_Wrapper):
     ``tma_aligned`` (the 16-byte copies' rule), else copied and counted.
     The keys are split over blocks by ``decode_splits``; with more than
     one split the call allocates the f32 scratch the splits merge
-    through and runs the merging kernel too, and counts one launch."""
+    through and runs the merging kernel too, and counts one launch.
+    ``rule_heads`` is the KV-head count that rule reads (default Hkv): a
+    model-parallel shard passes the whole model's, so its keys split as
+    the unsharded call's do and each head sums in the same order."""
 
     name = "paged_decode"
 
     def __call__(self, q, k_pages, v_pages, lengths, block_tables,
-                 sm_scale=1.0) -> torch.Tensor:
+                 sm_scale=1.0, rule_heads=None) -> torch.Tensor:
         _check_pages(self.name, q, k_pages, v_pages, block_tables, "B")
         B, H, D = q.shape
         P, bs, Hkv, _ = k_pages.shape
@@ -572,7 +575,8 @@ class PagedDecode(_Wrapper):
         lengths = lengths.contiguous()
         k_pages, v_pages = self._readable(k_pages), self._readable(v_pages)
         nb = block_tables.shape[1]
-        splits, pages = decode_splits(B, Hkv, nb, bs, sm_count(q.device))
+        splits, pages = decode_splits(B, rule_heads or Hkv, nb, bs,
+                                      sm_count(q.device))
         out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
         part_o = part_lse = None
         if splits > 1:
@@ -605,12 +609,14 @@ class PagedChunk(_Wrapper):
     place where ``tma_aligned``, else copied and counted.  Each 64-row
     block's keys are split over ``chunk_splits`` blocks; with more than
     one the call allocates the f32 scratch they merge through and runs
-    the merging kernel too, and counts one launch."""
+    the merging kernel too, and counts one launch.  ``rule_heads`` is the
+    query-head count that rule reads (default H), as for
+    ``PagedDecode``."""
 
     name = "paged_chunk"
 
     def __call__(self, q, k_pages, v_pages, page_table, start: int,
-                 sm_scale=1.0) -> torch.Tensor:
+                 sm_scale=1.0, rule_heads=None) -> torch.Tensor:
         _check_pages(self.name, q, k_pages, v_pages, page_table, "Tc")
         if page_table.dim() != 1:
             raise ValueError(f"page_table must be (nb,), got "
@@ -624,7 +630,8 @@ class PagedChunk(_Wrapper):
         k_pages, v_pages = self._readable(k_pages), self._readable(v_pages)
         if q.dtype == torch.bfloat16:       # copied into shared memory too
             q = self._readable(q)
-        splits = chunk_splits(H, Tc, start, nb, bs, sm_count(q.device))
+        splits = chunk_splits(rule_heads or H, Tc, start, nb, bs,
+                              sm_count(q.device))
         out = torch.empty((Tc, H, D), dtype=q.dtype, device=q.device)
         part_o = part_lse = None
         if splits > 1:

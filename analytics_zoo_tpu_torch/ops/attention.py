@@ -363,3 +363,72 @@ def flash_forward_with_lse(q, k, v, causal: bool = False,
                          f"got {q.device} (backend={backend!r})")
     return _kernels.flash_fwd_lse(q, k, v, causal=causal,
                                   sm_scale=sm_scale)
+
+
+def _shard_seed(seed, di: int, mi: int):
+    """The dropout seed of (data, model) block ``(di, mi)``: the JAX
+    package's ``_mix32(seed ^ (di * _Q_C) ^ (mi * _K_C))`` in wrapping
+    32-bit arithmetic, as an int32 (an int, or a tensor for a tensor
+    seed), so a block draws the JAX block's mask over its local indices."""
+    mixed = _mix32(_u32(seed) ^ _mul32(_u32(di), _Q_C)
+                   ^ _mul32(_u32(mi), _K_C))
+    if isinstance(seed, torch.Tensor):
+        return (((mixed + (1 << 31)) & _M32) - (1 << 31)).to(
+            torch.int32).to(seed.device)
+    return _kernels._as_i32(int(mixed))
+
+
+def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
+                            causal: bool = False,
+                            sm_scale: Optional[float] = None,
+                            dropout_rate: float = 0.0, dropout_seed=None,
+                            backend: Optional[str] = None, *,
+                            data_axis: str = "data",
+                            model_axis: str = "model"):
+    """``flash_attention`` over a 2D (data × model) mesh: the batch splits
+    over ``data_axis`` and the heads over ``model_axis`` in contiguous
+    blocks.  Attention is head-independent, so block ``(di, mi)`` runs the
+    ordinary ``flash_attention`` (the kernel on a card) on its
+    ``(B/dp, H/mp, T, D)`` slices at the device of mesh coordinate
+    ``(di, mi)``, and the outputs are reassembled on q's device.  The
+    slices of a fused QKV projection's head views stay views, so the
+    kernel reads them in place.
+
+    Requires ``B % dp == 0`` and ``H % mp == 0``.  Dropout: each block's
+    seed is re-derived from its coordinates as the JAX package derives it
+    (``_shard_seed``), so a block's keep-mask is the JAX block's, bit for
+    bit, and differs from the unsharded mask.  Differentiable through each
+    block's ``flash_attention``.
+    """
+    dp = mesh.shape.get(data_axis, 1)
+    mp = mesh.shape.get(model_axis, 1)
+    B, H = q.shape[0], q.shape[1]
+    if B % max(dp, 1) or H % max(mp, 1):
+        raise ValueError(
+            f"sharded_flash_attention needs batch % dp == 0 and "
+            f"heads % mp == 0: B={B}, H={H}, dp={dp}, mp={mp}")
+    has_seed = dropout_rate > 0.0 and dropout_seed is not None
+    drop = dropout_rate if has_seed else 0.0
+    if has_seed:
+        dropout_seed = _seed(dropout_seed)
+    bl, hl = B // dp, H // mp
+    rows = []
+    for di in range(dp):
+        b = slice(di * bl, (di + 1) * bl)
+        blocks = []
+        for mi in range(mp):
+            coords = {a: i for a, i in ((data_axis, di), (model_axis, mi))
+                      if a in mesh.axis_names}
+            dev = mesh.device(coords)
+            h = slice(mi * hl, (mi + 1) * hl)
+            o = flash_attention(
+                q[b, h].to(dev), k[b, h].to(dev), v[b, h].to(dev),
+                padding_mask=(None if padding_mask is None
+                              else padding_mask[b].to(dev)),
+                causal=causal, sm_scale=sm_scale, backend=backend,
+                dropout_rate=drop,
+                dropout_seed=(_shard_seed(dropout_seed, di, mi)
+                              if has_seed else None))
+            blocks.append(o.to(q.device))
+        rows.append(torch.cat(blocks, dim=1))
+    return torch.cat(rows, dim=0)

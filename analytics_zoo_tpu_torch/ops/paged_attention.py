@@ -21,8 +21,14 @@ the kernels are held to, written line for line after the JAX package's
 reads KV head ``h // (H // Hkv)`` (GQA); a sequence with ``lengths == 0``
 (a dead decode lane pointing at the scratch page) gets zeros.
 
-The JAX package's model-parallel ``sharded_*`` variants belong to
-``parallel/`` and are not ported yet (ROADMAP Queue 1 item 5).
+``sharded_paged_decode_attention`` and ``sharded_paged_chunk_attention``
+spread one model's attention over a mesh's "model" axis along KV heads:
+shard s holds query heads ``[s·H/mp, (s+1)·H/mp)`` and exactly their KV
+heads (contiguous blocks, so the GQA map inside a shard is the global one
+shifted), runs the ordinary kernel on its device, and the outputs are
+concatenated along heads on the caller's device.  Each shard's keys split
+as the unsharded call's do, so a head's sums run in the same order and the
+sharded result equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.attention import resolve_backend
+from analytics_zoo_tpu_torch.parallel.mesh import ShardedTensor
 
 _NEG_INF = -1e30
 
@@ -135,9 +142,16 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables,
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _decode(q, k_pages, v_pages, lengths, block_tables, sm_scale,
+                   backend)
+
+
+def _decode(q, k_pages, v_pages, lengths, block_tables, sm_scale, backend,
+            rule_heads=None):
     if _use_kernel(q, backend, "paged-decode"):
         return _kernels.paged_decode(q, k_pages, v_pages, lengths,
-                                     block_tables, sm_scale=sm_scale)
+                                     block_tables, sm_scale=sm_scale,
+                                     rule_heads=rule_heads)
     return _gather_reference(q, k_pages, v_pages, lengths, block_tables,
                              sm_scale)
 
@@ -162,9 +176,92 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, start,
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    start = int(start)
+    return _chunk(q, k_pages, v_pages, page_table, int(start), sm_scale,
+                  backend)
+
+
+def _chunk(q, k_pages, v_pages, page_table, start, sm_scale, backend,
+           rule_heads=None):
     if _use_kernel(q, backend, "paged-chunk"):
         return _kernels.paged_chunk(q, k_pages, v_pages, page_table, start,
-                                    sm_scale=sm_scale)
+                                    sm_scale=sm_scale,
+                                    rule_heads=rule_heads)
     return _reference_chunk(q, k_pages, v_pages, page_table, start,
                             sm_scale)
+
+
+def _pool_shards(pages, mesh, axis: str, mp: int) -> list:
+    """The ``(P, bs, Hkv/mp, D)`` pool of each model shard, on its device:
+    a ``ShardedTensor`` split along KV heads over ``axis`` gives its own
+    shards (read in place); a whole pool is cut into contiguous copies."""
+    if isinstance(pages, ShardedTensor):
+        spec = tuple(pages.sharding.spec) + (None,) * 4
+        if pages.sharding.mesh is not mesh or spec[:4] != (
+                None, None, axis, None):
+            raise ValueError(f"a placed page pool must be split along KV "
+                             f"heads over '{axis}' of this mesh, got "
+                             f"{pages.sharding}")
+        return [pages.shard({axis: s}) for s in range(mp)]
+    hk = pages.shape[2] // mp
+    return [pages[:, :, s * hk:(s + 1) * hk].to(
+        mesh.device({axis: s})).contiguous() for s in range(mp)]
+
+
+def _sharded(mesh, q, k_pages, v_pages, axis, run, *replicated):
+    """Run ``run(q_s, k_s, v_s, *replicated_s, rule_heads)`` on each model
+    shard's device and concatenate the outputs along heads."""
+    mp = mesh.shape[axis]
+    H, Hkv = q.shape[1], k_pages.shape[2]
+    if H % mp or Hkv % mp:
+        raise ValueError(
+            f"heads must divide the model axis: H={H}, Hkv={Hkv}, "
+            f"mp={mp}")
+    ks = _pool_shards(k_pages, mesh, axis, mp)
+    vs = _pool_shards(v_pages, mesh, axis, mp)
+    hq = H // mp
+    outs = []
+    for s in range(mp):
+        dev = mesh.device({axis: s})
+        o = run(q[:, s * hq:(s + 1) * hq].to(dev), ks[s], vs[s],
+                *(t.to(dev) for t in replicated), (H, Hkv))
+        outs.append(o.to(q.device))
+    return torch.cat(outs, dim=1)
+
+
+def sharded_paged_decode_attention(mesh, q, k_pages, v_pages, lengths,
+                                   block_tables,
+                                   sm_scale: Optional[float] = None,
+                                   axis: str = "model"):
+    """``paged_decode_attention`` sharded along KV heads over ``mesh``'s
+    ``axis`` (requires ``H % mp == 0`` and ``Hkv % mp == 0``).  The pools
+    are ``ShardedTensor``s split along KV heads over ``axis`` (what a
+    sharded ``PagedKVCache`` holds) or whole tensors.  On CUDA tensors
+    every shard launches the kernel; on CPU tensors each runs the plain
+    version."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def run(q_, k_, v_, lens_, bt_, heads):
+        return _decode(q_, k_, v_, lens_, bt_, sm_scale, None,
+                       rule_heads=heads[1])
+
+    return _sharded(mesh, q, k_pages, v_pages, axis, run,
+                    lengths.to(torch.int32), block_tables.to(torch.int32))
+
+
+def sharded_paged_chunk_attention(mesh, q, k_pages, v_pages, page_table,
+                                  start,
+                                  sm_scale: Optional[float] = None,
+                                  axis: str = "model"):
+    """``paged_chunk_attention`` sharded along KV heads over ``mesh``'s
+    ``axis``: chunked prefill for a model-parallel decode cache."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    start = int(start)
+
+    def run(q_, k_, v_, table_, heads):
+        return _chunk(q_, k_, v_, table_, start, sm_scale, None,
+                      rule_heads=heads[0])
+
+    return _sharded(mesh, q, k_pages, v_pages, axis, run,
+                    page_table.to(torch.int32))

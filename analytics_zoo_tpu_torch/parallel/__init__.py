@@ -1,36 +1,28 @@
-"""Parallelism over a device mesh: ring attention (sequence parallelism).
+"""Parallelism over a device mesh.
 
-Port of ``analytics_zoo_tpu/parallel``.  ``ring_attention`` and the
-``Mesh`` it runs over are ported; the JAX package's other exports
-(tensor-parallel sharding rules, ZeRO, mixture of experts, pipelining)
-raise ``NotImplementedError`` naming ROADMAP until they are.
+Port of ``analytics_zoo_tpu/parallel``: ring attention (sequence
+parallelism), tensor-parallel sharding rules, the ZeRO partition specs,
+mixture of experts and pipelining, over the ``Mesh`` / ``NamedSharding``
+/ ``device_put`` of ``parallel.mesh``.  One process holds every shard
+(the JAX package's single-controller model).
 """
 
-from analytics_zoo_tpu_torch.parallel.mesh import Mesh
-from analytics_zoo_tpu_torch.parallel.ring import ring_attention
+from analytics_zoo_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh, NamedSharding, PartitionSpec, ShardedTensor, device_put)
+from analytics_zoo_tpu_torch.parallel.sharding import (  # noqa: F401
+    partition_params, partition_specs, ShardingRule)
+from analytics_zoo_tpu_torch.parallel.ring import ring_attention  # noqa: F401
+from analytics_zoo_tpu_torch.parallel.moe import (  # noqa: F401
+    init_moe_params, moe_ffn, partition_moe_params)
+from analytics_zoo_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_apply, stack_stage_params)
+from analytics_zoo_tpu_torch.parallel.zero import (  # noqa: F401
+    bytes_per_device, replicated_shardings, tree_bytes,
+    zero_partition_spec, zero_shardings)
 
-
-def _not_ported(name: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"parallel.{name} is not ported yet (ROADMAP Queue 1 item 5: "
-            "parallel/ sharding, zero, moe and pipeline)")
-    stub.__name__ = stub.__qualname__ = name
-    return stub
-
-
-partition_params = _not_ported("partition_params")
-partition_specs = _not_ported("partition_specs")
-ShardingRule = _not_ported("ShardingRule")
-init_moe_params = _not_ported("init_moe_params")
-moe_ffn = _not_ported("moe_ffn")
-partition_moe_params = _not_ported("partition_moe_params")
-pipeline_apply = _not_ported("pipeline_apply")
-stack_stage_params = _not_ported("stack_stage_params")
-bytes_per_device = _not_ported("bytes_per_device")
-replicated_shardings = _not_ported("replicated_shardings")
-tree_bytes = _not_ported("tree_bytes")
-zero_partition_spec = _not_ported("zero_partition_spec")
-zero_shardings = _not_ported("zero_shardings")
-
-__all__ = ["Mesh", "ring_attention"]
+__all__ = ["Mesh", "NamedSharding", "PartitionSpec", "ShardedTensor",
+           "device_put", "ring_attention", "partition_params",
+           "partition_specs", "ShardingRule", "init_moe_params", "moe_ffn",
+           "partition_moe_params", "pipeline_apply", "stack_stage_params",
+           "bytes_per_device", "replicated_shardings", "tree_bytes",
+           "zero_partition_spec", "zero_shardings"]

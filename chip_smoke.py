@@ -100,6 +100,33 @@ Phases, each of which raises (exit code 1) on failure:
    latency, occupancy, the decode step at 32 live slots and profiler
    breakdowns of a decode step and a prefill chunk, with each paged
    kernel's device time in them.
+7b. mp_llm: model-parallel serving: the llm phase's GPT-2-small weights
+   served through ``LLMServing(model_parallel=mp)`` over a model sharded
+   along KV heads on ``Mesh(["cuda:0"] * mp, ("model",))``, mp 2 and 4,
+   beside the unsharded engine: 16 requests (prompts 16..768 tokens, half
+   behind one prefix, 16 new tokens each), all queued before the engine
+   starts, so each run follows one schedule.  Checked: every token equal
+   to the unsharded engine's, 12 x mp ``paged_decode`` launches per decode
+   call and 12 x mp ``paged_chunk`` launches per prefill chunk, no input
+   copied, each shard's KV pages exactly 1/mp of the unsharded pool's
+   bytes, no live table left; then 16 lanes prefilled through the model's
+   entry points, each prefill chunk's and one decode step's logits equal
+   to the unsharded ones (``MP_LOGIT_ATOL``), with exactly 12 x mp launches
+   in that step and in one chunk.  Reported: KV bytes per shard, tokens/s
+   and the p50 decode-step ms beside the unsharded engine's.
+7c. mesh2d: the serve phase's BERT-base classifier (numpy seed 0, f32)
+   through ``InferenceModel.predict`` at batch 32 inside ``context_scope``
+   of a context over ``data`` 2 x ``model`` 2 on ``["cuda:0"] * 4``:
+   exactly 48 ``flash_fwd`` launches (12 layers x 4 blocks) a forward, no
+   input copied, answers within ``MESH2D_ATOL`` of the same model without
+   the context; ``sharded_flash_attention`` with dropout 0.1 at B32 H12
+   T128 D64: its keep-mask equal, bit for bit, to its plain version's
+   with the same seed; predict ms with and without the context.
+7d. parallel: ``moe_ffn`` at d 768, d_ff 3072, 8 experts, 4,096 tokens
+   over ``Mesh(["cuda:0"] * 4, ("expert",))`` and ``pipeline_apply`` of 4
+   residual MLP stages (768 / 3072) over 8 microbatches of a batch of 256
+   on ``Mesh(["cuda:0"] * 4, ("pipeline",))``: each against its unsharded
+   form on the card and against the CPU (``PARALLEL_ATOL``), and their ms.
 8. ring: ``flash_fwd_lse`` against its plain version on the card at the
    block shapes of sequence-parallel ring attention at GPT-2-small /
    BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
@@ -397,6 +424,21 @@ CHUNK = dict(Tc=256, start=512)                # one prefill chunk
 # served token's logit within this of the best logit at its position
 TEACHER_ATOL = 1e-3
 DECODE_ATOL = 1e-3            # one decode step's logits vs the dense ones
+# model-parallel serving (7b): mp 2 and 4 beside the unsharded engine.
+# Every head's attention is the same kernel on the same data with the same
+# key splits (rule_heads), and everything else runs unsharded, so logits
+# agree to the bit
+MP_LLM = dict(requests=16, new_tokens=16, mps=(2, 4))
+MP_LOGIT_ATOL = 0.0
+# BERT-base under data 2 x model 2 (7c): flash_fwd's f32 bar (a block's
+# rows are the unsharded kernel's; expect 0)
+MESH2D_ATOL = 2e-5
+# MoE and the pipeline at BERT-base FFN width (7d): against the unsharded
+# form on the card (f32, TF32 off: other GEMM shapes), against the CPU
+# (sums of 3072 products in another order)
+MOE = dict(d=768, d_ff=3072, experts=8, tokens=4096, groups=4)
+PIPE = dict(stages=4, d=768, d_ff=3072, batch=256, microbatches=8)
+PARALLEL_ATOL = {"card": 1e-5, "cpu": 1e-4}
 # sequence-parallel ring attention at GPT-2-small / BERT-base attention
 # width: a context long enough to need the split, over four shards
 RING = dict(B=2, H=12, T=16384, D=64, sp=4)
@@ -2141,6 +2183,371 @@ def phase_llm(n_requests=64, new_tokens=32):
     return launches, dict(tokens_per_s=tok_s, burst_s=burst_s,
                           step_ms=step_ms, decode_prof=decode_prof,
                           chunk_prof=chunk_prof, calls=n_calls, paged=paged)
+
+
+def _mp_shards(model, mp):
+    """Shard ``model`` over ``mp`` shards of cuda:0, or unshard it (1)."""
+    from analytics_zoo_tpu_torch.parallel import Mesh
+    if mp == 1:
+        model.mesh = model.page_sharding = None
+    else:
+        model.shard(Mesh(["cuda:0"] * mp, ("model",)))
+
+
+def _pool_bytes(pages):
+    """Bytes of one page pool (k or v): the whole tensor, or its shards'
+    sizes (one entry per distinct shard)."""
+    tensors = ([t for _, t in pages.unique_shards()]
+               if hasattr(pages, "unique_shards") else [pages])
+    return [t.numel() * t.element_size() for t in tensors]
+
+
+def _mp_engine_run(model, reqs, mp, new_tokens, calls):
+    """One burst through ``LLMServing(model_parallel=mp)``, every request
+    queued before the engine starts; returns the served tokens and the
+    run's books."""
+    from analytics_zoo_tpu_torch.common.config import LLMServingConfig
+    from analytics_zoo_tpu_torch.llm import GenerationClient, LLMServing
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.serving.broker import InMemoryBroker
+    scfg = LLMServingConfig(max_active=16, block_size=16, num_blocks=1024,
+                            max_model_len=1024, prefill_chunk_tokens=256,
+                            prefix_cache=True, model_parallel=mp)
+    eng = LLMServing(model, scfg, broker=InMemoryBroker())
+    cli = GenerationClient(broker=eng.broker)
+    for uri, toks in reqs.items():
+        cli.submit(uri, toks, new_tokens)
+    for name in calls:
+        calls[name] = 0
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        served = {uri: [t for _, t in cli.stream_tokens(uri, timeout=600)]
+                  for uri in reqs}
+        burst_s = time.perf_counter() - t0
+        _wait_idle(eng)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+        copies = {k: w.copies for k, w in _kernels.KERNELS.items()}
+        leak = eng.cache.leak_check()
+        metrics = eng.metrics()
+    finally:
+        eng.stop()
+    return dict(served=served, burst_s=burst_s, calls=dict(calls),
+                launches=launches, copies=copies, leak=leak,
+                pool=_pool_bytes(eng.cache.k_pages),
+                shards=[tuple(t.shape) for _, t in
+                        eng.cache.k_pages.unique_shards()]
+                if mp > 1 else [tuple(eng.cache.k_pages.shape)],
+                tokens_per_s=len(reqs) * new_tokens / burst_s,
+                itl_ms=metrics["mean_itl_ms"])
+
+
+def _mp_steps(model, lanes, width=64, steps=20):
+    """16 lanes prefilled through the model's entry points (256-token
+    chunks) into a cache placed as the model says, then one decode step:
+    each lane's final-chunk logits, the step's logits, the launches of
+    that step and of one chunk, and the p50 ms of ``steps`` decode steps
+    (decode + argmax + host read)."""
+    from analytics_zoo_tpu_torch.llm import PagedKVCache
+    from analytics_zoo_tpu_torch.ops import _kernels
+    cfg = GPT2_SMALL
+    n_head = cfg["n_head"]
+    cache = PagedKVCache(cfg["n_layers"], 1024, 16, n_head,
+                         cfg["hidden"] // n_head, device="cuda",
+                         page_sharding=model.page_sharding)
+    chunk_logits, first, tables, slots = [], [], [], []
+    for uri, toks in lanes:
+        lg = _prefill(model, cache, uri, toks, 256, width)
+        chunk_logits.append(lg.clone())
+        first.append(int(lg.argmax()))
+        slots.append(int(cache.append_tokens(uri, 1)[0]))
+        tables.append(cache.page_table(uri, width))
+    lens = np.array([len(t) + 1 for _, t in lanes], np.int32)
+    args = (np.array(first, np.int32), lens - 1, lens, np.stack(tables))
+    slots = np.array(slots, np.int32)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    logits = model.decode(*args, cache.k_pages, cache.v_pages, slots)[0]
+    torch.cuda.synchronize()
+    step_launches = _kernels.paged_decode.launches
+    # the longest lane's last chunk again (rewrites the same slots)
+    i = max(range(len(lanes)), key=lambda j: len(lanes[j][1]))
+    uri, toks = lanes[i]
+    s0 = (len(toks) - 1) // 256 * 256
+    n = len(toks) - s0
+    t = np.zeros((256,), np.int32)
+    t[:n] = toks[s0:]
+    table = cache.page_table(uri, width)
+    tslots = np.arange(256, dtype=np.int32) % 16
+    tslots[:n] = [table[p // 16] * 16 + p % 16 for p in range(s0, s0 + n)]
+    _kernels.reset_launches()
+    again = model.prefill_chunk(t, s0, n, table, cache.k_pages,
+                                cache.v_pages, tslots)[0]
+    torch.cuda.synchronize()
+    chunk_launches = _kernels.paged_chunk.launches
+    if not torch.equal(again, chunk_logits[i]):
+        raise AssertionError("a repeated prefill chunk changed its logits")
+    times = []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        model.decode(*args, cache.k_pages, cache.v_pages,
+                     slots)[0].argmax(dim=-1).cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    copies = {k: w.copies for k, w in _kernels.KERNELS.items()}
+    return dict(chunk_logits=torch.stack(chunk_logits), logits=logits,
+                step_launches=step_launches, chunk_launches=chunk_launches,
+                step_ms=float(np.percentile(times[1:], 50)), copies=copies)
+
+
+def phase_mp_llm(card):
+    from analytics_zoo_tpu_torch import interop
+    from analytics_zoo_tpu_torch.models.generation import DecoderLM
+
+    cfg = GPT2_SMALL
+    n_layers = cfg["n_layers"]
+    rng = np.random.default_rng(SEED)
+    model = DecoderLM(**cfg, device="cuda")
+    interop.load_jax_params(model, _random_tree(model, rng))  # llm's weights
+    reqs = _llm_requests(MP_LLM["requests"], rng, cfg["vocab"])
+    new = MP_LLM["new_tokens"]
+    calls = {"decode": 0, "prefill_chunk": 0}
+
+    def counted(name):
+        inner = getattr(model, name)
+
+        def call(*args):
+            calls[name] += 1
+            return inner(*args)
+        return call
+
+    mps = (1,) + MP_LLM["mps"]
+    runs, steps = {}, {}
+    model.decode = counted("decode")
+    model.prefill_chunk = counted("prefill_chunk")
+    try:
+        # warm-up (the model's first launches at these shapes): not kept
+        _mp_engine_run(model, dict(list(reqs.items())[:2]), 1, 4, calls)
+        for mp in mps:
+            _mp_shards(model, mp)
+            runs[mp] = _mp_engine_run(model, reqs, mp, new, calls)
+    finally:
+        for name in ("decode", "prefill_chunk"):
+            model.__dict__.pop(name, None)
+    lanes = list(reqs.items())
+    for mp in mps:
+        _mp_shards(model, mp)
+        steps[mp] = _mp_steps(model, lanes)
+    _mp_shards(model, 1)
+    base, base_step = runs[1], steps[1]
+    whole = base["pool"][0]
+    log(f"[mp_llm] DecoderLM {cfg} (the llm phase's weights); "
+        f"{len(reqs)} requests of "
+        f"{min(map(len, reqs.values()))}..{max(map(len, reqs.values()))} "
+        f"tokens, {new} new tokens each, queued before the engine starts")
+    report = {}
+    for mp in mps:
+        r, st = runs[mp], steps[mp]
+        per_shard = 2 * r["pool"][0]           # k + v of one shard
+        log(f"[mp_llm] mp {mp}: KV pages (k + v) {len(r['pool'])} "
+            f"shard(s) of 2 x {r['shards'][0]} = {per_shard / 1e9:.4f} GB "
+            f"each (unsharded {2 * whole / 1e9:.4f} GB); "
+            f"{r['tokens_per_s']:.2f} generated tokens/s "
+            f"({r['burst_s']:.4f} s), mean ITL {r['itl_ms']:.3f} ms; "
+            f"decode step at 16 lanes p50 {st['step_ms']:.3f} ms; "
+            f"{r['calls']['decode']} decode calls, "
+            f"{r['calls']['prefill_chunk']} prefill chunks, launches "
+            f"paged_decode {r['launches']['paged_decode']}, paged_chunk "
+            f"{r['launches']['paged_chunk']}; one step / chunk: "
+            f"{st['step_launches']} / {st['chunk_launches']}")
+        want = n_layers * mp
+        if (r["launches"]["paged_decode"] != want * r["calls"]["decode"]
+                or r["launches"]["paged_chunk"]
+                != want * r["calls"]["prefill_chunk"]
+                or not r["calls"]["decode"]
+                or st["step_launches"] != want
+                or st["chunk_launches"] != want):
+            raise AssertionError(f"mp {mp}: expected {want} launches per "
+                                 f"decode call and per prefill chunk: "
+                                 f"{r['launches']} for {r['calls']}; one "
+                                 f"step {st['step_launches']}, one chunk "
+                                 f"{st['chunk_launches']}")
+        if any(r["copies"].values()) or any(st["copies"].values()):
+            raise AssertionError(f"mp {mp}: inputs copied before a launch: "
+                                 f"{r['copies']} / {st['copies']}")
+        if r["leak"]["tables"] or r["leak"]["held_blocks"]:
+            raise AssertionError(f"mp {mp}: live tables after the burst: "
+                                 f"{r['leak']}")
+        short = [u for u, t in r["served"].items() if len(t) != new]
+        if short:
+            raise AssertionError(f"mp {mp}: requests without {new} tokens: "
+                                 f"{short}")
+        report[mp] = dict(kv_bytes_per_shard=per_shard,
+                          tokens_per_s=r["tokens_per_s"],
+                          step_ms=st["step_ms"], itl_ms=r["itl_ms"],
+                          launches=r["launches"], calls=r["calls"])
+        if mp == 1:
+            continue
+        if len(r["pool"]) != mp or any(b * mp != whole for b in r["pool"]):
+            raise AssertionError(f"mp {mp}: shard pools {r['pool']} bytes, "
+                                 f"not 1/{mp} of {whole}")
+        diff = [u for u in reqs if r["served"][u] != base["served"][u]]
+        chunk_err = (st["chunk_logits"] - base_step["chunk_logits"]
+                     ).abs().max().item()
+        step_err = (st["logits"] - base_step["logits"]).abs().max().item()
+        log(f"[mp_llm] mp {mp} vs unsharded: {len(reqs) - len(diff)}/"
+            f"{len(reqs)} sequences token-identical; max |logit "
+            f"difference| final chunks {chunk_err:.3e}, decode step "
+            f"{step_err:.3e} (bar {MP_LOGIT_ATOL:g})")
+        if diff:
+            raise AssertionError(f"mp {mp}: tokens differ from the "
+                                 f"unsharded engine's for {diff}")
+        if chunk_err > MP_LOGIT_ATOL or step_err > MP_LOGIT_ATOL:
+            raise AssertionError(f"mp {mp}: logits differ from the "
+                                 f"unsharded ones")
+    del model
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_mesh2d(card, cfg=BERT_BASE, batch=32):
+    from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+    from analytics_zoo_tpu_torch.common.context import (
+        ZooContext, context_scope)
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.ops.attention import (
+        sharded_flash_attention)
+    from analytics_zoo_tpu_torch.parallel import Mesh
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    rng = np.random.default_rng(SEED)
+    clf = BERTClassifier(num_classes=2, bert_config=cfg, device="cuda")
+    tree = _random_tree(clf.net, rng)                 # the serve phase's
+    names = ("input_ids", "token_type_ids", "input_mask")
+    im = InferenceModel(device="cuda").load_keras(
+        clf.net, (tree, {}), preprocessor=lambda d: [d[n] for n in names])
+    reqs = _requests(batch, rng, cfg)
+    x = {n: np.stack([r[n] for r in reqs.values()]) for n in names}
+    mesh = Mesh(np.full((2, 2), "cuda:0", dtype=object), ("data", "model"))
+    ctx = ZooContext(ZooConfig(mesh=MeshConfig(data=2, model=2)), mesh)
+    want = im.predict(x)
+    torch.cuda.synchronize()
+    with context_scope(ctx):
+        im.predict(x)                                 # warm-up
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        got = im.predict(x)
+        torch.cuda.synchronize()
+        launches = _kernels.flash_fwd.launches
+        no_copies("mesh2d")
+        sharded_ms = cuda_ms(lambda: im.predict(x), iters=10, warmup=2)
+    alone_ms = cuda_ms(lambda: im.predict(x), iters=10, warmup=2)
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.abs(got - want).max())
+    log(f"[mesh2d] BERT-base classifier ({cfg}) under data 2 x model 2 on "
+        f"4 shards of cuda:0, batch {batch}: {launches} flash_fwd launches "
+        f"in one forward (want {4 * cfg['n_block']}); answers vs the same "
+        f"model without the context max_abs_err={err:.3e} (bar "
+        f"{MESH2D_ATOL:g}); predict {sharded_ms:.3f} ms sharded, "
+        f"{alone_ms:.3f} ms without the context")
+    if launches != 4 * cfg["n_block"]:
+        raise AssertionError(f"expected {4 * cfg['n_block']} flash_fwd "
+                             f"launches per forward, got {launches}")
+    if (got.shape != (batch, 2) or not np.isfinite(got).all()
+            or err > MESH2D_ATOL):
+        raise AssertionError("answers under the 2D context disagree with "
+                             "the model without it")
+    B, H, T = BATCH, cfg["n_head"], cfg["seq_len"]
+    D = cfg["hidden_size"] // H
+    masks = {}
+    for backend in (None, "plain"):
+        fa = lambda q, k, v, backend=backend, **kw: sharded_flash_attention(
+            mesh, q, k, v, backend=backend, **kw)
+        masks[backend] = _extract_keep_mask(fa, B, H, T, D, 0.1, 1234)
+    same = torch.equal(masks[None], masks["plain"])
+    kept = masks[None].float().mean().item()
+    log(f"[mesh2d] sharded_flash_attention dropout 0.1 at B{B} H{H} T{T} "
+        f"D{D} over the 2 x 2 mesh: keep-mask "
+        f"{'identical to' if same else 'DIFFERS from'} the plain "
+        f"version's (kept {kept:.4f})")
+    if not same:
+        raise AssertionError("sharded dropout keep-mask differs from the "
+                             "plain version's")
+    return dict(launches=launches, err=err, ms=sharded_ms,
+                alone_ms=alone_ms)
+
+
+def _mlp_stage(p, h):
+    F = torch.nn.functional
+    return h + F.gelu(h @ p["W1"] + p["b1"], approximate="tanh") @ p["W2"] \
+        + p["b2"]
+
+
+def phase_parallel(card):
+    from analytics_zoo_tpu_torch.parallel import (
+        Mesh, init_moe_params, moe_ffn, pipeline_apply, stack_stage_params)
+
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = lambda tree: {k: v.cpu() for k, v in tree.items()}  # noqa: E731
+
+    def errs(what, got, card_ref, cpu_ref):
+        e_card = (got - card_ref).abs().max().item()
+        e_cpu = (got.cpu() - cpu_ref).abs().max().item()
+        log(f"[parallel] {what}: vs unsharded on the card "
+            f"{e_card:.3e} (bar {PARALLEL_ATOL['card']:g}), vs the CPU "
+            f"{e_cpu:.3e} (bar {PARALLEL_ATOL['cpu']:g})")
+        if (not torch.isfinite(got).all() or e_card > PARALLEL_ATOL["card"]
+                or e_cpu > PARALLEL_ATOL["cpu"]):
+            raise AssertionError(f"{what} disagrees")
+
+    m = MOE
+    params = init_moe_params(gen, m["d"], m["d_ff"], m["experts"],
+                             device="cuda")
+    x = torch.randn(m["tokens"], m["d"], generator=gen).cuda()
+    mesh = Mesh(["cuda:0"] * m["groups"], ("expert",))
+    with torch.inference_mode():
+        y, aux = moe_ffn(params, x, mesh=mesh)
+        y1, aux1 = moe_ffn(params, x)
+        yc, auxc = moe_ffn(cpu(params), x.cpu())
+        errs(f"moe_ffn d {m['d']} d_ff {m['d_ff']} E {m['experts']} "
+             f"{m['tokens']} tokens over {m['groups']} expert shards",
+             y, y1, yc)
+        errs("its aux loss", aux.reshape(1), aux1.reshape(1),
+             auxc.reshape(1))
+        moe_ms = cuda_ms(lambda: moe_ffn(params, x, mesh=mesh), iters=10,
+                         warmup=2)
+        moe_whole_ms = cuda_ms(lambda: moe_ffn(params, x), iters=10,
+                               warmup=2)
+    p = PIPE
+    stages = [{"W1": torch.randn(p["d"], p["d_ff"], generator=gen)
+               / p["d"] ** 0.5, "b1": torch.zeros(p["d_ff"]),
+               "W2": torch.randn(p["d_ff"], p["d"], generator=gen)
+               / p["d_ff"] ** 0.5, "b2": torch.zeros(p["d"])}
+              for _ in range(p["stages"])]
+    stacked = {k: v.cuda() for k, v in stack_stage_params(stages).items()}
+    xb = torch.randn(p["batch"], p["d"], generator=gen)
+    xg = xb.cuda()
+    pmesh = Mesh(["cuda:0"] * p["stages"], ("pipeline",))
+    run = lambda: pipeline_apply(  # noqa: E731
+        _mlp_stage, stacked, xg, mesh=pmesh,
+        n_microbatches=p["microbatches"])
+    with torch.inference_mode():
+        y = run()
+        seq, seq_cpu = xg, xb
+        for s in range(p["stages"]):
+            seq = _mlp_stage({k: v[s] for k, v in stacked.items()}, seq)
+            seq_cpu = _mlp_stage(stages[s], seq_cpu)
+        errs(f"pipeline_apply {p['stages']} stages x {p['microbatches']} "
+             f"microbatches, batch {p['batch']}", y, seq, seq_cpu)
+        pipe_ms = cuda_ms(run, iters=10, warmup=2)
+    log(f"[parallel] moe_ffn {moe_ms:.3f} ms over {m['groups']} expert "
+        f"shards ({moe_whole_ms:.3f} ms unsharded); pipeline_apply "
+        f"{pipe_ms:.3f} ms ({p['stages']} stages on cuda:0, "
+        f"{p['stages'] + p['microbatches'] - 1} ticks)")
+    return dict(moe_ms=moe_ms, moe_whole_ms=moe_whole_ms, pipe_ms=pipe_ms)
 
 
 def _check_lse(what, lse, ref):
@@ -5996,6 +6403,9 @@ def main() -> int:
     bench_launches, _ = phase_train_bench()
     paged_rows = phase_paged()
     llm_launches, llm = phase_llm()
+    mp_llm = phase_mp_llm(card)
+    mesh2d = phase_mesh2d(card)
+    phase_parallel(card)
     ring_launches, ring_rows = phase_ring()
     phase_ncf(card)
     phase_zoo(card)
@@ -6066,7 +6476,10 @@ def main() -> int:
               fleet_launches=fleets["fleet"]["launches"],
               fleet_launches_in=f"{FLEET['requests']} HTTP requests over "
                                 f"{FLEET['replicas']} fleet replicas, summed "
-                                f"({fleets['fleet']['forwards']} forwards)"),
+                                f"({fleets['fleet']['forwards']} forwards)",
+              mesh2d_launches=mesh2d["launches"],
+              mesh2d_launches_in="one BERT-base forward at batch 32 under "
+                                 "data 2 x model 2 (12 layers x 4 blocks)"),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               bench_launches["flash_bwd"], launches_in=BENCH_RUN,
@@ -6086,7 +6499,8 @@ def main() -> int:
               library=paged_lib,
               in_decode_step=llm["paged"].get("paged_decode"),
               http_launches=http_launches["paged_decode"],
-              http_calls=http_llm["calls"]["decode"]),
+              http_calls=http_llm["calls"]["decode"],
+              mp_launches=_mp_launches(mp_llm, "paged_decode", "decode")),
         entry("paged_chunk", csrc + "paged_chunk.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:134",
               paged_rows["paged_chunk"], llm_launches["paged_chunk"],
@@ -6096,7 +6510,9 @@ def main() -> int:
               library=paged_lib,
               in_prefill_chunk=llm["paged"].get("paged_chunk"),
               http_launches=http_launches["paged_chunk"],
-              http_calls=http_llm["calls"]["prefill_chunk"]),
+              http_calls=http_llm["calls"]["prefill_chunk"],
+              mp_launches=_mp_launches(mp_llm, "paged_chunk",
+                                       "prefill_chunk")),
         entry("flash_fwd_lse", csrc + "flash_fwd.cu",
               "analytics_zoo_tpu/ops/attention.py:307", ring_rows,
               ring_launches["flash_fwd_lse"],
@@ -6123,6 +6539,14 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     return _finish(card)
+
+
+def _mp_launches(report, kernel, call):
+    """``{mp: {"launches": n, "calls": n}}`` of one kernel in the mp_llm
+    phase's bursts, for the kernels line."""
+    return {str(mp): {"launches": r["launches"][kernel],
+                      "calls": r["calls"][call]}
+            for mp, r in report.items() if mp > 1}
 
 
 def _finish(card: str) -> int:

@@ -19,7 +19,18 @@ import pytest
 
 from analytics_zoo_tpu.common import config as jcfg
 from analytics_zoo_tpu_torch.common import config as tcfg
-from analytics_zoo_tpu_torch.common.context import init_zoo_context
+from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                    reset_context)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_context():
+    """The port's context is process-wide, as the JAX package's is: each
+    test starts and ends without one."""
+    from analytics_zoo_tpu_torch.common.context import reset_context
+    reset_context()
+    yield
+    reset_context()
 
 YAML = """\
 # serving config.yaml, as the reference ships it
@@ -172,6 +183,8 @@ def test_init_zoo_context_reads_the_config_file(tmp_path):
     ctx = init_zoo_context(config_path=str(path))
     assert _tree(ctx.config) == _tree(jcfg.load_config(str(path)))
     assert ctx.num_devices == 1 and ctx.mesh.devices.flat[0].type == "cpu"
+    assert init_zoo_context(compute_dtype="float32") is ctx   # idempotent
+    reset_context()
     ctx = init_zoo_context(config_path=str(path), compute_dtype="float32",
                            mesh__data="1")
     assert ctx.config.compute_dtype == "float32"
@@ -181,6 +194,7 @@ def test_init_zoo_context_reads_the_config_file(tmp_path):
 def test_init_zoo_context_platform(monkeypatch):
     monkeypatch.setenv("ZOO_TPU_PLATFORM", "cpu")
     assert init_zoo_context().mesh.devices.flat[0].type == "cpu"
+    reset_context()
     with pytest.raises(ValueError, match="platform 'tpu'"):
         init_zoo_context(platform="tpu")
     # a conf wins over the file and the environment, as in the JAX package

@@ -22,6 +22,16 @@ from analytics_zoo_tpu_torch.keras.layers import Dense
 from analytics_zoo_tpu_torch.tfpark import TFDataset
 
 
+@pytest.fixture(autouse=True)
+def _fresh_port_context():
+    """The port's context is process-wide, as the JAX package's is: each
+    test starts and ends without one."""
+    from analytics_zoo_tpu_torch.common.context import reset_context
+    reset_context()
+    yield
+    reset_context()
+
+
 def _rows(n=37, seed=0):
     rs = np.random.RandomState(seed)
     feats = {"b": rs.randn(n, 3).astype(np.float32),

@@ -169,7 +169,15 @@ def test_load_jax_params_is_strict(jparams):
 
 
 def test_model_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderLM.tiny(device="cpu").shard(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderLM(96, 32, 2, 2, 64, 512, device="cpu", mesh=object())
+    # ported since: shard() and mesh= shard the paged attention, and what
+    # is refused is what the JAX model refuses, a model axis that does not
+    # divide the KV heads (tests/test_torch_mp_serving.py holds the
+    # sharded model to the JAX one)
+    from analytics_zoo_tpu_torch.parallel import Mesh
+    mesh = Mesh(["cpu"] * 2, ("model",))
+    m = DecoderLM(96, 32, 2, 2, 64, 512, device="cpu", mesh=mesh)
+    assert m.mesh is mesh and tuple(m.page_sharding.spec) == (
+        None, None, None, "model", None)
+    assert DecoderLM.tiny(device="cpu").shard(mesh).mesh is mesh
+    with pytest.raises(ValueError, match="must divide the model axis"):
+        DecoderLM.tiny(device="cpu").shard(Mesh(["cpu"] * 4, ("model",)))

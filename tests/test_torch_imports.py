@@ -14,6 +14,16 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _fresh_port_context():
+    """The port's context is process-wide, as the JAX package's is: each
+    test starts and ends without one."""
+    from analytics_zoo_tpu_torch.common.context import reset_context
+    reset_context()
+    yield
+    reset_context()
+
+
 def _run(code: str, **env) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -63,7 +73,9 @@ def test_no_module_of_the_port_imports_jax():
                  "testing", "testing.chaos", "data.sharded",
                  "data.transforms", "serving.model_zoo", "serving.tenancy",
                  "common.health", "native", "inference.batching",
-                 "common.wal", "serving.durability", "serving.fleet"):
+                 "common.wal", "serving.durability", "serving.fleet",
+                 "parallel.sharding", "parallel.zero", "parallel.moe",
+                 "parallel.pipeline"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 
@@ -117,12 +129,17 @@ def test_no_module_of_the_port_imports_jax():
     " f()",
     "from analytics_zoo_tpu_torch.inference import InferenceModel as f;"
     " f(place_on_load=False)",
+    "from analytics_zoo_tpu_torch.common.context import get_context as f;"
+    " f()",
+    "from analytics_zoo_tpu_torch.parallel import init_moe_params as f;"
+    " f(None, 8, 16, 2)",
 ], ids=["resolve_device", "InferenceModel", "BERTClassifier",
         "BERTClassifier.train", "Estimator", "DecoderLM", "LLMServing",
         "PagedKVCache", "init_zoo_context", "NeuralCF", "WideAndDeep",
         "Model", "Sequential", "TextClassifier", "SessionRecommender",
         "AnomalyDetector", "ImageClassifier", "BERTNER", "BERTSQuAD", "KNRM",
-        "Seq2seq", "HealthMonitor", "InferenceModel.place_on_load"])
+        "Seq2seq", "HealthMonitor", "InferenceModel.place_on_load",
+        "get_context", "init_moe_params"])
 def test_default_device_raises_without_a_card(entry):
     out = _run(
         "from analytics_zoo_tpu_torch.common.context import "

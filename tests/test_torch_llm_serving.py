@@ -419,8 +419,13 @@ def test_config_fields_match_jax_and_model_parallel_raises():
     assert [(f.name, f.default) for f in dataclasses.fields(
         LLMServingConfig)] == [(f.name, f.default)
                                for f in dataclasses.fields(J)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMServingConfig(model_parallel=2)
+    # model_parallel is ported: the config takes it, and an engine asked
+    # for more shards than the host has devices raises as the JAX one does
+    cfg = LLMServingConfig(model_parallel=2)
+    with pytest.raises(ValueError, match="model_parallel=2 needs 2 devices, "
+                                         "have 1"):
+        LLMServing(DecoderLM.tiny(device="cpu"), cfg,
+                   broker=InMemoryBroker(), device="cpu")
     # the Redis broker is ported: redis:// reaches RedisBroker, whose lazy
     # import of redis-py raises where redis-py is missing
     import sys

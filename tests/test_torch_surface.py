@@ -24,6 +24,16 @@ import torch
 import analytics_zoo_tpu  # noqa: F401  (the reference surface)
 import analytics_zoo_tpu_torch
 
+
+@pytest.fixture(autouse=True)
+def _fresh_port_context():
+    """The port's context is process-wide, as the JAX package's is: each
+    test starts and ends without one."""
+    from analytics_zoo_tpu_torch.common.context import reset_context
+    reset_context()
+    yield
+    reset_context()
+
 # deliberate differences of the port
 RNG = "a JAX PRNG key becomes an int seed or a torch.Generator"
 DEVICE = "device= is added: entry points default to the card"
@@ -99,6 +109,8 @@ DIFFERENCES = {
     "estimator.local_estimator.LocalEstimator.fit": ("rng", "seed", RNG),
     "models.seq2seq.Seq2seq.__init__": ("", "device generator",
                                         f"{DEVICE}; {RNG}"),
+    "parallel.moe.init_moe_params": ("rng", "generator device",
+                                     f"{RNG}; {DEVICE}"),
 }
 # a layer whose weights wait for its input's shape creates them from that
 # shape alone; its initializers take a torch.Generator in init()
@@ -357,6 +369,36 @@ def test_the_rest_of_serving_is_walked():
     assert not [n for n in STUBS if n.startswith((
         "native.", "inference.batching.", "common.wal.",
         "serving.durability.", "serving.fleet.", "serving.broker."))]
+
+
+def test_model_parallel_serving_is_walked():
+    """The process-wide context, the sharding rules, the ZeRO specs, MoE,
+    the pipeline and the sharded serving ops are compared with their JAX
+    namesakes, and none of them is a stub."""
+    names = [f"common.context.{n}" for n in (
+        "get_context", "current_context", "context_scope.__init__",
+        "device_scope.__init__", "reset_context", "set_context",
+        "init_zoo_context", "ZooContext.__init__", "ZooContext.sharding",
+        "ZooContext.replicate")]
+    names += [f"parallel.sharding.{n}" for n in (
+        "ShardingRule.__init__", "ShardingRule.matches", "partition_specs",
+        "named_shardings", "partition_params")]
+    names += [f"parallel.zero.{n}" for n in (
+        "zero_partition_spec", "zero_shardings", "replicated_shardings",
+        "tree_bytes", "bytes_per_device")]
+    names += [f"parallel.moe.{n}" for n in (
+        "init_moe_params", "partition_moe_params", "moe_ffn")]
+    names += [f"parallel.pipeline.{n}" for n in (
+        "stack_stage_params", "pipeline_apply")]
+    names += ["ops.paged_attention.sharded_paged_decode_attention",
+              "ops.paged_attention.sharded_paged_chunk_attention",
+              "ops.attention.sharded_flash_attention",
+              "models.generation.DecoderLM.shard",
+              "llm.kv_cache.PagedKVCache.__init__"]
+    missing = [n for n in names if n not in COMPARED]
+    assert not missing, missing
+    assert not [n for n in STUBS if n.startswith(("parallel.",
+                                                   "common.context."))]
 
 
 @pytest.mark.parametrize("name", COMPARED)
@@ -653,9 +695,9 @@ def _unported_calls():
     tenancy = TenancyController([TenantPolicy("t")])
     x = (np.zeros((4, 2), np.float32), np.zeros(4, np.int32))
     calls = [(f"TrainConfig.{k}", lambda k=k, v=v: cfg.TrainConfig(**{k: v}),
-              k, 2) for k, v in (
-        ("failure_retry_window_sec", 60), ("donate_state", False),
-        ("rng_impl", "threefry"), ("shard_model", False))]
+              k, item) for k, v, item in (
+        ("failure_retry_window_sec", 60, 2), ("donate_state", False, 2),
+        ("rng_impl", "threefry", 2), ("shard_model", False, 5))]
     # ported since: the call takes the argument and keeps what it says
     calls += [(f"TrainConfig.{k}",
                lambda k=k, v=v: getattr(cfg.TrainConfig(**{k: v}), k) == v,
@@ -697,17 +739,39 @@ def _unported_calls():
          lambda: len(TFDataset.from_ndarrays(x, batch_size=2, val_tensors=x)
                      .get_validation_data()) == 4, "val_tensors", None),
         ("prefill_chunk.mesh",
-         lambda: generation.prefill_chunk(None, None, 0, 0, None, None,
-                                          None, None, 1, mesh=object()),
-         "mesh", 5),
+         lambda: _sharded_entry_matches(generation, "prefill_chunk"),
+         "mesh", None),
         ("decode_step.mesh",
-         lambda: generation.decode_step(None, None, None, None, None, None,
-                                        None, None, 1, mesh=object()),
-         "mesh", 5),
+         lambda: _sharded_entry_matches(generation, "decode_step"),
+         "mesh", None),
         ("Embedding.partition",
          lambda: Embedding(4, 2, partition="model"), "partition", 5),
     ]
     return calls
+
+
+def _sharded_entry_matches(generation, name) -> bool:
+    """``generation.<name>(..., mesh=)`` over two CPU shards gives the
+    unsharded call's logits and pages (within 1e-6: the plain attention
+    over fewer heads may sum in another order)."""
+    from analytics_zoo_tpu_torch.parallel import Mesh
+    model = generation.DecoderLM.tiny(device="cpu")
+    toks = torch.arange(5, dtype=torch.int32)
+    slots = torch.arange(5, dtype=torch.long) + 4
+    table = torch.tensor([1, 2, 0], dtype=torch.int32)
+    out = []
+    for mesh in (None, Mesh(["cpu"] * 2, ("model",))):
+        pages = [torch.zeros(2, 4, 4, 2, 16) for _ in range(2)]
+        if name == "prefill_chunk":
+            logits = generation.prefill_chunk(model, toks, 0, 5, table,
+                                              *pages, slots, 2, mesh=mesh)
+        else:
+            logits = generation.decode_step(
+                model, toks[:2], toks[:2], torch.tensor([1, 2], dtype=torch.int32),
+                table[None].repeat(2, 1), *pages, slots[:2], 2, mesh=mesh)
+        out.append([logits[0]] + pages)
+    return all(torch.allclose(a, b, atol=1e-6, rtol=0)
+               for a, b in zip(*out))
 
 
 UNPORTED = _unported_calls()
