@@ -10,8 +10,7 @@ that module: every ``analytics_zoo_tpu`` import loads jax).  Fields whose
 machinery is not ported take the JAX default, and any other value raises
 ``NotImplementedError`` naming the ROADMAP item that ports it
 (``common/unported.py``): the multi-process fields of ``ZooConfig``
-(item 5), the unported ``TrainConfig`` fields (item 2; ``shard_model``
-item 5).  ``DataConfig`` and ``FleetConfig`` are fields only: the port has
+(item 5) and the unported ``TrainConfig`` fields (item 2).  ``DataConfig`` and ``FleetConfig`` are fields only: the port has
 no fleet, and its estimator reads no data tier setting.  ``ServingConfig`` fields that
 need the tenancy, image decode or TensorBoard machinery are refused by
 ``ClusterServing``.
@@ -43,8 +42,6 @@ class MeshConfig:
 #: TrainConfig fields whose machinery is Queue 1 item 2 (the JAX
 #: package's buffer donation and PRNG implementation have no counterpart)
 _TRAIN_UNPORTED = ("failure_retry_window_sec", "donate_state", "rng_impl")
-#: ... and item 5: the tensor-parallel training step
-_TRAIN_UNPORTED_PARALLEL = ("shard_model",)
 
 
 @dataclass
@@ -57,20 +54,19 @@ class TrainConfig:
     gradient_clip_value: Optional[float] = None  # clip to [-v, v]
     donate_state: bool = True
     rng_impl: str = "rbg"
-    # sharded optimizer update over the data axis (not ported: one card)
+    # ZeRO: the optimizer state and the update sharded over "data"
     shard_optimizer: bool = False
+    # Megatron-placed weights over "model" (when the mesh has model > 1)
     shard_model: bool = True
     # microbatches per optimizer step
     grad_accum_steps: int = 1
     max_steps_per_dispatch: int = 1024
 
     def __post_init__(self):
-        for item, names in ((2, _TRAIN_UNPORTED),
-                            (5, _TRAIN_UNPORTED_PARALLEL)):
-            defaults = {f.name: f.default for f in fields(self)
-                        if f.name in names}
-            reject("TrainConfig", item, defaults,
-                   **{name: getattr(self, name) for name in defaults})
+        defaults = {f.name: f.default for f in fields(self)
+                    if f.name in _TRAIN_UNPORTED}
+        reject("TrainConfig", 2, defaults,
+               **{name: getattr(self, name) for name in defaults})
 
 
 @dataclass

@@ -14,9 +14,11 @@ calling thread.  ``ZooContext`` carries the mesh's sharding helpers
 (``sharding``, ``data_sharding``, ``replicated``, ``replicate``), over the
 port's ``NamedSharding`` and ``device_put``.
 
-The port is single-process: the multi-host bring-up of the JAX package
-(``jax.distributed``) is not ported (ROADMAP Queue 1 item 5), so
-``replicate`` places every shard from this process.
+The port is single-process: this process places every shard
+(``replicate``) and the estimator's sharded step runs every mesh position
+on the model's device.  The multi-host bring-up of the JAX package
+(``jax.distributed``) and each position on its own card are ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations

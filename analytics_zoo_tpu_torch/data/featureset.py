@@ -6,7 +6,10 @@ trees (arrays, lists, tuples, dicts of arrays) held as host numpy; an epoch
 is a permutation from the ``"records"`` stream of ``epoch_rng(seed,
 epoch)``, so the same seed and epoch give the same batches as the JAX
 package.  Where the JAX version shards each batch over a device mesh, this
-one copies it to one device as torch tensors.
+one copies it to one device as torch tensors: given ``ctx=``, the mesh's
+device (one process runs every data position there; a position on its own
+card is ROADMAP Queue 1 item 5), with the JAX package's check that the
+global batch divides by the data axis.
 
 ``cache_device()`` (the DEVICE tier, ``memory_type="DEVICE"``) keeps the
 epoch's batches resident on the card as one ``(steps, batch, ...)`` tensor
@@ -78,6 +81,22 @@ def tree_unflatten(treedef, leaves: Sequence) -> Tree:
         vals = [build(sd) for sd in subs]
         return dict(zip(keys, vals)) if kind is dict else kind(vals)
     return build(treedef)
+
+
+def _check_divisible(batch_size: int, ctx) -> None:
+    div = ctx.global_batch_divisor
+    if batch_size % div != 0:
+        raise ValueError(
+            f"global batch_size {batch_size} must be a multiple of the "
+            f"data-parallel axis size {div}")
+
+
+def _ctx_device(batch_size: int, device, ctx):
+    """``device`` (else the mesh's) after ``ctx``'s batch check."""
+    if ctx is None:
+        return device
+    _check_divisible(batch_size, ctx)
+    return device if device is not None else ctx.mesh.devices.flat[0]
 
 
 def _tree_len(tree: Tree) -> int:
@@ -244,20 +263,23 @@ class FeatureSet:
             yield x, y
 
     def batches(self, batch_size: int, epoch: int = 0,
-                drop_remainder: bool = True, device=None):
-        """``(x, y)`` batches as torch tensors on ``device``, in the
-        epoch's shuffled order (training)."""
+                drop_remainder: bool = True, device=None, ctx=None):
+        """``(x, y)`` batches as torch tensors on ``device`` (else
+        ``ctx``'s mesh device), in the epoch's shuffled order
+        (training)."""
         for x, y, _ in self.batches_with_counts(
-                batch_size, epoch, drop_remainder, device, ordered=False):
+                batch_size, epoch, drop_remainder, device, ordered=False,
+                ctx=ctx):
             yield x, y
 
     def batches_with_counts(self, batch_size: int, epoch: int = 0,
                             drop_remainder: bool = True, device=None,
-                            ordered: bool = True):
-        """``(x, y, rows)`` on ``device``; ordered by default (the
-        evaluate / predict feed, whose outputs line up with the rows).  A
-        ragged last batch keeps its real size: one device needs no
-        padding."""
+                            ordered: bool = True, ctx=None):
+        """``(x, y, rows)`` on ``device`` (else ``ctx``'s mesh device);
+        ordered by default (the evaluate / predict feed, whose outputs
+        line up with the rows).  A ragged last batch keeps its real size:
+        one device needs no padding."""
+        device = _ctx_device(batch_size, device, ctx)
         for x, y in self.local_batches(batch_size, epoch, drop_remainder,
                                        ordered=ordered):
             n = tree_leaves(x)[0].shape[0]
@@ -311,12 +333,15 @@ class DeviceFeatureSet:
             return None
         return epoch_rng(self.seed, epoch, "batches").permutation(steps)
 
-    def stacked_epoch(self, batch_size: int, epoch: int = 0, device=None):
+    def stacked_epoch(self, batch_size: int, epoch: int = 0, device=None,
+                      ctx=None):
         """``(xs, ys, steps, perm)``: every training batch of an epoch
-        stacked on a leading axis, resident on ``device`` and cached (one
-        entry: a new batch size or device replaces it), and ``epoch``'s
-        batch order (None: in order).  ``None`` when an epoch has no full
-        batch or the set has no labels."""
+        stacked on a leading axis, resident on ``device`` (else ``ctx``'s
+        mesh device) and cached (one entry: a new batch size or device
+        replaces it), and ``epoch``'s batch order (None: in order).
+        ``None`` when an epoch has no full batch or the set has no
+        labels."""
+        device = _ctx_device(batch_size, device, ctx)
         steps = self.steps_per_epoch(batch_size, True)
         if steps == 0 or self.base.labels is None:
             return None
@@ -355,17 +380,19 @@ class DeviceFeatureSet:
                 tree_map(put, _stack([y for _, y in batches])), len(batches))
 
     def batches(self, batch_size: int, epoch: int = 0,
-                drop_remainder: bool = True, device=None):
+                drop_remainder: bool = True, device=None, ctx=None):
         for x, y, _ in self.batches_with_counts(
-                batch_size, epoch, drop_remainder, device, ordered=False):
+                batch_size, epoch, drop_remainder, device, ordered=False,
+                ctx=ctx):
             yield x, y
 
     def batches_with_counts(self, batch_size: int, epoch: int = 0,
                             drop_remainder: bool = True, device=None,
-                            ordered: bool = True):
+                            ordered: bool = True, ctx=None):
         """Training batches (``drop_remainder``, in the epoch's order) come
         from the resident epoch; a ragged or row-ordered feed from a
         shuffled cache streams from the base."""
+        device = _ctx_device(batch_size, device, ctx)
         stacked = (self.stacked_epoch(batch_size, epoch, device)
                    if drop_remainder and not (ordered
                                               and self.shuffle_batches)

@@ -31,7 +31,22 @@ its ``treedef.pkl`` holds the port's own structure, not a ``PyTreeDef``.
 The ``checkpoint_write`` chaos point fires before every write, as in the
 JAX package: a failed write takes the estimator's retry path, and the
 tmp-then-rename layout keeps a partial write from being restorable.
-The per-host sharded layout is not ported (ROADMAP Queue 1 item 5).
+
+Placed leaves (``parallel.ShardedTensor``: the estimator's weights and
+optimizer state on a mesh) are written as their full arrays, each distinct
+shard copied to the host into its block (``to_host_array``: no gather on
+the device), so a checkpoint is independent of the mesh it came from and
+restores onto any other.  The per-host layout (``save_checkpoint(
+per_host=True)``, the JAX package's ``checkpoint.py:47-302``) writes each
+sharded leaf as its shards instead: every process writes
+``shards.h<p>.npz`` (its distinct shards) and ``shardidx.h<p>.pkl``
+(``(leaf, array name, slice bounds)`` each), and ``treedef.pkl``'s
+``partial`` names those leaves with their shape and dtype.  The port is
+one process, which holds every shard and writes them all as process 0
+(``needs_per_host``, the automatic choice, is for a leaf that spans
+processes, so it is never true here).  Restore merges the host files of
+either package's per-host checkpoints into full arrays and fails loudly
+when they do not cover a leaf (a missing host file).
 """
 
 from __future__ import annotations
@@ -45,7 +60,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.unported import reject
+from analytics_zoo_tpu_torch.parallel.mesh import ShardedTensor
 from analytics_zoo_tpu_torch.testing import chaos
 
 #: who wrote a checkpoint, in its treedef.pkl
@@ -92,16 +107,73 @@ def _unflatten(skeleton, leaves: list):
     return skeleton
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy (bf16 as its uint16 bits)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _dtype_name(leaf) -> str:
+    dtype = leaf.dtype
+    if isinstance(dtype, torch.dtype):
+        return "bfloat16" if dtype == torch.bfloat16 else \
+            torch.empty((), dtype=dtype).numpy().dtype.name
+    return np.dtype(dtype).name
+
+
+def _shard_items(leaf: ShardedTensor):
+    """(slice-bounds key, host array) of each distinct shard, in position
+    order: the one loop both layouts share."""
+    for slices, t in leaf.unique_shards():
+        yield tuple((sl.start, sl.stop, sl.step) for sl in slices), _host(t)
+
+
+def to_host_array(a: Any) -> np.ndarray:
+    """One leaf as a full host array, without a gather on the device: a
+    placed leaf copies each distinct shard to the host into its block of
+    the array (bf16 comes back as its uint16 bits: numpy has no bf16)."""
+    if isinstance(a, ShardedTensor):
+        out = np.empty(tuple(a.shape),
+                       _host(a.shards[0].reshape(-1)[:0]).dtype)
+        for key, arr in _shard_items(a):
+            out[tuple(slice(*b) for b in key)] = arr
+        return out
+    if isinstance(a, torch.Tensor):
+        return _host(a)
+    return np.asarray(a)
+
+
+def needs_per_host(bundle: Any) -> bool:
+    """Whether checkpointing ``bundle`` needs every process to write (a
+    sharded leaf spans processes): the automatic ``per_host`` choice.
+    Always False in the one-process port, whose one process holds every
+    shard."""
+    return False
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as the array ``np.savez`` writes and its dtype's name."""
-    if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-        a = t.numpy()
-    else:
-        a = np.asarray(leaf)
+    if isinstance(leaf, (torch.Tensor, ShardedTensor)):
+        return to_host_array(leaf), _dtype_name(leaf)
+    a = np.asarray(leaf)
     return a, np.dtype(a.dtype).name
+
+
+def _write_host_shards(tmp: str, partial: dict, leaves, pidx: int) -> None:
+    """This process's part of a per-host checkpoint: one npz of its
+    distinct shards of every partial leaf, and the index of their slice
+    bounds."""
+    arrays, index = {}, []
+    for i in partial:
+        for j, (key, arr) in enumerate(_shard_items(leaves[i])):
+            name = f"a{i}_s{j}"
+            arrays[name] = arr
+            index.append((i, name, key))
+    np.savez(os.path.join(tmp, f"shards.h{pidx}.npz"), **arrays)
+    with open(os.path.join(tmp, f"shardidx.h{pidx}.pkl"), "wb") as fh:
+        pickle.dump(index, fh)
 
 
 def _to_tensor(a: np.ndarray, dtype_name: Optional[str]) -> torch.Tensor:
@@ -120,26 +192,41 @@ def save_checkpoint(directory: str, step: int, bundle: Any,
     """Write ``ckpt-<step>/`` under ``directory`` (tmp then rename, the
     COMPLETE marker last) and keep the newest ``keep``; returns its path.
     ``bundle`` is a tree of dicts, lists and tuples whose leaves are
-    tensors, arrays or numbers."""
-    reject("save_checkpoint", 5, per_host=per_host)
+    tensors, placed tensors, arrays or numbers.  ``per_host=True`` writes
+    every sharded leaf as this process's shards (process 0: the port's
+    one process holds them all); None chooses it when a leaf spans
+    processes (``needs_per_host``)."""
     # fault-injection point: a failed write here must hit the Estimator's
     # checkpoint-restore retry path
     chaos.fire("checkpoint_write")
     leaves: list = []
     skeleton = _flatten(bundle, leaves)
+    if per_host is None:
+        per_host = needs_per_host(bundle)
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"ckpt-{step}")
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
+    partial = {}
+    if per_host:
+        # dtypes by name: npz keeps bf16 as raw 2-byte words
+        partial = {i: {"shape": tuple(leaf.shape),
+                       "dtype": _dtype_name(leaf)}
+                   for i, leaf in enumerate(leaves)
+                   if isinstance(leaf, ShardedTensor)
+                   and not leaf.sharding.is_fully_replicated}
+        _write_host_shards(tmp, partial, leaves, 0)
     arrays, dtypes = {}, {}
     for i, leaf in enumerate(leaves):
-        arrays[f"a{i}"], dtypes[i] = _to_numpy(leaf)
+        if i not in partial:
+            arrays[f"a{i}"], dtypes[i] = _to_numpy(leaf)
     np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
     with open(os.path.join(tmp, "treedef.pkl"), "wb") as fh:
         pickle.dump({"treedef": skeleton, "n": len(leaves), "step": step,
-                     "partial": {}, "dtypes": dtypes, "writer": WRITER}, fh)
+                     "partial": partial, "dtypes": dtypes,
+                     "writer": WRITER}, fh)
     with open(os.path.join(tmp, "COMPLETE"), "w") as fh:
         fh.write(str(step))
     if os.path.exists(path):
@@ -278,8 +365,9 @@ def _dotted(tree, prefix: str = "") -> Dict[str, Any]:
 
 def _optax_state(tree, out: dict) -> dict:
     """The port optimizer's state from an optax state tree: the first
-    ``count`` (Adam's before the schedule's) and every moment slot, each
-    ``{dotted name: leaf}``."""
+    ``count`` (Adam's before the schedule's), a second one as
+    ``schedule_count``, and every moment slot, each ``{dotted name:
+    leaf}``."""
     if isinstance(tree, JaxNode):
         fields = _OPTAX_FIELDS.get(tree.name)
         if fields is None:            # MaskedState, EmptyState, ...
@@ -288,7 +376,8 @@ def _optax_state(tree, out: dict) -> dict:
             return out
         for field, child in zip(fields, tree.children):
             if field == "count":
-                out.setdefault("count", child)
+                out.setdefault("schedule_count" if "count" in out
+                               else "count", child)
             else:
                 out.setdefault(field, _dotted(child))
     elif isinstance(tree, (list, tuple)):
@@ -316,6 +405,47 @@ def _undot(flat: Dict[str, Any]) -> dict:
     return tree
 
 
+def _merge_host_shards(path: str, partial: dict) -> dict:
+    """The per-host shard files (of either package) merged into full
+    arrays, one a partial leaf; a leaf the files do not cover (a host's
+    file missing or torn) raises.  bf16 leaves come back as their uint16
+    bits."""
+    def storage(dtype_name):
+        return np.dtype(np.uint16 if dtype_name == "bfloat16"
+                        else dtype_name)
+
+    out = {i: np.empty(tuple(m["shape"]), storage(m["dtype"]))
+           for i, m in partial.items()}
+    covered = {i: 0 for i in partial}
+    seen = {i: set() for i in partial}
+    for fname in sorted(os.listdir(path)):
+        if not (fname.startswith("shardidx.h") and fname.endswith(".pkl")):
+            continue
+        host = fname[len("shardidx."):-len(".pkl")]
+        with open(os.path.join(path, fname), "rb") as fh:
+            index = _StubUnpickler(fh).load()
+        with np.load(os.path.join(path, f"shards.{host}.npz")) as z:
+            for i, name, key in index:
+                if key in seen[i]:       # another host's copy of a block
+                    continue
+                seen[i].add(key)
+                arr = z[name]
+                if arr.dtype != out[i].dtype:
+                    # npz keeps bf16 (and the JAX writer's ml_dtypes) as
+                    # raw 2-byte words: the recorded dtype reads them
+                    arr = arr.view(out[i].dtype)
+                out[i][tuple(slice(*b) for b in key)] = arr
+                covered[i] += arr.size
+    for i, m in partial.items():
+        want = int(np.prod(m["shape"])) if m["shape"] else 1
+        if covered[i] != want:
+            raise ValueError(
+                f"per-host checkpoint at {path} does not cover leaf {i}: "
+                f"{covered[i]} of {want} elements present (a host's "
+                "shard file is missing or torn)")
+    return out
+
+
 def restore_checkpoint(path: str) -> Tuple[Any, int]:
     """``(bundle, step)`` of the checkpoint at ``path``, written by the
     port or by the JAX package, with CPU tensors as leaves.  The bundle is
@@ -325,14 +455,13 @@ def restore_checkpoint(path: str) -> Tuple[Any, int]:
     with open(os.path.join(path, "treedef.pkl"), "rb") as fh:
         raw = fh.read()
     meta = _StubUnpickler(io.BytesIO(raw)).load()
-    if meta.get("partial"):
-        raise NotImplementedError(
-            f"{path} is a per-host sharded checkpoint; its layout is not "
-            "ported yet (ROADMAP Queue 1 item 5)")
-    dtypes = meta.get("dtypes") or {}
+    partial = meta.get("partial") or {}
+    dtypes = dict(meta.get("dtypes") or {})
+    merged = _merge_host_shards(path, partial) if partial else {}
+    dtypes.update({i: m["dtype"] for i, m in partial.items()})
     with np.load(os.path.join(path, "leaves.npz")) as z:
-        leaves = [_to_tensor(z[f"a{i}"], dtypes.get(i))
-                  for i in range(meta["n"])]
+        leaves = [_to_tensor(merged[i] if i in merged else z[f"a{i}"],
+                             dtypes.get(i)) for i in range(meta["n"])]
     if meta.get("writer") == WRITER:
         bundle = _unflatten(meta["treedef"], leaves)
         params, opt_state, state, info = bundle

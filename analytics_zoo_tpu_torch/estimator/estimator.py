@@ -1,10 +1,39 @@
-"""The training engine: Estimator.train / evaluate / predict on one card.
+"""The training engine: Estimator.train / evaluate / predict.
 
-Port of ``analytics_zoo_tpu/estimator/estimator.py`` without the mesh.  A
-step is the JAX step (``estimator.py:352-482``) with nothing sharded: the
-forward in training mode, the loss, the gradients (through the attention
-kernels on the card), optional clipping by value or by global norm, and
-the optimizer's in-place update.
+Port of ``analytics_zoo_tpu/estimator/estimator.py``.  A step is the JAX
+step (``estimator.py:213-482``): the forward in training mode, the loss,
+the gradients (through the attention kernels on the card), optional
+clipping by value or by global norm, and the optimizer's in-place update.
+
+The mesh.  An estimator runs under its context: ``ctx=``, else the live
+one (``common.context.current_context``; none: no mesh, every axis of
+size 1).  As in the JAX package's single-controller model, one process
+holds every shard of the context's ``Mesh``, here all on the model's
+device (``["cuda:0"] * n`` on one card; each position on its own card is
+ROADMAP Queue 1 item 5: a mesh over several devices trains only where
+nothing is sharded over it, replicated on the model's device).  With ``dp`` / ``mp`` the "data" / "model" axis
+sizes, ``shard_model`` (default True) places the weights and their
+optimizer slots by ``parallel/sharding.py``'s Megatron rules when
+``mp > 1``, and ``shard_optimizer`` (ZeRO) places the slots and the
+gradient by ``parallel/zero.py``'s specs when ``dp > 1`` (``_place``).
+The master weights are then ``ShardedTensor``s (``params``), the slots
+too; a step's forward and backward run over the whole global batch on
+the module's parameters, which is what GSPMD's program computes (the hash
+dropout over global rows, BatchNorm's global statistics), with attention
+split per (data, model) block under a 2D mesh
+(``sharded_flash_attention``: one kernel launch a block).  The gradient
+is then cut by the update's shardings (a reduce-scatter, on one card a
+slice), each distinct block -- a data position's share of a leaf, in
+position order -- is updated in place in its master shard and slot
+shards (``optimizer.update_blocks``; norms over a whole leaf or tree sum
+the squares of its blocks in that order), and the updated shards are
+gathered back into the module's parameters (``ShardedTensor.
+all_gather_into``; a shard that is a view of them costs nothing).  Every
+address is fixed, so the sharded step captures as a CUDA graph too.
+``shard_model=False`` on a 2D mesh also hides the model axis from the
+layers (``_trace_ctx``): attention runs unsharded.  ``params`` and
+``opt_state`` report ``parallel.zero.bytes_per_device`` equal to the JAX
+estimator's for the same model and mesh.
 
 ``mixed_precision=True`` runs the forward and backward in
 ``compute_dtype`` (bf16): a bf16 shadow of the f32 master weights is
@@ -14,7 +43,8 @@ the shadow, as the JAX step takes them with respect to its bf16 params,
 and are widened to f32 for the optimizer, or stay bf16 up to it with
 ``grad_dtype="bfloat16"``.  ``grad_accum_steps=N`` splits each batch into
 N microbatches in order and averages their gradients in an f32 (or the
-parameters') accumulator; ``remat=True`` recomputes the forward in the
+parameters') accumulator, sharded as the gradient under ZeRO;
+``remat=True`` recomputes the forward in the
 backward (``torch.utils.checkpoint``), and the hash dropout recomputes the
 same mask.
 
@@ -43,7 +73,8 @@ and cuDNN runs its deterministic algorithms during the step.
 
 Checkpoints (``checkpoint_dir`` / ``checkpoint_trigger`` /
 ``keep_checkpoints``) write ``(params, opt_state, state, meta)`` with the
-epoch and the data cursor; ``train(resume=True)`` and the retry after a
+epoch and the data cursor (placed leaves as their full arrays, or per
+host: ``estimator/checkpoint.py``), and restore onto any mesh shape; ``train(resume=True)`` and the retry after a
 failed epoch (``TrainConfig.failure_retry_times``, ``RetryPolicy``
 backoff, single process) restore the latest one with ``copy_`` into the
 tensors a captured graph reads.  ``tensorboard_dir`` / ``app_name`` write
@@ -74,21 +105,19 @@ tier's feed thread, which hands host batches to the loop), the step
 timer as ``zoo_train_seconds{name="train_step"}``, and the
 ``train_state`` pool on the device-memory ledger (parameter and optimizer
 bytes counted once from the tensors when training starts).
-
-Not ported: the sharded update and tensor parallelism (``shard_optimizer``,
-``shard_model``: ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import queue
 import threading
 import time
 from concurrent.futures import CancelledError
 from dataclasses import replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,8 +125,10 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint as _remat
 
 from analytics_zoo_tpu_torch import observability as obs
-from analytics_zoo_tpu_torch.common.config import ZooConfig
-from analytics_zoo_tpu_torch.common.context import resolve_device
+from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+from analytics_zoo_tpu_torch.common.context import (
+    ZooContext, _build_mesh, context_scope, current_context,
+    resolve_device)
 from analytics_zoo_tpu_torch.common.resilience import RetryPolicy
 from analytics_zoo_tpu_torch.common.timer import Timers
 from analytics_zoo_tpu_torch.common.triggers import (EveryEpoch, Trigger,
@@ -113,6 +144,12 @@ from analytics_zoo_tpu_torch.keras import optimizers as optim_mod
 from analytics_zoo_tpu_torch.keras.layers.normalization import recomputing
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.dropout import as_seed, derive_seed
+from analytics_zoo_tpu_torch.parallel.mesh import (
+    ShardedTensor, device_put, _same_memory)
+from analytics_zoo_tpu_torch.parallel.sharding import (
+    named_shardings, partition_specs)
+from analytics_zoo_tpu_torch.parallel.zero import (
+    bytes_per_device, replicated_shardings, zero_shardings)
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.estimator")
 
@@ -209,13 +246,111 @@ class _CapturedStep:
         _kernels.replayed(self.record, n)
 
 
+def _relative(block, within) -> Tuple[slice, ...]:
+    """``block``'s slices (global) relative to ``within``'s start."""
+    return tuple(slice(b.start - w.start, b.stop - w.start)
+                 for b, w in zip(block, within))
+
+
+def _whole(block, shape) -> bool:
+    return all(b.start == 0 and b.stop == n for b, n in zip(block, shape))
+
+
+class _StepPlan:
+    """What a step updates, block by block: for each trainable leaf (in
+    the module's order) each distinct block of its update sharding (in
+    mesh-position order, one block when the update is not sharded), with
+    the block's view of the master weight, of each optimizer slot and,
+    under accumulation with ZeRO, of the gradient accumulator.  Worked out
+    once at placement; the views' addresses are what a captured step
+    replays.
+
+    ``cut`` is the reduce-scatter of a step's gradients (views: the whole
+    batch's gradient is already summed over the data positions), and
+    ``gather`` the all-gather of the updated master shards into the
+    module's parameters (``refresh``: the other way, after the module's
+    weights were written from outside a step)."""
+
+    def __init__(self, module_params: Dict[str, torch.Tensor],
+                 trainable: List[str], masters: Optional[dict],
+                 update_sh: Optional[dict], opt_state: dict,
+                 slot_names: List[str], acc: Optional[dict] = None):
+        self.module_params = module_params
+        self.masters = masters
+        self.acc = acc
+        self.names, self.ps, self.cuts = [], [], []
+        self.slots: Dict[str, List[torch.Tensor]] = {k: [] for k in
+                                                     slot_names}
+        self.groups: Optional[List[List[int]]] = [] if masters else None
+        self.acc_blocks: List[torch.Tensor] = []
+        for n in trainable:
+            full = module_params[n]
+            shape = tuple(full.shape)
+            if masters is None:
+                blocks = [(0, None)]
+            else:
+                blocks = [(p, None if _whole(b, shape) else b) for p, b in
+                          update_sh[n].unique_blocks(shape)]
+                self.groups.append(list(range(len(self.names),
+                                              len(self.names)
+                                              + len(blocks))))
+            for p, block in blocks:
+                self.names.append(n)
+                self.cuts.append((n, block))
+                self.ps.append(self._view(full, masters and masters[n],
+                                          p, block, shape))
+                for k in slot_names:
+                    self.slots[k].append(self._view(
+                        None, opt_state[k][n], p, block, shape))
+                if acc is not None:
+                    self.acc_blocks.append(self._view(None, acc[n], p,
+                                                      block, shape))
+        # the leaves whose master shards are not the module's memory
+        self._gathered = [] if masters is None else [
+            n for n in module_params if not all(
+                _same_memory(module_params[n][sl], t)
+                for sl, t in masters[n].unique_shards())]
+
+    @staticmethod
+    def _view(full, placed, p, block, shape):
+        """Position ``p``'s view of ``block`` (None: the whole leaf) in
+        ``placed`` (a ShardedTensor; ``full`` when unplaced)."""
+        if not isinstance(placed, ShardedTensor):
+            t = placed if placed is not None else full
+            return t if block is None else t[block]
+        held = placed.sharding.index(p, shape)
+        t = placed.shards[p]
+        if block is None:
+            block = tuple(slice(0, n) for n in shape)
+        rel = _relative(block, held)
+        return t if _whole(rel, tuple(t.shape)) else t[rel]
+
+    def cut(self, grads: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        # a strided block is copied dense: one strided tensor in a list
+        # sends a whole ``_foreach`` op to a kernel a tensor
+        return [grads[n] if block is None
+                else grads[n][block].contiguous() for n, block in self.cuts]
+
+    def gather(self) -> None:
+        for n in self._gathered:
+            self.masters[n].all_gather_into(self.module_params[n])
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        if self.masters is not None:
+            for n, m in self.masters.items():
+                m.reduce_scatter_(self.module_params[n])
+
+
 class Estimator:
     """Drives training, evaluation and prediction of a port model: an
     ``nn.Module`` called as ``model(x, seed=...)`` (``KerasNet``).  The
-    model moves to ``device`` (default: the card; raises without one)."""
+    model moves to ``device`` (default: the device of the context's mesh,
+    else the card; raises without one)."""
 
     def __init__(self, model, optimizer=None, loss=None,
                  metrics: Optional[List] = None,
+                 ctx: Optional[ZooContext] = None,
                  config: Optional[ZooConfig] = None, device=None,
                  tensorboard_dir: Optional[str] = None,
                  app_name: Optional[str] = None,
@@ -228,16 +363,12 @@ class Estimator:
                  shard_optimizer: Optional[bool] = None,
                  grad_accum_steps: Optional[int] = None,
                  shard_model: Optional[bool] = None):
-        config = config or ZooConfig()
+        self.ctx = ctx if ctx is not None else current_context()
+        config = config or (self.ctx.config if self.ctx is not None
+                            else ZooConfig())
         cfg = config.train
-        for what, asked in (
-                ("shard_optimizer", shard_optimizer or (
-                    shard_optimizer is None and cfg.shard_optimizer)),
-                ("shard_model", bool(shard_model))):
-            if asked:
-                raise NotImplementedError(
-                    f"Estimator({what}=...) is not ported yet "
-                    f"({QUEUE_ITEMS[5]})")
+        if device is None and self.ctx is not None:
+            device = self.ctx.mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optimizer = optim_mod.get(optimizer) if optimizer else None
@@ -261,8 +392,29 @@ class Estimator:
         # zoo_train_seconds{name="train_step"} histogram series
         self.timers = Timers(metrics_prefix="zoo_train")
         self._prefetch_depth = int(config.data.prefetch)
-        # one card: every mesh axis of the JAX layout has size 1
+        # no context: every mesh axis of the JAX layout has size 1
         self._mesh_axes = tuple(config.mesh.axis_names)
+        # ZeRO over "data" and Megatron placement over "model"
+        self.shard_optimizer = (cfg.shard_optimizer if shard_optimizer
+                                is None else bool(shard_optimizer))
+        self.shard_model = (cfg.shard_model if shard_model is None
+                            else bool(shard_model))
+        # whether the step places its state on the mesh: a mesh over
+        # other devices than the model's is only replicated over (the
+        # step runs on the model's device); sharding over one raises
+        self._on_mesh = self.ctx is not None
+        if self.ctx is not None and not _on_one_device(self.ctx.mesh,
+                                                       self.device):
+            if self._shards():
+                raise NotImplementedError(
+                    f"the estimator shards over the mesh from its model's "
+                    f"device {self.device}; this mesh spans "
+                    f"{sorted({str(d) for d in self.ctx.mesh.devices.flat})}"
+                    f" ({QUEUE_ITEMS[5]})")
+            self._on_mesh = False
+        self._masters: Optional[Dict[str, ShardedTensor]] = None
+        self._plan: Optional[_StepPlan] = None
+        self._trace = None
         self.remat = remat
         self.mixed_precision = mixed_precision
         self.compute_dtype = getattr(torch, config.compute_dtype)
@@ -346,29 +498,48 @@ class Estimator:
     def _accum_grads(self, p_fwd, x, y, seed):
         """Microbatches in order, their gradients summed in an f32 (under
         mixed precision) or the parameters' accumulator and averaged,
-        then cast once; the loss is their mean."""
+        then cast once; the loss is their mean.  Under ZeRO the
+        accumulator is sharded as the gradient (each microbatch's gradient
+        reduce-scattered into it) and the step's blocks are its shards;
+        else it is whole and cut after."""
         n = self.grad_accum_steps
         split = lambda a: a.reshape((n, a.shape[0] // n) + a.shape[1:])
         xs, ys = tree_map(split, x), tree_map(split, y)
+        plan = self._plan
+        sharded = plan.acc is not None
         acc, losses = None, []
+        if sharded:
+            with torch.no_grad():
+                torch._foreach_zero_(plan.acc_blocks)
         for j in range(n):
             pick = lambda a: a[j]
             lv, g = self._grads(p_fwd, tree_map(pick, xs), tree_map(pick, ys),
                                 None if seed is None
                                 else derive_seed(seed, j))
             losses.append(lv.detach())
+            if sharded:
+                with torch.no_grad():
+                    for name, t in zip(p_fwd, g):
+                        plan.acc[name].reduce_scatter_(t, accumulate=True)
+                continue
             if acc is None:
                 acc = [torch.zeros_like(
                     t, dtype=torch.float32 if self.mixed_precision
                     and t.is_floating_point() else t.dtype) for t in g]
             torch._foreach_add_(acc, [t.to(a.dtype) for t, a in zip(g, acc)])
+        if sharded:
+            blocks = plan.acc_blocks
+            torch._foreach_div_(blocks, float(n))
+            return torch.stack(losses).mean(), self._cast_grads(blocks)
         torch._foreach_div_(acc, float(n))
-        return torch.stack(losses).mean(), self._cast_grads(acc)
+        return (torch.stack(losses).mean(),
+                plan.cut(dict(zip(p_fwd, self._cast_grads(acc)))))
 
     def _train_step(self, x, y, seed) -> torch.Tensor:
         """One optimizer step on batch ``(x, y)``; returns the loss as a
         device scalar (no host read)."""
         params = self._params()
+        plan = self._plan
         if self.mixed_precision:
             with torch.no_grad():
                 for n, p in params.items():
@@ -380,7 +551,7 @@ class Estimator:
             loss, grads = self._accum_grads(p_fwd, x, y, seed)
         else:
             loss, grads = self._grads(p_fwd, x, y, seed)
-            grads = self._cast_grads(grads)
+            grads = plan.cut(dict(zip(p_fwd, self._cast_grads(grads))))
         with torch.no_grad():
             if self.clip_value is not None:
                 lo, hi = (self.clip_value
@@ -389,12 +560,16 @@ class Estimator:
                 for g in grads:
                     g.clamp_(lo, hi)
             if self.clip_norm is not None:
+                # the global norm over every block, in the plan's order
                 norm = torch.linalg.vector_norm(torch.stack(
                     [torch.linalg.vector_norm(g.float()) for g in grads]))
                 scale = torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
                 torch._foreach_mul_(grads, scale)
-        self.optimizer.update(params, dict(zip(params, grads)),
-                              self.opt_state)
+        self.optimizer.update_blocks(optim_mod.Blocks(
+            plan.names, plan.ps, grads, plan.slots, plan.groups,
+            self.opt_state.get("decayed", ())), self.opt_state)
+        with torch.no_grad():
+            plan.gather()
         return loss.detach()
 
     def _step_from(self, src: _Source) -> None:
@@ -431,6 +606,8 @@ class Estimator:
         out = [p.data for p in self.model.parameters()]
         out += [b for b in self.model.buffers()]
         out += _opt_tensors(self.opt_state)
+        for m in (self._masters or {}).values():
+            out += [t for _, t in m.unique_shards()]
         out += [self._step_dev, self._cursor, self._slot, self._loss_buf]
         return out
 
@@ -455,12 +632,107 @@ class Estimator:
                 self._step_from(src)
         return self._loss_buf[:n].clone()
 
+    # -------------------------------------------------------- placement
+    @property
+    def params(self) -> Dict[str, object]:
+        """The weights by dotted name: as placed on the mesh
+        (``ShardedTensor``s under the step's shardings) once training has
+        placed them, else the module's parameters."""
+        if self._masters is not None:
+            return self._masters
+        return {n: p.detach() for n, p in self.model.named_parameters()}
+
+    def _shards(self) -> bool:
+        """Whether the step shards over the mesh: ZeRO over data > 1 or
+        the Megatron placement over model > 1 (the JAX step's ``zshard``
+        / ``msharded``)."""
+        ctx = self.ctx
+        return ctx is not None and (
+            (self.shard_optimizer and ctx.axis_size(ctx.data_axis) > 1)
+            or (self.shard_model and ctx.axis_size("model") > 1))
+
+    def _trace_ctx(self) -> Optional[ZooContext]:
+        """The context the layers see while this estimator runs: its own,
+        or, with ``shard_model=False`` on a mesh with model > 1, a
+        data-only view of the same devices (attention then runs
+        unsharded, as on a 1D mesh)."""
+        if self.ctx is None:
+            return None
+        if self.shard_model or self.ctx.axis_size("model") <= 1:
+            return self.ctx
+        if self._trace is None:
+            devs = list(self.ctx.mesh.devices.flat)
+            cfg = dataclasses.replace(
+                self.ctx.config,
+                mesh=MeshConfig(data=len(devs), model=1, sequence=1,
+                                expert=1, pipeline=1))
+            self._trace = ZooContext(cfg, _build_mesh(devs, cfg.mesh))
+        return self._trace
+
+    def _scope(self):
+        tc = self._trace_ctx()
+        return context_scope(tc) if tc is not None \
+            else contextlib.nullcontext()
+
+    def _fs_kw(self) -> dict:
+        """The context a featureset batches training steps for (its
+        data-axis check)."""
+        return {"ctx": self.ctx} if self.ctx is not None else {}
+
+    def _place(self) -> None:
+        """Place the weights and the optimizer state on the mesh, as the
+        JAX step's shardings give them (``estimator.py:219-270``):
+        weights by the Megatron rules when ``shard_model`` and mp > 1
+        (the slots follow them), the slots and the gradient by the ZeRO
+        specs when ``shard_optimizer`` and dp > 1 (composed with the
+        Megatron specs), replicated otherwise.  Then the step's plan."""
+        module = {n: p.detach() for n, p in self.model.named_parameters()}
+        trainable = list(self._params())
+        slot_names = self.optimizer.slot_names(self.opt_state)
+        acc = None
+        if not self._on_mesh:
+            self._plan = _StepPlan(module, trainable, None, None,
+                                   self.opt_state, slot_names)
+            return
+        mesh, axis = self.ctx.mesh, self.ctx.data_axis
+        dp, mp = self.ctx.axis_size(axis), self.ctx.axis_size("model")
+        zshard = self.shard_optimizer and dp > 1
+        msharded = self.shard_model and mp > 1
+        opt_tree = _opt_tree(self.opt_state)
+        pspecs = partition_specs(module, mesh) if msharded else None
+        ospecs = partition_specs(opt_tree, mesh) if msharded else None
+        psh = (named_shardings(mesh, pspecs) if msharded
+               else replicated_shardings(module, mesh))
+        if zshard:
+            osh = zero_shardings(opt_tree, mesh, axis, base_specs=ospecs)
+            gsh = zero_shardings(module, mesh, axis, base_specs=pspecs)
+        else:
+            osh = (named_shardings(mesh, ospecs) if msharded
+                   else replicated_shardings(opt_tree, mesh))
+            gsh = psh
+        self._masters = device_put(module, psh)
+        self.opt_state = {**self.opt_state, **device_put(opt_tree, osh)}
+        if zshard and self.grad_accum_steps > 1:
+            acc = {n: device_put(torch.zeros(
+                module[n].shape, dtype=torch.float32 if self.mixed_precision
+                and module[n].is_floating_point() else module[n].dtype,
+                device=self.device), gsh[n]) for n in trainable}
+        self._plan = _StepPlan(module, trainable, self._masters, gsh,
+                               self.opt_state, slot_names, acc)
+
     def _prepare(self, seed) -> None:
         """Allocate the step's device state before any capture: optimizer
-        state, the bf16 shadow, counters, the loss slots."""
+        state (placed on the mesh with the weights), the bf16 shadow,
+        counters, the loss slots."""
         dev = self.device
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(self._params())
+        if self._plan is None:
+            self._place()
+        else:
+            # the module's weights are the truth between calls (set_weights,
+            # a load): the master shards take them again
+            self._plan.refresh()
         if self.mixed_precision and self._p16 is None:
             self._p16 = {n: p.detach().to(self.compute_dtype)
                          .requires_grad_() for n, p in self._params().items()}
@@ -485,11 +757,10 @@ class Estimator:
         and scrape threads never touch a tensor.  The per-device byte
         gauges are views routed through the ledger.  Train state is all
         pinned: nothing in it is evictable."""
-        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-        params = list(self.model.parameters())
-        opt_ts = _opt_tensors(self.opt_state)
-        weights, opt = int(nbytes(params)), int(nbytes(opt_ts))
-        blocks = len(params) + len(opt_ts)
+        opt_tree = _opt_tree(self.opt_state)
+        weights = int(bytes_per_device(self.params))
+        opt = int(bytes_per_device(opt_tree))
+        blocks = len(self.params) + len(tree_leaves(opt_tree))
         devs = obs.device_memory_stats()
         capacity = int(devs[0].get("bytes_limit", 0)) if devs else 0
         job = self.app_name
@@ -521,18 +792,24 @@ class Estimator:
         ``val_<name>`` where it was validated."""
         if self.optimizer is None or self.loss is None:
             raise RuntimeError("Estimator needs optimizer and loss to train")
-        if batch_size % self.grad_accum_steps:
-            raise ValueError(
-                f"batch_size {batch_size} must divide by grad_accum_steps "
-                f"= {self.grad_accum_steps}")
+        accum = self.grad_accum_steps
+        if accum > 1:
+            dp = self.ctx.axis_size(self.ctx.data_axis) if self.ctx else 1
+            if batch_size % (accum * dp) != 0:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide by "
+                    f"grad_accum_steps*dp = {accum}*{dp} (each microbatch "
+                    "still shards over the data axis)")
         if variables is not None:
             self.model.set_weights(variables)
         self._adopt_transforms(featureset)
         self._prepare(seed)
         self._register_memory_pool()
         _m_accum.set(float(self.grad_accum_steps))
-        for ax in self._mesh_axes:
-            _m_mesh.labels(axis=ax).set(1.0)
+        shape = (self.ctx.mesh.shape if self.ctx is not None
+                 else dict.fromkeys(self._mesh_axes, 1))
+        for ax, size in shape.items():
+            _m_mesh.labels(axis=ax).set(float(size))
         start_epoch = 0
         if resume and self.checkpoint_dir:
             ck = latest_checkpoint(self.checkpoint_dir)
@@ -554,10 +831,13 @@ class Estimator:
             tb = TrainSummary(self.tensorboard_dir, self.app_name)
         self.model.train()
         try:
-            self._train_loop(featureset, batch_size, epochs, start_epoch,
-                             self._retry_policy.new_state(), tb,
-                             validation_data, validation_trigger,
-                             end_trigger)
+            # the layers see this estimator's mesh (2D attention routing)
+            # for the whole loop, whatever the global context is
+            with self._scope():
+                self._train_loop(featureset, batch_size, epochs,
+                                 start_epoch, self._retry_policy.new_state(),
+                                 tb, validation_data, validation_trigger,
+                                 end_trigger)
         finally:
             self.model.eval()
             if tb:
@@ -617,7 +897,7 @@ class Estimator:
         stacked = None
         if hasattr(featureset, "stacked_epoch"):
             stacked = featureset.stacked_epoch(batch_size, epoch,
-                                               self.device)
+                                               self.device, **self._fs_kw())
         args = (batch_size, epoch, tb, tb_pend, losses, end_trigger, t_epoch)
         if stacked is not None:
             if self._run_resident_epoch(stacked, *args):
@@ -737,10 +1017,11 @@ class Estimator:
         if getattr(featureset, "supports_cursor", False):
             feed = _sync_counted(featureset.batches(
                 batch_size, epoch=epoch, device=self.device,
-                start_step=start_step))
+                start_step=start_step, **self._fs_kw()))
         else:
             feed = _prefetch(featureset.batches(batch_size, epoch=epoch,
-                                                device=torch.device("cpu")),
+                                                device=torch.device("cpu"),
+                                                **self._fs_kw()),
                              depth=self._prefetch_depth)
         for xy in feed:
             pend.append(xy)
@@ -858,7 +1139,7 @@ class Estimator:
         of it consumed by completed steps)."""
         if not self.checkpoint_dir:
             return
-        params = {n: p.detach() for n, p in self.model.named_parameters()}
+        params = self.params
         buffers = {n: b for n, b in self.model.named_buffers()}
         meta = {"epoch": epoch,
                 "data_cursor": DataCursor(epoch=epoch,
@@ -882,6 +1163,9 @@ class Estimator:
                     params)
         _copy_named("buffer", dict(self.model.named_buffers()), buffers)
         _copy_opt(self.opt_state, opt)
+        if self._plan is not None:
+            # full arrays carved by this mesh's shardings (any mesh shape)
+            self._plan.refresh()
         self.global_step = int(step)
         if self._step_dev is not None:
             self._step_dev.fill_(self.global_step)
@@ -898,7 +1182,7 @@ class Estimator:
         self.model.eval()
         accs = [m.init() for m in self.metrics]
         loss_sum, n_total = 0.0, 0
-        with torch.inference_mode():
+        with torch.inference_mode(), self._scope():
             for x, y, n in self._feed(featureset, batch_size):
                 preds = self.model(x)
                 accs = [m.update(a, preds, y)
@@ -914,7 +1198,9 @@ class Estimator:
     def _feed(self, featureset, batch_size: int):
         """Every row in order, the ragged tail included, read ahead as
         host batches (``_prefetch``) and moved to the device here, where a
-        fused transform chain then runs."""
+        fused transform chain then runs.  Any batch size: under a mesh, a
+        batch the data axis does not divide runs its attention unsharded
+        (where the JAX package pads it), so no data-axis check applies."""
         to_dev = lambda t: tree_map(lambda a: a.to(self.device), t)
         tf = self._fused_tf
         for x, y, n in _prefetch(featureset.batches_with_counts(
@@ -938,7 +1224,7 @@ class Estimator:
         self._adopt_transforms(featureset)
         self.model.eval()
         outs = []
-        with torch.inference_mode():
+        with torch.inference_mode(), self._scope():
             for x, _, _ in self._feed(featureset, batch_size):
                 outs.append(tree_map(lambda t: t.float().cpu().numpy(),
                                      self.model(x)))
@@ -1130,16 +1416,35 @@ def _opt_tree(state: dict) -> dict:
     """The optimizer state's tensors (its count and slots) for a
     checkpoint; the decay mask (names) is rebuilt by ``init``."""
     return {k: v for k, v in state.items()
-            if isinstance(v, (torch.Tensor, dict))}
+            if isinstance(v, (torch.Tensor, ShardedTensor, dict))}
 
 
 def _opt_tensors(state) -> List[torch.Tensor]:
+    """The optimizer state's tensors (a placed leaf's distinct shards)."""
     if state is None:
         return []
     out = []
-    for v in _opt_tree(state).values():
-        out.extend(v.values() if isinstance(v, dict) else [v])
+    for leaf in tree_leaves(_opt_tree(state)):
+        if isinstance(leaf, ShardedTensor):
+            out.extend(t for _, t in leaf.unique_shards())
+        else:
+            out.append(leaf)
     return out
+
+
+def _dev_key(dev: torch.device) -> tuple:
+    dev = torch.device(dev)
+    index = dev.index
+    if index is None and dev.type == "cuda":
+        index = torch.cuda.current_device()
+    return dev.type, index
+
+
+def _on_one_device(mesh, device: torch.device) -> bool:
+    """Whether every mesh position lies on ``device``: one process then
+    drives the sharded step from there (each position on its own card is
+    not ported)."""
+    return {_dev_key(d) for d in mesh.devices.flat} == {_dev_key(device)}
 
 
 def _copy_named(what: str, dst: Dict[str, torch.Tensor], src: dict) -> None:
@@ -1154,15 +1459,30 @@ def _copy_named(what: str, dst: Dict[str, torch.Tensor], src: dict) -> None:
                              f"{tuple(src[name].shape)}, the model "
                              f"{tuple(t.shape)}")
     for name, t in dst.items():
-        t.copy_(src[name])
+        _copy_into(t, src[name])
+
+
+def _copy_into(dst, src: torch.Tensor) -> None:
+    """A full checkpoint array into a tensor, or carved into a placed
+    leaf's shards."""
+    if isinstance(dst, ShardedTensor):
+        dst.reduce_scatter_(src.to(dst.shards[0].device))
+    else:
+        dst.copy_(src)
 
 
 def _copy_opt(state: dict, src: dict) -> None:
     for key, v in _opt_tree(state).items():
-        if key not in src:
+        if key == "schedule_count" and key not in src:
+            # a checkpoint of one count (the port's before it kept
+            # optax's second): the two counts are always equal
+            key_src = "count"
+        else:
+            key_src = key
+        if key_src not in src:
             raise KeyError(f"checkpoint optimizer state has no {key!r} "
                            f"(it holds {sorted(src)})")
         if isinstance(v, dict):
-            _copy_named(f"optimizer {key}", v, src[key])
+            _copy_named(f"optimizer {key}", v, src[key_src])
         else:
-            v.copy_(src[key].reshape(v.shape))
+            _copy_into(v, src[key_src].reshape(v.shape))

@@ -354,8 +354,9 @@ class KerasNet(Layer):
         ``warm_start=True`` continues the last fit's estimator (its
         optimizer state and global step).  ``estimator_kw`` go to
         ``Estimator``, ``device`` included (default: where the weights
-        are).  ``distributed`` is accepted for the JAX surface: one card
-        is one replica."""
+        are), and ``shard_optimizer`` / ``grad_accum_steps`` /
+        ``shard_model``, which shard the step over the global context's
+        mesh.  ``distributed`` is accepted for the JAX surface."""
         from analytics_zoo_tpu_torch.data.featureset import FeatureSet
         if self.optimizer is None:
             raise RuntimeError("call compile() before fit()")

@@ -9,6 +9,11 @@ vectors, read from a GloVe text file (one ``word v1 v2 ...`` line each)
 through a word index; ``SparseEmbedding`` is ``Embedding`` (a dense
 gather), as in the JAX package.
 
+``partition`` is the JAX layer's sharding hint, stored and read by
+nothing, as there: the estimator's Megatron rules shard a trainable
+table's vocab over "model" by its path (``embed[^/]*/embeddings$``,
+``parallel/sharding.py``).
+
 Ids outside the table give what ``jnp.take`` gives in the JAX package:
 an id in ``[-input_dim, 0)`` counts from the end, and any other
 out-of-range id gives a row of NaN (with no gradient to the table).  The
@@ -24,7 +29,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from analytics_zoo_tpu_torch.common.unported import reject
 from analytics_zoo_tpu_torch.keras import initializers
 from analytics_zoo_tpu_torch.keras.engine import Layer
 
@@ -34,12 +38,13 @@ class Embedding(Layer):
                  trainable: bool = True, weights: Optional[np.ndarray] = None,
                  partition: Optional[str] = None, **kw):
         super().__init__(**kw)
-        reject("Embedding", 5, partition=partition)
         self.input_dim = input_dim
         self.output_dim = output_dim
         self.kernel_init = initializers.get(init)
         self.trainable = trainable
         self.pretrained = weights
+        # sharding hint: "model" shards the vocab dim over the tp axis
+        self.partition = partition
         if weights is not None and np.shape(weights) != (input_dim,
                                                          output_dim):
             raise ValueError("pretrained embedding shape mismatch")

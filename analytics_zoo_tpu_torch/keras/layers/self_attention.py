@@ -4,11 +4,15 @@ Port of ``analytics_zoo_tpu/keras/layers/self_attention.py``: multi-head
 attention over ``ops.flash_attention`` (the hand-written CUDA kernel on the
 card), the position-wise FFN, the post-LN ``TransformerBlock``, the
 GPT-style ``TransformerLayer`` and the ``BERT`` encoder.  When the live
-context (``common.context.current_context``, a peek that builds none)
-has a mesh with a "model" axis above 1 that divides the heads, and its
-"data" axis divides the batch, attention runs as
+context (``common.context.current_context``, a peek that builds none:
+the calling thread's ``context_scope`` first, which the estimator pins to
+its own context while it trains, evaluates and predicts, else the
+process's) has a mesh with a "model" axis above 1 that divides the
+heads, and its "data" axis divides the batch, attention runs as
 ``ops.attention.sharded_flash_attention`` over that mesh, as the JAX
-layer does: one kernel launch per (data, model) block.
+layer does: one kernel launch per (data, model) block, each
+differentiable through its own ``flash_attention`` (one backward launch
+a block).
 
 Dense weights keep the JAX layout ``W: (d_in, d_out)`` applied as
 ``x @ W + b`` so parameter trees cross without transposes.  Layers start in

@@ -21,6 +21,18 @@ schedule is a function of that count tensor (or returns a constant).
 As in optax the optimizer holds no state: ``init(params)`` returns it and
 ``update(params, grads, state)`` advances it and the parameters in place.
 Parameters are a ``{dotted name: tensor}`` dict (``named_parameters``).
+The state holds optax's counts: ``count`` (the schedule's, or Adam's) and,
+for the optimizers whose optax chain counts twice (the Adam family's
+``ScaleByAdamState`` and ``ScaleByScheduleState``), ``schedule_count``
+beside it, so the state's bytes are optax's.
+
+The sharded step (``Estimator(shard_optimizer=True)`` or Megatron-placed
+weights) updates blocks of the parameters: ``update_blocks`` takes each
+block's parameter view, gradient and slot tensors with its leaf's name
+(the decay mask reads the name), and the blocks of each leaf
+(``groups``), so a norm that spans a whole leaf (LAMB's and LARS's trust
+ratios) sums the squares of its blocks' norms in block order.  Every other
+operation is elementwise and gives a block what it gives the whole leaf.
 The Adam family takes gradients of a lower precision than their
 parameters (the bf16 gradient tree of ``Estimator(grad_dtype=
 "bfloat16")``) as optax does, each product in the dtype optax gives it;
@@ -52,12 +64,44 @@ def _f32(v, like: torch.Tensor) -> torch.Tensor:
                       device=like.device)
 
 
+class Blocks:
+    """The tensors of one update, entry ``i`` of each list belonging
+    together: ``ps[i]`` a parameter or a block of one (a view, updated in
+    place), ``gs[i]`` its gradient, ``slots[k][i]`` its block of optimizer
+    slot ``k`` and ``names[i]`` its leaf's name; ``groups`` lists the
+    entries of each leaf (None: every entry a whole leaf); ``decayed`` the
+    names weight decay applies to."""
+
+    __slots__ = ("names", "ps", "gs", "slots", "groups", "decayed")
+
+    def __init__(self, names, ps, gs, slots, groups=None, decayed=()):
+        self.names, self.ps, self.gs = list(names), list(ps), list(gs)
+        self.slots = {k: list(v) for k, v in slots.items()}
+        self.groups = groups
+        self.decayed = set(decayed)
+
+    def decayed_idx(self) -> List[int]:
+        return [i for i, n in enumerate(self.names) if n in self.decayed]
+
+
+def _local(t):
+    """A state counter as a tensor: a placed (replicated) counter's one
+    shard."""
+    shards = getattr(t, "shards", None)
+    return t if shards is None else shards[0]
+
+
 class Optimizer:
     """An update rule with its learning-rate schedule."""
 
     #: whether ``_step`` takes the gradients in their own dtype (else
     #: widened to their parameters')
     raw_grads = False
+    #: whether optax's chain keeps a second count (the schedule's beside
+    #: Adam's): the state then holds ``schedule_count`` too.  Nothing
+    #: reads it (optax's two counts are always equal); it is there so the
+    #: state's layout and ``bytes_per_device`` are optax's
+    counts_twice = False
 
     def __init__(self, schedule: Schedule, name: str = "optimizer"):
         self.schedule = schedule
@@ -77,28 +121,46 @@ class Optimizer:
 
     def init(self, params: Params) -> dict:
         device = next(iter(params.values())).device if params else None
-        count = torch.zeros((), dtype=torch.int32, device=device)
-        return {"count": count, **self._init(params)}
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=device)
+        counts = {"count": zero()}
+        if self.counts_twice:
+            counts["schedule_count"] = zero()
+        return {**counts, **self._init(params)}
 
-    @torch.no_grad()
+    @staticmethod
+    def slot_names(state: dict) -> List[str]:
+        """The state's per-parameter slots (its ``{name: tensor}``
+        entries), in the state's order."""
+        return [k for k, v in state.items() if isinstance(v, dict)]
+
     def update(self, params: Params, grads: Params, state: dict) -> None:
         """One step: ``params`` and ``state`` change in place, with no
         host read (a CUDA graph can replay it)."""
         names = list(params)
-        ps = [params[n] for n in names]
-        gs = [grads[n] for n in names]
+        self.update_blocks(Blocks(
+            names, [params[n] for n in names], [grads[n] for n in names],
+            {k: [state[k][n] for n in names]
+             for k in self.slot_names(state)},
+            decayed=state.get("decayed", ())), state)
+
+    @torch.no_grad()
+    def update_blocks(self, blocks: Blocks, state: dict) -> None:
+        """One step over ``blocks`` (whole leaves, or blocks of them that
+        together cover each leaf once), advancing ``state``'s counts."""
         if not self.raw_grads:
-            gs = [g if g.dtype == p.dtype else g.to(p.dtype)
-                  for g, p in zip(gs, ps)]
-        count = state["count"]
+            blocks.gs = [g if g.dtype == p.dtype else g.to(p.dtype)
+                         for g, p in zip(blocks.gs, blocks.ps)]
+        count = _local(state["count"])
         lr = self._lr(count)                  # at the count before the step
-        self._step(names, ps, gs, state, lr, count + 1)
+        self._step(blocks, lr, count + 1)
         count.add_(1)
+        if self.counts_twice:
+            _local(state["schedule_count"]).add_(1)
 
     def _init(self, params: Params) -> dict:
         raise NotImplementedError
 
-    def _step(self, names, ps, gs, state, lr, count) -> None:
+    def _step(self, b: Blocks, lr, count) -> None:
         raise NotImplementedError
 
     @staticmethod
@@ -127,13 +189,37 @@ def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     return 1.0 - torch.pow(decay, count.to(torch.float32))
 
 
-def _trust_scale_(upd, ps, idx, coeff=1.0, eps=0.0) -> None:
+def _leaf_norms(ts, idx, groups) -> torch.Tensor:
+    """The norm of the whole leaf of each entry ``i`` of ``idx``: the
+    entry's own norm when it is a whole leaf, else the square root of the
+    sum of the squared norms of its leaf's blocks, in block order."""
+    norms = torch._foreach_norm([ts[i] for i in idx])
+    if groups is None:
+        return torch.stack(norms)
+    at = {i: j for j, i in enumerate(idx)}
+    out: List[Optional[torch.Tensor]] = [None] * len(idx)
+    for group in groups:
+        members = [i for i in group if i in at]
+        if not members:
+            continue
+        if len(members) == 1:
+            leaf = norms[at[members[0]]]
+        else:
+            leaf = torch.stack([norms[at[i]] for i in members]) \
+                .square().sum().sqrt()
+        for i in members:
+            out[at[i]] = leaf
+    return torch.stack(out)
+
+
+def _trust_scale_(upd, ps, idx, groups=None, coeff=1.0, eps=0.0) -> None:
     """optax's ``scale_by_trust_ratio`` on ``upd[i]`` for ``i`` in
-    ``idx``: ``coeff * |p| / (|u| + eps)``, 1 where either norm is 0."""
+    ``idx``: ``coeff * |p| / (|u| + eps)`` over each entry's whole leaf,
+    1 where either norm is 0."""
     if not idx:
         return
-    pn = torch.stack(torch._foreach_norm([ps[i] for i in idx]))
-    un = torch.stack(torch._foreach_norm([upd[i] for i in idx]))
+    pn = _leaf_norms(ps, idx, groups)
+    un = _leaf_norms(upd, idx, groups)
     ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
                         coeff * pn / (un + eps))
     torch._foreach_mul_([upd[i] for i in idx], list(ratio.unbind()))
@@ -152,10 +238,11 @@ class _SGD(Optimizer):
             return {}
         return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
 
-    def _step(self, names, ps, gs, state, lr, count):
+    def _step(self, b, lr, count):
+        ps, gs = b.ps, b.gs
         upd = gs
         if self.momentum:
-            trace = [state["trace"][n] for n in names]
+            trace = b.slots["trace"]
             torch._foreach_mul_(trace, self.momentum)
             torch._foreach_add_(trace, gs)           # g + m * t
             upd = trace
@@ -177,6 +264,7 @@ class _Adam(Optimizer):
     moment in f32."""
 
     raw_grads = True
+    counts_twice = True
 
     def __init__(self, schedule, b1, b2, eps, name, weight_decay=0.0,
                  decay_mask: Optional[Callable[[Params], Dict[str, bool]]]
@@ -200,11 +288,12 @@ class _Adam(Optimizer):
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()},
                 "decayed": decayed}
 
-    def _step(self, names, ps, gs, state, lr, count):
+    def _step(self, b, lr, count):
+        ps, gs = b.ps, b.gs
         b1, b2 = self.b1, self.b2
         f32 = torch.float32
-        mu_store = [state["mu"][n] for n in names]
-        nu = [state["nu"][n] for n in names]
+        mu_store = b.slots["mu"]
+        nu = b.slots["nu"]
         low_mu = bool(mu_store) and mu_store[0].dtype != f32
         low_g = bool(gs) and gs[0].dtype != f32
         wide = lambda ts: [t.float() for t in ts]
@@ -239,13 +328,12 @@ class _Adam(Optimizer):
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, den)
-        if state["decayed"]:
-            decayed = set(state["decayed"])
-            idx = [i for i, n in enumerate(names) if n in decayed]
+        idx = b.decayed_idx()
+        if idx:
             torch._foreach_add_([upd[i] for i in idx], [ps[i] for i in idx],
                                 alpha=self.weight_decay)
         if self.trust_ratio:
-            _trust_scale_(upd, ps, list(range(len(ps))))
+            _trust_scale_(upd, ps, list(range(len(ps))), b.groups)
         if low_mu and not (low_g and mu_store[0].dtype == gs[0].dtype):
             for stored, m in zip(mu_store, mu):
                 stored.copy_(m)
@@ -256,6 +344,7 @@ class _Adamax(Optimizer):
     """optax.adamax: ``nu = max(|g| + eps, b2 * nu)``,
     ``u = mu_hat / nu``."""
 
+    counts_twice = True
 
     def __init__(self, schedule, b1, b2, eps):
         super().__init__(schedule, "adamax")
@@ -265,9 +354,9 @@ class _Adamax(Optimizer):
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
         return {"mu": zeros(), "nu": zeros()}
 
-    def _step(self, names, ps, gs, state, lr, count):
-        mu = [state["mu"][n] for n in names]
-        nu = [state["nu"][n] for n in names]
+    def _step(self, b, lr, count):
+        ps, gs = b.ps, b.gs
+        mu, nu = b.slots["mu"], b.slots["nu"]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, gs, alpha=1.0 - self.b1)
         inf = torch._foreach_abs(gs)
@@ -294,8 +383,9 @@ class _Adagrad(Optimizer):
             n: torch.full_like(p, self.initial_accumulator_value)
             for n, p in params.items()}}
 
-    def _step(self, names, ps, gs, state, lr, count):
-        ss = [state["sum_of_squares"][n] for n in names]
+    def _step(self, b, lr, count):
+        ps, gs = b.ps, b.gs
+        ss = b.slots["sum_of_squares"]
         torch._foreach_addcmul_(ss, gs, gs)
         inv = torch._foreach_add(ss, self.eps)
         torch._foreach_rsqrt_(inv)
@@ -317,10 +407,10 @@ class _Adadelta(Optimizer):
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
         return {"e_g": zeros(), "e_x": zeros()}
 
-    def _step(self, names, ps, gs, state, lr, count):
+    def _step(self, b, lr, count):
+        ps, gs = b.ps, b.gs
         rho = self.rho
-        e_g = [state["e_g"][n] for n in names]
-        e_x = [state["e_x"][n] for n in names]
+        e_g, e_x = b.slots["e_g"], b.slots["e_x"]
         torch._foreach_mul_(e_g, rho)
         torch._foreach_addcmul_(e_g, gs, gs, value=1.0 - rho)
         num = torch._foreach_add(e_x, self.eps)
@@ -346,8 +436,9 @@ class _RMSprop(Optimizer):
     def _init(self, params):
         return {"nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
-    def _step(self, names, ps, gs, state, lr, count):
-        nu = [state["nu"][n] for n in names]
+    def _step(self, b, lr, count):
+        ps, gs = b.ps, b.gs
+        nu = b.slots["nu"]
         torch._foreach_mul_(nu, self.decay)
         torch._foreach_addcmul_(nu, gs, gs, value=1.0 - self.decay)
         upd = torch._foreach_add(nu, self.eps)
@@ -377,16 +468,17 @@ class _LARS(Optimizer):
         return {"trace": {n: torch.zeros_like(p) for n, p in params.items()},
                 "decayed": [n for n in params if mask is None or mask[n]]}
 
-    def _step(self, names, ps, gs, state, lr, count):
-        decayed = set(state["decayed"])
-        idx = [i for i, n in enumerate(names) if n in decayed]
+    def _step(self, b, lr, count):
+        ps, gs = b.ps, b.gs
+        idx = b.decayed_idx()
         upd = torch._foreach_mul(gs, 1.0)
         if self.weight_decay:
             torch._foreach_add_([upd[i] for i in idx], [ps[i] for i in idx],
                                 alpha=self.weight_decay)
-        _trust_scale_(upd, ps, idx, self.trust_coefficient, self.eps)
+        _trust_scale_(upd, ps, idx, b.groups, self.trust_coefficient,
+                      self.eps)
         torch._foreach_mul_(upd, -lr)
-        trace = [state["trace"][n] for n in names]
+        trace = b.slots["trace"]
         torch._foreach_mul_(trace, self.momentum)
         torch._foreach_add_(trace, upd)              # u + m * t
         out = (torch._foreach_add(upd, trace, alpha=self.momentum)

@@ -412,19 +412,23 @@ def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
     if has_seed:
         dropout_seed = _seed(dropout_seed)
     bl, hl = B // dp, H // mp
+    # the blocks as views from one split a dimension: their backward is
+    # one concatenation, where a slice each would zero-fill and add a
+    # whole-size gradient per block
+    blocks_of = lambda t: [row.split(hl, dim=1) for row in t.split(bl)]
+    qs, ks, vs = blocks_of(q), blocks_of(k), blocks_of(v)
+    masks = None if padding_mask is None else padding_mask.split(bl)
     rows = []
     for di in range(dp):
-        b = slice(di * bl, (di + 1) * bl)
         blocks = []
         for mi in range(mp):
             coords = {a: i for a, i in ((data_axis, di), (model_axis, mi))
                       if a in mesh.axis_names}
             dev = mesh.device(coords)
-            h = slice(mi * hl, (mi + 1) * hl)
             o = flash_attention(
-                q[b, h].to(dev), k[b, h].to(dev), v[b, h].to(dev),
-                padding_mask=(None if padding_mask is None
-                              else padding_mask[b].to(dev)),
+                qs[di][mi].to(dev), ks[di][mi].to(dev), vs[di][mi].to(dev),
+                padding_mask=(None if masks is None
+                              else masks[di].to(dev)),
                 causal=causal, sm_scale=sm_scale, backend=backend,
                 dropout_rate=drop,
                 dropout_seed=(_shard_seed(dropout_seed, di, mi)

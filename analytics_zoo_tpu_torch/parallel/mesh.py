@@ -13,7 +13,11 @@ devices; moving a shard to a device it is already on costs nothing.
 ``device_put(x, NamedSharding(mesh, spec))`` returns a ``ShardedTensor``:
 one contiguous tensor per mesh position, on that position's device,
 holding the block of ``x`` the spec gives the position (positions that
-hold the same block on the same device share one tensor).  Trees are
+hold the same block on the same device share one tensor).  Its
+collectives work in place, in mesh-position order, between fixed
+addresses (so a CUDA graph can replay them): ``all_gather_into`` a global
+buffer, and ``reduce_scatter_`` from a global tensor that one process has
+already summed (on one card: a slice and a copy, or an add).  Trees are
 nested dicts, lists and tuples; their leaf paths join the keys with
 ``/``, and a dict key's ``.`` (a ``state_dict`` key) counts as ``/``
 too, so a rule written for a JAX path matches the same port leaf.
@@ -142,6 +146,26 @@ class NamedSharding:
             out.append(slice(i * size, (i + 1) * size))
         return tuple(out)
 
+    @property
+    def is_fully_replicated(self) -> bool:
+        """Whether every position holds the whole tensor (no entry of the
+        spec names an axis above size 1)."""
+        return all(self._parts(d) == 1 for d in range(len(self.spec)))
+
+    def unique_blocks(self, global_shape
+                      ) -> List[Tuple[int, Tuple[slice, ...]]]:
+        """``(position, slices)`` of each distinct block, in position
+        order: positions that hold the same block on the same device count
+        once, at the first of them."""
+        seen, out = set(), []
+        for p, dev in enumerate(self.mesh.devices.flat):
+            slices = self.index(p, global_shape)
+            key = (str(dev), _key(slices))
+            if key not in seen:
+                seen.add(key)
+                out.append((p, slices))
+        return out
+
     def __repr__(self):
         return f"NamedSharding(mesh={self.mesh.shape}, spec={self.spec!r})"
 
@@ -213,6 +237,34 @@ class ShardedTensor:
                 self.sharding.mesh, PartitionSpec(*spec[1:])))
         return item
 
+    def all_gather_into(self, out: torch.Tensor) -> torch.Tensor:
+        """The all-gather into a fixed buffer: every distinct shard copied
+        into its block of ``out`` (the global shape), in position order;
+        a shard that already is that block of ``out`` (the same memory)
+        is skipped.  In place and capturable: a CUDA graph replays the
+        same copies between the same addresses."""
+        for slices, t in self.unique_shards():
+            block = out[slices]
+            if not _same_memory(block, t):
+                block.copy_(t)
+        return out
+
+    def reduce_scatter_(self, src: torch.Tensor,
+                        accumulate: bool = False) -> "ShardedTensor":
+        """The reduce-scatter into these shards, in place: ``src`` (the
+        global shape) is already summed over the positions (one process
+        computes the whole batch), so each distinct shard takes its block
+        of it, in position order, written (``copy_``) or added
+        (``accumulate``) in the shard's dtype.  On one card it is a slice
+        and a copy."""
+        for slices, t in self.unique_shards():
+            block = src[slices]
+            if accumulate:
+                t.add_(block.to(t.dtype))
+            elif not _same_memory(block, t):
+                t.copy_(block)
+        return self
+
     def gather(self, device=None) -> torch.Tensor:
         """The global tensor on ``device`` (default: the first shard's)."""
         device = torch.device(device) if device is not None \
@@ -225,6 +277,12 @@ class ShardedTensor:
     def __repr__(self):
         return (f"ShardedTensor(shape={tuple(self.shape)}, "
                 f"dtype={self.dtype}, sharding={self.sharding!r})")
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` are views of the same elements."""
+    return (a.device == b.device and a.data_ptr() == b.data_ptr()
+            and a.shape == b.shape and a.stride() == b.stride())
 
 
 def _place(x, sharding: NamedSharding) -> ShardedTensor:

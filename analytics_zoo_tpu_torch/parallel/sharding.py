@@ -12,6 +12,10 @@ dots count as ``/`` (``parallel.mesh.tree_map_with_path``), so
   optimizer-state trees included.
 - ``partition_params`` wraps them in ``NamedSharding``s, which
   ``parallel.mesh.device_put`` places.
+
+The estimator applies them to its dotted parameter tree and to its
+optimizer's slot tree (``mu/<name>``, ``trace/<name>``: the rules match
+the suffix), so a weight's moments are placed as the weight.
 """
 
 from __future__ import annotations

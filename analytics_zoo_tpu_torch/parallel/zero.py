@@ -8,8 +8,8 @@ update.  This module is the spec math: which dimension of each leaf
 shards over the data axis (the first one free and divisible by ``dp``),
 composed with a tensor-parallel base spec over "model" when the weights
 are already split.  ``bytes_per_device`` reads what a placed tree holds
-per position.  The sharded training step that applies the specs is not
-ported yet (ROADMAP Queue 1 item 5).
+per position.  The estimator's sharded step applies the specs to its
+optimizer slots and gradients (``estimator/estimator.py`` ``_place``).
 
 Works on the leaves the port's trees hold: tensors, numpy arrays and
 ``ShardedTensor``s (only ``shape`` and ``dtype`` are read).

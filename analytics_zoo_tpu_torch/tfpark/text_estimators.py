@@ -6,7 +6,10 @@ its three heads, ``BERTBaseEstimator``, ``BERTClassifier``, ``BERTNER``,
 ``BERTSQuAD`` and ``_squad_loss``.  Train, evaluate and predict run
 through the port's ``Estimator``, with the JAX estimator's knobs:
 ``model_dir`` (checkpoints), ``mixed_precision``, ``steps_per_dispatch``
-(CUDA graphs on the card), ``grad_dtype`` and ``grad_accum_steps``.
+(CUDA graphs on the card), ``grad_dtype``, ``grad_accum_steps``,
+``shard_optimizer`` and ``shard_model``, which shard the step over the
+global context's mesh (``init_zoo_context``, or ``context_scope`` in the
+calling thread), as in the JAX package.
 Inputs follow the reference feature order ``[input_ids, token_type_ids,
 input_mask]``.  Each head's tree is ``{"bert": ..., "head": {"W", "b"}}``.
 The default ``bert_config`` is the JAX package's small one (hidden 128, 2

@@ -127,6 +127,31 @@ Phases, each of which raises (exit code 1) on failure:
    residual MLP stages (768 / 3072) over 8 microbatches of a batch of 256
    on ``Mesh(["cuda:0"] * 4, ("pipeline",))``: each against its unsharded
    form on the card and against the CPU (``PARALLEL_ATOL``), and their ms.
+7e. mesh_train: sharded training.  The train_bench phase's BERT-base
+   configuration (dropout 0.1, ``AdamWeightDecay(lr=1e-4,
+   state_dtype="bfloat16")`` with its schedule over the run's 16 steps,
+   mixed precision, bf16 gradients, DEVICE tier, batch 256) through
+   ``BERTClassifier(shard_optimizer=True).train`` inside
+   ``context_scope`` of a data 2 x model 2 context on ``["cuda:0"] * 4``,
+   2 epochs of 8 steps at K = 8: exactly 48 ``flash_fwd`` and 48
+   ``flash_bwd`` launches a step counted through the replays, no input
+   copied, the second epoch's loss below the first, and the weights' and
+   optimizer state's bytes a position equal to what the Megatron and ZeRO
+   specs give from the shapes (ratios against replicated printed); the
+   same run unsharded beside it (step ms, samples/s, peak memory).  Then
+   f32 at batch 32, dropout off, SGD, 4 steps: data 2 x model 2 with
+   ZeRO, data 4 with ZeRO, two microbatches and K = 4 graph replays, each
+   against the unsharded estimator (losses 1e-5 relative, weights 1e-5 of
+   max|p|), the replays also against eager; the main path's own update
+   (the bench's ``AdamWeightDecay`` with a bf16 first moment, mixed
+   precision, bf16 gradients) through ``BERTClassifier.train`` at batch
+   32, dropout off, one dispatch of 4 graph replays, data 2 x model 2
+   with ZeRO against the unsharded classifier: losses, weights and both
+   moments within ``MESH_TRAIN_BF16_TOL`` (the epoch-loss check above
+   cannot tell a wrong update from a right one over 16 steps); a per-host
+   checkpoint written at the end of epoch 1 of a sharded run and resumed
+   by a new estimator: its weights after epoch 2 equal to the
+   uninterrupted run's (0 difference).
 8. ring: ``flash_fwd_lse`` against its plain version on the card at the
    block shapes of sequence-parallel ring attention at GPT-2-small /
    BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
@@ -351,10 +376,9 @@ Phases, each of which raises (exit code 1) on failure:
    Once both fleets have stopped, every answer against the plain
    attention on the card (1e-4).
 
-The serve, train, llm, ring, heads, http and ingest phases also check
-that no kernel input was copied before a launch (the wrappers'
-``copies``).  It
-prints one JSON line of kernel numbers, the card's name and power limit,
+The serve, train, llm, ring, heads, http, ingest and mesh_train phases
+also check that no kernel input was copied before a launch (the
+wrappers' ``copies``).  It prints one JSON line of kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port beside it, it exits non-zero and prints no result.
 
@@ -368,6 +392,7 @@ synchronised), in turns.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -433,6 +458,17 @@ MP_LOGIT_ATOL = 0.0
 # BERT-base under data 2 x model 2 (7c): flash_fwd's f32 bar (a block's
 # rows are the unsharded kernel's; expect 0)
 MESH2D_ATOL = 2e-5
+# sharded training (7e): the bench's BERT-base under data 2 x model 2 with
+# the ZeRO update, 2 epochs of 8 steps at K = 8; sharded vs unsharded f32
+# steps (SGD, dropout off): losses relative, weights of max|p|
+MESH_TRAIN = dict(steps=8, epochs=2, spd=8)
+MESH_TRAIN_RTOL = 1e-5
+# the main path's update (AdamW, bf16 first moment and gradients, mixed
+# precision) sharded against unsharded: the same kernels on the same
+# inputs, the update elementwise on blocks, so the bits should agree; a
+# wrong decay mask moves a weight by lr * 0.01 * |p| a step, 1e-6 of
+# max|p|, which a looser bar would pass
+MESH_TRAIN_BF16_TOL = 0.0
 # MoE and the pipeline at BERT-base FFN width (7d): against the unsharded
 # form on the card (f32, TF32 off: other GEMM shapes), against the CPU
 # (sums of 3072 products in another order)
@@ -1476,17 +1512,20 @@ def _bench_data(cfg):
             (ids[:, 0] % 2).astype(np.int32))
 
 
-def _bench_clf(cfg, tree, spd, mixed=True, model_dir=None):
+def _bench_clf(cfg, tree, spd, mixed=True, model_dir=None, total=1000,
+               **kw):
     """The bench's classifier (f32 masters; bf16 forward, gradients and
-    first moment under mixed precision) from the weights ``tree``."""
+    first moment under mixed precision) from the weights ``tree``; its
+    schedule warms up over a tenth of ``total`` steps (the bench's 1000)
+    and decays to 0 at ``total``."""
     from analytics_zoo_tpu_torch.keras.optimizers import AdamWeightDecay
     from analytics_zoo_tpu_torch.tfpark import BERTClassifier
     low = "bfloat16" if mixed else None
     clf = BERTClassifier(
         num_classes=2, bert_config=cfg,
-        optimizer=AdamWeightDecay(lr=1e-4, state_dtype=low),
+        optimizer=AdamWeightDecay(lr=1e-4, state_dtype=low, total=total),
         mixed_precision=mixed, steps_per_dispatch=spd, grad_dtype=low,
-        model_dir=model_dir, device="cuda")
+        model_dir=model_dir, device="cuda", **kw)
     return clf.load_weights(tree)
 
 
@@ -2478,6 +2517,330 @@ def phase_mesh2d(card, cfg=BERT_BASE, batch=32):
                              "plain version's")
     return dict(launches=launches, err=err, ms=sharded_ms,
                 alone_ms=alone_ms)
+
+
+def _mesh_ctx(data, model):
+    """A context whose mesh lays ``data`` x ``model`` positions on
+    ``cuda:0``."""
+    from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+    from analytics_zoo_tpu_torch.common.context import (ZooContext,
+                                                        _build_mesh)
+    mc = MeshConfig(data=data, model=model)
+    return ZooContext(ZooConfig(mesh=mc), _build_mesh(
+        [torch.device("cuda", 0)] * (data * model), mc))
+
+
+def _spec_bytes(est, ctx, zshard):
+    """Per-position bytes of the weights and of the optimizer state as the
+    specs give them from the shapes alone (meta tensors, the JAX step's
+    rules: Megatron over "model", ZeRO over "data" composed with it), and
+    of the Megatron-matched leaves, replicated and placed."""
+    from analytics_zoo_tpu_torch.parallel.sharding import (
+        DEFAULT_TP_RULES, named_shardings, partition_specs)
+    from analytics_zoo_tpu_torch.parallel.zero import (
+        bytes_per_device, tree_bytes, zero_shardings)
+    mesh = ctx.mesh
+    meta = {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+            for n, p in est.model.named_parameters()}
+    opt = {k: v for k, v in est.optimizer.init(meta).items()
+           if k != "decayed"}
+    pspecs = partition_specs(meta, mesh)
+    ospecs = partition_specs(opt, mesh)
+    osh = (zero_shardings(opt, mesh, "data", base_specs=ospecs) if zshard
+           else named_shardings(mesh, ospecs))
+    psh = named_shardings(mesh, pspecs)
+
+    def per_position(tree, shardings):
+        total = 0
+        for (_, leaf), (_, sh) in zip(_leaves(tree), _leaves(shardings)):
+            total += int(np.prod(sh.shard_shape(leaf.shape))) \
+                * leaf.element_size()
+        return total
+
+    matched = lambda n: any(r.matches(n.replace(".", "/"))
+                            for r in DEFAULT_TP_RULES)
+    mp_names = [n for n in meta if matched(n)]
+    sub = lambda t: {n: t[n] for n in mp_names}
+    return dict(
+        weights=per_position(meta, psh), opt=per_position(opt, osh),
+        weights_all=tree_bytes(meta), opt_all=tree_bytes(opt),
+        matched_w=(bytes_per_device(sub(est.params)),
+                   tree_bytes(sub(meta))),
+        matched_opt=(bytes_per_device(sub(est.opt_state["nu"])),
+                     tree_bytes(sub(opt["nu"]))))
+
+
+def _leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict in sorted order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _leaves(v, f"{prefix}{k}/")
+        else:
+            out.append((prefix + k, v))
+    return out
+
+
+def _mesh_train_parity(cfg, tree, data):
+    """f32 at batch 32, dropout off, SGD: the unsharded estimator against
+    the sharded ones over 4 steps (losses relative, weights of max|p|),
+    and K = 4 graph replays against eager under the mesh."""
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    fs = data.get_training_data()
+    runs = {}
+    cases = (("unsharded", None, {}),
+             ("data 2 x model 2, ZeRO", (2, 2), dict(shard_optimizer=True)),
+             ("data 4, ZeRO", (4, 1), dict(shard_optimizer=True)),
+             ("data 2 x model 2, ZeRO, 2 microbatches", (2, 2),
+              dict(shard_optimizer=True, grad_accum_steps=2)),
+             ("data 2 x model 2, ZeRO, K=4 graph", (2, 2),
+              dict(shard_optimizer=True, steps_per_dispatch=4)))
+    for what, mesh, kw in cases:
+        net = BERTClassifier(2, bert_config=cfg, device="cuda").net
+        net.set_weights(tree)
+        ctx = _mesh_ctx(*mesh) if mesh else None
+        est = Estimator(net, SGD(lr=0.05), "sparse_categorical_crossentropy",
+                        ctx=ctx, device="cuda", **kw)
+        with _DispatchLosses() as rec:
+            est.train(fs, BATCH, epochs=1)
+        torch.cuda.synchronize()
+        runs[what] = (rec.losses, {n: p.detach().clone()
+                                   for n, p in net.named_parameters()})
+        del est, net
+        _release()
+    out = {}
+    ref_l, ref_w = runs["unsharded"]
+    pairs = [(w, "unsharded") for w, _, _ in cases[1:]]
+    pairs.append(("data 2 x model 2, ZeRO, K=4 graph",
+                  "data 2 x model 2, ZeRO"))
+    for what, against in pairs:
+        got_l, got_w = runs[what]
+        want_l, want_w = runs[against]
+        lw = _close(f"{what} vs {against}", got_l, want_l,
+                    MESH_TRAIN_RTOL, phase="mesh_train")
+        ww = max(((got_w[n] - p).abs().max()
+                  / p.abs().max().clamp_min(1e-30)).item()
+                 for n, p in want_w.items())
+        log(f"[mesh_train] ... weights: worst |d|/max|p| {ww:.3e} (tol "
+            f"{MESH_TRAIN_RTOL:g})")
+        if ww > MESH_TRAIN_RTOL:
+            raise AssertionError(f"{what}: weights differ from {against}")
+        out[f"{what} vs {against}"] = dict(loss=lw, weights=ww)
+    return out
+
+
+def _mesh_train_main_update(cfg, tree, data):
+    """The main path's optimizer and precision under the mesh: the bench's
+    classifier (AdamWeightDecay with a bf16 first moment, mixed
+    precision, bf16 gradients; dropout off) through
+    ``BERTClassifier.train``, one dispatch of 4 graph replays at batch
+    32, under data 2 x model 2 with ZeRO against the unsharded one:
+    losses relative, weights and both moments of max|.|."""
+    from analytics_zoo_tpu_torch.common.context import context_scope
+    from analytics_zoo_tpu_torch.parallel import ShardedTensor
+    from analytics_zoo_tpu_torch.parallel.zero import (bytes_per_device,
+                                                       tree_bytes)
+    full = lambda t: t.gather() if isinstance(t, ShardedTensor) else t
+    runs = {}
+    for what in ("unsharded", "sharded"):
+        clf = _bench_clf(cfg, tree, 4, total=4,
+                         shard_optimizer=what == "sharded")
+        scope = (context_scope(_mesh_ctx(2, 2)) if what == "sharded"
+                 else contextlib.nullcontext())
+        with scope, _DispatchLosses() as rec:
+            clf.train(lambda: data, epochs=1)
+        torch.cuda.synchronize()
+        est = clf._train_est
+        mu = {k: v for k, v in est.opt_state["mu"].items()}
+        if what == "sharded" and not (
+                est._plan.masters is not None
+                and bytes_per_device(mu) < tree_bytes(mu)):
+            raise AssertionError("mesh_train: the bf16 AdamW run was not "
+                                 "placed by the Megatron and ZeRO specs")
+        state = {f"{k}.{n}": full(t).float().clone() for k in ("mu", "nu")
+                 for n, t in est.opt_state[k].items()}
+        state.update({n: p.detach().float().clone()
+                      for n, p in est.model.named_parameters()})
+        runs[what] = (rec.losses, state)
+        del clf, est
+        _release()
+    (got_l, got), (want_l, want) = runs["sharded"], runs["unsharded"]
+    what = "data 2 x model 2, ZeRO, AdamW bf16 (the main path's update)"
+    lw = _close(f"{what} vs unsharded", got_l, want_l, MESH_TRAIN_BF16_TOL,
+                phase="mesh_train")
+    kind = lambda n: (n.split(".")[0] if n.split(".")[0] in ("mu", "nu")
+                      else "weights")
+    worst = dict.fromkeys(("weights", "mu", "nu"), 0.0)
+    for n, w in want.items():
+        d = ((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        worst[kind(n)] = max(worst[kind(n)], d.item())
+    log(f"[mesh_train] ... worst |d|/max|.| weights {worst['weights']:.3e}, "
+        f"first moment {worst['mu']:.3e}, second moment {worst['nu']:.3e} "
+        f"(tol {MESH_TRAIN_BF16_TOL:g})")
+    if max(worst.values()) > MESH_TRAIN_BF16_TOL:
+        raise AssertionError(f"{what}: the update differs from the "
+                             f"unsharded one: {worst}")
+    return dict(loss=lw, **worst)
+
+
+def _mesh_train_resume(cfg, tree, data):
+    """A per-host checkpoint written at the end of epoch 1 of a sharded
+    f32 run (data 2 x model 2, ZeRO, K = 4) and restored by a new
+    estimator, which trains epoch 2: its weights against the
+    uninterrupted run's, to 0 difference."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.estimator import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    fs = data.get_training_data()
+
+    def run(epochs, ckdir=None, resume=False):
+        net = BERTClassifier(2, bert_config=cfg, device="cuda").net
+        net.set_weights(tree)
+        est = Estimator(net, SGD(lr=0.05, momentum=0.9),
+                        "sparse_categorical_crossentropy",
+                        ctx=_mesh_ctx(2, 2), shard_optimizer=True,
+                        steps_per_dispatch=4, checkpoint_dir=ckdir)
+        est.train(fs, BATCH, epochs=epochs, resume=resume)
+        torch.cuda.synchronize()
+        return est, {n: p.detach().clone() for n, p in net.named_parameters()}
+
+    whole = run(2)[1]
+    _release()
+    tmp = tempfile.mkdtemp(prefix="zoo_mesh_ckpt_")
+    save = est_mod.save_checkpoint
+    est_mod.save_checkpoint = (lambda d, s, b, keep=3:
+                               save(d, s, b, keep=keep, per_host=True))
+    try:
+        run(1, tmp)
+    finally:
+        est_mod.save_checkpoint = save
+    try:
+        ck = ckpt.latest_checkpoint(tmp)
+        files = sorted(os.listdir(ck))
+        if "shards.h0.npz" not in files:
+            raise AssertionError(f"no per-host shard file in {ck}: {files}")
+        est, resumed = run(2, tmp, resume=True)
+        diff = max((resumed[n] - p).abs().max().item()
+                   for n, p in whole.items())
+        log(f"[mesh_train] per-host checkpoint {os.path.basename(ck)} "
+            f"({', '.join(files)}) restored at step {4} -> global step "
+            f"{est.global_step}: weights vs the uninterrupted run max "
+            f"|d| {diff:.3e} (bar 0)")
+        if est.global_step != 8 or diff != 0.0:
+            raise AssertionError("the resumed sharded run differs from the "
+                                 "uninterrupted one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _release()
+    return diff
+
+
+def phase_mesh_train(card):
+    """Sharded training on the card; see the module docstring (7e)."""
+    from analytics_zoo_tpu_torch.common.context import context_scope
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.parallel.zero import bytes_per_device
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    cfg = dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
+    n_block = cfg["n_block"]
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg)
+    n = MESH_TRAIN["steps"] * BENCH["batch"]
+    ds = TFDataset.from_ndarrays((tuple(a[:n] for a in x), y[:n]),
+                                 batch_size=BENCH["batch"],
+                                 memory_type="DEVICE")
+    steps = MESH_TRAIN["steps"] * MESH_TRAIN["epochs"]
+    ctx = _mesh_ctx(2, 2)
+    out = {}
+
+    # the main path: the bench's configuration under data 2 x model 2 with
+    # the ZeRO update, through BERTClassifier.train under the context
+    for what in ("sharded", "unsharded"):
+        # the schedule spans the cut run (the bench's 100 warmup steps
+        # would hold the learning rate near 0 for all 16)
+        clf = _bench_clf(cfg, tree, MESH_TRAIN["spd"], total=steps,
+                         shard_optimizer=what == "sharded")
+        scope = (context_scope(ctx) if what == "sharded"
+                 else contextlib.nullcontext())
+        torch.cuda.reset_peak_memory_stats()
+        with scope:
+            _kernels.reset_launches()
+            clf.train(lambda: ds, epochs=MESH_TRAIN["epochs"])
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+        est = clf._train_est
+        hist = est.history
+        ms = hist[-1]["seconds"] * 1e3 / MESH_TRAIN["steps"]
+        row = dict(step_ms=ms, samples_s=BENCH["batch"] * 1e3 / ms,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   epoch_losses=[h["loss"] for h in hist],
+                   launches=launches,
+                   weight_bytes=bytes_per_device(est.params),
+                   opt_bytes=bytes_per_device(
+                       {k: v for k, v in est.opt_state.items()
+                        if k != "decayed"}))
+        log(f"[mesh_train] {what}: BERT-base bench configuration, "
+            f"{steps} steps ({MESH_TRAIN['epochs']} epochs of one "
+            f"{MESH_TRAIN['spd']}-replay dispatch) at batch "
+            f"{BENCH['batch']}: {ms:.3f} ms a step "
+            f"({row['samples_s']:.1f} samples/s), peak "
+            f"{row['peak_gib']:.2f} GiB; epoch losses "
+            f"{' '.join(f'{v:.4f}' for v in row['epoch_losses'])}; "
+            f"launches {launches}; {card}")
+        if what == "sharded":
+            no_copies("mesh_train")
+            want = dict.fromkeys(_kernels.KERNELS, 0)
+            want.update(flash_fwd=steps * 4 * n_block,
+                        flash_bwd=steps * 4 * n_block)
+            if launches != want:
+                raise AssertionError(f"mesh_train: expected {want} "
+                                     f"launches through the replays, got "
+                                     f"{launches}")
+            losses = row["epoch_losses"]
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise AssertionError(f"mesh_train: the loss did not fall: "
+                                     f"{losses}")
+            specs = _spec_bytes(est, ctx, zshard=True)
+            log(f"[mesh_train] bytes a position: weights "
+                f"{row['weight_bytes']} (specs {specs['weights']}, "
+                f"{row['weight_bytes'] / specs['weights_all']:.4f} of "
+                f"replicated; Megatron leaves "
+                f"{specs['matched_w'][0] / specs['matched_w'][1]:.4f}), "
+                f"optimizer state {row['opt_bytes']} (specs "
+                f"{specs['opt']}, {row['opt_bytes'] / specs['opt_all']:.4f}"
+                f" of replicated; the second moment of those leaves "
+                f"{specs['matched_opt'][0] / specs['matched_opt'][1]:.4f})")
+            if (row["weight_bytes"], row["opt_bytes"]) != \
+                    (specs["weights"], specs["opt"]):
+                raise AssertionError("mesh_train: per-position bytes differ "
+                                     "from the specs'")
+            row["bytes"] = specs
+        prof = profile_breakdown(
+            lambda: clf.train(lambda: ds, epochs=1),
+            f"mesh_train {what}: one {MESH_TRAIN['spd']}-replay dispatch "
+            f"at batch {BENCH['batch']}", top=12)
+        row["busy_share"] = prof[1] / prof[0] if prof else None
+        out[what] = row
+        del clf, est
+        _release()
+
+    cfg0 = dict(BERT_BASE, hidden_drop=0.0, attn_drop=0.0)
+    small = ((tuple(a[:4 * BATCH] for a in x)), y[:4 * BATCH])
+    data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                   memory_type="DEVICE")
+    out["parity"] = _mesh_train_parity(cfg0, tree, data)
+    out["main_update"] = _mesh_train_main_update(cfg0, tree, data)
+    out["resume_diff"] = _mesh_train_resume(cfg0, tree, data)
+    return out
 
 
 def _mlp_stage(p, h):
@@ -6406,6 +6769,7 @@ def main() -> int:
     mp_llm = phase_mp_llm(card)
     mesh2d = phase_mesh2d(card)
     phase_parallel(card)
+    mesh_train = phase_mesh_train(card)
     ring_launches, ring_rows = phase_ring()
     phase_ncf(card)
     phase_zoo(card)
@@ -6446,6 +6810,12 @@ def main() -> int:
                  f"{BENCH['steps'] * BENCH['epochs']} steps, "
                  f"{BENCH['epochs']} dispatches of {BENCH['spd']} CUDA "
                  f"graph replays")
+    MESH_TRAIN_RUN = (f"the bench's BERT training under data 2 x model 2 "
+                      f"with ZeRO: "
+                      f"{MESH_TRAIN['steps'] * MESH_TRAIN['epochs']} steps "
+                      f"of 12 layers x 4 blocks, {MESH_TRAIN['epochs']} "
+                      f"dispatches of {MESH_TRAIN['spd']} CUDA graph "
+                      f"replays")
     paged_lib = "scaled_dot_product_attention over the same K/V made contiguous"
     kernels = [
         entry("flash_fwd", csrc + "flash_fwd.cu",
@@ -6479,7 +6849,10 @@ def main() -> int:
                                 f"({fleets['fleet']['forwards']} forwards)",
               mesh2d_launches=mesh2d["launches"],
               mesh2d_launches_in="one BERT-base forward at batch 32 under "
-                                 "data 2 x model 2 (12 layers x 4 blocks)"),
+                                 "data 2 x model 2 (12 layers x 4 blocks)",
+              mesh_train_launches=mesh_train["sharded"]["launches"][
+                  "flash_fwd"],
+              mesh_train_launches_in=MESH_TRAIN_RUN),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               bench_launches["flash_bwd"], launches_in=BENCH_RUN,
@@ -6489,7 +6862,10 @@ def main() -> int:
                               for h in HEADS},
               heads_launches_in=HEADS_RUN, t384=t384_rows("flash_bwd"),
               ingest_launches=ingest["squad"]["launches"]["flash_bwd"],
-              ingest_launches_in=INGEST_RUN),
+              ingest_launches_in=INGEST_RUN,
+              mesh_train_launches=mesh_train["sharded"]["launches"][
+                  "flash_bwd"],
+              mesh_train_launches_in=MESH_TRAIN_RUN),
         entry("paged_decode", csrc + "paged_decode.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:79",
               paged_rows["paged_decode"], llm_launches["paged_decode"],

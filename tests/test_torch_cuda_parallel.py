@@ -9,7 +9,14 @@ for bit (each shard splits its keys as the whole call does), over placed
 pools read in place (no copies); sharded flash attention at dp 2 x mp 2
 launches once per block and equals the unsharded kernel bit for bit,
 with its dropout keep-mask equal to the plain version's; a sharded
-decoder LM serves the unsharded engine's tokens.
+decoder LM serves the unsharded engine's tokens.  The estimator's sharded
+step (a small BERT, f32, dropout off, SGD): data 2 x model 2 with the
+ZeRO update, data 4 with ZeRO, two microbatches and K = 2 graph replays,
+each against the unsharded step (losses 1e-5 relative, weights 1e-5 of
+max|p|), the graph against eager bit for bit, with 4 + 4 kernel launches
+a layer and step under the 2 x 2 mesh; the bench's update (AdamW with a
+bf16 first moment, mixed precision, bf16 gradients) under data 2 x model
+2 with ZeRO equal to the unsharded one bit for bit.
 """
 
 import numpy as np
@@ -156,3 +163,85 @@ def test_sharded_decoder_serves_the_unsharded_tokens(dev):
     assert _kernels.paged_decode.launches > 0
     assert _kernels.paged_decode.launches % 4 == 0     # 2 layers x 2
     assert not any(w.copies for w in _kernels.KERNELS.values())
+
+
+BERT_SMALL = dict(vocab=128, hidden_size=128, n_block=2, n_head=4,
+                  seq_len=32, intermediate_size=256, hidden_drop=0.0,
+                  attn_drop=0.0)
+
+
+def _bert_run(dev, ctx, steps=4, batch=8, opt=None, **kw):
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    rs = np.random.default_rng(3)
+    T, n = BERT_SMALL["seq_len"], steps * batch
+    ids = rs.integers(0, BERT_SMALL["vocab"], (n, T)).astype(np.int32)
+    lens = rs.integers(T // 2, T + 1, n)
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    ds = TFDataset.from_ndarrays(((ids, np.zeros_like(ids), mask),
+                                  (ids[:, 0] % 2).astype(np.int32)),
+                                 batch_size=batch, memory_type="DEVICE")
+    torch.manual_seed(0)
+    net = BERTClassifier(2, bert_config=BERT_SMALL, device=dev).net
+    est = Estimator(net, opt or SGD(lr=0.05, momentum=0.9),
+                    "sparse_categorical_crossentropy", ctx=ctx, device=dev,
+                    **kw)
+    _kernels.reset_launches()
+    hist = est.train(ds.get_training_data(), batch, epochs=1)
+    torch.cuda.synchronize()
+    return (hist[-1]["loss"], {n: p.detach().clone()
+                               for n, p in net.named_parameters()},
+            _kernels.flash_fwd.launches, _kernels.flash_bwd.launches)
+
+
+def _ctx(data, model):
+    from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+    from analytics_zoo_tpu_torch.common.context import (ZooContext,
+                                                        _build_mesh)
+    mc = MeshConfig(data=data, model=model)
+    return ZooContext(ZooConfig(mesh=mc), _build_mesh(
+        [torch.device("cuda", 0)] * (data * model), mc))
+
+
+@pytest.mark.parametrize("mesh,kw", [
+    ((2, 2), dict(shard_optimizer=True)),
+    ((4, 1), dict(shard_optimizer=True)),
+    ((2, 2), dict(shard_optimizer=True, grad_accum_steps=2)),
+    ((2, 2), dict(shard_optimizer=True, steps_per_dispatch=2))],
+    ids=["dp2mp2-zero", "dp4-zero", "accum2", "graph-k2"])
+def test_sharded_bert_step_equals_the_unsharded_step(dev, mesh, kw):
+    loss0, w0, fwd0, bwd0 = _bert_run(dev, None)
+    loss, w, fwd, bwd = _bert_run(dev, _ctx(*mesh), **kw)
+    assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+    for name, p in w0.items():
+        assert (w[name] - p).abs().max() <= 1e-5 * p.abs().max(), name
+    calls = BERT_SMALL["n_block"] * 4              # 2 layers, 4 steps
+    assert (fwd0, bwd0) == (calls, calls)
+    calls *= 4 if mesh == (2, 2) else 1   # data alone: unsharded attention
+    calls *= kw.get("grad_accum_steps", 1)         # a forward a microbatch
+    assert (fwd, bwd) == (calls, calls)
+    assert not any(k.copies for k in _kernels.KERNELS.values())
+
+
+def test_sharded_graph_replays_equal_eager_bit_for_bit(dev):
+    eager = _bert_run(dev, _ctx(2, 2), shard_optimizer=True)
+    graph = _bert_run(dev, _ctx(2, 2), shard_optimizer=True,
+                      steps_per_dispatch=4)
+    assert graph[0] == eager[0]
+    for name, p in eager[1].items():
+        assert torch.equal(graph[1][name], p), name
+    assert graph[2:] == eager[2:]
+
+
+def test_sharded_bf16_adamw_update_equals_unsharded(dev):
+    from analytics_zoo_tpu_torch.keras.optimizers import AdamWeightDecay
+    kw = dict(mixed_precision=True, grad_dtype="bfloat16",
+              steps_per_dispatch=4)
+    opt = lambda: AdamWeightDecay(lr=1e-3, state_dtype="bfloat16", total=4)
+    loss0, w0, _, _ = _bert_run(dev, None, opt=opt(), **kw)
+    loss, w, _, _ = _bert_run(dev, _ctx(2, 2), opt=opt(),
+                              shard_optimizer=True, **kw)
+    assert loss == loss0
+    for name, p in w0.items():
+        assert torch.equal(w[name], p), name

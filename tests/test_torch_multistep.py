@@ -412,13 +412,13 @@ def test_bf16_pooler_bias_gradient_and_normalised_step_match_jax():
     test = TE.Estimator(tnet, TAdamW(state_dtype="bfloat16", **OPT), LOSS,
                         device="cpu", mixed_precision=True,
                         grad_dtype="bfloat16")
-    tgrads, update = {}, test.optimizer.update
+    tgrads, update = {}, test.optimizer.update_blocks
 
-    def spy(params, grads, state):
+    def spy(blocks, state):           # no mesh: one block a leaf
         tgrads.update({k: v.float().numpy().copy()
-                       for k, v in grads.items()})
-        return update(params, grads, state)
-    test.optimizer.update = spy
+                       for k, v in zip(blocks.names, blocks.gs)})
+        return update(blocks, state)
+    test.optimizer.update_blocks = spy
     test.train(FeatureSet.from_ndarrays(xb, yb, shuffle=False),
                batch_size=8, epochs=1)
 
@@ -482,15 +482,15 @@ def test_bf16_pooler_bias_sign_split_over_the_16_steps():
 
     test = TE.Estimator(tnet, TAdamW(state_dtype="bfloat16", **OPT), LOSS,
                         device="cpu", **kw)
-    tlog, update = [], test.optimizer.update
+    tlog, update = [], test.optimizer.update_blocks
 
-    def tspy(params, grads, state):
-        g = grads[name].float().numpy().copy()
-        update(params, grads, state)
+    def tspy(blocks, state):          # no mesh: one block a leaf
+        g = blocks.gs[blocks.names.index(name)].float().numpy().copy()
+        update(blocks, state)
         t = float(state["count"])
         tlog.append((g, normalised(state["mu"][name].float().numpy(),
                                    state["nu"][name].float().numpy(), t)))
-    test.optimizer.update = tspy
+    test.optimizer.update_blocks = tspy
 
     jopt = JAdamW(state_dtype="bfloat16", **OPT)
     jlog, jupdate = [], jopt.update

@@ -49,15 +49,15 @@ DIFFERENCES = {
     "common.context.init_zoo_context": ("", "devices", DEVICE),
     "common.health.HealthMonitor.__init__": ("", "device", DEVICE),
     "data.sharded.ShardedFeatureSet.batches": ("", "device", DEVICE),
-    "data.featureset.FeatureSet.batches": ("ctx", "device", DEVICE),
-    "data.featureset.FeatureSet.batches_with_counts": ("ctx", "device",
+    "data.featureset.FeatureSet.batches": ("", "device", DEVICE),
+    "data.featureset.FeatureSet.batches_with_counts": ("", "device",
                                                        DEVICE),
-    "data.featureset.DeviceFeatureSet.batches": ("ctx", "device", DEVICE),
+    "data.featureset.DeviceFeatureSet.batches": ("", "device", DEVICE),
     "data.featureset.DeviceFeatureSet.batches_with_counts": (
-        "ctx", "device", DEVICE),
-    "data.featureset.DeviceFeatureSet.stacked_epoch": ("ctx", "device",
+        "", "device", DEVICE),
+    "data.featureset.DeviceFeatureSet.stacked_epoch": ("", "device",
                                                        DEVICE),
-    "estimator.estimator.Estimator.__init__": ("ctx", "config device",
+    "estimator.estimator.Estimator.__init__": ("", "config device",
                                                DEVICE),
     "estimator.estimator.Estimator.train": ("rng", "seed", RNG),
     "inference.inference_model.InferenceModel.__init__": ("", "device",
@@ -697,13 +697,13 @@ def _unported_calls():
     calls = [(f"TrainConfig.{k}", lambda k=k, v=v: cfg.TrainConfig(**{k: v}),
               k, item) for k, v, item in (
         ("failure_retry_window_sec", 60, 2), ("donate_state", False, 2),
-        ("rng_impl", "threefry", 2), ("shard_model", False, 5))]
+        ("rng_impl", "threefry", 2))]
     # ported since: the call takes the argument and keeps what it says
     calls += [(f"TrainConfig.{k}",
                lambda k=k, v=v: getattr(cfg.TrainConfig(**{k: v}), k) == v,
                k, None) for k, v in (
         ("failure_retry_times", 3), ("keep_checkpoints", 1),
-        ("max_steps_per_dispatch", 8))]
+        ("max_steps_per_dispatch", 8), ("shard_model", False))]
     calls += [(f"ZooConfig.{k}", lambda k=k, v=v: cfg.ZooConfig(**{k: v}),
                k, 5) for k, v in (
         ("coordinator_address", "host:1234"), ("num_processes", 2),
@@ -745,7 +745,8 @@ def _unported_calls():
          lambda: _sharded_entry_matches(generation, "decode_step"),
          "mesh", None),
         ("Embedding.partition",
-         lambda: Embedding(4, 2, partition="model"), "partition", 5),
+         lambda: Embedding(4, 2, partition="model").partition == "model",
+         "partition", None),
     ]
     return calls
 

@@ -273,9 +273,26 @@ def test_ner_loss_covers_padding_tokens():
 
 @pytest.mark.parametrize("cls", [TT.BERTNER, TT.BERTSQuAD])
 def test_sharding_options_name_item_5(cls):
+    # the options item 5 ported train under the global context: the ZeRO
+    # update and Megatron-placed weights over data 2 x model 2 of the CPU
+    from analytics_zoo_tpu_torch.common import context as tctx
+    from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+    from analytics_zoo_tpu_torch.parallel import bytes_per_device, tree_bytes
     args = (TAGS,) if cls is TT.BERTNER else ()
-    for kw in (dict(shard_optimizer=True), dict(shard_model=True)):
-        est = cls(*args, bert_config=CFG, device="cpu", **kw)
-        x, y = (_ner_data if cls is TT.BERTNER else _squad_data)(8)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            est.train(TTFDataset.from_ndarrays((tuple(x), y), batch_size=4))
+    x, y = (_ner_data if cls is TT.BERTNER else _squad_data)(8)
+    tctx.reset_context()
+    tctx.init_zoo_context(ZooConfig(mesh=MeshConfig(data=2, model=2)),
+                          devices=["cpu"] * 4)
+    try:
+        for kw in (dict(shard_optimizer=True), dict(shard_model=True)):
+            est = cls(*args, bert_config=CFG, device="cpu", **kw)
+            est.train(TTFDataset.from_ndarrays((tuple(x), y), batch_size=4),
+                      seed=1)
+            inner = est._train_est
+            assert inner.global_step == 2
+            assert np.isfinite(inner.history[-1]["loss"])
+            tree = inner.params if "shard_model" in kw else {
+                k: v for k, v in inner.opt_state.items() if k != "decayed"}
+            assert bytes_per_device(tree) < tree_bytes(tree)
+    finally:
+        tctx.reset_context()

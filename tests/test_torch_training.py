@@ -22,6 +22,9 @@ from analytics_zoo_tpu.keras.optimizers import AdamWeightDecay as JAdamW
 from analytics_zoo_tpu.tfpark import TFDataset as JTFDataset
 from analytics_zoo_tpu.tfpark.text_estimators import BERTClassifier as JBERT
 from analytics_zoo_tpu_torch import interop
+from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+from analytics_zoo_tpu_torch.common.context import ZooContext, _build_mesh
+from analytics_zoo_tpu_torch.parallel import bytes_per_device, tree_bytes
 from analytics_zoo_tpu_torch.estimator import Estimator
 from analytics_zoo_tpu_torch.estimator import estimator as TE
 from analytics_zoo_tpu_torch.keras.layers import (
@@ -220,17 +223,25 @@ def test_validation_during_training_sets_the_score():
 
 
 def test_estimator_options_not_ported_raise():
-    # the sharded update and tensor parallelism stay with ROADMAP Queue 1
-    # item 5; every other option of the JAX estimator trains now (each
-    # for two steps here; their parity with JAX is test_torch_multistep.py)
+    # every option of the JAX estimator trains now (each for two steps
+    # here; their parity with JAX is test_torch_multistep.py, and the
+    # sharded ones' test_torch_mesh_train.py): the ZeRO update and the
+    # Megatron-placed weights on a data 2 x model 2 mesh of the CPU
     net = TBERT(num_classes=2, bert_config=CFG, device="cpu").net
-    for kw in (dict(shard_optimizer=True), dict(shard_model=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-            Estimator(net, "adam", "sparse_categorical_crossentropy",
-                      device="cpu", **kw)
     x, y = _data(8)
     fs = TTFDataset.from_ndarrays((tuple(x), y), batch_size=4) \
         .get_training_data()
+    mc = MeshConfig(data=2, model=2)
+    ctx = ZooContext(ZooConfig(mesh=mc),
+                     _build_mesh([torch.device("cpu")] * 4, mc))
+    for kw in (dict(shard_optimizer=True), dict(shard_model=True)):
+        est = Estimator(net, "adam", "sparse_categorical_crossentropy",
+                        ctx=ctx, **kw)
+        hist = est.train(fs, 4, seed=1)
+        assert est.global_step == 2 and np.isfinite(hist[-1]["loss"])
+        tree = est.params if "shard_model" in kw else {
+            k: v for k, v in est.opt_state.items() if k != "decayed"}
+        assert bytes_per_device(tree) < tree_bytes(tree)
     for kw in (dict(steps_per_dispatch=2), dict(grad_accum_steps=2),
                dict(remat=True),
                dict(mixed_precision=True, grad_dtype="bfloat16")):
