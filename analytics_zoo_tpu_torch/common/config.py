@@ -9,8 +9,10 @@ Copied from ``analytics_zoo_tpu/common/config.py`` (the port cannot import
 that module: every ``analytics_zoo_tpu`` import loads jax).  Fields whose
 machinery is not ported take the JAX default, and any other value raises
 ``NotImplementedError`` naming the ROADMAP item that ports it
-(``common/unported.py``): the multi-process fields of ``ZooConfig``
-(item 5) and the unported ``TrainConfig`` fields (item 2).  ``DataConfig`` and ``FleetConfig`` are fields only: the port has
+(``common/unported.py``): the unported ``TrainConfig`` fields (item 2).
+``ZooConfig``'s ``coordinator_address``, ``num_processes`` and
+``process_id`` are taken as the JAX package takes them:
+``init_zoo_context`` rendezvouses over ``torch.distributed``.  ``DataConfig`` and ``FleetConfig`` are fields only: the port has
 no fleet, and its estimator reads no data tier setting.  ``ServingConfig`` fields that
 need the tenancy, image decode or TensorBoard machinery are refused by
 ``ClusterServing``.
@@ -304,7 +306,8 @@ class ZooConfig:
     data: DataConfig = field(default_factory=DataConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
-    # multi-host bring-up: one process only (ROADMAP Queue 1 item 5)
+    # multi-process bootstrap ("host:port" of process 0's rendezvous;
+    # common.context.init_zoo_context)
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
@@ -315,13 +318,6 @@ class ZooConfig:
     default_dtype: str = "float32"
     # the forward / backward dtype of mixed-precision training
     compute_dtype: str = "bfloat16"
-
-    def __post_init__(self):
-        reject("ZooConfig", 5,
-               coordinator_address=self.coordinator_address or None,
-               num_processes=(None if (self.num_processes or 1) == 1
-                              else self.num_processes),
-               process_id=self.process_id or None)
 
     def replace(self, **kw) -> "ZooConfig":
         return dataclasses.replace(self, **kw)

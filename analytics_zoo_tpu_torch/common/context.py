@@ -14,11 +14,22 @@ calling thread.  ``ZooContext`` carries the mesh's sharding helpers
 (``sharding``, ``data_sharding``, ``replicated``, ``replicate``), over the
 port's ``NamedSharding`` and ``device_put``.
 
-The port is single-process: this process places every shard
-(``replicate``) and the estimator's sharded step runs every mesh position
-on the model's device.  The multi-host bring-up of the JAX package
-(``jax.distributed``) and each position on its own card are ROADMAP
-Queue 1 item 5.
+Several processes: a ``ZooConfig`` with ``coordinator_address``,
+``num_processes`` and ``process_id`` makes ``init_zoo_context``
+rendezvous over ``torch.distributed`` (``parallel.distributed.
+initialize``, where the JAX package calls ``jax.distributed.initialize``)
+and build a mesh over every process's positions: process ``r`` drives
+``cuda:(r % device_count)`` (the host under ``platform="cpu"``) unless
+``devices=`` names its own, and its positions come after those of the
+processes before it, so the processes split the "data" axis and each
+holds whole rows of the mesh (a mesh that would split a model group
+across processes raises).  The context reports ``process_index``,
+``process_count`` and the group's ``backend``; ``replicate`` places a
+value every process supplies whole, as in the JAX package.  A context of
+a given group and rank is built directly: ``ZooContext(config,
+_build_mesh(devices, mesh_config, group))``.  Within a process the
+estimator's sharded step runs every position on the model's device; each
+position on its own card is ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ import torch
 
 from analytics_zoo_tpu_torch.common.config import (
     MeshConfig, ZooConfig, load_config)
+from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
+from analytics_zoo_tpu_torch.parallel import distributed
 from analytics_zoo_tpu_torch.parallel.mesh import (
     Mesh, NamedSharding, PartitionSpec, device_put)
 
@@ -85,7 +98,27 @@ class ZooContext:
         self.config = config
         self.mesh = mesh
         #: the torch device type of the mesh: "cuda" or "cpu"
-        self.platform = mesh.devices.flat[0].type
+        self.platform = mesh.local_devices[0].type
+
+    # ---- processes --------------------------------------------------------
+    @property
+    def process_index(self) -> int:
+        return self.mesh.process_index
+
+    @property
+    def process_count(self) -> int:
+        return self.mesh.process_count
+
+    @property
+    def group(self):
+        """The processes' ``parallel.distributed.Group`` (None: one)."""
+        return self.mesh.group
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The collectives' backend, "nccl" or "gloo" (None: one
+        process)."""
+        return None if self.mesh.group is None else self.mesh.group.backend
 
     # ---- axis facts -------------------------------------------------------
     @property
@@ -118,15 +151,27 @@ class ZooContext:
 
     def replicate(self, tree):
         """``tree`` (tensors or numpy arrays) placed whole at every mesh
-        position (``parallel.mesh.device_put``)."""
+        position of this process (``parallel.mesh.device_put``): every
+        process supplies the full value, the JAX package's contract."""
         return device_put(tree, self.replicated)
 
     def __repr__(self):
+        procs = ("" if self.process_count == 1 else
+                 f", process {self.process_index} of {self.process_count}"
+                 f" over {self.backend}")
         return (f"ZooContext(platform={self.platform}, "
-                f"mesh={self.mesh.shape})")
+                f"mesh={self.mesh.shape}{procs})")
 
 
-def _build_mesh(devices: Sequence[torch.device], mc: MeshConfig) -> Mesh:
+def _build_mesh(devices: Sequence[torch.device], mc: MeshConfig,
+                group=None) -> Mesh:
+    """The mesh ``mc`` lays out over ``devices``; with a ``group`` of P
+    processes, ``devices`` are this process's and the mesh has P times as
+    many positions, process ``q``'s after those of the processes before
+    it."""
+    local = list(devices)
+    procs = 1 if group is None else group.size
+    devices = local * procs
     n = len(devices)
     sizes = {"data": mc.data, "model": mc.model, "sequence": mc.sequence,
              "expert": mc.expert, "pipeline": mc.pipeline}
@@ -150,7 +195,18 @@ def _build_mesh(devices: Sequence[torch.device], mc: MeshConfig) -> Mesh:
     shape = tuple(sizes[a] for a in mc.axis_names)
     flat = np.empty(n, dtype=object)
     flat[:] = list(devices)
-    return Mesh(flat.reshape(shape), mc.axis_names)
+    if procs == 1:
+        return Mesh(flat.reshape(shape), mc.axis_names)
+    # a process's positions are whole rows of the data axis, which leads
+    row = n // sizes["data"]
+    if mc.axis_names[0] != "data" or len(local) % row:
+        raise NotImplementedError(
+            f"a mesh of {sizes} over {procs} processes of {len(local)} "
+            f"devices each would split a group of the other axes across "
+            f"processes ({QUEUE_ITEMS[5]})")
+    owners = np.repeat(np.arange(procs), len(local)).reshape(shape)
+    return Mesh(flat.reshape(shape), mc.axis_names, processes=owners,
+                process_index=group.rank, group=group)
 
 
 def init_zoo_context(conf: Optional[ZooConfig] = None,
@@ -173,17 +229,37 @@ def init_zoo_context(conf: Optional[ZooConfig] = None,
     raises ``ValueError``.  A caller may name devices, repeated as often
     as the mesh has shards: ``["cpu"] * 8`` runs an 8-shard mesh on the
     host (as the tests do), ``["cuda:0"] * 4`` four shards on one card.
+
+    With ``cfg.coordinator_address`` and ``cfg.num_processes`` > 1 the
+    process first rendezvouses with the others as ``cfg.process_id``
+    (``parallel.distributed.initialize``); its default device is then
+    ``cuda:(process_id % device_count)``, made the current device (or the
+    host under ``platform="cpu"``), and ``devices`` name this process's
+    own.
     """
     global _context
     with _lock:
         if _context is not None:
             return _context
         cfg = conf or load_config(config_path, **overrides)
-        if devices is None:
+        group = None
+        if cfg.coordinator_address and (cfg.num_processes or 1) > 1:
+            rank = int(cfg.process_id or 0)
+            if devices is None:
+                devices = _platform_devices(cfg.platform)
+                devices = [devices[rank % len(devices)]]
+            else:
+                devices = [resolve_device(d) for d in devices]
+            if devices[0].type == "cuda":
+                torch.cuda.set_device(devices[0])
+            group = distributed.initialize(cfg.coordinator_address,
+                                           cfg.num_processes, rank,
+                                           devices[0])
+        elif devices is None:
             devices = _platform_devices(cfg.platform)
         else:
             devices = [resolve_device(d) for d in devices]
-        _context = ZooContext(cfg, _build_mesh(devices, cfg.mesh))
+        _context = ZooContext(cfg, _build_mesh(devices, cfg.mesh, group))
         logger.info("initialized %s", _context)
         return _context
 

@@ -32,6 +32,7 @@ import torch
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.context import resolve_device
 from analytics_zoo_tpu_torch.common.resilience import CircuitBreaker
+from analytics_zoo_tpu_torch.parallel import distributed
 from analytics_zoo_tpu_torch.testing import chaos
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.health")
@@ -171,7 +172,7 @@ class HealthMonitor:
                 "devices": dev_status,
                 "probes": self._status["probes"] + 1,
                 "last_probe_ts": time.time(),
-                "process_index": 0,
+                "process_index": distributed.process_index(),
             }
             snap = dict(self._status)
         if was_healthy and not all_ok:

@@ -16,8 +16,9 @@ QUEUE_ITEMS = {
     2: "ROADMAP Queue 1 item 2: the rest of training, with the "
        "TrainConfig fields failure_retry_window_sec, donate_state and "
        "rng_impl, and loading a KerasNet file the JAX package wrote",
-    5: "ROADMAP Queue 1 item 5: the rest of parallel/, with "
-       "multi-process bring-up and each mesh position on its own card",
+    5: "ROADMAP Queue 1 item 5: the rest of parallel/, with each mesh "
+       "position of a process on its own card, a model group split "
+       "across processes, and the four-card and NCCL measurements",
     6: "ROADMAP Queue 1 item 6: the rest, with net/ (torch.optim and "
        "tf.keras optimizer conversion), feature/, the rest of tfpark/ "
        "and InferenceSummary",

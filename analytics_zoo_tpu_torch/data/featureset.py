@@ -7,9 +7,16 @@ is a permutation from the ``"records"`` stream of ``epoch_rng(seed,
 epoch)``, so the same seed and epoch give the same batches as the JAX
 package.  Where the JAX version shards each batch over a device mesh, this
 one copies it to one device as torch tensors: given ``ctx=``, the mesh's
-device (one process runs every data position there; a position on its own
-card is ROADMAP Queue 1 item 5), with the JAX package's check that the
-global batch divides by the data axis.
+device (one process runs every data position of its own there; a position
+on its own card is ROADMAP Queue 1 item 5), with the JAX package's check
+that the global batch divides by the data axis.  Given the ``ctx=`` of a
+job of P processes (the estimator's training feed), each process takes
+rows ``[r * B/P, (r + 1) * B/P)`` of every global batch of B rows, as
+``make_array_from_process_local_data`` assembles a global batch from
+each process's rows, and a B that P does not divide raises the JAX
+package's ``ValueError``; the DEVICE tier then keeps its epoch's batches
+on the host and feeds each process its rows of them in the resident
+epoch's order, where the JAX tier takes its per-batch path.
 
 ``cache_device()`` (the DEVICE tier, ``memory_type="DEVICE"``) keeps the
 epoch's batches resident on the card as one ``(steps, batch, ...)`` tensor
@@ -96,7 +103,24 @@ def _ctx_device(batch_size: int, device, ctx):
     if ctx is None:
         return device
     _check_divisible(batch_size, ctx)
-    return device if device is not None else ctx.mesh.devices.flat[0]
+    return device if device is not None else ctx.mesh.local_devices[0]
+
+
+def _process_rows(batch_size: int, ctx) -> Optional[slice]:
+    """This process's rows of a global batch of ``batch_size`` under the
+    ``ctx`` of several processes (None: every row)."""
+    pc = 1 if ctx is None else ctx.process_count
+    if pc == 1:
+        return None
+    if batch_size % pc != 0:
+        raise ValueError(f"global batch_size {batch_size} must divide by "
+                         f"the process count {pc}")
+    lbs = batch_size // pc
+    return slice(ctx.process_index * lbs, (ctx.process_index + 1) * lbs)
+
+
+def _multi_process(ctx) -> bool:
+    return ctx is not None and ctx.process_count > 1
 
 
 def _tree_len(tree: Tree) -> int:
@@ -278,10 +302,15 @@ class FeatureSet:
         """``(x, y, rows)`` on ``device`` (else ``ctx``'s mesh device);
         ordered by default (the evaluate / predict feed, whose outputs
         line up with the rows).  A ragged last batch keeps its real size:
-        one device needs no padding."""
+        one device needs no padding.  Under the ``ctx`` of several
+        processes, this process's rows of each batch."""
         device = _ctx_device(batch_size, device, ctx)
         for x, y in self.local_batches(batch_size, epoch, drop_remainder,
                                        ordered=ordered):
+            rows = _process_rows(tree_leaves(x)[0].shape[0], ctx)
+            if rows is not None:
+                x = tree_map(lambda a: a[rows], x)
+                y = None if y is None else tree_map(lambda a: a[rows], y)
             n = tree_leaves(x)[0].shape[0]
             yield (to_device(x, device),
                    None if y is None else to_device(y, device), n)
@@ -340,10 +369,12 @@ class DeviceFeatureSet:
         mesh device) and cached (one entry: a new batch size or device
         replaces it), and ``epoch``'s batch order (None: in order).
         ``None`` when an epoch has no full batch or the set has no
-        labels."""
+        labels, and under the ``ctx`` of several processes (each feeds its
+        own rows, as the JAX tier's per-batch path does)."""
         device = _ctx_device(batch_size, device, ctx)
         steps = self.steps_per_epoch(batch_size, True)
-        if steps == 0 or self.base.labels is None:
+        if (steps == 0 or self.base.labels is None
+                or _multi_process(ctx)):
             return None
         key = (batch_size, str(torch.device(device) if device is not None
                                else "cpu"))
@@ -393,10 +424,22 @@ class DeviceFeatureSet:
         from the resident epoch; a ragged or row-ordered feed from a
         shuffled cache streams from the base."""
         device = _ctx_device(batch_size, device, ctx)
+        cached = drop_remainder and not (ordered and self.shuffle_batches)
+        if cached and _multi_process(ctx):
+            # the resident epoch's batches and order, this process's rows
+            batches = self._host_epoch(batch_size)
+            perm = self._perm(len(batches), epoch)
+            rows = _process_rows(batch_size, ctx)
+            take = lambda a: a[rows]
+            for i in (range(len(batches)) if ordered or perm is None
+                      else perm):
+                x, y = batches[int(i)]
+                yield (to_device(tree_map(take, x), device),
+                       to_device(tree_map(take, y), device),
+                       rows.stop - rows.start)
+            return
         stacked = (self.stacked_epoch(batch_size, epoch, device)
-                   if drop_remainder and not (ordered
-                                              and self.shuffle_batches)
-                   else None)
+                   if cached else None)
         if stacked is None:
             yield from self.base.batches_with_counts(
                 batch_size, epoch, drop_remainder, device, ordered=ordered)
@@ -406,6 +449,17 @@ class DeviceFeatureSet:
         for i in order:
             take = lambda a: a[int(i)]
             yield tree_map(take, xs), tree_map(take, ys), batch_size
+
+    def _host_epoch(self, batch_size: int) -> list:
+        """The resident epoch's batches as host arrays (composed as
+        ``_compose`` composes them), kept for the next epochs: what each
+        of several processes feeds its rows from."""
+        key = ("host", batch_size)
+        if key not in self._cache:
+            self._cache.clear()
+            self._cache[key] = list(self.base.local_batches(
+                batch_size, 0, True, ordered=not self.shuffle_batches))
+        return self._cache[key]
 
     def evict(self) -> None:
         """Release the resident batches."""

@@ -6,9 +6,10 @@ Port of ``analytics_zoo_tpu/data/sharded.py``, with the same semantics:
   construction (``build_manifest``); TFRecord shards decode through
   ``data/tfrecord.py``, ``.npz`` shards through numpy.
 - **Per-process assignment**: shard ``i`` belongs to process ``i %
-  process_count`` (``assign_shards``).  One process drives the card, so
-  the index and count are 0 and 1 (multi-process bring-up is ROADMAP
-  Queue 1 item 5).
+  process_count`` (``assign_shards``), the index and count of the live
+  context's job (``parallel.distributed``) when the set is built; each
+  process feeds ``batch_size / process_count`` rows of every global
+  batch (``_local_bs``) from its own shards.
 - **Global shuffle**: an epoch-seeded shard permutation and a record
   shuffle within each window of ``window_shards`` consecutive permuted
   shards, every stream from ``cursor.epoch_rng``, so the same shards,
@@ -54,6 +55,7 @@ from analytics_zoo_tpu_torch.common.config import DataConfig
 from analytics_zoo_tpu_torch.data.cursor import epoch_rng
 from analytics_zoo_tpu_torch.data.featureset import (
     _Batchable, tree_flatten, tree_leaves, tree_map, tree_unflatten)
+from analytics_zoo_tpu_torch.parallel import distributed
 from analytics_zoo_tpu_torch.testing import chaos
 
 Tree = Any
@@ -68,10 +70,6 @@ _m_records = obs.lazy_counter(
 _m_depth = obs.lazy_gauge(
     "zoo_data_prefetch_depth",
     "configured depth of the sharded-ingest prefetch pipeline")
-
-#: one process drives the card (multi-process: ROADMAP Queue 1 item 5)
-_PROCESS_INDEX, _PROCESS_COUNT = 0, 1
-
 
 # --------------------------------------------------------------- manifest
 class ShardSpec:
@@ -194,8 +192,10 @@ class ShardedFeatureSet(_Batchable):
         self.verify = verify
         self._stage = (_StageStore(cache_bytes) if stage_cache else None)
         self._n = sum(s.size for s in self.manifest)
-        self._local = assign_shards(len(self.manifest), _PROCESS_INDEX,
-                                    _PROCESS_COUNT)
+        self._process_count = distributed.process_count()
+        self._local = assign_shards(len(self.manifest),
+                                    distributed.process_index(),
+                                    self._process_count)
         self._local_n = sum(self.manifest[i].size for i in self._local)
         # leaf structure (shapes past the leading dim, dtypes, treedefs),
         # recorded from the first decode; identical across shards
@@ -214,11 +214,12 @@ class ShardedFeatureSet(_Batchable):
         return True if self._spec["n_label_leaves"] else None
 
     def _local_bs(self, batch_size: int) -> int:
-        if batch_size % _PROCESS_COUNT != 0:
+        pc = self._process_count
+        if batch_size % pc != 0:
             raise ValueError(
                 f"global batch_size {batch_size} must divide by the "
-                f"process count {_PROCESS_COUNT}")
-        return batch_size // _PROCESS_COUNT
+                f"process count {pc}")
+        return batch_size // pc
 
     def steps_per_epoch(self, batch_size: int,
                         drop_remainder: bool = True) -> int:

@@ -41,12 +41,18 @@ per_host=True)``, the JAX package's ``checkpoint.py:47-302``) writes each
 sharded leaf as its shards instead: every process writes
 ``shards.h<p>.npz`` (its distinct shards) and ``shardidx.h<p>.pkl``
 (``(leaf, array name, slice bounds)`` each), and ``treedef.pkl``'s
-``partial`` names those leaves with their shape and dtype.  The port is
-one process, which holds every shard and writes them all as process 0
-(``needs_per_host``, the automatic choice, is for a leaf that spans
-processes, so it is never true here).  Restore merges the host files of
-either package's per-host checkpoints into full arrays and fails loudly
-when they do not cover a leaf (a missing host file).
+``partial`` names those leaves with their shape and dtype.  It is chosen
+by itself (``needs_per_host``) when a sharded leaf spans processes (a
+ZeRO-sharded optimizer slot over a "data" axis that several processes
+split): process 0 makes the directory, every process writes its host
+files between two barriers of the leaves' process group, process 0
+writes the rest, marks it complete and renames it, and a third barrier
+holds every process until the checkpoint exists.  Every process of such
+a job must call ``save_checkpoint``; with replicated state only process 0
+writes (the estimator's gate).  Restore merges the host files of either
+package's per-host checkpoints into full arrays (so a checkpoint of two
+processes restores in one) and fails loudly when they do not cover a
+leaf (a missing host file).
 """
 
 from __future__ import annotations
@@ -60,7 +66,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.parallel.mesh import ShardedTensor
+from analytics_zoo_tpu_torch.parallel import distributed
+from analytics_zoo_tpu_torch.parallel.mesh import ShardedTensor, block_table
 from analytics_zoo_tpu_torch.testing import chaos
 
 #: who wrote a checkpoint, in its treedef.pkl
@@ -136,7 +143,7 @@ def to_host_array(a: Any) -> np.ndarray:
     the array (bf16 comes back as its uint16 bits: numpy has no bf16)."""
     if isinstance(a, ShardedTensor):
         out = np.empty(tuple(a.shape),
-                       _host(a.shards[0].reshape(-1)[:0]).dtype)
+                       _host(a.local_shard.reshape(-1)[:0]).dtype)
         for key, arr in _shard_items(a):
             out[tuple(slice(*b) for b in key)] = arr
         return out
@@ -145,12 +152,36 @@ def to_host_array(a: Any) -> np.ndarray:
     return np.asarray(a)
 
 
+def _is_partial(leaf) -> bool:
+    """A sharded leaf some of whose blocks only other processes hold:
+    what ``to_host_array`` cannot assemble here."""
+    if not isinstance(leaf, ShardedTensor) \
+            or leaf.sharding.is_fully_replicated \
+            or leaf.sharding.mesh.process_count == 1:
+        return False
+    return any(p < 0 for _, _, p in block_table(leaf.sharding, leaf.shape))
+
+
 def needs_per_host(bundle: Any) -> bool:
     """Whether checkpointing ``bundle`` needs every process to write (a
-    sharded leaf spans processes): the automatic ``per_host`` choice.
-    Always False in the one-process port, whose one process holds every
-    shard."""
-    return False
+    sharded leaf spans processes): the automatic ``per_host`` choice."""
+    leaves: list = []
+    _flatten(bundle, leaves)
+    return any(_is_partial(leaf) for leaf in leaves)
+
+
+def _group_of(leaves):
+    """The process group of the bundle's placed leaves, else the live
+    context's (None: one process)."""
+    for leaf in leaves:
+        if isinstance(leaf, ShardedTensor):
+            return leaf.sharding.mesh.group
+    return distributed._group()
+
+
+def _barrier(group, tag: str) -> None:
+    if group is not None and group.size > 1:
+        group.barrier(tag)
 
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
@@ -193,46 +224,58 @@ def save_checkpoint(directory: str, step: int, bundle: Any,
     COMPLETE marker last) and keep the newest ``keep``; returns its path.
     ``bundle`` is a tree of dicts, lists and tuples whose leaves are
     tensors, placed tensors, arrays or numbers.  ``per_host=True`` writes
-    every sharded leaf as this process's shards (process 0: the port's
-    one process holds them all); None chooses it when a leaf spans
-    processes (``needs_per_host``)."""
+    every sharded leaf as this process's shards; None chooses it when a
+    leaf spans processes (``needs_per_host``).  Over several processes
+    each one calls this for a per-host checkpoint (its barriers pair
+    with the others'); see the module docstring."""
     # fault-injection point: a failed write here must hit the Estimator's
     # checkpoint-restore retry path
     chaos.fire("checkpoint_write")
     leaves: list = []
     skeleton = _flatten(bundle, leaves)
     if per_host is None:
-        per_host = needs_per_host(bundle)
+        per_host = any(_is_partial(leaf) for leaf in leaves)
+    group = _group_of(leaves)
+    pidx = 0 if group is None else group.rank
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"ckpt-{step}")
     tmp = path + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if pidx == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     partial = {}
     if per_host:
+        _barrier(group, f"zoo_ckpt_start_{step}")   # tmp exists for all
         # dtypes by name: npz keeps bf16 as raw 2-byte words
         partial = {i: {"shape": tuple(leaf.shape),
                        "dtype": _dtype_name(leaf)}
                    for i, leaf in enumerate(leaves)
                    if isinstance(leaf, ShardedTensor)
                    and not leaf.sharding.is_fully_replicated}
-        _write_host_shards(tmp, partial, leaves, 0)
-    arrays, dtypes = {}, {}
-    for i, leaf in enumerate(leaves):
-        if i not in partial:
-            arrays[f"a{i}"], dtypes[i] = _to_numpy(leaf)
-    np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
-    with open(os.path.join(tmp, "treedef.pkl"), "wb") as fh:
-        pickle.dump({"treedef": skeleton, "n": len(leaves), "step": step,
-                     "partial": partial, "dtypes": dtypes,
-                     "writer": WRITER}, fh)
-    with open(os.path.join(tmp, "COMPLETE"), "w") as fh:
-        fh.write(str(step))
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.rename(tmp, path)
-    _retain(directory, keep)
+        _write_host_shards(tmp, partial, leaves, pidx)
+    if pidx == 0:
+        arrays, dtypes = {}, {}
+        for i, leaf in enumerate(leaves):
+            if i not in partial:
+                arrays[f"a{i}"], dtypes[i] = _to_numpy(leaf)
+        np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
+        with open(os.path.join(tmp, "treedef.pkl"), "wb") as fh:
+            pickle.dump({"treedef": skeleton, "n": len(leaves),
+                         "step": step, "partial": partial,
+                         "dtypes": dtypes, "writer": WRITER}, fh)
+    if per_host:
+        _barrier(group, f"zoo_ckpt_written_{step}")  # every host's shards
+    if pidx == 0:
+        with open(os.path.join(tmp, "COMPLETE"), "w") as fh:
+            fh.write(str(step))
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        _retain(directory, keep)
+    if per_host:
+        # the returned path exists on every process once this returns
+        _barrier(group, f"zoo_ckpt_done_{step}")
     return path
 
 

@@ -35,6 +35,24 @@ layers (``_trace_ctx``): attention runs unsharded.  ``params`` and
 ``opt_state`` report ``parallel.zero.bytes_per_device`` equal to the JAX
 estimator's for the same model and mesh.
 
+Several processes (a context of a job, ``init_zoo_context`` with a
+coordinator): each process runs the forward and backward on its rows of
+every global batch (the featureset's per-process feed, the dropout masks
+over global rows), then the loss and the gradients are averaged over the
+processes by one all-reduce a dtype (``_across``, the gradients flattened
+into one buffer), and each process updates its blocks.  The data
+positions span processes, so under ZeRO a process updates its positions'
+blocks only and sends them to the others after the update
+(``_StepPlan.exchange``, an all-gather of the updated master blocks);
+norms over a whole leaf or tree add the processes' sums.  Such a step runs
+eager (no CUDA graph: a gloo collective cannot be captured), its
+all-reduce on the host between the backward and the update; with a
+gradient accumulation the whole accumulator is averaged.  A failed epoch
+re-raises instead of retrying in place (a job restarts and resumes from
+its checkpoint, as in the JAX package); replicated state is checkpointed
+by process 0 alone, a leaf sharded over processes by every process (its
+host files).  BatchNormalization's statistics stay each process's own.
+
 ``mixed_precision=True`` runs the forward and backward in
 ``compute_dtype`` (bf16): a bf16 shadow of the f32 master weights is
 refreshed at the start of every step and the model runs on it
@@ -74,9 +92,10 @@ and cuDNN runs its deterministic algorithms during the step.
 Checkpoints (``checkpoint_dir`` / ``checkpoint_trigger`` /
 ``keep_checkpoints``) write ``(params, opt_state, state, meta)`` with the
 epoch and the data cursor (placed leaves as their full arrays, or per
-host: ``estimator/checkpoint.py``), and restore onto any mesh shape; ``train(resume=True)`` and the retry after a
-failed epoch (``TrainConfig.failure_retry_times``, ``RetryPolicy``
-backoff, single process) restore the latest one with ``copy_`` into the
+host: ``estimator/checkpoint.py``), and restore onto any mesh shape;
+``train(resume=True)`` and the retry after a failed epoch
+(``TrainConfig.failure_retry_times``, ``RetryPolicy`` backoff, one
+process) restore the latest one with ``copy_`` into the
 tensors a captured graph reads.  ``tensorboard_dir`` / ``app_name`` write
 the loss, throughput and learning rate per K-group of every dispatch.
 Validation runs ``evaluate`` at the epoch ends ``validation_trigger``
@@ -112,6 +131,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import math
 import queue
 import threading
 import time
@@ -127,7 +147,7 @@ from torch.utils.checkpoint import checkpoint as _remat
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
 from analytics_zoo_tpu_torch.common.context import (
-    ZooContext, _build_mesh, context_scope, current_context,
+    ZooContext, context_scope, current_context,
     resolve_device)
 from analytics_zoo_tpu_torch.common.resilience import RetryPolicy
 from analytics_zoo_tpu_torch.common.timer import Timers
@@ -137,7 +157,7 @@ from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
 from analytics_zoo_tpu_torch.data.cursor import DataCursor
 from analytics_zoo_tpu_torch.data.featureset import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.estimator.checkpoint import (
-    latest_checkpoint, restore_checkpoint, save_checkpoint)
+    latest_checkpoint, needs_per_host, restore_checkpoint, save_checkpoint)
 from analytics_zoo_tpu_torch.keras import losses as losses_mod
 from analytics_zoo_tpu_torch.keras import metrics as metrics_mod
 from analytics_zoo_tpu_torch.keras import optimizers as optim_mod
@@ -145,7 +165,7 @@ from analytics_zoo_tpu_torch.keras.layers.normalization import recomputing
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.dropout import as_seed, derive_seed
 from analytics_zoo_tpu_torch.parallel.mesh import (
-    ShardedTensor, device_put, _same_memory)
+    ShardedTensor, block_table, device_put, exchange, _same_memory)
 from analytics_zoo_tpu_torch.parallel.sharding import (
     named_shardings, partition_specs)
 from analytics_zoo_tpu_torch.parallel.zero import (
@@ -246,6 +266,24 @@ class _CapturedStep:
         _kernels.replayed(self.record, n)
 
 
+def _block_key(block, shape) -> tuple:
+    """A block's slice bounds (None: the whole leaf of ``shape``)."""
+    if block is None:
+        block = tuple(slice(0, n) for n in shape)
+    return tuple((b.start, b.stop) for b in block)
+
+
+def _holder(placed: ShardedTensor, block, shape) -> int:
+    """A position of this process whose shard of ``placed`` holds all of
+    ``block``."""
+    for p in placed.sharding.mesh.local_positions:
+        held = placed.sharding.index(p, shape)
+        if all(h.start <= b.start and b.stop <= h.stop
+               for h, b in zip(held, block)):
+            return p
+    raise ValueError(f"no shard of this process holds block {block}")
+
+
 def _relative(block, within) -> Tuple[slice, ...]:
     """``block``'s slices (global) relative to ``within``'s start."""
     return tuple(slice(b.start - w.start, b.stop - w.start)
@@ -269,7 +307,16 @@ class _StepPlan:
     batch's gradient is already summed over the data positions), and
     ``gather`` the all-gather of the updated master shards into the
     module's parameters (``refresh``: the other way, after the module's
-    weights were written from outside a step)."""
+    weights were written from outside a step).
+
+    Over several processes the blocks are this process's.  A block that
+    other processes do not hold (the update sharded over a "data" axis the
+    processes split) is sent by its owner, the lowest process holding it,
+    after the update (``exchange``: one all-gather a dtype) into the
+    master shards of the processes that lack it; ``owned`` marks the
+    blocks this process counts in a norm over a whole leaf or tree, and
+    ``cross`` is what the optimizer needs for such norms (None when every
+    process holds every block)."""
 
     def __init__(self, module_params: Dict[str, torch.Tensor],
                  trainable: List[str], masters: Optional[dict],
@@ -278,14 +325,21 @@ class _StepPlan:
         self.module_params = module_params
         self.masters = masters
         self.acc = acc
+        self.owned: List[bool] = []
+        self.remote: Dict[torch.dtype, tuple] = {}
+        self.cross = None
         self.names, self.ps, self.cuts = [], [], []
         self.slots: Dict[str, List[torch.Tensor]] = {k: [] for k in
                                                      slot_names}
         self.groups: Optional[List[List[int]]] = [] if masters else None
         self.acc_blocks: List[torch.Tensor] = []
+        group = None if masters is None else \
+            next(iter(update_sh.values())).mesh.group
+        me = None if group is None else group.rank
         for n in trainable:
             full = module_params[n]
             shape = tuple(full.shape)
+            owner = {}
             if masters is None:
                 blocks = [(0, None)]
             else:
@@ -294,7 +348,12 @@ class _StepPlan:
                 self.groups.append(list(range(len(self.names),
                                               len(self.names)
                                               + len(blocks))))
+                if group is not None:
+                    owner = self._remote(n, full, masters[n], update_sh[n],
+                                         shape, group)
             for p, block in blocks:
+                self.owned.append(me is None
+                                  or owner[_block_key(block, shape)] == me)
                 self.names.append(n)
                 self.cuts.append((n, block))
                 self.ps.append(self._view(full, masters and masters[n],
@@ -305,6 +364,9 @@ class _StepPlan:
                 if acc is not None:
                     self.acc_blocks.append(self._view(None, acc[n], p,
                                                       block, shape))
+        if self.remote:
+            self.cross = (self.owned, group.all_reduce)
+        self._group = group
         # the leaves whose master shards are not the module's memory
         self._gathered = [] if masters is None else [
             n for n in module_params if not all(
@@ -325,6 +387,34 @@ class _StepPlan:
         rel = _relative(block, held)
         return t if _whole(rel, tuple(t.shape)) else t[rel]
 
+    def _remote(self, n, full, master, sharding, shape, group) -> dict:
+        """Record leaf ``n``'s blocks that some process lacks in
+        ``remote`` (its ``exchange`` entries); returns ``{block key:
+        owner}`` of every block of this process."""
+        owners = {}
+        for slices, holders, p in block_table(sharding, shape):
+            owner = min(holders)
+            if p >= 0:
+                owners[_block_key(slices, shape)] = owner
+            if len(holders) == group.size:
+                continue
+            src = (self._view(full, master, p, slices, shape)
+                   if owner == group.rank else None)
+            dst = (None if p >= 0 else self._view(
+                full, master, _holder(master, slices, shape), slices,
+                shape))
+            _, entries = self.remote.setdefault(
+                master.dtype, (master.local_shard, []))
+            entries.append((owner, math.prod(sl.stop - sl.start
+                                             for sl in slices), src, dst))
+        return owners
+
+    def exchange(self) -> None:
+        """The blocks this process lacks, from their owners (after the
+        update, before ``gather``)."""
+        for like, entries in self.remote.values():
+            exchange(entries, self._group, like)
+
     def cut(self, grads: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         # a strided block is copied dense: one strided tensor in a list
         # sends a whole ``_foreach`` op to a kernel a tensor
@@ -339,7 +429,7 @@ class _StepPlan:
     def refresh(self) -> None:
         if self.masters is not None:
             for n, m in self.masters.items():
-                m.reduce_scatter_(self.module_params[n])
+                m.scatter_(self.module_params[n])
 
 
 class Estimator:
@@ -368,7 +458,7 @@ class Estimator:
                             else ZooConfig())
         cfg = config.train
         if device is None and self.ctx is not None:
-            device = self.ctx.mesh.devices.flat[0]
+            device = self.ctx.mesh.local_devices[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optimizer = optim_mod.get(optimizer) if optimizer else None
@@ -409,9 +499,12 @@ class Estimator:
                 raise NotImplementedError(
                     f"the estimator shards over the mesh from its model's "
                     f"device {self.device}; this mesh spans "
-                    f"{sorted({str(d) for d in self.ctx.mesh.devices.flat})}"
+                    f"{sorted({str(d) for d in self.ctx.mesh.local_devices})}"
                     f" ({QUEUE_ITEMS[5]})")
             self._on_mesh = False
+        # the processes of a job the step spans (None: this one alone)
+        self._group = (self.ctx.group if self.ctx is not None
+                       and self.ctx.process_count > 1 else None)
         self._masters: Optional[Dict[str, ShardedTensor]] = None
         self._plan: Optional[_StepPlan] = None
         self._trace = None
@@ -460,8 +553,11 @@ class Estimator:
 
     @property
     def _graphs_on(self) -> bool:
-        """Whether dispatches replay a captured step (K > 1 on the card)."""
-        return self.steps_per_dispatch > 1 and self.device.type == "cuda"
+        """Whether dispatches replay a captured step (K > 1 on the card,
+        one process: a step of several processes runs eager, its
+        all-reduce on the host between the backward and the update)."""
+        return (self.steps_per_dispatch > 1 and self.device.type == "cuda"
+                and self._group is None)
 
     def _forward(self, p_fwd, x, seed):
         """Predictions in f32 from the weights ``p_fwd`` (the masters, or
@@ -504,6 +600,17 @@ class Estimator:
         else it is whole and cut after."""
         n = self.grad_accum_steps
         split = lambda a: a.reshape((n, a.shape[0] // n) + a.shape[1:])
+        if self._group is not None:
+            # microbatch j is rows [j*B/n, (j+1)*B/n) of the global batch,
+            # whose rows the processes hold in rank order: gather it (one
+            # all-gather a leaf) and compute this process's B/(nP) rows of
+            # each microbatch, the rows its dropout offset names
+            P, r = self._group.size, self._group.rank
+
+            def split(a):
+                g = torch.cat(self._group.all_gather(a))
+                return g.reshape((n, P, g.shape[0] // (n * P))
+                                 + g.shape[1:])[:, r]
         xs, ys = tree_map(split, x), tree_map(split, y)
         plan = self._plan
         sharded = plan.acc is not None
@@ -532,8 +639,28 @@ class Estimator:
             torch._foreach_div_(blocks, float(n))
             return torch.stack(losses).mean(), self._cast_grads(blocks)
         torch._foreach_div_(acc, float(n))
-        return (torch.stack(losses).mean(),
-                plan.cut(dict(zip(p_fwd, self._cast_grads(acc)))))
+        loss, acc = self._across(torch.stack(losses).mean(), acc)
+        return loss, plan.cut(dict(zip(p_fwd, self._cast_grads(acc))))
+
+    def _across(self, loss, grads):
+        """The loss and the gradients averaged over the processes (one
+        all-reduce a dtype, of the gradients flattened into one buffer),
+        as the global batch's; unchanged for one process."""
+        if self._group is None:
+            return loss, grads
+        grads = list(grads)
+        with torch.no_grad():
+            by_dtype: Dict[torch.dtype, List[int]] = {}
+            for i, g in enumerate(grads):
+                by_dtype.setdefault(g.dtype, []).append(i)
+            for dt, idx in by_dtype.items():
+                flat = torch.cat([grads[i].reshape(-1) for i in idx])
+                self._group.all_reduce(flat, "mean")
+                for i, part in zip(idx, flat.split(
+                        [grads[i].numel() for i in idx])):
+                    grads[i] = part.view(grads[i].shape)
+            loss = self._group.all_reduce(loss.detach().clone(), "mean")
+        return loss, grads
 
     def _train_step(self, x, y, seed) -> torch.Tensor:
         """One optimizer step on batch ``(x, y)``; returns the loss as a
@@ -550,7 +677,7 @@ class Estimator:
         if self.grad_accum_steps > 1:
             loss, grads = self._accum_grads(p_fwd, x, y, seed)
         else:
-            loss, grads = self._grads(p_fwd, x, y, seed)
+            loss, grads = self._across(*self._grads(p_fwd, x, y, seed))
             grads = plan.cut(dict(zip(p_fwd, self._cast_grads(grads))))
         with torch.no_grad():
             if self.clip_value is not None:
@@ -560,15 +687,23 @@ class Estimator:
                 for g in grads:
                     g.clamp_(lo, hi)
             if self.clip_norm is not None:
-                # the global norm over every block, in the plan's order
-                norm = torch.linalg.vector_norm(torch.stack(
-                    [torch.linalg.vector_norm(g.float()) for g in grads]))
+                norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+                if plan.cross is None:
+                    # the global norm over every block, in the plan's order
+                    norm = torch.linalg.vector_norm(torch.stack(norms))
+                else:
+                    # the blocks this process counts, summed over processes
+                    owned, total = plan.cross
+                    norm = total(torch.stack([
+                        v for v, o in zip(norms, owned) if o]).square()
+                        .sum()).sqrt()
                 scale = torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
                 torch._foreach_mul_(grads, scale)
         self.optimizer.update_blocks(optim_mod.Blocks(
             plan.names, plan.ps, grads, plan.slots, plan.groups,
-            self.opt_state.get("decayed", ())), self.opt_state)
+            self.opt_state.get("decayed", ()), plan.cross), self.opt_state)
         with torch.no_grad():
+            plan.exchange()
             plan.gather()
         return loss.detach()
 
@@ -661,12 +796,13 @@ class Estimator:
         if self.shard_model or self.ctx.axis_size("model") <= 1:
             return self.ctx
         if self._trace is None:
-            devs = list(self.ctx.mesh.devices.flat)
+            mesh = self.ctx.mesh
             cfg = dataclasses.replace(
                 self.ctx.config,
-                mesh=MeshConfig(data=len(devs), model=1, sequence=1,
+                mesh=MeshConfig(data=mesh.size, model=1, sequence=1,
                                 expert=1, pipeline=1))
-            self._trace = ZooContext(cfg, _build_mesh(devs, cfg.mesh))
+            self._trace = ZooContext(cfg, mesh.reshaped((mesh.size,),
+                                                        ("data",)))
         return self._trace
 
     def _scope(self):
@@ -712,7 +848,8 @@ class Estimator:
             gsh = psh
         self._masters = device_put(module, psh)
         self.opt_state = {**self.opt_state, **device_put(opt_tree, osh)}
-        if zshard and self.grad_accum_steps > 1:
+        if zshard and self.grad_accum_steps > 1 and self._group is None:
+            # (over processes the whole accumulator is averaged first)
             acc = {n: device_put(torch.zeros(
                 module[n].shape, dtype=torch.float32 if self.mixed_precision
                 and module[n].is_floating_point() else module[n].dtype,
@@ -859,6 +996,12 @@ class Estimator:
             except _NOT_RETRIED:
                 raise
             except (Exception, CancelledError) as exc:
+                if self._group is not None:
+                    # a failure one process saw cannot be rejoined to peers
+                    # already blocked in the next collective: the job
+                    # restarts and resumes from the checkpoint (JAX
+                    # estimator.py:803-812)
+                    raise
                 ck = (latest_checkpoint(self.checkpoint_dir)
                       if self.checkpoint_dir else None)
                 if ck is None or not retry.should_retry(exc):
@@ -1144,12 +1287,18 @@ class Estimator:
         meta = {"epoch": epoch,
                 "data_cursor": DataCursor(epoch=epoch,
                                           step=step_in_epoch).state()}
+        bundle = (params, _opt_tree(self.opt_state), buffers, meta)
+        # writers: process 0 alone for replicated state; every process
+        # when a sharded leaf spans processes (its host files, JAX
+        # estimator.py:1205-1218)
+        if (self._group is not None and self._group.rank != 0
+                and not needs_per_host(bundle)):
+            return
         # nests under train.epoch when triggered inside an epoch (the
         # step-0 bootstrap checkpoint roots alone)
         with obs.span("train.checkpoint", step=self.global_step):
-            save_checkpoint(self.checkpoint_dir, self.global_step,
-                            (params, _opt_tree(self.opt_state), buffers,
-                             meta), keep=self.keep_checkpoints)
+            save_checkpoint(self.checkpoint_dir, self.global_step, bundle,
+                            keep=self.keep_checkpoints)
 
     @torch.no_grad()
     def _restore(self, path: str) -> dict:
@@ -1441,10 +1590,10 @@ def _dev_key(dev: torch.device) -> tuple:
 
 
 def _on_one_device(mesh, device: torch.device) -> bool:
-    """Whether every mesh position lies on ``device``: one process then
-    drives the sharded step from there (each position on its own card is
-    not ported)."""
-    return {_dev_key(d) for d in mesh.devices.flat} == {_dev_key(device)}
+    """Whether every mesh position of this process lies on ``device``: the
+    process then drives the sharded step from there (each position on its
+    own card is not ported)."""
+    return {_dev_key(d) for d in mesh.local_devices} == {_dev_key(device)}
 
 
 def _copy_named(what: str, dst: Dict[str, torch.Tensor], src: dict) -> None:
@@ -1466,7 +1615,7 @@ def _copy_into(dst, src: torch.Tensor) -> None:
     """A full checkpoint array into a tensor, or carved into a placed
     leaf's shards."""
     if isinstance(dst, ShardedTensor):
-        dst.reduce_scatter_(src.to(dst.shards[0].device))
+        dst.scatter_(src.to(dst.local_shard.device))
     else:
         dst.copy_(src)
 

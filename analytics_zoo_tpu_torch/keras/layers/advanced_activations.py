@@ -16,7 +16,8 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.keras.layers.core import _Built
 from analytics_zoo_tpu_torch.keras.engine import Layer
-from analytics_zoo_tpu_torch.ops.dropout import hash_uniform
+from analytics_zoo_tpu_torch.ops.dropout import (hash_uniform,
+                                                 process_offset)
 
 
 class ELU(Layer):
@@ -111,7 +112,8 @@ class RReLU(Layer):
 
     def forward(self, x, seed=None):
         if self.training and seed is not None:
-            u = hash_uniform(x.shape, seed, x.device, x.dtype)
+            u = hash_uniform(x.shape, seed, x.device, x.dtype,
+                             offset=process_offset(x.shape))
             a = self.lower + (self.upper - self.lower) * u
         else:
             a = (self.lower + self.upper) / 2.0

@@ -27,7 +27,7 @@ from torch import nn
 from analytics_zoo_tpu_torch.keras import activations, initializers
 from analytics_zoo_tpu_torch.keras.engine import Layer, _seeded
 from analytics_zoo_tpu_torch.ops.dropout import (
-    hash_bernoulli, hash_dropout, hash_normal)
+    hash_bernoulli, hash_dropout, hash_normal, process_offset)
 
 
 class Dense(Layer):
@@ -233,7 +233,8 @@ class Dropout(Layer):
     def forward(self, x, seed=None):
         if not self._active(seed):
             return x
-        return hash_dropout(x, self.p, seed=seed)
+        return hash_dropout(x, self.p, seed=seed,
+                            offset=process_offset(x.shape))
 
 
 class _SpatialDropout(Dropout):
@@ -249,7 +250,8 @@ class _SpatialDropout(Dropout):
         shape = [1] * x.dim()
         shape[0] = x.shape[0]
         shape[self._channel_axis] = x.shape[self._channel_axis]
-        mask = hash_bernoulli(tuple(shape), seed, keep, x.device)
+        mask = hash_bernoulli(tuple(shape), seed, keep, x.device,
+                              offset=process_offset(shape))
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -280,8 +282,8 @@ class GaussianDropout(Layer):
         if not self.training or seed is None:
             return x
         std = math.sqrt(self.p / (1.0 - self.p))
-        return x * (1.0 + std * hash_normal(x.shape, seed, x.device,
-                                            x.dtype))
+        return x * (1.0 + std * hash_normal(
+            x.shape, seed, x.device, x.dtype, offset=process_offset(x.shape)))
 
 
 class GaussianNoise(Layer):
@@ -294,7 +296,8 @@ class GaussianNoise(Layer):
     def forward(self, x, seed=None):
         if not self.training or seed is None:
             return x
-        return x + self.sigma * hash_normal(x.shape, seed, x.device, x.dtype)
+        return x + self.sigma * hash_normal(
+            x.shape, seed, x.device, x.dtype, offset=process_offset(x.shape))
 
 
 class Permute(Layer):
@@ -730,7 +733,8 @@ class GaussianSampler(Layer):
     def forward(self, x, seed=None):
         mean, log_var = x
         if self.training and seed is not None:
-            eps = hash_normal(mean.shape, seed, mean.device, mean.dtype)
+            eps = hash_normal(mean.shape, seed, mean.device, mean.dtype,
+                              offset=process_offset(mean.shape))
             return mean + torch.exp(0.5 * log_var) * eps
         return mean
 

@@ -24,7 +24,12 @@ seed: per-site seeds derive as there (``ops/dropout.derive_seed``; a
 tensor seed's sites in one derivation each), hidden dropout is
 ``ops/dropout.hash_dropout`` and attention dropout runs inside the kernel,
 which reads a tensor seed from device memory.  Without a seed, or in eval
-mode, nothing is dropped.
+mode, nothing is dropped.  The masks are drawn over global rows, as the
+JAX package draws them over the whole batch: in a job of several
+processes (the live context's), each draw adds the global index of this
+process's first row (``ops/dropout.process_offset``; the attention
+kernels' ``bh_offset``), so a process drops its rows of the global
+masks.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ from analytics_zoo_tpu_torch.keras.layers.normalization import LayerNorm
 from analytics_zoo_tpu_torch.ops.attention import (
     flash_attention, resolve_backend, sharded_flash_attention)
 from analytics_zoo_tpu_torch.ops.dropout import (as_seed, derive_seed,
-                                                 hash_dropout)
+                                                 hash_dropout,
+                                                 process_offset)
+from analytics_zoo_tpu_torch.parallel import distributed
 
 
 def projection(d_in: int, d_out: int, init="glorot_uniform") -> Dense:
@@ -74,6 +81,12 @@ def _mesh_2d():
         return None
     mesh = ctx.mesh
     return mesh if mesh.shape.get("model", 1) > 1 else None
+
+
+def _local_data(mesh) -> int:
+    """This process's positions along the mesh's "data" axis."""
+    return (len(mesh.local_range("data")) if "data" in mesh.axis_names
+            else 1)
 
 
 def _split_mask(x):
@@ -120,10 +133,11 @@ class MultiHeadAttention(Layer):
                   backend=self.backend)
         mesh = _mesh_2d()
         if (mesh is not None and self.n_head % mesh.shape["model"] == 0
-                and B % mesh.shape.get("data", 1) == 0):
+                and B % _local_data(mesh) == 0):
             y = sharded_flash_attention(mesh, q, k, v, **kw)
         else:
-            y = flash_attention(q, k, v, **kw)
+            y = flash_attention(q, k, v, **kw, bh_offset=distributed
+                                .batch_offset(B) * self.n_head)
         return self.out(y.transpose(1, 2).reshape(B, T, D))
 
 
@@ -159,7 +173,8 @@ class TransformerBlock(Layer):
     def _drop(self, x, seed):
         if seed is None:
             return x
-        return hash_dropout(x, self.hidden_drop, seed=seed)
+        return hash_dropout(x, self.hidden_drop, seed=seed,
+                            offset=process_offset(x.shape))
 
     def forward(self, x, mask=None, seed: Optional[int] = None):
         if mask is None:
@@ -207,7 +222,8 @@ class TransformerLayer(Layer):
         base = as_seed(seed)
         if self.training and base is not None and self.embedding_drop > 0:
             h = hash_dropout(h, self.embedding_drop,
-                             seed=derive_seed(base, 0x5eed))
+                             seed=derive_seed(base, 0x5eed),
+                             offset=process_offset(h.shape))
         outs = []
         seeds = _site_seeds(base, range(1, len(self.blocks) + 1))
         for blk, blk_seed in zip(self.blocks, seeds):
@@ -262,7 +278,8 @@ class BERT(Layer):
         base = as_seed(seed)
         if self.training and base is not None and self.hidden_drop > 0:
             h = hash_dropout(h, self.hidden_drop,
-                             seed=derive_seed(base, 0x5eed))
+                             seed=derive_seed(base, 0x5eed),
+                             offset=process_offset(h.shape))
         # one (B, T) int32 mask for all blocks: the kernel reads it as is
         mask = (mask != 0).to(torch.int32)
         seeds = _site_seeds(base, range(1, len(self.blocks) + 1))

@@ -70,25 +70,29 @@ class Blocks:
     place), ``gs[i]`` its gradient, ``slots[k][i]`` its block of optimizer
     slot ``k`` and ``names[i]`` its leaf's name; ``groups`` lists the
     entries of each leaf (None: every entry a whole leaf); ``decayed`` the
-    names weight decay applies to."""
+    names weight decay applies to.  ``cross``: where a leaf's blocks are
+    split over processes, ``(owned, sum_over_processes)``: which entries
+    this process counts in a leaf's norm (a block several processes hold
+    counts once) and the all-reduce that adds the processes' sums."""
 
-    __slots__ = ("names", "ps", "gs", "slots", "groups", "decayed")
+    __slots__ = ("names", "ps", "gs", "slots", "groups", "decayed", "cross")
 
-    def __init__(self, names, ps, gs, slots, groups=None, decayed=()):
+    def __init__(self, names, ps, gs, slots, groups=None, decayed=(),
+                 cross=None):
         self.names, self.ps, self.gs = list(names), list(ps), list(gs)
         self.slots = {k: list(v) for k, v in slots.items()}
         self.groups = groups
         self.decayed = set(decayed)
+        self.cross = cross
 
     def decayed_idx(self) -> List[int]:
         return [i for i, n in enumerate(self.names) if n in self.decayed]
 
 
 def _local(t):
-    """A state counter as a tensor: a placed (replicated) counter's one
-    shard."""
-    shards = getattr(t, "shards", None)
-    return t if shards is None else shards[0]
+    """A state counter as a tensor: a placed (replicated) counter's shard
+    in this process."""
+    return getattr(t, "local_shard", t)
 
 
 class Optimizer:
@@ -189,14 +193,29 @@ def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     return 1.0 - torch.pow(decay, count.to(torch.float32))
 
 
-def _leaf_norms(ts, idx, groups) -> torch.Tensor:
+def _leaf_norms(ts, idx, groups, cross=None) -> torch.Tensor:
     """The norm of the whole leaf of each entry ``i`` of ``idx``: the
     entry's own norm when it is a whole leaf, else the square root of the
-    sum of the squared norms of its leaf's blocks, in block order."""
+    sum of the squared norms of its leaf's blocks, in block order (over
+    processes, ``cross``: each process's sum of the blocks it counts,
+    added by one all-reduce)."""
     norms = torch._foreach_norm([ts[i] for i in idx])
     if groups is None:
         return torch.stack(norms)
     at = {i: j for j, i in enumerate(idx)}
+    if cross is not None:
+        owned, reduce = cross
+        zero = torch.zeros((), dtype=norms[0].dtype, device=norms[0].device)
+        sums = torch.stack([
+            torch.stack([norms[at[i]] for i in g if i in at and owned[i]]
+                        or [zero]).square().sum() for g in groups])
+        leaf = reduce(sums).sqrt()
+        out = [None] * len(idx)
+        for j, g in enumerate(groups):
+            for i in g:
+                if i in at:
+                    out[at[i]] = leaf[j]
+        return torch.stack(out)
     out: List[Optional[torch.Tensor]] = [None] * len(idx)
     for group in groups:
         members = [i for i in group if i in at]
@@ -212,14 +231,15 @@ def _leaf_norms(ts, idx, groups) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _trust_scale_(upd, ps, idx, groups=None, coeff=1.0, eps=0.0) -> None:
+def _trust_scale_(upd, ps, idx, groups=None, coeff=1.0, eps=0.0,
+                  cross=None) -> None:
     """optax's ``scale_by_trust_ratio`` on ``upd[i]`` for ``i`` in
     ``idx``: ``coeff * |p| / (|u| + eps)`` over each entry's whole leaf,
     1 where either norm is 0."""
     if not idx:
         return
-    pn = _leaf_norms(ps, idx, groups)
-    un = _leaf_norms(upd, idx, groups)
+    pn = _leaf_norms(ps, idx, groups, cross)
+    un = _leaf_norms(upd, idx, groups, cross)
     ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
                         coeff * pn / (un + eps))
     torch._foreach_mul_([upd[i] for i in idx], list(ratio.unbind()))
@@ -333,7 +353,8 @@ class _Adam(Optimizer):
             torch._foreach_add_([upd[i] for i in idx], [ps[i] for i in idx],
                                 alpha=self.weight_decay)
         if self.trust_ratio:
-            _trust_scale_(upd, ps, list(range(len(ps))), b.groups)
+            _trust_scale_(upd, ps, list(range(len(ps))), b.groups,
+                          cross=b.cross)
         if low_mu and not (low_g and mu_store[0].dtype == gs[0].dtype):
             for stored, m in zip(mu_store, mu):
                 stored.copy_(m)
@@ -476,7 +497,7 @@ class _LARS(Optimizer):
             torch._foreach_add_([upd[i] for i in idx], [ps[i] for i in idx],
                                 alpha=self.weight_decay)
         _trust_scale_(upd, ps, idx, b.groups, self.trust_coefficient,
-                      self.eps)
+                      self.eps, b.cross)
         torch._foreach_mul_(upd, -lr)
         trace = b.slots["trace"]
         torch._foreach_mul_(trace, self.momentum)

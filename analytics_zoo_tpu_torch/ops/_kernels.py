@@ -23,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -120,12 +121,12 @@ _F32, _U32 = ctypes.c_float, ctypes.c_uint
 #: each entry point: its library's source and its C signature
 _ENTRY = {
     "zoo_flash_fwd": ("flash_fwd.cu", [_PTR] * 6 + [_I64] * 12 + [_I32] * 6
-                      + [_F32, _I32, _U32, _F32, _PTR, _PTR]),
+                      + [_F32, _I32, _U32, _F32, _PTR, _U32, _PTR]),
     "zoo_flash_fwd_lse": ("flash_fwd.cu", [_PTR] * 5 + [_I64] * 12
                           + [_I32] * 6 + [_F32, _I32, _PTR]),
     "zoo_flash_bwd": ("flash_bwd.cu", [_PTR] * 12
                       + [ctypes.POINTER(_I64)] + [_I32] * 6
-                      + [_F32, _I32, _U32, _F32, _PTR, _PTR]),
+                      + [_F32, _I32, _U32, _F32, _PTR, _U32, _PTR]),
     "zoo_flash_bwd_lse": ("flash_bwd.cu", [_PTR] * 10
                           + [ctypes.POINTER(_I64)] + [_I32] * 6
                           + [_F32, _I32, _PTR]),
@@ -247,6 +248,12 @@ def _device_seed(seed, dropout_thresh, device):
     return torch.full((1,), _as_i32(seed), dtype=torch.int32, device=device)
 
 
+def _bh_offset(bh_offset) -> int:
+    """The hash's (batch, head) offset as the kernels take it: the low 32
+    bits, as the hash reads every index."""
+    return operator.index(bh_offset) & 0xFFFFFFFF
+
+
 def _int_mask(padding_mask):
     """The kernels' padding mask: contiguous int32, nonzero = valid."""
     if padding_mask is None or (padding_mask.dtype == torch.int32
@@ -264,13 +271,15 @@ class FlashForward(_Wrapper):
     merging the heads back afterwards is free; with ``with_lse`` also each
     row's log-sum-exp of the scaled scores before dropout, a contiguous
     ``(B, H, Tq)`` f32 tensor (``-1e30`` for a row that sees no key), which
-    ``FlashBackward`` takes."""
+    ``FlashBackward`` takes.  ``bh_offset`` is added to each head's
+    ``b*H + h`` in the dropout hash: the global index of the first
+    (batch, head) when ``q`` holds rows of a larger batch."""
 
     name = "flash_fwd"
 
     def __call__(self, q, k, v, padding_mask=None, causal=False,
                  sm_scale=1.0, dropout_thresh=0, keep_scale=1.0,
-                 seed=0, with_lse=False):
+                 seed=0, with_lse=False, bh_offset=0):
         _check(self.name, q, k, v, padding_mask)
         B, H, Tq, D = q.shape
         Tk = k.shape[2]
@@ -290,7 +299,7 @@ class FlashForward(_Wrapper):
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], B, H, Tq, Tk, D, _DTYPES[q.dtype],
                 float(sm_scale), int(bool(causal)), int(dropout_thresh),
-                float(keep_scale), _ptr(seed), stream)
+                float(keep_scale), _ptr(seed), _bh_offset(bh_offset), stream)
         self._launched(lib, rc)
         return (out, lse) if with_lse else out
 
@@ -361,12 +370,14 @@ class FlashBackward(_Wrapper):
     gradient is returned as a ``(B, H, T, D)`` view of a ``(B, T, H, D)``
     buffer, so undoing the head split is free.  One call launches the
     delta pre-pass and the kernel (in f32 after zeroing the counters that
-    order its dq sums), and counts one launch."""
+    order its dq sums), and counts one launch.  ``bh_offset``: the
+    forward's."""
 
     name = "flash_bwd"
 
     def __call__(self, q, k, v, o, g, lse, padding_mask=None, causal=False,
-                 sm_scale=1.0, dropout_thresh=0, keep_scale=1.0, seed=0):
+                 sm_scale=1.0, dropout_thresh=0, keep_scale=1.0, seed=0,
+                 bh_offset=0):
         _check(self.name, q, k, v, padding_mask)
         for name, t in (("o", o), ("g", g)):
             _check_like(name, t, q.shape, q.dtype, q.device)
@@ -394,7 +405,7 @@ class FlashBackward(_Wrapper):
                 lse.data_ptr(), delta.data_ptr(), _ptr(turns), strides, B, H,
                 Tq, Tk, D, _DTYPES[q.dtype], float(sm_scale),
                 int(bool(causal)), int(dropout_thresh), float(keep_scale),
-                _ptr(seed), stream)
+                _ptr(seed), _bh_offset(bh_offset), stream)
         self._launched(lib, rc)
         return dq, dk, dv
 

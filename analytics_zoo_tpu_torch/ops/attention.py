@@ -23,7 +23,9 @@ gradient of its own: the ring defines the backward.
 Dropout of the attention probabilities uses the same counter hash over
 ``(seed, b*H + h, q_pos, k_pos)`` as the JAX package, so a seed gives the
 same keep-mask, bit for bit, in the kernel, in the plain version and in
-JAX.  The hash is 32-bit unsigned arithmetic; torch has no uint32
+JAX.  ``b`` is the row of the global batch: a process that holds rows of
+it passes its first row times H as ``bh_offset`` and draws its rows of
+the global mask.  The hash is 32-bit unsigned arithmetic; torch has no uint32
 arithmetic, so the plain version computes in int64 holding values in
 ``[0, 2**32)`` and splits each multiply so no product overflows.
 """
@@ -101,12 +103,14 @@ def _keep_mask(seed, bh, q_ids, k_ids, thresh: int) -> torch.Tensor:
     return (_dropout_bits(seed, bh, q_ids, k_ids) >> 8) >= thresh
 
 
-def _hash_keep_mask(seed, shape, dropout_p: float,
-                    device=None) -> torch.Tensor:
-    """``(B, H, Tq, Tk)`` keep-mask: the mask the kernel generates."""
+def _hash_keep_mask(seed, shape, dropout_p: float, device=None,
+                    bh_offset: int = 0) -> torch.Tensor:
+    """``(B, H, Tq, Tk)`` keep-mask: the mask the kernel generates, for
+    heads ``bh_offset + b*H + h``."""
     B, H, Tq, Tk = shape
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    bh_ids = (ar(B)[:, None] * H + ar(H)[None, :])[..., None, None]
+    bh_ids = (ar(B)[:, None] * H + ar(H)[None, :]
+              + int(bh_offset))[..., None, None]
     q_ids = ar(Tq)[None, None, :, None]
     k_ids = ar(Tk)[None, None, None, :]
     return _keep_mask(_u32(seed).to(device), bh_ids, q_ids, k_ids,
@@ -126,7 +130,8 @@ def _valid(qk_shape, device, causal, padding_mask) -> torch.Tensor:
 
 
 def _reference_attention(q, k, v, padding_mask=None, causal=False,
-                         sm_scale=None, dropout_p=0.0, dropout_seed=None):
+                         sm_scale=None, dropout_p=0.0, dropout_seed=None,
+                         bh_offset=0):
     """Plain PyTorch attention, q/k/v ``(B, H, T, D)``: scores and softmax
     in f32, probabilities cast to v's dtype for the values product with
     f32 accumulation, output in q's dtype.  Rows that see no key give
@@ -141,7 +146,7 @@ def _reference_attention(q, k, v, padding_mask=None, causal=False,
     probs = probs * valid.any(dim=-1, keepdim=True)
     if dropout_p > 0.0 and dropout_seed is not None:
         keep = _hash_keep_mask(dropout_seed, probs.shape, dropout_p,
-                               device=q.device)
+                               device=q.device, bh_offset=bh_offset)
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_p)),
                             torch.zeros_like(probs))
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
@@ -155,7 +160,8 @@ def _row_delta(o, g) -> torch.Tensor:
 
 
 def _reference_attention_bwd(q, k, v, o, g, padding_mask=None, causal=False,
-                             sm_scale=None, dropout_p=0.0, seed=None):
+                             sm_scale=None, dropout_p=0.0, seed=None,
+                             bh_offset=0):
     """Plain PyTorch attention backward: ``(dq, dk, dv)`` of
     ``_reference_attention`` given its output ``o`` and the output's
     gradient ``g``, the math of the JAX package's ``_bwd_kernel_single``
@@ -176,7 +182,8 @@ def _reference_attention_bwd(q, k, v, o, g, padding_mask=None, causal=False,
     dp = torch.matmul(g32, v32.transpose(-1, -2))
     z = p
     if dropout_p > 0.0 and seed is not None:
-        keep = _hash_keep_mask(seed, p.shape, dropout_p, device=q.device)
+        keep = _hash_keep_mask(seed, p.shape, dropout_p, device=q.device,
+                               bh_offset=bh_offset)
         keep_scale = 1.0 / (1.0 - dropout_p)
         zero = torch.zeros((), dtype=f32, device=q.device)
         z = torch.where(keep, p * keep_scale, zero)
@@ -202,44 +209,46 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, padding_mask, causal, sm_scale, dropout_p,
-                seed, kernel, grad_mode):
+                seed, kernel, grad_mode, bh_offset=0):
         lse = None
         if kernel:
             with_lse = grad_mode and any(ctx.needs_input_grad[:3])
             out = _kernels.flash_fwd(q, k, v, padding_mask, causal=causal,
                                      sm_scale=sm_scale, with_lse=with_lse,
-                                     **_drop_args(dropout_p, seed))
+                                     **_drop_args(dropout_p, seed, bh_offset))
             o, lse = out if with_lse else (out, None)
         else:
             o = _reference_attention(q, k, v, padding_mask, causal,
                                      sm_scale, dropout_p=dropout_p,
-                                     dropout_seed=seed)
+                                     dropout_seed=seed, bh_offset=bh_offset)
         ctx.save_for_backward(q, k, v, o, padding_mask, lse)
-        ctx.args = (causal, sm_scale, dropout_p, seed, kernel)
+        ctx.args = (causal, sm_scale, dropout_p, seed, bh_offset, kernel)
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, padding_mask, lse = ctx.saved_tensors
-        causal, sm_scale, dropout_p, seed, kernel = ctx.args
+        causal, sm_scale, dropout_p, seed, bh_offset, kernel = ctx.args
         if kernel:
             dq, dk, dv = _kernels.flash_bwd(
                 q, k, v, o, g, lse, padding_mask, causal=causal,
-                sm_scale=sm_scale, **_drop_args(dropout_p, seed))
+                sm_scale=sm_scale, **_drop_args(dropout_p, seed, bh_offset))
         else:
             dq, dk, dv = _reference_attention_bwd(
                 q, k, v, o, g, padding_mask, causal, sm_scale, dropout_p,
-                seed)
-        return dq, dk, dv, None, None, None, None, None, None, None
+                seed, bh_offset)
+        return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
-def _drop_args(dropout_p: float, seed) -> dict:
+def _drop_args(dropout_p: float, seed, bh_offset: int = 0) -> dict:
     """The kernels' dropout arguments: threshold, survivor scale, seed
-    (an int, or a one-integer tensor on the card that the kernel reads)."""
+    (an int, or a one-integer tensor on the card that the kernel reads)
+    and the offset of the first (batch, head) in the hash."""
     if not dropout_p:
         return dict(dropout_thresh=0, keep_scale=1.0, seed=None)
     return dict(dropout_thresh=_dropout_thresh(dropout_p),
-                keep_scale=1.0 / (1.0 - dropout_p), seed=seed)
+                keep_scale=1.0 / (1.0 - dropout_p), seed=seed,
+                bh_offset=bh_offset)
 
 
 def _seed(seed):
@@ -259,7 +268,7 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
                     sm_scale: Optional[float] = None, block_q: int = 128,
                     block_k: int = 128, backend: Optional[str] = None,
                     dropout_rate: float = 0.0, dropout_rng=None,
-                    dropout_seed=None):
+                    dropout_seed=None, *, bh_offset: int = 0):
     """Multi-head attention.
 
     Args:
@@ -279,6 +288,10 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
         passes no seed.
       dropout_rng: the JAX package's PRNG key; the port takes the int
         seed as ``dropout_seed`` and raises ``ValueError`` for a key.
+      bh_offset: the global ``b*H + h`` of q's first (batch, head) in the
+        dropout hash: a process holding rows ``r0..`` of the global batch
+        passes ``r0 * H`` and draws its rows of the global keep-mask (0:
+        q is the whole batch).
 
     Differentiable in q, k and v: the backward is ``flash_bwd`` where the
     forward was ``flash_fwd``, and ``_reference_attention_bwd`` where it
@@ -305,7 +318,8 @@ def flash_attention(q, k, v, padding_mask=None, causal: bool = False,
     seed = _seed(dropout_seed) if dropout_rate else None
     return _FlashAttention.apply(q, k, v, padding_mask, bool(causal),
                                  float(sm_scale), float(dropout_rate), seed,
-                                 kernel, torch.is_grad_enabled())
+                                 kernel, torch.is_grad_enabled(),
+                                 int(bh_offset))
 
 
 def _reference_attention_with_lse(q, k, v, causal, sm_scale, shift=None):
@@ -399,8 +413,14 @@ def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
     (``_shard_seed``), so a block's keep-mask is the JAX block's, bit for
     bit, and differs from the unsharded mask.  Differentiable through each
     block's ``flash_attention``.
+
+    Over several processes q holds this process's rows: ``dp`` counts its
+    own data coordinates (``mesh.local_range``), and each block's seed
+    takes the block's global data coordinate.
     """
-    dp = mesh.shape.get(data_axis, 1)
+    data_coords = (mesh.local_range(data_axis)
+                   if data_axis in mesh.axis_names else range(1))
+    dp = len(data_coords)
     mp = mesh.shape.get(model_axis, 1)
     B, H = q.shape[0], q.shape[1]
     if B % max(dp, 1) or H % max(mp, 1):
@@ -419,10 +439,10 @@ def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
     qs, ks, vs = blocks_of(q), blocks_of(k), blocks_of(v)
     masks = None if padding_mask is None else padding_mask.split(bl)
     rows = []
-    for di in range(dp):
+    for di, dg in enumerate(data_coords):
         blocks = []
         for mi in range(mp):
-            coords = {a: i for a, i in ((data_axis, di), (model_axis, mi))
+            coords = {a: i for a, i in ((data_axis, dg), (model_axis, mi))
                       if a in mesh.axis_names}
             dev = mesh.device(coords)
             o = flash_attention(
@@ -431,7 +451,7 @@ def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
                               else masks[di].to(dev)),
                 causal=causal, sm_scale=sm_scale, backend=backend,
                 dropout_rate=drop,
-                dropout_seed=(_shard_seed(dropout_seed, di, mi)
+                dropout_seed=(_shard_seed(dropout_seed, dg, mi)
                               if has_seed else None))
             blocks.append(o.to(q.device))
         rows.append(torch.cat(blocks, dim=1))

@@ -18,7 +18,7 @@
 // Same function as the JAX kernels: P = exp(s * scale - lse) in f32 from
 // the forward's row log-sum-exp (P = 0 where masked and on rows with
 // lse = -1e30, which see no key), the forward's dropout keep-mask replayed
-// from the counter hash over (seed, b*H+h, q_pos, k_pos),
+// from the counter hash over (seed, bh_offset + b*H+h, q_pos, k_pos),
 // delta = rowsum(g * o), Z = keep ? P/(1-r) : 0,
 // dP = keep ? (g v^T)/(1-r) : 0, dS = P * (dP - delta) * scale, then
 // dv = Z^T g, dq = dS k, dk = dS^T q, with Z and dS rounded to the input
@@ -117,6 +117,7 @@ struct Params {
   uint32_t thresh;  // drop iff (bits >> 8) < thresh; 0 = no dropout
   float keep_scale;
   const int32_t* seed;  // one int32 in device memory; read iff thresh
+  uint32_t bh_offset;   // the global b*H + h of this launch's first head
 };
 
 // what the elementwise step of every tile of one (batch, head) needs
@@ -126,7 +127,7 @@ struct Ctx {
   int off;  // Tk - Tq: query q sees key j iff j <= q + off
   int causal;
   float scale, scale2;
-  uint32_t head;  // head_hash(seed, b*H + h)
+  uint32_t head;  // head_hash(seed, bh_offset + b*H + h)
   uint32_t thresh;
   float keep_scale;
 };
@@ -140,7 +141,8 @@ __device__ __forceinline__ Ctx make_ctx(const Params& p, int b, int bh) {
   x.scale = p.scale;
   x.scale2 = p.scale2;
   // read from device memory, so a replayed CUDA graph sees each replay's
-  x.head = p.thresh ? head_hash(static_cast<uint32_t>(__ldg(p.seed)), bh)
+  x.head = p.thresh ? head_hash(static_cast<uint32_t>(__ldg(p.seed)),
+                               p.bh_offset + static_cast<uint32_t>(bh))
                     : 0u;
   x.thresh = p.thresh;
   x.keep_scale = p.keep_scale;
@@ -966,15 +968,17 @@ void fill(Params& p, const void* q, const void* k, const void* v,
 // forward's contiguous (B, H, Tq) f32 row log-sum-exp (zoo_flash_fwd
 // writes it); delta: (B*H*Tq) f32 scratch the pre-pass fills; turns:
 // (B*H*Tq) int32 scratch of the f32 ordered dq; seed: the forward's
-// dropout seed, one int32 in device memory (null when thresh is 0).  The
-// kernels go on `stream`; nothing synchronises.
+// dropout seed, one int32 in device memory (null when thresh is 0);
+// bh_offset: the forward's (zoo_flash_fwd).  The kernels go on `stream`;
+// nothing synchronises.
 extern "C" int zoo_flash_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* g, const void* mask, void* dq, void* dk, void* dv,
     const float* lse, float* delta, int* turns, const long long* strides,
     int B, int H,
     int Tq, int Tk, int D, int dtype, float scale, int causal,
-    unsigned int thresh, float keep_scale, const int* seed, void* stream) {
+    unsigned int thresh, float keep_scale, const int* seed,
+    unsigned int bh_offset, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || lse == nullptr) return -1;
   if (thresh != 0u && seed == nullptr) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1001,6 +1005,7 @@ extern "C" int zoo_flash_bwd(
   p.thresh = thresh;
   p.keep_scale = keep_scale;
   p.seed = static_cast<const int32_t*>(seed);
+  p.bh_offset = bh_offset;
   return run<false>(p, B, D, dtype, st);
 }
 
@@ -1030,6 +1035,7 @@ extern "C" int zoo_flash_bwd_lse(
   p.thresh = 0u;
   p.keep_scale = 1.f;
   p.seed = nullptr;
+  p.bh_offset = 0u;
   return run<true>(p, B, D, dtype, static_cast<cudaStream_t>(stream));
 }
 

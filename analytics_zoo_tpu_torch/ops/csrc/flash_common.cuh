@@ -35,9 +35,10 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// per-(batch, head) stream of the hash: mix32(seed * kSeedC ^ bh)
-__device__ __forceinline__ uint32_t head_hash(uint32_t seed, int bh) {
-  return mix32(seed * kSeedC ^ static_cast<uint32_t>(bh));
+// per-(batch, head) stream of the hash: mix32(seed * kSeedC ^ bh), bh the
+// global b*H + h (a launch over a process's rows adds its first row * H)
+__device__ __forceinline__ uint32_t head_hash(uint32_t seed, uint32_t bh) {
+  return mix32(seed * kSeedC ^ bh);
 }
 
 // keep iff the top 24 bits of mix32(head ^ q*kQC ^ k*kKC) reach thresh

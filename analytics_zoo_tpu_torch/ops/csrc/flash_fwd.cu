@@ -14,7 +14,8 @@
 // over K tiles, an optional (B, Tk) padding mask, the end-aligned causal
 // mask (row i sees key j iff j <= i + Tk - Tq, tiles wholly above the
 // diagonal skipped), in-kernel dropout of the probabilities from the
-// counter hash over (seed, b*H+h, q_pos, k_pos) with the normaliser summing
+// counter hash over (seed, bh_offset + b*H+h, q_pos, k_pos) with the
+// normaliser summing
 // the weights BEFORE dropout, and zeros for rows that see no key.  P is
 // rounded to the input dtype before P.V, with f32 accumulation.
 //
@@ -86,7 +87,8 @@ __device__ __forceinline__ TileCtx make_ctx(const int32_t* mask, int b,
                                             int bh, int Tq, int Tk,
                                             int causal, float scale2,
                                             uint32_t thresh, float keep_scale,
-                                            const int32_t* seed) {
+                                            const int32_t* seed,
+                                            uint32_t bh_offset) {
   TileCtx x;
   x.mrow = mask ? mask + static_cast<int64_t>(b) * Tk : nullptr;
   x.Tk = Tk;
@@ -95,8 +97,9 @@ __device__ __forceinline__ TileCtx make_ctx(const int32_t* mask, int b,
   x.scale2 = scale2;
   // the seed lives in device memory, so a replayed CUDA graph reads the
   // value of each replay; it is read only when there is dropout
-  x.head =
-      thresh ? head_hash(static_cast<uint32_t>(__ldg(seed)), bh) : 0u;
+  x.head = thresh ? head_hash(static_cast<uint32_t>(__ldg(seed)),
+                             bh_offset + static_cast<uint32_t>(bh))
+                   : 0u;
   x.thresh = thresh;
   x.keep_scale = keep_scale;
   return x;
@@ -129,6 +132,7 @@ struct BfParams {
   uint32_t thresh;
   float keep_scale;
   const int32_t* seed;  // one int32 in device memory; read iff thresh
+  uint32_t bh_offset;   // the global b*H + h of this launch's first head
 };
 
 template <int D, int BN, int NWG>
@@ -197,7 +201,8 @@ __global__ void __launch_bounds__(BfCfg<D, BN, NWG>::kThreads,
   const int r0 = row_lo + 16 * warp + (lane >> 2);
   const int wg_end = key_end(row_lo, row_lo + 64, p.Tq, p.Tk, p.causal);
   const TileCtx x = make_ctx(p.mask, b, bh, p.Tq, p.Tk, p.causal, p.scale2,
-                             p.thresh, p.keep_scale, p.seed);
+                             p.thresh, p.keep_scale, p.seed,
+                             p.bh_offset);
 
   float o[D / 2];
 #pragma unroll
@@ -278,6 +283,7 @@ struct F32Params {
   uint32_t thresh;
   float keep_scale;
   const int32_t* seed;  // one int32 in device memory; read iff thresh
+  uint32_t bh_offset;   // the global b*H + h of this launch's first head
 };
 
 template <int D>
@@ -340,7 +346,8 @@ __global__ void __launch_bounds__(kF32Threads)
     }
   }
   const TileCtx x = make_ctx(p.mask, b, bh, p.Tq, p.Tk, p.causal, p.scale2,
-                             p.thresh, p.keep_scale, p.seed);
+                             p.thresh, p.keep_scale, p.seed,
+                             p.bh_offset);
 
   float o[D / 2];
 #pragma unroll
@@ -396,6 +403,7 @@ struct Args {
   uint32_t thresh;
   float keep_scale;
   const int32_t* seed;  // one int32 in device memory; read iff thresh
+  uint32_t bh_offset;   // the global b*H + h of this launch's first head
 };
 
 template <int D, int BN, int NWG>
@@ -415,6 +423,7 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   p.thresh = a.thresh;
   p.keep_scale = a.keep_scale;
   p.seed = a.seed;
+  p.bh_offset = a.bh_offset;
   using C = BfCfg<D, BN, NWG>;
   const int err = set_smem(flash_fwd_bf16<D, BN, NWG>, C::kSmem);
   if (err != 0) return err;
@@ -452,6 +461,7 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   p.thresh = a.thresh;
   p.keep_scale = a.keep_scale;
   p.seed = a.seed;
+  p.bh_offset = a.bh_offset;
   constexpr size_t smem = F32Cfg<D>::kSmem;
   const int err = set_smem(flash_fwd_f32<D>, smem);
   if (err != 0) return err;
@@ -487,7 +497,10 @@ int run(const Args& a, int dtype, cudaStream_t stream) {
 // flash_bwd.cu rebuilds P from; -1e30 for a row that sees no key).
 // `seed` points to the dropout seed, one int32 in device memory, read by
 // the kernel (so a captured CUDA graph reads each replay's value); it may
-// be null when thresh is 0.  Launches on `stream` and does not synchronise.
+// be null when thresh is 0.  `bh_offset` is added to each head's b*H + h in
+// the hash: the global index of this launch's first (batch, head) when the
+// batch is a block of a larger one (0: the launch is the whole batch).
+// Launches on `stream` and does not synchronise.
 extern "C" int zoo_flash_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     float* lse, long long q_sb, long long q_sh, long long q_st,
@@ -495,14 +508,15 @@ extern "C" int zoo_flash_fwd(
     long long v_sb, long long v_sh, long long v_st,
     long long o_sb, long long o_sh, long long o_st,
     int B, int H, int Tq, int Tk, int D, int dtype, float scale, int causal,
-    unsigned int thresh, float keep_scale, const int* seed, void* stream) {
+    unsigned int thresh, float keep_scale, const int* seed,
+    unsigned int bh_offset, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk < 0) return -1;
   if (thresh != 0u && seed == nullptr) return -1;
   const Args a = {q, k, v, static_cast<const int32_t*>(mask), o, lse,
                   {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                    o_sb, o_sh, o_st},
                   B, H, Tq, Tk, D, scale, causal, thresh, keep_scale,
-                  static_cast<const int32_t*>(seed)};
+                  static_cast<const int32_t*>(seed), bh_offset};
   return run(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -521,7 +535,7 @@ extern "C" int zoo_flash_fwd_lse(
   const Args a = {q, k, v, nullptr, o, lse,
                   {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                    o_sb, o_sh, o_st},
-                  B, H, Tq, Tk, D, scale, causal, 0u, 1.f, nullptr};
+                  B, H, Tq, Tk, D, scale, causal, 0u, 1.f, nullptr, 0u};
   return run(a, dtype, static_cast<cudaStream_t>(stream));
 }
 

@@ -29,7 +29,7 @@ struct TileCtx {
   int causal_offset;    // row i sees key j iff j <= i + causal_offset
   int causal;
   float scale2;         // sm_scale * log2(e): exp2 of raw scores
-  uint32_t head;        // head_hash(seed, b*H + h)
+  uint32_t head;        // head_hash(seed, bh_offset + b*H + h)
   uint32_t thresh;      // drop iff (bits >> 8) < thresh; 0 = no dropout
   float keep_scale;
 };

@@ -10,7 +10,12 @@ so that a CUDA graph replaying the step drops other elements at every
 replay (an int would be frozen into the graph at its capture).  The JAX
 package also folds PRNG keys into seeds; keys do not exist in the port.
 ``derive_seed`` splits a seed per site as the JAX one does, so a model
-given the same seed drops the same elements in both packages.
+given the same seed drops the same elements in both packages.  The index
+is the element's index in the global array: a process that holds a block
+of it (its rows of the global batch) passes the block's first global
+index as ``offset`` and draws its part of the global mask, which is what
+the JAX package draws over the whole array under GSPMD; offset 0 is the
+mask of an array that is the whole.
 
 The hash is 32-bit unsigned arithmetic; torch has no uint32 arithmetic, so
 it runs in int64 holding values in ``[0, 2**32)`` (see
@@ -40,7 +45,7 @@ from analytics_zoo_tpu_torch.ops.attention import (
     _MIX_C1, _M32, _SEED_C, _dropout_thresh, _mix32, _mul32, _u32)
 
 __all__ = ["as_seed", "derive_seed", "hash_bernoulli", "hash_dropout",
-           "hash_normal", "hash_uniform"]
+           "hash_normal", "hash_uniform", "process_offset"]
 
 
 def as_seed(rng_or_seed):
@@ -62,6 +67,18 @@ def as_seed(rng_or_seed):
         raise TypeError(f"a dropout seed is an int or an integer tensor, "
                         f"got {type(rng_or_seed).__name__}")
     return _as_i32(rng_or_seed)
+
+
+def process_offset(shape) -> int:
+    """The global index of the first element of an array of ``shape``
+    whose leading axis holds this process's rows of the global batch, in
+    the live context's job (``parallel.distributed.batch_offset``): the
+    ``offset`` a layer draws with, 0 for one process."""
+    from analytics_zoo_tpu_torch.parallel import distributed
+    rows = shape[0] if len(shape) else 0
+    if not rows:
+        return 0
+    return distributed.batch_offset(rows) * (math.prod(shape) // rows)
 
 
 def _i32(u: torch.Tensor) -> torch.Tensor:
@@ -97,12 +114,20 @@ def _counter_base(seed, device):
     return _mul32(s & _M32, _SEED_C)
 
 
-def _mask(shape, seed, rate: float, device=None) -> torch.Tensor:
+def _counter(shape, seed, device, offset: int) -> torch.Tensor:
+    """``offset + idx + seed * golden mod 2**32`` for every element of
+    ``shape`` in order, as int64."""
+    return (torch.arange(offset, offset + math.prod(shape),
+                         dtype=torch.int64, device=device)
+            + _counter_base(seed, device)) & _M32
+
+
+def _mask(shape, seed, rate: float, device=None,
+          offset: int = 0) -> torch.Tensor:
     """Boolean keep-mask of ``shape``: the JAX ``_mask`` bit for bit
     (``idx + seed * C``, two shift-left injections with wraparound, one
-    multiply, logical right shifts)."""
-    z = (torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-         + _counter_base(seed, device)) & _M32
+    multiply, logical right shifts), ``idx`` counted from ``offset``."""
+    z = _counter(shape, seed, device, offset)
     z = z ^ ((z << 9) & _M32)
     z = z ^ ((z << 11) & _M32)
     z = _mul32(z ^ (z >> 13), _MIX_C1)
@@ -110,10 +135,10 @@ def _mask(shape, seed, rate: float, device=None) -> torch.Tensor:
     return ((z >> 8) >= _dropout_thresh(rate)).reshape(shape)
 
 
-def _apply(x, seed, rate: float):
+def _apply(x, seed, rate: float, offset: int = 0):
     """``keep ? x / (1 - rate) : 0``, the scale rounded to x's dtype first
     as the JAX version's weakly typed constant is."""
-    keep = _mask(x.shape, seed, rate, x.device)
+    keep = _mask(x.shape, seed, rate, x.device, offset)
     return torch.where(keep, x * _scale(rate, x.dtype), 0.0)
 
 
@@ -129,50 +154,54 @@ class _HashDropout(torch.autograd.Function):
     """Saves only the seed; the backward rebuilds the mask from it."""
 
     @staticmethod
-    def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
-        return _apply(x, seed, rate)
+    def forward(ctx, x, seed, rate, offset):
+        ctx.seed, ctx.rate, ctx.offset = seed, rate, offset
+        return _apply(x, seed, rate, offset)
 
     @staticmethod
     def backward(ctx, dy):
-        return _apply(dy, ctx.seed, ctx.rate), None, None
+        return _apply(dy, ctx.seed, ctx.rate, ctx.offset), None, None, None
 
 
-def hash_dropout(x, rate: float, rng=None, seed=None):
+def hash_dropout(x, rate: float, rng=None, seed=None, *, offset: int = 0):
     """Drop elements of ``x`` with probability ``rate``; survivors scale by
     1/(1-rate).  The mask is a deterministic hash of (seed, element
     index); ``seed`` (or ``rng``: an int or a 0-d integer tensor here)
-    picks it.  No-op when rate <= 0 or no seed is given."""
+    picks it.  ``offset`` is the global index of ``x``'s first element
+    when ``x`` is a block of a larger array (a process's rows of the
+    global batch).  No-op when rate <= 0 or no seed is given."""
     if rate <= 0.0:
         return x
     s = as_seed(seed if seed is not None else rng)
     if s is None:
         return x
-    return _HashDropout.apply(x, s, float(rate))
+    return _HashDropout.apply(x, s, float(rate), int(offset))
 
 
 def hash_uniform(shape, seed, device=None,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 dtype: torch.dtype = torch.float32,
+                 offset: int = 0) -> torch.Tensor:
     """Uniforms in (0, 1) of ``shape``: 24 bits of ``mix32(index + seed *
-    golden)`` per element, centred in their bin (never 0 or 1)."""
-    z = (torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-         + _counter_base(seed, device)) & _M32
-    bits = _mix32(z) >> 8
+    golden)`` per element, centred in their bin (never 0 or 1); ``index``
+    counts from ``offset`` (see ``hash_dropout``)."""
+    bits = _mix32(_counter(shape, seed, device, offset)) >> 8
     return ((bits.to(torch.float32) + 0.5) * 2.0 ** -24).to(dtype) \
         .reshape(shape)
 
 
-def hash_bernoulli(shape, seed, p: float, device=None) -> torch.Tensor:
+def hash_bernoulli(shape, seed, p: float, device=None,
+                   offset: int = 0) -> torch.Tensor:
     """Boolean tensor of ``shape``, each element True with probability
     ``p``, from ``hash_uniform``."""
-    return hash_uniform(shape, seed, device) < p
+    return hash_uniform(shape, seed, device, offset=offset) < p
 
 
 def hash_normal(shape, seed, device=None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32,
+                offset: int = 0) -> torch.Tensor:
     """Standard normals of ``shape`` by Box-Muller over two uniforms drawn
     under the derived seeds ``derive_seed(seed, 1)`` and ``(seed, 2)``."""
-    u1 = hash_uniform(shape, derive_seed(seed, 1), device)
-    u2 = hash_uniform(shape, derive_seed(seed, 2), device)
+    u1 = hash_uniform(shape, derive_seed(seed, 1), device, offset=offset)
+    u2 = hash_uniform(shape, derive_seed(seed, 2), device, offset=offset)
     return (torch.sqrt(-2.0 * torch.log(u1))
             * torch.cos((2.0 * math.pi) * u2)).to(dtype)

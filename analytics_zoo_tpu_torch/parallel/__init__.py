@@ -3,8 +3,10 @@
 Port of ``analytics_zoo_tpu/parallel``: ring attention (sequence
 parallelism), tensor-parallel sharding rules, the ZeRO partition specs,
 mixture of experts and pipelining, over the ``Mesh`` / ``NamedSharding``
-/ ``device_put`` of ``parallel.mesh``.  One process holds every shard
-(the JAX package's single-controller model).
+/ ``device_put`` of ``parallel.mesh``.  A process holds every shard of
+its mesh positions (the JAX package's single-controller model); a job of
+several processes (``parallel.distributed``: the rendezvous, the process
+group and its collectives) splits the mesh's "data" axis among them.
 """
 
 from analytics_zoo_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -3,9 +3,14 @@ port's counterparts of ``jax.sharding.Mesh``, ``PartitionSpec``,
 ``NamedSharding`` and ``jax.device_put``.
 
 The JAX package is single-controller: one program runs a ``shard_map``
-over a ``Mesh`` of devices.  The port keeps that model without
-``torch.distributed``: one process holds every shard and places each on
-the device at its mesh coordinate.  A device may appear more than once
+over a ``Mesh`` of devices.  Within a process the port keeps that model:
+the process holds every shard of its positions and places each on the
+device at its mesh coordinate.  A mesh may span several processes
+(``processes``: the process of each position; ``process_index``: this
+one; ``group``: their ``parallel.distributed.Group``), as a JAX mesh spans
+the devices of every host: a position of another process is not
+addressable here, and a ``ShardedTensor`` holds this process's shards
+only.  A device may appear more than once
 (``Mesh(["cuda:0"] * 4, ("sequence",))`` runs four shards on one card,
 ``["cpu"] * 8`` eight on the host), the counterpart of XLA's virtual host
 devices; moving a shard to a device it is already on costs nothing.
@@ -14,10 +19,13 @@ devices; moving a shard to a device it is already on costs nothing.
 one contiguous tensor per mesh position, on that position's device,
 holding the block of ``x`` the spec gives the position (positions that
 hold the same block on the same device share one tensor).  Its
-collectives work in place, in mesh-position order, between fixed
-addresses (so a CUDA graph can replay them): ``all_gather_into`` a global
-buffer, and ``reduce_scatter_`` from a global tensor that one process has
-already summed (on one card: a slice and a copy, or an add).  Trees are
+collectives work in place, in mesh-position order: ``all_gather_into`` a
+global buffer, ``reduce_scatter_`` from a global tensor of partial sums,
+and ``scatter_`` from a global value every process holds.  Within one
+process they copy between fixed addresses (so a CUDA graph can replay
+them; on one card a slice and a copy, or an add); across processes they
+add a collective of the group (an all-gather of the blocks a process
+lacks, ``exchange``; an all-reduce of the partial sums).  Trees are
 nested dicts, lists and tuples; their leaf paths join the keys with
 ``/``, and a dict key's ``.`` (a ``state_dict`` key) counts as ``/``
 too, so a rule written for a JAX path matches the same port leaf.
@@ -34,9 +42,13 @@ import torch
 
 class Mesh:
     """``devices``: a nested sequence (or object array) of devices or device
-    strings, one dimension per name in ``axis_names``."""
+    strings, one dimension per name in ``axis_names``.  ``processes``
+    (same shape; default all 0) gives the process of each position,
+    ``process_index`` this process and ``group`` the processes'
+    ``parallel.distributed.Group`` (None: one process)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], *,
+                 processes=None, process_index: int = 0, group=None):
         raw = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if raw.ndim != len(axis_names):
@@ -49,6 +61,24 @@ class Mesh:
         flat[:] = [torch.device(d) for d in raw.flat]
         self.devices = flat.reshape(raw.shape)
         self.axis_names = axis_names
+        procs = (np.zeros(raw.shape, dtype=np.int64) if processes is None
+                 else np.asarray(processes, dtype=np.int64))
+        if procs.shape != raw.shape:
+            raise ValueError(f"processes {procs.shape} must have the "
+                             f"devices' shape {raw.shape}")
+        self.processes = procs
+        self.process_index = int(process_index)
+        self.group = group
+        if group is not None and (group.rank, group.size) != (
+                self.process_index, int(procs.max()) + 1):
+            raise ValueError(f"{group} does not match a mesh of "
+                             f"{int(procs.max()) + 1} processes seen from "
+                             f"process {self.process_index}")
+        self._local = [p for p, q in enumerate(procs.flat)
+                       if q == self.process_index]
+        if not self._local:
+            raise ValueError(f"process {self.process_index} holds no "
+                             "position of this mesh")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -74,9 +104,42 @@ class Mesh:
         idx = np.unravel_index(position, self.devices.shape)
         return {a: int(i) for a, i in zip(self.axis_names, idx)}
 
+    @property
+    def process_count(self) -> int:
+        return int(self.processes.max()) + 1
+
+    def is_local(self, position: int) -> bool:
+        """Whether flat position ``position`` belongs to this process."""
+        return int(self.processes.flat[position]) == self.process_index
+
+    @property
+    def local_positions(self) -> List[int]:
+        """This process's flat positions, in order."""
+        return list(self._local)
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        """The devices of this process's positions, in position order."""
+        return [self.devices.flat[p] for p in self._local]
+
+    def local_range(self, axis: str) -> range:
+        """The coordinates along ``axis`` of this process's positions (a
+        process holds a contiguous range of every axis)."""
+        idx = sorted({self.coords(p)[axis] for p in self._local})
+        return range(idx[0], idx[-1] + 1)
+
+    def reshaped(self, shape, axis_names: Sequence[str]) -> "Mesh":
+        """The same positions, processes and group in another layout."""
+        return Mesh(self.devices.reshape(shape), axis_names,
+                    processes=self.processes.reshape(shape),
+                    process_index=self.process_index, group=self.group)
+
     def __repr__(self):
-        devices = sorted({str(d) for d in self.devices.flat})
-        return f"Mesh({self.shape}, devices={devices})"
+        devices = sorted({str(d) for d in self.local_devices})
+        if self.process_count == 1:
+            return f"Mesh({self.shape}, devices={devices})"
+        return (f"Mesh({self.shape}, process {self.process_index} of "
+                f"{self.process_count}, devices={devices})")
 
 
 class PartitionSpec(tuple):
@@ -154,11 +217,12 @@ class NamedSharding:
 
     def unique_blocks(self, global_shape
                       ) -> List[Tuple[int, Tuple[slice, ...]]]:
-        """``(position, slices)`` of each distinct block, in position
-        order: positions that hold the same block on the same device count
-        once, at the first of them."""
+        """``(position, slices)`` of each distinct block of this process's
+        positions, in position order: positions that hold the same block
+        on the same device count once, at the first of them."""
         seen, out = set(), []
-        for p, dev in enumerate(self.mesh.devices.flat):
+        for p in self.mesh.local_positions:
+            dev = self.mesh.devices.flat[p]
             slices = self.index(p, global_shape)
             key = (str(dev), _key(slices))
             if key not in seen:
@@ -174,12 +238,58 @@ def _key(slices) -> tuple:
     return tuple((s.start, s.stop) for s in slices)
 
 
+def block_table(sharding: "NamedSharding", global_shape
+                ) -> List[Tuple[Tuple[slice, ...], List[int], int]]:
+    """Every distinct block of the global tensor under ``sharding``, in the
+    position order of its first holder: ``(slices, processes that hold
+    it, this process's first position holding it or -1)``.  The same on
+    every process (but for the last field)."""
+    mesh = sharding.mesh
+    rows: Dict[tuple, list] = {}
+    for p in range(mesh.size):
+        slices = sharding.index(p, global_shape)
+        row = rows.setdefault(_key(slices), [slices, [], -1])
+        q = int(mesh.processes.flat[p])
+        if q not in row[1]:
+            row[1].append(q)
+        if row[2] < 0 and q == mesh.process_index:
+            row[2] = p
+    return [tuple(r) for r in rows.values()]
+
+
+def exchange(entries, group, like: torch.Tensor) -> None:
+    """The cross-process part of an all-gather, in one collective.
+    ``entries``: ``(owner, numel, src, dst)`` for every block that some
+    process lacks, in an order every process shares; ``src`` is the
+    owner's tensor of the block (None elsewhere), ``dst`` where a process
+    that lacks the block takes it (None where it holds it).  Each process
+    sends the blocks it owns, packed in order and padded to the longest
+    process's pack, in ``like``'s dtype on its device."""
+    if not entries:
+        return
+    sizes = [0] * group.size
+    for owner, numel, _, _ in entries:
+        sizes[owner] += numel
+    mine = [e[2].reshape(-1) for e in entries if e[0] == group.rank]
+    buf = torch.zeros(max(sizes), dtype=like.dtype, device=like.device)
+    if mine:
+        torch.cat(mine, out=buf[:sizes[group.rank]])
+    packs = group.all_gather(buf)
+    at = [0] * group.size
+    for owner, numel, _, dst in entries:
+        if dst is not None:
+            src = packs[owner][at[owner]:at[owner] + numel]
+            dst.copy_(src.view(dst.shape))
+        at[owner] += numel
+
+
 class ShardedTensor:
     """A tensor placed over a mesh: ``shards[p]`` is the contiguous block
     of mesh position ``p`` (``mesh.devices.flat`` order) on that
-    position's device; ``shape`` is the global shape.  The shards are
-    updated in place, never replaced, so the lookups below are worked out
-    once (a decode step makes them for every layer)."""
+    position's device, None for a position of another process; ``shape``
+    is the global shape.  The shards are updated in place, never
+    replaced, so the lookups below are worked out once (a decode step
+    makes them for every layer)."""
 
     def __init__(self, shards: Sequence[torch.Tensor], shape,
                  sharding: NamedSharding):
@@ -195,15 +305,20 @@ class ShardedTensor:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.local_shard.dtype
+
+    @property
+    def local_shard(self) -> torch.Tensor:
+        """This process's first shard."""
+        return self.shards[self.sharding.mesh.local_positions[0]]
 
     def unique_shards(self) -> List[Tuple[Tuple[slice, ...], torch.Tensor]]:
-        """``(global slices, tensor)`` of each distinct shard tensor: what
-        an in-place update writes to."""
+        """``(global slices, tensor)`` of each distinct shard tensor of
+        this process: what an in-place update writes to."""
         if not self._unique:
             seen = set()
             for p, t in enumerate(self.shards):
-                if id(t) not in seen:
+                if t is not None and id(t) not in seen:
                     seen.add(id(t))
                     self._unique.append(
                         (self.sharding.index(p, self.shape), t))
@@ -231,7 +346,8 @@ class ShardedTensor:
         if spec and _axes(spec[0]):
             raise ValueError(f"dimension 0 is split ({spec})")
         views: Dict[int, torch.Tensor] = {}
-        shards = [views.setdefault(id(t), t[i]) for t in self.shards]
+        shards = [None if t is None else views.setdefault(id(t), t[i])
+                  for t in self.shards]
         item = self._items[i] = ShardedTensor(
             shards, self.shape[1:], NamedSharding(
                 self.sharding.mesh, PartitionSpec(*spec[1:])))
@@ -241,22 +357,46 @@ class ShardedTensor:
         """The all-gather into a fixed buffer: every distinct shard copied
         into its block of ``out`` (the global shape), in position order;
         a shard that already is that block of ``out`` (the same memory)
-        is skipped.  In place and capturable: a CUDA graph replays the
-        same copies between the same addresses."""
+        is skipped.  In place and capturable within one process: a CUDA
+        graph replays the same copies between the same addresses.  The
+        blocks this process lacks come from their owners (``exchange``)."""
         for slices, t in self.unique_shards():
             block = out[slices]
             if not _same_memory(block, t):
                 block.copy_(t)
+        mesh = self.sharding.mesh
+        if mesh.process_count > 1:
+            entries = []
+            for slices, holders, p in block_table(self.sharding, self.shape):
+                if len(holders) == mesh.process_count:
+                    continue
+                owner = min(holders)
+                numel = math.prod(sl.stop - sl.start for sl in slices)
+                entries.append((owner, numel,
+                                self.shards[p] if owner == mesh.process_index
+                                else None, None if p >= 0 else out[slices]))
+            exchange(entries, mesh.group, out)
         return out
 
     def reduce_scatter_(self, src: torch.Tensor,
                         accumulate: bool = False) -> "ShardedTensor":
         """The reduce-scatter into these shards, in place: ``src`` (the
-        global shape) is already summed over the positions (one process
-        computes the whole batch), so each distinct shard takes its block
-        of it, in position order, written (``copy_``) or added
-        (``accumulate``) in the shard's dtype.  On one card it is a slice
-        and a copy."""
+        global shape) holds this process's sums over its positions (one
+        process computes its whole batch); across processes they are
+        summed first (an all-reduce of a copy of ``src``).  Each distinct
+        shard then takes its block, in position order, written
+        (``copy_``) or added (``accumulate``) in the shard's dtype.  On one
+        card it is a slice and a copy."""
+        mesh = self.sharding.mesh
+        if mesh.process_count > 1:
+            src = mesh.group.all_reduce(src.clone())
+        return self.scatter_(src, accumulate)
+
+    def scatter_(self, src: torch.Tensor,
+                 accumulate: bool = False) -> "ShardedTensor":
+        """Each distinct shard of this process takes its block of ``src``
+        (a global value every process holds, such as a checkpoint's full
+        array), written or added in the shard's dtype; no collective."""
         for slices, t in self.unique_shards():
             block = src[slices]
             if accumulate:
@@ -266,13 +406,12 @@ class ShardedTensor:
         return self
 
     def gather(self, device=None) -> torch.Tensor:
-        """The global tensor on ``device`` (default: the first shard's)."""
+        """The global tensor on ``device`` (default: the first local
+        shard's), from every process's shards."""
         device = torch.device(device) if device is not None \
-            else self.shards[0].device
+            else self.local_shard.device
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
-        for slices, t in self.unique_shards():
-            out[slices].copy_(t)
-        return out
+        return self.all_gather_into(out)
 
     def __repr__(self):
         return (f"ShardedTensor(shape={tuple(self.shape)}, "
@@ -292,6 +431,9 @@ def _place(x, sharding: NamedSharding) -> ShardedTensor:
     made: Dict[tuple, torch.Tensor] = {}
     shards = []
     for p, dev in enumerate(mesh.devices.flat):
+        if not mesh.is_local(p):
+            shards.append(None)
+            continue
         slices = sharding.index(p, x.shape)
         key = (str(dev), _key(slices))
         if key not in made:
@@ -304,7 +446,9 @@ def device_put(tree: Any, sharding: Any) -> Any:
     """Place every leaf of ``tree`` (tensors or numpy arrays) by
     ``sharding``: one ``NamedSharding`` for all, or a tree of them
     matching ``tree``.  A shard that is a contiguous block of a
-    tensor already on its device shares that tensor's memory."""
+    tensor already on its device shares that tensor's memory.  Over
+    several processes each places its own positions' shards from the
+    full value it holds (JAX's ``make_array_from_callback`` contract)."""
     if isinstance(sharding, NamedSharding):
         return tree_map(lambda x: _place(x, sharding), tree)
     return tree_map(_place, tree, sharding)

@@ -152,6 +152,37 @@ Phases, each of which raises (exit code 1) on failure:
    checkpoint written at the end of epoch 1 of a sharded run and resumed
    by a new estimator: its weights after epoch 2 equal to the
    uninterrupted run's (0 difference).
+7f. multiproc: training over processes.  ``RayContext(num_workers=2)``
+   starts two workers (``spawn``); each calls ``init_zoo_context`` with
+   the coordinator, ``num_processes=2`` and its rank: on a one-card
+   machine both drive ``cuda:0`` and the collectives go over gloo (NCCL
+   when each has a card of its own); the backend, each rank's device and
+   whether gloo reduce-scatters CUDA tensors are printed.  The workers
+   train the BERT-base classifier at full width.  (a) f32, dropout off,
+   ``SGD(lr=0.05, momentum=0.9)``, global batch 32 (16 a rank), 4 steps
+   through ``BERTClassifier.train``: losses and weights against the
+   one-process data-2 run of the same classifier on the same weights and
+   data (``MULTIPROC_RTOL``), and the same run with ``shard_optimizer=
+   True`` against it (``MULTIPROC_ZERO_TOL``), each rank holding half the
+   momentum.  (a') the main path's update, dropout off: the bench's
+   classifier (AdamWeightDecay with a bf16 first moment, mixed precision,
+   bf16 gradients all-reduced over the backend) at global batch 32 for 4
+   steps, its losses, weights and both moments against the one-process
+   data-2 run (``MULTIPROC_BF16_TOL``), and the backend's sum of the
+   ranks' seeded bf16 CUDA tensors equal to torch's sum of them.  (b) dropout 0.1 with one int
+   seed: each rank's training
+   forward on its 16 rows against the rows of the forward of all 32 in
+   one process (``MULTIPROC_FWD_ATOL``), its hidden keep-mask and the
+   ``flash_fwd`` kernel's attention keep-mask (at its ``bh_offset``)
+   equal to its rows of the global masks bit for bit, and 2 training
+   steps with dropout: 12 ``flash_fwd`` and 12 ``flash_bwd`` launches a
+   step on each rank.  (c) the main path: the train_bench configuration
+   (global batch 256, 128 a rank, bf16, the bench's AdamWeightDecay over
+   the run's steps, DEVICE tier) through ``BERTClassifier.train``, 2
+   calls of one 8-step epoch: launches, the step ms of the second (steps
+   run eager: a gloo collective cannot sit in a CUDA graph) with the host
+   time of its all-reduces, and the bytes each rank all-reduced a step,
+   over gloo through the host on one shared card (not an NCCL figure).
 8. ring: ``flash_fwd_lse`` against its plain version on the card at the
    block shapes of sequence-parallel ring attention at GPT-2-small /
    BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
@@ -197,7 +228,8 @@ Phases, each of which raises (exit code 1) on failure:
    (dropout on, the same seeds), the graph's first epoch within 1e-5 of
    eager (losses relative, weights of max|p|), the last epoch's loss below
    the first's; step ms, samples/s, the device-busy share of 2 profiled
-   steps, peak memory, and the LSTM step's top device operations.
+   graph replays and of 1 profiled eager step, peak memory, and the LSTM
+   step's top device operations.
    SessionRecommender (3706 items, history), AnomalyDetector((24, 1)) and
    ImageClassifier (lenet 28x28x1, vgg and resnet 32x32x3, 10 classes):
    predictions within 1e-5 of the CPU, 3 SGD steps within 1e-4 relative.  A Sequential of
@@ -469,6 +501,26 @@ MESH_TRAIN_RTOL = 1e-5
 # wrong decay mask moves a weight by lr * 0.01 * |p| a step, 1e-6 of
 # max|p|, which a looser bar would pass
 MESH_TRAIN_BF16_TOL = 0.0
+# training over two processes on the card (7f): f32 losses relative and
+# weights of max|p| against the one-process data-2 run (each rank's
+# weight gradient the sum of a half batch's, where one process multiplies
+# the whole batch at once: summation order only); ZeRO over the ranks
+# against the ranks without it (the same all-reduced gradient, an
+# elementwise update, a copied exchange: the same bits); a rank's dropout
+# forward on its rows against those rows of the one-process forward (GEMMs
+# of another row count)
+MULTIPROC = dict(workers=2, steps=8, epochs=2, timeout_s=900)
+MULTIPROC_RTOL = 1e-5
+MULTIPROC_ZERO_TOL = 0.0
+MULTIPROC_FWD_ATOL = 1e-5
+# the main path's update over two processes against one process at data
+# 2 (bf16 gradients of half batches, each rounded to bf16, then summed in
+# bf16 by the all-reduce, where one process rounds the whole batch's
+# once): losses relative, weights and both moments of max|.| per leaf.
+# Set at about 2.5x the readings on an H100 (1.152e-3, 1.875e-3,
+# 2.027e-2, 1.834e-2, the same in two runs); a dropped or doubled 1/P
+# moves the first moment by 1 and the second by 3 of themselves
+MULTIPROC_BF16_TOL = dict(loss=3e-3, weights=5e-3, mu=5e-2, nu=5e-2)
 # MoE and the pipeline at BERT-base FFN width (7d): against the unsharded
 # form on the card (f32, TF32 off: other GEMM shapes), against the CPU
 # (sums of 3072 products in another order)
@@ -2640,10 +2692,8 @@ def _mesh_train_main_update(cfg, tree, data):
     32, under data 2 x model 2 with ZeRO against the unsharded one:
     losses relative, weights and both moments of max|.|."""
     from analytics_zoo_tpu_torch.common.context import context_scope
-    from analytics_zoo_tpu_torch.parallel import ShardedTensor
     from analytics_zoo_tpu_torch.parallel.zero import (bytes_per_device,
                                                        tree_bytes)
-    full = lambda t: t.gather() if isinstance(t, ShardedTensor) else t
     runs = {}
     for what in ("unsharded", "sharded"):
         clf = _bench_clf(cfg, tree, 4, total=4,
@@ -2660,23 +2710,14 @@ def _mesh_train_main_update(cfg, tree, data):
                 and bytes_per_device(mu) < tree_bytes(mu)):
             raise AssertionError("mesh_train: the bf16 AdamW run was not "
                                  "placed by the Megatron and ZeRO specs")
-        state = {f"{k}.{n}": full(t).float().clone() for k in ("mu", "nu")
-                 for n, t in est.opt_state[k].items()}
-        state.update({n: p.detach().float().clone()
-                      for n, p in est.model.named_parameters()})
-        runs[what] = (rec.losses, state)
+        runs[what] = (rec.losses, _adam_state(est))
         del clf, est
         _release()
     (got_l, got), (want_l, want) = runs["sharded"], runs["unsharded"]
     what = "data 2 x model 2, ZeRO, AdamW bf16 (the main path's update)"
     lw = _close(f"{what} vs unsharded", got_l, want_l, MESH_TRAIN_BF16_TOL,
                 phase="mesh_train")
-    kind = lambda n: (n.split(".")[0] if n.split(".")[0] in ("mu", "nu")
-                      else "weights")
-    worst = dict.fromkeys(("weights", "mu", "nu"), 0.0)
-    for n, w in want.items():
-        d = ((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30))
-        worst[kind(n)] = max(worst[kind(n)], d.item())
+    worst = _worst_by_kind(got, want)
     log(f"[mesh_train] ... worst |d|/max|.| weights {worst['weights']:.3e}, "
         f"first moment {worst['mu']:.3e}, second moment {worst['nu']:.3e} "
         f"(tol {MESH_TRAIN_BF16_TOL:g})")
@@ -2684,6 +2725,35 @@ def _mesh_train_main_update(cfg, tree, data):
         raise AssertionError(f"{what}: the update differs from the "
                              f"unsharded one: {worst}")
     return dict(loss=lw, **worst)
+
+
+def _adam_state(est):
+    """An Adam estimator's weights and both moments, whole (a sharded
+    moment gathered), as f32 tensors: ``{name}``, ``mu.{name}``,
+    ``nu.{name}``."""
+    from analytics_zoo_tpu_torch.parallel import ShardedTensor
+    full = lambda t: t.gather() if isinstance(t, ShardedTensor) else t
+    state = {f"{k}.{n}": full(t).float().clone() for k in ("mu", "nu")
+             for n, t in est.opt_state[k].items()}
+    state.update({n: p.detach().float().clone()
+                  for n, p in est.model.named_parameters()})
+    return state
+
+
+def _worst_by_kind(got, want, where=None):
+    """The worst ``max|d| / max|w|`` over the leaves of two
+    ``_adam_state`` dicts (tensors or arrays), by kind: weights, first
+    and second moment; ``where`` (a dict) takes each kind's worst leaf."""
+    worst = dict.fromkeys(("weights", "mu", "nu"), 0.0)
+    where = {} if where is None else where
+    for n, w in want.items():
+        g, w = torch.as_tensor(got[n]), torch.as_tensor(w)
+        kind = n.split(".")[0] if n.split(".")[0] in worst else "weights"
+        d = ((g - w.to(g.device)).abs().max()
+             / w.abs().max().clamp_min(1e-30)).item()
+        if d >= worst[kind]:
+            worst[kind], where[kind] = d, n
+    return worst
 
 
 def _mesh_train_resume(cfg, tree, data):
@@ -2841,6 +2911,355 @@ def phase_mesh_train(card):
     out["main_update"] = _mesh_train_main_update(cfg0, tree, data)
     out["resume_diff"] = _mesh_train_resume(cfg0, tree, data)
     return out
+
+
+def _flat_weights(net):
+    """``{name: f32 numpy}`` of a module's parameters."""
+    return {n: p.detach().float().cpu().numpy()
+            for n, p in net.named_parameters()}
+
+
+def _worst_rel(got, want):
+    """The worst ``max|d| / max|w|`` over the leaves of two weight dicts."""
+    return max(float(np.abs(got[n] - w).max()
+                     / max(float(np.abs(w).max()), 1e-30))
+               for n, w in want.items())
+
+
+def _probe_gloo_reduce_scatter(group):
+    """Whether this gloo build reduce-scatters CUDA tensors, as an answer
+    string: what a ZeRO step's reduce-scatter of its gradient would need
+    (the port's step all-reduces it)."""
+    import torch.distributed as dist
+    parts = [torch.full((4,), float(group.rank + 1), device="cuda")
+             for _ in range(group.size)]
+    out = torch.empty(4, device="cuda")
+    try:
+        group._wait(group.pg.reduce_scatter(
+            [out], [parts], dist.ReduceScatterOptions()), "reduce_scatter")
+        torch.cuda.synchronize()
+        want = float(sum(range(1, group.size + 1)))
+        return "yes" if bool((out == want).all()) else "wrong result"
+    except Exception as exc:
+        return f"no ({type(exc).__name__}: {str(exc).splitlines()[0][:120]})"
+
+
+def _probe_bf16_all_reduce(group):
+    """The largest difference between the backend's sum of every rank's
+    bf16 CUDA tensor (a seeded draw a rank) and the same sum taken on this
+    card (0: the gradients' all-reduce adds as torch does)."""
+    draw = lambda r: torch.randn(1 << 16, generator=torch.Generator()
+                                 .manual_seed(SEED + r)).bfloat16().cuda()
+    got = group.all_reduce(draw(group.rank).clone())
+    want = draw(0)
+    for r in range(1, group.size):
+        want = want + draw(r)
+    torch.cuda.synchronize()
+    return float((got.float() - want.float()).abs().max())
+
+
+def _multiproc_worker(rank, ref_path, ref_losses, upd_path, upd_losses):
+    """One worker of the multiproc phase (7f), inside its rendezvoused
+    context: the four legs; returns its readings."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+    from analytics_zoo_tpu_torch.common.context import (
+        ZooContext, _build_mesh, context_scope, current_context)
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.ops import attention as TA
+    from analytics_zoo_tpu_torch.ops.dropout import _mask, process_offset
+    from analytics_zoo_tpu_torch.parallel import distributed
+    from analytics_zoo_tpu_torch.parallel.zero import bytes_per_device
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    ctx = current_context()
+    group = ctx.group
+    dev = ctx.mesh.local_devices[0]
+    out = dict(rank=rank, device=str(dev), backend=ctx.backend,
+               processes=ctx.process_count,
+               gloo_cuda_reduce_scatter=_probe_gloo_reduce_scatter(group))
+    cfg0 = dict(BERT_BASE, hidden_drop=0.0, attn_drop=0.0)
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg0,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg0)
+    fwd = lambda a: _kernels.KERNELS[a].launches
+
+    # (a) parity: against the one-process data-2 run, then ZeRO
+    small = (tuple(a[:4 * BATCH] for a in x), y[:4 * BATCH])
+    runs = {}
+    for zero in (False, True):
+        clf = BERTClassifier(2, bert_config=cfg0,
+                             optimizer=SGD(lr=0.05, momentum=0.9),
+                             shard_optimizer=zero, device="cuda")
+        clf.load_weights(tree)
+        data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                       memory_type="DEVICE")
+        _kernels.reset_launches()
+        with _DispatchLosses() as rec:
+            clf.train(lambda: data, epochs=1)
+        torch.cuda.synchronize()
+        est = clf._train_est
+        runs[zero] = (rec.losses, _flat_weights(clf.net),
+                      bytes_per_device(est.opt_state["trace"]),
+                      (fwd("flash_fwd"), fwd("flash_bwd")))
+        del clf, est
+        _release()
+    ref = dict(np.load(ref_path))
+    (pl, pw, pb, pla), (zl, zw, zb, zla) = runs[False], runs[True]
+    out["a"] = dict(
+        losses=pl, loss_rel=max(abs(a - b) / abs(b)
+                                for a, b in zip(pl, ref_losses)),
+        weight_rel=_worst_rel(pw, ref), zero_loss_rel=max(
+            abs(a - b) / abs(b) for a, b in zip(zl, pl)),
+        zero_weight_rel=_worst_rel(zw, pw), trace_bytes=(pb, zb),
+        launches=pla, zero_launches=zla)
+    del ref, runs, pw, zw
+
+    # (a') the main path's update: against the one-process data-2 run
+    clf = _bench_clf(cfg0, tree, 4, total=4, shard_optimizer=False)
+    data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                   memory_type="DEVICE")
+    _kernels.reset_launches()
+    with _DispatchLosses() as rec:
+        clf.train(lambda: data, epochs=1)
+    torch.cuda.synchronize()
+    got = _adam_state(clf._train_est)
+    where = {}
+    out["u"] = dict(
+        losses=rec.losses, ref_losses=upd_losses,
+        loss_rel=max(abs(a - b) / abs(b)
+                     for a, b in zip(rec.losses, upd_losses)),
+        launches=(fwd("flash_fwd"), fwd("flash_bwd")),
+        **_worst_by_kind(got, dict(np.load(upd_path)), where), where=where,
+        bf16_sum=_probe_bf16_all_reduce(group))
+    del clf, got
+    _release()
+
+    # (b) dropout: this rank's rows of the one-process forward and masks
+    cfgd = dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
+    clf = BERTClassifier(2, bert_config=cfgd, device="cuda")
+    clf.load_weights(tree)
+    clf.net.train()
+    B, T, D, H = BATCH, cfgd["seq_len"], cfgd["hidden_size"], cfgd["n_head"]
+    lb = B // ctx.process_count
+    rows = slice(rank * lb, (rank + 1) * lb)
+    xb = [torch.from_numpy(a[:B]).cuda() for a in x]
+    one = ZooContext(ZooConfig(), _build_mesh([dev], MeshConfig(data=1)))
+    drop_seed = 1234
+    with torch.no_grad():
+        with context_scope(one):
+            whole = clf.net(xb, seed=drop_seed)
+        local = clf.net([a[rows] for a in xb], seed=drop_seed)
+    torch.cuda.synchronize()
+    hidden = torch.equal(
+        _mask((lb, T, D), drop_seed, 0.1, dev,
+              offset=process_offset((lb, T, D))),
+        _mask((B, T, D), drop_seed, 0.1, dev)[rows])
+    z = torch.zeros(B, H, T, T, device=dev)
+    eye = torch.eye(T, device=dev).expand(B, H, T, T).contiguous()
+    kw = dict(dropout_rate=0.1, dropout_seed=drop_seed)
+    attn_whole = TA.flash_attention(z, z, eye, **kw) > 0
+    attn_local = TA.flash_attention(
+        z[rows], z[rows], eye[rows], **kw,
+        bh_offset=distributed.batch_offset(lb) * H) > 0
+    plain = TA._hash_keep_mask(drop_seed, (B, H, T, T), 0.1, dev)
+    del z, eye
+    opt = SGD(lr=0.05)
+    clf2 = BERTClassifier(2, bert_config=cfgd, optimizer=opt, device="cuda")
+    clf2.load_weights(tree)
+    data = TFDataset.from_ndarrays((tuple(a[:2 * B] for a in x), y[:2 * B]),
+                                   batch_size=B)
+    _kernels.reset_launches()
+    clf2.train(lambda: data, epochs=1, seed=drop_seed)
+    torch.cuda.synchronize()
+    out["b"] = dict(
+        fwd_err=float((local - whole[rows]).abs().max()),
+        hidden_equal=hidden,
+        attn_equal=bool(torch.equal(attn_local, attn_whole[rows])),
+        attn_plain_equal=bool(torch.equal(attn_whole, plain)),
+        kept=float(attn_local.float().mean()),
+        launches=(fwd("flash_fwd"), fwd("flash_bwd")), steps=2)
+    del clf, clf2, whole, local, attn_whole, attn_local, plain
+    _release()
+
+    # (c) the main path at the bench's configuration
+    cfgb = dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
+    steps = MULTIPROC["steps"] * MULTIPROC["epochs"]
+    n = MULTIPROC["steps"] * BENCH["batch"]
+    ds = TFDataset.from_ndarrays((tuple(a[:n] for a in x), y[:n]),
+                                 batch_size=BENCH["batch"],
+                                 memory_type="DEVICE")
+    clf = _bench_clf(cfgb, tree, BENCH["spd"], total=steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    bytes0 = group.reduced_bytes
+    for _ in range(MULTIPROC["epochs"]):          # one epoch a call
+        reduce0 = group.reduce_seconds
+        clf.train(lambda: ds, epochs=1)
+        torch.cuda.synchronize()
+    hist = clf._train_est.history
+    out["c"] = dict(
+        reduce_ms=(group.reduce_seconds - reduce0) * 1e3
+        / MULTIPROC["steps"],
+        step_ms=hist[-1]["seconds"] * 1e3 / MULTIPROC["steps"],
+        first_epoch_step_ms=hist[0]["seconds"] * 1e3 / MULTIPROC["steps"],
+        epoch_losses=[h["loss"] for h in hist],
+        bytes_a_step=(group.reduced_bytes - bytes0) / steps,
+        launches=(fwd("flash_fwd"), fwd("flash_bwd")), steps=steps,
+        graphs=clf._train_est._graphs_on,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del clf
+    _release()
+    return out
+
+
+def phase_multiproc(card):
+    """Training over two processes; see the module docstring (7f)."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.orca import RayContext
+    from analytics_zoo_tpu_torch.common.context import context_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    t0 = time.perf_counter()
+    cfg0 = dict(BERT_BASE, hidden_drop=0.0, attn_drop=0.0)
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg0,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg0)
+    small = (tuple(a[:4 * BATCH] for a in x), y[:4 * BATCH])
+    # the one-process data-2 run the workers are held to
+    clf = BERTClassifier(2, bert_config=cfg0,
+                         optimizer=SGD(lr=0.05, momentum=0.9),
+                         device="cuda")
+    clf.load_weights(tree)
+    data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                   memory_type="DEVICE")
+    with context_scope(_mesh_ctx(2, 1)), _DispatchLosses() as rec:
+        clf.train(lambda: data, epochs=1)
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="zoo_multiproc_")
+    ref_path = os.path.join(tmp, "ref.npz")
+    np.savez(ref_path, **_flat_weights(clf.net))
+    ref_losses = rec.losses
+    del clf
+    _release()
+    # and the one the main path's update (a') is held to
+    clf = _bench_clf(cfg0, tree, 4, total=4, shard_optimizer=False)
+    with context_scope(_mesh_ctx(2, 1)), _DispatchLosses() as rec:
+        clf.train(lambda: data, epochs=1)
+    torch.cuda.synchronize()
+    upd_path = os.path.join(tmp, "update.npz")
+    np.savez(upd_path, **{n: t.cpu().numpy() for n, t
+                          in _adam_state(clf._train_est).items()})
+    upd_losses = rec.losses
+    del clf, tree
+    _release()
+    t_ref = time.perf_counter() - t0
+    rc = RayContext(num_workers=MULTIPROC["workers"]).init()
+    try:
+        res = rc.run(_multiproc_worker, args=(ref_path, ref_losses, upd_path,
+                                              upd_losses),
+                     timeout=MULTIPROC["timeout_s"])
+    finally:
+        rc.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    n_block = BERT_BASE["n_block"]
+    for r in res:
+        a, u, b, c = r["a"], r["u"], r["b"], r["c"]
+        log(f"[multiproc] rank {r['rank']} of {r['processes']} on "
+            f"{r['device']} over {r['backend']}; gloo reduce_scatter of "
+            f"CUDA tensors: {r['gloo_cuda_reduce_scatter']}")
+        log(f"[multiproc] rank {r['rank']} (a) BERT-base f32, dropout off, "
+            f"SGD momentum, global batch {BATCH}, 4 steps: losses "
+            f"{' '.join(f'{v:.6f}' for v in a['losses'])}; vs the "
+            f"one-process data-2 run: losses {a['loss_rel']:.3e} rel, "
+            f"weights {a['weight_rel']:.3e} of max|p| (bar "
+            f"{MULTIPROC_RTOL:g}); ZeRO vs not: losses "
+            f"{a['zero_loss_rel']:.3e}, weights {a['zero_weight_rel']:.3e} "
+            f"(bar {MULTIPROC_ZERO_TOL:g}); momentum bytes on this rank "
+            f"{a['trace_bytes'][1]} with ZeRO, {a['trace_bytes'][0]} "
+            f"without; launches {a['launches']} / {a['zero_launches']}")
+        log(f"[multiproc] rank {r['rank']} (a') the main path's update "
+            f"(AdamWeightDecay with a bf16 first moment, mixed precision, "
+            f"bf16 gradients all-reduced over {r['backend']}), dropout off, "
+            f"global batch {BATCH}, 4 steps: losses "
+            f"{' '.join(f'{v:.6f}' for v in u['losses'])} (one process "
+            f"{' '.join(f'{v:.6f}' for v in u['ref_losses'])}): "
+            f"{u['loss_rel']:.3e} rel; worst |d|/max|.| of a leaf: weights "
+            f"{u['weights']:.3e} ({u['where'].get('weights')}), first "
+            f"moment {u['mu']:.3e} ({u['where'].get('mu')}), second moment "
+            f"{u['nu']:.3e} ({u['where'].get('nu')}) (bars "
+            f"{MULTIPROC_BF16_TOL}); launches {u['launches']}; the "
+            f"backend's bf16 CUDA all-reduce vs torch's sum of the ranks' "
+            f"draws: max|d| {u['bf16_sum']:g}")
+        log(f"[multiproc] rank {r['rank']} (b) dropout 0.1: forward rows vs "
+            f"the one-process forward max|d| {b['fwd_err']:.3e} (bar "
+            f"{MULTIPROC_FWD_ATOL:g}); hidden keep-mask "
+            f"{'equal' if b['hidden_equal'] else 'DIFFERENT'}, flash_fwd "
+            f"attention keep-mask at its bh_offset "
+            f"{'equal' if b['attn_equal'] else 'DIFFERENT'} to its rows of "
+            f"the global masks (global kernel mask vs plain: "
+            f"{'equal' if b['attn_plain_equal'] else 'DIFFERENT'}, kept "
+            f"{b['kept']:.4f}); {b['steps']} training steps: launches "
+            f"{b['launches']}")
+        log(f"[multiproc] rank {r['rank']} (c) the bench's configuration at "
+            f"global batch {BENCH['batch']} ({BENCH['batch'] // len(res)} "
+            f"a rank), bf16, {c['steps']} steps "
+            f"({'CUDA graphs' if c['graphs'] else 'eager steps'}): "
+            f"{c['step_ms']:.3f} ms a step in epoch 2 "
+            f"({c['first_epoch_step_ms']:.3f} in epoch 1), of which "
+            f"{c['reduce_ms']:.3f} ms in the all-reduces, "
+            f"{c['bytes_a_step']:.0f} bytes all-reduced a step over "
+            f"{r['backend']} through the host on one shared card (not an "
+            f"NCCL figure), epoch losses "
+            f"{' '.join(f'{v:.4f}' for v in c['epoch_losses'])}, launches "
+            f"{c['launches']}, peak {c['peak_gib']:.2f} GiB; {card}")
+    log(f"[multiproc] phase {secs:.1f} s (the one-process reference "
+        f"{t_ref:.1f} s)")
+    for r in res:
+        a, u, b, c = r["a"], r["u"], r["b"], r["c"]
+        want_dev = f"cuda:{r['rank'] % torch.cuda.device_count()}"
+        if r["processes"] != MULTIPROC["workers"] or r["device"] != want_dev:
+            raise AssertionError(f"multiproc: rank {r['rank']} saw "
+                                 f"{r['processes']} processes on "
+                                 f"{r['device']}")
+        if (a["loss_rel"] > MULTIPROC_RTOL or a["weight_rel"] > MULTIPROC_RTOL
+                or a["zero_loss_rel"] > MULTIPROC_ZERO_TOL
+                or a["zero_weight_rel"] > MULTIPROC_ZERO_TOL
+                or not a["trace_bytes"][1] < a["trace_bytes"][0]):
+            raise AssertionError(f"multiproc: parity failed on rank "
+                                 f"{r['rank']}: {a}")
+        if any(u[k] > MULTIPROC_BF16_TOL[k] for k in
+               ("weights", "mu", "nu")) or \
+                u["loss_rel"] > MULTIPROC_BF16_TOL["loss"] or \
+                u["bf16_sum"] != 0:
+            raise AssertionError(f"multiproc: the main path's update "
+                                 f"differs on rank {r['rank']}: {u}")
+        if (b["fwd_err"] > MULTIPROC_FWD_ATOL or not b["hidden_equal"]
+                or not b["attn_equal"] or not b["attn_plain_equal"]):
+            raise AssertionError(f"multiproc: dropout rows differ on rank "
+                                 f"{r['rank']}: {b}")
+        for leg, steps in ((a["launches"], 4), (a["zero_launches"], 4),
+                           (u["launches"], 4),
+                           (b["launches"], b["steps"]),
+                           (c["launches"], c["steps"])):
+            if tuple(leg) != (steps * n_block, steps * n_block):
+                raise AssertionError(f"multiproc: expected {n_block} + "
+                                     f"{n_block} launches a step, got "
+                                     f"{leg} in {steps} steps")
+        if not np.isfinite(c["epoch_losses"]).all():
+            raise AssertionError(f"multiproc: {c['epoch_losses']}")
+    if res[0]["a"]["losses"] != res[1]["a"]["losses"]:
+        raise AssertionError("multiproc: the ranks report other losses")
+    return dict(seconds=secs, ranks=res,
+                launches={k: res[0]["c"]["launches"][i]
+                          for i, k in enumerate(("flash_fwd",
+                                                 "flash_bwd"))})
 
 
 def _mlp_stage(p, h):
@@ -3644,23 +4063,25 @@ def _train_text(card, cpu, card_name, enc, x, y, build, tree, t0):
             and epoch_losses[-1] < epoch_losses[0]):
         raise AssertionError(f"TextClassifier({enc}): the loss did not "
                              f"fall: {epoch_losses}")
-    # one dispatch of 2 replays profiled, and 2 eager steps (a 32-step
+    # one dispatch of 2 replays profiled, and 1 eager step (a 32-step
     # dispatch of a recurrent encoder is some 400,000 kernels, past what
-    # the profiler holds)
-    small = FeatureSet.from_ndarrays(x[:2 * B], y[:2 * B], shuffle=False)\
-        .cache_device(shuffle_batches=False)
+    # the profiler holds; an eager step of one is some 30,000 launches
+    # with their host ops, whose tally takes the profiler about 10 s)
     profs = {}
     for what, net, spd in (("graph", card, 2), ("eager", eager, 1)):
+        small = FeatureSet.from_ndarrays(x[:spd * B], y[:spd * B],
+                                         shuffle=False).cache_device(
+            shuffle_batches=False)
         net.fit(small, batch_size=B, nb_epoch=1, steps_per_dispatch=spd)
         torch.cuda.synchronize()
         profs[what] = profile_breakdown(
             lambda: net.fit(small, batch_size=B, nb_epoch=1,
                             warm_start=True),
-            f"TextClassifier({enc}): 2 training steps at batch {B}, "
+            f"TextClassifier({enc}): {spd} training step(s) at batch {B}, "
             f"{what} (K={spd}), on {card_name}",
             top=10 if enc == "lstm" else 4)
-    for what, ms, peak in (("graph", graph_ms, graph_peak),
-                           ("eager", eager_ms, eager_peak)):
+    for what, ms, peak, n in (("graph", graph_ms, graph_peak, 2),
+                              ("eager", eager_ms, eager_peak, 1)):
         prof = profs[what]
         share = prof[1] / prof[0] if prof else None
         out[what] = dict(step_ms=ms, samples_s=B * 1e3 / ms,
@@ -3669,7 +4090,8 @@ def _train_text(card, cpu, card_name, enc, x, y, build, tree, t0):
             f"a step ({B * 1e3 / ms:.1f} samples/s over an epoch of "
             f"{steps} steps), device busy "
             f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
-            f" of 2 profiled steps, peak memory {peak / 2 ** 30:.3f} GiB, "
+            f" of {n} profiled step(s), peak memory "
+            f"{peak / 2 ** 30:.3f} GiB, "
             f"on {card_name}")
     out["epoch_losses"] = epoch_losses
     del eager
@@ -6770,6 +7192,7 @@ def main() -> int:
     mesh2d = phase_mesh2d(card)
     phase_parallel(card)
     mesh_train = phase_mesh_train(card)
+    multiproc = phase_multiproc(card)
     ring_launches, ring_rows = phase_ring()
     phase_ncf(card)
     phase_zoo(card)
@@ -6816,6 +7239,11 @@ def main() -> int:
                       f"of 12 layers x 4 blocks, {MESH_TRAIN['epochs']} "
                       f"dispatches of {MESH_TRAIN['spd']} CUDA graph "
                       f"replays")
+    MULTIPROC_RUN = (f"rank 0 of {MULTIPROC['workers']} processes on one "
+                     f"card (gloo): the bench's BERT training, "
+                     f"{MULTIPROC['steps'] * MULTIPROC['epochs']} eager "
+                     f"steps at {BENCH['batch'] // MULTIPROC['workers']} "
+                     f"rows a rank")
     paged_lib = "scaled_dot_product_attention over the same K/V made contiguous"
     kernels = [
         entry("flash_fwd", csrc + "flash_fwd.cu",
@@ -6852,7 +7280,9 @@ def main() -> int:
                                  "data 2 x model 2 (12 layers x 4 blocks)",
               mesh_train_launches=mesh_train["sharded"]["launches"][
                   "flash_fwd"],
-              mesh_train_launches_in=MESH_TRAIN_RUN),
+              mesh_train_launches_in=MESH_TRAIN_RUN,
+              multiproc_launches=multiproc["launches"]["flash_fwd"],
+              multiproc_launches_in=MULTIPROC_RUN),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               bench_launches["flash_bwd"], launches_in=BENCH_RUN,
@@ -6865,7 +7295,9 @@ def main() -> int:
               ingest_launches_in=INGEST_RUN,
               mesh_train_launches=mesh_train["sharded"]["launches"][
                   "flash_bwd"],
-              mesh_train_launches_in=MESH_TRAIN_RUN),
+              mesh_train_launches_in=MESH_TRAIN_RUN,
+              multiproc_launches=multiproc["launches"]["flash_bwd"],
+              multiproc_launches_in=MULTIPROC_RUN),
         entry("paged_decode", csrc + "paged_decode.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:79",
               paged_rows["paged_decode"], llm_launches["paged_decode"],

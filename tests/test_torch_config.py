@@ -141,8 +141,7 @@ def test_same_errors_and_unknown_keys_ignored(tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(num_processes="2"), 5), (dict(coordinator_address="h:1234"), 5),
-    (dict(process_id="1"), 5), (dict(train__rng_impl="threefry"), 2)])
+    (dict(train__rng_impl="threefry"), 2)])
 def test_unported_values_raise_naming_their_item(override, item):
     name = next(iter(override)).split("__")[-1]
     with pytest.raises(NotImplementedError,
@@ -163,6 +162,18 @@ def test_ported_train_values_are_taken():
             cfg.train.max_steps_per_dispatch) == (
         want.train.keep_checkpoints, want.train.failure_retry_times,
         want.train.max_steps_per_dispatch) == (1, 2, 64)
+
+
+@pytest.mark.parametrize("override,want", [
+    (dict(num_processes="2"), ("num_processes", 2)),
+    (dict(coordinator_address="h:1234"), ("coordinator_address", "h:1234")),
+    (dict(process_id="1"), ("process_id", 1))])
+def test_multi_process_values_are_taken(override, want):
+    # ported: init_zoo_context rendezvouses over torch.distributed
+    name, value = want
+    got = tcfg.load_config(None, **override)
+    assert getattr(got, name) == value == getattr(
+        jcfg.load_config(None, **override), name)
 
 
 def test_one_process_values_are_taken():

@@ -8,7 +8,10 @@ and 4 launch the kernel once per shard and equal the unsharded kernel bit
 for bit (each shard splits its keys as the whole call does), over placed
 pools read in place (no copies); sharded flash attention at dp 2 x mp 2
 launches once per block and equals the unsharded kernel bit for bit,
-with its dropout keep-mask equal to the plain version's; a sharded
+with its dropout keep-mask equal to the plain version's; the flash
+kernels at ``bh_offset`` 0 equal a launch without one, and at an offset
+give the rows of the larger launch (output, gradients and keep-mask) bit
+for bit; a sharded
 decoder LM serves the unsharded engine's tokens.  The estimator's sharded
 step (a small BERT, f32, dropout off, SGD): data 2 x model 2 with the
 ZeRO update, data 4 with ZeRO, two microbatches and K = 2 graph replays,
@@ -135,6 +138,68 @@ def test_sharded_flash_dropout_mask_is_the_plain_versions(dev):
                                       **kw) > 0
     assert torch.equal(got, want)
     assert 0.8 < got.float().mean().item() < 0.98
+
+
+def _drop_attention(q, k, v, g, mask, seed, bh_offset, backend=None):
+    """Output and (dq, dk, dv) of attention with dropout 0.3."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = TA.flash_attention(q, k, v, padding_mask=mask, dropout_rate=0.3,
+                           dropout_seed=seed, bh_offset=bh_offset,
+                           backend=backend)
+    o.backward(g)
+    return (o.detach(),) + tuple(t.grad for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_bh_offset_zero_is_the_launch_without_one(dev, dtype):
+    gen = torch.Generator().manual_seed(11)
+    B, H, T, D = 4, 3, 128, 64
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen).to(dev, dtype)
+                  for _ in range(4))
+    kw = dict(dropout_thresh=TA._dropout_thresh(0.3), keep_scale=1 / 0.7,
+              seed=77)
+    o0, lse0 = _kernels.flash_fwd(q, k, v, with_lse=True, **kw)
+    o1, lse1 = _kernels.flash_fwd(q, k, v, with_lse=True, bh_offset=0, **kw)
+    assert torch.equal(o0, o1) and torch.equal(lse0, lse1)
+    d0 = _kernels.flash_bwd(q, k, v, o0, g, lse0, **kw)
+    d1 = _kernels.flash_bwd(q, k, v, o0, g, lse0, bh_offset=0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(d0, d1))
+    # the kernels' keep-mask at offset 0 is the plain version's
+    z = torch.zeros(B, H, T, T, device=dev)
+    eye = torch.eye(T, device=dev).expand(B, H, T, T).contiguous()
+    got = TA.flash_attention(z, z, eye, dropout_rate=0.3, dropout_seed=77)
+    want = TA.flash_attention(z, z, eye, dropout_rate=0.3, dropout_seed=77,
+                              backend="plain")
+    assert torch.equal(got > 0, want > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_bh_offset_gives_the_rows_of_the_larger_call(dev, dtype):
+    """Rows 2..3 of a batch of 4, launched alone at offset 2*H, equal those
+    rows of the whole launch bit for bit (output and gradients), and the
+    kernels' keep-mask equals the plain mask at the same offset."""
+    gen = torch.Generator().manual_seed(12)
+    B, H, T, D = 4, 3, 128, 64
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen).to(dev, dtype)
+                  for _ in range(4))
+    lens = torch.randint(1, T + 1, (B,), generator=gen)
+    mask = (torch.arange(T)[None] < lens[:, None]).to(dev, torch.int32)
+    whole = _drop_attention(q, k, v, g, mask, 9, 0)
+    rows = slice(2, 4)
+    part = _drop_attention(q[rows], k[rows], v[rows], g[rows], mask[rows],
+                           9, 2 * H)
+    for a, b in zip(part, whole):
+        assert torch.equal(a, b[rows])
+    z = torch.zeros(2, H, T, T, device=dev)
+    eye = torch.eye(T, device=dev).expand(2, H, T, T).contiguous()
+    kw = dict(dropout_rate=0.3, dropout_seed=9, bh_offset=2 * H)
+    got = TA.flash_attention(z, z, eye, **kw) > 0
+    want = TA._hash_keep_mask(9, (2, H, T, T), 0.3, dev, bh_offset=2 * H)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, TA._hash_keep_mask(9, (2, H, T, T), 0.3,
+                                                   dev))
 
 
 def test_sharded_decoder_serves_the_unsharded_tokens(dev):

@@ -75,7 +75,8 @@ def test_no_module_of_the_port_imports_jax():
                  "common.health", "native", "inference.batching",
                  "common.wal", "serving.durability", "serving.fleet",
                  "parallel.sharding", "parallel.zero", "parallel.moe",
-                 "parallel.pipeline"):
+                 "parallel.pipeline", "parallel.distributed", "orca",
+                 "orca.ray"):
         assert f"analytics_zoo_tpu_torch.{name}" in out["modules"]
 
 

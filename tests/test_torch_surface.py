@@ -41,6 +41,8 @@ LAYOUT = "nn.Module constructors and methods follow the module layout"
 OPTAX = "optax's transformation and its state have no counterpart"
 BACKEND = "backend= picks the kernel or its plain version"
 PREDICT = "predict batches on the host, so it takes the batch size"
+OFFSET = ("a process holding rows of the global batch draws its rows of "
+          "the global dropout mask (JAX draws over the whole array)")
 
 
 #: name -> (parameters of the JAX name the port lacks, parameters the
@@ -94,6 +96,9 @@ DIFFERENCES = {
     "models.generation.DecoderLM.tiny": ("rng", "generator device",
                                          f"{RNG}; {DEVICE}"),
     "ops.attention.flash_forward_with_lse": ("", "backend", BACKEND),
+    "ops.attention.flash_attention": ("", "bh_offset", OFFSET),
+    "orca.ray.RayContext.__init__": ("", "platform", DEVICE),
+    "ops.dropout.hash_dropout": ("", "offset", OFFSET),
     "ops.paged_attention.paged_chunk_attention": ("", "backend", BACKEND),
     "tfpark.text_estimators.BERTBaseEstimator.__init__": ("", "device",
                                                           DEVICE),
@@ -704,8 +709,9 @@ def _unported_calls():
                k, None) for k, v in (
         ("failure_retry_times", 3), ("keep_checkpoints", 1),
         ("max_steps_per_dispatch", 8), ("shard_model", False))]
-    calls += [(f"ZooConfig.{k}", lambda k=k, v=v: cfg.ZooConfig(**{k: v}),
-               k, 5) for k, v in (
+    calls += [(f"ZooConfig.{k}",
+               lambda k=k, v=v: getattr(cfg.ZooConfig(**{k: v}), k) == v,
+               k, None) for k, v in (
         ("coordinator_address", "host:1234"), ("num_processes", 2),
         ("process_id", 1))]
     trigger = EveryEpoch()
