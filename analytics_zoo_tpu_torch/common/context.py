@@ -27,9 +27,12 @@ across processes raises).  The context reports ``process_index``,
 ``process_count`` and the group's ``backend``; ``replicate`` places a
 value every process supplies whole, as in the JAX package.  A context of
 a given group and rank is built directly: ``ZooContext(config,
-_build_mesh(devices, mesh_config, group))``.  Within a process the
-estimator's sharded step runs every position on the model's device; each
-position on its own card is ROADMAP Queue 1 item 5.
+_build_mesh(devices, mesh_config, group))``.  Within a process a mesh
+over several cards (the default over every visible one) puts each
+position on its own card: ``distinct_devices`` says so, and the estimator
+then runs each data position's work on its own card and stream
+(``estimator/positions.py``); positions that share a device
+(``["cuda:0"] * 4``) run the sharded step from that device.
 """
 
 from __future__ import annotations
@@ -131,6 +134,12 @@ class ZooContext:
 
     def axis_size(self, name: str) -> int:
         return self.mesh.shape.get(name, 1)
+
+    @property
+    def distinct_devices(self) -> bool:
+        """Whether this process's mesh positions lie on more than one
+        device (several cards, or ``["cpu", "meta"] * n``)."""
+        return self.mesh.distinct_devices
 
     @property
     def global_batch_divisor(self) -> int:

@@ -7,9 +7,17 @@ is a permutation from the ``"records"`` stream of ``epoch_rng(seed,
 epoch)``, so the same seed and epoch give the same batches as the JAX
 package.  Where the JAX version shards each batch over a device mesh, this
 one copies it to one device as torch tensors: given ``ctx=``, the mesh's
-device (one process runs every data position of its own there; a position
-on its own card is ROADMAP Queue 1 item 5), with the JAX package's check
-that the global batch divides by the data axis.  Given the ``ctx=`` of a
+device when its positions share one (one process runs every data
+position of its own there), with the JAX package's check that the global
+batch divides by the data axis.  When the positions lie on several
+devices (``ctx.distinct_devices``, a mesh over several cards) and no
+``device`` is named, each batch is cut into the data axis's row blocks,
+each staged on its position's device on that position's stream
+(``Mesh.stream``) as ``featureset.py:283-300`` of the JAX package shards
+it: every leaf is a ``ShardedTensor`` split over "data" (a ragged last
+batch zero-padded up to the data-axis multiple first, as in JAX), and the
+DEVICE tier keeps each position's rows of its epoch on that position's
+device.  Given the ``ctx=`` of a
 job of P processes (the estimator's training feed), each process takes
 rows ``[r * B/P, (r + 1) * B/P)`` of every global batch of B rows, as
 ``make_array_from_process_local_data`` assembles a global batch from
@@ -45,6 +53,8 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.data.cursor import epoch_rng
+from analytics_zoo_tpu_torch.parallel.mesh import (
+    NamedSharding, PartitionSpec, ShardedTensor, join, on_stream)
 
 Tree = Any
 
@@ -99,11 +109,65 @@ def _check_divisible(batch_size: int, ctx) -> None:
 
 
 def _ctx_device(batch_size: int, device, ctx):
-    """``device`` (else the mesh's) after ``ctx``'s batch check."""
+    """``device`` (else the mesh's, or its data sharding when the mesh's
+    positions lie on several devices) after ``ctx``'s batch check."""
     if ctx is None:
         return device
     _check_divisible(batch_size, ctx)
-    return device if device is not None else ctx.mesh.local_devices[0]
+    if device is not None:
+        return device
+    return (ctx.data_sharding if ctx.distinct_devices
+            else ctx.mesh.local_devices[0])
+
+
+def _local_data(mesh) -> int:
+    return len(mesh.local_range("data")) if "data" in mesh.axis_names \
+        else 1
+
+
+def place_rows(a, sharding: NamedSharding, dim: int = 0,
+               pad: bool = False) -> ShardedTensor:
+    """A host array (or tensor) holding this process's rows along ``dim``
+    as a ``ShardedTensor`` split over the "data" axis of ``sharding``'s
+    mesh: local data coordinate ``i`` takes row block ``i``, copied to its
+    position's device on that position's stream (through pinned memory on
+    a card), after which the device's current stream waits for the copy.
+    ``pad`` zero-pads a ragged row count up to the local data axis's
+    multiple first."""
+    mesh = sharding.mesh
+    t = a if isinstance(a, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(a))
+    local = _local_data(mesh)
+    n = t.shape[dim]
+    if n % local:
+        if not pad:
+            raise ValueError(f"{n} rows do not divide over {local} data "
+                             "positions")
+        shape = list(t.shape)
+        shape[dim] = local - n % local
+        t = torch.cat([t, t.new_zeros(shape)], dim=dim)
+        n = t.shape[dim]
+    rows, first = n // local, mesh.local_range("data").start
+    made, shards, streams = {}, [None] * mesh.size, []
+    for p in mesh.local_positions:
+        dev = mesh.devices.flat[p]
+        i = mesh.coords(p).get("data", 0) - first
+        key = (str(dev), i)
+        if key not in made:
+            block = t.narrow(dim, i * rows, rows)
+            stream = mesh.stream(p)
+            with on_stream(stream):
+                if stream is not None:
+                    block = block.contiguous().pin_memory()
+                made[key] = block.to(dev, non_blocking=stream is not None) \
+                    .contiguous()
+            streams.append(stream)
+        shards[p] = made[key]
+    join(streams, made.values())
+    shape = list(t.shape)
+    shape[dim] = rows * mesh.shape.get("data", 1)
+    spec = PartitionSpec(*([None] * dim + ["data"]))
+    return ShardedTensor(shards, shape, NamedSharding(mesh, spec))
 
 
 def _process_rows(batch_size: int, ctx) -> Optional[slice]:
@@ -134,7 +198,11 @@ def _tree_len(tree: Tree) -> int:
 
 
 def to_device(tree: Tree, device) -> Tree:
-    """Host numpy leaves -> torch tensors on ``device``."""
+    """Host numpy leaves -> torch tensors on ``device``, or placed row
+    block by row block when ``device`` is a data sharding
+    (``place_rows``, a ragged batch padded)."""
+    if isinstance(device, NamedSharding):
+        return tree_map(lambda a: place_rows(a, device, pad=True), tree)
     return tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a))
                     .to(device), tree)
 
@@ -299,11 +367,13 @@ class FeatureSet:
     def batches_with_counts(self, batch_size: int, epoch: int = 0,
                             drop_remainder: bool = True, device=None,
                             ordered: bool = True, ctx=None):
-        """``(x, y, rows)`` on ``device`` (else ``ctx``'s mesh device);
-        ordered by default (the evaluate / predict feed, whose outputs
-        line up with the rows).  A ragged last batch keeps its real size:
-        one device needs no padding.  Under the ``ctx`` of several
-        processes, this process's rows of each batch."""
+        """``(x, y, rows)`` on ``device`` (else ``ctx``'s mesh device, or
+        its positions' devices); ordered by default (the evaluate /
+        predict feed, whose outputs line up with the rows).  A ragged
+        last batch keeps its real size on one device (it needs no
+        padding) and is zero-padded when placed over positions; ``rows``
+        counts the real ones.  Under the ``ctx`` of several processes,
+        this process's rows of each batch."""
         device = _ctx_device(batch_size, device, ctx)
         for x, y in self.local_batches(batch_size, epoch, drop_remainder,
                                        ordered=ordered):
@@ -376,8 +446,9 @@ class DeviceFeatureSet:
         if (steps == 0 or self.base.labels is None
                 or _multi_process(ctx)):
             return None
-        key = (batch_size, str(torch.device(device) if device is not None
-                               else "cpu"))
+        key = (batch_size, repr(device) if isinstance(device, NamedSharding)
+               else str(torch.device(device) if device is not None
+                        else "cpu"))
         if key not in self._cache:
             self._cache.clear()
             stacked = self._compose(batch_size, steps, device)
@@ -387,12 +458,21 @@ class DeviceFeatureSet:
         xs, ys, steps = self._cache[key]
         return xs, ys, steps, self._perm(steps, epoch)
 
+    @staticmethod
+    def _resident(a, device):
+        """One leaf of the resident epoch, ``(steps, batch, ...)``: on
+        ``device``, or each position's rows of every batch on its device
+        (split over "data" along the batch axis)."""
+        if isinstance(device, NamedSharding):
+            return place_rows(a, device, dim=1)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
     def _compose(self, batch_size: int, steps: int, device):
         """The resident epoch: an in-memory base indexed once (a shuffled
         pass when batches shuffle); a streamed base's first epoch, its
         batches stacked in the order it gives them."""
         base = self.base
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        put = lambda a: self._resident(a, device)
         if isinstance(base, FeatureSet):
             n = steps * batch_size
             idx = (base._epoch_indices(0)[:n] if self.shuffle_batches
@@ -447,7 +527,7 @@ class DeviceFeatureSet:
         xs, ys, steps, perm = stacked
         order = np.arange(steps) if ordered or perm is None else perm
         for i in order:
-            take = lambda a: a[int(i)]
+            take = lambda a: a[int(i)]      # a placed leaf: its rows' views
             yield tree_map(take, xs), tree_map(take, ys), batch_size
 
     def _host_epoch(self, batch_size: int) -> list:

@@ -32,7 +32,12 @@ tensors as used on that stream (``record_stream``), so the caching
 allocator never reuses their blocks early.  Nothing on the consumer's
 thread copies from pageable memory; with ``prefetch <= 0`` (the eager
 baseline) the consumer stages each batch itself, through pinned memory.
-On the CPU the batches are host tensors.
+On the CPU the batches are host tensors.  Given the ``ctx`` of a mesh
+whose positions lie on several devices and no ``device``, each batch is
+cut into the data axis's row blocks, each staged on its position's device
+on that position's stream (``featureset.place_rows``; the JAX module's
+``_shard_batch`` with ``ctx.data_sharding``), a ragged last batch
+zero-padded up to the data-axis multiple first.
 
 The spans ``data.decode`` / ``data.stage``, the ``shard_read`` chaos
 point (fired before any record leaves a shard) and the ``zoo_data_*``
@@ -54,8 +59,10 @@ from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.config import DataConfig
 from analytics_zoo_tpu_torch.data.cursor import epoch_rng
 from analytics_zoo_tpu_torch.data.featureset import (
-    _Batchable, tree_flatten, tree_leaves, tree_map, tree_unflatten)
+    _Batchable, place_rows, tree_flatten, tree_leaves, tree_map,
+    tree_unflatten)
 from analytics_zoo_tpu_torch.parallel import distributed
+from analytics_zoo_tpu_torch.parallel.mesh import NamedSharding
 from analytics_zoo_tpu_torch.testing import chaos
 
 Tree = Any
@@ -444,8 +451,11 @@ class ShardedFeatureSet(_Batchable):
         epoch's order.  ``prefetch`` (else ``ctx.config.data.prefetch``,
         else the config default) bounds each stage's queue; ``<= 0`` reads
         and stages in line, the eager baseline."""
-        device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        if device is None and ctx is not None and ctx.distinct_devices:
+            device = ctx.data_sharding
+        elif not isinstance(device, NamedSharding):
+            device = torch.device(device) if device is not None \
+                else torch.device("cpu")
         depth = (self.prefetch if self.prefetch is not None
                  else ctx.config.data.prefetch if ctx is not None
                  else DataConfig().prefetch)
@@ -480,6 +490,12 @@ def _stage(x, y, device: torch.device, stream=None):
     copied into pinned host memory and from there, ``non_blocking``, on
     ``stream`` (the current stream when None); returns ``(x, y, event)``
     with the event recorded after the copies (None on the CPU)."""
+    if isinstance(device, NamedSharding):
+        # each position's rows on its device and stream (its copies are
+        # waited for there)
+        put = lambda a: place_rows(a, device, pad=True)
+        return tree_map(put, x), (None if y is None else tree_map(put, y)), \
+            None
     if device.type != "cuda":
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a))
         return tree_map(put, x), (None if y is None else tree_map(put, y)), \
@@ -531,8 +547,8 @@ def _pipeline(host_batches, device: torch.device, depth: int):
     stop = threading.Event()
     errbox: List[BaseException] = []
     parent = obs.current_span()
-    stream = (torch.cuda.Stream(device) if device.type == "cuda"
-              else None)
+    stream = (torch.cuda.Stream(device) if isinstance(device, torch.device)
+              and device.type == "cuda" else None)
 
     def _put(q, item) -> bool:
         while not stop.is_set():

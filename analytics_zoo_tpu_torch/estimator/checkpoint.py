@@ -132,9 +132,15 @@ def _dtype_name(leaf) -> str:
 
 def _shard_items(leaf: ShardedTensor):
     """(slice-bounds key, host array) of each distinct shard, in position
-    order: the one loop both layouts share."""
+    order: the one loop both layouts share.  A block several positions
+    hold on different devices (per-position replicas) is copied from its
+    first holder."""
+    seen = set()
     for slices, t in leaf.unique_shards():
-        yield tuple((sl.start, sl.stop, sl.step) for sl in slices), _host(t)
+        key = tuple((sl.start, sl.stop, sl.step) for sl in slices)
+        if key not in seen:
+            seen.add(key)
+            yield key, _host(t)
 
 
 def to_host_array(a: Any) -> np.ndarray:

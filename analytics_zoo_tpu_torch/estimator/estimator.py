@@ -8,10 +8,14 @@ clipping by value or by global norm, and the optimizer's in-place update.
 The mesh.  An estimator runs under its context: ``ctx=``, else the live
 one (``common.context.current_context``; none: no mesh, every axis of
 size 1).  As in the JAX package's single-controller model, one process
-holds every shard of the context's ``Mesh``, here all on the model's
-device (``["cuda:0"] * n`` on one card; each position on its own card is
-ROADMAP Queue 1 item 5: a mesh over several devices trains only where
-nothing is sharded over it, replicated on the model's device).  With ``dp`` / ``mp`` the "data" / "model" axis
+holds every shard of the context's ``Mesh``.  When they all lie on the
+model's device (``["cuda:0"] * n`` on one card), the step below runs
+from there.  When they lie on several devices (a mesh over several
+cards), each data position runs its rows on its own device and stream:
+the per-position step of ``estimator/positions.py``, which runs eager
+(no CUDA graph), and which the estimator's private selector
+(``_positions_on_shared_devices``) also runs on a shared device.  With
+``dp`` / ``mp`` the "data" / "model" axis
 sizes, ``shard_model`` (default True) places the weights and their
 optimizer slots by ``parallel/sharding.py``'s Megatron rules when
 ``mp > 1``, and ``shard_optimizer`` (ZeRO) places the slots and the
@@ -153,11 +157,11 @@ from analytics_zoo_tpu_torch.common.resilience import RetryPolicy
 from analytics_zoo_tpu_torch.common.timer import Timers
 from analytics_zoo_tpu_torch.common.triggers import (EveryEpoch, Trigger,
                                                      TriggerState)
-from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
 from analytics_zoo_tpu_torch.data.cursor import DataCursor
 from analytics_zoo_tpu_torch.data.featureset import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.estimator.checkpoint import (
     latest_checkpoint, needs_per_host, restore_checkpoint, save_checkpoint)
+from analytics_zoo_tpu_torch.estimator.positions import Positions, check_mesh
 from analytics_zoo_tpu_torch.keras import losses as losses_mod
 from analytics_zoo_tpu_torch.keras import metrics as metrics_mod
 from analytics_zoo_tpu_torch.keras import optimizers as optim_mod
@@ -201,6 +205,23 @@ _m_mesh = obs.lazy_gauge(
     "training mesh axis sizes (one series per axis)", ("axis",))
 
 
+#: the private selector: the per-position step on a mesh whose positions
+#: share one device (how the tests and the smoke run hold it)
+_SHARED_DEVICE_POSITIONS = False
+
+
+@contextlib.contextmanager
+def _positions_on_shared_devices():
+    """Estimators made inside the ``with`` run the per-position step over
+    their mesh's positions even where these share one device."""
+    global _SHARED_DEVICE_POSITIONS
+    prev, _SHARED_DEVICE_POSITIONS = _SHARED_DEVICE_POSITIONS, True
+    try:
+        yield
+    finally:
+        _SHARED_DEVICE_POSITIONS = prev
+
+
 class GraphCaptureError(RuntimeError):
     """Capturing the training step as a CUDA graph failed (never retried,
     never replaced by eager steps)."""
@@ -222,6 +243,9 @@ class _Source:
 
     def __init__(self, xs, ys, rows: int, ids: torch.Tensor):
         self.xs, self.ys, self.rows, self.ids = xs, ys, rows, ids
+        # the per-position step's host copy of the order and its cursor
+        self.order = list(range(rows))
+        self.at = 0
 
 
 class _CapturedStep:
@@ -489,25 +513,19 @@ class Estimator:
                                 is None else bool(shard_optimizer))
         self.shard_model = (cfg.shard_model if shard_model is None
                             else bool(shard_model))
-        # whether the step places its state on the mesh: a mesh over
-        # other devices than the model's is only replicated over (the
-        # step runs on the model's device); sharding over one raises
-        self._on_mesh = self.ctx is not None
-        if self.ctx is not None and not _on_one_device(self.ctx.mesh,
-                                                       self.device):
-            if self._shards():
-                raise NotImplementedError(
-                    f"the estimator shards over the mesh from its model's "
-                    f"device {self.device}; this mesh spans "
-                    f"{sorted({str(d) for d in self.ctx.mesh.local_devices})}"
-                    f" ({QUEUE_ITEMS[5]})")
-            self._on_mesh = False
         # the processes of a job the step spans (None: this one alone)
         self._group = (self.ctx.group if self.ctx is not None
                        and self.ctx.process_count > 1 else None)
         self._masters: Optional[Dict[str, ShardedTensor]] = None
         self._plan: Optional[_StepPlan] = None
         self._trace = None
+        # the per-position step: positions on several devices (or on one,
+        # by the private selector); built at the first use
+        self._per_position = self.ctx is not None and (
+            self.ctx.distinct_devices or _SHARED_DEVICE_POSITIONS)
+        self._pp: Optional[Positions] = None
+        if self._per_position:
+            check_mesh(self._trace_ctx().mesh, self.ctx.process_count)
         self.remat = remat
         self.mixed_precision = mixed_precision
         self.compute_dtype = getattr(torch, config.compute_dtype)
@@ -557,32 +575,94 @@ class Estimator:
         one process: a step of several processes runs eager, its
         all-reduce on the host between the backward and the update)."""
         return (self.steps_per_dispatch > 1 and self.device.type == "cuda"
-                and self._group is None)
+                and self._group is None and not self._per_position)
 
-    def _forward(self, p_fwd, x, seed):
+    def _forward(self, p_fwd, x, seed, replica=None):
         """Predictions in f32 from the weights ``p_fwd`` (the masters, or
-        their bf16 shadow under mixed precision)."""
-        if not self.mixed_precision:
+        their bf16 shadow under mixed precision), the module's other
+        tensors taken from ``replica`` where given (a data position's)."""
+        if replica is None and not self.mixed_precision:
             return self.model(x, seed=seed)
-        dt = self.compute_dtype
-        low = lambda t: t.to(dt) if t.is_floating_point() else t
-        preds = functional_call(self.model, p_fwd, (tree_map(low, x),),
-                                {"seed": seed})
+        mixed, dt = self.mixed_precision, self.compute_dtype
+        if mixed:
+            x = tree_map(lambda t: t.to(dt) if t.is_floating_point() else t,
+                         x)
+        preds = functional_call(
+            self.model, p_fwd if replica is None else {**replica, **p_fwd},
+            (x,), {"seed": seed})
+        if not mixed:
+            return preds
         return tree_map(lambda t: t.float() if t.is_floating_point() else t,
                         preds)
 
-    def _grads(self, p_fwd, x, y, seed):
-        """One microbatch's loss and its raw gradients w.r.t. ``p_fwd``."""
+    def _fwd_weights(self, params, shadow):
+        """The weights the forward reads: under mixed precision
+        ``shadow``, the bf16 copy of ``params`` taken anew; else
+        ``params``."""
+        if not self.mixed_precision:
+            return params
+        with torch.no_grad():
+            for n, p in params.items():
+                shadow[n].copy_(p)
+        return shadow
+
+    def _shadow(self, params):
+        """A bf16 shadow of ``params`` (mixed precision's forward
+        weights), on their devices."""
+        return {n: p.detach().to(self.compute_dtype).requires_grad_()
+                for n, p in params.items()}
+
+    def _grads(self, p_fwd, x, y, seed, forward=None):
+        """One microbatch's loss and its raw gradients w.r.t. ``p_fwd``;
+        ``forward(x)`` gives the predictions (default ``_forward`` of
+        ``p_fwd``)."""
+        forward = forward or (lambda xx: self._forward(p_fwd, xx, seed))
         if self.remat:
             # the hash dropout recomputes the same mask; no RNG state to
             # keep (none is drawn)
-            preds = _remat(lambda xx: self._forward(p_fwd, xx, seed), x,
-                           use_reentrant=False, preserve_rng_state=False,
+            preds = _remat(forward, x, use_reentrant=False,
+                           preserve_rng_state=False,
                            context_fn=_remat_contexts)
         else:
-            preds = self._forward(p_fwd, x, seed)
+            preds = forward(x)
         loss = self.loss(preds, y)
         return loss, grads_of(loss, list(p_fwd.values()))
+
+    def _add_grads(self, acc, grads):
+        """``grads`` added into the accumulator ``acc``, made at the first
+        call (None): f32 under mixed precision, else the gradients'
+        dtypes; returns it."""
+        if acc is None:
+            acc = [torch.zeros_like(
+                t, dtype=torch.float32 if self.mixed_precision
+                and t.is_floating_point() else t.dtype) for t in grads]
+        torch._foreach_add_(acc, [t.to(a.dtype) for t, a in zip(grads, acc)])
+        return acc
+
+    def _clip(self, grads, cross=None) -> None:
+        """Clip the update's gradient blocks in place: by value, then by
+        the global norm, the blocks' norms taken in the plan's order on
+        the first block's device (``cross``: over processes, the blocks
+        this process counts, their squares summed over processes)."""
+        if self.clip_value is not None:
+            lo, hi = (self.clip_value if isinstance(self.clip_value, tuple)
+                      else (-self.clip_value, self.clip_value))
+            for g in grads:
+                g.clamp_(lo, hi)
+        if self.clip_norm is None:
+            return
+        dev = grads[0].device
+        norms = [torch.linalg.vector_norm(g.float()).to(dev) for g in grads]
+        if cross is None:
+            norm = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            owned, total = cross
+            norm = total(torch.stack([
+                v for v, o in zip(norms, owned) if o]).square().sum()).sqrt()
+        scale = torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
+        for d in dict.fromkeys(g.device for g in grads):
+            torch._foreach_mul_([g for g in grads if g.device == d],
+                                scale.to(d))
 
     def _cast_grads(self, grads):
         if not self.mixed_precision:
@@ -629,11 +709,7 @@ class Estimator:
                     for name, t in zip(p_fwd, g):
                         plan.acc[name].reduce_scatter_(t, accumulate=True)
                 continue
-            if acc is None:
-                acc = [torch.zeros_like(
-                    t, dtype=torch.float32 if self.mixed_precision
-                    and t.is_floating_point() else t.dtype) for t in g]
-            torch._foreach_add_(acc, [t.to(a.dtype) for t, a in zip(g, acc)])
+            acc = self._add_grads(acc, g)
         if sharded:
             blocks = plan.acc_blocks
             torch._foreach_div_(blocks, float(n))
@@ -665,40 +741,15 @@ class Estimator:
     def _train_step(self, x, y, seed) -> torch.Tensor:
         """One optimizer step on batch ``(x, y)``; returns the loss as a
         device scalar (no host read)."""
-        params = self._params()
         plan = self._plan
-        if self.mixed_precision:
-            with torch.no_grad():
-                for n, p in params.items():
-                    self._p16[n].copy_(p)
-            p_fwd = self._p16
-        else:
-            p_fwd = params
+        p_fwd = self._fwd_weights(self._params(), self._p16)
         if self.grad_accum_steps > 1:
             loss, grads = self._accum_grads(p_fwd, x, y, seed)
         else:
             loss, grads = self._across(*self._grads(p_fwd, x, y, seed))
             grads = plan.cut(dict(zip(p_fwd, self._cast_grads(grads))))
         with torch.no_grad():
-            if self.clip_value is not None:
-                lo, hi = (self.clip_value
-                          if isinstance(self.clip_value, tuple)
-                          else (-self.clip_value, self.clip_value))
-                for g in grads:
-                    g.clamp_(lo, hi)
-            if self.clip_norm is not None:
-                norms = [torch.linalg.vector_norm(g.float()) for g in grads]
-                if plan.cross is None:
-                    # the global norm over every block, in the plan's order
-                    norm = torch.linalg.vector_norm(torch.stack(norms))
-                else:
-                    # the blocks this process counts, summed over processes
-                    owned, total = plan.cross
-                    norm = total(torch.stack([
-                        v for v, o in zip(norms, owned) if o]).square()
-                        .sum()).sqrt()
-                scale = torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
-                torch._foreach_mul_(grads, scale)
+            self._clip(grads, plan.cross)
         self.optimizer.update_blocks(optim_mod.Blocks(
             plan.names, plan.ps, grads, plan.slots, plan.groups,
             self.opt_state.get("decayed", ()), plan.cross), self.opt_state)
@@ -750,6 +801,13 @@ class Estimator:
         """``n`` steps from ``src`` as one dispatch: ``n`` replays of the
         captured step on the card (K > 1), else ``n`` eager steps.
         Returns their losses, an ``(n,)`` device tensor."""
+        if self._per_position:
+            picks = [src.order[(src.at + j) % src.rows] for j in range(n)]
+            src.at += n
+            take = lambda i: lambda a: a[int(i)]
+            return self._position_steps([(tree_map(take(i), src.xs),
+                                          tree_map(take(i), src.ys))
+                                         for i in picks])
         self._slot.zero_()
         if self._graphs_on:
             key = (self._fused_tf.signature if self._fused_tf is not None
@@ -767,6 +825,32 @@ class Estimator:
                 self._step_from(src)
         return self._loss_buf[:n].clone()
 
+    def _position_steps(self, batches) -> torch.Tensor:
+        """Eager per-position steps over ``batches``, each seeded from the
+        host step count (the value the device derivation gives); returns
+        their losses, an ``(n,)`` tensor on the model's device."""
+        losses = []
+        with _deterministic_cudnn():
+            for j, (x, y) in enumerate(batches):
+                seed = derive_seed(self._seed, self.global_step + j)
+                losses.append(self._pp.step(x, y, seed))
+        return torch.stack(losses)
+
+    def _positions(self) -> Positions:
+        """The per-position step's replicas and streams (made once; the
+        module's weights copied into them again at every call, as they
+        are the truth between calls)."""
+        if self._pp is None:
+            self._pp = Positions(self, self._trace_ctx().mesh)
+        else:
+            self._pp.refresh()
+        return self._pp
+
+    def _feed_device(self):
+        """Where a featureset stages training batches: the model's device,
+        or (None) the positions' devices for the per-position step."""
+        return None if self._per_position else self.device
+
     # -------------------------------------------------------- placement
     @property
     def params(self) -> Dict[str, object]:
@@ -776,15 +860,6 @@ class Estimator:
         if self._masters is not None:
             return self._masters
         return {n: p.detach() for n, p in self.model.named_parameters()}
-
-    def _shards(self) -> bool:
-        """Whether the step shards over the mesh: ZeRO over data > 1 or
-        the Megatron placement over model > 1 (the JAX step's ``zshard``
-        / ``msharded``)."""
-        ctx = self.ctx
-        return ctx is not None and (
-            (self.shard_optimizer and ctx.axis_size(ctx.data_axis) > 1)
-            or (self.shard_model and ctx.axis_size("model") > 1))
 
     def _trace_ctx(self) -> Optional[ZooContext]:
         """The context the layers see while this estimator runs: its own,
@@ -826,26 +901,26 @@ class Estimator:
         trainable = list(self._params())
         slot_names = self.optimizer.slot_names(self.opt_state)
         acc = None
-        if not self._on_mesh:
+        if self.ctx is None:
             self._plan = _StepPlan(module, trainable, None, None,
                                    self.opt_state, slot_names)
             return
-        mesh, axis = self.ctx.mesh, self.ctx.data_axis
-        dp, mp = self.ctx.axis_size(axis), self.ctx.axis_size("model")
-        zshard = self.shard_optimizer and dp > 1
-        msharded = self.shard_model and mp > 1
+        # the per-position step places over the layers' view of the mesh
+        # (data only under shard_model=False)
+        ctx = self._trace_ctx() if self._per_position else self.ctx
+        mesh, axis = ctx.mesh, ctx.data_axis
+        zshard = self.shard_optimizer and ctx.axis_size(axis) > 1
+        msharded = self.shard_model and ctx.axis_size("model") > 1
         opt_tree = _opt_tree(self.opt_state)
-        pspecs = partition_specs(module, mesh) if msharded else None
-        ospecs = partition_specs(opt_tree, mesh) if msharded else None
-        psh = (named_shardings(mesh, pspecs) if msharded
-               else replicated_shardings(module, mesh))
-        if zshard:
-            osh = zero_shardings(opt_tree, mesh, axis, base_specs=ospecs)
-            gsh = zero_shardings(module, mesh, axis, base_specs=pspecs)
-        else:
-            osh = (named_shardings(mesh, ospecs) if msharded
-                   else replicated_shardings(opt_tree, mesh))
-            gsh = psh
+        psh, gsh, osh = _shardings(mesh, axis, module, opt_tree, zshard,
+                                   msharded)
+        if self._per_position:
+            pp = self._positions()
+            self.opt_state = {**self.opt_state, **pp.place(
+                opt_tree, psh, gsh, osh, slot_names)}
+            self._masters = pp.masters
+            self._plan = pp
+            return
         self._masters = device_put(module, psh)
         self.opt_state = {**self.opt_state, **device_put(opt_tree, osh)}
         if zshard and self.grad_accum_steps > 1 and self._group is None:
@@ -870,9 +945,9 @@ class Estimator:
             # the module's weights are the truth between calls (set_weights,
             # a load): the master shards take them again
             self._plan.refresh()
-        if self.mixed_precision and self._p16 is None:
-            self._p16 = {n: p.detach().to(self.compute_dtype)
-                         .requires_grad_() for n, p in self._params().items()}
+        if (self.mixed_precision and self._p16 is None
+                and not self._per_position):
+            self._p16 = self._shadow(self._params())
         if self._step_dev is None:
             zero = lambda dt: torch.zeros((), dtype=dt, device=dev)
             self._step_dev = zero(torch.int64)
@@ -1040,7 +1115,8 @@ class Estimator:
         stacked = None
         if hasattr(featureset, "stacked_epoch"):
             stacked = featureset.stacked_epoch(batch_size, epoch,
-                                               self.device, **self._fs_kw())
+                                               self._feed_device(),
+                                               **self._fs_kw())
         args = (batch_size, epoch, tb, tb_pend, losses, end_trigger, t_epoch)
         if stacked is not None:
             if self._run_resident_epoch(stacked, *args):
@@ -1110,6 +1186,7 @@ class Estimator:
             src = _Source(xs, ys, steps, ids)
             self._host_src[("resident", id(xs))] = src
         src.ids.copy_(torch.from_numpy(np.asarray(order, np.int64)))
+        src.order, src.at = [int(i) for i in order], 0
         self._cursor.zero_()
         return src
 
@@ -1144,6 +1221,12 @@ class Estimator:
         pend = []
 
         def dispatch(group, k_gran):
+            if self._per_position:
+                with self._step_scope(len(group)):
+                    lv = self._position_steps(group)
+                return self._post_dispatch(len(group), k_gran, lv,
+                                           batch_size, epoch, tb, tb_pend,
+                                           losses, end_trigger, t_epoch)
             src = self._host_source(*group[0])
             with torch.no_grad():
                 for i, (x, y) in enumerate(group):
@@ -1159,7 +1242,7 @@ class Estimator:
 
         if getattr(featureset, "supports_cursor", False):
             feed = _sync_counted(featureset.batches(
-                batch_size, epoch=epoch, device=self.device,
+                batch_size, epoch=epoch, device=self._feed_device(),
                 start_step=start_step, **self._fs_kw()))
         else:
             feed = _prefetch(featureset.batches(batch_size, epoch=epoch,
@@ -1331,9 +1414,10 @@ class Estimator:
         self.model.eval()
         accs = [m.init() for m in self.metrics]
         loss_sum, n_total = 0.0, 0
+        fwd = self._predictor()
         with torch.inference_mode(), self._scope():
             for x, y, n in self._feed(featureset, batch_size):
-                preds = self.model(x)
+                preds = fwd(x)
                 accs = [m.update(a, preds, y)
                         for m, a in zip(self.metrics, accs)]
                 if self.loss is not None:
@@ -1359,6 +1443,14 @@ class Estimator:
             yield (x if tf is None else tf.apply_jax(x),
                    None if y is None else to_dev(y), n)
 
+    def _predictor(self):
+        """The forward ``evaluate`` and ``predict`` run: the module, or
+        over the per-position step's replicas, each position its row block
+        of the batch (``Positions.predict``)."""
+        if not self._per_position:
+            return self.model
+        return self._positions().predict
+
     def _adopt_transforms(self, featureset) -> None:
         """The featureset's ``fuse=True`` chain runs in the step (a
         ``fuse=False`` chain already ran in the ingest pipeline)."""
@@ -1373,10 +1465,11 @@ class Estimator:
         self._adopt_transforms(featureset)
         self.model.eval()
         outs = []
+        fwd = self._predictor()
         with torch.inference_mode(), self._scope():
             for x, _, _ in self._feed(featureset, batch_size):
                 outs.append(tree_map(lambda t: t.float().cpu().numpy(),
-                                     self.model(x)))
+                                     fwd(x)))
         if not outs:
             return None
         if isinstance(outs[0], np.ndarray):
@@ -1561,6 +1654,24 @@ class _LazyLoss:
         return self._value() >= other
 
 
+def _shardings(mesh, axis: str, module: dict, opt_tree: dict, zshard: bool,
+               msharded: bool):
+    """The step's shardings ``(psh, gsh, osh)`` of the weights (the
+    Megatron rules under ``msharded``, else replicated), of the gradient
+    and update blocks (the ZeRO specs over ``axis`` under ``zshard``,
+    composed with the Megatron ones; else the weights') and of the
+    optimizer state (likewise)."""
+    pspecs = partition_specs(module, mesh) if msharded else None
+    ospecs = partition_specs(opt_tree, mesh) if msharded else None
+    psh = (named_shardings(mesh, pspecs) if msharded
+           else replicated_shardings(module, mesh))
+    if zshard:
+        return (psh, zero_shardings(module, mesh, axis, base_specs=pspecs),
+                zero_shardings(opt_tree, mesh, axis, base_specs=ospecs))
+    return psh, psh, (named_shardings(mesh, ospecs) if msharded
+                      else replicated_shardings(opt_tree, mesh))
+
+
 def _opt_tree(state: dict) -> dict:
     """The optimizer state's tensors (its count and slots) for a
     checkpoint; the decay mask (names) is rebuilt by ``init``."""
@@ -1579,21 +1690,6 @@ def _opt_tensors(state) -> List[torch.Tensor]:
         else:
             out.append(leaf)
     return out
-
-
-def _dev_key(dev: torch.device) -> tuple:
-    dev = torch.device(dev)
-    index = dev.index
-    if index is None and dev.type == "cuda":
-        index = torch.cuda.current_device()
-    return dev.type, index
-
-
-def _on_one_device(mesh, device: torch.device) -> bool:
-    """Whether every mesh position of this process lies on ``device``: the
-    process then drives the sharded step from there (each position on its
-    own card is not ported)."""
-    return {_dev_key(d) for d in mesh.local_devices} == {_dev_key(device)}
 
 
 def _copy_named(what: str, dst: Dict[str, torch.Tensor], src: dict) -> None:

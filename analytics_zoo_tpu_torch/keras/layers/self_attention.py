@@ -84,7 +84,10 @@ def _mesh_2d():
 
 
 def _local_data(mesh) -> int:
-    """This process's positions along the mesh's "data" axis."""
+    """This process's positions along the mesh's "data" axis (1 inside a
+    ``position_scope``: the batch is one data position's rows)."""
+    if distributed.current_position() is not None:
+        return 1
     return (len(mesh.local_range("data")) if "data" in mesh.axis_names
             else 1)
 

@@ -39,6 +39,15 @@ parameters (the bf16 gradient tree of ``Estimator(grad_dtype=
 the other optimizers widen them to the parameter's dtype first.
 ``AdamWeightDecay(state_dtype="bfloat16")`` stores the first moment in
 bf16 (optax's ``mu_dtype``); the second stays f32.
+
+The blocks of one update may lie on several devices (the estimator's
+per-position step updates each block on its owner position's device).
+The step is then the same list of ``_foreach`` operations, which PyTorch
+runs tensor by tensor on each one's device; the 0-d tensors they take (the
+learning rate, the bias corrections, trust ratios) go to each entry's
+device (``_on_each``), and a leaf's norm adds its blocks' squared norms on
+the first block's device.  Each slot lives where its block does, so the
+bytes a device holds are what ``parallel.zero.bytes_per_device`` counts.
 """
 
 from __future__ import annotations
@@ -87,6 +96,17 @@ class Blocks:
 
     def decayed_idx(self) -> List[int]:
         return [i for i, n in enumerate(self.names) if n in self.decayed]
+
+
+def _on_each(v, ts):
+    """A 0-d tensor ``v`` as the tensors ``ts`` take it: ``v`` itself
+    when all of them lie on its device (one ``_foreach`` launch), else a
+    copy on each one's device (blocks on several devices)."""
+    if not isinstance(v, torch.Tensor) or all(t.device == v.device
+                                              for t in ts):
+        return v
+    copies: Dict[torch.device, torch.Tensor] = {}
+    return [copies.setdefault(t.device, v.to(t.device)) for t in ts]
 
 
 def _local(t):
@@ -171,7 +191,7 @@ class Optimizer:
     def _apply(ps, upd, lr) -> None:
         """optax's ``scale_by_learning_rate`` then ``apply_updates``:
         ``p + (-lr) * u``."""
-        torch._foreach_add_(ps, torch._foreach_mul(upd, -lr))
+        torch._foreach_add_(ps, torch._foreach_mul(upd, _on_each(-lr, upd)))
 
 
 def _weak(c: float, like: List[torch.Tensor]) -> float:
@@ -199,7 +219,8 @@ def _leaf_norms(ts, idx, groups, cross=None) -> torch.Tensor:
     sum of the squared norms of its leaf's blocks, in block order (over
     processes, ``cross``: each process's sum of the blocks it counts,
     added by one all-reduce)."""
-    norms = torch._foreach_norm([ts[i] for i in idx])
+    dev = ts[idx[0]].device
+    norms = [n.to(dev) for n in torch._foreach_norm([ts[i] for i in idx])]
     if groups is None:
         return torch.stack(norms)
     at = {i: j for j, i in enumerate(idx)}
@@ -242,7 +263,9 @@ def _trust_scale_(upd, ps, idx, groups=None, coeff=1.0, eps=0.0,
     un = _leaf_norms(upd, idx, groups, cross)
     ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
                         coeff * pn / (un + eps))
-    torch._foreach_mul_([upd[i] for i in idx], list(ratio.unbind()))
+    torch._foreach_mul_([upd[i] for i in idx],
+                        [r.to(upd[i].device)
+                         for r, i in zip(ratio.unbind(), idx)])
 
 
 class _SGD(Optimizer):
@@ -343,10 +366,11 @@ class _Adam(Optimizer):
         torch._foreach_mul_(g2, _weak(1.0 - b2, gs))
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, g2)
-        den = torch._foreach_div(nu, _bias_correction(b2, count))
+        den = torch._foreach_div(nu, _on_each(_bias_correction(b2, count),
+                                              nu))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu, bc1)
+        upd = torch._foreach_div(mu, _on_each(bc1, mu))
         torch._foreach_div_(upd, den)
         idx = b.decayed_idx()
         if idx:
@@ -384,7 +408,8 @@ class _Adamax(Optimizer):
         torch._foreach_add_(inf, self.eps)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_maximum_(nu, inf)
-        upd = torch._foreach_div(mu, _bias_correction(self.b1, count))
+        upd = torch._foreach_div(mu, _on_each(
+            _bias_correction(self.b1, count), mu))
         torch._foreach_div_(upd, nu)
         self._apply(ps, upd, lr)
 
@@ -498,7 +523,7 @@ class _LARS(Optimizer):
                                 alpha=self.weight_decay)
         _trust_scale_(upd, ps, idx, b.groups, self.trust_coefficient,
                       self.eps, b.cross)
-        torch._foreach_mul_(upd, -lr)
+        torch._foreach_mul_(upd, _on_each(-lr, upd))
         trace = b.slots["trace"]
         torch._foreach_mul_(trace, self.momentum)
         torch._foreach_add_(trace, upd)              # u + m * t

@@ -314,8 +314,9 @@ class DecoderLM(nn.Module):
         ``mesh``'s "model" axis (model parallelism for serving): the
         entry points route attention through the sharded paged ops, and
         ``page_sharding`` places a ``PagedKVCache``'s pages so each
-        device holds ``n_kv_heads / mp`` heads.  The weights stay where
-        they are."""
+        device holds ``n_kv_heads / mp`` heads; each shard's launches
+        run on its position's device (over several cards on its stream,
+        ``Mesh.block_streams``).  The weights stay where they are."""
         mp = mesh.shape["model"]
         if self.n_kv_heads % mp:
             raise ValueError(

@@ -416,10 +416,30 @@ def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
 
     Over several processes q holds this process's rows: ``dp`` counts its
     own data coordinates (``mesh.local_range``), and each block's seed
-    takes the block's global data coordinate.
+    takes the block's global data coordinate.  Inside a
+    ``parallel.distributed.position_scope`` over those coordinates q holds
+    one data position's rows, and only that position's blocks run.
+
+    Where the mesh's positions lie on several devices
+    (``Mesh.block_streams``) each block launches on its position's
+    stream (``Mesh.stream``), so blocks on different cards overlap; q's
+    device's current stream then waits for those streams (events, no
+    device-wide sync) before the outputs are joined, and the backward runs
+    each block's kernel on the stream its forward ran on.  Positions that
+    share a device run their blocks one after another on its current
+    stream.
     """
+    # (imported here: the parallel package imports this module)
+    from analytics_zoo_tpu_torch.parallel.distributed import (
+        current_position)
+    from analytics_zoo_tpu_torch.parallel.mesh import (join, on_stream,
+                                                       used_on)
     data_coords = (mesh.local_range(data_axis)
                    if data_axis in mesh.axis_names else range(1))
+    at = current_position()
+    if at is not None and at[1] == len(data_coords):
+        # one data position's rows (the per-position step): its blocks
+        data_coords = [data_coords[at[0]]]
     dp = len(data_coords)
     mp = mesh.shape.get(model_axis, 1)
     B, H = q.shape[0], q.shape[1]
@@ -438,21 +458,28 @@ def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
     blocks_of = lambda t: [row.split(hl, dim=1) for row in t.split(bl)]
     qs, ks, vs = blocks_of(q), blocks_of(k), blocks_of(v)
     masks = None if padding_mask is None else padding_mask.split(bl)
-    rows = []
-    for di, dg in enumerate(data_coords):
-        blocks = []
-        for mi in range(mp):
-            coords = {a: i for a, i in ((data_axis, dg), (model_axis, mi))
-                      if a in mesh.axis_names}
-            dev = mesh.device(coords)
+    at = [{a: i for a, i in ((data_axis, dg), (model_axis, mi))
+           if a in mesh.axis_names}
+          for dg in data_coords for mi in range(mp)]
+    streams = mesh.streams_at(at)
+    outs = []
+    for j, coords in enumerate(at):
+        di, mi = divmod(j, mp)
+        dg = data_coords[di]
+        dev = mesh.device(coords)
+        with on_stream(streams[j]):
+            ins = [qs[di][mi], ks[di][mi], vs[di][mi]]
+            if masks is not None:
+                ins.append(masks[di])
+            used_on(ins, streams[j])
             o = flash_attention(
-                qs[di][mi].to(dev), ks[di][mi].to(dev), vs[di][mi].to(dev),
-                padding_mask=(None if masks is None
-                              else masks[di].to(dev)),
+                *(t.to(dev) for t in ins[:3]),
+                padding_mask=None if masks is None else ins[3].to(dev),
                 causal=causal, sm_scale=sm_scale, backend=backend,
                 dropout_rate=drop,
                 dropout_seed=(_shard_seed(dropout_seed, dg, mi)
                               if has_seed else None))
-            blocks.append(o.to(q.device))
-        rows.append(torch.cat(blocks, dim=1))
-    return torch.cat(rows, dim=0)
+            outs.append(o.to(q.device))
+    join(streams, outs)
+    return torch.cat([torch.cat(outs[d * mp:(d + 1) * mp], dim=1)
+                      for d in range(dp)], dim=0)

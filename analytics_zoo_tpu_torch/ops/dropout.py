@@ -71,9 +71,11 @@ def as_seed(rng_or_seed):
 
 def process_offset(shape) -> int:
     """The global index of the first element of an array of ``shape``
-    whose leading axis holds this process's rows of the global batch, in
-    the live context's job (``parallel.distributed.batch_offset``): the
-    ``offset`` a layer draws with, 0 for one process."""
+    whose leading axis holds the caller's rows of the global batch: this
+    process's, or within a ``parallel.distributed.position_scope`` one
+    data position's (``parallel.distributed.batch_offset``, one rule for
+    both): the ``offset`` a layer draws with, 0 for one process and one
+    position."""
     from analytics_zoo_tpu_torch.parallel import distributed
     rows = shape[0] if len(shape) else 0
     if not rows:

@@ -209,22 +209,33 @@ def _pool_shards(pages, mesh, axis: str, mp: int) -> list:
 
 def _sharded(mesh, q, k_pages, v_pages, axis, run, *replicated):
     """Run ``run(q_s, k_s, v_s, *replicated_s, rule_heads)`` on each model
-    shard's device and concatenate the outputs along heads."""
+    shard's device (over several devices, ``Mesh.block_streams``, on its
+    stream, so the shards' launches overlap; on a shared device one after
+    another) and concatenate the outputs along heads once q's stream has
+    waited for theirs."""
     mp = mesh.shape[axis]
     H, Hkv = q.shape[1], k_pages.shape[2]
     if H % mp or Hkv % mp:
         raise ValueError(
             f"heads must divide the model axis: H={H}, Hkv={Hkv}, "
             f"mp={mp}")
+    # (imported here: the parallel package imports this module)
+    from analytics_zoo_tpu_torch.parallel.mesh import (join, on_stream,
+                                                       used_on)
     ks = _pool_shards(k_pages, mesh, axis, mp)
     vs = _pool_shards(v_pages, mesh, axis, mp)
     hq = H // mp
+    streams = mesh.streams_at([{axis: s} for s in range(mp)])
     outs = []
     for s in range(mp):
         dev = mesh.device({axis: s})
-        o = run(q[:, s * hq:(s + 1) * hq].to(dev), ks[s], vs[s],
-                *(t.to(dev) for t in replicated), (H, Hkv))
-        outs.append(o.to(q.device))
+        with on_stream(streams[s]):
+            ins = [q, ks[s], vs[s], *replicated]
+            used_on(ins, streams[s])
+            o = run(q[:, s * hq:(s + 1) * hq].to(dev), ks[s], vs[s],
+                    *(t.to(dev) for t in replicated), (H, Hkv))
+            outs.append(o.to(q.device))
+    join(streams, outs)
     return torch.cat(outs, dim=1)
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import datetime
 import os
 import socket
+import threading
 import time
 from typing import Any, List, Optional
 
@@ -247,9 +248,40 @@ def process_allgather(in_tree, tiled: bool = False, ctx=None):
     return tree_map(leaf, in_tree)
 
 
+_position = threading.local()
+
+
+class position_scope:
+    """Within the ``with``, the calling thread computes data position
+    ``index`` of ``count`` local positions (the estimator's per-position
+    step): ``batch_offset`` then names that position's first row."""
+
+    def __init__(self, index: int, count: int):
+        self._at = (int(index), int(count))
+
+    def __enter__(self):
+        self._prev = getattr(_position, "at", None)
+        _position.at = self._at
+        return self
+
+    def __exit__(self, *exc):
+        _position.at = self._prev
+        return False
+
+
+def current_position():
+    """``(index, count)`` of the calling thread's ``position_scope``, or
+    None outside one."""
+    return getattr(_position, "at", None)
+
+
 def batch_offset(rows: int, ctx=None) -> int:
-    """The global index of this process's first row of the global batch,
-    when each process holds ``rows`` rows of it (``process_index *
-    rows``); 0 for one process.  The dropout draws add it, so a process's
-    masks are its rows of the global masks."""
-    return process_index(ctx) * int(rows)
+    """The global index of the first row of the global batch that the
+    caller holds ``rows`` rows of: the process's offset plus its local
+    data coordinate times ``rows``, i.e. ``(process_index * count +
+    index) * rows`` inside a ``position_scope(index, count)`` and
+    ``process_index * rows`` outside one; 0 for one process and one
+    position.  The dropout draws add it, so a position's masks are its
+    rows of the global masks."""
+    index, count = current_position() or (0, 1)
+    return (process_index(ctx) * count + index) * int(rows)

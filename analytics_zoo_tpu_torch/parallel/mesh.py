@@ -29,12 +29,31 @@ lacks, ``exchange``; an all-reduce of the partial sums).  Trees are
 nested dicts, lists and tuples; their leaf paths join the keys with
 ``/``, and a dict key's ``.`` (a ``state_dict`` key) counts as ``/``
 too, so a rule written for a JAX path matches the same port leaf.
+
+Positions on several devices.  Each local position on a card has a CUDA
+stream of its own (``Mesh.stream``, made at first use; None on the host),
+so the work of positions on different cards can overlap: the sharded ops
+take them where the positions lie on several devices
+(``block_streams``), and run a shared device's blocks one after
+another.  ``fork`` makes each position's stream wait for what its
+device's current stream has issued, ``join`` the other way round, and
+``on_stream`` enters a position's device and stream; a tensor one stream
+allocated and another reads is marked for the reader (``used_on``, and
+``join`` for what the joining streams read), so
+the caching allocator keeps its block until the reader is done.
+``reduce_ordered`` adds per-position tensors on an owner's device in
+position order (a step repeats bit for bit), and ``broadcast_from``
+copies an owner's tensor into the others'.  ``ShardedTensor``'s
+collectives copy between devices block by block; a block several
+positions hold on different devices is read from its first holder.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -79,6 +98,7 @@ class Mesh:
         if not self._local:
             raise ValueError(f"process {self.process_index} holds no "
                              "position of this mesh")
+        self._streams: Dict[int, Any] = {}
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -97,6 +117,24 @@ class Mesh:
             raise ValueError(f"no mesh axis {sorted(unknown)}; axes are "
                              f"{self.axis_names}")
         return self.devices[tuple(coords.get(a, 0) for a in self.axis_names)]
+
+    def position(self, coords: Mapping[str, int]) -> int:
+        """The flat position at ``coords`` (absent axes at index 0)."""
+        return int(np.ravel_multi_index(
+            tuple(coords.get(a, 0) for a in self.axis_names),
+            self.devices.shape))
+
+    def streams_at(self, coords_list) -> list:
+        """What a sharded op runs its blocks on: under ``block_streams``
+        the streams of the positions at ``coords_list`` (``stream``), each
+        made to wait for its device's current stream (``fork``); else
+        None for each, and the blocks run one after another on the
+        current stream."""
+        if not self.block_streams:
+            return [None] * len(coords_list)
+        streams = [self.stream(self.position(c)) for c in coords_list]
+        fork(streams)
+        return streams
 
     def coords(self, position: int) -> Dict[str, int]:
         """``{axis name: index}`` of flat position ``position`` (the order
@@ -121,6 +159,31 @@ class Mesh:
     def local_devices(self) -> List[torch.device]:
         """The devices of this process's positions, in position order."""
         return [self.devices.flat[p] for p in self._local]
+
+    @property
+    def distinct_devices(self) -> bool:
+        """Whether this process's positions lie on more than one device."""
+        return len({_dev_key(d) for d in self.local_devices}) > 1
+
+    @property
+    def block_streams(self) -> bool:
+        """Whether the sharded ops run each position's block on that
+        position's stream: where this process's positions lie on several
+        devices.  Positions that share a card run their blocks on its
+        current stream, one after another (side streams there measured
+        slower on an H100 and overlapped nothing: PERF.md §6)."""
+        return self.distinct_devices
+
+    def stream(self, position: int):
+        """The CUDA stream of local flat position ``position``, made at
+        its first use (None for a position on the host or ``meta``)."""
+        dev = self.devices.flat[position]
+        if dev.type != "cuda":
+            return None
+        s = self._streams.get(position)
+        if s is None:
+            s = self._streams[position] = torch.cuda.Stream(device=dev)
+        return s
 
     def local_range(self, axis: str) -> range:
         """The coordinates along ``axis`` of this process's positions (a
@@ -355,12 +418,17 @@ class ShardedTensor:
 
     def all_gather_into(self, out: torch.Tensor) -> torch.Tensor:
         """The all-gather into a fixed buffer: every distinct shard copied
-        into its block of ``out`` (the global shape), in position order;
-        a shard that already is that block of ``out`` (the same memory)
-        is skipped.  In place and capturable within one process: a CUDA
+        into its block of ``out`` (the global shape), in position order
+        (a block held on several devices from its first holder); a shard
+        that already is that block of ``out`` (the same memory) is
+        skipped.  In place and capturable within one process: a CUDA
         graph replays the same copies between the same addresses.  The
         blocks this process lacks come from their owners (``exchange``)."""
+        done = set()
         for slices, t in self.unique_shards():
+            if _key(slices) in done:
+                continue
+            done.add(_key(slices))
             block = out[slices]
             if not _same_memory(block, t):
                 block.copy_(t)
@@ -400,7 +468,7 @@ class ShardedTensor:
         for slices, t in self.unique_shards():
             block = src[slices]
             if accumulate:
-                t.add_(block.to(t.dtype))
+                t.add_(block.to(device=t.device, dtype=t.dtype))
             elif not _same_memory(block, t):
                 t.copy_(block)
         return self
@@ -416,6 +484,88 @@ class ShardedTensor:
     def __repr__(self):
         return (f"ShardedTensor(shape={tuple(self.shape)}, "
                 f"dtype={self.dtype}, sharding={self.sharding!r})")
+
+
+def _dev_key(dev) -> tuple:
+    """A device as ``(type, index)``, a bare "cuda" at the current card."""
+    dev = torch.device(dev)
+    index = dev.index
+    if index is None and dev.type == "cuda":
+        index = torch.cuda.current_device()
+    return dev.type, index
+
+
+# --- streams ----------------------------------------------------------------
+
+def on_stream(stream, device=None):
+    """Enter ``stream`` and its device (a null context for None: the
+    host)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(stream.device))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+def fork(streams: Iterable) -> None:
+    """Each stream waits for the work its device's current stream has
+    issued so far."""
+    for s in streams:
+        if s is not None:
+            s.wait_stream(torch.cuda.current_stream(s.device))
+
+
+def join(streams: Iterable, tensors: Iterable = ()) -> None:
+    """Each stream's device's current stream waits for that stream, and
+    ``tensors`` (made on those streams) are marked as read on their
+    device's current stream (``used_on``); nothing where every stream is
+    None (the work ran on the current streams)."""
+    joined = False
+    for s in streams:
+        if s is not None:
+            torch.cuda.current_stream(s.device).wait_stream(s)
+            joined = True
+    if joined:
+        for t in tensors:
+            if t is not None and t.device.type == "cuda":
+                t.record_stream(torch.cuda.current_stream(t.device))
+
+
+def used_on(tensors: Iterable, stream) -> None:
+    """Mark CUDA tensors as read on ``stream``, so the allocator keeps
+    their blocks until that stream's work is done; nothing for None (the
+    current stream, whose order already keeps them)."""
+    if stream is None:
+        return
+    for t in tensors:
+        if t is not None and t.device.type == "cuda":
+            t.record_stream(stream)
+
+
+def reduce_ordered(parts: Sequence[Sequence[torch.Tensor]], device,
+                   dtype: Optional[torch.dtype] = None
+                   ) -> List[torch.Tensor]:
+    """``parts[0][k] + parts[1][k] + ...`` for each ``k``, added in
+    position order on ``device`` (``parts[i]``: position ``i``'s
+    tensors), each part copied there first and the sums in ``dtype``
+    (default each tensor's own): the same bits whichever device holds
+    which part."""
+    device = torch.device(device)
+    cast = lambda t: t.to(device=device, dtype=dtype or t.dtype)
+    out = [t.to(device=device, dtype=dtype or t.dtype, copy=True)
+           for t in parts[0]]
+    for ts in parts[1:]:
+        torch._foreach_add_(out, [cast(t) for t in ts])
+    return out
+
+
+def broadcast_from(src: torch.Tensor, dsts: Iterable[torch.Tensor]) -> None:
+    """``src`` copied into every one of ``dsts`` (skipping ``src``
+    itself), each copy on the destination's device."""
+    for d in dsts:
+        if not _same_memory(d, src):
+            d.copy_(src)
 
 
 def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:

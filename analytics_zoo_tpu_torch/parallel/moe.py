@@ -8,10 +8,14 @@ connection carries them through).
 
 With a mesh whose ``axis`` is above 1, the experts are split into that
 many contiguous groups and group ``s`` runs on the device at coordinate
-``s``: its slice of the ``(E, C, d)`` dispatched tokens moves there, its
-two GEMMs run there next to its weights, and its outputs move back to the
-tokens' device for the combine (the port's single-controller form of the
-all-to-all XLA inserts).  Differentiable through autograd.
+``s`` (over several devices, ``Mesh.block_streams``, on that position's
+stream, so the groups overlap; on a shared device one after another on
+its current stream): its slice
+of the ``(E, C, d)`` dispatched tokens moves there, its two GEMMs run
+there next to its weights, and its outputs move back to the tokens'
+device for the combine once that device's stream has waited for the
+groups' (the port's single-controller form of the all-to-all XLA
+inserts).  Differentiable through autograd.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.parallel.mesh import (
-    Mesh, NamedSharding, PartitionSpec as P, ShardedTensor)
+    Mesh, NamedSharding, PartitionSpec as P, ShardedTensor, join, on_stream,
+    used_on)
 
 
 def _gelu(x):
@@ -131,12 +136,16 @@ def moe_ffn(params, x, *, capacity_factor: float = 1.25,
             raise ValueError(f"{E} experts do not divide over the "
                              f"{groups}-way '{axis}' axis")
         n = E // groups
+        streams = mesh.streams_at([{axis: s} for s in range(groups)])
         outs = []
         for s in range(groups):
             dev = mesh.device({axis: s})
-            w = [_group(params[k], s, groups, axis, dev) for k in names]
-            outs.append(_experts(expert_in[s * n:(s + 1) * n].to(dev), *w,
-                                 activation).to(x.device))
+            with on_stream(streams[s]):
+                used_on([expert_in], streams[s])
+                w = [_group(params[k], s, groups, axis, dev) for k in names]
+                outs.append(_experts(expert_in[s * n:(s + 1) * n].to(dev),
+                                     *w, activation).to(x.device))
+        join(streams, outs)
         expert_out = torch.cat(outs, dim=0)
     else:
         expert_out = _experts(expert_in,

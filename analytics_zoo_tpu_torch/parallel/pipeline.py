@@ -5,7 +5,10 @@ Stage s's parameters live on the device at pipeline coordinate s (leaves
 carry a leading S dim), and M microbatches stream through the stages in
 ``M + S - 1`` ticks: at tick t stage s runs microbatch ``t - s``, and its
 output moves to stage s + 1's device with ``.to()`` for the next tick
-(the JAX package's ``ppermute``).  The schedule is differentiable through
+(the JAX package's ``ppermute``).  Over several devices
+(``Mesh.block_streams``) each stage runs on its position's stream
+(``Mesh.stream``), after waiting for its predecessor's, so the stages of
+one tick overlap; stages that share a device run on its current stream.  The schedule is differentiable through
 autograd, so a pipelined training step is the backward of a loss through
 ``pipeline_apply``.
 
@@ -20,7 +23,7 @@ from typing import Any, Callable, List
 import torch
 
 from analytics_zoo_tpu_torch.parallel.mesh import (
-    Mesh, ShardedTensor, tree_leaves, tree_map)
+    Mesh, ShardedTensor, join, on_stream, tree_leaves, tree_map, used_on)
 
 
 def stack_stage_params(per_stage_params) -> Any:
@@ -74,9 +77,11 @@ def pipeline_apply(stage_fn: Callable, stacked_params, x, *, mesh: Mesh,
     columns = []
     for d in range(parts):
         coords = ({data_axis: d} if data_axis in mesh.axis_names else {})
-        devs = [mesh.device({**coords, axis: s}) for s in range(S)]
+        at = [{**coords, axis: s} for s in range(S)]
+        devs = [mesh.device(c) for c in at]
         params = [_stage_params(stacked_params, s, axis, devs[s])
                   for s in range(S)]
+        streams = mesh.streams_at(at)
         outs: List[Any] = [None] * M
         buf: List[Any] = [None] * S     # the input waiting at each stage
         for t in range(M + S - 1):
@@ -86,13 +91,22 @@ def pipeline_apply(stage_fn: Callable, stacked_params, x, *, mesh: Mesh,
                 m = t - s
                 if not 0 <= m < M:
                     continue
-                x_in = (mbs[m, d * rows:(d + 1) * rows].to(devs[0])
-                        if s == 0 else buf[s])
-                y = stage_fn(params[s], x_in)
-                if s == S - 1:
-                    outs[m] = y.to(x.device)
-                else:
-                    buf[s + 1] = y.to(devs[s + 1])
+                with on_stream(streams[s]):
+                    if s == 0:
+                        used_on([mbs], streams[0])
+                        x_in = mbs[m, d * rows:(d + 1) * rows].to(devs[0])
+                    else:
+                        # the predecessor's output of the previous tick
+                        if streams[s] is not None:
+                            streams[s].wait_stream(streams[s - 1])
+                        x_in = buf[s]
+                        used_on([x_in], streams[s])
+                    y = stage_fn(params[s], x_in)
+                    if s == S - 1:
+                        outs[m] = y.to(x.device)
+                    else:
+                        buf[s + 1] = y.to(devs[s + 1])
+        join(streams, outs)
         columns.append(torch.stack(outs))
     out = torch.cat(columns, dim=1) if parts > 1 else columns[0]
     return out.reshape(B, *x.shape[1:])

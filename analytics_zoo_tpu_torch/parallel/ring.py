@@ -11,8 +11,13 @@ process: each shard lives on the device at its mesh coordinate
 (``parallel/mesh.py``), and a rotation moves each block to the next shard's
 device with ``.to(device)``, which is free when the devices are the same
 (several shards on one card, or on the host as the tests run it) and a
-peer copy between cards.  The shards of one ring step run one after the
-other on their devices' current streams.
+peer copy between cards.  Over several devices (``Mesh.block_streams``)
+each shard runs its blocks and merges on its position's stream
+(``Mesh.stream``), so the shards of one ring step overlap; a rotation
+issues the receiver's copy on the receiver's stream after it waits for
+the sender's, and the caller's stream waits for every shard's before the
+outputs are joined.  Shards that share a device run on its current
+stream, one after another.
 
 Block math: the FORWARD runs the kernel ``flash_fwd_lse``
 (``ops.attention.flash_forward_with_lse``) per visiting K/V block, merged
@@ -23,7 +28,7 @@ and each visible block adds its gradients from the saved global lse and
 ``delta = rowsum(g * o)``.  On a card a block runs the kernel
 ``flash_bwd_lse`` (``ops/csrc/flash_bwd.cu``), which adds into the f32
 accumulators in place (the blocks of one shard run one after another on
-its stream, so the sums are deterministic); on the host, or under
+one stream, so the sums are deterministic); on the host, or under
 ``impl="plain"``, it runs ``_block_grads``' plain f32 ``torch.matmul``
 body, the JAX package's jnp math and the kernel's reference.  In bf16 the
 kernel rounds P and dS to bf16 before their products, as ``flash_bwd``
@@ -41,7 +46,8 @@ from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops.attention import (
     _NEG_INF, _reference_attention_with_lse, _row_delta,
     flash_forward_with_lse)
-from analytics_zoo_tpu_torch.parallel.mesh import Mesh
+from analytics_zoo_tpu_torch.parallel.mesh import (Mesh, join, on_stream,
+                                                   used_on)
 
 IMPLS = ("auto", "cuda", "plain")
 #: the JAX package's names: "pallas" is the kernel, "jnp" the plain blocks
@@ -75,30 +81,52 @@ def _merge(o_acc, lse_acc, o_i, lse_i):
     return o, lse_new
 
 
-def _rotate(blocks: List[torch.Tensor], devices) -> List[torch.Tensor]:
-    """One ppermute step: shard i receives shard i-1's block."""
-    return [blocks[i - 1].to(dev) for i, dev in enumerate(devices)]
+def _rotate(blocks: List[torch.Tensor], devices, streams
+            ) -> List[torch.Tensor]:
+    """One ppermute step: shard i receives shard i-1's block, on its own
+    stream once that stream has waited for the sender's (``streams``:
+    None on the host)."""
+    out = []
+    for i, dev in enumerate(devices):
+        src = blocks[i - 1]
+        with on_stream(streams[i]):
+            if streams[i] is not None:
+                streams[i].wait_stream(streams[i - 1])
+                used_on([src], streams[i])
+            out.append(src.to(dev))
+    return out
 
 
-def _ring_forward(q, k, v, sm_scale, causal, impl):
-    """q, k, v: one ring's shards, ``(B, H, T_loc, D)`` each on its device;
-    returns the shards' o (q's dtype) and lse (f32)."""
+def _ring_forward(q, k, v, sm_scale, causal, impl, streams):
+    """q, k, v: one ring's shards, ``(B, H, T_loc, D)`` each on its device
+    (and its position's stream: ``streams``, each already waiting for the
+    inputs); returns the shards' o (q's dtype) and lse (f32)."""
     sp = len(q)
     devices = [t.device for t in q]
     k_blk, v_blk, owner = list(k), list(v), list(range(sp))
-    o_acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-             for t in q]
-    lse_acc = [torch.full(t.shape[:3], _NEG_INF, dtype=torch.float32,
-                          device=t.device) for t in q]
+    o_acc, lse_acc = [], []
+    for t, s in zip(q, streams):
+        with on_stream(s):
+            o_acc.append(torch.zeros(t.shape, dtype=torch.float32,
+                                     device=t.device))
+            lse_acc.append(torch.full(t.shape[:3], _NEG_INF,
+                                      dtype=torch.float32, device=t.device))
     for step in range(sp):
         for i in range(sp):
-            o_i, lse_i = _block_attn(q[i], k_blk[i], v_blk[i], i, owner[i],
-                                     sm_scale, causal, impl)
-            o_acc[i], lse_acc[i] = _merge(o_acc[i], lse_acc[i], o_i, lse_i)
+            with on_stream(streams[i]):
+                o_i, lse_i = _block_attn(q[i], k_blk[i], v_blk[i], i,
+                                         owner[i], sm_scale, causal, impl)
+                o_acc[i], lse_acc[i] = _merge(o_acc[i], lse_acc[i], o_i,
+                                              lse_i)
         if step + 1 < sp:            # the last rotation would only go home
-            k_blk, v_blk = _rotate(k_blk, devices), _rotate(v_blk, devices)
+            k_blk = _rotate(k_blk, devices, streams)
+            v_blk = _rotate(v_blk, devices, streams)
             owner = owner[-1:] + owner[:-1]
-    return [o.to(t.dtype) for o, t in zip(o_acc, q)], lse_acc
+    out = []
+    for o, t, s in zip(o_acc, q, streams):
+        with on_stream(s):
+            out.append(o.to(t.dtype))
+    return out, lse_acc
 
 
 def _block_grads(q, g, lse, delta, k_blk, v_blk, shift, sm_scale, dq,
@@ -139,31 +167,44 @@ def _block_grads(q, g, lse, delta, k_blk, v_blk, shift, sm_scale, dq,
     dk_blk.add_(torch.matmul(ds.transpose(-1, -2), qf))
 
 
-def _ring_bwd_pass(q, k, v, o, lse, g, sm_scale, causal, impl):
-    """Second ring pass over one ring's shards: dq accumulates in place;
-    dk/dv ride the rotating blocks and are home after sp steps."""
+def _ring_bwd_pass(q, k, v, o, lse, g, sm_scale, causal, impl, streams):
+    """Second ring pass over one ring's shards, each on its stream: dq
+    accumulates in place; dk/dv ride the rotating blocks and are home
+    after sp steps."""
     sp = len(q)
     T_loc = q[0].shape[2]
     devices = [t.device for t in q]
-    delta = [_row_delta(oi, gi) for oi, gi in zip(o, g)]
-    k_blk, v_blk, owner = list(k), list(v), list(range(sp))
     zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                   device=t.device)
-    dq = [zeros(t) for t in q]
-    dk_blk, dv_blk = [zeros(t) for t in k], [zeros(t) for t in v]
+    delta, dq, dk_blk, dv_blk = [], [], [], []
+    for i, s in enumerate(streams):
+        with on_stream(s):
+            delta.append(_row_delta(o[i], g[i]))
+            dq.append(zeros(q[i]))
+            dk_blk.append(zeros(k[i]))
+            dv_blk.append(zeros(v[i]))
+    k_blk, v_blk, owner = list(k), list(v), list(range(sp))
     for _ in range(sp):
         for i in range(sp):
             if causal and owner[i] > i:
                 continue     # wholly in the future: contributes nothing
             shift = (i - owner[i]) * T_loc if causal else None
-            _block_grads(q[i], g[i], lse[i], delta[i], k_blk[i], v_blk[i],
-                         shift, sm_scale, dq[i], dk_blk[i], dv_blk[i], impl)
-        k_blk, v_blk = _rotate(k_blk, devices), _rotate(v_blk, devices)
-        dk_blk, dv_blk = _rotate(dk_blk, devices), _rotate(dv_blk, devices)
+            with on_stream(streams[i]):
+                _block_grads(q[i], g[i], lse[i], delta[i], k_blk[i],
+                             v_blk[i], shift, sm_scale, dq[i], dk_blk[i],
+                             dv_blk[i], impl)
+        k_blk = _rotate(k_blk, devices, streams)
+        v_blk = _rotate(v_blk, devices, streams)
+        dk_blk = _rotate(dk_blk, devices, streams)
+        dv_blk = _rotate(dv_blk, devices, streams)
         owner = owner[-1:] + owner[:-1]
-    return ([d.to(t.dtype) for d, t in zip(dq, q)],
-            [d.to(t.dtype) for d, t in zip(dk_blk, k)],
-            [d.to(t.dtype) for d, t in zip(dv_blk, v)])
+    out = ([], [], [])
+    for i, s in enumerate(streams):
+        with on_stream(s):
+            for acc, ref, dst in ((dq, q, out[0]), (dk_blk, k, out[1]),
+                                  (dv_blk, v, out[2])):
+                dst.append(acc[i].to(ref[i].dtype))
+    return out
 
 
 class _Layout:
@@ -185,11 +226,19 @@ class _Layout:
         if B % dp:
             dp = 1          # batch too small to also shard over data
         self.B_loc, self.T_loc = B // dp, T // self.sp
-        self.rings = []
+        self.mesh = mesh
+        self.rings, self.coords = [], []
         for b in range(dp):
             at = {batch_axis: b} if dp > 1 else {}
-            self.rings.append([mesh.device({**at, axis_name: s})
-                               for s in range(self.sp)])
+            self.coords.append([{**at, axis_name: s}
+                                for s in range(self.sp)])
+            self.rings.append([mesh.device(c) for c in self.coords[-1]])
+
+    def streams(self):
+        """Per ring, the stream of each ring position (``streams_at``:
+        None on a shared device), each waiting for its device's current
+        stream (the split inputs)."""
+        return [self.mesh.streams_at(cs) for cs in self.coords]
 
     def split(self, x):
         """Per ring, per ring position: the shard of ``x`` on its device."""
@@ -199,18 +248,23 @@ class _Layout:
                 for b, devs in enumerate(self.rings)]
 
     @staticmethod
-    def join(parts, device):
-        """The inverse of ``split``, gathered on ``device``."""
+    def join(parts, device, streams):
+        """The inverse of ``split``, gathered on ``device``'s current
+        stream once it has waited for every shard's stream."""
+        for ring, ps in zip(streams, parts):
+            join(ring, ps)
         return torch.cat([torch.cat([p.to(device) for p in ring], dim=2)
                           for ring in parts], dim=0)
 
 
 def _forward(q, k, v, layout, sm_scale, causal, impl):
     """Global (o, lse), gathered on q's device."""
-    outs = [_ring_forward(qr, kr, vr, sm_scale, causal, impl)
-            for qr, kr, vr in zip(*(layout.split(t) for t in (q, k, v)))]
-    return (layout.join([o for o, _ in outs], q.device),
-            layout.join([lse for _, lse in outs], q.device))
+    parts = [layout.split(t) for t in (q, k, v)]
+    streams = layout.streams()
+    outs = [_ring_forward(qr, kr, vr, sm_scale, causal, impl, sr)
+            for qr, kr, vr, sr in zip(*parts, streams)]
+    return (layout.join([o for o, _ in outs], q.device, streams),
+            layout.join([lse for _, lse in outs], q.device, streams))
 
 
 class _RingAttention(torch.autograd.Function):
@@ -230,10 +284,12 @@ class _RingAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
         layout, sm_scale, causal, impl = ctx.args
-        grads = [_ring_bwd_pass(*ring, sm_scale, causal, impl)
-                 for ring in zip(*(layout.split(t)
-                                   for t in (q, k, v, o, lse, g)))]
-        dq, dk, dv = (layout.join([ring[j] for ring in grads], t.device)
+        parts = [layout.split(t) for t in (q, k, v, o, lse, g)]
+        streams = layout.streams()
+        grads = [_ring_bwd_pass(*ring, sm_scale, causal, impl, sr)
+                 for *ring, sr in zip(*parts, streams)]
+        dq, dk, dv = (layout.join([ring[j] for ring in grads], t.device,
+                                  streams)
                       for j, t in enumerate((q, k, v)))
         return dq, dk, dv, None, None, None, None
 

@@ -183,6 +183,32 @@ Phases, each of which raises (exit code 1) on failure:
    run eager: a gloo collective cannot sit in a CUDA graph) with the host
    time of its all-reduces, and the bytes each rank all-reduced a step,
    over gloo through the host on one shared card (not an NCCL figure).
+7g. positions: one process over several mesh positions, each on its own
+   stream (``estimator/positions.py``), on the one card.  (a) The
+   train_bench configuration (batch 256, bf16, the bench's AdamWeightDecay
+   over the run's steps, DEVICE tier) through ``BERTClassifier.train``
+   under data 4 on ``["cuda:0"] * 4``: today's one-device step, then the
+   per-position step (the estimator's private selector: 4 positions of 64
+   rows, a replica and a stream each, eager) with ZeRO and without, 2
+   epochs of 4 steps each: epoch losses, weights and both moments against
+   today's (``POSITIONS_BF16_TOL``), ZeRO against no ZeRO
+   (``POSITIONS_ZERO_TOL``), exactly 12 ``flash_fwd`` + 12 ``flash_bwd``
+   launches a position a step, step ms and the profiler's device-busy
+   share beside today's; each position's hidden keep-mask and the
+   ``flash_fwd`` kernel's attention keep-mask at its ``bh_offset`` equal to
+   its rows of the global masks.  (b) With a stream per position against
+   the serial form (every position on the current stream): sharded flash
+   attention at data 2 x model 2 (batch 32, fused-QKV views, ragged mask,
+   f32, forward + backward), the ring at T=16,384 over 4 shards (causal,
+   f32, forward + backward) and mp-2 decode and prefill at GPT-2-small
+   width: outputs bit-equal, launches, times of both (one card runs the
+   serial form; the stream form is what a mesh over several cards takes,
+   forced here on one).  With ``--ring-cards N`` on a host of N cards the
+   per-position bench step over N cards runs against N positions of one
+   card (epoch losses, weights and both moments equal: the same
+   arithmetic in the same order; each card's bytes allocated by the run
+   beside the estimator's tensors on it and ``bytes_per_device``), and
+   mp-N decode too.
 8. ring: ``flash_fwd_lse`` against its plain version on the card at the
    block shapes of sequence-parallel ring attention at GPT-2-small /
    BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
@@ -521,6 +547,13 @@ MULTIPROC_FWD_ATOL = 1e-5
 # 2.027e-2, 1.834e-2, the same in two runs); a dropped or doubled 1/P
 # moves the first moment by 1 and the second by 3 of themselves
 MULTIPROC_BF16_TOL = dict(loss=3e-3, weights=5e-3, mu=5e-2, nu=5e-2)
+# the per-position step (7g): 4 data positions of 64 rows on cuda:0, a
+# stream each, against today's one-device step on the same mesh (each
+# position's bf16 gradient of 64 rows summed in f32 where one backward
+# sums 256); bars at about 2.5x the first readings (PERF.md)
+POSITIONS = dict(n=4, steps=4, epochs=2)
+POSITIONS_BF16_TOL = dict(loss=2e-4, weights=7e-3, mu=5e-2, nu=4e-2)
+POSITIONS_ZERO_TOL = 0.0
 # MoE and the pipeline at BERT-base FFN width (7d): against the unsharded
 # form on the card (f32, TF32 off: other GEMM shapes), against the CPU
 # (sums of 3072 products in another order)
@@ -3260,6 +3293,394 @@ def phase_multiproc(card):
                 launches={k: res[0]["c"]["launches"][i]
                           for i, k in enumerate(("flash_fwd",
                                                  "flash_bwd"))})
+
+
+def _stream_mesh(devices, axis_names):
+    """A mesh whose sharded ops run each position's block on that
+    position's stream although the positions share one card, as they do
+    over several cards (``Mesh.block_streams``); a plain mesh on one card
+    runs them one after another on the current stream, the serial form
+    this one is held to."""
+    from analytics_zoo_tpu_torch.parallel import Mesh
+
+    class Streams(Mesh):
+        block_streams = True
+    return Streams(devices, axis_names)
+
+
+def _positions_bench(cfg, tree, ds, ctx, what):
+    """One run of the positions phase's leg (a): the bench's classifier
+    trained through ``BERTClassifier.train`` under ``ctx`` (4 data
+    positions on cuda:0), today's one-device step or the per-position
+    step (the estimator's private selector); returns its numbers, its
+    weights and moments, and the classifier (for a profile)."""
+    from analytics_zoo_tpu_torch.common.context import context_scope
+    from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+    from analytics_zoo_tpu_torch.ops import _kernels
+    steps = POSITIONS["steps"] * POSITIONS["epochs"]
+    clf = _bench_clf(cfg, tree, 1, total=steps,
+                     shard_optimizer=what != "positions, no ZeRO")
+    sel = (contextlib.nullcontext() if what == "today"
+           else est_mod._positions_on_shared_devices())
+    torch.cuda.reset_peak_memory_stats()
+    with context_scope(ctx), sel:
+        _kernels.reset_launches()
+        clf.train(lambda: ds, epochs=POSITIONS["epochs"])
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in _kernels.KERNELS.items()}
+    est = clf._train_est
+    if est._per_position != (what != "today"):
+        raise AssertionError(f"positions: the {what} run took the other "
+                             "step")
+    ms = est.history[-1]["seconds"] * 1e3 / POSITIONS["steps"]
+    row = dict(step_ms=ms, samples_s=BENCH["batch"] * 1e3 / ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               epoch_losses=[h["loss"] for h in est.history],
+               launches=launches)
+    return row, _adam_state(est), clf
+
+
+def _positions_masks():
+    """Each of 4 positions' hidden keep-mask (plain hash) and the
+    ``flash_fwd`` kernel's attention keep-mask at its ``bh_offset`` (read
+    out of the kernel), drawn inside its position scope, against its rows
+    of the global masks; returns the positions whose masks differ."""
+    from analytics_zoo_tpu_torch.ops.attention import (_hash_keep_mask,
+                                                       flash_attention)
+    from analytics_zoo_tpu_torch.ops.dropout import _mask, process_offset
+    from analytics_zoo_tpu_torch.parallel import distributed
+    n, rows, H, T, D, seed = POSITIONS["n"], 2, 12, 128, 64, 1234
+    B = n * rows
+    hidden = _mask((B, T, 768), seed, 0.1, "cuda")
+    attn = _hash_keep_mask(seed, (B, H, T, T), 0.1, "cuda")
+    bad = []
+    for i in range(n):
+        with distributed.position_scope(i, n):
+            h = _mask((rows, T, 768), seed, 0.1, "cuda",
+                      offset=process_offset((rows, T, 768)))
+            off = distributed.batch_offset(rows) * H
+            k = _extract_keep_mask(
+                lambda *a, **kw: flash_attention(*a, **kw, bh_offset=off),
+                rows, H, T, D, 0.1, seed)
+        sl = slice(i * rows, (i + 1) * rows)
+        if not (torch.equal(h, hidden[sl]) and torch.equal(k, attn[sl])):
+            bad.append(i)
+    return bad
+
+
+def _timed_pair(fns, iters):
+    """CUDA-event ms of each of ``fns`` (a dict), run as a, b, b, a and
+    averaged (one call, both forms, the same card)."""
+    names = list(fns)
+    got = {k: [] for k in names}
+    for k in names + names[::-1]:
+        got[k].append(cuda_ms(fns[k], iters=iters, warmup=1))
+    return {k: float(np.mean(v)) for k, v in got.items()}
+
+
+def _positions_sharded_paths(card):
+    """Leg (b): ``sharded_flash_attention`` (data 2 x model 2), the ring
+    at the ring phase's shapes (4 shards) and mp-2 decode at GPT-2-small
+    width, each with a stream per position against its serial form on
+    the same inputs: outputs equal, launches counted, times of both."""
+    from analytics_zoo_tpu_torch.models.generation import DecoderLM
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.ops.attention import sharded_flash_attention
+    from analytics_zoo_tpu_torch.parallel import Mesh, ring_attention
+    gen = torch.Generator().manual_seed(SEED + 22)
+    out = {"launches": {}}
+
+    # sharded flash attention: the BERT layer's fused-QKV views, batch 32
+    q, k, v = _fused_qkv_heads(torch.float32, BATCH, 128, 12, 64, gen)
+    go = torch.randn(q.shape, generator=gen).to("cuda")
+    mask = _ragged_mask(BATCH, 128, gen)
+    grid = np.full((2, 2), "cuda:0", dtype=object)
+    meshes = {"streams": _stream_mesh(grid, ("data", "model")),
+              "serial": Mesh(grid, ("data", "model"))}
+    res = {}
+    for name, mesh in meshes.items():
+        _kernels.reset_launches()
+        res[name] = _ring_fwd_bwd(lambda *t: sharded_flash_attention(
+            mesh, *t, padding_mask=mask), q, k, v, go)
+        torch.cuda.synchronize()
+        out["launches"][f"flash {name}"] = (_kernels.flash_fwd.launches,
+                                            _kernels.flash_bwd.launches)
+    (o1, g1), (o2, g2) = res["streams"], res["serial"]
+    if not (torch.equal(o1, o2) and all(map(torch.equal, g1, g2))):
+        raise AssertionError("positions: sharded flash attention on block "
+                             "streams differs from its serial launches")
+    if out["launches"]["flash streams"] != (4, 4):
+        raise AssertionError(f"positions: sharded flash launches "
+                             f"{out['launches']}")
+    out["flash_ms"] = _timed_pair({n: (lambda m=m: _ring_fwd_bwd(
+        lambda *t: sharded_flash_attention(m, *t, padding_mask=mask),
+        q, k, v, go)) for n, m in meshes.items()}, iters=10)
+    del q, k, v, go, res
+
+    # the ring: B2 H12 T16384 D64 over 4 shards, causal, f32
+    B, H, T, D, sp = (RING[k] for k in ("B", "H", "T", "D", "sp"))
+    q, k, v, go, _ = _bwd_inputs(torch.float32, B, H, T, T, D, gen)
+    meshes = {"streams": _stream_mesh(["cuda:0"] * sp, ("sequence",)),
+              "serial": Mesh(["cuda:0"] * sp, ("sequence",))}
+    res = {}
+    for name, mesh in meshes.items():
+        _kernels.reset_launches()
+        res[name] = _ring_fwd_bwd(lambda *t: ring_attention(
+            *t, mesh, causal=True, impl="cuda"), q, k, v, go)
+        torch.cuda.synchronize()
+        out["launches"][f"ring {name}"] = (_kernels.flash_fwd_lse.launches,
+                                           _kernels.flash_bwd_lse.launches)
+    (o1, g1), (o2, g2) = res["streams"], res["serial"]
+    if not (torch.equal(o1, o2) and all(map(torch.equal, g1, g2))):
+        raise AssertionError("positions: the ring on shard streams differs "
+                             "from its serial form")
+    causal_blocks = sp * (sp + 1) // 2
+    if out["launches"]["ring streams"] != (causal_blocks, causal_blocks):
+        raise AssertionError(f"positions: ring launches {out['launches']}")
+    out["ring_ms"] = _timed_pair({n: (lambda m=m: _ring_fwd_bwd(
+        lambda *t: ring_attention(*t, m, causal=True, impl="cuda"),
+        q, k, v, go)) for n, m in meshes.items()}, iters=2)
+    del q, k, v, go, res
+
+    # mp-2 decode and prefill at GPT-2-small width (random weights)
+    model = DecoderLM(**GPT2_SMALL, device="cuda",
+                      generator=torch.Generator().manual_seed(SEED + 22))
+    rng = np.random.default_rng(SEED + 22)
+    lanes = list(_llm_requests(MP_LLM["requests"], rng,
+                               GPT2_SMALL["vocab"]).items())
+    runs = {}
+    for name, mesh in (("streams", _stream_mesh(["cuda:0"] * 2,
+                                                ("model",))),
+                       ("serial", Mesh(["cuda:0"] * 2, ("model",)))):
+        model.shard(mesh)
+        runs[name] = _mp_steps(model, lanes, steps=10)
+    model.mesh = model.page_sharding = None
+    a, b = runs["streams"], runs["serial"]
+    if not (torch.equal(a["logits"], b["logits"])
+            and torch.equal(a["chunk_logits"], b["chunk_logits"])):
+        raise AssertionError("positions: mp-2 decode on shard streams "
+                             "differs from its serial form")
+    if (a["step_launches"], a["chunk_launches"]) != (
+            2 * GPT2_SMALL["n_layers"], 2 * GPT2_SMALL["n_layers"]):
+        raise AssertionError(f"positions: mp-2 launches "
+                             f"{a['step_launches']} / {a['chunk_launches']}")
+    out["launches"]["decode streams"] = (a["step_launches"],
+                                         a["chunk_launches"])
+    out["decode_ms"] = {n: r["step_ms"] for n, r in runs.items()}
+    del model, runs
+    _release()
+    return out
+
+
+def phase_positions(card):
+    """The per-position step on one card; see the module docstring
+    (7g)."""
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    t_phase = time.perf_counter()
+    cfg = dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
+    n_block, npos = cfg["n_block"], POSITIONS["n"]
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg)
+    n = POSITIONS["steps"] * BENCH["batch"]
+    ds = TFDataset.from_ndarrays((tuple(a[:n] for a in x), y[:n]),
+                                 batch_size=BENCH["batch"],
+                                 memory_type="DEVICE")
+    steps = POSITIONS["steps"] * POSITIONS["epochs"]
+    ctx = _mesh_ctx(npos, 1)
+    out, states = {}, {}
+    for what in ("today", "positions", "positions, no ZeRO"):
+        row, states[what], clf = _positions_bench(cfg, tree, ds, ctx, what)
+        log(f"[positions] (a) {what}: the bench's BERT-base step at batch "
+            f"{BENCH['batch']} over data {npos} on cuda:0, {steps} eager "
+            f"steps: {row['step_ms']:.3f} ms a step "
+            f"({row['samples_s']:.1f} samples/s), peak "
+            f"{row['peak_gib']:.2f} GiB; epoch losses "
+            f"{' '.join(f'{v:.6f}' for v in row['epoch_losses'])}; "
+            f"launches {row['launches']}; {card}")
+        if what != "positions, no ZeRO":
+            prof = profile_breakdown(
+                lambda: clf.train(lambda: ds, epochs=1),
+                f"positions {what}: one {POSITIONS['steps']}-step epoch "
+                f"at batch {BENCH['batch']}", top=10)
+            row["busy_share"] = prof[1] / prof[0] if prof else None
+        out[what] = row
+        del clf
+        _release()
+    got, today = out["positions"], out["today"]
+    want = dict.fromkeys(got["launches"], 0)
+    want.update(flash_fwd=steps * npos * n_block,
+                flash_bwd=steps * npos * n_block)
+    if got["launches"] != want:
+        raise AssertionError(f"positions: expected {want} launches (12 + "
+                             f"12 a position a step), got "
+                             f"{got['launches']}")
+    where = {}
+    worst = _worst_by_kind(states["positions"], states["today"], where)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        got["epoch_losses"], today["epoch_losses"]))
+    zero_diff = _worst_by_kind(states["positions, no ZeRO"],
+                               states["positions"])
+    zero_loss = max(abs(a - b) for a, b in zip(
+        out["positions, no ZeRO"]["epoch_losses"], got["epoch_losses"]))
+    bad_masks = _positions_masks()
+    log(f"[positions] (a) per-position vs today's step: epoch losses "
+        f"{loss_rel:.3e} relative (bar {POSITIONS_BF16_TOL['loss']:g}); "
+        f"worst leaf weights {worst['weights']:.3e} ({where['weights']}), "
+        f"first moment {worst['mu']:.3e} ({where['mu']}), second "
+        f"{worst['nu']:.3e} ({where['nu']}) of max|.| (bars "
+        f"{POSITIONS_BF16_TOL}); ZeRO vs no ZeRO: losses {zero_loss:.3e}, "
+        f"state {max(zero_diff.values()):.3e} (bar "
+        f"{POSITIONS_ZERO_TOL:g}); masks of positions that differ "
+        f"{bad_masks}; busy share {got['busy_share']} against today's "
+        f"{today['busy_share']}; {card}")
+    if (loss_rel > POSITIONS_BF16_TOL["loss"]
+            or any(worst[k] > POSITIONS_BF16_TOL[k] for k in worst)
+            or not np.isfinite(got["epoch_losses"]).all()):
+        raise AssertionError("positions: the per-position step is off "
+                             "today's")
+    if zero_loss > POSITIONS_ZERO_TOL or max(zero_diff.values()) > \
+            POSITIONS_ZERO_TOL:
+        raise AssertionError("positions: ZeRO changed the per-position step")
+    if bad_masks:
+        raise AssertionError(f"positions: the keep-masks of positions "
+                             f"{bad_masks} are not their global rows")
+    out["loss_rel"], out["worst"], out["zero"] = loss_rel, worst, zero_diff
+    out["where"] = where
+    del states
+    _release()
+    t_b = time.perf_counter()
+    log(f"[positions] leg (a) {t_b - t_phase:.1f} s")
+    paths = _positions_sharded_paths(card)
+    log(f"[positions] leg (b) {time.perf_counter() - t_b:.1f} s")
+    log(f"[positions] (b) a stream per position against the serial form, "
+        f"outputs equal: sharded flash (data 2 x model 2, B{BATCH} T128 "
+        f"f32, forward + backward) {paths['flash_ms']} ms; ring causal f32 "
+        f"B{RING['B']} H{RING['H']} T{RING['T']} over {RING['sp']} "
+        f"shards, forward + backward {paths['ring_ms']} ms; mp-2 decode at "
+        f"16 lanes p50 {paths['decode_ms']} ms; launches "
+        f"{paths['launches']}; {card}")
+    out["paths"] = paths
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[positions] phase {out['seconds']:.1f} s")
+    return out
+
+
+def _held_bytes(est, n):
+    """The bytes of a per-position estimator's tensors on each of ``n``
+    cards, each storage once: the module, every position's replica and
+    bf16 shadow, the master and optimizer-state shards, the counters."""
+    from analytics_zoo_tpu_torch.parallel import ShardedTensor
+    seen, by = set(), [0] * n
+
+    def add(t):
+        if isinstance(t, ShardedTensor):
+            for s in t.shards:
+                add(s)
+        elif isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            st = t.untyped_storage()
+            if (t.device.index, st.data_ptr()) not in seen:
+                seen.add((t.device.index, st.data_ptr()))
+                by[t.device.index] += st.nbytes()
+    pp = est._pp
+    for group in (dict(est.model.named_parameters()),
+                  dict(est.model.named_buffers()), *pp.tensors,
+                  *(pp.shadows or []), est._masters):
+        for t in group.values():
+            add(t)
+    for v in est.opt_state.values():
+        for t in (v.values() if isinstance(v, dict) else [v]):
+            add(t)
+    for t in (est._loss_buf, est._step_dev, est._seed_dev, est._cursor,
+              est._slot):
+        add(t)
+    return by
+
+
+def phase_positions_cards(n):
+    """On a host of n cards: the per-position bench step over n cards
+    (one position a card) against the same step as n positions of cuda:0,
+    with each card's allocated bytes against ``bytes_per_device``, and
+    mp-n decode over n cards against mp-n on one card."""
+    from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
+    from analytics_zoo_tpu_torch.common.context import (ZooContext,
+                                                        _build_mesh)
+    from analytics_zoo_tpu_torch.models.generation import DecoderLM
+    from analytics_zoo_tpu_torch.parallel import Mesh
+    from analytics_zoo_tpu_torch.parallel.zero import bytes_per_device
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    cfg = dict(BERT_BASE, hidden_drop=0.1, attn_drop=0.1)
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg)
+    rows = POSITIONS["steps"] * BENCH["batch"]
+    ds = TFDataset.from_ndarrays((tuple(a[:rows] for a in x), y[:rows]),
+                                 batch_size=BENCH["batch"],
+                                 memory_type="DEVICE")
+    mc = MeshConfig(data=n)
+    out, states = {}, {}
+    for name, devs in (("1 card", ["cuda:0"] * n),
+                       (f"{n} cards", [f"cuda:{i}" for i in range(n)])):
+        ctx = ZooContext(ZooConfig(mesh=mc), _build_mesh(
+            [torch.device(d) for d in devs], mc))
+        _release()
+        base = [torch.cuda.memory_allocated(i) for i in range(n)]
+        row, state, clf = _positions_bench(cfg, tree, ds, ctx, "positions")
+        # the compared state leaves the cards before their bytes are read
+        states[name] = {k: v.cpu() for k, v in state.items()}
+        del state
+        _release()
+        est = clf._train_est
+        row["allocated"] = [torch.cuda.memory_allocated(i) - base[i]
+                            for i in range(n)]
+        row["held"] = _held_bytes(est, n)
+        row["spec_bytes"] = (bytes_per_device(est.params)
+                             + bytes_per_device(
+                                 {k: v for k, v in est.opt_state.items()
+                                  if k != "decayed"}))
+        log(f"[positions-cards] {name}: {row['step_ms']:.3f} ms a step, "
+            f"epoch losses {row['epoch_losses']}; allocated by the run "
+            f"{row['allocated']} bytes by card, of which the estimator's "
+            f"tensors (module, replicas, bf16 shadows, slots, counters) "
+            f"{row['held']}, the rest (the feed, the caches) "
+            f"{[a - h for a, h in zip(row['allocated'], row['held'])]}; "
+            f"masters and slots by the specs {row['spec_bytes']} a "
+            f"position")
+        out[name] = row
+        del clf, est
+        _release()
+    where = {}
+    worst = _worst_by_kind(states[f"{n} cards"], states["1 card"], where)
+    loss_diff = max(abs(a - b) for a, b in zip(
+        out[f"{n} cards"]["epoch_losses"], out["1 card"]["epoch_losses"]))
+    log(f"[positions-cards] {n} cards vs 1 card: epoch losses "
+        f"{loss_diff:.3e}, state {worst} ({where}) (bar "
+        f"{POSITIONS_ZERO_TOL:g}: the same arithmetic in the same order)")
+    if loss_diff > POSITIONS_ZERO_TOL or max(worst.values()) > \
+            POSITIONS_ZERO_TOL:
+        raise AssertionError(f"positions-cards: {n} cards differ: "
+                             f"losses {loss_diff}, {worst}")
+    out["worst"], out["loss_diff"] = worst, loss_diff
+    model = DecoderLM(**GPT2_SMALL, device="cuda:0",
+                      generator=torch.Generator().manual_seed(SEED + 22))
+    lanes = list(_llm_requests(MP_LLM["requests"],
+                               np.random.default_rng(SEED + 22),
+                               GPT2_SMALL["vocab"]).items())
+    runs = {}
+    for name, devs in (("1 card", ["cuda:0"] * n),
+                       (f"{n} cards", [f"cuda:{i}" for i in range(n)])):
+        model.shard(Mesh(devs, ("model",)))
+        runs[name] = _mp_steps(model, lanes, steps=10)
+    (a, b) = runs.values()
+    err = (a["logits"] - b["logits"]).abs().max().item()
+    log(f"[positions-cards] mp-{n} decode: logits {err:.3e} apart; p50 "
+        f"{ {k: r['step_ms'] for k, r in runs.items()} } ms")
+    if err > DECODE_ATOL:
+        raise AssertionError("positions-cards: mp decode differs")
+    out["decode_ms"] = {k: r["step_ms"] for k, r in runs.items()}
+    return out
 
 
 def _mlp_stage(p, h):
@@ -7148,7 +7569,8 @@ def phase_fleets(card_name):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ring-cards", type=int, default=0, metavar="N",
-                        help="run only ring attention over N cards")
+                        help="run only the ring, the per-position step and "
+                             "mp-N decode over N cards")
     parser.add_argument("--fleet-phases", action="store_true",
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -7179,31 +7601,34 @@ def main() -> int:
                              f"needs as many cards, found "
                              f"{torch.cuda.device_count()}")
         times = phase_ring_cards(args.ring_cards)
-        print(json.dumps({"ring_cards": times}), flush=True)
+        cards = phase_positions_cards(args.ring_cards)
+        print(json.dumps({"ring_cards": times, "positions_cards": cards},
+                         default=float), flush=True)
         return _finish(card_line(every=True))
-    rows = phase_kernels()
-    serve_launches = phase_serve()
-    bwd_rows, bwd_lse_rows = phase_backward()
-    train_launches, _ = phase_train()
-    bench_launches, _ = phase_train_bench()
-    paged_rows = phase_paged()
-    llm_launches, llm = phase_llm()
-    mp_llm = phase_mp_llm(card)
-    mesh2d = phase_mesh2d(card)
-    phase_parallel(card)
-    mesh_train = phase_mesh_train(card)
-    multiproc = phase_multiproc(card)
-    ring_launches, ring_rows = phase_ring()
-    phase_ncf(card)
-    phase_zoo(card)
-    heads_launches, t384, heads = phase_heads(card)
-    http_launches, _, http_llm = phase_http()
-    ingest = phase_ingest(card, heads)
-    multimodel = phase_multimodel(card)
-    phase_tenancy(card)
-    phase_health(card)
-    host = phase_host_serving(card)
-    fleets = phase_fleets(card)
+    rows = _timed(phase_kernels)
+    serve_launches = _timed(phase_serve)
+    bwd_rows, bwd_lse_rows = _timed(phase_backward)
+    train_launches, _ = _timed(phase_train)
+    bench_launches, _ = _timed(phase_train_bench)
+    paged_rows = _timed(phase_paged)
+    llm_launches, llm = _timed(phase_llm)
+    mp_llm = _timed(phase_mp_llm, card)
+    mesh2d = _timed(phase_mesh2d, card)
+    _timed(phase_parallel, card)
+    mesh_train = _timed(phase_mesh_train, card)
+    multiproc = _timed(phase_multiproc, card)
+    positions = _timed(phase_positions, card)
+    ring_launches, ring_rows = _timed(phase_ring)
+    _timed(phase_ncf, card)
+    _timed(phase_zoo, card)
+    heads_launches, t384, heads = _timed(phase_heads, card)
+    http_launches, _, http_llm = _timed(phase_http)
+    ingest = _timed(phase_ingest, card, heads)
+    multimodel = _timed(phase_multimodel, card)
+    _timed(phase_tenancy, card)
+    _timed(phase_health, card)
+    host = _timed(phase_host_serving, card)
+    fleets = _timed(phase_fleets, card)
 
     def entry(name, source, replaces, rows, launches,
               shape="B32 H12 T128 D64 float32", **extra):
@@ -7239,6 +7664,12 @@ def main() -> int:
                       f"of 12 layers x 4 blocks, {MESH_TRAIN['epochs']} "
                       f"dispatches of {MESH_TRAIN['spd']} CUDA graph "
                       f"replays")
+    POSITIONS_RUN = (f"4 data positions of {BENCH['batch'] // 4} rows on "
+                     f"cuda:0, a stream each (the per-position step): the "
+                     f"bench's BERT training, "
+                     f"{POSITIONS['steps'] * POSITIONS['epochs']} eager "
+                     f"steps")
+    pl = positions["paths"]["launches"]
     MULTIPROC_RUN = (f"rank 0 of {MULTIPROC['workers']} processes on one "
                      f"card (gloo): the bench's BERT training, "
                      f"{MULTIPROC['steps'] * MULTIPROC['epochs']} eager "
@@ -7282,7 +7713,14 @@ def main() -> int:
                   "flash_fwd"],
               mesh_train_launches_in=MESH_TRAIN_RUN,
               multiproc_launches=multiproc["launches"]["flash_fwd"],
-              multiproc_launches_in=MULTIPROC_RUN),
+              multiproc_launches_in=MULTIPROC_RUN,
+              positions_launches=positions["positions"]["launches"][
+                  "flash_fwd"],
+              positions_launches_in=POSITIONS_RUN,
+              positions_sharded_launches=pl["flash streams"][0],
+              positions_sharded_launches_in="one sharded_flash_attention "
+                                            "forward + backward at data 2 x "
+                                            "model 2, a stream a block"),
         entry("flash_bwd", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/ops/attention.py:407", bwd_rows,
               bench_launches["flash_bwd"], launches_in=BENCH_RUN,
@@ -7297,7 +7735,11 @@ def main() -> int:
                   "flash_bwd"],
               mesh_train_launches_in=MESH_TRAIN_RUN,
               multiproc_launches=multiproc["launches"]["flash_bwd"],
-              multiproc_launches_in=MULTIPROC_RUN),
+              multiproc_launches_in=MULTIPROC_RUN,
+              positions_launches=positions["positions"]["launches"][
+                  "flash_bwd"],
+              positions_launches_in=POSITIONS_RUN,
+              positions_sharded_launches=pl["flash streams"][1]),
         entry("paged_decode", csrc + "paged_decode.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:79",
               paged_rows["paged_decode"], llm_launches["paged_decode"],
@@ -7308,7 +7750,10 @@ def main() -> int:
               in_decode_step=llm["paged"].get("paged_decode"),
               http_launches=http_launches["paged_decode"],
               http_calls=http_llm["calls"]["decode"],
-              mp_launches=_mp_launches(mp_llm, "paged_decode", "decode")),
+              mp_launches=_mp_launches(mp_llm, "paged_decode", "decode"),
+              positions_launches=pl["decode streams"][0],
+              positions_launches_in="one mp-2 decode step at 16 lanes, a "
+                                    "stream a KV-head shard"),
         entry("paged_chunk", csrc + "paged_chunk.cu",
               "analytics_zoo_tpu/ops/paged_attention.py:134",
               paged_rows["paged_chunk"], llm_launches["paged_chunk"],
@@ -7320,7 +7765,10 @@ def main() -> int:
               http_launches=http_launches["paged_chunk"],
               http_calls=http_llm["calls"]["prefill_chunk"],
               mp_launches=_mp_launches(mp_llm, "paged_chunk",
-                                       "prefill_chunk")),
+                                       "prefill_chunk"),
+              positions_launches=pl["decode streams"][1],
+              positions_launches_in="one mp-2 prefill chunk, a stream a "
+                                    "KV-head shard"),
         entry("flash_fwd_lse", csrc + "flash_fwd.cu",
               "analytics_zoo_tpu/ops/attention.py:307", ring_rows,
               ring_launches["flash_fwd_lse"],
@@ -7331,7 +7779,11 @@ def main() -> int:
                           f"T{RING['T']} over {RING['sp']} shards (f32 and "
                           f"bf16, full and causal)",
               library="scaled_dot_product_attention, which returns no "
-                      "log-sum-exp"),
+                      "log-sum-exp",
+              positions_launches=pl["ring streams"][0],
+              positions_launches_in="one causal f32 ring forward + "
+                                    "backward over 4 shards, a stream a "
+                                    "shard"),
         entry("flash_bwd_lse", csrc + "flash_bwd.cu",
               "analytics_zoo_tpu/parallel/ring.py:115 (_block_grads, jnp: "
               "no TPU kernel)", bwd_lse_rows,
@@ -7343,10 +7795,23 @@ def main() -> int:
                           f"T{RING['T']} over {RING['sp']} shards (f32 and "
                           f"bf16, full and causal)",
               library="backward of scaled_dot_product_attention on the "
-                      "same block (forward + backward less forward)"),
+                      "same block (forward + backward less forward)",
+              positions_launches=pl["ring streams"][1],
+              positions_launches_in="one causal f32 ring forward + "
+                                    "backward over 4 shards, a stream a "
+                                    "shard"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     return _finish(card)
+
+
+def _timed(phase, *args):
+    """``phase(*args)``, its wall seconds logged (the script's time limit
+    is the sum of these)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[time] {phase.__name__[6:]}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _mp_launches(report, kernel, call):

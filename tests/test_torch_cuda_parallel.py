@@ -19,7 +19,15 @@ each against the unsharded step (losses 1e-5 relative, weights 1e-5 of
 max|p|), the graph against eager bit for bit, with 4 + 4 kernel launches
 a layer and step under the 2 x 2 mesh; the bench's update (AdamW with a
 bf16 first moment, mixed precision, bf16 gradients) under data 2 x model
-2 with ZeRO equal to the unsharded one bit for bit.
+2 with ZeRO equal to the unsharded one bit for bit.  Per-position
+streams: each kernel of those paths launched from a non-default stream
+against its plain version; sharded flash attention with a stream per
+block bit-identical (output and gradients) to its blocks launched one
+after another; the per-position step over ``cuda:0 x 4`` (a stream a
+position) against today's step on the same mesh, 4 times its launches,
+and with ZeRO equal to itself without it bit for bit; and over data 2 x
+model 2 (Megatron-placed weights, each data position's row of attention
+blocks) against today's step, with today's launches.
 """
 
 import numpy as np
@@ -310,3 +318,168 @@ def test_sharded_bf16_adamw_update_equals_unsharded(dev):
     assert loss == loss0
     for name, p in w0.items():
         assert torch.equal(w[name], p), name
+
+
+# --- per-position streams ---------------------------------------------------
+
+def _side(dev):
+    """A non-default stream of the card, waiting for the current one."""
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    return s
+
+
+def _from_side(dev, fn):
+    """``fn()`` launched from a side stream, then waited for."""
+    s = _side(dev)
+    with torch.cuda.stream(s):
+        out = fn()
+    torch.cuda.current_stream(dev).wait_stream(s)
+    torch.cuda.synchronize()
+    return out
+
+
+def test_each_kernel_launches_from_a_side_stream(dev):
+    """The six kernels of the per-position paths, each launched from a
+    non-default stream (the wrappers take the current stream), against
+    their plain versions at the f32 tolerances of the other card
+    tests."""
+    from analytics_zoo_tpu_torch.parallel.ring import _block_grads
+    gen = torch.Generator().manual_seed(7)
+    B, H, T, D = 4, 4, 128, 64
+    q, k, v, go = (torch.randn(B, H, T, D, generator=gen).to(dev)
+                   for _ in range(4))
+    q.requires_grad_()
+    k.requires_grad_()
+    v.requires_grad_()
+    _kernels.reset_launches()
+
+    def fwd_bwd(backend):
+        o = TA.flash_attention(q, k, v, backend=backend)
+        return (o, *torch.autograd.grad(o, (q, k, v), go))
+    got = _from_side(dev, lambda: fwd_bwd(None))
+    want = fwd_bwd("plain")
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4
+    o, lse = _from_side(dev, lambda: TA.flash_forward_with_lse(q.detach(),
+                                                               k.detach(),
+                                                               v.detach()))
+    o_p, lse_p = TA.flash_forward_with_lse(q.detach(), k.detach(),
+                                           v.detach(), backend="plain")
+    assert (o - o_p).abs().max().item() <= 2e-5
+    assert (lse - lse_p).abs().max().item() <= 1e-5 * max(
+        1.0, lse_p.abs().max().item())
+    delta = TA._row_delta(o_p, go)
+
+    def grads(impl):
+        acc = [torch.zeros(B, H, T, D, device=dev) for _ in range(3)]
+        _block_grads(q.detach(), go, lse_p, delta, k.detach(), v.detach(),
+                     None, D ** -0.5, *acc, impl=impl)
+        return acc
+    for g, w in zip(_from_side(dev, lambda: grads("cuda")), grads("plain")):
+        assert (g - w).abs().max().item() <= 1e-4
+    Bd, P_, bs, nb = 8, 40, 16, 8
+    qd = torch.randn(Bd, H, D, generator=gen).to(dev)
+    kp, vp = _pools(dev, P_, bs, H, D, gen, torch.float32)
+    lengths = torch.randint(1, nb * bs + 1, (Bd,), generator=gen).to(
+        dev, torch.int32)
+    tables = torch.randint(1, P_, (Bd, nb), generator=gen).to(
+        dev, torch.int32)
+    dec = _from_side(dev, lambda: TPA.paged_decode_attention(
+        qd, kp, vp, lengths, tables))
+    assert (dec - TPA.paged_decode_attention(
+        qd, kp, vp, lengths, tables, backend="plain")).abs().max() <= 2e-5
+    qc = torch.randn(32, H, D, generator=gen).to(dev)
+    table = torch.randperm(P_ - 1, generator=gen)[:nb].add(1).to(
+        dev, torch.int32)
+    ch = _from_side(dev, lambda: TPA.paged_chunk_attention(qc, kp, vp,
+                                                           table, 64))
+    assert (ch - TPA.paged_chunk_attention(qc, kp, vp, table, 64,
+                                           backend="plain")
+            ).abs().max() <= 2e-5
+    launches = {n: w.launches for n, w in _kernels.KERNELS.items()}
+    assert all(launches[n] >= 1 for n in (
+        "flash_fwd", "flash_bwd", "flash_fwd_lse", "flash_bwd_lse",
+        "paged_decode", "paged_chunk")), launches
+
+
+def _serial_sharded_flash(mesh, q, k, v, mask):
+    """Today's serial form: each (data, model) block launched in turn on
+    the current stream, the outputs joined."""
+    rows = []
+    for qr, kr, vr, mr in zip(q.split(q.shape[0] // 2), k.split(
+            k.shape[0] // 2), v.split(v.shape[0] // 2),
+            mask.split(mask.shape[0] // 2)):
+        hl = q.shape[1] // 2
+        rows.append(torch.cat([TA.flash_attention(
+            qr[:, h:h + hl], kr[:, h:h + hl], vr[:, h:h + hl],
+            padding_mask=mr) for h in (0, hl)], dim=1))
+    return torch.cat(rows)
+
+
+class _BlockStreams(Mesh):
+    """A mesh whose sharded ops take a stream a position although its
+    positions share one card (as they do over several cards)."""
+    block_streams = True
+
+
+def test_sharded_flash_on_block_streams_equals_serial_launches(dev):
+    gen = torch.Generator().manual_seed(4)
+    B, T, H, D = 8, 128, 12, 64
+    q, k, v, go = (torch.randn(B, H, T, D, generator=gen).to(dev)
+                   for _ in range(4))
+    lens = torch.randint(1, T + 1, (B,), generator=gen)
+    mask = (torch.arange(T)[None] < lens[:, None]).to(dev, torch.int32)
+    grid = np.full((2, 2), "cuda:0", dtype=object)
+    # one card runs its blocks on the current stream; a mesh over several
+    # cards takes a stream a position, forced here on one card
+    assert Mesh(grid, ("data", "model")).streams_at(
+        [{"data": 0}, {"data": 1}]) == [None, None]
+    mesh = _BlockStreams(grid, ("data", "model"))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = TA.sharded_flash_attention(mesh, *leaves, padding_mask=mask)
+    got_g = torch.autograd.grad(got, leaves, go)
+    assert len({mesh.stream(p) for p in range(4)}) == 4
+    leaves2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = _serial_sharded_flash(mesh, *leaves2, mask)
+    want_g = torch.autograd.grad(want, leaves2, go)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for g, w in zip(got_g, want_g):
+        assert torch.equal(g, w)
+
+
+def test_per_position_step_on_one_card_equals_todays_step(dev):
+    """The per-position step over ``cuda:0 x 4`` (the private selector:
+    four positions, four streams) against today's step on the same mesh,
+    and ZeRO against no ZeRO to the bit."""
+    from analytics_zoo_tpu_torch.estimator import estimator as TE
+    loss0, w0, fwd0, bwd0 = _bert_run(dev, _ctx(4, 1), shard_optimizer=True)
+    runs = []
+    for zero in (True, False):
+        with TE._positions_on_shared_devices():
+            runs.append(_bert_run(dev, _ctx(4, 1), shard_optimizer=zero))
+    loss, w, fwd, bwd = runs[0]
+    assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+    for name, p in w0.items():
+        assert (w[name] - p).abs().max() <= 1e-5 * p.abs().max(), name
+    # a launch a layer, position and step: 4 positions of 2 rows
+    assert (fwd, bwd) == (fwd0 * 4, bwd0 * 4)
+    assert runs[1][0] == loss
+    for name, p in runs[1][1].items():
+        assert torch.equal(w[name], p), name
+
+
+def test_per_position_step_over_a_model_axis_equals_todays_step(dev):
+    """Data 2 x model 2 over ``cuda:0 x 4`` with Megatron-placed weights:
+    each data position's attention runs its row of (data, model) blocks,
+    each block on its position's stream; against today's step on the
+    same mesh, with the launches of today's step."""
+    from analytics_zoo_tpu_torch.estimator import estimator as TE
+    loss0, w0, fwd0, bwd0 = _bert_run(dev, _ctx(2, 2), shard_optimizer=True)
+    with TE._positions_on_shared_devices():
+        loss, w, fwd, bwd = _bert_run(dev, _ctx(2, 2), shard_optimizer=True)
+    assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+    for name, p in w0.items():
+        assert (w[name] - p).abs().max() <= 1e-5 * p.abs().max(), name
+    assert (fwd, bwd) == (fwd0, bwd0)

@@ -331,31 +331,37 @@ def test_ctx_wins_over_the_global_context(monkeypatch):
 
 
 def test_a_mesh_over_two_devices_trains_replicated_or_raises():
-    """A mesh whose positions lie on two devices: with nothing sharded
-    over it the estimator trains on the model's device, as the replicated
-    run; a sharding option that needs more than one position raises."""
+    """A mesh whose positions lie on two devices no longer trains on the
+    model's device alone, nor raises: it runs the per-position step, each
+    data position's replica and (under ZeRO) its slots on its own device,
+    with the weights placed by the Megatron rules over "model" where
+    ``shard_model`` asks for it (each position's block on its device), or
+    every position a data position where it does not.  A mesh axis the
+    per-position step does not shard over still raises (ROADMAP Queue 1
+    item 5).  Nothing is computed on ``meta``: the per-position step's
+    numbers are held in ``tests/test_torch_positions.py``."""
     mc = MeshConfig(data=4, model=2)
-    ctx = tctx.ZooContext(ZooConfig(mesh=mc), tctx._build_mesh(
-        [torch.device("cpu")] * 4 + [torch.device("meta")] * 4, mc))
-    x, y = _tiny_data()
-    for kw in (dict(shard_optimizer=True, shard_model=False),
-               dict(shard_model=True)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            Estimator(TinyTx(), TO.SGD(lr=0.05), "mse", ctx=ctx,
-                      device="cpu", **kw)
-    net = TinyTx()
-    net.set_weights(_tiny_tree())
-    est = Estimator(net, _opt(TO, "sgd"), "mse", ctx=ctx, device="cpu",
-                    shard_optimizer=False, shard_model=False)
-    hist = est.train(_fs(FeatureSet, x, y), batch_size=16, epochs=2)
-    assert est.device.type == "cpu"
-    assert not any(isinstance(p, ShardedTensor)
-                   for p in est.params.values())
-    want, ref_losses = _port_tiny(1, 1)
-    np.testing.assert_allclose([h["loss"] for h in hist], ref_losses,
-                               **LOSS_TOL)
-    _same_weights(est.model, {n: p.detach().numpy() for n, p
-                              in want.model.named_parameters()})
+    devices = [torch.device("cpu")] * 4 + [torch.device("meta")] * 4
+    ctx = tctx.ZooContext(ZooConfig(mesh=mc), tctx._build_mesh(devices, mc))
+    for zero, model in ((False, False), (True, False), (True, True)):
+        net = TinyTx()
+        net.set_weights(_tiny_tree())
+        est = Estimator(net, _opt(TO, "sgd"), "mse", ctx=ctx, device="cpu",
+                        shard_optimizer=zero, shard_model=model)
+        est._prepare(seed=0)
+        assert est._per_position and est._pp.n == (4 if model else 8)
+        for p in est.params.values():
+            assert [t.device for t in p.shards] == devices
+        assert est.params["blk.attn.qkv.W"].sharding.spec == (
+            P(None, "model") if model else P())
+        trace = est.opt_state["trace"]["blk.attn.qkv.W"]
+        assert ({t.device for t in trace.shards} == set(devices) if zero
+                else {t.device for t in trace.shards} == {devices[0]})
+    mc = MeshConfig(data=4, sequence=2)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        Estimator(TinyTx(), TO.SGD(lr=0.05), "mse", device="cpu",
+                  ctx=tctx.ZooContext(ZooConfig(mesh=mc),
+                                      tctx._build_mesh(devices, mc)))
 
 
 def test_eval_and_predict_under_the_2d_mesh(monkeypatch):
