@@ -21,9 +21,10 @@ initialize``, where the JAX package calls ``jax.distributed.initialize``)
 and build a mesh over every process's positions: process ``r`` drives
 ``cuda:(r % device_count)`` (the host under ``platform="cpu"``) unless
 ``devices=`` names its own, and its positions come after those of the
-processes before it, so the processes split the "data" axis and each
-holds whole rows of the mesh (a mesh that would split a model group
-across processes raises).  The context reports ``process_index``,
+processes before it, in the order of ``jax.devices()``, reshaped by the
+axes as the JAX builder reshapes them: a process may hold several rows
+of the "data" axis, or part of a model group (``Mesh.data_groups``:
+processes that hold the same data coordinates take the same rows).  The context reports ``process_index``,
 ``process_count`` and the group's ``backend``; ``replicate`` places a
 value every process supplies whole, as in the JAX package.  A context of
 a given group and rank is built directly: ``ZooContext(config,
@@ -47,7 +48,6 @@ import torch
 
 from analytics_zoo_tpu_torch.common.config import (
     MeshConfig, ZooConfig, load_config)
-from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
 from analytics_zoo_tpu_torch.parallel import distributed
 from analytics_zoo_tpu_torch.parallel.mesh import (
     Mesh, NamedSharding, PartitionSpec, device_put)
@@ -177,7 +177,8 @@ def _build_mesh(devices: Sequence[torch.device], mc: MeshConfig,
     """The mesh ``mc`` lays out over ``devices``; with a ``group`` of P
     processes, ``devices`` are this process's and the mesh has P times as
     many positions, process ``q``'s after those of the processes before
-    it."""
+    it, reshaped by ``mc.axis_names`` whatever groups that splits across
+    processes (the JAX builder's rule)."""
     local = list(devices)
     procs = 1 if group is None else group.size
     devices = local * procs
@@ -206,13 +207,9 @@ def _build_mesh(devices: Sequence[torch.device], mc: MeshConfig,
     flat[:] = list(devices)
     if procs == 1:
         return Mesh(flat.reshape(shape), mc.axis_names)
-    # a process's positions are whole rows of the data axis, which leads
-    row = n // sizes["data"]
-    if mc.axis_names[0] != "data" or len(local) % row:
-        raise NotImplementedError(
-            f"a mesh of {sizes} over {procs} processes of {len(local)} "
-            f"devices each would split a group of the other axes across "
-            f"processes ({QUEUE_ITEMS[5]})")
+    # the devices in jax.devices() order: process 0's, then process 1's,
+    # ..., reshaped by the axes: a process may hold part of a model group
+    # or several rows of the data axis
     owners = np.repeat(np.arange(procs), len(local)).reshape(shape)
     return Mesh(flat.reshape(shape), mc.axis_names, processes=owners,
                 process_index=group.rank, group=group)

@@ -16,10 +16,9 @@ QUEUE_ITEMS = {
     2: "ROADMAP Queue 1 item 2: the rest of training, with the "
        "TrainConfig fields failure_retry_window_sec, donate_state and "
        "rng_impl, and loading a KerasNet file the JAX package wrote",
-    5: "ROADMAP Queue 1 item 5: the rest of parallel/, with the "
-       "per-position step in a job of several processes or over a "
-       "sequence, expert or pipeline axis, a model group split across "
-       "processes, and the four-card and NCCL measurements",
+    5: "ROADMAP Queue 1 item 5: the rest of parallel/, a job whose "
+       "processes hold unequal, overlapping or non-contiguous ranges of "
+       "data coordinates",
     6: "ROADMAP Queue 1 item 6: the rest, with net/ (torch.optim and "
        "tf.keras optimizer conversion), feature/, the rest of tfpark/ "
        "and InferenceSummary",

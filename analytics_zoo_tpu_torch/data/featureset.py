@@ -18,11 +18,17 @@ it: every leaf is a ``ShardedTensor`` split over "data" (a ragged last
 batch zero-padded up to the data-axis multiple first, as in JAX), and the
 DEVICE tier keeps each position's rows of its epoch on that position's
 device.  Given the ``ctx=`` of a
-job of P processes (the estimator's training feed), each process takes
-rows ``[r * B/P, (r + 1) * B/P)`` of every global batch of B rows, as
-``make_array_from_process_local_data`` assembles a global batch from
-each process's rows, and a B that P does not divide raises the JAX
-package's ``ValueError``; the DEVICE tier then keeps its epoch's batches
+job of several processes (the estimator's training feed), each process
+takes the rows of its data coordinates of every global batch of B rows:
+``[g * B/G, (g + 1) * B/G)`` for data group ``g`` of ``G``
+(``Mesh.data_group``: processes holding the same coordinates form a
+group, each process its own when it holds a coordinate alone), as
+``make_array_from_process_local_data`` assembles a global batch from the
+rows each process holds of its addressable shards, the processes that
+hold the same shards (replicas) supplying the same rows; so every
+process of a model group split across processes feeds the same rows,
+and every process all of them when the data axis is 1.  A B that the
+data axis does not divide raises the JAX package's ``ValueError``; the DEVICE tier then keeps its epoch's batches
 on the host and feeds each process its rows of them in the resident
 epoch's order, where the JAX tier takes its per-batch path.
 
@@ -172,15 +178,19 @@ def place_rows(a, sharding: NamedSharding, dim: int = 0,
 
 def _process_rows(batch_size: int, ctx) -> Optional[slice]:
     """This process's rows of a global batch of ``batch_size`` under the
-    ``ctx`` of several processes (None: every row)."""
+    ``ctx`` of several processes (None: every row): the rows of its data
+    coordinates, block ``g`` of ``G`` for data group ``g``
+    (``Mesh.data_group``), the same rows in every process of the group
+    and every row when the data axis is 1."""
     pc = 1 if ctx is None else ctx.process_count
     if pc == 1:
         return None
-    if batch_size % pc != 0:
+    g, n = ctx.mesh.data_group()
+    if batch_size % n != 0:
         raise ValueError(f"global batch_size {batch_size} must divide by "
-                         f"the process count {pc}")
-    lbs = batch_size // pc
-    return slice(ctx.process_index * lbs, (ctx.process_index + 1) * lbs)
+                         f"the {n} data groups of the process count {pc}")
+    lbs = batch_size // n
+    return slice(g * lbs, (g + 1) * lbs)
 
 
 def _multi_process(ctx) -> bool:

@@ -5,11 +5,14 @@ Port of ``analytics_zoo_tpu/data/sharded.py``, with the same semantics:
 - **Manifest**: ``ShardSpec(path, kind, size)`` rows probed once at
   construction (``build_manifest``); TFRecord shards decode through
   ``data/tfrecord.py``, ``.npz`` shards through numpy.
-- **Per-process assignment**: shard ``i`` belongs to process ``i %
-  process_count`` (``assign_shards``), the index and count of the live
-  context's job (``parallel.distributed``) when the set is built; each
-  process feeds ``batch_size / process_count`` rows of every global
-  batch (``_local_bs``) from its own shards.
+- **Per-process assignment**: shard ``i`` belongs to data group ``i %
+  G`` (``assign_shards``), the group index and count of the live
+  context's job when the set is built (``parallel.distributed.
+  data_group``: the processes holding the same data coordinates; with a
+  coordinate a process, the process index and count); each process
+  feeds ``batch_size / G`` rows of every global batch (``_local_bs``)
+  from its group's shards, the same rows as the other processes of its
+  group.
 - **Global shuffle**: an epoch-seeded shard permutation and a record
   shuffle within each window of ``window_shards`` consecutive permuted
   shards, every stream from ``cursor.epoch_rng``, so the same shards,
@@ -199,10 +202,12 @@ class ShardedFeatureSet(_Batchable):
         self.verify = verify
         self._stage = (_StageStore(cache_bytes) if stage_cache else None)
         self._n = sum(s.size for s in self.manifest)
+        # the shards split by data group: processes that hold the same
+        # data coordinates (a model group split across them) read the
+        # same shards in the same order
         self._process_count = distributed.process_count()
-        self._local = assign_shards(len(self.manifest),
-                                    distributed.process_index(),
-                                    self._process_count)
+        group, self._groups = distributed.data_group()
+        self._local = assign_shards(len(self.manifest), group, self._groups)
         self._local_n = sum(self.manifest[i].size for i in self._local)
         # leaf structure (shapes past the leading dim, dtypes, treedefs),
         # recorded from the first decode; identical across shards
@@ -221,12 +226,12 @@ class ShardedFeatureSet(_Batchable):
         return True if self._spec["n_label_leaves"] else None
 
     def _local_bs(self, batch_size: int) -> int:
-        pc = self._process_count
-        if batch_size % pc != 0:
+        n = self._groups
+        if batch_size % n != 0:
             raise ValueError(
-                f"global batch_size {batch_size} must divide by the "
-                f"process count {pc}")
-        return batch_size // pc
+                f"global batch_size {batch_size} must divide by the {n} "
+                f"data groups of the process count {self._process_count}")
+        return batch_size // n
 
     def steps_per_epoch(self, batch_size: int,
                         drop_remainder: bool = True) -> int:

@@ -44,7 +44,8 @@ sharded leaf as its shards instead: every process writes
 ``partial`` names those leaves with their shape and dtype.  It is chosen
 by itself (``needs_per_host``) when a sharded leaf spans processes (a
 ZeRO-sharded optimizer slot over a "data" axis that several processes
-split): process 0 makes the directory, every process writes its host
+split, or a Megatron-placed weight or slot of a model group split
+across processes): process 0 makes the directory, every process writes its host
 files between two barriers of the leaves' process group, process 0
 writes the rest, marks it complete and renames it, and a third barrier
 holds every process until the checkpoint exists.  Every process of such

@@ -40,18 +40,28 @@ layers (``_trace_ctx``): attention runs unsharded.  ``params`` and
 estimator's for the same model and mesh.
 
 Several processes (a context of a job, ``init_zoo_context`` with a
-coordinator): each process runs the forward and backward on its rows of
-every global batch (the featureset's per-process feed, the dropout masks
-over global rows), then the loss and the gradients are averaged over the
-processes by one all-reduce a dtype (``_across``, the gradients flattened
-into one buffer), and each process updates its blocks.  The data
-positions span processes, so under ZeRO a process updates its positions'
-blocks only and sends them to the others after the update
-(``_StepPlan.exchange``, an all-gather of the updated master blocks);
-norms over a whole leaf or tree add the processes' sums.  Such a step runs
-eager (no CUDA graph: a gloo collective cannot be captured), its
-all-reduce on the host between the backward and the update; with a
-gradient accumulation the whole accumulator is averaged.  A failed epoch
+coordinator), under any layout the JAX builder takes: a process may hold
+several data rows of the mesh, or part of a model group (``Mesh.
+data_groups``: the processes holding the same data coordinates form a
+group).  Each process runs the forward and backward on the rows of its
+data coordinates of every global batch (the featureset's per-process
+feed, the same rows in each process of a group, the dropout masks at the
+group's global rows), then the loss and the gradients are averaged over
+the groups by one all-reduce a dtype (``_across``, the gradients
+flattened into one buffer, each group's lowest process adding its
+values and the others zeros), and each process updates the blocks it
+holds.  Under ZeRO, or with a model group split across processes, a
+process lacks some blocks: their owners (the lowest process holding
+each) send them after the update (``_StepPlan.exchange`` into the master
+shards, and ``gather``'s all-gather of the master blocks into the
+module's weights); norms over a whole leaf or tree add each block once,
+in its owner (``plan.cross``).  With positions on several devices in
+each process (or by the private selector), each process runs the
+per-position step of ``estimator/positions.py`` over its positions, its
+local sums first.  Such a step runs eager (no CUDA graph: a gloo
+collective cannot be captured), its all-reduce on the host between the
+backward and the update; with a gradient accumulation the whole
+accumulator is averaged.  A failed epoch
 re-raises instead of retrying in place (a job restarts and resumes from
 its checkpoint, as in the JAX package); replicated state is checkpointed
 by process 0 alone, a leaf sharded over processes by every process (its
@@ -161,7 +171,7 @@ from analytics_zoo_tpu_torch.data.cursor import DataCursor
 from analytics_zoo_tpu_torch.data.featureset import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.estimator.checkpoint import (
     latest_checkpoint, needs_per_host, restore_checkpoint, save_checkpoint)
-from analytics_zoo_tpu_torch.estimator.positions import Positions, check_mesh
+from analytics_zoo_tpu_torch.estimator.positions import Positions
 from analytics_zoo_tpu_torch.keras import losses as losses_mod
 from analytics_zoo_tpu_torch.keras import metrics as metrics_mod
 from analytics_zoo_tpu_torch.keras import optimizers as optim_mod
@@ -299,13 +309,13 @@ def _block_key(block, shape) -> tuple:
 
 def _holder(placed: ShardedTensor, block, shape) -> int:
     """A position of this process whose shard of ``placed`` holds all of
-    ``block``."""
+    ``block``, or -1."""
     for p in placed.sharding.mesh.local_positions:
         held = placed.sharding.index(p, shape)
         if all(h.start <= b.start and b.stop <= h.stop
                for h, b in zip(held, block)):
             return p
-    raise ValueError(f"no shard of this process holds block {block}")
+    return -1
 
 
 def _relative(block, within) -> Tuple[slice, ...]:
@@ -391,11 +401,15 @@ class _StepPlan:
         if self.remote:
             self.cross = (self.owned, group.all_reduce)
         self._group = group
-        # the leaves whose master shards are not the module's memory
+        # the leaves whose master shards are not the module's memory, or
+        # that have blocks only other processes hold
         self._gathered = [] if masters is None else [
             n for n in module_params if not all(
                 _same_memory(module_params[n][sl], t)
-                for sl, t in masters[n].unique_shards())]
+                for sl, t in masters[n].unique_shards())
+            or (group is not None and any(
+                p < 0 for _, _, p in block_table(
+                    masters[n].sharding, masters[n].shape)))]
 
     @staticmethod
     def _view(full, placed, p, block, shape):
@@ -424,9 +438,11 @@ class _StepPlan:
                 continue
             src = (self._view(full, master, p, slices, shape)
                    if owner == group.rank else None)
-            dst = (None if p >= 0 else self._view(
-                full, master, _holder(master, slices, shape), slices,
-                shape))
+            # a block whose master block this process lacks too comes
+            # with that block (``gather``'s all-gather)
+            q = -1 if p >= 0 else _holder(master, slices, shape)
+            dst = (None if q < 0 else self._view(full, master, q, slices,
+                                                 shape))
             _, entries = self.remote.setdefault(
                 master.dtype, (master.local_shard, []))
             entries.append((owner, math.prod(sl.stop - sl.start
@@ -524,8 +540,13 @@ class Estimator:
         self._per_position = self.ctx is not None and (
             self.ctx.distinct_devices or _SHARED_DEVICE_POSITIONS)
         self._pp: Optional[Positions] = None
-        if self._per_position:
-            check_mesh(self._trace_ctx().mesh, self.ctx.process_count)
+        if self._group is not None:
+            # the data groups (processes taking the same rows) whose sums
+            # the all-reduce counts once each: a group's lowest process
+            # adds its own, the others zeros (raises for a layout the
+            # port does not split)
+            self._leaders = [g[0] for g in
+                             self._trace_ctx().mesh.data_groups()]
         self.remat = remat
         self.mixed_precision = mixed_precision
         self.compute_dtype = getattr(torch, config.compute_dtype)
@@ -682,15 +703,17 @@ class Estimator:
         split = lambda a: a.reshape((n, a.shape[0] // n) + a.shape[1:])
         if self._group is not None:
             # microbatch j is rows [j*B/n, (j+1)*B/n) of the global batch,
-            # whose rows the processes hold in rank order: gather it (one
-            # all-gather a leaf) and compute this process's B/(nP) rows of
-            # each microbatch, the rows its dropout offset names
-            P, r = self._group.size, self._group.rank
+            # whose rows the data groups hold in order: gather it (one
+            # all-gather a leaf, the groups' lowest processes' parts) and
+            # compute this process's B/(nG) rows of each microbatch, the
+            # rows its dropout offset names
+            g_at, G = self._trace_ctx().mesh.data_group()
 
             def split(a):
-                g = torch.cat(self._group.all_gather(a))
-                return g.reshape((n, P, g.shape[0] // (n * P))
-                                 + g.shape[1:])[:, r]
+                parts = self._group.all_gather(a)
+                g = torch.cat([parts[q] for q in self._leaders])
+                return g.reshape((n, G, g.shape[0] // (n * G))
+                                 + g.shape[1:])[:, g_at]
         xs, ys = tree_map(split, x), tree_map(split, y)
         plan = self._plan
         sharded = plan.acc is not None
@@ -718,24 +741,35 @@ class Estimator:
         loss, acc = self._across(torch.stack(losses).mean(), acc)
         return loss, plan.cut(dict(zip(p_fwd, self._cast_grads(acc))))
 
-    def _across(self, loss, grads):
+    def _across(self, loss, grads, parts: Optional[int] = None):
         """The loss and the gradients averaged over the processes (one
         all-reduce a dtype, of the gradients flattened into one buffer),
-        as the global batch's; unchanged for one process."""
+        as the global batch's; unchanged for one process.  Each data
+        group (``Mesh.data_groups``: the processes that took the same
+        rows) counts once: its lowest process adds its values, the others
+        zeros (exact), and the sum is divided by ``parts``, the equal
+        parts it adds up (default the groups, each process holding its
+        group's mean; the per-position step passes the data positions,
+        each group holding its positions' sum)."""
         if self._group is None:
             return loss, grads
+        parts = float(parts or len(self._leaders))
         grads = list(grads)
+
+        def mean(t):
+            if self._group.rank not in self._leaders:
+                t.zero_()
+            return self._group.all_reduce(t).div_(parts)
         with torch.no_grad():
             by_dtype: Dict[torch.dtype, List[int]] = {}
             for i, g in enumerate(grads):
                 by_dtype.setdefault(g.dtype, []).append(i)
             for dt, idx in by_dtype.items():
-                flat = torch.cat([grads[i].reshape(-1) for i in idx])
-                self._group.all_reduce(flat, "mean")
+                flat = mean(torch.cat([grads[i].reshape(-1) for i in idx]))
                 for i, part in zip(idx, flat.split(
                         [grads[i].numel() for i in idx])):
                     grads[i] = part.view(grads[i].shape)
-            loss = self._group.all_reduce(loss.detach().clone(), "mean")
+            loss = mean(loss.detach().clone())
         return loss, grads
 
     def _train_step(self, x, y, seed) -> torch.Tensor:
@@ -887,8 +921,13 @@ class Estimator:
 
     def _fs_kw(self) -> dict:
         """The context a featureset batches training steps for (its
-        data-axis check)."""
-        return {"ctx": self.ctx} if self.ctx is not None else {}
+        data-axis check; over processes, the rows of this process's data
+        coordinates in the layers' view of the mesh, which the step and
+        the dropout offsets read)."""
+        if self.ctx is None:
+            return {}
+        return {"ctx": self._trace_ctx() if self._group is not None
+                else self.ctx}
 
     def _place(self) -> None:
         """Place the weights and the optimizer state on the mesh, as the

@@ -22,8 +22,13 @@ smoke run on one card):
   microbatches (the JAX split: microbatch ``j`` is rows ``[j*B/N,
   (j+1)*B/N)`` of the global batch) and averages its gradients in f32
   (mixed precision) or the parameters' dtype.
-- Under a "model" axis above 1 (``shard_model``), the data positions
-  are model coordinate 0 of each data coordinate, and the master weights
+- The data positions are this process's first position of each of its
+  data coordinates: positions that differ only along "model",
+  "sequence", "expert" or "pipeline" hold the same rows and replica (the
+  JAX semantics: the batch is sharded over "data" alone), so a row block
+  is computed once for such a group and its updated weights copied to
+  the group's other positions.
+- Under a "model" axis above 1 (``shard_model``), the master weights
   are placed by the Megatron rules (``parallel/sharding.py``): each
   position holds its block on its device.  A data position still runs
   its forward and backward on a whole replica (what GSPMD's program
@@ -60,46 +65,46 @@ positions run one after another.
 zero-padded up to their multiple) and joins the outputs in row order on
 position 0's device.
 
+Inside each process of a job (a mesh over several processes, each
+holding some of its positions, ``Mesh.data_groups``), the step runs
+this process's data positions as above on its rows of the global batch
+(the featureset's rows of its data coordinates; under accumulation the
+global batch is gathered first, one all-gather a leaf, and each
+position takes its rows of every global microbatch).  The positions'
+whole gradients are added in position order on position 0's device,
+then summed over the processes, each data group counted once, and
+divided by the data axis's size (``Estimator._across``: one all-reduce
+a dtype).  Each process updates the blocks its positions hold (a block
+several processes hold is updated alike by each, from the same gradient
+and slots) and copies them into its own master shards and replicas; the
+blocks it lacks (a model group or a ZeRO split across processes) come
+from their owners, the lowest process holding each, by one all-gather a
+dtype (``exchange``).  Norms over a whole leaf or tree add each block's
+squares once, in its owner (``cross``).
+
 Such a step runs eager (no CUDA graph).  BatchNormalization's statistics
 stay each position's own, as each process's do; the module's buffers are
-position 0's.  Not ported (``NotImplementedError`` naming ROADMAP Queue 1
-item 5): positions over several processes, and a mesh axis other than
-"data" and "model" above 1.
+position 0's.  A job whose processes the port does not split a batch
+over (``Mesh.data_groups``) raises ``NotImplementedError`` naming ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
-from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
 from analytics_zoo_tpu_torch.data.featureset import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.keras import optimizers as optim_mod
 from analytics_zoo_tpu_torch.ops.dropout import derive_seed
 from analytics_zoo_tpu_torch.parallel.distributed import position_scope
 from analytics_zoo_tpu_torch.parallel.mesh import (
-    Mesh, NamedSharding, ShardedTensor, broadcast_from, fork,
-    join, on_stream, reduce_ordered, used_on, _dev_key, _key)
-
-
-def check_mesh(mesh: Mesh, process_count: int) -> None:
-    """Raise where the per-position step is not ported: positions over
-    several processes, or a mesh axis other than "data" and "model" above
-    1."""
-    if process_count > 1:
-        raise NotImplementedError(
-            f"the per-position step runs the positions of one process; "
-            f"this mesh spans {process_count} processes ({QUEUE_ITEMS[5]})")
-    wide = {a: n for a, n in mesh.shape.items()
-            if a not in ("data", "model") and n > 1}
-    if wide:
-        raise NotImplementedError(
-            f"the per-position step shards over the data and model axes "
-            f"only; this mesh also has {wide} over "
-            f"{sorted({str(d) for d in mesh.local_devices})} "
-            f"({QUEUE_ITEMS[5]})")
+    Mesh, NamedSharding, ShardedTensor, block_table, broadcast_from,
+    exchange, fork, join, on_stream, reduce_ordered, used_on, _dev_key,
+    _key)
 
 
 def rows_of(leaf, start: int, n: int, device) -> torch.Tensor:
@@ -112,7 +117,12 @@ def rows_of(leaf, start: int, n: int, device) -> torch.Tensor:
         if (start + n - 1) // blk != k:
             raise ValueError(f"rows [{start}, {start + n}) span two data "
                              f"blocks of {blk} rows")
-        t = leaf.shard({"data": k})[start - k * blk:start - k * blk + n]
+        t = leaf.shard({"data": k})
+        if t is None:           # held at another model coordinate here
+            mesh = leaf.sharding.mesh
+            t = next(leaf.shards[p] for p in mesh.local_positions
+                     if mesh.coords(p).get("data", 0) == k)
+        t = t[start - k * blk:start - k * blk + n]
     else:
         t = leaf[start:start + n]
     return t.to(device, non_blocking=True)
@@ -136,16 +146,21 @@ def _owner_place(full: torch.Tensor, sharding: NamedSharding, devs,
 
 class Positions:
     """The replicas, streams and update plan of the per-position step of
-    ``est`` (an ``Estimator``) over ``mesh``: its data positions (model
-    coordinate 0 of each data coordinate) hold the replicas and run the
-    step; every position may own update blocks."""
+    ``est`` (an ``Estimator``) over ``mesh``: its data positions (this
+    process's first position of each of its data coordinates) hold the
+    replicas and run the step; every position may own update blocks."""
 
     def __init__(self, est, mesh: Mesh):
         self.est = est
         self.mesh = mesh
-        data = (mesh.local_range("data") if "data" in mesh.axis_names
-                else range(1))
-        self.positions = [mesh.position({"data": d}) for d in data]
+        first: Dict[int, int] = {}
+        for p in mesh.local_positions:
+            first.setdefault(mesh.coords(p).get("data", 0), p)
+        #: this process's data coordinates (global) and their positions
+        self.coords = sorted(first)
+        self.positions = [first[d] for d in self.coords]
+        self.data_size = mesh.shape.get("data", 1)
+        self.group = mesh.group if mesh.process_count > 1 else None
         self.devs = [mesh.devices.flat[p] for p in self.positions]
         self.streams = [mesh.stream(p) for p in self.positions]
         self.n = len(self.positions)
@@ -170,6 +185,11 @@ class Positions:
         self.entries: List[Tuple[str, tuple, int]] = []
         self.masters: Dict[str, ShardedTensor] = {}
         self._own_shards: List[Tuple[torch.Tensor, tuple, str]] = []
+        # over processes: the blocks this process lacks (their exchange
+        # entries by dtype, and where each lands), and the norms' cross
+        self.remote: Dict[torch.dtype, tuple] = {}
+        self.after: List[Tuple[torch.Tensor, List[torch.Tensor]]] = []
+        self.cross = None
 
     def _weights(self, i: int) -> Dict[str, torch.Tensor]:
         """Position ``i``'s trainable tensors (its replica's)."""
@@ -242,7 +262,58 @@ class Positions:
         self.copies = [self._copies(j) for j in range(len(self.entries))]
         self.groups = [[j for j, m in enumerate(self.names) if m == n]
                        for n in self.trainable]
+        if self.group is not None:
+            self._plan_remote(gsh)
         return placed
+
+    def _plan_remote(self, gsh: Dict[str, NamedSharding]) -> None:
+        """Over processes: each update block that some process lacks is
+        sent by its owner, the lowest process holding it, after the
+        update (``exchange``, one all-gather a dtype) into this process's
+        replicas and master shards where it lacks it; a block several
+        processes hold is updated by each (the same gradient and slots)
+        and counted, in a norm over a whole leaf or tree, by its owner
+        alone (``cross``)."""
+        me, size = self.group.rank, self.group.size
+        at = {(n, _key(sl)): j for j, (n, sl, _) in enumerate(self.entries)}
+        owned = [False] * len(self.entries)
+        for n in self.trainable:
+            master = self.masters[n]
+            like = self.tensors[0][n].detach()
+            for slices, holders, p in block_table(gsh[n], master.shape):
+                owner = min(holders)
+                j = at.get((n, _key(slices)))
+                if j is not None:
+                    owned[j] = owner == me
+                if len(holders) == size:
+                    continue
+                dst = None
+                if p < 0:
+                    dst = like[slices]
+                    views = [_held(master, slices, q)
+                             for q in self.mesh.local_positions
+                             if _holds(master, slices, q)]
+                    views += [t[n].detach()[slices] for t in self.tensors]
+                    seen, out = {_memory(dst)}, []
+                    for v in views:
+                        if _memory(v) not in seen:
+                            seen.add(_memory(v))
+                            out.append(v)
+                    self.after.append((dst, out))
+                _, entries = self.remote.setdefault(like.dtype, (like, []))
+                entries.append((owner, math.prod(
+                    sl.stop - sl.start for sl in slices),
+                    self.ps[j] if owner == me else None, dst))
+        if self.remote:
+            self.cross = (owned, self.group.all_reduce)
+
+    def _exchange(self) -> None:
+        """The updated blocks this process lacks, from their owners, into
+        its replicas and master shards."""
+        for like, entries in self.remote.values():
+            exchange(entries, self.group, like)
+        for dst, views in self.after:
+            broadcast_from(dst, views)
 
     def _copies(self, j: int) -> List[torch.Tensor]:
         """Where entry ``j``'s updated block goes: every other master
@@ -278,18 +349,17 @@ class Positions:
         with position_scope(i, self.n), self.est._scope():
             return self.est._forward(fwd, x, seed, self.tensors[i])
 
-    def _position_grads(self, i: int, x, y, seed, rows: int):
-        """Position ``i``'s mean loss and gradients over its rows of the
-        batch (of each microbatch under accumulation, accumulated as the
-        estimator's step does), on its device."""
+    def _position_grads(self, i: int, x, y, seed, starts: List[int],
+                        per: int):
+        """Position ``i``'s mean loss and gradients over its ``per`` rows
+        at ``starts[j]`` of the batch, one start a microbatch
+        (accumulated as the estimator's step does), on its device."""
         est = self.est
         dev, acc_n = self.devs[i], est.grad_accum_steps
         fwd = est._fwd_weights(self._weights(i), self.shadows[i]
                                if self.shadows is not None else None)
-        per = rows // (acc_n * self.n)
         losses, acc = [], None
-        for j in range(acc_n):
-            start = j * (rows // acc_n) + i * per
+        for j, start in enumerate(starts):
             xi = tree_map(lambda a: rows_of(a, start, per, dev), x)
             yi = tree_map(lambda a: rows_of(a, start, per, dev), y)
             if est._fused_tf is not None:
@@ -305,16 +375,57 @@ class Positions:
         torch._foreach_div_(acc, float(acc_n))
         return torch.stack(losses).mean(), acc
 
+    def _starts(self, x, per: int, gathered: bool) -> List[List[int]]:
+        """Each position's first row of each microbatch in ``x``'s rows:
+        microbatch ``j`` is rows ``[j*B/N, (j+1)*B/N)`` of the global
+        batch of B rows and data coordinate ``c`` holds its ``per`` rows
+        from ``c * per`` on; a placed leaf (``ShardedTensor``) and a
+        gathered global batch index global rows, a tensor of this
+        process's rows its own."""
+        mb = per * self.data_size
+        local = not gathered and not isinstance(tree_leaves(x)[0],
+                                                ShardedTensor)
+        shift = self.coords[0] * per if local else 0
+        return [[j * mb + (c * per) - shift
+                 for j in range(self.est.grad_accum_steps)]
+                for c in self.coords]
+
+    def _global(self, tree):
+        """Every leaf's global batch, gathered on position 0's device:
+        this process's rows (in coordinate order), all-gathered, and the
+        data groups' parts (their lowest processes') in group order."""
+        mesh, dev = self.mesh, self.devs[0]
+        leaders = [g[0] for g in mesh.data_groups()]
+
+        def leaf(a):
+            if isinstance(a, ShardedTensor):
+                blk = a.sharding.shard_shape(a.shape)[0]
+                a = torch.cat([rows_of(a, c * blk, blk, dev)
+                               for c in self.coords])
+            parts = self.group.all_gather(a.to(dev).contiguous())
+            return torch.cat([parts[q] for q in leaders])
+        return tree_map(leaf, tree)
+
     def step(self, x, y, seed) -> torch.Tensor:
         """One optimizer step on the global batch ``(x, y)`` (tensors, or
-        leaves placed over the data axis); returns the loss on position
-        0's device (no host read)."""
+        leaves placed over the data axis; over processes, this process's
+        rows of it); returns the loss on position 0's device (no host
+        read)."""
         est = self.est
-        rows = tree_leaves(x)[0].shape[0]
-        if rows % (est.grad_accum_steps * self.n):
+        acc_n = est.grad_accum_steps
+        lead = tree_leaves(x)[0]
+        rows = (lead.shape[0] * self.n // self.data_size
+                if isinstance(lead, ShardedTensor) else lead.shape[0])
+        if rows % (acc_n * self.n):
             raise ValueError(
                 f"batch_size {rows} must divide by grad_accum_steps * "
-                f"data positions = {est.grad_accum_steps}*{self.n}")
+                f"data positions = {acc_n}*{self.n}")
+        per = rows // (acc_n * self.n)
+        gathered = self.group is not None and acc_n > 1
+        if gathered:
+            # microbatch j spans every process's rows: gather the batch
+            x, y = self._global(x), self._global(y)
+        starts = self._starts(x, per, gathered)
         fork(self.streams)
         losses, grads = [], []
         for i in range(self.n):
@@ -322,20 +433,27 @@ class Positions:
                 for t in tree_leaves((x, y)):
                     if isinstance(t, torch.Tensor):
                         used_on([t], self.streams[i])
-                loss, g = self._position_grads(i, x, y, seed, rows)
+                loss, g = self._position_grads(i, x, y, seed, starts[i],
+                                               per)
             losses.append(loss)
             grads.append(dict(zip(self.trainable, g)))
         join(self.streams, [*losses, *(t for g in grads for t in g.values())])
         with torch.no_grad():
-            loss = reduce_ordered([[v] for v in losses], self.devs[0],
-                                  torch.float32)[0].div_(self.n)
-            blocks = self._reduce(grads)
-            est._clip(blocks)
+            if self.group is None:
+                loss = reduce_ordered([[v] for v in losses], self.devs[0],
+                                      torch.float32)[0].div_(self.n)
+                blocks = self._reduce(grads)
+            else:
+                loss, blocks = self._reduce_across(losses, grads)
+            est._clip(blocks, self.cross)
             est.optimizer.update_blocks(optim_mod.Blocks(
                 self.names, self.ps, blocks, self.slots, self.groups,
-                est.opt_state.get("decayed", ())), est.opt_state)
+                est.opt_state.get("decayed", ()), self.cross),
+                est.opt_state)
             for src, dsts in zip(self.ps, self.copies):
                 broadcast_from(src, dsts)
+            if self.group is not None:
+                self._exchange()
         return loss
 
     def _reduce(self, grads: List[Dict[str, torch.Tensor]]
@@ -366,6 +484,27 @@ class Positions:
             for j, t in zip(idx, est._cast_grads(summed)):
                 out[j] = t
         return out
+
+    def _reduce_across(self, losses, grads):
+        """Over processes, the loss and each plan entry's gradient: the
+        local positions' losses and whole gradients added in position
+        order on position 0's device (the gradients in f32 under mixed
+        precision), then summed over the processes, each data group
+        counted once, and divided by the data positions
+        (``Estimator._across``: one all-reduce a dtype), cut into the
+        plan's blocks on their owners' devices and cast as the update
+        takes them."""
+        est = self.est
+        dev = self.devs[0]
+        loss = reduce_ordered([[v] for v in losses], dev, torch.float32)[0]
+        full = reduce_ordered(
+            [[g[n] for n in self.trainable] for g in grads], dev,
+            torch.float32 if est.mixed_precision else None)
+        loss, full = est._across(loss, full, self.data_size)
+        by_name = dict(zip(self.trainable, full))
+        return loss, est._cast_grads([
+            by_name[n][slices].to(self.mesh.devices.flat[q])
+            for n, slices, q in self.entries])
 
     # -------------------------------------------------------------- predict
     def predict(self, x):

@@ -416,7 +416,10 @@ def sharded_flash_attention(mesh, q, k, v, padding_mask=None,
 
     Over several processes q holds this process's rows: ``dp`` counts its
     own data coordinates (``mesh.local_range``), and each block's seed
-    takes the block's global data coordinate.  Inside a
+    takes the block's global data coordinate, so every process that holds
+    a coordinate (a model group split across processes) draws that
+    coordinate's masks; such a process runs every model block of its
+    rows, those of the group's other positions too (on its own device).  Inside a
     ``parallel.distributed.position_scope`` over those coordinates q holds
     one data position's rows, and only that position's blocks run.
 

@@ -16,8 +16,11 @@ and its rank, so the workers rendezvous over ``torch.distributed`` as the
 processes of a multi-host job do (on the card: worker ``r`` drives
 ``cuda:(r % device_count)``, gloo when workers share a card, NCCL when
 each has its own).  Workers run on the card unless the caller asks for
-the host (``platform="cpu"``).  ``fn`` must be module-level (picklable),
-like a Ray remote function.
+the host (``platform="cpu"``).  A worker that drives several devices
+makes its context again inside ``fn``: ``reset_context()``, then
+``init_zoo_context(ctx.config.replace(mesh=...), devices=[...])`` (the
+same rendezvous, now over its devices).  ``fn`` must be module-level
+(picklable), like a Ray remote function.
 """
 
 from __future__ import annotations

@@ -24,8 +24,9 @@ ranks as two threads of one process).  Its collectives go through the
 process group's own methods, so either kind works; gloo takes CUDA
 tensors for them.
 
-The functions below (``process_index``, ``process_count``, ``barrier``,
-``all_reduce``, ``broadcast``, ``process_allgather``, ``batch_offset``)
+The functions below (``process_index``, ``process_count``,
+``data_group``, ``barrier``, ``all_reduce``, ``broadcast``,
+``process_allgather``, ``batch_offset``)
 act on the group of the live context (``common.context.current_context``:
 the calling thread's ``context_scope`` first); without one, or with one
 of a single process, they act on this process alone.
@@ -61,7 +62,8 @@ class Group:
     (the card under NCCL, the host under gloo).  ``reduced_bytes`` counts
     the bytes this process has all-reduced, ``reduce_seconds`` the host
     time its all-reduces took (waiting for the slowest process
-    included)."""
+    included); ``gathered_bytes`` and ``gather_seconds`` the same of its
+    all-gathers."""
 
     def __init__(self, pg, rank: int, size: int, backend: str = "gloo",
                  timeout_s: Optional[float] = None, device=None):
@@ -78,6 +80,8 @@ class Group:
                                          else "cpu"))
         self.reduced_bytes = 0
         self.reduce_seconds = 0.0
+        self.gathered_bytes = 0
+        self.gather_seconds = 0.0
 
     def _wait(self, work, what: str) -> None:
         try:
@@ -117,7 +121,10 @@ class Group:
         """Every process's ``t`` (same shape and dtype in each), in rank
         order."""
         out = [torch.empty_like(t) for _ in range(self.size)]
+        t0 = time.perf_counter()
         self._wait(self.pg.allgather([out], [t.contiguous()]), "all_gather")
+        self.gather_seconds += time.perf_counter() - t0
+        self.gathered_bytes += t.numel() * t.element_size()
         return out
 
     def barrier(self, tag: str = "") -> None:
@@ -203,6 +210,18 @@ def process_count(ctx=None) -> int:
     return 1 if g is None else g.size
 
 
+def data_group(ctx=None):
+    """``(index, count)`` of this process's data group among the job's
+    (``Mesh.data_group``: the processes that take the same rows of a
+    global batch); ``(0, 1)`` for one process."""
+    if ctx is None:
+        from analytics_zoo_tpu_torch.common.context import current_context
+        ctx = current_context()
+    if ctx is None or ctx.mesh.process_count == 1:
+        return 0, 1
+    return ctx.mesh.data_group()
+
+
 def barrier(tag: str = "", ctx=None) -> None:
     """``multihost_utils.sync_global_devices``: wait for every process."""
     g = _group(ctx)
@@ -277,11 +296,24 @@ def current_position():
 
 def batch_offset(rows: int, ctx=None) -> int:
     """The global index of the first row of the global batch that the
-    caller holds ``rows`` rows of: the process's offset plus its local
-    data coordinate times ``rows``, i.e. ``(process_index * count +
-    index) * rows`` inside a ``position_scope(index, count)`` and
-    ``process_index * rows`` outside one; 0 for one process and one
-    position.  The dropout draws add it, so a position's masks are its
-    rows of the global masks."""
+    caller holds ``rows`` rows of, by its data coordinate: outside a
+    ``position_scope`` the caller holds its process's data coordinates
+    (``Mesh.data_coords``: ``k`` of them from ``first``), each
+    ``rows / k`` rows, so the offset is ``first * rows / k``; inside
+    ``position_scope(index, count)`` it holds one coordinate's rows, the
+    ``index``-th of its ``count``, at ``(first + index) * rows``.  0 for
+    one process and one position.  Processes that share a data
+    coordinate (a model group split across them) share the offset, and
+    so draw the same masks; the dropout draws add it, so a position's
+    masks are its rows of the global masks."""
+    from analytics_zoo_tpu_torch.common.context import current_context
     index, count = current_position() or (0, 1)
-    return (process_index(ctx) * count + index) * int(rows)
+    ctx = ctx if ctx is not None else current_context()
+    first, k = 0, 1
+    if ctx is not None:
+        mesh = ctx.mesh
+        if mesh.process_count > 1:
+            mesh.data_groups()          # a layout the port splits
+        coords = mesh.data_coords()
+        first, k = coords[0], len(coords)
+    return first * int(rows) * count // k + index * int(rows)

@@ -10,7 +10,8 @@ device at its mesh coordinate.  A mesh may span several processes
 one; ``group``: their ``parallel.distributed.Group``), as a JAX mesh spans
 the devices of every host: a position of another process is not
 addressable here, and a ``ShardedTensor`` holds this process's shards
-only.  A device may appear more than once
+only.  The processes that hold the same "data" coordinates form a data
+group (``data_groups``): they take the same rows of a batch.  A device may appear more than once
 (``Mesh(["cuda:0"] * 4, ("sequence",))`` runs four shards on one card,
 ``["cpu"] * 8`` eight on the host), the counterpart of XLA's virtual host
 devices; moving a shard to a device it is already on costs nothing.
@@ -99,6 +100,8 @@ class Mesh:
             raise ValueError(f"process {self.process_index} holds no "
                              "position of this mesh")
         self._streams: Dict[int, Any] = {}
+        self._groups: Optional[List[List[int]]] = None
+        self._coords: Optional[List[int]] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -190,6 +193,59 @@ class Mesh:
         process holds a contiguous range of every axis)."""
         idx = sorted({self.coords(p)[axis] for p in self._local})
         return range(idx[0], idx[-1] + 1)
+
+    def data_coords(self, process: Optional[int] = None) -> List[int]:
+        """The "data" coordinates of the positions of ``process`` (default
+        this one), ascending; ``[0]`` for a mesh without a data axis."""
+        q = self.process_index if process is None else int(process)
+        if q == self.process_index:
+            if self._coords is None:       # read by every dropout draw
+                self._coords = sorted({self.coords(p).get("data", 0)
+                                       for p in self._local})
+            return list(self._coords)
+        return sorted({self.coords(p).get("data", 0)
+                       for p, r in enumerate(self.processes.flat) if r == q})
+
+    def data_groups(self) -> List[List[int]]:
+        """The job's data groups, in the order of their coordinates: the
+        processes of a group hold the same "data" coordinates (a model
+        group split across them, or a sequence, expert or pipeline group),
+        so they take the same rows of every batch, draw the same masks
+        and compute the same gradient; each process of a job of one
+        coordinate a process is a group of its own, and one process is
+        the only group.  Raises ``NotImplementedError`` (ROADMAP Queue 1
+        item 5) for a layout whose processes hold coordinates that are
+        not one contiguous range, share some coordinates but not all, or
+        hold unequal numbers of them."""
+        if self._groups is None:
+            from analytics_zoo_tpu_torch.common.unported import QUEUE_ITEMS
+            by_coords: Dict[tuple, List[int]] = {}
+            for q in range(self.process_count):
+                cs = self.data_coords(q)
+                by_coords.setdefault(tuple(cs), []).append(q)
+            sets = sorted(by_coords)
+            flat = [c for cs in sets for c in cs]
+            if (len(set(flat)) != len(flat)
+                    or len({len(cs) for cs in sets}) != 1
+                    or any(list(cs) != list(range(cs[0], cs[-1] + 1))
+                           for cs in sets)):
+                raise NotImplementedError(
+                    f"processes holding the data coordinates "
+                    f"{[list(cs) for cs in sets]} of a mesh of "
+                    f"{self.shape}: the port splits a batch over processes "
+                    f"that hold whole, equal, contiguous ranges of "
+                    f"coordinates ({QUEUE_ITEMS[5]})")
+            self._groups = [by_coords[cs] for cs in sets]
+        return self._groups
+
+    def data_group(self) -> Tuple[int, int]:
+        """``(index, count)`` of this process's data group among the
+        job's (``data_groups``): the share of a global batch it feeds."""
+        groups = self.data_groups()
+        for i, g in enumerate(groups):
+            if self.process_index in g:
+                return i, len(groups)
+        raise AssertionError("a process outside every data group")
 
     def reshaped(self, shape, axis_names: Sequence[str]) -> "Mesh":
         """The same positions, processes and group in another layout."""
@@ -327,13 +383,15 @@ def exchange(entries, group, like: torch.Tensor) -> None:
     owner's tensor of the block (None elsewhere), ``dst`` where a process
     that lacks the block takes it (None where it holds it).  Each process
     sends the blocks it owns, packed in order and padded to the longest
-    process's pack, in ``like``'s dtype on its device."""
+    process's pack, in ``like``'s dtype on its device (a block on another
+    of its devices is copied there first)."""
     if not entries:
         return
     sizes = [0] * group.size
     for owner, numel, _, _ in entries:
         sizes[owner] += numel
-    mine = [e[2].reshape(-1) for e in entries if e[0] == group.rank]
+    mine = [e[2].reshape(-1).to(like.device) for e in entries
+            if e[0] == group.rank]
     buf = torch.zeros(max(sizes), dtype=like.dtype, device=like.device)
     if mine:
         torch.cat(mine, out=buf[:sizes[group.rank]])

@@ -59,7 +59,8 @@ Phases, each of which raises (exit code 1) on failure:
    (``memory_type="DEVICE"``), ``AdamWeightDecay(lr=1e-4,
    state_dtype="bfloat16")``, mixed precision with the bf16 gradient tree,
    ``steps_per_dispatch=32`` (one CUDA graph of a whole step, replayed 32
-   times a dispatch), 8 epochs.  Checked: exactly 12 ``flash_fwd`` and 12
+   times a dispatch), 4 epochs (cut from the bench's 8 to keep the
+   script inside its time limit).  Checked: exactly 12 ``flash_fwd`` and 12
    ``flash_bwd`` launches a step counted through the replays; the epoch
    losses fall and the first 32 steps agree with ``steps_per_dispatch=1``
    within ``BENCH_BF16_RTOL``; in f32 at batch 32 with dropout, 8 steps
@@ -179,10 +180,26 @@ Phases, each of which raises (exit code 1) on failure:
    step on each rank.  (c) the main path: the train_bench configuration
    (global batch 256, 128 a rank, bf16, the bench's AdamWeightDecay over
    the run's steps, DEVICE tier) through ``BERTClassifier.train``, 2
-   calls of one 8-step epoch: launches, the step ms of the second (steps
+   calls of one 4-step epoch: launches, the step ms of the second (steps
    run eager: a gloo collective cannot sit in a CUDA graph) with the host
    time of its all-reduces, and the bytes each rank all-reduced a step,
    over gloo through the host on one shared card (not an NCCL figure).
+   Then each worker makes its context again (``reset_context``, then
+   ``init_zoo_context(config.replace(mesh=...), devices=[...])``, as a
+   worker that drives several devices does) for two more layouts of the
+   job, BERT-base f32, dropout off, ``SGD(lr=0.05, momentum=0.9)``,
+   global batch 32, 4 steps: (d) data 4 as 2 processes x 2 positions of
+   ``cuda:0`` (the per-position step in each, through the estimator's
+   private selector), without and with ZeRO; (e) data 1 x model 2, the
+   model group split across the 2 processes of one position each (the
+   one-device step, each process running both attention blocks of a
+   layer; no ZeRO run: a data axis of 1 splits nothing).  Each against
+   the one-process run of the same mesh over positions of one card
+   (``MULTIPROC_RTOL``), ZeRO against not (``MULTIPROC_ZERO_TOL``), 12 +
+   12 ``flash`` launches a position (d) or a block (e) a step, (e)'s
+   master and momentum bytes a position under ``MULTIPROC_HALF`` of the
+   replicated ones, and the step ms with the host time of the
+   collectives (gloo through the host, not NCCL figures).
 7g. positions: one process over several mesh positions, each on its own
    stream (``estimator/positions.py``), on the one card.  (a) The
    train_bench configuration (batch 256, bf16, the bench's AdamWeightDecay
@@ -208,7 +225,15 @@ Phases, each of which raises (exit code 1) on failure:
    card (epoch losses, weights and both moments equal: the same
    arithmetic in the same order; each card's bytes allocated by the run
    beside the estimator's tensors on it and ``bytes_per_device``), and
-   mp-N decode too.
+   mp-N decode too; then the job over NCCL, one process a card
+   (``RayContext(num_workers=N)``, rank r on ``cuda:r``): BERT-base f32,
+   SGD momentum, global batch 32, 4 steps at data N and at data N/2 x
+   model 2, each against the same mesh in one process over N positions
+   of one card (losses, weights and momentum within ``MULTIPROC_RTOL``),
+   and a killed peer: rank 1 kills itself after its second step, and the
+   survivor must end as a failed worker (NCCL's watchdog after
+   ``ZOO_TPU_COLLECTIVE_TIMEOUT_S`` = ``NCCL_KILL_TIMEOUT_S``), never
+   hang; the seconds from the kill to its end are printed.
 8. ring: ``flash_fwd_lse`` against its plain version on the card at the
    block shapes of sequence-parallel ring attention at GPT-2-small /
    BERT-base attention width (H=12, D=64; B=2, T=16,384 over four shards,
@@ -247,10 +272,10 @@ Phases, each of which raises (exit code 1) on failure:
    requests of 500 token ids, every answer within 1e-4 of the same model
    on the CPU, requests/s and p50 / p99; trained with ``compile(Adagrad(
    lr=0.01), "sparse_categorical_crossentropy")`` / ``fit`` at batch 128
-   from the DEVICE tier (4,096 sequences of ``RandomState(0)``, the label
-   a class token planted at a random position), 2 epochs of 32 steps, 32
+   from the DEVICE tier (1,024 sequences of ``RandomState(0)``, the label
+   a class token planted at a random position), 2 epochs of 8 steps, 8
    steps a dispatch (CUDA graph replays), and one epoch again with one
-   step a dispatch: the first 3 steps within 1e-4 relative of the CPU's
+   step a dispatch: the first 2 steps within 1e-4 relative of the CPU's
    (dropout on, the same seeds), the graph's first epoch within 1e-5 of
    eager (losses relative, weights of max|p|), the last epoch's loss below
    the first's; step ms, samples/s, the device-busy share of 2 profiled
@@ -485,7 +510,7 @@ TRAIN_GRAD_RTOL = 1e-3        # of max|g| of each parameter's gradient
 BATCH = 32
 # the bench's BERT training leg (bench.py:322-346): batch, steps an epoch,
 # epochs, steps per dispatch
-BENCH = dict(batch=256, steps=32, epochs=8, spd=32)
+BENCH = dict(batch=256, steps=32, epochs=4, spd=32)
 # graph vs eager steps in f32 (the same kernels; cuBLAS and the f32
 # backward sum in a fixed order): losses relative, weights of max|p|
 GRAPH_LOSS_RTOL = 1e-5
@@ -535,7 +560,7 @@ MESH_TRAIN_BF16_TOL = 0.0
 # elementwise update, a copied exchange: the same bits); a rank's dropout
 # forward on its rows against those rows of the one-process forward (GEMMs
 # of another row count)
-MULTIPROC = dict(workers=2, steps=8, epochs=2, timeout_s=900)
+MULTIPROC = dict(workers=2, steps=4, epochs=2, timeout_s=900)
 MULTIPROC_RTOL = 1e-5
 MULTIPROC_ZERO_TOL = 0.0
 MULTIPROC_FWD_ATOL = 1e-5
@@ -547,6 +572,15 @@ MULTIPROC_FWD_ATOL = 1e-5
 # 2.027e-2, 1.834e-2, the same in two runs); a dropped or doubled 1/P
 # moves the first moment by 1 and the second by 3 of themselves
 MULTIPROC_BF16_TOL = dict(loss=3e-3, weights=5e-3, mu=5e-2, nu=5e-2)
+# leg (e), data 1 x model 2 split across the processes: a position's
+# Megatron-placed master and momentum bytes against the replicated ones
+# (half of the matched leaves; LayerNorm, the biases of the row-parallel
+# projections, the pooler and the classifier stay whole: 0.503 of
+# BERT-base's bytes)
+MULTIPROC_HALF = 0.51
+# the killed-peer check over NCCL (--ring-cards): the collective timeout
+# the survivor's watchdog aborts it after, in seconds
+NCCL_KILL_TIMEOUT_S = 30
 # the per-position step (7g): 4 data positions of 64 rows on cuda:0, a
 # stream each, against today's one-device step on the same mesh (each
 # position's bf16 gradient of 64 rows summed in f32 where one backward
@@ -585,14 +619,14 @@ TEXT_NEWS20 = dict(class_num=20, vocab_size=20000, token_length=200,
                    sequence_length=500, encoder_output_dim=256)
 # its training run: the upstream news20 example's batch (and Adagrad), 2
 # epochs of 32 steps from the DEVICE tier, 32 steps a dispatch; the burst
-ZOO = dict(n=4096, batch=128, steps=32, epochs=2, spd=32, requests=64)
+ZOO = dict(n=1024, batch=128, steps=8, epochs=2, spd=8, requests=64)
 ZOO_SESSION = dict(item_count=3706, include_history=True)  # MovieLens-1M
 # the sharded ingest path (11): SQuAD at the heads phase's settings, its
 # 192 features in 8 TFRecord shards read in windows of 2, 4 steps a
 # dispatch, 2 epochs; NCF from MovieLens-1M's 1,000,209 ratings in 8 .npz
 # shards at batch 8,192 (bench.py's ingest legs)
 INGEST = dict(features=192, shards=8, window=2, spd=4, epochs=2)
-INGEST_NCF = dict(records=1000209, shards=8, batch=8192, epochs=3)
+INGEST_NCF = dict(records=1000209, shards=8, batch=8192, epochs=2)
 # multi-model serving (12): 128 requests from 4 threads over 4 models
 MULTI = dict(requests=128, threads=4, fault_requests=4)
 # tenancy (13): gold's 16 requests against free flooding from 3 threads,
@@ -1764,7 +1798,8 @@ def phase_train_bench():
                 / BENCH["steps"])
     busy = profile_breakdown(lambda: clf.train(lambda: bench_ds, epochs=1),
                              f"one {BENCH['spd']}-step dispatch (CUDA graph "
-                             f"replays) at batch {BENCH['batch']}", top=12)
+                             f"replays) at batch {BENCH['batch']}", top=12,
+                             warm=False)
     flops = _step_flops(clf.net, cfg, BENCH["batch"])
     first = bench.losses[:BENCH["steps"]]
     del clf
@@ -1786,7 +1821,7 @@ def phase_train_bench():
     busy_eager = profile_breakdown(
         lambda: clf.train(lambda: bench_ds, epochs=1),
         f"{BENCH['steps']} eager steps (K=1) at batch {BENCH['batch']}",
-        top=12)
+        top=12, warm=False)
     del clf
     _release()
     for what, ms, peak, prof in (
@@ -2773,11 +2808,12 @@ def _adam_state(est):
     return state
 
 
-def _worst_by_kind(got, want, where=None):
+def _worst_by_kind(got, want, where=None, kinds=("weights", "mu", "nu")):
     """The worst ``max|d| / max|w|`` over the leaves of two
     ``_adam_state`` dicts (tensors or arrays), by kind: weights, first
-    and second moment; ``where`` (a dict) takes each kind's worst leaf."""
-    worst = dict.fromkeys(("weights", "mu", "nu"), 0.0)
+    and second moment (or ``kinds``, the names' first parts); ``where``
+    (a dict) takes each kind's worst leaf."""
+    worst = dict.fromkeys(kinds, 0.0)
     where = {} if where is None else where
     for n, w in want.items():
         g, w = torch.as_tensor(got[n]), torch.as_tensor(w)
@@ -2991,9 +3027,87 @@ def _probe_bf16_all_reduce(group):
     return float((got.float() - want.float()).abs().max())
 
 
-def _multiproc_worker(rank, ref_path, ref_losses, upd_path, upd_losses):
+def _layout_leg(mc, devices, positions, cfg0, tree, small, ref,
+                zeros=(False, True)):
+    """One process's part of the multiproc phase's leg (d) or (e): its
+    context made again by ``init_zoo_context(devices=...)`` over the job's
+    group under ``mc`` (as a worker that drives several devices makes
+    it), then the BERT-base classifier (f32, dropout off, SGD with
+    momentum, global batch ``BATCH``, 4 steps) without and with ZeRO, the
+    per-position step under ``positions``: losses and weights against
+    the one-process run of the same mesh at ``ref`` (path, losses), ZeRO
+    against not (``zeros``: the runs; a data axis of 1 has no ZeRO
+    split), launches, the master and slot bytes of a position against the
+    replicated ones, step ms and the collectives' host ms."""
+    from analytics_zoo_tpu_torch.common.context import (
+        current_context, init_zoo_context, reset_context)
+    from analytics_zoo_tpu_torch.estimator import estimator as TE
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.parallel.zero import (bytes_per_device,
+                                                       tree_bytes)
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    cfg = current_context().config
+    reset_context()
+    ctx = init_zoo_context(cfg.replace(mesh=mc), devices=devices)
+    group = ctx.group
+    steps = len(small[1]) // BATCH
+    runs = {}
+    for zero in zeros:
+        clf = BERTClassifier(2, bert_config=cfg0,
+                             optimizer=SGD(lr=0.05, momentum=0.9),
+                             shard_optimizer=zero, device="cuda")
+        clf.load_weights(tree)
+        data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                       memory_type="DEVICE")
+        _kernels.reset_launches()
+        held = (group.reduce_seconds + group.gather_seconds,
+                group.reduced_bytes + group.gathered_bytes)
+        sel = (TE._positions_on_shared_devices() if positions
+               else contextlib.nullcontext())
+        with sel, _DispatchLosses() as rec:
+            clf.train(lambda: data, epochs=1)
+        torch.cuda.synchronize()
+        est = clf._train_est
+        trace = est.opt_state["trace"]
+        runs[zero] = dict(
+            losses=rec.losses, weights=_flat_weights(clf.net),
+            per_position=est._per_position,
+            launches=(_kernels.KERNELS["flash_fwd"].launches,
+                      _kernels.KERNELS["flash_bwd"].launches),
+            master_bytes=(bytes_per_device(est.params),
+                          tree_bytes(est.params)),
+            slot_bytes=(bytes_per_device(trace), tree_bytes(trace)),
+            step_ms=est.history[-1]["seconds"] * 1e3 / steps,
+            collective_ms=(group.reduce_seconds + group.gather_seconds
+                           - held[0]) * 1e3 / steps,
+            collective_bytes=(group.reduced_bytes + group.gathered_bytes
+                              - held[1]) / steps)
+        del clf, est, trace
+        _release()
+    want = dict(np.load(ref[0]))
+    plain, zero = runs[False], runs.get(True)
+    rel = lambda got, ref_l: max(abs(a - b) / abs(b)
+                                 for a, b in zip(got, ref_l))
+    return dict(
+        mesh=str(ctx.mesh.shape), coords=ctx.mesh.data_coords(),
+        loss_rel=rel(plain["losses"], ref[1]),
+        weight_rel=_worst_rel(plain["weights"], want),
+        steps=steps, positions=len(ctx.mesh.local_positions),
+        **{k: plain[k] for k in ("losses", "per_position", "launches",
+                                 "master_bytes", "slot_bytes", "step_ms",
+                                 "collective_ms", "collective_bytes")},
+        zero=None if zero is None else dict(
+            loss_rel=rel(zero["losses"], plain["losses"]),
+            weight_rel=_worst_rel(zero["weights"], plain["weights"]),
+            **{k: zero[k] for k in ("launches", "step_ms", "collective_ms",
+                                    "slot_bytes")}))
+
+
+def _multiproc_worker(rank, ref_path, ref_losses, upd_path, upd_losses,
+                      d_ref, e_ref):
     """One worker of the multiproc phase (7f), inside its rendezvoused
-    context: the four legs; returns its readings."""
+    context: the six legs; returns its readings."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from analytics_zoo_tpu_torch.common.config import MeshConfig, ZooConfig
@@ -3146,6 +3260,14 @@ def _multiproc_worker(rank, ref_path, ref_losses, upd_path, upd_losses):
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del clf
     _release()
+
+    # (d) data 4 as 2 processes x 2 positions of the card; (e) data 1 x
+    # model 2, the model group split across the 2 processes
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    out["d"] = _layout_leg(MeshConfig(data=4), [dev, dev], True, cfg0, tree,
+                           small, d_ref)
+    out["e"] = _layout_leg(MeshConfig(data=1, model=2), [dev], False, cfg0,
+                           tree, small, e_ref, zeros=(False,))
     return out
 
 
@@ -3156,6 +3278,7 @@ def phase_multiproc(card):
     from analytics_zoo_tpu_torch.keras.optimizers import SGD
     from analytics_zoo_tpu_torch.orca import RayContext
     from analytics_zoo_tpu_torch.common.context import context_scope
+    from analytics_zoo_tpu_torch.estimator import estimator as est_mod
     from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
     t0 = time.perf_counter()
     cfg0 = dict(BERT_BASE, hidden_drop=0.0, attn_drop=0.0)
@@ -3189,13 +3312,37 @@ def phase_multiproc(card):
     np.savez(upd_path, **{n: t.cpu().numpy() for n, t
                           in _adam_state(clf._train_est).items()})
     upd_losses = rec.losses
-    del clf, tree
+    del clf
     _release()
+    # the one-process runs legs (d) and (e) are held to: data 4 over 4
+    # positions of the card (the per-position step), data 1 x model 2
+    layout_refs = {}
+    for leg, (data_n, model_n, positions) in (("d", (4, 1, True)),
+                                              ("e", (1, 2, False))):
+        clf = BERTClassifier(2, bert_config=cfg0,
+                             optimizer=SGD(lr=0.05, momentum=0.9),
+                             device="cuda")
+        clf.load_weights(tree)
+        data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                       memory_type="DEVICE")
+        sel = (est_mod._positions_on_shared_devices() if positions
+               else contextlib.nullcontext())
+        with context_scope(_mesh_ctx(data_n, model_n)), sel, \
+                _DispatchLosses() as rec:
+            clf.train(lambda: data, epochs=1)
+        torch.cuda.synchronize()
+        path = os.path.join(tmp, f"layout_{leg}.npz")
+        np.savez(path, **_flat_weights(clf.net))
+        layout_refs[leg] = (path, rec.losses)
+        del clf
+        _release()
+    del tree
     t_ref = time.perf_counter() - t0
     rc = RayContext(num_workers=MULTIPROC["workers"]).init()
     try:
         res = rc.run(_multiproc_worker, args=(ref_path, ref_losses, upd_path,
-                                              upd_losses),
+                                              upd_losses, layout_refs["d"],
+                                              layout_refs["e"]),
                      timeout=MULTIPROC["timeout_s"])
     finally:
         rc.stop()
@@ -3252,7 +3399,42 @@ def phase_multiproc(card):
             f"NCCL figure), epoch losses "
             f"{' '.join(f'{v:.4f}' for v in c['epoch_losses'])}, launches "
             f"{c['launches']}, peak {c['peak_gib']:.2f} GiB; {card}")
-    log(f"[multiproc] phase {secs:.1f} s (the one-process reference "
+    for r in res:
+        for leg, what in (("d", "data 4 as 2 processes x 2 positions of "
+                                "cuda:0, the per-position step in each"),
+                          ("e", "data 1 x model 2, the model group split "
+                                "across the 2 processes (one position "
+                                "each)")):
+            v, z = r[leg], r[leg]["zero"]
+            zero_text = (
+                "no ZeRO run (a data axis of 1 splits nothing)" if z is None
+                else f"ZeRO vs not: losses {z['loss_rel']:.3e}, weights "
+                     f"{z['weight_rel']:.3e} (bar {MULTIPROC_ZERO_TOL:g}), "
+                     f"launches {z['launches']}, momentum a position "
+                     f"{z['slot_bytes'][0]}, {z['step_ms']:.3f} ms a step, "
+                     f"{z['collective_ms']:.3f} in collectives")
+            log(f"[multiproc] rank {r['rank']} ({leg}) {what}: mesh "
+                f"{v['mesh']}, data coordinates {v['coords']}, "
+                f"{'per-position' if v['per_position'] else 'one-device'} "
+                f"step; BERT-base f32, dropout off, SGD momentum, global "
+                f"batch {BATCH}, {v['steps']} steps: losses "
+                f"{' '.join(f'{x:.6f}' for x in v['losses'])}; vs the "
+                f"one-process run of the same mesh: losses "
+                f"{v['loss_rel']:.3e} rel, weights {v['weight_rel']:.3e} of "
+                f"max|p| (bar {MULTIPROC_RTOL:g}); launches (flash_fwd, "
+                f"flash_bwd) {v['launches']} over {v['positions']} "
+                f"position(s) and {v['steps']} steps; master bytes a "
+                f"position {v['master_bytes'][0]} of {v['master_bytes'][1]} "
+                f"replicated ({v['master_bytes'][0] / v['master_bytes'][1]:.4f}"
+                f"), momentum {v['slot_bytes'][0]} of {v['slot_bytes'][1]} "
+                f"({v['slot_bytes'][0] / v['slot_bytes'][1]:.4f}); "
+                f"{v['step_ms']:.3f} ms a step (eager, the first step "
+                f"included), of which {v['collective_ms']:.3f} ms in "
+                f"all-reduces and all-gathers, "
+                f"{v['collective_bytes']:.0f} bytes a step; {zero_text}: "
+                f"gloo through the host on one shared card, not NCCL "
+                f"figures; {card}")
+    log(f"[multiproc] phase {secs:.1f} s (the one-process references "
         f"{t_ref:.1f} s)")
     for r in res:
         a, u, b, c = r["a"], r["u"], r["b"], r["c"]
@@ -3287,12 +3469,36 @@ def phase_multiproc(card):
                                      f"{leg} in {steps} steps")
         if not np.isfinite(c["epoch_losses"]).all():
             raise AssertionError(f"multiproc: {c['epoch_losses']}")
+        for leg, positions, per in (("d", True, 2), ("e", False, 2)):
+            v, z = r[leg], r[leg]["zero"] or {}
+            want = (v["steps"] * n_block * per,) * 2
+            if (v["loss_rel"] > MULTIPROC_RTOL
+                    or v["weight_rel"] > MULTIPROC_RTOL
+                    or z.get("loss_rel", 0) > MULTIPROC_ZERO_TOL
+                    or z.get("weight_rel", 0) > MULTIPROC_ZERO_TOL
+                    or v["per_position"] != positions
+                    or tuple(v["launches"]) != want
+                    or tuple(z.get("launches", want)) != want
+                    or (leg == "d" and not z)):
+                raise AssertionError(f"multiproc: leg ({leg}) failed on "
+                                     f"rank {r['rank']}: {v}")
+        # (e): the Megatron-placed masters and momentum about half
+        e = r["e"]
+        if not all(b[0] < MULTIPROC_HALF * b[1]
+                   for b in (e["master_bytes"], e["slot_bytes"])):
+            raise AssertionError(f"multiproc: leg (e) holds more than "
+                                 f"{MULTIPROC_HALF} of the replicated "
+                                 f"bytes: {e}")
     if res[0]["a"]["losses"] != res[1]["a"]["losses"]:
         raise AssertionError("multiproc: the ranks report other losses")
     return dict(seconds=secs, ranks=res,
                 launches={k: res[0]["c"]["launches"][i]
                           for i, k in enumerate(("flash_fwd",
-                                                 "flash_bwd"))})
+                                                 "flash_bwd"))},
+                layout_launches={leg: {k: res[0][leg]["launches"][i]
+                                       for i, k in enumerate(
+                                           ("flash_fwd", "flash_bwd"))}
+                                 for leg in ("d", "e")})
 
 
 def _stream_mesh(devices, axis_names):
@@ -3596,6 +3802,202 @@ def _held_bytes(est, n):
               est._slot):
         add(t)
     return by
+
+
+def _nccl_layout_worker(rank, mesh_kw, ref_path, ref_losses):
+    """One process of a card (NCCL) in ``--ring-cards N``'s job legs: its
+    context made again under ``MeshConfig(**mesh_kw)`` (its own card by
+    rank), then the BERT-base classifier (f32, dropout off, SGD with
+    momentum, global batch ``BATCH``, 4 steps): losses, weights and
+    momentum against the one-process run of the same mesh over
+    positions of one card at ``ref_path``; launches and times."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.common.context import (
+        current_context, init_zoo_context, reset_context)
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.parallel import ShardedTensor
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    cfg = current_context().config
+    reset_context()
+    ctx = init_zoo_context(cfg.replace(mesh=MeshConfig(**mesh_kw)))
+    group = ctx.group
+    cfg0 = dict(BERT_BASE, hidden_drop=0.0, attn_drop=0.0)
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg0,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg0)
+    small = (tuple(a[:4 * BATCH] for a in x), y[:4 * BATCH])
+    clf = BERTClassifier(2, bert_config=cfg0,
+                         optimizer=SGD(lr=0.05, momentum=0.9), device="cuda")
+    clf.load_weights(tree)
+    data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                   memory_type="DEVICE")
+    _kernels.reset_launches()
+    held = group.reduce_seconds + group.gather_seconds
+    with _DispatchLosses() as rec:
+        clf.train(lambda: data, epochs=1)
+    torch.cuda.synchronize()
+    est = clf._train_est
+    trace = {f"trace.{n}": (t.gather() if isinstance(t, ShardedTensor)
+                            else t).float().cpu().numpy()
+             for n, t in est.opt_state["trace"].items()}
+    got = {**_flat_weights(clf.net), **trace}
+    want = dict(np.load(ref_path))
+    where = {}
+    worst = _worst_by_kind({k: torch.from_numpy(v) for k, v in got.items()},
+                           want, where, kinds=("weights", "trace"))
+    return dict(
+        rank=rank, device=str(ctx.mesh.local_devices[0]),
+        backend=ctx.backend, mesh=str(ctx.mesh.shape),
+        coords=ctx.mesh.data_coords(), losses=rec.losses,
+        loss_rel=max(abs(a - b) / abs(b)
+                     for a, b in zip(rec.losses, ref_losses)),
+        worst=worst, where=where,
+        launches=(_kernels.KERNELS["flash_fwd"].launches,
+                  _kernels.KERNELS["flash_bwd"].launches),
+        step_ms=est.history[-1]["seconds"] * 1e3 / 4,
+        collective_ms=(group.reduce_seconds + group.gather_seconds
+                       - held) * 1e3 / 4)
+
+
+def _nccl_killed_worker(rank, kill_path):
+    """The killed-peer check: rank 1 kills itself after the second step
+    of an epoch (its kill time written to ``kill_path`` first); rank 0
+    then waits in the next collective until NCCL's watchdog aborts it."""
+    import signal
+    from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    cfg0 = dict(BERT_BASE, hidden_drop=0.0, attn_drop=0.0, n_block=2)
+    x, y = _bench_data(cfg0)
+    data = TFDataset.from_ndarrays(
+        (tuple(a[:8 * BATCH] for a in x), y[:8 * BATCH]), batch_size=BATCH)
+    orig = est_mod.Estimator._post_dispatch
+
+    def post(est, n, *a, **kw):
+        out = orig(est, n, *a, **kw)
+        if rank == 1 and est.global_step == 2:
+            torch.cuda.synchronize()
+            with open(kill_path, "w") as fh:
+                fh.write(repr(time.time()))
+            os.kill(os.getpid(), signal.SIGKILL)
+        return out
+    est_mod.Estimator._post_dispatch = post
+    torch.manual_seed(0)
+    clf = BERTClassifier(2, bert_config=cfg0, optimizer=SGD(lr=0.05),
+                         device="cuda")
+    clf.train(lambda: data, epochs=1)
+    return "finished"
+
+
+def phase_nccl_cards(n, card):
+    """``--ring-cards N``'s job legs: one process a card over NCCL at data
+    N and at data N/2 x model 2, each against the same mesh in one
+    process over N positions of one card; then the killed peer."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.common.context import context_scope
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.orca import RayContext
+    from analytics_zoo_tpu_torch.parallel import ShardedTensor
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+    t0 = time.perf_counter()
+    cfg0 = dict(BERT_BASE, hidden_drop=0.0, attn_drop=0.0)
+    tree = _random_tree(BERTClassifier(2, bert_config=cfg0,
+                                       device="cpu").net,
+                        np.random.default_rng(SEED + 5))
+    x, y = _bench_data(cfg0)
+    small = (tuple(a[:4 * BATCH] for a in x), y[:4 * BATCH])
+    tmp = tempfile.mkdtemp(prefix="zoo_nccl_")
+    out = {}
+    try:
+        for leg, (dn, mn) in (("data", (n, 1)), ("data_model", (n // 2, 2))):
+            clf = BERTClassifier(2, bert_config=cfg0,
+                                 optimizer=SGD(lr=0.05, momentum=0.9),
+                                 device="cuda")
+            clf.load_weights(tree)
+            data = TFDataset.from_ndarrays(small, batch_size=BATCH,
+                                           memory_type="DEVICE")
+            with context_scope(_mesh_ctx(dn, mn)), _DispatchLosses() as rec:
+                clf.train(lambda: data, epochs=1)
+            torch.cuda.synchronize()
+            est = clf._train_est
+            ref = _flat_weights(clf.net)
+            ref.update({f"trace.{k}": (t.gather() if isinstance(
+                t, ShardedTensor) else t).float().cpu().numpy()
+                for k, t in est.opt_state["trace"].items()})
+            path = os.path.join(tmp, f"{leg}.npz")
+            np.savez(path, **ref)
+            one_ms = est.history[-1]["seconds"] * 1e3 / 4
+            del clf, est, ref
+            _release()
+            rc = RayContext(num_workers=n).init()
+            try:
+                res = rc.run(_nccl_layout_worker,
+                             args=(dict(data=dn, model=mn), path,
+                                   rec.losses),
+                             timeout=MULTIPROC["timeout_s"])
+            finally:
+                rc.stop()
+            calls = 4 * BERT_BASE["n_block"] * mn
+            for r in res:
+                log(f"[nccl] {leg}: rank {r['rank']} of {n} on "
+                    f"{r['device']} over {r['backend']}, mesh {r['mesh']}, "
+                    f"data coordinates {r['coords']}: BERT-base f32 SGD "
+                    f"momentum, global batch {BATCH}, 4 steps; vs one "
+                    f"process over {n} positions of cuda:0: losses "
+                    f"{r['loss_rel']:.3e} rel, weights "
+                    f"{r['worst']['weights']:.3e}, momentum "
+                    f"{r['worst']['trace']:.3e} of max|.| per leaf (bars "
+                    f"{MULTIPROC_RTOL:g}; worst {r['where']}); launches "
+                    f"{r['launches']} (want {calls} each); "
+                    f"{r['step_ms']:.3f} ms a step (one process on one "
+                    f"card {one_ms:.3f}), {r['collective_ms']:.3f} ms of "
+                    f"it in NCCL collectives (host time); {card}")
+                if (r["backend"] != "nccl" or r["device"] != f"cuda:{r['rank']}"
+                        or r["loss_rel"] > MULTIPROC_RTOL
+                        or max(r["worst"].values()) > MULTIPROC_RTOL
+                        or tuple(r["launches"]) != (calls, calls)):
+                    raise AssertionError(f"nccl {leg}: rank {r['rank']}: "
+                                         f"{r}")
+            out[leg] = dict(ranks=res, one_card_step_ms=one_ms)
+        # the killed peer: the survivor must end, never hang
+        kill_path = os.path.join(tmp, "killed")
+        prev = os.environ.get("ZOO_TPU_COLLECTIVE_TIMEOUT_S")
+        os.environ["ZOO_TPU_COLLECTIVE_TIMEOUT_S"] = str(NCCL_KILL_TIMEOUT_S)
+        rc = RayContext(num_workers=2).init()
+        err = None
+        try:
+            rc.run(_nccl_killed_worker, args=(kill_path,),
+                   timeout=NCCL_KILL_TIMEOUT_S + 300)
+        except RuntimeError as exc:
+            err = str(exc)
+        finally:
+            t_end = time.time()
+            rc.stop()
+            if prev is None:
+                os.environ.pop("ZOO_TPU_COLLECTIVE_TIMEOUT_S", None)
+            else:
+                os.environ["ZOO_TPU_COLLECTIVE_TIMEOUT_S"] = prev
+        t_kill = float(open(kill_path).read()) if os.path.exists(
+            kill_path) else None
+        log(f"[nccl] killed peer: rank 1 killed itself after step 2; the "
+            f"job ended {'after ' + format(t_end - t_kill, '.1f') + ' s' if t_kill else 'without a kill'} "
+            f"(ZOO_TPU_COLLECTIVE_TIMEOUT_S={NCCL_KILL_TIMEOUT_S}): "
+            f"{(err or 'no failure').splitlines()[1:3]}")
+        if (err is None or t_kill is None or "timeout after" in err
+                or "worker 0: died without reporting" not in err):
+            raise AssertionError(f"nccl: the survivor of a killed peer did "
+                                 f"not end as a failed job: {err}")
+        out["killed_peer_s"] = t_end - t_kill
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[nccl] phase {out['seconds']:.1f} s")
+    return out
 
 
 def phase_positions_cards(n):
@@ -4067,14 +4469,16 @@ def phase_ring_cards(n):
     return times
 
 
-def profile_breakdown(fn, what, top=8):
+def profile_breakdown(fn, what, top=8, warm=True):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the call's wall time; returns (wall ms,
     device busy ms, [(kernel name, device us, calls)]), or None when the
-    profiler saw no device time."""
+    profiler saw no device time.  ``warm``: an unprofiled call first (not
+    needed where the caller has just run ``fn`` as it is)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4430,9 +4834,9 @@ def _train_text(card, cpu, card_name, enc, x, y, build, tree, t0):
     B, steps, epochs = ZOO["batch"], ZOO["steps"], ZOO["epochs"]
     fs = FeatureSet.from_ndarrays(x, y, shuffle=False).cache_device(
         shuffle_batches=False)
-    compare = 3
+    compare = 2
     out = {}
-    # the graph run (K = 32): epoch 1 (the capture, then 32 replays), its
+    # the graph run (K = ZOO["spd"]): epoch 1 (the capture, then 32 replays), its
     # weights kept, then epoch 2 continuing it (warm start): step time,
     # peak memory
     card.compile(Adagrad(lr=0.01), "sparse_categorical_crossentropy",
@@ -4488,8 +4892,11 @@ def _train_text(card, cpu, card_name, enc, x, y, build, tree, t0):
     # dispatch of a recurrent encoder is some 400,000 kernels, past what
     # the profiler holds; an eager step of one is some 30,000 launches
     # with their host ops, whose tally takes the profiler about 10 s)
-    profs = {}
-    for what, net, spd in (("graph", card, 2), ("eager", eager, 1)):
+    profs = {"eager": None}
+    # the GRU's eager step is profiled no more (its tally takes the
+    # profiler about 10 s, and the LSTM's shows the same host-set step)
+    for what, net, spd in (("graph", card, 2), ("eager", eager, 1))[
+            :1 if enc == "gru" else 2]:
         small = FeatureSet.from_ndarrays(x[:spd * B], y[:spd * B],
                                          shuffle=False).cache_device(
             shuffle_batches=False)
@@ -4500,7 +4907,7 @@ def _train_text(card, cpu, card_name, enc, x, y, build, tree, t0):
                             warm_start=True),
             f"TextClassifier({enc}): {spd} training step(s) at batch {B}, "
             f"{what} (K={spd}), on {card_name}",
-            top=10 if enc == "lstm" else 4)
+            top=10 if enc == "lstm" else 4, warm=False)
     for what, ms, peak, n in (("graph", graph_ms, graph_peak, 2),
                               ("eager", eager_ms, eager_peak, 1)):
         prof = profs[what]
@@ -7569,8 +7976,9 @@ def phase_fleets(card_name):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ring-cards", type=int, default=0, metavar="N",
-                        help="run only the ring, the per-position step and "
-                             "mp-N decode over N cards")
+                        help="run only the ring, the per-position step, "
+                             "mp-N decode and the NCCL job legs over N "
+                             "cards")
     parser.add_argument("--fleet-phases", action="store_true",
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -7602,7 +8010,10 @@ def main() -> int:
                              f"{torch.cuda.device_count()}")
         times = phase_ring_cards(args.ring_cards)
         cards = phase_positions_cards(args.ring_cards)
-        print(json.dumps({"ring_cards": times, "positions_cards": cards},
+        nccl = _timed(phase_nccl_cards, args.ring_cards, card)
+        print(json.dumps({"ring_cards": times, "positions_cards": cards,
+                          "nccl": {k: v for k, v in nccl.items()
+                                   if k != "data" and k != "data_model"}},
                          default=float), flush=True)
         return _finish(card_line(every=True))
     rows = _timed(phase_kernels)
@@ -7675,6 +8086,11 @@ def main() -> int:
                      f"{MULTIPROC['steps'] * MULTIPROC['epochs']} eager "
                      f"steps at {BENCH['batch'] // MULTIPROC['workers']} "
                      f"rows a rank")
+    LAYOUT_RUN = (f"rank 0 of {MULTIPROC['workers']} processes on one "
+                  f"card (gloo), BERT-base f32 at global batch {BATCH}, 4 "
+                  f"eager steps: (d) data 4, 2 positions a process (the "
+                  f"per-position step); (e) data 1 x model 2 split across "
+                  f"the processes (2 attention blocks a layer)")
     paged_lib = "scaled_dot_product_attention over the same K/V made contiguous"
     kernels = [
         entry("flash_fwd", csrc + "flash_fwd.cu",
@@ -7714,6 +8130,10 @@ def main() -> int:
               mesh_train_launches_in=MESH_TRAIN_RUN,
               multiproc_launches=multiproc["launches"]["flash_fwd"],
               multiproc_launches_in=MULTIPROC_RUN,
+              multiproc_layout_launches={
+                  leg: v["flash_fwd"] for leg, v in
+                  multiproc["layout_launches"].items()},
+              multiproc_layout_launches_in=LAYOUT_RUN,
               positions_launches=positions["positions"]["launches"][
                   "flash_fwd"],
               positions_launches_in=POSITIONS_RUN,
@@ -7736,6 +8156,10 @@ def main() -> int:
               mesh_train_launches_in=MESH_TRAIN_RUN,
               multiproc_launches=multiproc["launches"]["flash_bwd"],
               multiproc_launches_in=MULTIPROC_RUN,
+              multiproc_layout_launches={
+                  leg: v["flash_bwd"] for leg, v in
+                  multiproc["layout_launches"].items()},
+              multiproc_layout_launches_in=LAYOUT_RUN,
               positions_launches=positions["positions"]["launches"][
                   "flash_bwd"],
               positions_launches_in=POSITIONS_RUN,

@@ -27,12 +27,23 @@ after another; the per-position step over ``cuda:0 x 4`` (a stream a
 position) against today's step on the same mesh, 4 times its launches,
 and with ZeRO equal to itself without it bit for bit; and over data 2 x
 model 2 (Megatron-placed weights, each data position's row of attention
-blocks) against today's step, with today's launches.
+blocks) against today's step, with today's launches.  Jobs of several
+processes, as threads of gloo ranks over a ``HashStore`` on the one card:
+data 4 as 2 ranks x 2 positions (the per-position step in each rank)
+and data 1 x model 2 split across 2 ranks of one position (the one-device
+step, every rank computing both model blocks), each against one
+process's step over the same mesh, with ZeRO equal to the run without it
+bit for bit.
 """
+
+import contextlib
+import datetime
+import threading
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from analytics_zoo_tpu_torch.common.config import LLMServingConfig
 from analytics_zoo_tpu_torch.llm import GenerationClient, LLMServing
@@ -243,7 +254,7 @@ BERT_SMALL = dict(vocab=128, hidden_size=128, n_block=2, n_head=4,
                   attn_drop=0.0)
 
 
-def _bert_run(dev, ctx, steps=4, batch=8, opt=None, **kw):
+def _bert_run(dev, ctx, steps=4, batch=8, opt=None, lock=None, **kw):
     from analytics_zoo_tpu_torch.estimator import Estimator
     from analytics_zoo_tpu_torch.keras.optimizers import SGD
     from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
@@ -255,12 +266,14 @@ def _bert_run(dev, ctx, steps=4, batch=8, opt=None, **kw):
     ds = TFDataset.from_ndarrays(((ids, np.zeros_like(ids), mask),
                                   (ids[:, 0] % 2).astype(np.int32)),
                                  batch_size=batch, memory_type="DEVICE")
-    torch.manual_seed(0)
-    net = BERTClassifier(2, bert_config=BERT_SMALL, device=dev).net
+    with lock or contextlib.nullcontext():     # ranks share the seed
+        torch.manual_seed(0)
+        net = BERTClassifier(2, bert_config=BERT_SMALL, device=dev).net
     est = Estimator(net, opt or SGD(lr=0.05, momentum=0.9),
                     "sparse_categorical_crossentropy", ctx=ctx, device=dev,
                     **kw)
-    _kernels.reset_launches()
+    if lock is None:            # ranks: the caller counts their launches
+        _kernels.reset_launches()
     hist = est.train(ds.get_training_data(), batch, epochs=1)
     torch.cuda.synchronize()
     return (hist[-1]["loss"], {n: p.detach().clone()
@@ -483,3 +496,92 @@ def test_per_position_step_over_a_model_axis_equals_todays_step(dev):
     for name, p in w0.items():
         assert (w[name] - p).abs().max() <= 1e-5 * p.abs().max(), name
     assert (fwd, bwd) == (fwd0, bwd0)
+
+
+_STORE = dist.HashStore()
+_JOBS = iter(range(1 << 30))
+
+
+def _job(ranks, positions, mc, fn, timeout=120.0):
+    """``fn(ctx, lock)`` in ``ranks`` threads, each a gloo rank over one
+    ``HashStore`` with ``positions`` positions of ``cuda:0`` in a mesh of
+    ``mc``; the results in rank order."""
+    from analytics_zoo_tpu_torch.common.config import ZooConfig
+    from analytics_zoo_tpu_torch.common.context import (ZooContext,
+                                                        _build_mesh,
+                                                        context_scope)
+    from analytics_zoo_tpu_torch.parallel import distributed
+    prefix, lock = f"cudajob{next(_JOBS)}", threading.Lock()
+    out, errors = [None] * ranks, []
+
+    def body(rank):
+        try:
+            pg = dist.ProcessGroupGloo(dist.PrefixStore(prefix, _STORE),
+                                       rank, ranks,
+                                       datetime.timedelta(seconds=timeout))
+            group = distributed.Group(pg, rank, ranks, "gloo", timeout)
+            ctx = ZooContext(ZooConfig(mesh=mc), _build_mesh(
+                [torch.device("cuda", 0)] * positions, mc, group))
+            with context_scope(ctx):
+                out[rank] = fn(ctx, lock)
+        except BaseException as exc:
+            errors.append(exc)
+    threads = [threading.Thread(target=body, args=(r,))
+               for r in range(ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 30)
+    assert not any(t.is_alive() for t in threads), "a rank hung"
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _held_to(runs, loss0, w0):
+    for loss, w, _, _ in runs:
+        assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+        for name, p in w0.items():
+            assert (w[name] - p).abs().max() <= 1e-5 * p.abs().max(), name
+
+
+def test_two_processes_of_two_positions_train_as_one_process(dev):
+    """Data 4 as 2 ranks x 2 positions of ``cuda:0``, the per-position
+    step in each rank (the private selector), against one process's
+    step over data 4: losses 1e-5 relative, weights 1e-5 of max|p|; a
+    launch a layer, position and step; ZeRO equal to no ZeRO bit for
+    bit."""
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.estimator import estimator as TE
+    loss0, w0, fwd0, bwd0 = _bert_run(dev, _ctx(4, 1))
+    runs = {}
+    for zero in (False, True):
+        with TE._positions_on_shared_devices():
+            _kernels.reset_launches()
+            runs[zero] = _job(2, 2, MeshConfig(data=4), lambda ctx, lock: (
+                _bert_run(dev, ctx, lock=lock, shard_optimizer=zero)))
+            launches = (_kernels.flash_fwd.launches,
+                        _kernels.flash_bwd.launches)
+        assert launches == (fwd0 * 4, bwd0 * 4)      # both ranks' counts
+    _held_to(runs[False], loss0, w0)
+    for (zl, zw, _, _), (pl, pw, _, _) in zip(runs[True], runs[False]):
+        assert zl == pl
+        for name, p in pw.items():
+            assert torch.equal(zw[name], p), name
+
+
+def test_a_model_group_split_across_two_processes(dev):
+    """Data 1 x model 2 over 2 ranks of one position each (the one-device
+    step: each rank computes both model blocks of every layer) against
+    one process's data 1 x model 2 step, and both ranks' weights
+    equal."""
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    loss0, w0, fwd0, bwd0 = _bert_run(dev, _ctx(1, 2))
+    _kernels.reset_launches()
+    runs = _job(2, 1, MeshConfig(data=1, model=2),
+                lambda ctx, lock: _bert_run(dev, ctx, lock=lock))
+    assert (_kernels.flash_fwd.launches,
+            _kernels.flash_bwd.launches) == (fwd0 * 2, bwd0 * 2)
+    _held_to(runs, loss0, w0)
+    for name, p in runs[0][1].items():
+        assert torch.equal(runs[1][1][name], p), name

@@ -336,10 +336,13 @@ def test_a_mesh_over_two_devices_trains_replicated_or_raises():
     data position's replica and (under ZeRO) its slots on its own device,
     with the weights placed by the Megatron rules over "model" where
     ``shard_model`` asks for it (each position's block on its device), or
-    every position a data position where it does not.  A mesh axis the
-    per-position step does not shard over still raises (ROADMAP Queue 1
-    item 5).  Nothing is computed on ``meta``: the per-position step's
-    numbers are held in ``tests/test_torch_positions.py``."""
+    every position a data position where it does not.  A ``sequence``
+    axis no longer raises: the positions that differ along it hold the
+    same rows and replica, so the data positions are its first
+    coordinate's, and the ZeRO blocks lie on every position.  Nothing is
+    computed on ``meta``: the per-position step's numbers are held in
+    ``tests/test_torch_positions.py`` and
+    ``tests/test_torch_job_layouts.py``."""
     mc = MeshConfig(data=4, model=2)
     devices = [torch.device("cpu")] * 4 + [torch.device("meta")] * 4
     ctx = tctx.ZooContext(ZooConfig(mesh=mc), tctx._build_mesh(devices, mc))
@@ -358,10 +361,16 @@ def test_a_mesh_over_two_devices_trains_replicated_or_raises():
         assert ({t.device for t in trace.shards} == set(devices) if zero
                 else {t.device for t in trace.shards} == {devices[0]})
     mc = MeshConfig(data=4, sequence=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Estimator(TinyTx(), TO.SGD(lr=0.05), "mse", device="cpu",
-                  ctx=tctx.ZooContext(ZooConfig(mesh=mc),
-                                      tctx._build_mesh(devices, mc)))
+    est = Estimator(TinyTx(), TO.SGD(lr=0.05, momentum=0.9), "mse",
+                    device="cpu", shard_optimizer=True,
+                    ctx=tctx.ZooContext(ZooConfig(mesh=mc),
+                                        tctx._build_mesh(devices, mc)))
+    est._prepare(seed=0)
+    assert est._per_position and est._pp.n == 4
+    assert est._pp.positions == [0, 2, 4, 6]
+    assert [d.type for d in est._pp.devs] == ["cpu", "cpu", "meta", "meta"]
+    trace = est.opt_state["trace"]["blk.attn.qkv.W"]
+    assert [t.device for t in trace.shards] == devices
 
 
 def test_eval_and_predict_under_the_2d_mesh(monkeypatch):
